@@ -25,15 +25,19 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library: every pointer and the stream as c_void_p,
-# every int as c_int; every function returns an int.
+# every int as c_int, every float as c_float; every function returns an int.
 SIGNATURES = {
     "artt_num_weights": [],
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
+    "artt_update_block": [],
     "artt_fused_exact_rollout_cost": [_P, _P, _I] + [_P] * 10,
     "artt_dynamics_chain": [_P, _P, _I] + [_P] * 8,
+    # fsc, isc, k_offset, ou_a, ou_b, device, then device pointers + stream
+    "artt_fused_rng_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 9,
+    "artt_weighted_update": [_P, _P, _I, _F, _F, _I] + [_P] * 5,
 }
 
 _lib = None

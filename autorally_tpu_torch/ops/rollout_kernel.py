@@ -1,7 +1,7 @@
 """The MPPI rollout kernels: CUDA wrappers and their plain PyTorch versions.
 
-Port of the two TPU kernels of ``autorally_tpu/ops/rollout_kernel.py`` that
-the main path runs:
+Port of the TPU kernels of ``autorally_tpu/ops/rollout_kernel.py`` that the
+solver runs:
 
 - :func:`fused_exact_rollout_cost` (kernel in ``csrc/rollout_kernels.cu``,
   ``fused_exact_kernel``) replaces ``_fused_exact_kernel``: the whole
@@ -9,29 +9,39 @@ the main path runs:
   point-sampled costmap;
 - :func:`dynamics_chain` (``dynamics_chain_kernel``) replaces
   ``_rollout_kernel``: the dynamics chain alone, emitting every state; and
-  :func:`nominal_trajectory` runs it for the single noise-free rollout.
+  :func:`nominal_trajectory` runs it for the single noise-free rollout;
+- :func:`fused_rng_costs` (``fused_rng_kernel``) replaces
+  ``_fused_rng_kernel`` (exact-costmap mode) and :func:`fused_rng_numer`
+  (``weighted_update_kernel``) replaces ``_weighted_update_kernel``: the
+  two passes of the kernel-RNG capacity mode, which draw the noise stream
+  of ``ops/kernel_rng.py`` inside the kernels, so that nothing of size
+  T x K reaches device memory; :func:`fused_rng_solve_iteration` composes
+  them into one MPPI iteration.
 
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
 launches in ``<wrapper>.launches``.  Layouts are those of the JAX package's
 public functions: eps (T, K, C) in, u_seq (C, T, K), states (S, T, K),
-costs and crash (K,) out.
+costs and crash (K,) out, the capacity mode's numerator (C, T).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from autorally_tpu_torch.config import effective_gamma
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
 from autorally_tpu_torch.ops import _build
+from autorally_tpu_torch.ops.kernel_rng import kernel_noise
+from autorally_tpu_torch.ops.sampling import ou_coefficients
 
 # The layer spec the CUDA kernels are compiled for (csrc kIn/kH1/kH2/kOut).
 KERNEL_LAYERS = (6, 32, 32, 4)
@@ -50,6 +60,9 @@ _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
                   "steering_coeff", "throttle_coeff", "boundary_threshold",
                   "discount")
 _INT_SCALARS = ("T", "K", "k0_flag", "negate_yaw_der", "H", "W", "l1_cost")
+# Rollouts per block of the pass-2 kernel (csrc kUpdateBlock): each block
+# writes one (C, T) partial numerator.
+UPDATE_BLOCK = 256
 
 
 # ---------------------------------------------------------------------------
@@ -115,12 +128,19 @@ def _kernel_lib() -> ctypes.CDLL:
     packs."""
     lib = _build.load()
     built = (lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
-             lib.artt_num_weights())
-    want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS)
+             lib.artt_num_weights(), lib.artt_update_block())
+    want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
+            UPDATE_BLOCK)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
     return lib
+
+
+def has_kernel_form(model) -> bool:
+    """Whether the CUDA kernels can evaluate ``model``'s dynamics."""
+    return (type(model) is NeuralNetDynamics
+            and model.layers == KERNEL_LAYERS)
 
 
 def _check_kernel_model(model) -> None:
@@ -186,21 +206,25 @@ def _dispatch(t: torch.Tensor) -> str:
     raise ValueError(f"no rollout kernel for device {t.device}")
 
 
-def _kernel_inputs(model, model_params, state, U, eps):
-    """Shape checks and the common device tensors of both kernels."""
-    T, K, C = eps.shape
-    if C != 2 or U.shape != (T, C) or state.shape != (model.STATE_DIM,):
+def _kernel_inputs(model, model_params, state, U, K: int, eps=None):
+    """Shape checks and the device tensors every rollout kernel reads
+    (with ``eps`` (T, K, C) for the kernels that read their noise)."""
+    T, C = U.shape
+    if (C != 2 or state.shape != (model.STATE_DIM,)
+            or (eps is not None and eps.shape != (T, K, C))):
         raise ValueError(f"shapes: state {tuple(state.shape)}, U "
-                         f"{tuple(U.shape)}, eps {tuple(eps.shape)}")
+                         f"{tuple(U.shape)}, K {K}, eps "
+                         f"{None if eps is None else tuple(eps.shape)}")
     if K < 1 or not 1 <= T <= MAX_KERNEL_T:
         raise ValueError(f"kernel needs K >= 1 and 1 <= T <= {MAX_KERNEL_T}")
-    dev = eps.device
-    return dict(
-        s0=state.to(dev, torch.float32).contiguous(),
+    args = dict(
+        s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
         U=U.to(torch.float32).contiguous(),
-        eps=eps,
         weights=_pack_weights(model, model_params))
+    if eps is not None:
+        args["eps"] = eps
+    return args
 
 
 # ---------------------------------------------------------------------------
@@ -271,7 +295,7 @@ def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                                   "(ROADMAP.md, Queue 1 item 3)")
     T, K, C = eps.shape
     dev = eps.device
-    args = _kernel_inputs(model, model_params, state, U, eps)
+    args = _kernel_inputs(model, model_params, state, U, K, eps)
     args["ch0"] = costmap.ch0
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K, cost_params,
@@ -350,7 +374,7 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
     _check_kernel_model(model)
     T, K, C = eps.shape
     dev = eps.device
-    args = _kernel_inputs(model, model_params, state, U, eps)
+    args = _kernel_inputs(model, model_params, state, U, K, eps)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
     fsc = _host_array(ctypes.c_float, floats)
@@ -404,3 +428,245 @@ def nominal_trajectory(model, model_params, cfg, state, U):
     states_sol = torch.cat([state[None, :], traj[:-1]], dim=0)
     rngs = _control_rngs(model_params, C)
     return states_sol, torch.clamp(U, rngs[:, 0], rngs[:, 1])
+
+
+# ---------------------------------------------------------------------------
+# the kernel-RNG ("nothing-in-HBM") capacity mode: pass 1 and pass 2
+# ---------------------------------------------------------------------------
+
+class RngContext(NamedTuple):
+    """What pass 2 needs to replay pass 1's noise stream (the JAX
+    package's ``ctx``)."""
+
+    model: NeuralNetDynamics
+    cfg: object
+    U: torch.Tensor                 # (T, C) float32
+    key: torch.Tensor               # int64 (2,): the stream's key
+    k_offset: int                   # global index of rollout 0
+    K: int
+    theta: Optional[float]          # OU rate; None for white draws
+
+
+def stream_theta(cfg) -> Optional[float]:
+    """The OU rate of the in-kernel stream, None for white draws; raises
+    for a sampler the stream cannot draw (as ``fused_rng_costs`` of the
+    JAX package does)."""
+    if cfg.noise_sampler == "ou":
+        # a = 1 - theta must be a stationary AR(1) coefficient; a == 0
+        # (theta == 1) is white noise
+        a = 1.0 - float(cfg.noise_param)
+        if not -1.0 < a < 1.0:
+            raise ValueError(
+                f"kernel-RNG OU needs theta in (0, 2): {cfg.noise_param}")
+        return None if a == 0.0 else float(cfg.noise_param)
+    if cfg.noise_sampler == "gaussian":
+        return None
+    raise NotImplementedError(
+        f"kernel-RNG mode supports gaussian/ou noise, not "
+        f"{cfg.noise_sampler!r} (DFT-shaped colored noise needs the whole "
+        f"horizon axis live: host-noise path only)")
+
+
+def _rng_context(model, cfg, cost_params, field, U, key, k_offset,
+                 K_local) -> RngContext:
+    if type(field) is not Costmap:
+        raise NotImplementedError(
+            f"kernel-RNG mode on {type(field).__name__} is not ported yet: "
+            "the port's passes sample the exact Costmap only (ROADMAP.md, "
+            "Queue 2 items 3-4: the neural-field mode)")
+    if cost_params.obstacles is not None:
+        raise NotImplementedError("obstacle terms are not ported yet "
+                                  "(ROADMAP.md, Queue 1 item 3)")
+    theta = stream_theta(cfg)
+    if (key.dtype != torch.int64 or key.shape != (2,)
+            or key.device != U.device):
+        raise ValueError(f"key must be an int64 (2,) tensor on {U.device}, "
+                         f"got {key.dtype} {tuple(key.shape)} on "
+                         f"{key.device}")
+    K = cfg.num_rollouts if K_local is None else int(K_local)
+    return RngContext(model, cfg, U.to(torch.float32).contiguous(),
+                      key.contiguous(), int(k_offset), K, theta)
+
+
+def rng_noise(ctx: RngContext) -> torch.Tensor:
+    """The (T, K, C) noise the passes draw for ``ctx``, in PyTorch."""
+    return kernel_noise(ctx.key, ctx.k_offset, ctx.K, ctx.U.shape[0],
+                        ctx.theta)
+
+
+def _stream_launch_args(ctx: RngContext):
+    """(k_offset, ou_a, ou_b) of the passes' launchers; a == 0 draws white
+    noise."""
+    a, b = (0.0, 0.0) if ctx.theta is None else ou_coefficients(ctx.theta)
+    return ctx.k_offset, a, b
+
+
+def fused_rng_costs_plain(model, model_params, cfg, cost_params,
+                          field: Costmap, state, U, key,
+                          l1_cost: bool = False, k_offset=0, K_local=None):
+    """Plain version of pass 1: the fused kernel's plain version
+    (:func:`fused_exact_rollout_cost_plain`) on the stream.  Returns
+    (total (K,), crash (K,) int32, ctx)."""
+    ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
+                       K_local)
+    costs, _, crash = fused_exact_rollout_cost_plain(
+        model, model_params, cfg, cost_params, field, state, ctx.U,
+        rng_noise(ctx), l1_cost=l1_cost, k_offset=ctx.k_offset)
+    return costs, crash, ctx
+
+
+def prepare_fused_rng_costs(model, model_params, cfg, cost_params,
+                            field: Costmap, state, U, key,
+                            l1_cost: bool = False, k_offset=0, K_local=None):
+    """Validate pass 1's inputs and allocate its outputs.  Returns
+    ``(launch, (costs, crash), ctx)``; each ``launch()`` runs the kernel
+    once on the current stream (uncounted; the wrapper counts)."""
+    _check_kernel_model(model)
+    ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
+                       K_local)
+    T, K = ctx.U.shape[0], ctx.K
+    dev = ctx.U.device
+    args = _kernel_inputs(model, model_params, state, ctx.U, K)
+    args["ch0"] = field.ch0
+    ptrs = _device_args(dev, **args)
+    floats, ints = launch_scalars(model, cfg, ctx.k_offset, T, K,
+                                  cost_params, field, l1_cost)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    stream_args = _stream_launch_args(ctx)
+
+    costs = torch.empty(K, dtype=torch.float32, device=dev)
+    crash = torch.empty(K, dtype=torch.int32, device=dev)
+    lib = _kernel_lib()
+
+    def launch():
+        err = lib.artt_fused_rng_costs(
+            ctypes.addressof(fsc), ctypes.addressof(isc), *stream_args,
+            dev.index or 0, ptrs["s0"], ptrs["rngs"], ptrs["U"],
+            ctx.key.data_ptr(), ptrs["ch0"], ptrs["weights"],
+            costs.data_ptr(), crash.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, "fused_rng_costs")
+
+    launch.inputs = args                     # keeps the buffers alive
+    return launch, (costs, crash), ctx
+
+
+def fused_rng_costs(model, model_params, cfg, cost_params, field: Costmap,
+                    state, U, key, l1_cost: bool = False, k_offset=0,
+                    K_local=None):
+    """Pass 1 of the capacity mode (``fused_rng_costs`` of the JAX
+    package): rollout costs with the noise drawn in the kernel; nothing per
+    (t, k) reaches device memory.
+
+    ``key``: int64 (2,) on ``U``'s device, the stream's key; ``k_offset`` /
+    ``K_local`` let a sharded caller run its own slice of the global batch.
+    Returns (total (K,), crash (K,) int32, ctx), where ``ctx`` replays the
+    same stream in :func:`fused_rng_numer`."""
+    if _dispatch(U) == "plain":
+        return fused_rng_costs_plain(model, model_params, cfg, cost_params,
+                                     field, state, U, key, l1_cost=l1_cost,
+                                     k_offset=k_offset, K_local=K_local)
+    launch, (costs, crash), ctx = prepare_fused_rng_costs(
+        model, model_params, cfg, cost_params, field, state, U, key,
+        l1_cost=l1_cost, k_offset=k_offset, K_local=K_local)
+    launch()
+    fused_rng_costs.launches += 1
+    return costs, crash, ctx
+
+
+fused_rng_costs.launches = 0
+
+
+def fused_rng_numer_plain(ctx: RngContext, w):
+    """Plain version of pass 2: sum_k w_k u_{k,t,c} over the replayed
+    stream's pre-clamp controls, (C, T)."""
+    eps = rng_noise(ctx)
+    T, K, _ = eps.shape
+    nu = torch.tensor(ctx.cfg.exploration_std, dtype=torch.float32,
+                      device=eps.device)
+    zero_rollout, pure_noise = _rollout_masks(ctx.cfg, K, ctx.k_offset,
+                                              eps.device)
+    u = torch.stack([_perturb(ctx.cfg, t, ctx.U, eps, nu, zero_rollout,
+                              pure_noise)[0] for t in range(T)])  # (T, K, C)
+    return torch.einsum("k,tkc->ct", w, u)
+
+
+def prepare_fused_rng_numer(ctx: RngContext, w):
+    """Validate pass 2's inputs and allocate its partial sums (G, C, T),
+    G = ceil(K / UPDATE_BLOCK).  Returns ``(launch, partials)``."""
+    T, C = ctx.U.shape
+    dev = w.device
+    if w.shape != (ctx.K,):
+        raise ValueError(f"w must be ({ctx.K},), got {tuple(w.shape)}")
+    ptrs = _device_args(dev, U=ctx.U, w=w)
+    if ctx.key.device != dev:
+        raise ValueError(f"key is on {ctx.key.device}, expected {dev}")
+    floats, ints = launch_scalars(ctx.model, ctx.cfg, ctx.k_offset, T, ctx.K)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    stream_args = _stream_launch_args(ctx)
+    G = -(-ctx.K // UPDATE_BLOCK)
+    partials = torch.empty((G, C, T), dtype=torch.float32, device=dev)
+    lib = _kernel_lib()
+
+    def launch():
+        err = lib.artt_weighted_update(
+            ctypes.addressof(fsc), ctypes.addressof(isc), *stream_args,
+            dev.index or 0, ptrs["U"], ctx.key.data_ptr(), ptrs["w"],
+            partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, "fused_rng_numer")
+
+    launch.inputs = (ctx, w)
+    return launch, partials
+
+
+def fused_rng_numer(ctx: RngContext, w):
+    """Pass 2 of the capacity mode (``fused_rng_numer``): replay pass 1's
+    stream and contract it with the softmax weights ``w`` (K,).  Returns
+    the un-normalised (C, T) numerator (a sharded caller sums it over
+    shards before dividing by the global eta).  The kernel's block sums
+    come in a fixed order; their sum over blocks is a ``torch.sum``."""
+    if _dispatch(w) == "plain":
+        return fused_rng_numer_plain(ctx, w)
+    launch, partials = prepare_fused_rng_numer(ctx, w)
+    launch()
+    fused_rng_numer.launches += 1
+    return torch.sum(partials, dim=0)
+
+
+fused_rng_numer.launches = 0
+
+
+def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
+                   field, state, U, key, l1_cost, k_offset):
+    total, crash, ctx = costs_fn(model, model_params, cfg, cost_params, field,
+                                 state, U, key, l1_cost=l1_cost,
+                                 k_offset=k_offset)
+    baseline = torch.min(total)
+    w = torch.exp(-effective_gamma(cfg, cost_params) * (total - baseline))
+    U_new = (numer_fn(ctx, w) / torch.sum(w)).T
+    return U_new, total, crash
+
+
+def fused_rng_solve_iteration_plain(model, model_params, cfg, cost_params,
+                                    field: Costmap, state, U, key,
+                                    l1_cost: bool = False, k_offset=0):
+    """:func:`fused_rng_solve_iteration` through the plain versions of both
+    passes."""
+    return _rng_iteration(fused_rng_costs_plain, fused_rng_numer_plain,
+                          model, model_params, cfg, cost_params, field,
+                          state, U, key, l1_cost, k_offset)
+
+
+def fused_rng_solve_iteration(model, model_params, cfg, cost_params,
+                              field: Costmap, state, U, key,
+                              l1_cost: bool = False, k_offset=0):
+    """One MPPI iteration in the capacity mode: pass 1's costs, the softmax
+    weights in PyTorch, pass 2's numerator; device-memory traffic is
+    O(K + T C), independent of K T.  Runs the kernels for tensors on a
+    GPU, the plain versions for tensors on the CPU (each pass counts its
+    own launches).  Returns (U_new (T, C), total (K,), crash (K,))."""
+    return _rng_iteration(fused_rng_costs, fused_rng_numer, model,
+                          model_params, cfg, cost_params, field, state, U,
+                          key, l1_cost, k_offset)

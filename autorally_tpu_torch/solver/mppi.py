@@ -5,7 +5,21 @@ is: draw the noise, run the K rollouts with their costs (one launch of the
 fused CUDA kernel), softmax-weight the sampled controls, smooth with the
 Savitzky-Golay filter and re-roll the nominal trajectory (one launch of the
 chain kernel).  Everything stays on the device; nothing in a solve waits
-for the host.  Semantics follow the JAX package:
+for the host.
+
+With ``kernel_rng=True`` (the capacity mode) an iteration draws only a key
+and runs the two kernel-RNG passes (``rk.fused_rng_solve_iteration``): the
+noise is drawn inside the kernels, so neither eps nor u_seq (T x K x C
+each) reaches device memory.  The dispatch (:meth:`MPPISolver._use_kernel_rng`)
+keeps the JAX package's semantic gates: a model with a kernel form, white
+or OU noise with theta in (0, 2), the base ``MPPICost``, the exact
+``Costmap`` and ``exact_fused``; anything else takes the host-noise path.
+It drops the TPU-only gates, ``use_pallas_rollout`` and the VMEM budget of
+the exact map (``exact_map_fits``), as the host-noise path dropped
+``K % 128``: the CUDA kernels take any K and read the map from device
+memory.
+
+Semantics follow the JAX package:
 
 - rollout 0 is noise-free; the last 1% of rollouts are pure noise; the
   first ``optimization_stride`` timesteps are frozen
@@ -102,10 +116,6 @@ class MPPISolver:
                 f"{type(cost).__name__} is not ported yet: the port solves "
                 "with MPPICost only (ROADMAP.md, Queue 1 item 3: obstacle "
                 "costs)")
-        if cfg.kernel_rng:
-            raise NotImplementedError(
-                "kernel_rng=True is not ported yet (ROADMAP.md, Queue 2 "
-                "items 4-5: the kernel-RNG passes)")
         if cfg.matmul_precision != "highest":
             raise NotImplementedError(
                 "the port computes the dynamics in full fp32 only "
@@ -191,21 +201,53 @@ class MPPISolver:
         (U_new (T, C), stats) (``mppi_controller.cu:609-667``)."""
         total, u_seq, crash = self.rollout_costs(
             model_params, cost_params, costmap, state, U, eps)
+        stats, w = self._stats(cost_params, total, crash)
+        U_new = torch.einsum("k,ctk->tc", w, u_seq) / stats.normalizer
+        return U_new, stats
+
+    def _stats(self, cost_params: CostParams, total: torch.Tensor,
+               crash: torch.Tensor) -> Tuple[SolveStats, torch.Tensor]:
+        """The softmax weights ``exp(-gamma (c - min c))`` (K,) of the
+        costs ``total`` and the solve's stats."""
         baseline = torch.min(total)
         w = torch.exp(-effective_gamma(self.cfg, cost_params)
                       * (total - baseline))                    # (K,)
         eta = torch.sum(w)
         sum_w2 = torch.sum(w * w)
-        U_new = torch.einsum("k,ctk->tc", w, u_seq) / eta
-        stats = SolveStats(
+        return SolveStats(
             baseline=baseline,
             normalizer=eta,
             trajectory_cost=sum_w2 / eta,
             ess=(eta * eta) / sum_w2,
             mean_cost=torch.mean(total),
             crash_frac=torch.mean(crash.to(torch.float32)),
-        )
-        return U_new, stats
+        ), w
+
+    def _iterate_kernel_rng(self, model_params, cost_params: CostParams,
+                            costmap: Costmap, state: torch.Tensor,
+                            U: torch.Tensor, key: torch.Tensor
+                            ) -> Tuple[torch.Tensor, SolveStats]:
+        """One capacity-mode iteration on the stream of ``key`` (int64
+        (2,)): (U_new (T, C), stats), the stats from the costs as the JAX
+        package's ``_solve`` takes them."""
+        U_new, total, crash = rk.fused_rng_solve_iteration(
+            self.model, model_params, self.cfg, cost_params, costmap, state,
+            U, key, l1_cost=self.cost.l1_cost)
+        return U_new, self._stats(cost_params, total, crash)[0]
+
+    def _use_kernel_rng(self, costmap) -> bool:
+        """Whether a solve runs the capacity mode (see the module
+        docstring for the gates and the TPU-only ones dropped)."""
+        cfg = self.cfg
+        # white draws stream one step at a time, OU's AR(1) recursion too
+        # for theta in (0, 2); DFT-shaped colored noise needs the whole
+        # horizon at once and stays on the host-noise path
+        sampler_ok = (cfg.noise_sampler == "gaussian"
+                      or (cfg.noise_sampler == "ou"
+                          and 0.0 < cfg.noise_param < 2.0))
+        return bool(cfg.kernel_rng and rk.has_kernel_form(self.model)
+                    and sampler_ok and type(self.cost) is MPPICost
+                    and type(costmap) is Costmap and cfg.exact_fused)
 
     # ------------------------------------------------------------------
     # full solve: iterations + smoothing + nominal trajectory
@@ -218,10 +260,17 @@ class MPPISolver:
         shape = (cfg.num_timesteps, cfg.num_rollouts, self.model.CONTROL_DIM)
         U = cs.U
         stats = None
+        kernel_rng = self._use_kernel_rng(costmap)
         for _ in range(cfg.num_iters):                         # usually 1
-            eps = self._sample_noise(cs.generator, shape)
-            U, stats = self.iterate(model_params, cost_params, costmap,
-                                    state, U, eps)
+            if kernel_rng:
+                key = torch.randint(0, 1 << 32, (2,), generator=cs.generator,
+                                    dtype=torch.int64, device=self.device)
+                U, stats = self._iterate_kernel_rng(
+                    model_params, cost_params, costmap, state, U, key)
+            else:
+                eps = self._sample_noise(cs.generator, shape)
+                U, stats = self.iterate(model_params, cost_params, costmap,
+                                        state, U, eps)
         U = savitzky_golay(U, cs.control_hist)
         states_sol, controls_sol = self.nominal_trajectory(model_params,
                                                            state, U)

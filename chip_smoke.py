@@ -4,11 +4,14 @@
 Drives the port's main path — BASELINE config #1 (``path_integral_nn``):
 the 6-32-32-4 tanh MLP at full width with seeded Glorot weights, K=1920
 rollouts, T=100, gaussian exploration, the exact 560 x 800 oval costmap —
-and checks every CUDA kernel of that path against its plain PyTorch
-version.  Phases (any failure exits non-zero):
+and the kernel-RNG capacity mode — the same model and map at K=262144
+(BASELINE config #5; ``bench.py``'s ``rng_exact_K262144`` and
+``rng_exact_ou_K262144``), gaussian and OU (theta 0.15) exploration drawn
+inside the kernels — and checks every CUDA kernel of both paths against its
+plain PyTorch version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc);
+   (one nvcc) and require zero spill bytes in every kernel (ptxas -v);
 2. kernel A (fused rollout + exact cost) against its plain version at
    K=1920, T=100 in four cases: nominal start, wide swarm (exploration
    std x4), NaN x coordinate, and a fine random map on which the crash
@@ -23,7 +26,22 @@ version.  Phases (any failure exits non-zero):
 5. timing of each kernel at its main-path shape against its plain version
    and its bound;
 6. a torch.profiler trace of 50 ticks: device time by kernel and the
-   device's idle share.
+   device's idle share;
+7. pass 1 of the capacity mode against its plain version at K=262144,
+   T=100, gaussian and OU, in phase 2's four cases; its in-kernel stream
+   must equal the plain stream bit for bit (pass 1 equals kernel A fed the
+   plain stream);
+8. pass 2 against its plain version with pass 1's softmax weights, and
+   one-hot weights that extract single rollouts' controls;
+9. the capacity path: one iteration on the GPU against the CPU at
+   K=16384, then 100 ticks of ``drive_oval.drive`` on a capacity-mode
+   solver at K=262144 for each sampler, launch counters reset before and
+   read after each (1 pass 1, 1 pass 2, 1 kernel B and no kernel A per
+   solve);
+10. timing of both passes at K=262144 against their plain versions and
+    bounds, of kernel A at the same K, and of whole solves at K=262144 in
+    the capacity and the host-noise modes; a torch.profiler trace of 20
+    capacity-mode ticks.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -36,6 +54,7 @@ Usage::
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -58,6 +77,30 @@ ITER_ATOL = 1e-3                      # U_new of one iteration, GPU vs CPU
 # rollouts whose cost may differ from the whole plain version on the 2 cm
 # random map, where a rounding-level change of position moves a texel
 MAX_RANDOM_MAP_DIFFER = K // 100
+
+# The capacity mode (kernel_rng=True).
+KC = 262144
+K_ITER_CHECK = 16384                  # GPU vs CPU iteration
+CAP_TICKS = 100
+CAP_PROFILE_TICKS = 20
+SAMPLERS = {"gaussian": {}, "ou": dict(noise_sampler="ou", noise_param=0.15)}
+KEY = (0x2545F491, 0x9E3779B9)
+# pass 2 against its plain version, relative to sum_k |w_k u_{k,t,c}|:
+# fp32 sums of 262144 terms in another order (a shuffle tree per block,
+# then the blocks, against cuBLAS's gemv)
+NUMER_RTOL = 1e-5
+ONEHOT_ATOL = 1e-5
+# Operations of the in-kernel stream per rollout-step, counted in
+# csrc/rollout_kernels.cu: Threefry-2x32-20 79 (key schedule 4, 20 rounds
+# of add, funnel shift and xor, 5 key injections of 3), uniforms 5, log
+# 29, square root 2, sine and cosine 31, Box-Muller products 2; the OU
+# recursion adds 6.  Integer operations are counted at the fp32 rate, the
+# higher of the two (Hopper has 64 INT32 to 128 FP32 lanes per SM), which
+# keeps the bound a lower bound.
+STREAM_OPS, OU_OPS = 148, 6
+# pass 2 per rollout-step: the perturbation (2 mul, 2 add), w u (2 mul),
+# the reduction (2 add)
+UPDATE_OPS = 8
 
 
 class PhaseFailed(Exception):
@@ -109,6 +152,26 @@ def bound(nbytes: float, flops: float):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def ptxas_report(log: str):
+    """(kernel, registers, spill store + load bytes) for each entry
+    function in ``ptxas -v`` output."""
+    rows, name, spill = [], None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            short = re.search(r"\d+([a-z_]+_kernel)E", m.group(1))
+            name, spill = (short.group(1) if short else m.group(1)), None
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name is not None:
+            rows.append((name, int(m.group(1)), spill))
+            name = None
+    return rows
+
+
 def random_costmap(device):
     """A 10 m x 10 m map beside the start, 2 cm texels, channel 0 uniform
     in [0, 0.66) from seed 0, cleared within 0.7 m of y = 0 so that the
@@ -124,10 +187,10 @@ def random_costmap(device):
 
 
 def profile_ticks(drive_oval, solver, params, cost_params, costmap, card,
-                  ticks: int = PROFILE_TICKS) -> None:
-    """Device time by kernel over ``ticks`` ticks of the main path
+                  ticks: int = PROFILE_TICKS, tag: str = "profile") -> None:
+    """Device time by kernel over ``ticks`` ticks of ``solver``'s path
     (torch.profiler, CUPTI) and the device's busy share of their wall
-    time, profiler overhead included."""
+    time, profiler overhead included; lines start with ``[tag]``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -148,16 +211,245 @@ def profile_ticks(drive_oval, solver, params, cost_params, costmap, card,
         if us > 0:
             rows.append((us / 1e3, e.count, e.key))
     if not rows:
-        print(f"[profile] device time not measured: the profiler recorded "
+        print(f"[{tag}] device time not measured: the profiler recorded "
               f"no device events ({card})")
         return
     busy = sum(r[0] for r in rows)
-    print(f"[profile] {ticks} ticks (+1 first solve): wall {wall_ms:.3f} ms, "
+    print(f"[{tag}] {ticks} ticks (+1 first solve): wall {wall_ms:.3f} ms, "
           f"device busy {busy:.3f} ms ({100 * busy / wall_ms:.1f}%, idle "
           f"{100 - 100 * busy / wall_ms:.1f}%) ({card})")
     for ms, n, key in sorted(rows, reverse=True)[:8]:
-        print(f"[profile]   {ms / (ticks + 1):8.4f} ms/tick  x{n:<5d} "
+        print(f"[{tag}]   {ms / (ticks + 1):8.4f} ms/tick  x{n:<5d} "
               f"{key[:90]}")
+
+
+def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
+                    U, start, cpu, card):
+    """Phases 7-10: the kernel-RNG capacity mode at K=262144.  Returns the
+    two passes' ``kernels`` entries and the capacity solves' latencies."""
+    import torch
+    from autorally_tpu_torch.config import effective_gamma
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    cfg, model = solver.cfg, solver.model
+    dev = U.device
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    cap_cfg = {s: cfg.replace(num_rollouts=KC, kernel_rng=True, **kw)
+               for s, kw in SAMPLERS.items()}
+
+    # -- phase 7: pass 1 against its plain version ---------------------------
+    # The in-kernel stream is the plain stream bit for bit, so pass 1 must
+    # equal kernel A fed the plain stream (the same step body); against the
+    # whole plain version it differs by the MLP's summation order, and on
+    # the random map it is held, as kernel A is, against the plain cost
+    # along kernel B's trajectories on that stream.
+    err_p1, nominal = 0.0, {}
+    for sname, ccfg0 in cap_cfg.items():
+        for name, (ccfg, s0, cmap) in cases.items():
+            c = ccfg0.replace(steering_std=ccfg.steering_std,
+                              throttle_std=ccfg.throttle_std)
+            kc, kx, ctx = rk.fused_rng_costs(model, params, c, cost_params,
+                                             cmap, s0, U, key)
+            pc, px, _ = rk.fused_rng_costs_plain(model, params, c,
+                                                 cost_params, cmap, s0, U,
+                                                 key)
+            eps = rk.rng_noise(ctx)
+            ac, _, ax = rk.fused_exact_rollout_cost(model, params, c,
+                                                    cost_params, cmap, s0, U,
+                                                    eps)
+            torch.cuda.synchronize()
+            same_as_a = torch.equal(kc, ac) and torch.equal(kx, ax)
+            near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
+            n_differ = int((~near | (kx != px)).sum().item())
+            note = ""
+            if name == "random_map":
+                check(n_differ <= KC // 100, f"pass 1 {sname} random_map: "
+                      f"{n_differ} rollouts differ from the plain version, "
+                      f"more than {KC // 100}")
+                kb, _ = rk.dynamics_chain(model, params, c, s0, U, eps)
+                pc, px = rk.exact_cost_plain(model, params, c, cost_params,
+                                             cmap, U, eps, kb)
+                del kb
+                check(0 < px.sum().item() < KC, f"pass 1 {sname} random_map:"
+                      " crash flags do not differ between rollouts")
+                note = (" (held against the plain cost along kernel B's "
+                        "trajectories)")
+            e_cost = (kc - pc).abs().max().item()
+            n_crash_diff = int((kx != px).sum().item())
+            print(f"[pass 1] {sname} {name} K={KC}: max|cost err| "
+                  f"{e_cost:.3e}{note} (cost range {pc.min().item():.4g}.."
+                  f"{pc.max().item():.4g}), crash {int(px.sum().item())}/"
+                  f"{KC}, crash mismatches {n_crash_diff}, {n_differ} "
+                  f"rollouts differ from the whole plain version; equal to "
+                  f"kernel A on the plain stream: {same_as_a}")
+            check(torch.isfinite(kc).all().item(),
+                  f"pass 1 {sname} {name}: non-finite costs")
+            check(torch.allclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL),
+                  f"pass 1 {sname} {name}: costs differ beyond rtol "
+                  f"{COST_RTOL} atol {COST_ATOL}")
+            check(n_crash_diff == 0, f"pass 1 {sname} {name}: crash flags "
+                  "differ")
+            check(same_as_a, f"pass 1 {sname} {name}: differs from kernel A "
+                  "on the plain stream (the in-kernel stream is not the "
+                  "plain one)")
+            err_p1 = max(err_p1, e_cost)
+            if name == "nominal":
+                nominal[sname] = (c, ctx, kc)
+            del eps, ac, pc
+    # -- phase 8: pass 2 against its plain version ---------------------------
+    err_p2 = 0.0
+    first_pure = int(np.ceil(np.float32(cfg.pure_noise_frac * KC)))
+    for sname, (c, ctx, kc) in nominal.items():
+        w = torch.exp(-effective_gamma(c, cost_params) * (kc - kc.min()))
+        kn = rk.fused_rng_numer(ctx, w)
+        pn = rk.fused_rng_numer_plain(ctx, w)
+        _, u_seq, _ = rk.fused_exact_rollout_cost(
+            model, params, c, cost_params, costmap, start, U,
+            rk.rng_noise(ctx))
+        scale = torch.einsum("k,ctk->ct", w.abs(), u_seq.abs())
+        del u_seq
+        torch.cuda.synchronize()
+        err = (kn - pn).abs()
+        rel = (err / scale.clamp(min=1e-30)).max().item()
+        print(f"[pass 2] {sname} K={KC}: max|numer err| {err.max().item():.3e}"
+              f", max err / sum|w u| {rel:.3e} (limit {NUMER_RTOL}), ess "
+              f"{(w.sum() ** 2 / (w * w).sum()).item():.1f}")
+        check(bool((err <= NUMER_RTOL * scale).all()), f"pass 2 {sname}: "
+              f"numerator differs beyond {NUMER_RTOL} of sum|w u|")
+        err_p2 = max(err_p2, err.max().item())
+        for k in (0, 1, first_pure, KC - 1):
+            onehot = torch.zeros(KC, device=dev)
+            onehot[k] = 1.0
+            got = rk.fused_rng_numer(ctx, onehot)
+            want = rk.fused_rng_numer_plain(ctx, onehot)   # U + nu eps, masked
+            e = (got - want).abs().max().item()
+            print(f"[pass 2] {sname} one-hot k={k}: max|u err| {e:.3e}")
+            check(e <= ONEHOT_ATOL, f"pass 2 {sname} one-hot k={k}: {e}")
+
+    # -- phase 9: the capacity path ------------------------------------------
+    cpu_solver, cpu_params, _, cpu_map = cpu
+    ci = cap_cfg["gaussian"].replace(num_rollouts=K_ITER_CHECK)
+    Ug, _, _ = rk.fused_rng_solve_iteration(model, params, ci, cost_params,
+                                            costmap, start, U, key)
+    Uc, _, _ = rk.fused_rng_solve_iteration(cpu_solver.model, cpu_params, ci,
+                                            cost_params, cpu_map, start.cpu(),
+                                            U.cpu(), key.cpu())
+    e_it = (Ug.cpu() - Uc).abs().max().item()
+    print(f"[capacity] one iteration K={K_ITER_CHECK} GPU vs CPU: max|U_new "
+          f"err| {e_it:.3e}")
+    check(e_it <= ITER_ATOL, f"capacity iterate: GPU and CPU differ by {e_it}")
+
+    counters = {"fused_rng_costs": rk.fused_rng_costs,
+                "fused_rng_numer": rk.fused_rng_numer,
+                "dynamics_chain": rk.dynamics_chain,
+                "fused_exact_rollout_cost": rk.fused_exact_rollout_cost}
+    want = {"fused_rng_costs": 1, "fused_rng_numer": 1, "dynamics_chain": 1,
+            "fused_exact_rollout_cost": 0}
+    cap_solvers, latency = {}, {}
+    total_launches = dict.fromkeys(counters, 0)
+    for sname, c in cap_cfg.items():
+        cap = MPPISolver(model, solver.cost, c, device=dev)
+        check(cap._use_kernel_rng(costmap), f"{sname}: not in capacity mode")
+        cap_solvers[sname] = cap
+        for fn in counters.values():
+            fn.launches = 0
+        out = drive_oval.drive(cap, params, cost_params, costmap, CAP_TICKS,
+                               log=lambda m: print(f"[capacity] {m}"))
+        launches = {n: fn.launches for n, fn in counters.items()}
+        st, stats = out["solve_ms"], out["stats"]
+        latency[sname] = (float(np.percentile(st, 50)),
+                          float(np.percentile(st, 99)))
+        print(f"[capacity] {sname} K={KC} {CAP_TICKS} ticks: solve latency "
+              f"p50 {latency[sname][0]:.3f} ms p99 {latency[sname][1]:.3f} "
+              f"ms (slide + solve + control readback, host clock; {card}); "
+              f"ess {stats.ess.item():.1f}, crash% "
+              f"{stats.crash_frac.item() * 100:.1f}; launches {launches}")
+        check(np.isfinite(out["controls"]).all(), f"{sname}: non-finite "
+              "controls")
+        solves = CAP_TICKS + 1
+        check(launches == {n: v * solves for n, v in want.items()},
+              f"{sname}: launches {launches} in {solves} solves, expected "
+              f"{want} per solve")
+        for n in counters:
+            total_launches[n] += launches[n]
+
+    # -- phase 10: timing ----------------------------------------------------
+    flops_step = mlp_flops(model.layers)
+    n_w = sum(a * b + b for a, b in zip(model.layers[:-1], model.layers[1:]))
+    T_ = U.shape[0]
+    times = {}
+    for sname, c in cap_cfg.items():
+        ou = OU_OPS if sname == "ou" else 0
+        launch1, (kc, _), ctx = rk.prepare_fused_rng_costs(
+            model, params, c, cost_params, costmap, start, U, key)
+        ms1 = cuda_ms(launch1, 20)
+        plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
+            model, params, c, cost_params, costmap, start, U, key), 3, 1)
+        # inputs read once (U, weights, state, control ranges, key, at most
+        # the whole map or one texel per lookup), costs and crash written
+        bytes1 = (4 * (T_ * 2 + n_w + 7 + 4 + 2 * KC)
+                  + 4 * min(costmap.height * costmap.width, 2 * KC * (T_ - 1))
+                  + 16)
+        bound1 = bound(bytes1, (flops_step + STREAM_OPS + ou) * KC * T_)
+        w = torch.exp(-effective_gamma(c, cost_params) * (kc - kc.min()))
+        launch2, partials = rk.prepare_fused_rng_numer(ctx, w)
+        ms2 = cuda_ms(launch2, 50)
+        plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), 3, 1)
+        bytes2 = 4 * (KC + T_ * 2 + partials.numel()) + 16
+        bound2 = bound(bytes2, (STREAM_OPS + ou + UPDATE_OPS) * KC * T_)
+        times[sname] = (ms1, plain1, bound1, ms2, plain2, bound2)
+        print(f"[timing] pass 1 fused_rng_costs {sname} K={KC} T={T_}: "
+              f"{ms1:.4f} ms, plain {plain1:.3f} ms, bound {bound1[0]:.5f} "
+              f"ms ({bound1[1]}) ({card})")
+        print(f"[timing] pass 2 fused_rng_numer {sname} K={KC} T={T_}: "
+              f"{ms2:.4f} ms, plain {plain2:.3f} ms, bound {bound2[0]:.5f} "
+              f"ms ({bound2[1]}) ({card})")
+
+    # kernel A at the same K on the plain stream: pass 1 less the generator
+    # (and plus the eps reads and u_seq writes)
+    eps = rk.rng_noise(ctx)
+    launch_a, _ = rk.prepare_fused_exact_rollout_cost(
+        model, params, cap_cfg["ou"], cost_params, costmap, start, U, eps)
+    print(f"[timing] kernel A fused_exact_rollout_cost K={KC} T={T_}: "
+          f"{cuda_ms(launch_a, 20):.4f} ms ({card})")
+    del eps, launch_a
+
+    host = MPPISolver(model, solver.cost, cfg.replace(num_rollouts=KC),
+                      device=dev)
+    for label, s in (("capacity gaussian", cap_solvers["gaussian"]),
+                     ("capacity ou", cap_solvers["ou"]),
+                     ("host-noise gaussian", host)):
+        cs = s.init_state()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        ms = cuda_ms(lambda: s.solve(params, cost_params, costmap, start, cs),
+                     10)
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2 ** 20
+        print(f"[timing] whole solve, {label}, K={KC} T={T_}: {ms:.4f} ms "
+              f"(CUDA events), peak device memory {peak:.1f} MiB above the "
+              f"inputs ({card})")
+
+    profile_ticks(drive_oval, cap_solvers["gaussian"], params, cost_params,
+                  costmap, card, ticks=CAP_PROFILE_TICKS,
+                  tag="capacity profile")
+
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    ms1, plain1, bound1, ms2, plain2, bound2 = times["gaussian"]
+    kernels = [
+        {"name": "fused_rng_costs", "route": "cuda", "source": src,
+         "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
+         "launches": total_launches["fused_rng_costs"],
+         "max_abs_err": err_p1, "ms": ms1, "plain_ms": plain1,
+         "bound_ms": bound1[0], "bound_by": bound1[1], "library_ms": None},
+        {"name": "fused_rng_numer", "route": "cuda", "source": src,
+         "replaces": "autorally_tpu/ops/rollout_kernel.py:1346",
+         "launches": total_launches["fused_rng_numer"],
+         "max_abs_err": err_p2, "ms": ms2, "plain_ms": plain2,
+         "bound_ms": bound2[0], "bound_by": bound2[1], "library_ms": None},
+    ]
+    return kernels, latency
 
 
 def main() -> int:
@@ -203,6 +495,13 @@ def main() -> int:
         for line in lib.build[1].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+        report = ptxas_report(lib.build[1])
+        for name, regs, spill in report:
+            print(f"[build] {name}: {regs} registers, {spill} bytes of "
+                  f"spill stores and loads")
+        check(len(report) == 4, f"ptxas reported {len(report)} kernels, "
+              "expected 4")
+        check(all(spill == 0 for _, _, spill in report), "a kernel spills")
     print(f"[build] total {build_s:.1f}s ({card})")
 
     # -- shared inputs: the drive_oval configuration -------------------------
@@ -362,6 +661,11 @@ def main() -> int:
     # -- phase 6: where a tick's time goes ---------------------------------
     profile_ticks(drive_oval, solver, params, cost_params, costmap, card)
 
+    # -- phases 7-10: the kernel-RNG capacity mode ---------------------------
+    cap_kernels, cap_latency = capacity_phases(
+        drive_oval, solver, params, cost_params, costmap, cases, U, start,
+        (cpu_solver, cpu_params, None, cpu_map), card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -374,9 +678,10 @@ def main() -> int:
          "launches": launches["dynamics_chain"],
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None},
-    ]
+    ] + cap_kernels
     print(json.dumps({"kernels": kernels, "card": card,
-                      "solve_ms_p50_p99": results["latency"]}))
+                      "solve_ms_p50_p99": results["latency"],
+                      "capacity_solve_ms_p50_p99": cap_latency}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

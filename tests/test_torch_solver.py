@@ -183,18 +183,29 @@ def test_controller_state_helpers():
             device="cpu"))
 
 
-def test_unported_options_raise_and_name_the_roadmap():
+@pytest.mark.parametrize("option", [
+    dict(kernel_rng=True), dict(noise_sampler="colored"),
+    dict(noise_sampler="ou", noise_param=0.15), dict(matmul_precision="default")])
+def test_unported_options_raise_and_name_the_roadmap(option):
+    """Options still unported raise and name the roadmap; the ones ported
+    since (the capacity mode, colored and OU noise) construct and solve."""
     solver, params, cm, *_ = _pair(K=128, T=16)
     model, cfg = solver.model, solver.cfg
+    if "matmul_precision" not in option:
+        ported = mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
+                                 device="cpu")
+        cs, stats = ported.solve(params, CostParams(), cm, SCENARIO_START,
+                                 ported.init_state())
+        assert np.isfinite(cs.U.numpy()).all() and cs.U.shape == (16, 2)
+        assert 1.0 <= float(stats.ess) <= 128
+        return
 
     class SubCost(MPPICost):
         pass
 
-    for bad in (dict(kernel_rng=True), dict(noise_sampler="colored"),
-                dict(noise_sampler="ou"), dict(matmul_precision="default")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            mppi.MPPISolver(model, MPPICost(), cfg.replace(**bad),
-                            device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
+                        device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mppi.MPPISolver(model, SubCost(), cfg, device="cpu")
     state = torch.zeros(7)
