@@ -5,11 +5,13 @@ the first control of each plan on a synthetic plant integrated with the
 same model (the reference's ``debug_mode`` self-propagation,
 ``run_control_loop.cuh:296-302``).  Loads ``--model`` when that file
 exists, otherwise uses seeded Glorot-initialised weights, and says which.
+``--neural-costmap`` distils the track into a neural field on the device
+(``fit_neural_costmap``'s defaults) and prices the rollouts on it.
 
 Usage::
 
     python -m autorally_tpu_torch.drive_oval [--steps 300] [--cpu]
-        [--model PATH] [--rollouts 1920]
+        [--model PATH] [--rollouts 1920] [--neural-costmap]
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import torch
 
 from autorally_tpu_torch.config import (REFERENCE_NN_NPZ, CostParams,
                                         MPPIConfig, resolve_device)
-from autorally_tpu_torch.costs import MPPICost, make_costmap
+from autorally_tpu_torch.costs import (MPPICost, fit_neural_costmap,
+                                       make_costmap)
 from autorally_tpu_torch.models import NeuralNetDynamics
 from autorally_tpu_torch.solver.mppi import MPPISolver
 from autorally_tpu_torch.tools.track_generator import oval_track
@@ -42,13 +45,24 @@ def oval_costmap(device=None):
 
 
 def build(rollouts: int = 1920, desired_speed: float = 6.0,
-          model_path: str = REFERENCE_NN_NPZ, device=None):
+          model_path: str = REFERENCE_NN_NPZ, device=None,
+          neural_costmap: bool = False, fit_kwargs=None):
     """The demo's (solver, params, cost_params, costmap, note): the
-    ``path_integral_nn`` configuration on the 560 x 800 oval map."""
+    ``path_integral_nn`` configuration on the 560 x 800 oval map, or, with
+    ``neural_costmap``, on a field fitted to it on the device
+    (``fit_neural_costmap(costmap, **fit_kwargs)``; the note gives the
+    fit's quality)."""
     dev = resolve_device(device)
     cfg = MPPIConfig(num_rollouts=rollouts, num_timesteps=100, hz=50)
     cost_params = CostParams(desired_speed=desired_speed)
     costmap = oval_costmap(dev)
+    fit_note = ""
+    if neural_costmap:
+        costmap, metrics = fit_neural_costmap(costmap, device=dev,
+                                              **(fit_kwargs or {}))
+        fit_note = (f"\nneural costmap fit: mae={metrics['mae']:.3f} "
+                    f"boundary_flip_rate="
+                    f"{metrics['boundary_flip_rate']:.3%}")
     model = NeuralNetDynamics(cfg.dt, control_ranges=cfg.control_ranges,
                               device=dev)
     if model_path and os.path.exists(model_path):
@@ -59,7 +73,7 @@ def build(rollouts: int = 1920, desired_speed: float = 6.0,
         note = ("model weights: seeded Glorot init (seed 0); "
                 f"{model_path} not found")
     solver = MPPISolver(model, MPPICost(cfg.l1_cost), cfg, device=dev)
-    return solver, params, cost_params, costmap, note
+    return solver, params, cost_params, costmap, note + fit_note
 
 
 def drive(solver, params, cost_params, costmap, steps: int, log=print):
@@ -122,11 +136,15 @@ def main():
     ap.add_argument("--model", default=REFERENCE_NN_NPZ)
     ap.add_argument("--rollouts", type=int, default=1920)
     ap.add_argument("--desired-speed", type=float, default=6.0)
+    ap.add_argument("--neural-costmap", action="store_true",
+                    help="distil the track into a neural field and price "
+                         "the rollouts on it (the fused field kernel)")
     args = ap.parse_args()
 
     solver, params, cost_params, costmap, note = build(
         args.rollouts, args.desired_speed, args.model,
-        device="cpu" if args.cpu else None)
+        device="cpu" if args.cpu else None,
+        neural_costmap=args.neural_costmap)
     print(note)
     out = drive(solver, params, cost_params, costmap, args.steps)
     st = out["solve_ms"][1:] if len(out["solve_ms"]) > 1 else out["solve_ms"]

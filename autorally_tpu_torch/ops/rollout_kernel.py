@@ -10,8 +10,12 @@ solver runs:
 - :func:`dynamics_chain` (``dynamics_chain_kernel``) replaces
   ``_rollout_kernel``: the dynamics chain alone, emitting every state; and
   :func:`nominal_trajectory` runs it for the single noise-free rollout;
-- :func:`fused_rng_costs` (``fused_rng_kernel``) replaces
-  ``_fused_rng_kernel`` (exact-costmap mode) and :func:`fused_rng_numer`
+- :func:`fused_rollout_cost` (``fused_field_kernel``) replaces
+  ``_fused_kernel``: the same rollout with the track surface a
+  :class:`~autorally_tpu_torch.costs.neural_costmap.NeuralCostmap`;
+- :func:`fused_rng_costs` (``fused_rng_kernel`` on a ``Costmap``,
+  ``fused_rng_field_kernel`` on a ``NeuralCostmap``) replaces both modes of
+  ``_fused_rng_kernel`` and :func:`fused_rng_numer`
   (``weighted_update_kernel``) replaces ``_weighted_update_kernel``: the
   two passes of the kernel-RNG capacity mode, which draw the noise stream
   of ``ops/kernel_rng.py`` inside the kernels, so that nothing of size
@@ -38,6 +42,7 @@ import torch
 from autorally_tpu_torch.config import effective_gamma
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
+from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
 from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
 from autorally_tpu_torch.ops import _build
 from autorally_tpu_torch.ops.kernel_rng import kernel_noise
@@ -47,9 +52,16 @@ from autorally_tpu_torch.ops.sampling import ou_coefficients
 KERNEL_LAYERS = (6, 32, 32, 4)
 KERNEL_NUM_WEIGHTS = sum(a * b + b for a, b in zip(KERNEL_LAYERS[:-1],
                                                     KERNEL_LAYERS[1:]))
-# Dynamic shared memory holds the weights and U (T x 2); stay under the
-# 48 KB a launch gets without opting in.
+# The field spec the field kernels are compiled for (csrc kFreqs, kFieldIn,
+# kFieldH1, kFieldH2): fit_neural_costmap's default, F = 8, hidden (64, 64).
+FIELD_KERNEL_LAYERS = (34, 64, 64, 1)
+FIELD_KERNEL_FREQS = 8
+FIELD_NUM_WEIGHTS = sum(a * b + b for a, b in zip(
+    FIELD_KERNEL_LAYERS[:-1], FIELD_KERNEL_LAYERS[1:])) + FIELD_KERNEL_FREQS
+# Dynamic shared memory holds the weights and U (T x 2), and the field in
+# the field kernels; stay under the 48 KB a launch gets without opting in.
 MAX_KERNEL_T = 4096
+MAX_FIELD_KERNEL_T = 2048
 
 # Host launch scalars, in the order csrc/rollout_kernels.cu unpacks them.
 _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
@@ -103,7 +115,7 @@ def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
                    costmap=None, l1_cost: bool = False) -> Tuple[list, list]:
     """The kernels' host scalars (floats, ints) in the order of
     ``_FLOAT_SCALARS`` / ``_INT_SCALARS``; the cost entries are 0 for the
-    chain kernel (no ``cost_params``)."""
+    chain kernel (no ``cost_params``), H and W 0 for a neural field."""
     nu0, nu1 = (float(np.float32(v)) for v in cfg.exploration_std)
     floats = [nu0, nu1, float(cfg.optimization_stride),
               _pure_thresh(cfg, k_offset), float(np.float32(model.dt))]
@@ -118,7 +130,9 @@ def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
             p.desired_speed, p.speed_coeff, p.track_coeff, p.max_slip_ang,
             p.slip_penalty, p.track_slop, p.crash_coeff, p.steering_coeff,
             p.throttle_coeff, p.boundary_threshold, p.discount)]
-    ints += [costmap.height, costmap.width, int(bool(l1_cost))]
+    H, W = ((costmap.height, costmap.width) if type(costmap) is Costmap
+            else (0, 0))
+    ints += [H, W, int(bool(l1_cost))]
     return floats, ints
 
 
@@ -128,9 +142,10 @@ def _kernel_lib() -> ctypes.CDLL:
     packs."""
     lib = _build.load()
     built = (lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
-             lib.artt_num_weights(), lib.artt_update_block())
+             lib.artt_num_weights(), lib.artt_num_field_weights(),
+             lib.artt_update_block())
     want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
-            UPDATE_BLOCK)
+            FIELD_NUM_WEIGHTS, UPDATE_BLOCK)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -155,6 +170,35 @@ def _check_kernel_model(model) -> None:
             f"{model.layers} (ROADMAP.md, Queue 2: other layer specs)")
 
 
+def _check_kernel_field(field: NeuralCostmap) -> None:
+    if (field.layers != FIELD_KERNEL_LAYERS
+            or field.freqs.shape != (FIELD_KERNEL_FREQS,)):
+        raise NotImplementedError(
+            f"the CUDA field kernels are compiled for layers "
+            f"{FIELD_KERNEL_LAYERS} with {FIELD_KERNEL_FREQS} frequencies, "
+            f"got {field.layers} with {field.freqs.numel()} (ROADMAP.md, "
+            "Queue 2: other field specs)")
+
+
+def _surface(surface) -> Tuple[str, torch.Tensor]:
+    """The fused kernels' surface operand: ('exact', channel 0) for a
+    ``Costmap``, ('field', the packed field) for a ``NeuralCostmap``."""
+    if type(surface) is Costmap:
+        return "exact", surface.ch0
+    if type(surface) is NeuralCostmap:
+        _check_kernel_field(surface)
+        return "field", _pack_field(surface)
+    raise NotImplementedError(
+        f"{type(surface).__name__} is not ported: the port's kernels sample "
+        "a Costmap or a NeuralCostmap (ROADMAP.md, Queue 1)")
+
+
+def _expect(surface, cls, fn: str) -> None:
+    if type(surface) is not cls:
+        raise TypeError(f"{fn} takes a {cls.__name__}, got "
+                        f"{type(surface).__name__}")
+
+
 def _device_args(device, **tensors):
     """Validate the kernel's tensor arguments (float32, contiguous, on
     ``device``) and return their data pointers."""
@@ -170,21 +214,41 @@ def _device_args(device, **tensors):
     return ptrs
 
 
-def _pack_weights(model, model_params) -> torch.Tensor:
-    """The kernels' weight buffer: (out, in) panels and biases, flattened
-    in layer order (1,412 floats for 6-32-32-4).  Packed once per set of
-    weight tensors and kept on the model; a new params dict, or an in-place
-    change of one of its tensors, packs again."""
-    src = (*model_params["weights"], *model_params["biases"])
+def _cached_pack(owner, src, pack) -> torch.Tensor:
+    """``pack()``, computed once per set of tensors ``src`` and kept on
+    ``owner``; new tensors, or an in-place change of one, pack again."""
     key = tuple((id(t), t._version) for t in src)
-    cached = getattr(model, "_kernel_pack", None)
+    cached = getattr(owner, "_kernel_pack", None)
     if cached is not None and cached[1] == key:
         return cached[2]
-    packed = torch.cat([w.reshape(-1) for w in model.kernel_weights(
-        model_params)]).to(torch.float32).contiguous()
-    # holding ``src`` keeps the ids in ``key`` from being reused
-    model._kernel_pack = (src, key, packed)
+    packed = pack().to(torch.float32).contiguous()
+    # holding ``src`` keeps the ids in ``key`` from being reused; the
+    # field is a frozen dataclass, hence object.__setattr__
+    object.__setattr__(owner, "_kernel_pack", (src, key, packed))
     return packed
+
+
+def _pack_weights(model, model_params) -> torch.Tensor:
+    """The kernels' weight buffer: (out, in) panels and biases, flattened
+    in layer order (1,412 floats for 6-32-32-4), packed once per set of
+    weight tensors."""
+    return _cached_pack(
+        model, (*model_params["weights"], *model_params["biases"]),
+        lambda: torch.cat([w.reshape(-1) for w in model.kernel_weights(
+            model_params)]))
+
+
+def _pack_field(field: NeuralCostmap) -> torch.Tensor:
+    """The field kernels' buffer (6,473 floats for 34-64-64-1, F = 8):
+    W0 kept (in, out), so that each feature's column is contiguous for the
+    kernel's first layer, streamed over the features; b0; W1 as its
+    (out, in) panel, rows contiguous for the second layer, evaluated one
+    neuron at a time; b1; W2 (64); b2; freqs.  Packed once per field."""
+    (W0, W1, W2), (b0, b1, b2) = field.weights, field.biases
+    return _cached_pack(
+        field, (*field.weights, *field.biases, field.freqs),
+        lambda: torch.cat([W0.reshape(-1), b0, W1.t().reshape(-1), b1,
+                           W2.reshape(-1), b2, field.freqs]))
 
 
 def _host_array(ctype, values):
@@ -206,7 +270,8 @@ def _dispatch(t: torch.Tensor) -> str:
     raise ValueError(f"no rollout kernel for device {t.device}")
 
 
-def _kernel_inputs(model, model_params, state, U, K: int, eps=None):
+def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
+                   max_T: int = MAX_KERNEL_T):
     """Shape checks and the device tensors every rollout kernel reads
     (with ``eps`` (T, K, C) for the kernels that read their noise)."""
     T, C = U.shape
@@ -215,8 +280,8 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None):
         raise ValueError(f"shapes: state {tuple(state.shape)}, U "
                          f"{tuple(U.shape)}, K {K}, eps "
                          f"{None if eps is None else tuple(eps.shape)}")
-    if K < 1 or not 1 <= T <= MAX_KERNEL_T:
-        raise ValueError(f"kernel needs K >= 1 and 1 <= T <= {MAX_KERNEL_T}")
+    if K < 1 or not 1 <= T <= max_T:
+        raise ValueError(f"kernel needs K >= 1 and 1 <= T <= {max_T}")
     args = dict(
         s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
@@ -228,33 +293,35 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None):
 
 
 # ---------------------------------------------------------------------------
-# kernel A: fused rollout + exact-costmap cost
+# kernel A and kernel 3: fused rollout + cost on the exact map or the field
 # ---------------------------------------------------------------------------
 
-def fused_exact_rollout_cost_plain(model, model_params, cfg, cost_params,
-                                   costmap: Costmap, state, U, eps,
-                                   l1_cost: bool = False, k_offset=0):
-    """Plain PyTorch version of the fused kernel: the dynamics chain
-    (:func:`dynamics_chain_plain`), then the kernel's per-step cost rules
-    along it (:func:`exact_cost_plain`).
+def fused_rollout_cost_plain(model, model_params, cfg, cost_params, surface,
+                             state, U, eps, l1_cost: bool = False,
+                             k_offset=0):
+    """Plain PyTorch version of the fused kernels, on either surface (a
+    ``Costmap`` for kernel A, a ``NeuralCostmap`` for kernel 3): the
+    dynamics chain (:func:`dynamics_chain_plain`), then the kernels'
+    per-step cost rules along it (:func:`trajectory_cost_plain`).
     Returns (costs (K,), u_seq (C, T, K) pre-clamp, crash (K,) int32)."""
     states, u_seq = dynamics_chain_plain(model, model_params, cfg, state, U,
                                          eps, k_offset=k_offset)
-    costs, crash = exact_cost_plain(model, model_params, cfg, cost_params,
-                                    costmap, U, eps, states, l1_cost=l1_cost,
-                                    k_offset=k_offset)
+    costs, crash = trajectory_cost_plain(model, model_params, cfg,
+                                         cost_params, surface, U, eps, states,
+                                         l1_cost=l1_cost, k_offset=k_offset)
     return costs, u_seq, crash
 
 
-def exact_cost_plain(model, model_params, cfg, cost_params, costmap: Costmap,
-                     U, eps, states, l1_cost: bool = False, k_offset=0):
+def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
+                          U, eps, states, l1_cost: bool = False, k_offset=0):
     """Running-average cost and crash latch of K rollouts along given
     trajectories ``states`` (S, T, K) (``states[:, t]`` after t+1 steps),
-    with the fused kernel's per-step rules (``_make_cost_step`` and the
-    ``_fused_exact_kernel`` body): cost step t = 1..T-1 prices s_t with
-    the controls of step t; step 0 adds nothing and never latches; the roll
-    latch on s_t precedes the boundary latch and the crash cost of step t.
-    Returns (costs (K,), crash (K,) int32)."""
+    with the fused kernels' per-step rules (``_make_cost_step`` and the
+    kernel bodies) on ``surface``, anything with ``lookup_ch0`` (the exact
+    ``Costmap`` or a ``NeuralCostmap``): cost step t = 1..T-1 prices s_t
+    with the controls of step t; step 0 adds nothing and never latches; the
+    roll latch on s_t precedes the boundary latch and the crash cost of
+    step t.  Returns (costs (K,), crash (K,) int32)."""
     T, K, C = eps.shape
     dev = eps.device
     cost = MPPICost(l1_cost)
@@ -272,7 +339,7 @@ def exact_cost_plain(model, model_params, cfg, cost_params, costmap: Costmap,
         crash = cost.get_crash(s, crash)
         control = cost.control_cost_c(p, u_cl[:, 0], u_cl[:, 1],
                                       du[:, 0], du[:, 1], nu)
-        track, crash = cost.track_cost_c(p, costmap, s[:, 0], s[:, 1],
+        track, crash = cost.track_cost_c(p, surface, s[:, 0], s[:, 1],
                                          s[:, 2], crash)
         speed = cost.speed_cost_c(p, s[:, 4])
         crash_c = one_minus_discount * cost.crash_cost(p, crash)
@@ -282,42 +349,65 @@ def exact_cost_plain(model, model_params, cfg, cost_params, costmap: Costmap,
     return running, crash
 
 
-def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
-                                     costmap: Costmap, state, U, eps,
-                                     l1_cost: bool = False, k_offset=0):
-    """Validate the CUDA kernel's inputs and allocate its outputs.  Returns
-    ``(launch, (costs, u_seq, crash))``: each ``launch()`` runs the kernel
-    once into those outputs on the current stream (uncounted; the wrapper
-    counts)."""
+def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
+                   surface, state, U, eps, l1_cost, k_offset):
+    """Validate a fused kernel's inputs (``surface`` must be a ``cls``) and
+    allocate its outputs.  Returns ``(launch, (costs, u_seq, crash))``:
+    each ``launch()`` runs the kernel once into those outputs on the
+    current stream (uncounted; the wrapper counts)."""
+    _expect(surface, cls, fn)
     _check_kernel_model(model)
     if cost_params.obstacles is not None:
         raise NotImplementedError("obstacle terms are not ported yet "
                                   "(ROADMAP.md, Queue 1 item 3)")
+    kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
-    args = _kernel_inputs(model, model_params, state, U, K, eps)
-    args["ch0"] = costmap.ch0
+    args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
+        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
+    args["surface"] = buf
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K, cost_params,
-                                  costmap, l1_cost)
+                                  surface, l1_cost)
     fsc = _host_array(ctypes.c_float, floats)
     isc = _host_array(ctypes.c_int, ints)
 
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
+    entry = getattr(_kernel_lib(), {
+        "exact": "artt_fused_exact_rollout_cost",
+        "field": "artt_fused_field_rollout_cost"}[kind])
 
     def launch():
-        err = lib.artt_fused_exact_rollout_cost(
+        err = entry(
             ctypes.addressof(fsc), ctypes.addressof(isc), dev.index or 0,
-            ptrs["s0"], ptrs["rngs"], ptrs["U"], ptrs["eps"], ptrs["ch0"],
-            ptrs["weights"], costs.data_ptr(), crash.data_ptr(),
-            u_seq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _check_launch(err, "fused_exact_rollout_cost")
+            ptrs["s0"], ptrs["rngs"], ptrs["U"], ptrs["eps"],
+            ptrs["surface"], ptrs["weights"], costs.data_ptr(),
+            crash.data_ptr(), u_seq.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, fn)
 
     launch.inputs = args                     # keeps the buffers alive
     return launch, (costs, u_seq, crash)
+
+
+def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
+                                     costmap: Costmap, state, U, eps,
+                                     l1_cost: bool = False, k_offset=0):
+    """Kernel A's launch and outputs (see :func:`_prepare_fused`)."""
+    return _prepare_fused(Costmap, "fused_exact_rollout_cost", model,
+                          model_params, cfg, cost_params, costmap, state, U,
+                          eps, l1_cost, k_offset)
+
+
+def prepare_fused_rollout_cost(model, model_params, cfg, cost_params,
+                               field: NeuralCostmap, state, U, eps,
+                               l1_cost: bool = False, k_offset=0):
+    """Kernel 3's launch and outputs (see :func:`_prepare_fused`)."""
+    return _prepare_fused(NeuralCostmap, "fused_rollout_cost", model,
+                          model_params, cfg, cost_params, field, state, U,
+                          eps, l1_cost, k_offset)
 
 
 def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
@@ -328,8 +418,9 @@ def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
     ``state`` (S,), ``U`` (T, C), ``eps`` (T, K, C) standard normal;
     ``k_offset`` is the global index of this batch's first rollout.
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
+    _expect(costmap, Costmap, "fused_exact_rollout_cost")
     if _dispatch(eps) == "plain":
-        return fused_exact_rollout_cost_plain(
+        return fused_rollout_cost_plain(
             model, model_params, cfg, cost_params, costmap, state, U, eps,
             l1_cost=l1_cost, k_offset=k_offset)
     launch, out = prepare_fused_exact_rollout_cost(
@@ -341,6 +432,28 @@ def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
 
 
 fused_exact_rollout_cost.launches = 0
+
+
+def fused_rollout_cost(model, model_params, cfg, cost_params,
+                       field: NeuralCostmap, state, U, eps,
+                       l1_cost: bool = False, k_offset=0):
+    """Fused rollout + neural-field cost (``fused_rollout_cost_pallas``):
+    :func:`fused_exact_rollout_cost`'s contract with a ``NeuralCostmap``.
+    Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
+    _expect(field, NeuralCostmap, "fused_rollout_cost")
+    if _dispatch(eps) == "plain":
+        return fused_rollout_cost_plain(
+            model, model_params, cfg, cost_params, field, state, U, eps,
+            l1_cost=l1_cost, k_offset=k_offset)
+    launch, out = prepare_fused_rollout_cost(
+        model, model_params, cfg, cost_params, field, state, U, eps,
+        l1_cost=l1_cost, k_offset=k_offset)
+    launch()
+    fused_rollout_cost.launches += 1
+    return out
+
+
+fused_rollout_cost.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -469,11 +582,11 @@ def stream_theta(cfg) -> Optional[float]:
 
 def _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                  K_local) -> RngContext:
-    if type(field) is not Costmap:
+    if type(field) not in (Costmap, NeuralCostmap):
         raise NotImplementedError(
-            f"kernel-RNG mode on {type(field).__name__} is not ported yet: "
-            "the port's passes sample the exact Costmap only (ROADMAP.md, "
-            "Queue 2 items 3-4: the neural-field mode)")
+            f"kernel-RNG mode on {type(field).__name__} is not ported: the "
+            "port's passes sample a Costmap or a NeuralCostmap (ROADMAP.md, "
+            "Queue 1)")
     if cost_params.obstacles is not None:
         raise NotImplementedError("obstacle terms are not ported yet "
                                   "(ROADMAP.md, Queue 1 item 3)")
@@ -501,33 +614,38 @@ def _stream_launch_args(ctx: RngContext):
     return ctx.k_offset, a, b
 
 
-def fused_rng_costs_plain(model, model_params, cfg, cost_params,
-                          field: Costmap, state, U, key,
-                          l1_cost: bool = False, k_offset=0, K_local=None):
-    """Plain version of pass 1: the fused kernel's plain version
-    (:func:`fused_exact_rollout_cost_plain`) on the stream.  Returns
-    (total (K,), crash (K,) int32, ctx)."""
+def fused_rng_costs_plain(model, model_params, cfg, cost_params, field,
+                          state, U, key, l1_cost: bool = False, k_offset=0,
+                          K_local=None):
+    """Plain version of pass 1, both modes: the fused kernels' plain version
+    (:func:`fused_rollout_cost_plain`) on the stream.  Returns (total (K,),
+    crash (K,) int32, ctx)."""
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
-    costs, _, crash = fused_exact_rollout_cost_plain(
+    costs, _, crash = fused_rollout_cost_plain(
         model, model_params, cfg, cost_params, field, state, ctx.U,
         rng_noise(ctx), l1_cost=l1_cost, k_offset=ctx.k_offset)
     return costs, crash, ctx
 
 
-def prepare_fused_rng_costs(model, model_params, cfg, cost_params,
-                            field: Costmap, state, U, key,
-                            l1_cost: bool = False, k_offset=0, K_local=None):
+def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
+                            state, U, key, l1_cost: bool = False, k_offset=0,
+                            K_local=None):
     """Validate pass 1's inputs and allocate its outputs.  Returns
-    ``(launch, (costs, crash), ctx)``; each ``launch()`` runs the kernel
-    once on the current stream (uncounted; the wrapper counts)."""
+    ``(launch, (costs, crash), ctx)``; each ``launch()`` runs the kernel of
+    the surface's mode (``fused_rng_kernel`` for a ``Costmap``,
+    ``fused_rng_field_kernel`` for a ``NeuralCostmap``) once on the current
+    stream (uncounted; the wrapper counts); ``launch.mode`` names the
+    mode."""
     _check_kernel_model(model)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
+    kind, buf = _surface(field)
     T, K = ctx.U.shape[0], ctx.K
     dev = ctx.U.device
-    args = _kernel_inputs(model, model_params, state, ctx.U, K)
-    args["ch0"] = field.ch0
+    args = _kernel_inputs(model, model_params, state, ctx.U, K, max_T=(
+        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
+    args["surface"] = buf
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, ctx.k_offset, T, K,
                                   cost_params, field, l1_cost)
@@ -537,27 +655,32 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params,
 
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
-    lib = _kernel_lib()
+    entry = getattr(_kernel_lib(), {
+        "exact": "artt_fused_rng_costs",
+        "field": "artt_fused_rng_field_costs"}[kind])
 
     def launch():
-        err = lib.artt_fused_rng_costs(
+        err = entry(
             ctypes.addressof(fsc), ctypes.addressof(isc), *stream_args,
             dev.index or 0, ptrs["s0"], ptrs["rngs"], ptrs["U"],
-            ctx.key.data_ptr(), ptrs["ch0"], ptrs["weights"],
+            ctx.key.data_ptr(), ptrs["surface"], ptrs["weights"],
             costs.data_ptr(), crash.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
-        _check_launch(err, "fused_rng_costs")
+        _check_launch(err, f"fused_rng_costs ({kind})")
 
     launch.inputs = args                     # keeps the buffers alive
+    launch.mode = kind
     return launch, (costs, crash), ctx
 
 
-def fused_rng_costs(model, model_params, cfg, cost_params, field: Costmap,
-                    state, U, key, l1_cost: bool = False, k_offset=0,
-                    K_local=None):
+def fused_rng_costs(model, model_params, cfg, cost_params, field, state, U,
+                    key, l1_cost: bool = False, k_offset=0, K_local=None):
     """Pass 1 of the capacity mode (``fused_rng_costs`` of the JAX
     package): rollout costs with the noise drawn in the kernel; nothing per
-    (t, k) reaches device memory.
+    (t, k) reaches device memory.  ``field`` is the exact ``Costmap`` or a
+    ``NeuralCostmap`` (the JAX kernel's ``cost_mode`` "exact" / "field");
+    the two modes are two CUDA kernels, counted in ``launches`` and
+    ``field_launches``.
 
     ``key``: int64 (2,) on ``U``'s device, the stream's key; ``k_offset`` /
     ``K_local`` let a sharded caller run its own slice of the global batch.
@@ -571,11 +694,15 @@ def fused_rng_costs(model, model_params, cfg, cost_params, field: Costmap,
         model, model_params, cfg, cost_params, field, state, U, key,
         l1_cost=l1_cost, k_offset=k_offset, K_local=K_local)
     launch()
-    fused_rng_costs.launches += 1
+    if launch.mode == "field":
+        fused_rng_costs.field_launches += 1
+    else:
+        fused_rng_costs.launches += 1
     return costs, crash, ctx
 
 
 fused_rng_costs.launches = 0
+fused_rng_costs.field_launches = 0
 
 
 def fused_rng_numer_plain(ctx: RngContext, w):
@@ -650,7 +777,7 @@ def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
 
 
 def fused_rng_solve_iteration_plain(model, model_params, cfg, cost_params,
-                                    field: Costmap, state, U, key,
+                                    field, state, U, key,
                                     l1_cost: bool = False, k_offset=0):
     """:func:`fused_rng_solve_iteration` through the plain versions of both
     passes."""
@@ -660,7 +787,7 @@ def fused_rng_solve_iteration_plain(model, model_params, cfg, cost_params,
 
 
 def fused_rng_solve_iteration(model, model_params, cfg, cost_params,
-                              field: Costmap, state, U, key,
+                              field, state, U, key,
                               l1_cost: bool = False, k_offset=0):
     """One MPPI iteration in the capacity mode: pass 1's costs, the softmax
     weights in PyTorch, pass 2's numerator; device-memory traffic is

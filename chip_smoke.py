@@ -4,14 +4,18 @@
 Drives the port's main path — BASELINE config #1 (``path_integral_nn``):
 the 6-32-32-4 tanh MLP at full width with seeded Glorot weights, K=1920
 rollouts, T=100, gaussian exploration, the exact 560 x 800 oval costmap —
-and the kernel-RNG capacity mode — the same model and map at K=262144
+the kernel-RNG capacity mode — the same model and map at K=262144
 (BASELINE config #5; ``bench.py``'s ``rng_exact_K262144`` and
 ``rng_exact_ou_K262144``), gaussian and OU (theta 0.15) exploration drawn
-inside the kernels — and checks every CUDA kernel of both paths against its
-plain PyTorch version.  Phases (any failure exits non-zero):
+inside the kernels — and the neural-field costmap path — the same model on
+a 34-64-64-1 field fitted to that map on the card (``bench.py``'s
+``neural_K65536`` and ``rng_K262144``) — and checks every CUDA kernel of
+the three paths against its plain PyTorch version.  Phases (any failure
+exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc) and require zero spill bytes in every kernel (ptxas -v);
+   (one nvcc), require six kernels and zero spill bytes in every one
+   (ptxas -v);
 2. kernel A (fused rollout + exact cost) against its plain version at
    K=1920, T=100 in four cases: nominal start, wide swarm (exploration
    std x4), NaN x coordinate, and a fine random map on which the crash
@@ -41,7 +45,25 @@ plain PyTorch version.  Phases (any failure exits non-zero):
 10. timing of both passes at K=262144 against their plain versions and
     bounds, of kernel A at the same K, and of whole solves at K=262144 in
     the capacity and the host-noise modes; a torch.profiler trace of 20
-    capacity-mode ticks.
+    capacity-mode ticks;
+11. the field: ``drive_oval.build(neural_costmap=True)`` fits it on the
+    card with ``fit_neural_costmap``'s defaults (seconds, mae, flip rate);
+    kernel 3 (fused rollout + field cost) against its plain version at
+    K=65536, T=100 in four cases: nominal, wide swarm, NaN x, and a
+    seeded random field whose values cross the 0.65 boundary (costs
+    rtol 1e-4 / atol 1e-3 and crash flags equal in every rollout in the
+    nominal case, in all but 1 % elsewhere; u_seq exactly);
+12. pass 1 in field mode against its plain version at K=262144, the same
+    cases, gaussian and OU, and bit for bit against kernel 3 fed the plain
+    stream;
+13. the field path closed-loop: 100 ticks at K=65536 in the host-noise
+    mode and 50 ticks at K=262144 in the capacity mode, launch counters
+    reset before and read after each (1 kernel 3 and 1 kernel B per
+    host-noise solve; 1 field pass 1, 1 pass 2 and 1 kernel B per capacity
+    solve; nothing else), and no plain version called;
+14. timing of kernel 3 and of pass 1's field mode against their plain
+    versions and bounds, beside kernel A and exact pass 1 at the same K;
+    whole field solves; torch.profiler traces of 10 ticks of each mode.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -102,6 +124,13 @@ STREAM_OPS, OU_OPS = 148, 6
 # the reduction (2 add)
 UPDATE_OPS = 8
 
+# The neural-field path (bench.py's neural_K65536 and rng_K262144): kernel 3
+# in the host-noise mode at K=65536, pass 1's field mode at K=262144.
+KF = 65536
+FIELD_TICKS = 100
+FIELD_CAP_TICKS = 50
+FIELD_PROFILE_TICKS = 10
+
 
 class PhaseFailed(Exception):
     pass
@@ -144,6 +173,15 @@ def mlp_flops(layers) -> int:
     """fp32 operations of one rollout-step: MLP multiply-adds and bias adds,
     plus the 7-component Euler update."""
     return sum(2 * a * b + b for a, b in zip(layers[:-1], layers[1:])) + 14
+
+
+def field_eval_ops(layers, num_freqs: int) -> int:
+    """Operations of one field evaluation: the MLP's multiply-adds and bias
+    adds, the transform (6 products, 6 sums, 2 quotients), the 2F angle
+    products and the 4F sines and cosines, each counted as one operation
+    (which keeps the bound a lower bound)."""
+    return (sum(2 * a * b + b for a, b in zip(layers[:-1], layers[1:]))
+            + 14 + 6 * num_freqs)
 
 
 def bound(nbytes: float, flops: float):
@@ -268,8 +306,9 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
                       f"{n_differ} rollouts differ from the plain version, "
                       f"more than {KC // 100}")
                 kb, _ = rk.dynamics_chain(model, params, c, s0, U, eps)
-                pc, px = rk.exact_cost_plain(model, params, c, cost_params,
-                                             cmap, U, eps, kb)
+                pc, px = rk.trajectory_cost_plain(model, params, c,
+                                                  cost_params, cmap, U, eps,
+                                                  kb)
                 del kb
                 check(0 < px.sum().item() < KC, f"pass 1 {sname} random_map:"
                       " crash flags do not differ between rollouts")
@@ -452,6 +491,297 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
     return kernels, latency
 
 
+def random_field(field, model, params, cfg, start, U, seed: int = 1):
+    """A field of the fitted field's spec and transform with seeded
+    He-normal weights, its output rescaled to a standard deviation of 0.25
+    over the map and shifted so that the 0.65 crash boundary lies at the
+    median of the highest value that each of 2048 rollouts from ``start``
+    under ``cfg`` meets (plain chain and plain lookups, on noise of their
+    own): about half of the checked rollouts crash, at different steps."""
+    import torch
+    from autorally_tpu_torch.costs import NeuralCostmap
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    dev = field.device
+    rs = np.random.default_rng(seed)
+    layers = field.layers
+    W = [np.sqrt(2.0 / a) * rs.standard_normal((a, b))
+         for a, b in zip(layers[:-1], layers[1:])]
+    B = [0.1 * rs.standard_normal(b) for b in layers[1:]]
+    build = lambda: NeuralCostmap.build(W, B, field.freqs.cpu(),
+                                        field.r_c1.cpu(), field.r_c2.cpu(),
+                                        field.trs.cpu(), device=dev)
+    g = torch.linspace(0, 1, 201, device=dev)
+    uu, vv = torch.meshgrid(g, g, indexing="xy")
+    sd = build().forward_norm(uu.reshape(-1), vv.reshape(-1)).std().item()
+    W[-1], B[-1] = W[-1] * (0.25 / sd), B[-1] * (0.25 / sd)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    eps = torch.randn((U.shape[0], 2048, 2), generator=gen, device=dev)
+    states, _ = rk.dynamics_chain_plain(model, params, cfg, start, U, eps)
+    x, y, yaw = states[0, :-1], states[1, :-1], states[2, :-1]   # s_1..s_T-1
+    hx, hy = 0.5 * torch.cos(yaw), 0.5 * torch.sin(yaw)
+    f = build()
+    peak = torch.maximum(f.lookup_ch0(x + hx, y + hy),
+                         f.lookup_ch0(x - hx, y - hy)).amax(dim=0)
+    B[-1] = B[-1] + (0.65 - torch.median(peak).item())
+    return build()
+
+
+class PlainCalls:
+    """Counts calls of the plain versions while active (each wrapper looks
+    its plain version up in the module at call time), to show that a run
+    on the card never took one."""
+
+    NAMES = ("fused_rollout_cost_plain", "trajectory_cost_plain",
+             "dynamics_chain_plain", "fused_rng_costs_plain",
+             "fused_rng_numer_plain")
+
+    def __init__(self, rk):
+        self.rk, self.calls = rk, dict.fromkeys(self.NAMES, 0)
+
+    def __enter__(self):
+        self.saved = {n: getattr(self.rk, n) for n in self.NAMES}
+        for n, fn in self.saved.items():
+            def counted(*a, _n=n, _fn=fn, **kw):
+                self.calls[_n] += 1
+                return _fn(*a, **kw)
+            setattr(self.rk, n, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.rk, n, fn)
+
+
+def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
+                 edge_start, nan_start, slow_start, card):
+    """Phases 11-14: the neural-field costmap path, kernel 3 at K=65536 and
+    pass 1's field mode at K=262144.  Returns the two kernels' ``kernels``
+    entries and the field solves' latencies."""
+    import torch
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    dev = U.device
+    T_ = U.shape[0]
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+
+    # -- the field, fitted on the card through the entry point ---------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, _, _, field, note = drive_oval.build(
+        rollouts=KF, device=dev, neural_costmap=True)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    print(f"[field] drive_oval.build(neural_costmap=True) with "
+          f"fit_neural_costmap's defaults (4000 Adam steps, batch 16384): "
+          f"{fit_s:.3f} s ({card}); {note.splitlines()[-1]}; layers "
+          f"{field.layers}")
+    check(field.layers == rk.FIELD_KERNEL_LAYERS, f"field layers "
+          f"{field.layers}, kernels compiled for {rk.FIELD_KERNEL_LAYERS}")
+    # the same seeded weights as the main path (both built from seed 0)
+    for w, hw in zip(params["weights"], host.model.params()["weights"]):
+        check(torch.equal(w, hw), "the field solver's weights differ")
+    cfg = host.cfg
+    wide = cfg.replace(steering_std=4 * cfg.steering_std,
+                       throttle_std=4 * cfg.throttle_std)
+    cases = {
+        "nominal": (cfg, start, field),
+        "wide_swarm": (wide, edge_start, field),
+        "nan_x": (cfg, nan_start, field),
+        "random_field": (wide, slow_start, random_field(
+            field, model, params, wide, slow_start, U)),
+    }
+
+    def agreement(tag, name, kc, kx, pc, px, n):
+        """Costs within COST_RTOL/COST_ATOL and equal crash flags: in
+        every rollout in the nominal case, in all but 1 % elsewhere (a
+        field value within rounding of the boundary can latch on one side
+        only).  Returns the max cost error over rollouts with equal
+        flags."""
+        same = kx == px
+        near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
+        n_differ = int((~near | ~same).sum().item())
+        n_crash = int((~same).sum().item())
+        err = (kc - pc)[same].abs().max().item()
+        limit = 0 if name == "nominal" else n // 100
+        print(f"[{tag}] {name}: max|cost err| {err:.3e} over rollouts with "
+              f"equal crash flags (cost range {pc.min().item():.4g}.."
+              f"{pc.max().item():.4g}), crash {int(px.sum().item())}/{n}, "
+              f"crash mismatches {n_crash}, {n_differ} rollouts differ "
+              f"(limit {limit})")
+        check(torch.isfinite(kc).all().item(), f"{tag} {name}: non-finite")
+        check(n_differ <= limit, f"{tag} {name}: {n_differ} rollouts differ "
+              f"from the plain version, limit {limit}")
+        if name == "random_field":
+            check(0 < px.sum().item() < n, f"{tag} random_field: crash "
+                  "flags do not differ between rollouts")
+        return err
+
+    # -- phase 11: kernel 3 against its plain version ------------------------
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    eps = torch.randn((T_, KF, 2), generator=gen, device=dev)
+    err_3 = 0.0
+    for name, (ccfg, s0, f) in cases.items():
+        kc, ku, kx = rk.fused_rollout_cost(model, params, ccfg, cost_params,
+                                           f, s0, U, eps)
+        pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
+                                                 cost_params, f, s0, U, eps)
+        torch.cuda.synchronize()
+        err_3 = max(err_3, agreement(f"kernel 3 K={KF}", name, kc, kx, pc,
+                                     px, KF))
+        check(torch.equal(ku, pu), f"kernel 3 {name}: u_seq differs")
+        del kc, ku, pc, pu
+    del eps
+
+    # -- phase 12: pass 1 in field mode against its plain version ------------
+    # and bit for bit against kernel 3 fed the plain stream (the same step
+    # body and the same stream)
+    err_p1 = 0.0
+    for sname, kw in SAMPLERS.items():
+        for name, (ccfg, s0, f) in cases.items():
+            c = ccfg.replace(num_rollouts=KC, kernel_rng=True, **kw)
+            kc, kx, ctx = rk.fused_rng_costs(model, params, c, cost_params,
+                                             f, s0, U, key)
+            pc, px, _ = rk.fused_rng_costs_plain(model, params, c,
+                                                 cost_params, f, s0, U, key)
+            ac, _, ax = rk.fused_rollout_cost(model, params, c, cost_params,
+                                              f, s0, U, rk.rng_noise(ctx))
+            torch.cuda.synchronize()
+            same_as_3 = torch.equal(kc, ac) and torch.equal(kx, ax)
+            err_p1 = max(err_p1, agreement(
+                f"pass 1 field {sname} K={KC}", name, kc, kx, pc, px, KC))
+            print(f"[pass 1 field] {sname} {name}: equal to kernel 3 on the "
+                  f"plain stream: {same_as_3}")
+            check(same_as_3, f"pass 1 field {sname} {name}: differs from "
+                  "kernel 3 on the plain stream")
+            del kc, pc, ac
+
+    # -- phase 13: the field path closed-loop --------------------------------
+    cap = MPPISolver(host.model, host.cost, cfg.replace(
+        num_rollouts=KC, kernel_rng=True), device=dev)
+    check(not host._use_kernel_rng(field) and cap._use_kernel_rng(field),
+          "field solvers: wrong mode")
+    counters = {"fused_rollout_cost": (rk.fused_rollout_cost, "launches"),
+                "fused_rng_costs field": (rk.fused_rng_costs,
+                                          "field_launches"),
+                "fused_rng_costs exact": (rk.fused_rng_costs, "launches"),
+                "fused_rng_numer": (rk.fused_rng_numer, "launches"),
+                "dynamics_chain": (rk.dynamics_chain, "launches"),
+                "fused_exact_rollout_cost": (rk.fused_exact_rollout_cost,
+                                             "launches")}
+    runs = {"host-noise": (host, FIELD_TICKS, {
+                "fused_rollout_cost": 1, "dynamics_chain": 1}),
+            "capacity": (cap, FIELD_CAP_TICKS, {
+                "fused_rng_costs field": 1, "fused_rng_numer": 1,
+                "dynamics_chain": 1})}
+    latency, launches = {}, {}
+    for label, (s, ticks, per_solve) in runs.items():
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        with PlainCalls(rk) as plain:
+            out = drive_oval.drive(s, params, cost_params, field, ticks,
+                                   log=lambda m: print(f"[field path] {m}"))
+        got = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
+        st, stats = out["solve_ms"], out["stats"]
+        latency[label] = (float(np.percentile(st, 50)),
+                          float(np.percentile(st, 99)))
+        print(f"[field path] {label} K={s.cfg.num_rollouts} {ticks} ticks: "
+              f"solve latency p50 {latency[label][0]:.3f} ms p99 "
+              f"{latency[label][1]:.3f} ms (slide + solve + control "
+              f"readback, host clock; {card}); ess {stats.ess.item():.1f}, "
+              f"crash% {stats.crash_frac.item() * 100:.1f}; launches {got}; "
+              f"plain-version calls {plain.calls}")
+        check(np.isfinite(out["controls"]).all(), f"field {label}: "
+              "non-finite controls")
+        want = {n: per_solve.get(n, 0) * (ticks + 1) for n in counters}
+        check(got == want, f"field {label}: launches {got}, expected {want}")
+        check(not any(plain.calls.values()), f"field {label}: a plain "
+              f"version ran on the card: {plain.calls}")
+        launches[label] = got
+
+    # -- phase 14: timing ----------------------------------------------------
+    flops_step = mlp_flops(model.layers)
+    n_w = sum(a * b + b for a, b in zip(model.layers[:-1], model.layers[1:]))
+    field_ops = field_eval_ops(field.layers, field.freqs.numel())
+    n_f = rk.FIELD_NUM_WEIGHTS
+    eps = torch.randn((T_, KF, 2), generator=gen, device=dev)
+    launch_3, _ = rk.prepare_fused_rollout_cost(model, params, cfg,
+                                                cost_params, field, start, U,
+                                                eps)
+    launch_a, _ = rk.prepare_fused_exact_rollout_cost(
+        model, params, cfg, cost_params, costmap, start, U, eps)
+    ms_3 = cuda_ms(launch_3, 10)
+    ms_a = cuda_ms(launch_a, 10)
+    plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+        model, params, cfg, cost_params, field, start, U, eps), 3, 1)
+    # eps read, u_seq, costs and crash written, the weights, the field,
+    # U, the state and the control ranges read once
+    bytes_3 = 4 * (3 * T_ * KF * 2 + 2 * KF + T_ * 2 + n_w + n_f + 7 + 4)
+    ops_3 = KF * (T_ * flops_step + (T_ - 1) * 2 * field_ops)
+    bound_3 = bound(bytes_3, ops_3)
+    print(f"[timing] kernel 3 fused_rollout_cost K={KF} T={T_}: "
+          f"{ms_3:.4f} ms, plain {plain_3:.3f} ms, bound {bound_3[0]:.4f} ms "
+          f"({bound_3[1]}; {ops_3 / 1e9:.1f} GFLOP, {bytes_3 / 1e6:.1f} MB); "
+          f"kernel A on the exact map at the same K: {ms_a:.4f} ms, field / "
+          f"exact {ms_3 / ms_a:.2f}x ({card})")
+    del eps, launch_3, launch_a
+
+    times = {}
+    for sname, kw in SAMPLERS.items():
+        c = cfg.replace(num_rollouts=KC, kernel_rng=True, **kw)
+        ou = OU_OPS if sname == "ou" else 0
+        launch_f, _, _ = rk.prepare_fused_rng_costs(
+            model, params, c, cost_params, field, start, U, key)
+        launch_e, _, _ = rk.prepare_fused_rng_costs(
+            model, params, c, cost_params, costmap, start, U, key)
+        check((launch_f.mode, launch_e.mode) == ("field", "exact"),
+              "pass 1 modes")
+        ms_f = cuda_ms(launch_f, 5)
+        ms_e = cuda_ms(launch_e, 5)
+        plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
+            model, params, c, cost_params, field, start, U, key), 2, 1)
+        bytes_f = 4 * (2 * KC + T_ * 2 + n_w + n_f + 7 + 4) + 16
+        ops_f = KC * (T_ * (flops_step + STREAM_OPS + ou)
+                      + (T_ - 1) * 2 * field_ops)
+        bound_f = bound(bytes_f, ops_f)
+        times[sname] = (ms_f, plain_f, bound_f)
+        print(f"[timing] pass 1 field fused_rng_costs {sname} K={KC} "
+              f"T={T_}: {ms_f:.4f} ms, plain {plain_f:.3f} ms, bound "
+              f"{bound_f[0]:.4f} ms ({bound_f[1]}; {ops_f / 1e9:.1f} GOP, "
+              f"{bytes_f / 1e6:.2f} MB); pass 1 on the exact map at the same "
+              f"K: {ms_e:.4f} ms, field / exact {ms_f / ms_e:.2f}x ({card})")
+    for label, s in (("host-noise K=%d" % KF, host), ("capacity K=%d" % KC,
+                                                      cap)):
+        cs = s.init_state()
+        ms = cuda_ms(lambda: s.solve(params, cost_params, field, start, cs),
+                     5, 1)
+        print(f"[timing] whole field solve, {label} T={T_}: {ms:.4f} ms "
+              f"(CUDA events; {card})")
+    profile_ticks(drive_oval, host, params, cost_params, field, card,
+                  ticks=FIELD_PROFILE_TICKS, tag="field profile")
+    profile_ticks(drive_oval, cap, params, cost_params, field, card,
+                  ticks=FIELD_PROFILE_TICKS, tag="field capacity profile")
+
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    ms_f, plain_f, bound_f = times["gaussian"]
+    kernels = [
+        {"name": "fused_rollout_cost", "route": "cuda", "source": src,
+         "replaces": "autorally_tpu/ops/rollout_kernel.py:606",
+         "launches": launches["host-noise"]["fused_rollout_cost"],
+         "max_abs_err": err_3, "ms": ms_3, "plain_ms": plain_3,
+         "bound_ms": bound_3[0], "bound_by": bound_3[1], "library_ms": None},
+        {"name": "fused_rng_costs_field", "route": "cuda", "source": src,
+         "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
+         "launches": launches["capacity"]["fused_rng_costs field"],
+         "max_abs_err": err_p1, "ms": ms_f, "plain_ms": plain_f,
+         "bound_ms": bound_f[0], "bound_by": bound_f[1], "library_ms": None},
+    ]
+    return kernels, latency
+
+
 def main() -> int:
     import torch
 
@@ -499,8 +829,8 @@ def main() -> int:
         for name, regs, spill in report:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
-        check(len(report) == 4, f"ptxas reported {len(report)} kernels, "
-              "expected 4")
+        check(len(report) == 6, f"ptxas reported {len(report)} kernels, "
+              "expected 6")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
     print(f"[build] total {build_s:.1f}s ({card})")
 
@@ -545,7 +875,7 @@ def main() -> int:
     for name, (ccfg, s0, cmap) in cases.items():
         kc, ku, kx = rk.fused_exact_rollout_cost(
             model, params, ccfg, cost_params, cmap, s0, U, eps)
-        pc, pu, px = rk.fused_exact_rollout_cost_plain(
+        pc, pu, px = rk.fused_rollout_cost_plain(
             model, params, ccfg, cost_params, cmap, s0, U, eps)
         note = ""
         if name == "random_map":
@@ -558,8 +888,8 @@ def main() -> int:
                   f"{n_differ} rollouts differ from the plain version, more "
                   f"than {MAX_RANDOM_MAP_DIFFER}")
             kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, eps)
-            pc, px = rk.exact_cost_plain(model, params, ccfg, cost_params,
-                                         cmap, U, eps, kb)
+            pc, px = rk.trajectory_cost_plain(model, params, ccfg,
+                                              cost_params, cmap, U, eps, kb)
             check(0 < px.sum().item() < K, "A random_map: crash flags do "
                   "not differ between rollouts")
         torch.cuda.synchronize()
@@ -641,7 +971,7 @@ def main() -> int:
     launch_a, _ = rk.prepare_fused_exact_rollout_cost(
         model, params, cfg, cost_params, costmap, start, U, eps)
     ms_a = cuda_ms(launch_a, 100)
-    plain_a = cuda_ms(lambda: rk.fused_exact_rollout_cost_plain(
+    plain_a = cuda_ms(lambda: rk.fused_rollout_cost_plain(
         model, params, cfg, cost_params, costmap, start, U, eps), 10)
     bytes_a = 4 * (T * K * 2 + 2 * T * K + 2 * K + T * 2 + n_w + 7 + 4
                    + 2 * K * (T - 1))        # + one texel per front/back lookup
@@ -666,6 +996,11 @@ def main() -> int:
         drive_oval, solver, params, cost_params, costmap, cases, U, start,
         (cpu_solver, cpu_params, None, cpu_map), card)
 
+    # -- phases 11-14: the neural-field costmap path -------------------------
+    field_kernels, field_latency = field_phases(
+        drive_oval, model, params, cost_params, costmap, U, start,
+        edge_start, nan_start, slow_start, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -678,10 +1013,11 @@ def main() -> int:
          "launches": launches["dynamics_chain"],
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None},
-    ] + cap_kernels
+    ] + cap_kernels + field_kernels
     print(json.dumps({"kernels": kernels, "card": card,
                       "solve_ms_p50_p99": results["latency"],
-                      "capacity_solve_ms_p50_p99": cap_latency}))
+                      "capacity_solve_ms_p50_p99": cap_latency,
+                      "field_solve_ms_p50_p99": field_latency}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
