@@ -28,6 +28,7 @@ _ASSETS = os.environ.get(
     os.path.join("autorally_control", "src", "path_integral", "params",
                  "models"))
 REFERENCE_NN_NPZ = os.path.join(_ASSETS, "autorally_nnet_09_12_2018.npz")
+REFERENCE_BF_NPZ = os.path.join(_ASSETS, "basis_function_09_12_2018.npz")
 
 
 def resolve_device(device=None) -> torch.device:
@@ -61,8 +62,8 @@ class CostParams:
     throttle_coeff: float = 0.0
     boundary_threshold: float = 0.65
     discount: float = 0.1
-    # Live obstacle positions for ObstacleCost (not ported yet; must stay
-    # None on the port's solve path).
+    # Live obstacle circles for ObstacleCost (costs/obstacles.py): when set,
+    # they override the cost's own array on every solve.
     obstacles: Any = None
     # Runtime softmax-temperature override; None uses MPPIConfig.gamma.
     gamma: Any = None

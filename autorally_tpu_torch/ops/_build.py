@@ -30,16 +30,18 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # every int as c_int, every float as c_float; every function returns an int.
 SIGNATURES = {
     "artt_num_weights": [],
+    "artt_num_bf_weights": [],
     "artt_num_field_weights": [],
+    "artt_max_obstacles": [],
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
     "artt_update_block": [],
-    "artt_fused_exact_rollout_cost": [_P, _P, _I] + [_P] * 10,
-    "artt_fused_field_rollout_cost": [_P, _P, _I] + [_P] * 10,
+    "artt_fused_exact_rollout_cost": [_P, _P, _I] + [_P] * 11,
+    "artt_fused_field_rollout_cost": [_P, _P, _I] + [_P] * 11,
     "artt_dynamics_chain": [_P, _P, _I] + [_P] * 8,
     # fsc, isc, k_offset, ou_a, ou_b, device, then device pointers + stream
-    "artt_fused_rng_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 9,
-    "artt_fused_rng_field_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 9,
+    "artt_fused_rng_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,
+    "artt_fused_rng_field_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,
     "artt_weighted_update": [_P, _P, _I, _F, _F, _I] + [_P] * 5,
 }
 

@@ -22,16 +22,28 @@ solver runs:
   T x K reaches device memory; :func:`fused_rng_solve_iteration` composes
   them into one MPPI iteration.
 
+The kernels evaluate either model of the JAX package's kernels: the
+6-32-32-4 ``NeuralNetDynamics`` or the 25-function
+``BasisFunctionDynamics`` (``_bf_deriv``), each its own instance of every
+kernel; and the fused kernels (A, 3, pass 1) price the circles of an
+``ObstacleCost`` (``_make_obstacle_terms``) when the caller passes
+``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
+package's wrappers take them.
+
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
-launches in ``<wrapper>.launches``.  Layouts are those of the JAX package's
-public functions: eps (T, K, C) in, u_seq (C, T, K), states (S, T, K),
-costs and crash (K,) out, the capacity mode's numerator (C, T).
+launches in :data:`LAUNCHES` by instance: the wrapper's name for the MLP
+without obstacles, with ``_bf``, ``_obstacles`` or ``_bf_obstacles`` for
+the others (``fused_rng_costs_field*`` for pass 1's field mode).  Layouts
+are those of the JAX package's public functions: eps (T, K, C) in, u_seq
+(C, T, K), states (S, T, K), costs and crash (K,) out, the capacity mode's
+numerator (C, T).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 from typing import NamedTuple, Optional, Tuple
@@ -43,6 +55,9 @@ from autorally_tpu_torch.config import effective_gamma
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
+from autorally_tpu_torch.costs.obstacles import obstacle_terms
+from autorally_tpu_torch.models.basis_function import (NUM_BFS,
+                                                       BasisFunctionDynamics)
 from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
 from autorally_tpu_torch.ops import _build
 from autorally_tpu_torch.ops.kernel_rng import kernel_noise
@@ -52,14 +67,20 @@ from autorally_tpu_torch.ops.sampling import ou_coefficients
 KERNEL_LAYERS = (6, 32, 32, 4)
 KERNEL_NUM_WEIGHTS = sum(a * b + b for a, b in zip(KERNEL_LAYERS[:-1],
                                                     KERNEL_LAYERS[1:]))
+# The basis-function form's weights: theta^T (4, 25) (csrc kNumBfs).
+KERNEL_BF_WEIGHTS = NUM_BFS * 4
 # The field spec the field kernels are compiled for (csrc kFreqs, kFieldIn,
 # kFieldH1, kFieldH2): fit_neural_costmap's default, F = 8, hidden (64, 64).
 FIELD_KERNEL_LAYERS = (34, 64, 64, 1)
 FIELD_KERNEL_FREQS = 8
 FIELD_NUM_WEIGHTS = sum(a * b + b for a, b in zip(
     FIELD_KERNEL_LAYERS[:-1], FIELD_KERNEL_LAYERS[1:])) + FIELD_KERNEL_FREQS
-# Dynamic shared memory holds the weights and U (T x 2), and the field in
-# the field kernels; stay under the 48 KB a launch gets without opting in.
+# Circles the fused kernels stage in shared memory (csrc kMaxObstacles).
+MAX_OBSTACLES = 64
+# Dynamic shared memory holds the weights, U (T x 2) and up to
+# MAX_OBSTACLES circles, and the field in the field kernels; stay under the
+# 48 KB a launch gets without opting in (the MLP field kernels at T = 2048
+# with 64 circles: 48,704 bytes).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
 
@@ -70,8 +91,9 @@ _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
                   "desired_speed", "speed_coeff", "track_coeff",
                   "max_slip_ang", "slip_penalty", "track_slop", "crash_coeff",
                   "steering_coeff", "throttle_coeff", "boundary_threshold",
-                  "discount")
-_INT_SCALARS = ("T", "K", "k0_flag", "negate_yaw_der", "H", "W", "l1_cost")
+                  "discount", "obstacle_coeff", "inflation")
+_INT_SCALARS = ("T", "K", "k0_flag", "negate_yaw_der", "bf", "H", "W",
+                "l1_cost", "n_obs")
 # Rollouts per block of the pass-2 kernel (csrc kUpdateBlock): each block
 # writes one (C, T) partial numerator.
 UPDATE_BLOCK = 256
@@ -112,14 +134,19 @@ def _control_rngs(model_params, C: int) -> torch.Tensor:
 
 
 def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
-                   costmap=None, l1_cost: bool = False) -> Tuple[list, list]:
+                   costmap=None, l1_cost: bool = False, n_obs: int = 0,
+                   obstacle_coeff: float = 0.0,
+                   inflation: float = 1.0) -> Tuple[list, list]:
     """The kernels' host scalars (floats, ints) in the order of
     ``_FLOAT_SCALARS`` / ``_INT_SCALARS``; the cost entries are 0 for the
-    chain kernel (no ``cost_params``), H and W 0 for a neural field."""
+    chain kernel (no ``cost_params``), H and W 0 for a neural field;
+    ``bf`` picks the kernels' basis-function instance, ``n_obs`` is the
+    number of circle slots (0: no obstacle terms)."""
     nu0, nu1 = (float(np.float32(v)) for v in cfg.exploration_std)
     floats = [nu0, nu1, float(cfg.optimization_stride),
               _pure_thresh(cfg, k_offset), float(np.float32(model.dt))]
-    ints = [T, K, int(int(k_offset) == 0), int(model.negate_yaw_der)]
+    ints = [T, K, int(int(k_offset) == 0), int(model.negate_yaw_der),
+            int(type(model) is BasisFunctionDynamics)]
     if cost_params is None:
         floats += [0.0] * (len(_FLOAT_SCALARS) - len(floats))
         ints += [0] * (len(_INT_SCALARS) - len(ints))
@@ -129,10 +156,11 @@ def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
         float(np.float32(v)) for v in (
             p.desired_speed, p.speed_coeff, p.track_coeff, p.max_slip_ang,
             p.slip_penalty, p.track_slop, p.crash_coeff, p.steering_coeff,
-            p.throttle_coeff, p.boundary_threshold, p.discount)]
+            p.throttle_coeff, p.boundary_threshold, p.discount,
+            obstacle_coeff, inflation)]
     H, W = ((costmap.height, costmap.width) if type(costmap) is Costmap
             else (0, 0))
-    ints += [H, W, int(bool(l1_cost))]
+    ints += [H, W, int(bool(l1_cost)), int(n_obs)]
     return floats, ints
 
 
@@ -142,10 +170,11 @@ def _kernel_lib() -> ctypes.CDLL:
     packs."""
     lib = _build.load()
     built = (lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
-             lib.artt_num_weights(), lib.artt_num_field_weights(),
+             lib.artt_num_weights(), lib.artt_num_bf_weights(),
+             lib.artt_num_field_weights(), lib.artt_max_obstacles(),
              lib.artt_update_block())
     want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
-            FIELD_NUM_WEIGHTS, UPDATE_BLOCK)
+            KERNEL_BF_WEIGHTS, FIELD_NUM_WEIGHTS, MAX_OBSTACLES, UPDATE_BLOCK)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -154,17 +183,18 @@ def _kernel_lib() -> ctypes.CDLL:
 
 def has_kernel_form(model) -> bool:
     """Whether the CUDA kernels can evaluate ``model``'s dynamics."""
-    return (type(model) is NeuralNetDynamics
-            and model.layers == KERNEL_LAYERS)
+    return (type(model) is BasisFunctionDynamics
+            or (type(model) is NeuralNetDynamics
+                and model.layers == KERNEL_LAYERS))
 
 
 def _check_kernel_model(model) -> None:
-    if type(model) is not NeuralNetDynamics:
+    if type(model) not in (NeuralNetDynamics, BasisFunctionDynamics):
         raise NotImplementedError(
-            f"{type(model).__name__} has no CUDA kernel form yet: the port's "
-            "kernels evaluate NeuralNetDynamics only (ROADMAP.md, Queue 1 "
-            "item 2 and Queue 2: the basis-function form)")
-    if model.layers != KERNEL_LAYERS:
+            f"{type(model).__name__} has no CUDA kernel form: the port's "
+            "kernels evaluate NeuralNetDynamics and BasisFunctionDynamics "
+            "(ROADMAP.md, Queue 1)")
+    if type(model) is NeuralNetDynamics and model.layers != KERNEL_LAYERS:
         raise NotImplementedError(
             f"the CUDA kernels are compiled for layers {KERNEL_LAYERS}, got "
             f"{model.layers} (ROADMAP.md, Queue 2: other layer specs)")
@@ -229,13 +259,63 @@ def _cached_pack(owner, src, pack) -> torch.Tensor:
 
 
 def _pack_weights(model, model_params) -> torch.Tensor:
-    """The kernels' weight buffer: (out, in) panels and biases, flattened
-    in layer order (1,412 floats for 6-32-32-4), packed once per set of
-    weight tensors."""
+    """The kernels' weight buffer, ``kernel_weights`` flattened in order:
+    for the MLP the (out, in) panels and biases in layer order (1,412
+    floats for 6-32-32-4), for the BF model theta^T (4, 25), row-major
+    (100 floats).  Packed once per set of weight tensors."""
+    src = ((model_params["theta"],) if type(model) is BasisFunctionDynamics
+           else (*model_params["weights"], *model_params["biases"]))
     return _cached_pack(
-        model, (*model_params["weights"], *model_params["biases"]),
-        lambda: torch.cat([w.reshape(-1) for w in model.kernel_weights(
-            model_params)]))
+        model, src, lambda: torch.cat([w.reshape(-1) for w in
+                                       model.kernel_weights(model_params)]))
+
+
+def _obstacle_circles(cost_params, obstacles) -> Optional[torch.Tensor]:
+    """The circles to price, (N, 3) float32 as given (any device), or None
+    without obstacle terms.  ``CostParams.obstacles`` without obstacle terms
+    is refused rather than dropped: an ``ObstacleCost`` picks the circles
+    and passes them with its coefficients (``ObstacleCost.kernel_kwargs``)."""
+    if obstacles is None:
+        if cost_params.obstacles is not None:
+            raise NotImplementedError(
+                "CostParams.obstacles is set but no obstacle terms were "
+                "passed: circles are priced only through an ObstacleCost "
+                "(obstacles=, obstacle_coeff=, inflation=; "
+                "ObstacleCost.kernel_kwargs)")
+        return None
+    circles = torch.as_tensor(obstacles, dtype=torch.float32)
+    if circles.dim() != 2 or circles.shape[1] != 3:
+        raise ValueError(f"obstacles must be (N, 3) [x, y, radius], got "
+                         f"{tuple(circles.shape)}")
+    return circles
+
+
+def _obstacle_launch(circles: Optional[torch.Tensor], dev):
+    """(n_obs, packed) for a fused kernel: the circles as [x..., y...,
+    radius...] (3 N,) float32 on ``dev``, copied anew for every launch so
+    that a live update is never served from a stale copy; (0, None)
+    without obstacle terms."""
+    if circles is None:
+        return 0, None
+    n = circles.shape[0]
+    if n > MAX_OBSTACLES:
+        raise ValueError(f"the CUDA kernels stage at most {MAX_OBSTACLES} "
+                         f"obstacle slots, got {n}")
+    packed = torch.empty((3, n), dtype=torch.float32, device=dev)
+    packed.copy_(circles.t())
+    return n, packed.reshape(-1)
+
+
+# Kernel launches by instance name (the wrapper's name, ``_field`` for pass
+# 1's field mode, then ``_form``'s suffix), counted where a wrapper launches.
+LAUNCHES = collections.Counter()
+
+
+def _form(model, n_obs: int) -> str:
+    """The suffix of a kernel instance's name: ``_bf`` for the BF model,
+    ``_obstacles`` with circle slots."""
+    return (("_bf" if type(model) is BasisFunctionDynamics else "")
+            + ("_obstacles" if n_obs else ""))
 
 
 def _pack_field(field: NeuralCostmap) -> torch.Tensor:
@@ -298,22 +378,28 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
 
 def fused_rollout_cost_plain(model, model_params, cfg, cost_params, surface,
                              state, U, eps, l1_cost: bool = False,
-                             k_offset=0):
+                             k_offset=0, obstacles=None,
+                             obstacle_coeff: float = 0.0,
+                             inflation: float = 1.0):
     """Plain PyTorch version of the fused kernels, on either surface (a
-    ``Costmap`` for kernel A, a ``NeuralCostmap`` for kernel 3): the
-    dynamics chain (:func:`dynamics_chain_plain`), then the kernels'
-    per-step cost rules along it (:func:`trajectory_cost_plain`).
+    ``Costmap`` for kernel A, a ``NeuralCostmap`` for kernel 3), either
+    model, with or without obstacle terms: the dynamics chain
+    (:func:`dynamics_chain_plain`), then the kernels' per-step cost rules
+    along it (:func:`trajectory_cost_plain`).
     Returns (costs (K,), u_seq (C, T, K) pre-clamp, crash (K,) int32)."""
     states, u_seq = dynamics_chain_plain(model, model_params, cfg, state, U,
                                          eps, k_offset=k_offset)
-    costs, crash = trajectory_cost_plain(model, model_params, cfg,
-                                         cost_params, surface, U, eps, states,
-                                         l1_cost=l1_cost, k_offset=k_offset)
+    costs, crash = trajectory_cost_plain(
+        model, model_params, cfg, cost_params, surface, U, eps, states,
+        l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
+        obstacle_coeff=obstacle_coeff, inflation=inflation)
     return costs, u_seq, crash
 
 
 def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
-                          U, eps, states, l1_cost: bool = False, k_offset=0):
+                          U, eps, states, l1_cost: bool = False, k_offset=0,
+                          obstacles=None, obstacle_coeff: float = 0.0,
+                          inflation: float = 1.0):
     """Running-average cost and crash latch of K rollouts along given
     trajectories ``states`` (S, T, K) (``states[:, t]`` after t+1 steps),
     with the fused kernels' per-step rules (``_make_cost_step`` and the
@@ -321,11 +407,14 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
     ``Costmap`` or a ``NeuralCostmap``): cost step t = 1..T-1 prices s_t
     with the controls of step t; step 0 adds nothing and never latches; the
     roll latch on s_t precedes the boundary latch and the crash cost of
-    step t.  Returns (costs (K,), crash (K,) int32)."""
+    step t.  With ``obstacles`` (N, 3), the step adds their
+    ``obstacle_terms`` at the car's centre to the track term and the latch,
+    as an ``ObstacleCost`` does.  Returns (costs (K,), crash (K,) int32)."""
     T, K, C = eps.shape
     dev = eps.device
-    cost = MPPICost(l1_cost)
+    circles = _obstacle_circles(cost_params, obstacles)
     p = cost_params
+    cost = MPPICost(l1_cost)
     nu = torch.tensor(cfg.exploration_std, dtype=torch.float32, device=dev)
     zero_rollout, pure_noise = _rollout_masks(cfg, K, k_offset, dev)
     one_minus_discount = float(np.float32(1.0) - np.float32(p.discount))
@@ -341,6 +430,10 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
                                       du[:, 0], du[:, 1], nu)
         track, crash = cost.track_cost_c(p, surface, s[:, 0], s[:, 1],
                                          s[:, 2], crash)
+        if circles is not None:
+            obst, crash = obstacle_terms(circles, obstacle_coeff, inflation,
+                                         s[:, 0], s[:, 1], crash)
+            track = track + obst
         speed = cost.speed_cost_c(p, s[:, 4])
         crash_c = one_minus_discount * cost.crash_cost(p, crash)
         stab = cost.stabilizing_cost_c(p, s[:, 4], s[:, 5])
@@ -350,16 +443,15 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
 
 
 def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
-                   surface, state, U, eps, l1_cost, k_offset):
+                   surface, state, U, eps, l1_cost, k_offset, obstacles,
+                   obstacle_coeff, inflation):
     """Validate a fused kernel's inputs (``surface`` must be a ``cls``) and
     allocate its outputs.  Returns ``(launch, (costs, u_seq, crash))``:
     each ``launch()`` runs the kernel once into those outputs on the
-    current stream (uncounted; the wrapper counts)."""
+    current stream (uncounted; the wrapper counts ``launch.name``)."""
     _expect(surface, cls, fn)
     _check_kernel_model(model)
-    if cost_params.obstacles is not None:
-        raise NotImplementedError("obstacle terms are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 3)")
+    circles = _obstacle_circles(cost_params, obstacles)
     kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
@@ -367,8 +459,10 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
         MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
+    n_obs, packed = _obstacle_launch(circles, dev)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K, cost_params,
-                                  surface, l1_cost)
+                                  surface, l1_cost, n_obs, obstacle_coeff,
+                                  inflation)
     fsc = _host_array(ctypes.c_float, floats)
     isc = _host_array(ctypes.c_int, ints)
 
@@ -383,77 +477,87 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
         err = entry(
             ctypes.addressof(fsc), ctypes.addressof(isc), dev.index or 0,
             ptrs["s0"], ptrs["rngs"], ptrs["U"], ptrs["eps"],
-            ptrs["surface"], ptrs["weights"], costs.data_ptr(),
+            ptrs["surface"], ptrs["weights"],
+            None if packed is None else packed.data_ptr(), costs.data_ptr(),
             crash.data_ptr(), u_seq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(err, fn)
 
-    launch.inputs = args                     # keeps the buffers alive
+    launch.inputs = (args, packed)           # keeps the buffers alive
+    launch.name = fn + _form(model, n_obs)
     return launch, (costs, u_seq, crash)
 
 
 def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                                      costmap: Costmap, state, U, eps,
-                                     l1_cost: bool = False, k_offset=0):
+                                     l1_cost: bool = False, k_offset=0,
+                                     obstacles=None,
+                                     obstacle_coeff: float = 0.0,
+                                     inflation: float = 1.0):
     """Kernel A's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(Costmap, "fused_exact_rollout_cost", model,
                           model_params, cfg, cost_params, costmap, state, U,
-                          eps, l1_cost, k_offset)
+                          eps, l1_cost, k_offset, obstacles, obstacle_coeff,
+                          inflation)
 
 
 def prepare_fused_rollout_cost(model, model_params, cfg, cost_params,
                                field: NeuralCostmap, state, U, eps,
-                               l1_cost: bool = False, k_offset=0):
+                               l1_cost: bool = False, k_offset=0,
+                               obstacles=None, obstacle_coeff: float = 0.0,
+                               inflation: float = 1.0):
     """Kernel 3's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(NeuralCostmap, "fused_rollout_cost", model,
                           model_params, cfg, cost_params, field, state, U,
-                          eps, l1_cost, k_offset)
+                          eps, l1_cost, k_offset, obstacles, obstacle_coeff,
+                          inflation)
 
 
 def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                              costmap: Costmap, state, U, eps,
-                             l1_cost: bool = False, k_offset=0):
+                             l1_cost: bool = False, k_offset=0,
+                             obstacles=None, obstacle_coeff: float = 0.0,
+                             inflation: float = 1.0):
     """Fused rollout + exact-costmap cost (``fused_exact_rollout_cost_pallas``).
 
     ``state`` (S,), ``U`` (T, C), ``eps`` (T, K, C) standard normal;
-    ``k_offset`` is the global index of this batch's first rollout.
+    ``k_offset`` is the global index of this batch's first rollout;
+    ``obstacles`` (N, 3) circles priced with ``obstacle_coeff`` and
+    ``inflation`` (``ObstacleCost.kernel_kwargs``), or None.
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
     _expect(costmap, Costmap, "fused_exact_rollout_cost")
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
+              obstacle_coeff=obstacle_coeff, inflation=inflation)
     if _dispatch(eps) == "plain":
-        return fused_rollout_cost_plain(
-            model, model_params, cfg, cost_params, costmap, state, U, eps,
-            l1_cost=l1_cost, k_offset=k_offset)
+        return fused_rollout_cost_plain(model, model_params, cfg,
+                                        cost_params, costmap, state, U, eps,
+                                        **kw)
     launch, out = prepare_fused_exact_rollout_cost(
-        model, model_params, cfg, cost_params, costmap, state, U, eps,
-        l1_cost=l1_cost, k_offset=k_offset)
+        model, model_params, cfg, cost_params, costmap, state, U, eps, **kw)
     launch()
-    fused_exact_rollout_cost.launches += 1
+    LAUNCHES[launch.name] += 1
     return out
-
-
-fused_exact_rollout_cost.launches = 0
 
 
 def fused_rollout_cost(model, model_params, cfg, cost_params,
                        field: NeuralCostmap, state, U, eps,
-                       l1_cost: bool = False, k_offset=0):
+                       l1_cost: bool = False, k_offset=0, obstacles=None,
+                       obstacle_coeff: float = 0.0, inflation: float = 1.0):
     """Fused rollout + neural-field cost (``fused_rollout_cost_pallas``):
     :func:`fused_exact_rollout_cost`'s contract with a ``NeuralCostmap``.
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
     _expect(field, NeuralCostmap, "fused_rollout_cost")
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
+              obstacle_coeff=obstacle_coeff, inflation=inflation)
     if _dispatch(eps) == "plain":
-        return fused_rollout_cost_plain(
-            model, model_params, cfg, cost_params, field, state, U, eps,
-            l1_cost=l1_cost, k_offset=k_offset)
+        return fused_rollout_cost_plain(model, model_params, cfg,
+                                        cost_params, field, state, U, eps,
+                                        **kw)
     launch, out = prepare_fused_rollout_cost(
-        model, model_params, cfg, cost_params, field, state, U, eps,
-        l1_cost=l1_cost, k_offset=k_offset)
+        model, model_params, cfg, cost_params, field, state, U, eps, **kw)
     launch()
-    fused_rollout_cost.launches += 1
+    LAUNCHES[launch.name] += 1
     return out
-
-
-fused_rollout_cost.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +611,7 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
         _check_launch(err, "dynamics_chain")
 
     launch.inputs = args
+    launch.name = "dynamics_chain" + _form(model, 0)
     return launch, (states, u_seq)
 
 
@@ -520,11 +625,8 @@ def dynamics_chain(model, model_params, cfg, state, U, eps, k_offset=0):
     launch, out = prepare_dynamics_chain(model, model_params, cfg, state, U,
                                          eps, k_offset=k_offset)
     launch()
-    dynamics_chain.launches += 1
+    LAUNCHES[launch.name] += 1
     return out
-
-
-dynamics_chain.launches = 0
 
 
 def nominal_trajectory(model, model_params, cfg, state, U):
@@ -551,7 +653,7 @@ class RngContext(NamedTuple):
     """What pass 2 needs to replay pass 1's noise stream (the JAX
     package's ``ctx``)."""
 
-    model: NeuralNetDynamics
+    model: object                   # NeuralNetDynamics or BF
     cfg: object
     U: torch.Tensor                 # (T, C) float32
     key: torch.Tensor               # int64 (2,): the stream's key
@@ -587,9 +689,6 @@ def _rng_context(model, cfg, cost_params, field, U, key, k_offset,
             f"kernel-RNG mode on {type(field).__name__} is not ported: the "
             "port's passes sample a Costmap or a NeuralCostmap (ROADMAP.md, "
             "Queue 1)")
-    if cost_params.obstacles is not None:
-        raise NotImplementedError("obstacle terms are not ported yet "
-                                  "(ROADMAP.md, Queue 1 item 3)")
     theta = stream_theta(cfg)
     if (key.dtype != torch.int64 or key.shape != (2,)
             or key.device != U.device):
@@ -616,7 +715,9 @@ def _stream_launch_args(ctx: RngContext):
 
 def fused_rng_costs_plain(model, model_params, cfg, cost_params, field,
                           state, U, key, l1_cost: bool = False, k_offset=0,
-                          K_local=None):
+                          K_local=None, obstacles=None,
+                          obstacle_coeff: float = 0.0,
+                          inflation: float = 1.0):
     """Plain version of pass 1, both modes: the fused kernels' plain version
     (:func:`fused_rollout_cost_plain`) on the stream.  Returns (total (K,),
     crash (K,) int32, ctx)."""
@@ -624,20 +725,25 @@ def fused_rng_costs_plain(model, model_params, cfg, cost_params, field,
                        K_local)
     costs, _, crash = fused_rollout_cost_plain(
         model, model_params, cfg, cost_params, field, state, ctx.U,
-        rng_noise(ctx), l1_cost=l1_cost, k_offset=ctx.k_offset)
+        rng_noise(ctx), l1_cost=l1_cost, k_offset=ctx.k_offset,
+        obstacles=obstacles, obstacle_coeff=obstacle_coeff,
+        inflation=inflation)
     return costs, crash, ctx
 
 
 def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
                             state, U, key, l1_cost: bool = False, k_offset=0,
-                            K_local=None):
+                            K_local=None, obstacles=None,
+                            obstacle_coeff: float = 0.0,
+                            inflation: float = 1.0):
     """Validate pass 1's inputs and allocate its outputs.  Returns
     ``(launch, (costs, crash), ctx)``; each ``launch()`` runs the kernel of
     the surface's mode (``fused_rng_kernel`` for a ``Costmap``,
     ``fused_rng_field_kernel`` for a ``NeuralCostmap``) once on the current
     stream (uncounted; the wrapper counts); ``launch.mode`` names the
-    mode."""
+    mode, ``launch.name`` the kernel instance."""
     _check_kernel_model(model)
+    circles = _obstacle_circles(cost_params, obstacles)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
     kind, buf = _surface(field)
@@ -647,8 +753,10 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
         MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
+    n_obs, packed = _obstacle_launch(circles, dev)
     floats, ints = launch_scalars(model, cfg, ctx.k_offset, T, K,
-                                  cost_params, field, l1_cost)
+                                  cost_params, field, l1_cost, n_obs,
+                                  obstacle_coeff, inflation)
     fsc = _host_array(ctypes.c_float, floats)
     isc = _host_array(ctypes.c_int, ints)
     stream_args = _stream_launch_args(ctx)
@@ -664,45 +772,44 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
             ctypes.addressof(fsc), ctypes.addressof(isc), *stream_args,
             dev.index or 0, ptrs["s0"], ptrs["rngs"], ptrs["U"],
             ctx.key.data_ptr(), ptrs["surface"], ptrs["weights"],
-            costs.data_ptr(), crash.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            None if packed is None else packed.data_ptr(), costs.data_ptr(),
+            crash.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _check_launch(err, f"fused_rng_costs ({kind})")
 
-    launch.inputs = args                     # keeps the buffers alive
+    launch.inputs = (args, packed)           # keeps the buffers alive
     launch.mode = kind
+    launch.name = ("fused_rng_costs" + ("_field" if kind == "field" else "")
+                   + _form(model, n_obs))
     return launch, (costs, crash), ctx
 
 
 def fused_rng_costs(model, model_params, cfg, cost_params, field, state, U,
-                    key, l1_cost: bool = False, k_offset=0, K_local=None):
+                    key, l1_cost: bool = False, k_offset=0, K_local=None,
+                    obstacles=None, obstacle_coeff: float = 0.0,
+                    inflation: float = 1.0):
     """Pass 1 of the capacity mode (``fused_rng_costs`` of the JAX
     package): rollout costs with the noise drawn in the kernel; nothing per
     (t, k) reaches device memory.  ``field`` is the exact ``Costmap`` or a
     ``NeuralCostmap`` (the JAX kernel's ``cost_mode`` "exact" / "field");
-    the two modes are two CUDA kernels, counted in ``launches`` and
-    ``field_launches``.
+    the two modes are two CUDA kernels, counted as ``fused_rng_costs`` and
+    ``fused_rng_costs_field`` (and their ``_bf`` / ``_obstacles`` forms);
+    ``obstacles`` as in :func:`fused_exact_rollout_cost`.
 
     ``key``: int64 (2,) on ``U``'s device, the stream's key; ``k_offset`` /
     ``K_local`` let a sharded caller run its own slice of the global batch.
     Returns (total (K,), crash (K,) int32, ctx), where ``ctx`` replays the
     same stream in :func:`fused_rng_numer`."""
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, K_local=K_local,
+              obstacles=obstacles, obstacle_coeff=obstacle_coeff,
+              inflation=inflation)
     if _dispatch(U) == "plain":
         return fused_rng_costs_plain(model, model_params, cfg, cost_params,
-                                     field, state, U, key, l1_cost=l1_cost,
-                                     k_offset=k_offset, K_local=K_local)
+                                     field, state, U, key, **kw)
     launch, (costs, crash), ctx = prepare_fused_rng_costs(
-        model, model_params, cfg, cost_params, field, state, U, key,
-        l1_cost=l1_cost, k_offset=k_offset, K_local=K_local)
+        model, model_params, cfg, cost_params, field, state, U, key, **kw)
     launch()
-    if launch.mode == "field":
-        fused_rng_costs.field_launches += 1
-    else:
-        fused_rng_costs.launches += 1
+    LAUNCHES[launch.name] += 1
     return costs, crash, ctx
-
-
-fused_rng_costs.launches = 0
-fused_rng_costs.field_launches = 0
 
 
 def fused_rng_numer_plain(ctx: RngContext, w):
@@ -758,18 +865,15 @@ def fused_rng_numer(ctx: RngContext, w):
         return fused_rng_numer_plain(ctx, w)
     launch, partials = prepare_fused_rng_numer(ctx, w)
     launch()
-    fused_rng_numer.launches += 1
+    LAUNCHES["fused_rng_numer"] += 1
     return torch.sum(partials, dim=0)
 
 
-fused_rng_numer.launches = 0
-
-
 def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
-                   field, state, U, key, l1_cost, k_offset):
+                   field, state, U, key, l1_cost, k_offset, obstacle_kw):
     total, crash, ctx = costs_fn(model, model_params, cfg, cost_params, field,
                                  state, U, key, l1_cost=l1_cost,
-                                 k_offset=k_offset)
+                                 k_offset=k_offset, **obstacle_kw)
     baseline = torch.min(total)
     w = torch.exp(-effective_gamma(cfg, cost_params) * (total - baseline))
     U_new = (numer_fn(ctx, w) / torch.sum(w)).T
@@ -778,22 +882,26 @@ def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
 
 def fused_rng_solve_iteration_plain(model, model_params, cfg, cost_params,
                                     field, state, U, key,
-                                    l1_cost: bool = False, k_offset=0):
+                                    l1_cost: bool = False, k_offset=0,
+                                    **obstacle_kw):
     """:func:`fused_rng_solve_iteration` through the plain versions of both
     passes."""
     return _rng_iteration(fused_rng_costs_plain, fused_rng_numer_plain,
                           model, model_params, cfg, cost_params, field,
-                          state, U, key, l1_cost, k_offset)
+                          state, U, key, l1_cost, k_offset, obstacle_kw)
 
 
 def fused_rng_solve_iteration(model, model_params, cfg, cost_params,
                               field, state, U, key,
-                              l1_cost: bool = False, k_offset=0):
+                              l1_cost: bool = False, k_offset=0,
+                              **obstacle_kw):
     """One MPPI iteration in the capacity mode: pass 1's costs, the softmax
     weights in PyTorch, pass 2's numerator; device-memory traffic is
     O(K + T C), independent of K T.  Runs the kernels for tensors on a
     GPU, the plain versions for tensors on the CPU (each pass counts its
-    own launches).  Returns (U_new (T, C), total (K,), crash (K,))."""
+    own launches); ``obstacle_kw`` (``obstacles``, ``obstacle_coeff``,
+    ``inflation``) go to pass 1.  Returns (U_new (T, C), total (K,), crash
+    (K,))."""
     return _rng_iteration(fused_rng_costs, fused_rng_numer, model,
                           model_params, cfg, cost_params, field, state, U,
-                          key, l1_cost, k_offset)
+                          key, l1_cost, k_offset, obstacle_kw)

@@ -9,14 +9,18 @@ for the host.
 
 The track surface is the exact ``Costmap`` (fused kernel A) or a
 ``NeuralCostmap`` field (fused kernel 3), as the JAX package dispatches
-them.
+them.  The model is the MLP (``NeuralNetDynamics``) or the basis-function
+model (``BasisFunctionDynamics``); the cost ``MPPICost`` or
+``ObstacleCost``, whose circles (``CostParams.obstacles`` when set, else
+its own) the fused kernels price on every solve, as the JAX package's
+``_fusable_cost`` / ``_obstacle_kwargs`` route them.
 
 With ``kernel_rng=True`` (the capacity mode) an iteration draws only a key
 and runs the two kernel-RNG passes (``rk.fused_rng_solve_iteration``): the
 noise is drawn inside the kernels, so neither eps nor u_seq (T x K x C
 each) reaches device memory.  The dispatch (:meth:`MPPISolver._use_kernel_rng`)
 keeps the JAX package's semantic gates: a model with a kernel form, white
-or OU noise with theta in (0, 2), the base ``MPPICost``, and a
+or OU noise with theta in (0, 2), ``MPPICost`` or ``ObstacleCost``, and a
 ``NeuralCostmap`` or the exact ``Costmap`` with ``exact_fused``; anything
 else takes the host-noise path.
 It drops the TPU-only gates, ``use_pallas_rollout`` and the VMEM budget of
@@ -49,6 +53,8 @@ from autorally_tpu_torch.config import (CostParams, MPPIConfig,
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
+from autorally_tpu_torch.costs.obstacles import ObstacleCost
+from autorally_tpu_torch.models.basis_function import BasisFunctionDynamics
 from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
 from autorally_tpu_torch.ops import rollout_kernel as rk
 from autorally_tpu_torch.ops.sampling import make_sampler
@@ -109,19 +115,18 @@ class MPPISolver:
     """MPPI replans for a (model, cost, config) on one device (``cuda``
     unless ``device`` says otherwise)."""
 
-    def __init__(self, model: NeuralNetDynamics, cost: MPPICost,
-                 cfg: MPPIConfig, device=None):
+    def __init__(self, model, cost: MPPICost, cfg: MPPIConfig, device=None):
         self.device = resolve_device(device)
-        if type(model) is not NeuralNetDynamics:
+        if type(model) not in (NeuralNetDynamics, BasisFunctionDynamics):
             raise NotImplementedError(
-                f"{type(model).__name__} is not ported yet: the port solves "
-                "with NeuralNetDynamics only (ROADMAP.md, Queue 1 item 2: "
-                "the basis-function model)")
-        if type(cost) is not MPPICost:
+                f"{type(model).__name__} is not ported: the port solves with "
+                "NeuralNetDynamics or BasisFunctionDynamics (ROADMAP.md, "
+                "Queue 1)")
+        if type(cost) not in (MPPICost, ObstacleCost):
             raise NotImplementedError(
-                f"{type(cost).__name__} is not ported yet: the port solves "
-                "with MPPICost only (ROADMAP.md, Queue 1 item 3: obstacle "
-                "costs)")
+                f"{type(cost).__name__} is not ported: the port solves with "
+                "MPPICost or ObstacleCost, the costs its fused kernels "
+                "evaluate (ROADMAP.md, Queue 1)")
         if cfg.matmul_precision != "highest":
             raise NotImplementedError(
                 "the port computes the dynamics in full fp32 only "
@@ -179,6 +184,14 @@ class MPPISolver:
     # one optimization iteration given explicit noise
     # ------------------------------------------------------------------
 
+    def _obstacle_kwargs(self, cost_params: CostParams) -> dict:
+        """The fused kernels' obstacle arguments: an ``ObstacleCost``'s
+        circles (the live ``cost_params.obstacles`` when set) and
+        coefficients, none for ``MPPICost``."""
+        if type(self.cost) is ObstacleCost:
+            return self.cost.kernel_kwargs(cost_params)
+        return {}
+
     def rollout_costs(self, model_params, cost_params: CostParams,
                       costmap: Costmap, state: torch.Tensor, U: torch.Tensor,
                       eps: torch.Tensor, k_offset=0
@@ -186,7 +199,8 @@ class MPPISolver:
         """K noise-perturbed rollouts and their costs (``rolloutKernel``,
         ``mppi_controller.cu:72-184``) through the fused kernel of the
         surface: kernel A on the exact ``Costmap``, kernel 3 on a
-        ``NeuralCostmap``.
+        ``NeuralCostmap``; with an ``ObstacleCost`` the kernel prices its
+        circles too.
 
         ``eps``: (T, K, C) standard normal.  Returns (costs (K,), u_seq
         (C, T, K) pre-clamp perturbed controls, crash (K,))."""
@@ -196,12 +210,9 @@ class MPPISolver:
             raise NotImplementedError(
                 f"{type(costmap).__name__} is not ported: the port samples "
                 "a Costmap or a NeuralCostmap (ROADMAP.md, Queue 1)")
-        if cost_params.obstacles is not None:
-            raise NotImplementedError("obstacle terms are not ported yet "
-                                      "(ROADMAP.md, Queue 1 item 3)")
         return fused(self.model, model_params, self.cfg, cost_params,
                      costmap, state, U, eps, l1_cost=self.cost.l1_cost,
-                     k_offset=k_offset)
+                     k_offset=k_offset, **self._obstacle_kwargs(cost_params))
 
     def iterate(self, model_params, cost_params: CostParams, costmap: Costmap,
                 state: torch.Tensor, U: torch.Tensor, eps: torch.Tensor
@@ -241,7 +252,8 @@ class MPPISolver:
         package's ``_solve`` takes them."""
         U_new, total, crash = rk.fused_rng_solve_iteration(
             self.model, model_params, self.cfg, cost_params, costmap, state,
-            U, key, l1_cost=self.cost.l1_cost)
+            U, key, l1_cost=self.cost.l1_cost,
+            **self._obstacle_kwargs(cost_params))
         return U_new, self._stats(cost_params, total, crash)[0]
 
     def _use_kernel_rng(self, costmap) -> bool:
@@ -258,7 +270,8 @@ class MPPISolver:
         surface_ok = (type(costmap) is NeuralCostmap
                       or (type(costmap) is Costmap and cfg.exact_fused))
         return bool(cfg.kernel_rng and rk.has_kernel_form(self.model)
-                    and sampler_ok and type(self.cost) is MPPICost
+                    and sampler_ok
+                    and type(self.cost) in (MPPICost, ObstacleCost)
                     and surface_ok)
 
     # ------------------------------------------------------------------

@@ -9,13 +9,17 @@ the kernel-RNG capacity mode — the same model and map at K=262144
 ``rng_exact_ou_K262144``), gaussian and OU (theta 0.15) exploration drawn
 inside the kernels — and the neural-field costmap path — the same model on
 a 34-64-64-1 field fitted to that map on the card (``bench.py``'s
-``neural_K65536`` and ``rng_K262144``) — and checks every CUDA kernel of
-the three paths against its plain PyTorch version.  Phases (any failure
-exits non-zero):
+``neural_K65536`` and ``rng_K262144``) — the basis-function path —
+BASELINE config #2 (``path_integral_bf``), the 25-basis-function model with
+seeded theta at K=2560 — and the obstacle path — the main path with an
+``ObstacleCost`` of 16 slots whose circles move every tick — and checks
+every CUDA kernel of these paths, in every form, against its plain PyTorch
+version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require six kernels and zero spill bytes in every one
-   (ptxas -v);
+   (one nvcc), require eleven kernels (kernels A, B, 3 and both modes of
+   pass 1 in an MLP and a BF instance each, and pass 2) and zero spill
+   bytes in every one (ptxas -v);
 2. kernel A (fused rollout + exact cost) against its plain version at
    K=1920, T=100 in four cases: nominal start, wide swarm (exploration
    std x4), NaN x coordinate, and a fine random map on which the crash
@@ -63,7 +67,26 @@ exits non-zero):
     solve; nothing else), and no plain version called;
 14. timing of kernel 3 and of pass 1's field mode against their plain
     versions and bounds, beside kernel A and exact pass 1 at the same K;
-    whole field solves; torch.profiler traces of 10 ticks of each mode.
+    whole field solves; torch.profiler traces of 10 ticks of each mode;
+15. the BF instances of kernels A and B against their plain versions at
+    K=2560 in phase 2's cases and at the nominal trajectory (K=1), with
+    the seeded theta and with a strong theta whose slip and tan rows are
+    scaled by their denominators (dropping any of those rows must move the
+    plain chain's states by more than 5 x the tolerance);
+16. the BF path: one iteration on the GPU against the CPU, then 200 ticks
+    of ``drive_oval.build(model="bf")`` (1 BF kernel A and 1 BF kernel B
+    per solve, nothing else, no plain version);
+17. the obstacle forms: two circles in 16 slots placed so that some
+    rollouts hit them and some do not, kernel A (K=1920), kernel 3
+    (K=65536) and pass 1 on both surfaces (K=262144) against their plain
+    versions, and the BF forms of kernel 3 and pass 1 with the strong
+    theta; pass 1 bit for bit the eps-reading kernel fed the plain stream;
+18. the obstacle path: a live ``CostParams.obstacles`` reaching the kernel,
+    200 ticks with the circles moved every tick (1 obstacle kernel A and 1
+    kernel B per solve), 20 ticks of each other BF and obstacle form,
+    every form's timing against its plain version and bound, the MLP
+    kernels without obstacles re-timed in the same run, and a 50-tick
+    torch.profiler trace of the BF path.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -131,9 +154,70 @@ FIELD_TICKS = 100
 FIELD_CAP_TICKS = 50
 FIELD_PROFILE_TICKS = 10
 
+# The basis-function path: BASELINE config #2 (path_integral_bf), the
+# 25-basis-function model with seeded theta at K=2560 (bench.py's
+# bf_K2560); the obstacle path: the main path's configuration with an
+# ObstacleCost of 16 slots, two circles active, moved every tick.
+KB = 2560
+BF_TICKS = 200
+OBS_TICKS = 200
+BF_PROFILE_TICKS = 50
+FORM_TICKS = 20                       # each other BF and obstacle form
+N_SLOTS = 16
+# Operations counted in csrc/rollout_kernels.cu: one BF step is the 25
+# basis functions (60, atan, tan and sin one each), theta^T phi (100
+# multiply-adds) and the Euler update (14); one active circle per cost step
+# 13 (2 differences, 2 squares, a sum, the root, the margin, the quotient,
+# 1 - q, the clip's 2 compares, the max, the hit compare), an inactive slot
+# 1, and the coefficient's product 1.
+BF_STEP_OPS = 60 + 2 * 100 + 14
+CIRCLE_OPS, SLOT_OPS = 13, 1
+# The seeded theta (std 0.01) moves the states by 1e-5 or less through the
+# slip and tan rows 2-4 and 9-15, whose denominators reach 2.7e9: far under
+# the tolerance, so a wrong tan branch, moving test or dropped row there
+# would pass.  The strong theta scales those rows by their denominators
+# (14 and 15, whose r13 is small, by 30x and 300x more) and every row by 10:
+# then dropping any one of them moves some case's states by more than
+# 5 x STATE_ATOL (checked on the plain chain), and the chain stays finite
+# from the starts it is held on.
+BF_SUSPECT_ROWS = {2: 1200.0, 3: 1.44e6, 4: 1.728e9, 9: 40.0, 10: 1400.0,
+                   11: 1.96e6, 12: 2.744e9, 13: 40.0, 14: 4.8e4, 15: 1.92e7}
+BF_ROW_SCALE = 10.0 * np.array([BF_SUSPECT_ROWS.get(i, 1.0)
+                                for i in range(25)], np.float32)
+
 
 class PhaseFailed(Exception):
     pass
+
+
+def agreement(tag, name, kc, kx, pc, px, n, limit=None):
+    """Costs within COST_RTOL/COST_ATOL and equal crash flags: in every
+    rollout in the nominal case, in all but 1 % elsewhere (a value within
+    rounding of a boundary, a texel edge or a circle can latch on one side
+    only; near tan's pole the BF model turns a rounding difference into a
+    large one), or in all but ``limit``.  Returns the max cost error over
+    rollouts with equal flags."""
+    import torch
+
+    same = kx == px
+    near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
+    n_differ = int((~near | ~same).sum().item())
+    n_crash = int((~same).sum().item())
+    err = (kc - pc)[same].abs().max().item()
+    if limit is None:
+        limit = 0 if name == "nominal" else n // 100
+    print(f"[{tag}] {name}: max|cost err| {err:.3e} over rollouts with "
+          f"equal crash flags (cost range {pc.min().item():.4g}.."
+          f"{pc.max().item():.4g}), crash {int(px.sum().item())}/{n}, "
+          f"crash mismatches {n_crash}, {n_differ} rollouts differ "
+          f"(limit {limit})")
+    check(torch.isfinite(kc).all().item(), f"{tag} {name}: non-finite")
+    check(n_differ <= limit, f"{tag} {name}: {n_differ} rollouts differ "
+          f"from the plain version, limit {limit}")
+    if name.startswith("random"):
+        check(0 < px.sum().item() < n, f"{tag} {name}: crash flags do not "
+              "differ between rollouts")
+    return err
 
 
 def check(ok, msg):
@@ -197,8 +281,11 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            short = re.search(r"\d+([a-z_]+_kernel)E", m.group(1))
-            name, spill = (short.group(1) if short else m.group(1)), None
+            short = re.search(r"\d+([a-z_]+_kernel)(?:E|I.*?(Mlp|Bf)Deriv)",
+                              m.group(1))
+            name = (short.group(1) + (f"<{short.group(2)}>" if short.group(2)
+                                      else "") if short else m.group(1))
+            spill = None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -379,23 +466,16 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
           f"err| {e_it:.3e}")
     check(e_it <= ITER_ATOL, f"capacity iterate: GPU and CPU differ by {e_it}")
 
-    counters = {"fused_rng_costs": rk.fused_rng_costs,
-                "fused_rng_numer": rk.fused_rng_numer,
-                "dynamics_chain": rk.dynamics_chain,
-                "fused_exact_rollout_cost": rk.fused_exact_rollout_cost}
-    want = {"fused_rng_costs": 1, "fused_rng_numer": 1, "dynamics_chain": 1,
-            "fused_exact_rollout_cost": 0}
-    cap_solvers, latency = {}, {}
-    total_launches = dict.fromkeys(counters, 0)
+    want = {"fused_rng_costs": 1, "fused_rng_numer": 1, "dynamics_chain": 1}
+    cap_solvers, latency, run_launches = {}, {}, {}
     for sname, c in cap_cfg.items():
         cap = MPPISolver(model, solver.cost, c, device=dev)
         check(cap._use_kernel_rng(costmap), f"{sname}: not in capacity mode")
         cap_solvers[sname] = cap
-        for fn in counters.values():
-            fn.launches = 0
+        rk.LAUNCHES.clear()
         out = drive_oval.drive(cap, params, cost_params, costmap, CAP_TICKS,
                                log=lambda m: print(f"[capacity] {m}"))
-        launches = {n: fn.launches for n, fn in counters.items()}
+        launches = dict(rk.LAUNCHES)
         st, stats = out["solve_ms"], out["stats"]
         latency[sname] = (float(np.percentile(st, 50)),
                           float(np.percentile(st, 99)))
@@ -409,9 +489,8 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         solves = CAP_TICKS + 1
         check(launches == {n: v * solves for n, v in want.items()},
               f"{sname}: launches {launches} in {solves} solves, expected "
-              f"{want} per solve")
-        for n in counters:
-            total_launches[n] += launches[n]
+              f"{want} per solve (and nothing else)")
+        run_launches[sname] = launches
 
     # -- phase 10: timing ----------------------------------------------------
     flops_step = mlp_flops(model.layers)
@@ -479,12 +558,12 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
     kernels = [
         {"name": "fused_rng_costs", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
-         "launches": total_launches["fused_rng_costs"],
+         "launches": run_launches["gaussian"]["fused_rng_costs"],
          "max_abs_err": err_p1, "ms": ms1, "plain_ms": plain1,
          "bound_ms": bound1[0], "bound_by": bound1[1], "library_ms": None},
         {"name": "fused_rng_numer", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1346",
-         "launches": total_launches["fused_rng_numer"],
+         "launches": run_launches["gaussian"]["fused_rng_numer"],
          "max_abs_err": err_p2, "ms": ms2, "plain_ms": plain2,
          "bound_ms": bound2[0], "bound_by": bound2[1], "library_ms": None},
     ]
@@ -558,7 +637,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
                  edge_start, nan_start, slow_start, card):
     """Phases 11-14: the neural-field costmap path, kernel 3 at K=65536 and
     pass 1's field mode at K=262144.  Returns the two kernels' ``kernels``
-    entries and the field solves' latencies."""
+    entries, the field solves' latencies and the fitted field."""
     import torch
     from autorally_tpu_torch.ops import rollout_kernel as rk
     from autorally_tpu_torch.solver.mppi import MPPISolver
@@ -593,31 +672,6 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
         "random_field": (wide, slow_start, random_field(
             field, model, params, wide, slow_start, U)),
     }
-
-    def agreement(tag, name, kc, kx, pc, px, n):
-        """Costs within COST_RTOL/COST_ATOL and equal crash flags: in
-        every rollout in the nominal case, in all but 1 % elsewhere (a
-        field value within rounding of the boundary can latch on one side
-        only).  Returns the max cost error over rollouts with equal
-        flags."""
-        same = kx == px
-        near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
-        n_differ = int((~near | ~same).sum().item())
-        n_crash = int((~same).sum().item())
-        err = (kc - pc)[same].abs().max().item()
-        limit = 0 if name == "nominal" else n // 100
-        print(f"[{tag}] {name}: max|cost err| {err:.3e} over rollouts with "
-              f"equal crash flags (cost range {pc.min().item():.4g}.."
-              f"{pc.max().item():.4g}), crash {int(px.sum().item())}/{n}, "
-              f"crash mismatches {n_crash}, {n_differ} rollouts differ "
-              f"(limit {limit})")
-        check(torch.isfinite(kc).all().item(), f"{tag} {name}: non-finite")
-        check(n_differ <= limit, f"{tag} {name}: {n_differ} rollouts differ "
-              f"from the plain version, limit {limit}")
-        if name == "random_field":
-            check(0 < px.sum().item() < n, f"{tag} random_field: crash "
-                  "flags do not differ between rollouts")
-        return err
 
     # -- phase 11: kernel 3 against its plain version ------------------------
     gen = torch.Generator(device=dev)
@@ -664,43 +718,16 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
         num_rollouts=KC, kernel_rng=True), device=dev)
     check(not host._use_kernel_rng(field) and cap._use_kernel_rng(field),
           "field solvers: wrong mode")
-    counters = {"fused_rollout_cost": (rk.fused_rollout_cost, "launches"),
-                "fused_rng_costs field": (rk.fused_rng_costs,
-                                          "field_launches"),
-                "fused_rng_costs exact": (rk.fused_rng_costs, "launches"),
-                "fused_rng_numer": (rk.fused_rng_numer, "launches"),
-                "dynamics_chain": (rk.dynamics_chain, "launches"),
-                "fused_exact_rollout_cost": (rk.fused_exact_rollout_cost,
-                                             "launches")}
     runs = {"host-noise": (host, FIELD_TICKS, {
                 "fused_rollout_cost": 1, "dynamics_chain": 1}),
             "capacity": (cap, FIELD_CAP_TICKS, {
-                "fused_rng_costs field": 1, "fused_rng_numer": 1,
+                "fused_rng_costs_field": 1, "fused_rng_numer": 1,
                 "dynamics_chain": 1})}
     latency, launches = {}, {}
     for label, (s, ticks, per_solve) in runs.items():
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        with PlainCalls(rk) as plain:
-            out = drive_oval.drive(s, params, cost_params, field, ticks,
-                                   log=lambda m: print(f"[field path] {m}"))
-        got = {n: getattr(fn, attr) for n, (fn, attr) in counters.items()}
-        st, stats = out["solve_ms"], out["stats"]
-        latency[label] = (float(np.percentile(st, 50)),
-                          float(np.percentile(st, 99)))
-        print(f"[field path] {label} K={s.cfg.num_rollouts} {ticks} ticks: "
-              f"solve latency p50 {latency[label][0]:.3f} ms p99 "
-              f"{latency[label][1]:.3f} ms (slide + solve + control "
-              f"readback, host clock; {card}); ess {stats.ess.item():.1f}, "
-              f"crash% {stats.crash_frac.item() * 100:.1f}; launches {got}; "
-              f"plain-version calls {plain.calls}")
-        check(np.isfinite(out["controls"]).all(), f"field {label}: "
-              "non-finite controls")
-        want = {n: per_solve.get(n, 0) * (ticks + 1) for n in counters}
-        check(got == want, f"field {label}: launches {got}, expected {want}")
-        check(not any(plain.calls.values()), f"field {label}: a plain "
-              f"version ran on the card: {plain.calls}")
-        launches[label] = got
+        latency[label], launches[label] = drive_counted(
+            drive_oval, rk, f"field path {label}", s, params, cost_params,
+            field, ticks, per_solve, card)
 
     # -- phase 14: timing ----------------------------------------------------
     flops_step = mlp_flops(model.layers)
@@ -775,10 +802,549 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
          "bound_ms": bound_3[0], "bound_by": bound_3[1], "library_ms": None},
         {"name": "fused_rng_costs_field", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
-         "launches": launches["capacity"]["fused_rng_costs field"],
+         "launches": launches["capacity"]["fused_rng_costs_field"],
          "max_abs_err": err_p1, "ms": ms_f, "plain_ms": plain_f,
          "bound_ms": bound_f[0], "bound_by": bound_f[1], "library_ms": None},
     ]
+    return kernels, latency, field
+
+
+def obstacle_circles(model, params, cfg, start, U, radius: float = 0.5,
+                     seed: int = 2):
+    """Two active circles on the lane of 2048 plain rollouts from ``start``
+    (noise of their own): at steps T/2 and T-2 each circle's edge runs
+    through the swarm's mean position, its centre ``radius`` to the side,
+    and its radius is then set to the median of the rollouts' closest
+    approach, so that about half of them pass inside: some rollouts hit,
+    some do not."""
+    import torch
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    dev = U.device
+    T_ = U.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    eps = torch.randn((T_, 2048, 2), generator=gen, device=dev)
+    states, _ = rk.dynamics_chain_plain(
+        model, params, cfg.replace(num_rollouts=2048), start, U, eps)
+    xy = states[:2, :-1].double()            # the priced states s_1..s_T-1
+    m = xy.mean(dim=2)
+    circles = []
+    for t in (T_ // 2, T_ - 2):
+        v = m[:, t - 1] - m[:, t - 6]
+        v = v / v.norm() if v.norm() > 1e-9 else torch.tensor(
+            [1.0, 0.0], dtype=torch.float64, device=dev)
+        c = m[:, t - 1] + radius * torch.stack([-v[1], v[0]])
+        closest = (xy - c[:, None, None]).norm(dim=0).amin(dim=0)
+        circles.append([c[0].item(), c[1].item(), closest.median().item()])
+    return circles
+
+
+def drive_counted(drive_oval, rk, tag, solver, params, cost_params, surface,
+                  ticks, per_solve, card, tick_params=None):
+    """``ticks`` ticks of ``drive_oval.drive`` with every launch counter set
+    to 0 just before and read just after: exactly ``per_solve`` launches of
+    each form in every solve (ticks + the untimed first), none of any other
+    and no plain-version call.  Returns (latency p50, p99 in ms, the
+    counts)."""
+    rk.LAUNCHES.clear()
+    with PlainCalls(rk) as plain:
+        out = drive_oval.drive(solver, params, cost_params, surface, ticks,
+                               log=lambda m: print(f"[{tag}] {m}"),
+                               tick_params=tick_params)
+    got = dict(rk.LAUNCHES)
+    st, stats = out["solve_ms"], out["stats"]
+    latency = (float(np.percentile(st, 50)), float(np.percentile(st, 99)))
+    print(f"[{tag}] K={solver.cfg.num_rollouts} {ticks} ticks: solve latency "
+          f"p50 {latency[0]:.3f} ms p99 {latency[1]:.3f} ms (slide + solve + "
+          f"control readback, host clock; {card}); ess {stats.ess.item():.1f}"
+          f", crash% {stats.crash_frac.item() * 100:.1f}; launches {got}; "
+          f"plain-version calls {plain.calls}")
+    check(np.isfinite(out["controls"]).all(), f"{tag}: non-finite controls")
+    want = {n: v * (ticks + 1) for n, v in per_solve.items()}
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    check(not any(plain.calls.values()), f"{tag}: a plain version ran on "
+          f"the card: {plain.calls}")
+    return latency, got
+
+
+def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
+                       field, cases, eps, U, start, slow_start, card):
+    """Phases 15-18: the BF model (kernels 1 and 2 at its main-path shapes,
+    its closed loop at K=2560) and the obstacle terms (kernels 1, 3 and 4,
+    the obstacle closed loop at K=1920 with the circles moved every tick),
+    the other BF and obstacle forms driven through their entry points, and
+    every new form's timing.  Returns the forms' ``kernels`` entries and the
+    two paths' latencies."""
+    import torch
+    from autorally_tpu_torch.costs import MPPICost, make_obstacles
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    dev = U.device
+    T_ = U.shape[0]
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    cfg = cases["nominal"][0]
+    wide = cases["random_map"][0]
+    errs = {}
+
+    def note_err(form, err):
+        errs[form] = max(errs.get(form, 0.0), err)
+
+    def pass1_forms(tag, name, form, mdl, prm, ccfg, s0, surf, kw, limit_b):
+        """Pass 1 on ``surf`` at K=262144 (gaussian): bit for bit the
+        eps-reading kernel fed the plain stream, against the plain cost
+        along kernel 2's trajectories on that stream (``limit_b`` rollouts
+        may differ; None: ``agreement``'s rule) and against the whole plain
+        version (1 %)."""
+        c = ccfg.replace(num_rollouts=KC, kernel_rng=True)
+        kc, kx, ctx = rk.fused_rng_costs(mdl, prm, c, cost_params, surf, s0,
+                                         U, key, **kw)
+        e = rk.rng_noise(ctx)
+        fused = (rk.fused_exact_rollout_cost if type(surf) is type(costmap)
+                 else rk.fused_rollout_cost)
+        ac, _, ax = fused(mdl, prm, c, cost_params, surf, s0, U, e, **kw)
+        kb, _ = rk.dynamics_chain(mdl, prm, c, s0, U, e)
+        bc, bx = rk.trajectory_cost_plain(mdl, prm, c, cost_params, surf, U,
+                                          e, kb, **kw)
+        del kb, e
+        pc, px, _ = rk.fused_rng_costs_plain(mdl, prm, c, cost_params, surf,
+                                             s0, U, key, **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(kc, ac) and torch.equal(kx, ax)
+        print(f"[{tag}] equal to the eps-reading kernel on the plain stream: "
+              f"{same}")
+        check(same, f"{tag}: differs from the eps-reading kernel on the "
+              "plain stream")
+        note_err(form, agreement(f"{tag} along kernel 2", name, kc, kx, bc,
+                                 bx, KC, limit=limit_b))
+        agreement(tag, name, kc, kx, pc, px, KC, limit=KC // 100)
+        if name == "ahead":
+            check(0 < kx.sum().item() < KC, f"{tag}: the circles are hit by "
+                  "no rollout or by all")
+
+    # -- phase 15: BF kernels 1 and 2 against their plain versions -----------
+    bf, bparams, _, _, note = drive_oval.build(model="bf", rollouts=KB,
+                                               device=dev)
+    bmodel, bcfg = bf.model, bf.cfg
+    print(f"[bf] K={KB} T={T_} {type(bmodel).__name__}; {note}")
+    strong = dict(bparams, theta=bparams["theta"] * torch.tensor(
+        BF_ROW_SCALE, device=dev)[:, None])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    beps = torch.randn((T_, KB, 2), generator=gen, device=dev)
+    # the strong theta's random map from the slow start with the nominal
+    # exploration (4x of it diverges there)
+    strong_cases = dict(cases, random_map=(cfg, slow_start,
+                                           cases["random_map"][2]))
+    # its power: the most that dropping each suspect row moves the plain
+    # chain's states (256 rollouts) in any of the cases
+    power = {}
+    for name, (ccfg, s0, _) in strong_cases.items():
+        if name == "nan_x":
+            continue                       # the same dynamics as nominal
+        c = bcfg.replace(steering_std=ccfg.steering_std,
+                         throttle_std=ccfg.throttle_std)
+        ref, _ = rk.dynamics_chain_plain(bmodel, strong, c, s0, U,
+                                         beps[:, :256])
+        for row in BF_SUSPECT_ROWS:
+            th = strong["theta"].clone()
+            th[row] = 0.0
+            alt, _ = rk.dynamics_chain_plain(bmodel, dict(strong, theta=th),
+                                             c, s0, U, beps[:, :256])
+            power[row] = max(power.get(row, 0.0),
+                             (alt - ref).abs().max().item())
+    print(f"[bf strong theta] max|state change| from dropping each row: "
+          + ", ".join(f"{r}: {v:.2e}" for r, v in power.items()))
+    check(all(v > 5 * STATE_ATOL for v in power.values()), "bf strong "
+          "theta: a suspect row moves the states by less than 5 x "
+          "STATE_ATOL")
+    for theta_name, prm, tcases in (("seeded", bparams, cases),
+                                    ("strong", strong, strong_cases)):
+        for name, (ccfg, s0, cmap) in tcases.items():
+            tag = f"bf {theta_name}"
+            c = bcfg.replace(steering_std=ccfg.steering_std,
+                             throttle_std=ccfg.throttle_std)
+            kc, ku, kx = rk.fused_exact_rollout_cost(bmodel, prm, c,
+                                                     cost_params, cmap, s0,
+                                                     U, beps)
+            pc, pu, px = rk.fused_rollout_cost_plain(bmodel, prm, c,
+                                                     cost_params, cmap, s0,
+                                                     U, beps)
+            ks, kbu = rk.dynamics_chain(bmodel, prm, c, s0, U, beps)
+            ps, _ = rk.dynamics_chain_plain(bmodel, prm, c, s0, U, beps)
+            bc, bx = rk.trajectory_cost_plain(bmodel, prm, c, cost_params,
+                                              cmap, U, beps, ks)
+            torch.cuda.synchronize()
+            check(torch.equal(ku, pu) and torch.equal(kbu, pu),
+                  f"{tag} {name}: u_seq differs")
+            # the whole plain version: strict in the nominal case, 1 %
+            # elsewhere (near tan's pole a rounding difference grows);
+            # along kernel 2's trajectories the same cost arithmetic:
+            # strict but for a texel edge on the 2 cm random map
+            note_err("fused_exact_rollout_cost_bf", agreement(
+                f"{tag} kernel 1 K={KB}", name, kc, kx, pc, px, KB))
+            agreement(f"{tag} kernel 1 along kernel 2 K={KB}", name, kc, kx,
+                      bc, bx, KB, limit=0)
+            close = torch.isclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL,
+                                  equal_nan=True).all(dim=1).all(dim=0)
+            n_differ = int((~close).sum().item())
+            fin = torch.isfinite(ps)
+            e_s = (ks[fin] - ps[fin]).abs().max().item() if fin.any() else 0.0
+            moving = (ps[4] > 0.1).float().mean().item()
+            limit = 0 if name == "nominal" else KB // 100
+            print(f"[{tag} kernel 2 K={KB}] {name}: max|state err| "
+                  f"{e_s:.3e}, {n_differ} rollouts differ beyond rtol "
+                  f"{STATE_RTOL} atol {STATE_ATOL} (limit {limit}); state "
+                  f"range {ps[fin].min().item():.3g}.."
+                  f"{ps[fin].max().item():.3g}, moving (u_x > 0.1) in "
+                  f"{100 * moving:.1f}% of steps")
+            check(n_differ <= limit, f"{tag} kernel 2 {name}: {n_differ} "
+                  "rollouts differ")
+            if name != "nan_x":
+                note_err("dynamics_chain_bf", e_s)
+            del ks, ps
+        ks, _ = rk.nominal_trajectory(bmodel, prm, bcfg, start, U)
+        ps, _ = rk.dynamics_chain_plain(bmodel, prm, bcfg, start, U,
+                                        torch.zeros((T_, 1, 2), device=dev))
+        ps = torch.cat([start[None], ps[:, :, 0].T[:-1]])
+        e_nom = (ks - ps).abs().max().item()
+        print(f"[bf {theta_name} kernel 2] nominal trajectory (K=1): "
+              f"max|state err| {e_nom:.3e}")
+        check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"bf {theta_name} nominal trajectory differs")
+        note_err("dynamics_chain_bf", e_nom)
+
+    # -- phase 16: the BF path, closed loop ----------------------------------
+    cpu_bf, cpu_bparams, _, cpu_map, _ = drive_oval.build(
+        model="bf", rollouts=KB, device="cpu")
+    Ug, stg = bf.iterate(bparams, cost_params, costmap, start, U, beps)
+    Uc, stc = cpu_bf.iterate(cpu_bparams, cost_params, cpu_map, start.cpu(),
+                             U.cpu(), beps.cpu())
+    e_it = (Ug.cpu() - Uc).abs().max().item()
+    print(f"[bf path] one iteration GPU vs CPU: max|U_new err| {e_it:.3e}, "
+          f"ess {stg.ess.item():.2f} vs {stc.ess.item():.2f}")
+    check(e_it <= ITER_ATOL, f"bf iterate: GPU and CPU differ by {e_it}")
+    # each run's counts, set to 0 just before it and read just after
+    latency, launches = {}, {}
+
+    def run(label, solver, prm, surface, ticks, per_solve, tick_params=None):
+        latency[label], launches[label] = drive_counted(
+            drive_oval, rk, label, solver, prm, cost_params, surface, ticks,
+            per_solve, card, tick_params)
+
+    run("bf path", bf, bparams, costmap, BF_TICKS,
+        {"fused_exact_rollout_cost_bf": 1, "dynamics_chain_bf": 1})
+
+    # -- phase 17: obstacles, kernel forms against their plain versions ------
+    # the seeded car hardly moves from rest: the circles lie ahead of a
+    # start moving up the lane at 1 m/s ("ahead"), where the check that
+    # some rollouts hit them and some do not is made
+    circles = obstacle_circles(model, params, cfg, slow_start, U)
+    cases = dict(cases, ahead=(cfg, slow_start, costmap))
+    print(f"[obstacles] circles {circles} in {N_SLOTS} slots, coefficient "
+          f"{drive_oval.OBSTACLE_COEFF}, inflation "
+          f"{drive_oval.OBSTACLE_INFLATION}")
+    okw = dict(obstacles=make_obstacles(circles, N_SLOTS, device=dev),
+               obstacle_coeff=drive_oval.OBSTACLE_COEFF,
+               inflation=drive_oval.OBSTACLE_INFLATION)
+    # Against the plain cost along kernel 2's trajectories (the same chain
+    # code) the flags must agree in every rollout; against the whole plain
+    # version, whose trajectories differ by rounding, a rollout that grazes
+    # a circle's edge (or a texel's) may latch on one side only: 1 %.
+    for name, (ccfg, s0, cmap) in cases.items():
+        kc, ku, kx = rk.fused_exact_rollout_cost(model, params, ccfg,
+                                                 cost_params, cmap, s0, U,
+                                                 eps, **okw)
+        pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
+                                                 cost_params, cmap, s0, U,
+                                                 eps, **okw)
+        kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, eps)
+        bc, bx = rk.trajectory_cost_plain(model, params, ccfg, cost_params,
+                                          cmap, U, eps, kb, **okw)
+        torch.cuda.synchronize()
+        check(torch.equal(ku, pu), f"obstacles kernel 1 {name}: u_seq "
+              "differs")
+        note_err("fused_exact_rollout_cost_obstacles", agreement(
+            f"obstacles kernel 1 along kernel 2 K={K}", name, kc, kx, bc, bx,
+            K, limit=0))
+        agreement(f"obstacles kernel 1 K={K}", name, kc, kx, pc, px, K,
+                  limit=K // 100)
+        if name == "ahead":
+            check(0 < kx.sum().item() < K, "obstacles kernel 1 ahead: the "
+                  "circles are hit by no rollout or by all")
+    wide_f, cfg_f = wide.replace(num_rollouts=KF), cfg.replace(num_rollouts=KF)
+    field_cases = {"nominal": (cfg_f, start, field),
+                   "ahead": (cfg_f, slow_start, field),
+                   "random_field": (wide_f, slow_start, random_field(
+                       field, model, params, wide_f, slow_start, U))}
+    eps3 = torch.randn((T_, KF, 2), generator=gen, device=dev)
+    for name, (ccfg, s0, f) in field_cases.items():
+        kc, ku, kx = rk.fused_rollout_cost(model, params, ccfg, cost_params,
+                                           f, s0, U, eps3, **okw)
+        pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
+                                                 cost_params, f, s0, U, eps3,
+                                                 **okw)
+        kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, eps3)
+        bc, bx = rk.trajectory_cost_plain(model, params, ccfg, cost_params,
+                                          f, U, eps3, kb, **okw)
+        del kb
+        torch.cuda.synchronize()
+        check(torch.equal(ku, pu), f"obstacles kernel 3 {name}: u_seq "
+              "differs")
+        note_err("fused_rollout_cost_obstacles", agreement(
+            f"obstacles kernel 3 along kernel 2 K={KF}", name, kc, kx, bc, bx,
+            KF))
+        agreement(f"obstacles kernel 3 K={KF}", name, kc, kx, pc, px, KF,
+                  limit=KF // 100)
+        if name == "ahead":
+            check(0 < kx.sum().item() < KF, "obstacles kernel 3 ahead: the "
+                  "circles are hit by no rollout or by all")
+    for name in ("nominal", "ahead", "random_map"):
+        ccfg, s0, cmap = cases[name]
+        pass1_forms(f"obstacles pass 1 K={KC}", name,
+                    "fused_rng_costs_obstacles", model, params, ccfg, s0,
+                    cmap, okw, 0)
+    for name, (ccfg, s0, f) in field_cases.items():
+        pass1_forms(f"obstacles pass 1 field K={KC}", name,
+                    "fused_rng_costs_field_obstacles", model, params, ccfg,
+                    s0, f, okw, None)
+    # the BF forms of kernels 3 and 4: the strong theta from the slow start,
+    # the circles placed on its swarm as above (some rollouts hit, some not)
+    bcircles = obstacle_circles(bmodel, strong, bcfg, slow_start, U)
+    bokw = dict(okw, obstacles=make_obstacles(bcircles, N_SLOTS, device=dev))
+    print(f"[bf obstacles] strong theta, circles {bcircles}")
+    bcfg_f = bcfg.replace(num_rollouts=KF)
+    kc, ku, kx = rk.fused_rollout_cost(bmodel, strong, bcfg_f, cost_params,
+                                       field, slow_start, U, eps3, **bokw)
+    pc, pu, px = rk.fused_rollout_cost_plain(bmodel, strong, bcfg_f,
+                                             cost_params, field, slow_start,
+                                             U, eps3, **bokw)
+    kb, _ = rk.dynamics_chain(bmodel, strong, bcfg_f, slow_start, U, eps3)
+    bc, bx = rk.trajectory_cost_plain(bmodel, strong, bcfg_f, cost_params,
+                                      field, U, eps3, kb, **bokw)
+    del kb
+    torch.cuda.synchronize()
+    check(torch.equal(ku, pu), "bf kernel 3: u_seq differs")
+    note_err("fused_rollout_cost_bf", agreement(
+        f"bf obstacles kernel 3 along kernel 2 K={KF}", "ahead", kc, kx, bc,
+        bx, KF))
+    agreement(f"bf obstacles kernel 3 K={KF}", "ahead", kc, kx, pc, px, KF,
+              limit=KF // 100)
+    check(0 < kx.sum().item() < KF, "bf obstacles kernel 3: the circles are "
+          "hit by no rollout or by all")
+    del eps3
+    pass1_forms(f"bf obstacles pass 1 K={KC}", "ahead", "fused_rng_costs_bf",
+                bmodel, strong, bcfg, slow_start, costmap, bokw, 0)
+    pass1_forms(f"bf obstacles pass 1 field K={KC}", "ahead",
+                "fused_rng_costs_field_bf", bmodel, strong, bcfg, slow_start,
+                field, bokw, None)
+
+    # -- phase 18: the obstacle path, closed loop; the other forms; timing --
+    obs, oparams, _, _, onote = drive_oval.build(rollouts=K, device=dev,
+                                                 obstacles=circles)
+    print(f"[obstacle path] {onote}")
+    # a live update reaches the kernel: the same solver from the "ahead"
+    # start, the circles moved away
+    far = make_obstacles([[c[0] + 100.0, c[1], c[2]] for c in circles],
+                         N_SLOTS, device=dev)
+    moved = cost_params.replace(obstacles=far)
+    _, _, x_near = obs.rollout_costs(oparams, cost_params, costmap,
+                                     slow_start, U, eps)
+    t_far, _, x_far = obs.rollout_costs(oparams, moved, costmap, slow_start,
+                                        U, eps)
+    t_ref, _, _ = rk.fused_exact_rollout_cost(model, params, cfg,
+                                              cost_params, costmap,
+                                              slow_start, U, eps)
+    torch.cuda.synchronize()
+    print(f"[obstacle path] live update: crash {int(x_near.sum().item())} "
+          f"rollouts with the circles, {int(x_far.sum().item())} with them "
+          f"moved 100 m away (costs then equal to no obstacles: "
+          f"{torch.equal(t_far, t_ref)})")
+    check(x_far.sum().item() < x_near.sum().item() and torch.equal(
+        t_far, t_ref), "a live CostParams.obstacles did not reach the kernel")
+
+    def moving(step, state):
+        """The circles drift 1 cm a tick across the lane, a new array each
+        tick through CostParams.obstacles (two_car_demo.py's live path)."""
+        return cost_params.replace(obstacles=make_obstacles(
+            [[c[0] + 0.01 * step, c[1], c[2]] for c in circles], N_SLOTS,
+            device=dev))
+
+    run("obstacle path", obs, oparams, costmap, OBS_TICKS,
+        {"fused_exact_rollout_cost_obstacles": 1, "dynamics_chain": 1},
+        moving)
+    ocost = obs.cost
+    bcap = bcfg.replace(num_rollouts=KC, kernel_rng=True)
+    ocap = cfg.replace(num_rollouts=KC, kernel_rng=True)
+    forms = (
+        ("bf capacity", MPPISolver(bmodel, MPPICost(), bcap, device=dev),
+         bparams, costmap, {"fused_rng_costs_bf": 1, "fused_rng_numer": 1,
+                            "dynamics_chain_bf": 1}),
+        ("bf field", MPPISolver(bmodel, MPPICost(), bcfg.replace(
+            num_rollouts=KF), device=dev), bparams, field,
+         {"fused_rollout_cost_bf": 1, "dynamics_chain_bf": 1}),
+        ("bf field capacity", MPPISolver(bmodel, MPPICost(), bcap,
+                                         device=dev), bparams, field,
+         {"fused_rng_costs_field_bf": 1, "fused_rng_numer": 1,
+          "dynamics_chain_bf": 1}),
+        ("obstacles capacity", MPPISolver(model, ocost, ocap, device=dev),
+         params, costmap, {"fused_rng_costs_obstacles": 1,
+                           "fused_rng_numer": 1, "dynamics_chain": 1}),
+        ("obstacles field", MPPISolver(model, ocost, cfg.replace(
+            num_rollouts=KF), device=dev), params, field,
+         {"fused_rollout_cost_obstacles": 1, "dynamics_chain": 1}),
+        ("obstacles field capacity", MPPISolver(model, ocost, ocap,
+                                                device=dev), params, field,
+         {"fused_rng_costs_field_obstacles": 1, "fused_rng_numer": 1,
+          "dynamics_chain": 1}),
+    )
+    for label, solver, prm, surface, per_solve in forms:
+        run(label, solver, prm, surface, FORM_TICKS, per_solve)
+
+    # timing: each form at its shape against its plain version and bound
+    n_mlp = rk.KERNEL_NUM_WEIGHTS
+    n_bf = rk.KERNEL_BF_WEIGHTS
+    n_f = rk.FIELD_NUM_WEIGHTS
+    mlp_step = mlp_flops(model.layers)
+    field_ops = field_eval_ops(field.layers, field.freqs.numel())
+    n_active = sum(1 for c in circles if c[2] > 0)
+    circle_ops = n_active * CIRCLE_OPS + (N_SLOTS - n_active) * SLOT_OPS + 1
+    texels = 2 * (T_ - 1)
+    gen.manual_seed(5)
+
+    def fused_bound(k, n_w, step, obstacles, surface):
+        """Kernel 1 / 3: eps read, u_seq, costs and crash written, U, the
+        weights, the state, the control ranges (and the circles, the
+        field) read once; the exact map one texel per lookup."""
+        nbytes = 4 * (T_ * k * 2 + 2 * T_ * k + 2 * k + T_ * 2 + n_w + 7 + 4
+                      + (3 * N_SLOTS if obstacles else 0)
+                      + (n_f if surface == "field" else texels * k))
+        ops = k * (T_ * step + (T_ - 1) * (
+            (2 * field_ops if surface == "field" else 0)
+            + (circle_ops if obstacles else 0)))
+        return bound(nbytes, ops)
+
+    def pass1_bound(n_w, step, obstacles, surface):
+        nbytes = (4 * (T_ * 2 + n_w + 7 + 4 + 2 * KC
+                       + (3 * N_SLOTS if obstacles else 0)
+                       + (n_f if surface == "field" else min(
+                           costmap.height * costmap.width, texels * KC)))
+                  + 16)
+        ops = KC * (T_ * (step + STREAM_OPS) + (T_ - 1) * (
+            (2 * field_ops if surface == "field" else 0)
+            + (circle_ops if obstacles else 0)))
+        return bound(nbytes, ops)
+
+    e_b = torch.randn((T_, KB, 2), generator=gen, device=dev)
+    e_1 = eps
+    e_3 = torch.randn((T_, KF, 2), generator=gen, device=dev)
+    z_1 = torch.zeros((T_, 1, 2), device=dev)
+    bcfg3, cfg3 = bcfg.replace(num_rollouts=KF), cfg.replace(num_rollouts=KF)
+    fkw = dict(okw)
+    # name -> (launch, plain, reps, plain reps, bound, TPU kernel line)
+    timed = {
+        "fused_exact_rollout_cost_bf": (
+            rk.prepare_fused_exact_rollout_cost(
+                bmodel, bparams, bcfg, cost_params, costmap, start, U,
+                e_b)[0],
+            lambda: rk.fused_rollout_cost_plain(
+                bmodel, bparams, bcfg, cost_params, costmap, start, U, e_b),
+            100, 10, fused_bound(KB, n_bf, BF_STEP_OPS, False, "exact"),
+            1013),
+        "dynamics_chain_bf": (
+            rk.prepare_dynamics_chain(bmodel, bparams, bcfg, start, U,
+                                      z_1)[0],
+            lambda: rk.dynamics_chain_plain(bmodel, bparams, bcfg, start, U,
+                                            z_1),
+            100, 10, bound(4 * (T_ * 2 + 7 * T_ + 2 * T_ + T_ * 2 + n_bf + 7
+                                + 4), BF_STEP_OPS * T_), 389),
+        "fused_exact_rollout_cost_obstacles": (
+            rk.prepare_fused_exact_rollout_cost(
+                model, params, cfg, cost_params, costmap, start, U, e_1,
+                **fkw)[0],
+            lambda: rk.fused_rollout_cost_plain(
+                model, params, cfg, cost_params, costmap, start, U, e_1,
+                **fkw),
+            100, 10, fused_bound(K, n_mlp, mlp_step, True, "exact"), 1013),
+        "fused_rollout_cost_bf": (
+            rk.prepare_fused_rollout_cost(bmodel, bparams, bcfg3,
+                                          cost_params, field, start, U,
+                                          e_3)[0],
+            lambda: rk.fused_rollout_cost_plain(
+                bmodel, bparams, bcfg3, cost_params, field, start, U, e_3),
+            10, 2, fused_bound(KF, n_bf, BF_STEP_OPS, False, "field"), 606),
+        "fused_rollout_cost_obstacles": (
+            rk.prepare_fused_rollout_cost(model, params, cfg3, cost_params,
+                                          field, start, U, e_3, **fkw)[0],
+            lambda: rk.fused_rollout_cost_plain(
+                model, params, cfg3, cost_params, field, start, U, e_3,
+                **fkw),
+            10, 2, fused_bound(KF, n_mlp, mlp_step, True, "field"), 606),
+    }
+    for form, mdl, prm, c, surf, kw, step, n_w in (
+            ("fused_rng_costs_bf", bmodel, bparams, bcap, costmap, {},
+             BF_STEP_OPS, n_bf),
+            ("fused_rng_costs_obstacles", model, params, ocap, costmap, fkw,
+             mlp_step, n_mlp),
+            ("fused_rng_costs_field_bf", bmodel, bparams, bcap, field, {},
+             BF_STEP_OPS, n_bf),
+            ("fused_rng_costs_field_obstacles", model, params, ocap, field,
+             fkw, mlp_step, n_mlp),
+            # the MLP kernels without obstacles, re-timed in this run
+            ("fused_rng_costs", model, params, ocap, costmap, {}, mlp_step,
+             n_mlp)):
+        timed[form] = (
+            rk.prepare_fused_rng_costs(mdl, prm, c, cost_params, surf, start,
+                                       U, key, **kw)[0],
+            lambda mdl=mdl, prm=prm, c=c, surf=surf, kw=kw:
+                rk.fused_rng_costs_plain(mdl, prm, c, cost_params, surf,
+                                         start, U, key, **kw),
+            5 if surf is field else 20, 2,
+            pass1_bound(n_w, step, bool(kw), "field" if surf is field
+                        else "exact"), 1221)
+    timed["fused_exact_rollout_cost"] = (
+        rk.prepare_fused_exact_rollout_cost(model, params, cfg, cost_params,
+                                            costmap, start, U, e_1)[0],
+        None, 100, 0, fused_bound(K, n_mlp, mlp_step, False, "exact"), 1013)
+    times = {}
+    for form, (launch, plain, reps, plain_reps, bnd, _) in timed.items():
+        ms = cuda_ms(launch, reps)
+        plain_ms = cuda_ms(plain, plain_reps, 1) if plain else None
+        times[form] = (ms, plain_ms)
+        print(f"[timing] {form}: {ms:.4f} ms, plain "
+              f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}) ({card})")
+    print(f"[timing] MLP without obstacles in this run: kernel A K={K} "
+          f"{times['fused_exact_rollout_cost'][0]:.4f} ms, exact pass 1 "
+          f"K={KC} {times['fused_rng_costs'][0]:.4f} ms; with {N_SLOTS} slots "
+          f"({n_active} active): kernel A "
+          f"{times['fused_exact_rollout_cost_obstacles'][0]:.4f} ms, exact "
+          f"pass 1 {times['fused_rng_costs_obstacles'][0]:.4f} ms ({card})")
+    profile_ticks(drive_oval, bf, bparams, cost_params, costmap, card,
+                  ticks=BF_PROFILE_TICKS, tag="bf profile")
+
+    # each form's launches from the one run that is its path
+    path_of = {"fused_exact_rollout_cost_bf": "bf path",
+               "dynamics_chain_bf": "bf path",
+               "fused_exact_rollout_cost_obstacles": "obstacle path",
+               "fused_rollout_cost_bf": "bf field",
+               "fused_rollout_cost_obstacles": "obstacles field",
+               "fused_rng_costs_bf": "bf capacity",
+               "fused_rng_costs_obstacles": "obstacles capacity",
+               "fused_rng_costs_field_bf": "bf field capacity",
+               "fused_rng_costs_field_obstacles": "obstacles field capacity"}
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    kernels = []
+    for form, path in path_of.items():
+        ms, plain_ms = times[form]
+        bnd, line = timed[form][4:]
+        kernels.append(
+            {"name": form, "route": "cuda", "source": src,
+             "replaces": f"autorally_tpu/ops/rollout_kernel.py:{line}",
+             "launches": launches[path][form],
+             "max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
     return kernels, latency
 
 
@@ -829,8 +1395,10 @@ def main() -> int:
         for name, regs, spill in report:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
-        check(len(report) == 6, f"ptxas reported {len(report)} kernels, "
-              "expected 6")
+        # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain),
+        # and pass 2
+        check(len(report) == 11, f"ptxas reported {len(report)} kernels, "
+              "expected 11")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
     print(f"[build] total {build_s:.1f}s ({card})")
 
@@ -946,12 +1514,11 @@ def main() -> int:
           f"ess {stg.ess.item():.2f} vs {stc.ess.item():.2f}")
     check(e_it <= ITER_ATOL, f"iterate: GPU and CPU differ by {e_it}")
 
-    rk.fused_exact_rollout_cost.launches = 0
-    rk.dynamics_chain.launches = 0
+    rk.LAUNCHES.clear()
     out = drive_oval.drive(solver, params, cost_params, costmap, TICKS,
                            log=lambda m: print(f"[main path] {m}"))
-    launches = {"fused_exact_rollout_cost": rk.fused_exact_rollout_cost.launches,
-                "dynamics_chain": rk.dynamics_chain.launches}
+    launches = {n: rk.LAUNCHES[n] for n in ("fused_exact_rollout_cost",
+                                            "dynamics_chain")}
     st = out["solve_ms"]
     stats = out["stats"]
     print(f"[main path] {TICKS} ticks: solve latency p50 "
@@ -997,9 +1564,14 @@ def main() -> int:
         (cpu_solver, cpu_params, None, cpu_map), card)
 
     # -- phases 11-14: the neural-field costmap path -------------------------
-    field_kernels, field_latency = field_phases(
+    field_kernels, field_latency, field = field_phases(
         drive_oval, model, params, cost_params, costmap, U, start,
         edge_start, nan_start, slow_start, card)
+
+    # -- phases 15-18: the BF model and the obstacle terms -------------------
+    bf_obs_kernels, bf_obs_latency = bf_obstacle_phases(
+        drive_oval, model, params, cost_params, costmap, field, cases, eps,
+        U, start, slow_start, card)
 
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
@@ -1013,11 +1585,12 @@ def main() -> int:
          "launches": launches["dynamics_chain"],
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None},
-    ] + cap_kernels + field_kernels
+    ] + cap_kernels + field_kernels + bf_obs_kernels
     print(json.dumps({"kernels": kernels, "card": card,
                       "solve_ms_p50_p99": results["latency"],
                       "capacity_solve_ms_p50_p99": cap_latency,
-                      "field_solve_ms_p50_p99": field_latency}))
+                      "field_solve_ms_p50_p99": field_latency,
+                      "bf_obstacle_solve_ms_p50_p99": bf_obs_latency}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

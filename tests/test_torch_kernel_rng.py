@@ -429,11 +429,9 @@ def test_capacity_mode_refuses_what_it_cannot_draw():
 def test_wrappers_dispatch_by_device_and_count_only_kernel_launches():
     port, params, cm, *_ = _capacity_pair("ou")
     state, U = _inputs()
-    before = (rk.fused_rng_costs.launches, rk.fused_rng_numer.launches,
-              rk.fused_exact_rollout_cost.launches)
+    before = dict(rk.LAUNCHES)
     port.solve(params, CostParams(), cm, STATE, port.init_state())
-    assert (rk.fused_rng_costs.launches, rk.fused_rng_numer.launches,
-            rk.fused_exact_rollout_cost.launches) == before   # CPU: plain
+    assert dict(rk.LAUNCHES) == before   # CPU: plain
     meta = U.to("meta")
     with pytest.raises(ValueError, match="no rollout kernel"):
         rk.fused_rng_costs(port.model, params, port.cfg, CostParams(), cm,

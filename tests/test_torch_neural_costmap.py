@@ -377,13 +377,11 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs():
     solver, params, *_ = _pair(kernel_rng=True)
     field, _ = _fields()
     state, U, eps = (torch.tensor(a) for a in _inputs())
-    before = (rk.fused_rollout_cost.launches, rk.fused_rng_costs.launches,
-              rk.fused_rng_costs.field_launches)
+    before = dict(rk.LAUNCHES)
     solver.solve(params, CostParams(), field, START, solver.init_state())
     rk.fused_rollout_cost(solver.model, params, solver.cfg, CostParams(),
                           field, state, U, eps)
-    assert (rk.fused_rollout_cost.launches, rk.fused_rng_costs.launches,
-            rk.fused_rng_costs.field_launches) == before     # CPU: plain
+    assert dict(rk.LAUNCHES) == before                  # CPU: plain
     run = lambda fn, surface, e=eps: fn(solver.model, params, solver.cfg,
                                         CostParams(), surface, state, U, e)
     with pytest.raises(ValueError, match="no rollout kernel"):

@@ -241,11 +241,10 @@ def test_launch_scalars_follow_the_kernel_layout():
 
 def test_wrappers_dispatch_by_device_and_count_only_kernel_launches():
     s = make_setup()
-    before = (rk.fused_exact_rollout_cost.launches, rk.dynamics_chain.launches)
+    before = dict(rk.LAUNCHES)
     _port_fused(s)
     rk.dynamics_chain(s.model, s.params, s.cfg, *s.torch_args())
-    assert (rk.fused_exact_rollout_cost.launches,
-            rk.dynamics_chain.launches) == before    # CPU: plain, no launch
+    assert dict(rk.LAUNCHES) == before    # CPU: plain, no launch
     meta = torch.empty((T, K, 2), device="meta")
     with pytest.raises(ValueError, match="no rollout kernel"):
         rk.fused_exact_rollout_cost(s.model, s.params, s.cfg, CostParams(),
