@@ -31,7 +31,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "artt_num_weights": [],
     "artt_num_bf_weights": [],
-    "artt_num_field_weights": [],
+    "artt_field_pack_floats": [],
+    "artt_field_block": [],
+    "artt_max_field_t": [],
     "artt_max_obstacles": [],
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
@@ -43,6 +45,8 @@ SIGNATURES = {
     "artt_fused_rng_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,
     "artt_fused_rng_field_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,
     "artt_weighted_update": [_P, _P, _I, _F, _F, _I] + [_P] * 5,
+    # rng, bf, T, n_obs, device, out (4 ints)
+    "artt_field_kernel_info": [_I] * 5 + [_P],
 }
 
 _lib = None

@@ -75,12 +75,30 @@ FIELD_KERNEL_LAYERS = (34, 64, 64, 1)
 FIELD_KERNEL_FREQS = 8
 FIELD_NUM_WEIGHTS = sum(a * b + b for a, b in zip(
     FIELD_KERNEL_LAYERS[:-1], FIELD_KERNEL_LAYERS[1:])) + FIELD_KERNEL_FREQS
+# The field kernels evaluate the two hidden layers on the tensor cores
+# (m16n8k8 TF32, 3xTF32): the features padded to 40 (csrc kFieldK1), in the
+# order of a warp's tile: [u, v, 0, 0, then for each frequency sin uF,
+# sin vF, cos uF, cos vF, then 0 x 4]; entries index the features of
+# NeuralCostmap._features, -1 a zero column.
+FIELD_TILE_K = 40
+FIELD_TILE_FEATURES = (0, 1, -1, -1) + tuple(
+    i for n in range(FIELD_KERNEL_FREQS)
+    for i in (2 + n, 2 + FIELD_KERNEL_FREQS + n,
+              2 + 2 * FIELD_KERNEL_FREQS + n,
+              2 + 3 * FIELD_KERNEL_FREQS + n)) + (-1,) * 4
+# The packed field (csrc kFieldPack): the two hidden layers' B fragments,
+# 4 floats a lane, then b0, b1, W2, b2 and freqs padded to a float4.
+FIELD_PACK_FLOATS = ((FIELD_TILE_K // 8 + 64 // 8) * (64 // 8) * 32 * 4
+                     + -(-(64 * 3 + 1 + FIELD_KERNEL_FREQS) // 4) * 4)
+# Rollouts per block of the field kernels (csrc kFieldBlock).
+FIELD_BLOCK = 128
 # Circles the fused kernels stage in shared memory (csrc kMaxObstacles).
 MAX_OBSTACLES = 64
 # Dynamic shared memory holds the weights, U (T x 2) and up to
-# MAX_OBSTACLES circles, and the field in the field kernels; stay under the
-# 48 KB a launch gets without opting in (the MLP field kernels at T = 2048
-# with 64 circles: 48,704 bytes).
+# MAX_OBSTACLES circles; the other kernels stay under the 48 KB a launch
+# gets without opting in (34,048 bytes at T = 4096), the field kernels,
+# which add the field and their tiles, opt in to what T = 2048 needs
+# (csrc kMaxFieldT; 122,944 bytes for the MLP with 64 circles).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
 
@@ -171,14 +189,29 @@ def _kernel_lib() -> ctypes.CDLL:
     lib = _build.load()
     built = (lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
              lib.artt_num_weights(), lib.artt_num_bf_weights(),
-             lib.artt_num_field_weights(), lib.artt_max_obstacles(),
+             lib.artt_field_pack_floats(), lib.artt_field_block(),
+             lib.artt_max_field_t(), lib.artt_max_obstacles(),
              lib.artt_update_block())
     want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
-            KERNEL_BF_WEIGHTS, FIELD_NUM_WEIGHTS, MAX_OBSTACLES, UPDATE_BLOCK)
+            KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
+            MAX_FIELD_KERNEL_T, MAX_OBSTACLES, UPDATE_BLOCK)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
     return lib
+
+
+def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
+                      device: int = 0) -> dict:
+    """What the CUDA runtime reports of a field kernel instance (pass 1's
+    field mode when ``rng``, else kernel 3; the BF model when ``bf``) for a
+    launch at ``T`` with ``n_obs`` circle slots: registers and local-memory
+    bytes a thread, dynamic shared memory bytes, resident blocks an SM."""
+    out = (ctypes.c_int * 4)()
+    _check_launch(_kernel_lib().artt_field_kernel_info(
+        int(rng), int(bf), T, n_obs, device, out), "field_kernel_info")
+    return dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
 
 
 def has_kernel_form(model) -> bool:
@@ -318,17 +351,60 @@ def _form(model, n_obs: int) -> str:
             + ("_obstacles" if n_obs else ""))
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero, as ``cvt.rna.tf32.f32``: on the float32 bits,
+    add half of the 13 dropped bits' unit to the magnitude and clear them."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) = (tf32(x), tf32(x - hi)): the kernels' 3xTF32 operands."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _b_fragments(W: torch.Tensor, permuted: bool) -> torch.Tensor:
+    """One layer's m16n8k8 B fragments, W (in, out) with ``in`` a multiple
+    of 8, in the kernel's order [k-step][n-tile][lane] x {b0 hi, b1 hi,
+    b0 lo, b1 lo}: b0 = W[8 ks + t][8 nt + g], b1 = W[8 ks + t + 4][8 nt +
+    g] (g = lane // 4, t = lane % 4); ``permuted`` (layer 2) permutes the
+    input index within each group of 8, b0 = W[8 ks + 2t], b1 = W[8 ks +
+    2t + 1], so that layer 1's accumulator columns 2t, 2t + 1 are the A
+    fragment's columns t, t + 4."""
+    dev = W.device
+    ks = torch.arange(W.shape[0] // 8, device=dev)[:, None, None]
+    nt = torch.arange(W.shape[1] // 8, device=dev)[None, :, None]
+    lane = torch.arange(32, device=dev)
+    g, t = lane // 4, lane % 4
+    r0 = 8 * ks + (2 * t if permuted else t)
+    r1 = r0 + (1 if permuted else 4)
+    col = 8 * nt + g
+    (h0, l0), (h1, l1) = tf32_split(W[r0, col]), tf32_split(W[r1, col])
+    return torch.stack([h0, h1, l0, l1], dim=-1).reshape(-1)
+
+
 def _pack_field(field: NeuralCostmap) -> torch.Tensor:
-    """The field kernels' buffer (6,473 floats for 34-64-64-1, F = 8):
-    W0 kept (in, out), so that each feature's column is contiguous for the
-    kernel's first layer, streamed over the features; b0; W1 as its
-    (out, in) panel, rows contiguous for the second layer, evaluated one
-    neuron at a time; b1; W2 (64); b2; freqs.  Packed once per field."""
+    """The field kernels' buffer (FIELD_PACK_FLOATS = 13,516 floats for
+    34-64-64-1, F = 8): layer 1's B fragments from W0 with its rows in the
+    tile's feature order (``FIELD_TILE_FEATURES``), zero-padded to 40;
+    layer 2's from W1 with its input index permuted; both split into TF32
+    hi and lo; then b0, b1, W2, b2 and freqs in float32, zero-padded to a
+    whole float4.  Packed once per field."""
     (W0, W1, W2), (b0, b1, b2) = field.weights, field.biases
-    return _cached_pack(
-        field, (*field.weights, *field.biases, field.freqs),
-        lambda: torch.cat([W0.reshape(-1), b0, W1.t().reshape(-1), b1,
-                           W2.reshape(-1), b2, field.freqs]))
+
+    def pack():
+        order = torch.tensor(FIELD_TILE_FEATURES, device=W0.device)
+        W0p = torch.where((order >= 0)[:, None], W0[order.clamp(min=0)],
+                          torch.zeros((), dtype=W0.dtype, device=W0.device))
+        tail = torch.cat([b0, b1, W2.reshape(-1), b2, field.freqs])
+        parts = [_b_fragments(W0p, False), _b_fragments(W1, True), tail]
+        pad = FIELD_PACK_FLOATS - sum(p.numel() for p in parts)
+        return torch.cat(parts + [tail.new_zeros(pad)])
+
+    return _cached_pack(field, (*field.weights, *field.biases, field.freqs),
+                        pack)
 
 
 def _host_array(ctype, values):

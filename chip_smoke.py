@@ -19,7 +19,10 @@ version.  Phases (any failure exits non-zero):
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
    (one nvcc), require eleven kernels (kernels A, B, 3 and both modes of
    pass 1 in an MLP and a BF instance each, and pass 2) and zero spill
-   bytes in every one (ptxas -v);
+   bytes in every one (ptxas -v); print the four field instances'
+   registers, dynamic shared memory and blocks an SM (at least 8 warps),
+   and require TF32 tensor-core instructions (HMMA) in their SASS
+   (``cuobjdump -sass``);
 2. kernel A (fused rollout + exact cost) against its plain version at
    K=1920, T=100 in four cases: nominal start, wide swarm (exploration
    std x4), NaN x coordinate, and a fine random map on which the crash
@@ -56,17 +59,21 @@ version.  Phases (any failure exits non-zero):
     K=65536, T=100 in four cases: nominal, wide swarm, NaN x, and a
     seeded random field whose values cross the 0.65 boundary (costs
     rtol 1e-4 / atol 1e-3 and crash flags equal in every rollout in the
-    nominal case, in all but 1 % elsewhere; u_seq exactly);
+    nominal case, in all but 1 % elsewhere; u_seq exactly), and the
+    nominal case at K=65536-19;
 12. pass 1 in field mode against its plain version at K=262144, the same
-    cases, gaussian and OU, and bit for bit against kernel 3 fed the plain
-    stream;
+    cases, gaussian and OU, at K=262144-13 and on a shard's slice
+    (``SHARD``: k_offset != 0), each bit for bit against kernel 3 fed the
+    plain stream;
 13. the field path closed-loop: 100 ticks at K=65536 in the host-noise
     mode and 50 ticks at K=262144 in the capacity mode, launch counters
     reset before and read after each (1 kernel 3 and 1 kernel B per
     host-noise solve; 1 field pass 1, 1 pass 2 and 1 kernel B per capacity
     solve; nothing else), and no plain version called;
 14. timing of kernel 3 and of pass 1's field mode against their plain
-    versions and bounds, beside kernel A and exact pass 1 at the same K;
+    versions and two bounds (the tensor cores' for the field's hidden
+    layers, and all fp32 on the CUDA cores), beside kernel A and exact
+    pass 1 at the same K;
     whole field solves; torch.profiler traces of 10 ticks of each mode;
 15. the BF instances of kernels A and B against their plain versions at
     K=2560 in phase 2's cases and at the nominal trajectory (K=1), with
@@ -81,6 +88,7 @@ version.  Phases (any failure exits non-zero):
     (K=65536) and pass 1 on both surfaces (K=262144) against their plain
     versions, and the BF forms of kernel 3 and pass 1 with the strong
     theta; pass 1 bit for bit the eps-reading kernel fed the plain stream;
+    the field obstacle forms also at K=65536-19 and on a shard's slice;
 18. the obstacle path: a live ``CostParams.obstacles`` reaching the kernel,
     200 ticks with the circles moved every tick (1 obstacle kernel A and 1
     kernel B per solve), 20 ticks of each other BF and obstacle form,
@@ -112,6 +120,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM published peaks (NVIDIA data sheet; dense, at the 700 W limit).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_TF32_FLOP_PER_S = 495e12         # tensor cores, dense
 
 K, T = 1920, 100
 TICKS = 200
@@ -148,8 +157,10 @@ STREAM_OPS, OU_OPS = 148, 6
 UPDATE_OPS = 8
 
 # The neural-field path (bench.py's neural_K65536 and rng_K262144): kernel 3
-# in the host-noise mode at K=65536, pass 1's field mode at K=262144.
+# in the host-noise mode at K=65536, pass 1's field mode at K=262144; a
+# shard's slice of pass 1, (k_offset, K_local): neither a multiple of 32.
 KF = 65536
+SHARD = (KC // 2 - 69, KC - (KC // 2 - 69) - 7)
 FIELD_TICKS = 100
 FIELD_CAP_TICKS = 50
 FIELD_PROFILE_TICKS = 10
@@ -268,10 +279,47 @@ def field_eval_ops(layers, num_freqs: int) -> int:
             + 14 + 6 * num_freqs)
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, tf32_flops: float = 0.0):
+    """The least time for ``nbytes`` at the memory rate, ``flops`` at the
+    fp32 rate and ``tf32_flops`` on the tensor cores: (ms, what bounds it)."""
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_f = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    t_f = max(flops / PEAK_FP32_FLOP_PER_S,
+              tf32_flops / PEAK_TF32_FLOP_PER_S) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def field_bounds(nbytes: float, other_ops: float, n_evals: float, field):
+    """A field kernel's two bounds, each (ms, what bounds it): the fp32 one
+    (every operation on the CUDA cores) and the tensor-core one, in which
+    the two hidden layers' products as the function has them (34 features;
+    the kernels' zero padding to 40 is their own overhead, not the
+    function's work), tripled by 3xTF32, run at the TF32 rate and the rest
+    of the field's operations (``field_eval_ops`` less the products) and
+    ``other_ops`` at the fp32 rate."""
+    layers, n_freqs = field.layers, field.freqs.numel()
+    ops = field_eval_ops(layers, n_freqs)
+    products = 2 * sum(a * b for a, b in zip(layers[:-2], layers[1:-1]))
+    return (bound(nbytes, other_ops + n_evals * ops),
+            bound(nbytes, other_ops + n_evals * (ops - products),
+                  n_evals * 3 * products))
+
+
+def check_field_sass(so_path: str, objdump: str) -> dict:
+    """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of each
+    field kernel instance of the built library."""
+    out = subprocess.run([objdump, "-sass", so_path], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise PhaseFailed(f"cuobjdump failed: {out.stderr.strip()}")
+    found = {}
+    for fn in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+        short = re.search(r"\d+((?:fused_rng_field|fused_field)_kernel)I.*?"
+                          r"(Mlp|Bf)Deriv", fn.split("\n", 1)[0])
+        if short:
+            found[f"{short.group(1)}<{short.group(2)}>"] = sum(
+                1 for line in fn.splitlines()
+                if "HMMA" in line and "TF32" in line)
+    return found
 
 
 def ptxas_report(log: str):
@@ -688,7 +736,20 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
                                      px, KF))
         check(torch.equal(ku, pu), f"kernel 3 {name}: u_seq differs")
         del kc, ku, pc, pu
-    del eps
+    # a K that is a multiple of neither the block nor the warp: the last
+    # warp's idle lanes run dummy rollouts and store nothing
+    k_r = KF - 19
+    ccfg, s0, f = cases["nominal"]
+    e_r = eps[:, :k_r].contiguous()
+    kc, ku, kx = rk.fused_rollout_cost(model, params, ccfg, cost_params, f,
+                                       s0, U, e_r)
+    pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
+                                             cost_params, f, s0, U, e_r)
+    torch.cuda.synchronize()
+    err_3 = max(err_3, agreement(f"kernel 3 K={k_r}", "ragged_K", kc, kx, pc,
+                                 px, k_r, limit=0))
+    check(torch.equal(ku, pu), "kernel 3 ragged_K: u_seq differs")
+    del eps, e_r, kc, ku, pc, pu
 
     # -- phase 12: pass 1 in field mode against its plain version ------------
     # and bit for bit against kernel 3 fed the plain stream (the same step
@@ -712,6 +773,31 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
             check(same_as_3, f"pass 1 field {sname} {name}: differs from "
                   "kernel 3 on the plain stream")
             del kc, pc, ac
+    # a K that is not a multiple of 32, and a shard's slice of the global
+    # batch (k_offset != 0): bit for bit kernel 3 on the slice's plain stream
+    for name, case, k_off, k_loc in (
+            ("ragged_K", "nominal", 0, KC - 13),
+            ("shard", "random_field", *SHARD)):
+        ccfg, s0, f = cases[case]
+        c = ccfg.replace(num_rollouts=KC, kernel_rng=True)
+        kw = dict(k_offset=k_off, K_local=k_loc)
+        kc, kx, ctx = rk.fused_rng_costs(model, params, c, cost_params, f, s0,
+                                         U, key, **kw)
+        pc, px, _ = rk.fused_rng_costs_plain(model, params, c, cost_params,
+                                             f, s0, U, key, **kw)
+        ac, _, ax = rk.fused_rollout_cost(model, params, c, cost_params, f,
+                                          s0, U, rk.rng_noise(ctx),
+                                          k_offset=k_off)
+        torch.cuda.synchronize()
+        same_as_3 = torch.equal(kc, ac) and torch.equal(kx, ax)
+        err_p1 = max(err_p1, agreement(
+            f"pass 1 field K={k_loc} k_offset={k_off}", name, kc, kx, pc, px,
+            k_loc, limit=0 if name == "ragged_K" else None))
+        print(f"[pass 1 field] {name} K={k_loc} k_offset={k_off}: equal to "
+              f"kernel 3 on the plain stream: {same_as_3}")
+        check(same_as_3, f"pass 1 field {name}: differs from kernel 3 on "
+              "the plain stream")
+        del kc, pc, ac
 
     # -- phase 13: the field path closed-loop --------------------------------
     cap = MPPISolver(host.model, host.cost, cfg.replace(
@@ -748,9 +834,11 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
     # U, the state and the control ranges read once
     bytes_3 = 4 * (3 * T_ * KF * 2 + 2 * KF + T_ * 2 + n_w + n_f + 7 + 4)
     ops_3 = KF * (T_ * flops_step + (T_ - 1) * 2 * field_ops)
-    bound_3 = bound(bytes_3, ops_3)
+    bound_3, tc_3 = field_bounds(bytes_3, KF * T_ * flops_step,
+                                 KF * (T_ - 1) * 2, field)
     print(f"[timing] kernel 3 fused_rollout_cost K={KF} T={T_}: "
-          f"{ms_3:.4f} ms, plain {plain_3:.3f} ms, bound {bound_3[0]:.4f} ms "
+          f"{ms_3:.4f} ms, plain {plain_3:.3f} ms, tensor-core bound "
+          f"{tc_3[0]:.4f} ms ({tc_3[1]}), fp32 bound {bound_3[0]:.4f} ms "
           f"({bound_3[1]}; {ops_3 / 1e9:.1f} GFLOP, {bytes_3 / 1e6:.1f} MB); "
           f"kernel A on the exact map at the same K: {ms_a:.4f} ms, field / "
           f"exact {ms_3 / ms_a:.2f}x ({card})")
@@ -773,10 +861,13 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
         bytes_f = 4 * (2 * KC + T_ * 2 + n_w + n_f + 7 + 4) + 16
         ops_f = KC * (T_ * (flops_step + STREAM_OPS + ou)
                       + (T_ - 1) * 2 * field_ops)
-        bound_f = bound(bytes_f, ops_f)
-        times[sname] = (ms_f, plain_f, bound_f)
+        bound_f, tc_f = field_bounds(
+            bytes_f, KC * T_ * (flops_step + STREAM_OPS + ou),
+            KC * (T_ - 1) * 2, field)
+        times[sname] = (ms_f, plain_f, bound_f, tc_f)
         print(f"[timing] pass 1 field fused_rng_costs {sname} K={KC} "
-              f"T={T_}: {ms_f:.4f} ms, plain {plain_f:.3f} ms, bound "
+              f"T={T_}: {ms_f:.4f} ms, plain {plain_f:.3f} ms, tensor-core "
+              f"bound {tc_f[0]:.4f} ms ({tc_f[1]}), fp32 bound "
               f"{bound_f[0]:.4f} ms ({bound_f[1]}; {ops_f / 1e9:.1f} GOP, "
               f"{bytes_f / 1e6:.2f} MB); pass 1 on the exact map at the same "
               f"K: {ms_e:.4f} ms, field / exact {ms_f / ms_e:.2f}x ({card})")
@@ -793,18 +884,20 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
                   ticks=FIELD_PROFILE_TICKS, tag="field capacity profile")
 
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
-    ms_f, plain_f, bound_f = times["gaussian"]
+    ms_f, plain_f, bound_f, tc_f = times["gaussian"]
     kernels = [
         {"name": "fused_rollout_cost", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:606",
          "launches": launches["host-noise"]["fused_rollout_cost"],
          "max_abs_err": err_3, "ms": ms_3, "plain_ms": plain_3,
-         "bound_ms": bound_3[0], "bound_by": bound_3[1], "library_ms": None},
+         "bound_ms": tc_3[0], "bound_by": tc_3[1],
+         "fp32_bound_ms": bound_3[0], "library_ms": None},
         {"name": "fused_rng_costs_field", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
          "launches": launches["capacity"]["fused_rng_costs_field"],
          "max_abs_err": err_p1, "ms": ms_f, "plain_ms": plain_f,
-         "bound_ms": bound_f[0], "bound_by": bound_f[1], "library_ms": None},
+         "bound_ms": tc_f[0], "bound_by": tc_f[1],
+         "fp32_bound_ms": bound_f[0], "library_ms": None},
     ]
     return kernels, latency, field
 
@@ -891,25 +984,29 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     def note_err(form, err):
         errs[form] = max(errs.get(form, 0.0), err)
 
-    def pass1_forms(tag, name, form, mdl, prm, ccfg, s0, surf, kw, limit_b):
-        """Pass 1 on ``surf`` at K=262144 (gaussian): bit for bit the
-        eps-reading kernel fed the plain stream, against the plain cost
-        along kernel 2's trajectories on that stream (``limit_b`` rollouts
-        may differ; None: ``agreement``'s rule) and against the whole plain
-        version (1 %)."""
+    def pass1_forms(tag, name, form, mdl, prm, ccfg, s0, surf, kw, limit_b,
+                    k_offset=0, k_local=KC):
+        """Pass 1 on ``surf`` (gaussian) for the ``k_local`` rollouts from
+        ``k_offset`` of K=262144: bit for bit the eps-reading kernel fed
+        the plain stream, against the plain cost along kernel 2's
+        trajectories on that stream (``limit_b`` rollouts may differ; None:
+        ``agreement``'s rule) and against the whole plain version (1 %)."""
         c = ccfg.replace(num_rollouts=KC, kernel_rng=True)
         kc, kx, ctx = rk.fused_rng_costs(mdl, prm, c, cost_params, surf, s0,
-                                         U, key, **kw)
+                                         U, key, k_offset=k_offset,
+                                         K_local=k_local, **kw)
         e = rk.rng_noise(ctx)
         fused = (rk.fused_exact_rollout_cost if type(surf) is type(costmap)
                  else rk.fused_rollout_cost)
-        ac, _, ax = fused(mdl, prm, c, cost_params, surf, s0, U, e, **kw)
-        kb, _ = rk.dynamics_chain(mdl, prm, c, s0, U, e)
+        ac, _, ax = fused(mdl, prm, c, cost_params, surf, s0, U, e,
+                          k_offset=k_offset, **kw)
+        kb, _ = rk.dynamics_chain(mdl, prm, c, s0, U, e, k_offset=k_offset)
         bc, bx = rk.trajectory_cost_plain(mdl, prm, c, cost_params, surf, U,
-                                          e, kb, **kw)
+                                          e, kb, k_offset=k_offset, **kw)
         del kb, e
         pc, px, _ = rk.fused_rng_costs_plain(mdl, prm, c, cost_params, surf,
-                                             s0, U, key, **kw)
+                                             s0, U, key, k_offset=k_offset,
+                                             K_local=k_local, **kw)
         torch.cuda.synchronize()
         same = torch.equal(kc, ac) and torch.equal(kx, ax)
         print(f"[{tag}] equal to the eps-reading kernel on the plain stream: "
@@ -917,11 +1014,11 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
         check(same, f"{tag}: differs from the eps-reading kernel on the "
               "plain stream")
         note_err(form, agreement(f"{tag} along kernel 2", name, kc, kx, bc,
-                                 bx, KC, limit=limit_b))
-        agreement(tag, name, kc, kx, pc, px, KC, limit=KC // 100)
+                                 bx, k_local, limit=limit_b))
+        agreement(tag, name, kc, kx, pc, px, k_local, limit=k_local // 100)
         if name == "ahead":
-            check(0 < kx.sum().item() < KC, f"{tag}: the circles are hit by "
-                  "no rollout or by all")
+            check(0 < kx.sum().item() < k_local, f"{tag}: the circles are "
+                  "hit by no rollout or by all")
 
     # -- phase 15: BF kernels 1 and 2 against their plain versions -----------
     bf, bparams, _, _, note = drive_oval.build(model="bf", rollouts=KB,
@@ -1109,6 +1206,31 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
         pass1_forms(f"obstacles pass 1 field K={KC}", name,
                     "fused_rng_costs_field_obstacles", model, params, ccfg,
                     s0, f, okw, None)
+    # the field forms at a K that is not a multiple of 32: kernel 3, and a
+    # shard's slice of pass 1 (k_offset != 0)
+    k_r = KF - 19
+    ccfg, s0, f = field_cases["ahead"]
+    e_r = eps3[:, :k_r].contiguous()
+    kc, ku, kx = rk.fused_rollout_cost(model, params, ccfg, cost_params, f,
+                                       s0, U, e_r, **okw)
+    pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
+                                             cost_params, f, s0, U, e_r,
+                                             **okw)
+    kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, e_r)
+    bc, bx = rk.trajectory_cost_plain(model, params, ccfg, cost_params, f, U,
+                                      e_r, kb, **okw)
+    torch.cuda.synchronize()
+    check(torch.equal(ku, pu), "obstacles kernel 3 ragged_K: u_seq differs")
+    note_err("fused_rollout_cost_obstacles", agreement(
+        f"obstacles kernel 3 along kernel 2 K={k_r}", "ragged_K", kc, kx, bc,
+        bx, k_r))
+    agreement(f"obstacles kernel 3 K={k_r}", "ragged_K", kc, kx, pc, px, k_r,
+              limit=k_r // 100)
+    del e_r, kb, kc, ku, pc, pu
+    pass1_forms(f"obstacles pass 1 field K={SHARD[1]} k_offset={SHARD[0]}",
+                "ahead",
+                "fused_rng_costs_field_obstacles", model, params, ccfg, s0, f,
+                okw, None, k_offset=SHARD[0], k_local=SHARD[1])
     # the BF forms of kernels 3 and 4: the strong theta from the slow start,
     # the circles placed on its swarm as above (some rollouts hit, some not)
     bcircles = obstacle_circles(bmodel, strong, bcfg, slow_start, U)
@@ -1207,11 +1329,19 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     n_bf = rk.KERNEL_BF_WEIGHTS
     n_f = rk.FIELD_NUM_WEIGHTS
     mlp_step = mlp_flops(model.layers)
-    field_ops = field_eval_ops(field.layers, field.freqs.numel())
     n_active = sum(1 for c in circles if c[2] > 0)
     circle_ops = n_active * CIRCLE_OPS + (N_SLOTS - n_active) * SLOT_OPS + 1
     texels = 2 * (T_ - 1)
     gen.manual_seed(5)
+
+    def surface_bound(nbytes, k, step, obstacles, surface):
+        """(ms, what bounds it) for the exact map; for the field the
+        tensor-core bound and then the fp32 one (``field_bounds``)."""
+        other = k * (T_ * step + (T_ - 1) * (circle_ops if obstacles else 0))
+        if surface != "field":
+            return bound(nbytes, other)
+        fp32, tc = field_bounds(nbytes, other, k * (T_ - 1) * 2, field)
+        return tc + fp32
 
     def fused_bound(k, n_w, step, obstacles, surface):
         """Kernel 1 / 3: eps read, u_seq, costs and crash written, U, the
@@ -1220,10 +1350,7 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
         nbytes = 4 * (T_ * k * 2 + 2 * T_ * k + 2 * k + T_ * 2 + n_w + 7 + 4
                       + (3 * N_SLOTS if obstacles else 0)
                       + (n_f if surface == "field" else texels * k))
-        ops = k * (T_ * step + (T_ - 1) * (
-            (2 * field_ops if surface == "field" else 0)
-            + (circle_ops if obstacles else 0)))
-        return bound(nbytes, ops)
+        return surface_bound(nbytes, k, step, obstacles, surface)
 
     def pass1_bound(n_w, step, obstacles, surface):
         nbytes = (4 * (T_ * 2 + n_w + 7 + 4 + 2 * KC
@@ -1231,10 +1358,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
                        + (n_f if surface == "field" else min(
                            costmap.height * costmap.width, texels * KC)))
                   + 16)
-        ops = KC * (T_ * (step + STREAM_OPS) + (T_ - 1) * (
-            (2 * field_ops if surface == "field" else 0)
-            + (circle_ops if obstacles else 0)))
-        return bound(nbytes, ops)
+        return surface_bound(nbytes, KC, step + STREAM_OPS, obstacles,
+                             surface)
 
     e_b = torch.randn((T_, KB, 2), generator=gen, device=dev)
     e_1 = eps
@@ -1312,9 +1437,12 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
         ms = cuda_ms(launch, reps)
         plain_ms = cuda_ms(plain, plain_reps, 1) if plain else None
         times[form] = (ms, plain_ms)
+        fp32 = (f", fp32 bound {bnd[2]:.5f} ms ({bnd[3]})" if len(bnd) > 2
+                else "")
         print(f"[timing] {form}: {ms:.4f} ms, plain "
-              f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, bound "
-              f"{bnd[0]:.5f} ms ({bnd[1]}) ({card})")
+              f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, "
+              f"{'tensor-core ' if fp32 else ''}bound {bnd[0]:.5f} ms "
+              f"({bnd[1]}){fp32} ({card})")
     print(f"[timing] MLP without obstacles in this run: kernel A K={K} "
           f"{times['fused_exact_rollout_cost'][0]:.4f} ms, exact pass 1 "
           f"K={KC} {times['fused_rng_costs'][0]:.4f} ms; with {N_SLOTS} slots "
@@ -1344,7 +1472,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
              "replaces": f"autorally_tpu/ops/rollout_kernel.py:{line}",
              "launches": launches[path][form],
              "max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None})
+             "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+             **({"fp32_bound_ms": bnd[2]} if len(bnd) > 2 else {})})
     return kernels, latency
 
 
@@ -1401,6 +1530,26 @@ def main() -> int:
               "expected 11")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
     print(f"[build] total {build_s:.1f}s ({card})")
+    # the field kernels: resources at the main path's T, and their SASS
+    for rng, name in ((False, "fused_field_kernel"),
+                      (True, "fused_rng_field_kernel")):
+        for bf in (False, True):
+            info = rk.field_kernel_info(rng, bf, T)
+            print(f"[build] {name}<{'Bf' if bf else 'Mlp'}>: "
+                  f"{info['registers']} registers, {info['local_bytes']} "
+                  f"bytes of local memory a thread, {info['smem_bytes']} "
+                  f"bytes of dynamic shared memory at T={T}, "
+                  f"{info['blocks_per_sm']} blocks "
+                  f"({info['blocks_per_sm'] * rk.FIELD_BLOCK // 32} warps) "
+                  f"an SM")
+            check(info["blocks_per_sm"] * rk.FIELD_BLOCK >= 256,
+                  f"{name}: fewer than 8 resident warps an SM")
+    hmma = check_field_sass(str(_build.library_path()), os.path.join(
+        os.path.dirname(_build.nvcc_path()), "cuobjdump"))
+    print(f"[build] TF32 HMMA instructions in the field kernels' SASS: "
+          f"{hmma}")
+    check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
+          "the four field kernel instances do not all hold TF32 HMMA")
 
     # -- shared inputs: the drive_oval configuration -------------------------
     solver, params, cost_params, costmap, note = drive_oval.build(

@@ -346,19 +346,38 @@ def test_pack_field_follows_the_kernel_layout_and_is_reused():
     field = _default_field()
     assert field.layers == rk.FIELD_KERNEL_LAYERS
     packed = rk._pack_field(field)
-    assert packed.numel() == rk.FIELD_NUM_WEIGHTS == 6473
+    # the tensor-core layout: layer 1's and layer 2's B fragments (TF32 hi
+    # and lo, 4 floats a lane), then the float32 tail
+    n1, n2 = 5 * 8 * 32 * 4, 8 * 8 * 32 * 4
+    assert packed.numel() == rk.FIELD_PACK_FLOATS == n1 + n2 + 204
     (W0, W1, W2), (b0, b1, b2) = field.weights, field.biases
-    parts = torch.split(packed, [34 * 64, 64, 64 * 64, 64, 64, 1, 8])
-    for got, want in zip(parts, (W0.reshape(-1), b0, W1.t().reshape(-1), b1,
-                                 W2.reshape(-1), b2, field.freqs)):
+    frag1 = packed[:n1].reshape(5, 8, 32, 4)
+    frag2 = packed[n1:n1 + n2].reshape(8, 8, 32, 4)
+    # lane 6 (g 1, t 2) of k-step 1, n-tile 3: layer 1's b0 is tile row
+    # 8 + 2 (cos uF_1, feature 2 + 2F + 1), column 25, b1 tile row 14
+    # (cos uF_2); layer 2's are rows 8 + 4 and 8 + 5 of W1
+    hi, lo = rk.tf32_split(torch.stack([W0[19, 25], W0[20, 25]]))
+    assert torch.equal(frag1[1, 3, 6], torch.cat([hi, lo]))
+    hi, lo = rk.tf32_split(torch.stack([W1[12, 25], W1[13, 25]]))
+    assert torch.equal(frag2[1, 3, 6], torch.cat([hi, lo]))
+    assert not frag1[4, :, :, 1::2].any()         # padding rows 36-39
+    tail = packed[n1 + n2:]
+    for got, want in zip(torch.split(tail, [64, 64, 64, 1, 8, 3]),
+                         (b0, b1, W2.reshape(-1), b2, field.freqs,
+                          torch.zeros(3))):
         assert torch.equal(got, want)
     assert rk._pack_field(field) is packed
     W0.add_(1.0)
     assert rk._pack_field(field) is not packed
     src = (Path(rk.__file__).parent.parent / "csrc"
            / "rollout_kernels.cu").read_text()
-    consts = dict(re.findall(r"\b(kFreqs|kFieldH1|kFieldH2) = (\d+)", src))
-    assert consts == {"kFreqs": "8", "kFieldH1": "64", "kFieldH2": "64"}
+    consts = dict(re.findall(
+        r"\b(kFreqs|kFieldH1|kFieldH2|kFieldK1|kFieldBlock|kMaxFieldT) = "
+        r"(\d+)", src))
+    assert consts == {"kFreqs": "8", "kFieldH1": "64", "kFieldH2": "64",
+                      "kFieldK1": str(rk.FIELD_TILE_K),
+                      "kFieldBlock": str(rk.FIELD_BLOCK),
+                      "kMaxFieldT": str(rk.MAX_FIELD_KERNEL_T)}
 
 
 def test_launch_scalars_take_the_fields_transform_and_no_map_size():
