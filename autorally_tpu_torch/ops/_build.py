@@ -38,7 +38,10 @@ SIGNATURES = {
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
     "artt_update_block": [],
-    "artt_fused_exact_rollout_cost": [_P, _P, _I] + [_P] * 11,
+    "artt_exact_block": [],
+    "artt_group_block": [],
+    # fsc, isc, lane group, block, device, then device pointers + stream
+    "artt_fused_exact_rollout_cost": [_P, _P, _I, _I, _I] + [_P] * 11,
     "artt_fused_field_rollout_cost": [_P, _P, _I] + [_P] * 11,
     "artt_dynamics_chain": [_P, _P, _I] + [_P] * 8,
     # fsc, isc, k_offset, ou_a, ou_b, device, then device pointers + stream
@@ -47,6 +50,8 @@ SIGNATURES = {
     "artt_weighted_update": [_P, _P, _I, _F, _F, _I] + [_P] * 5,
     # rng, bf, T, n_obs, device, out (4 ints)
     "artt_field_kernel_info": [_I] * 5 + [_P],
+    # rng, bf, lane group, block, T, n_obs, device, out (4 ints)
+    "artt_exact_kernel_info": [_I] * 7 + [_P],
 }
 
 _lib = None

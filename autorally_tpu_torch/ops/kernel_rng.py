@@ -8,9 +8,10 @@ tests use.  It replaces the TPU's per-core PRNG (``_kernel_normals``,
 ``autorally_tpu/ops/rollout_kernel.py:1201``), whose bits cannot be
 reproduced off the TPU; the stream is equal to it in distribution.
 
-- **Key:** two uint32 values in an int64 tensor (2,), drawn once per
-  iteration from the solve's ``torch.Generator`` on the device; the
-  kernels read it through a device pointer, so no solve waits for the host.
+- **Key:** two uint32 values in an int64 tensor (2,): the subkey that
+  :func:`split` takes from the controller state's key once per iteration,
+  as the JAX package's ``_solve`` does (:func:`prng_key` makes a seed's
+  key).  The kernels read it through a device pointer.
 - **Counter:** (global rollout index ``k_offset + k``, timestep t), through
   Threefry-2x32-20 (Random123).  The stream therefore does not depend on
   the launch's block layout (pass 2 replays pass 1 exactly), and shards
@@ -85,6 +86,28 @@ def threefry2x32(key, counter) -> Tuple[torch.Tensor, torch.Tensor]:
             x0 = (x0 + ks[s % 3]) & _MASK
             x1 = (x1 + ks[(s + 1) % 3] + s) & _MASK
     return x0, x1
+
+
+def prng_key(seed: int) -> np.ndarray:
+    """The key of ``seed``, two uint32 words equal to the JAX package's
+    ``jax.random.key_data(jax.random.PRNGKey(seed))`` (Threefry, 32-bit
+    mode): ``[0, seed mod 2^32]`` for any int64 seed."""
+    seed = int(seed)
+    if not -(1 << 63) <= seed < (1 << 63):
+        raise OverflowError(f"seed {seed} does not fit in int64")
+    return np.array([0, seed & _MASK], dtype=np.uint32)
+
+
+def split(key) -> Tuple[np.ndarray, np.ndarray]:
+    """``jax.random.split(key)`` of a key of two uint32 words, bit for bit:
+    (new key, subkey), each (2,) uint32.  This is JAX's default
+    (``jax_threefry_partitionable``) fold-like split, Threefry-2x32 of the
+    key over the counters (0, 0) and (0, 1); Python integers on the host,
+    so a solve that splits its key waits for nothing on the device."""
+    k0, k1 = (int(w) & _MASK for w in key)
+    new = threefry2x32((k0, k1), (0, 0))
+    sub = threefry2x32((k0, k1), (0, 1))
+    return np.array(new, np.uint32), np.array(sub, np.uint32)
 
 
 def stream_log(x: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,11 @@ kernel; and the fused kernels (A, 3, pass 1) price the circles of an
 ``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
 package's wrappers take them.
 
+Kernel 1 launches in the geometry that :func:`exact_geometry` picks from
+K and the card's SM count: lane groups of G lanes a rollout (the MLP at
+small K) or one rollout a thread, with the same bits in both.  Exact
+pass 1 runs one rollout a thread.
+
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
@@ -115,6 +120,21 @@ _INT_SCALARS = ("T", "K", "k0_flag", "negate_yaw_der", "bf", "H", "W",
 # Rollouts per block of the pass-2 kernel (csrc kUpdateBlock): each block
 # writes one (C, T) partial numerator.
 UPDATE_BLOCK = 256
+# The block of kernel 1 and exact pass 1 in one rollout a thread (csrc
+# kBlock), and of kernel 1 in lane groups (csrc kGroupBlock).
+EXACT_BLOCK = 64
+GROUP_BLOCK = 128
+# The lane groups kernel 1 is built for, and every (G, block) it takes
+# (csrc geometry_ok; the BF model and exact pass 1 the first only).
+LANE_GROUPS = (8, 16, 32)
+GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
+                                         for G in LANE_GROUPS)
+# A lane-group kernel's resident warps an SM at its launch bounds (128
+# threads, 4 blocks), and the warps an SM it aims for: about one for each
+# of an SM's four schedulers, where each warp's dependent chain sets the
+# time and more lanes a rollout only add redundant work.
+GROUP_WARPS_PER_SM = 16
+GROUP_TARGET_WARPS_PER_SM = 3
 
 
 # ---------------------------------------------------------------------------
@@ -191,10 +211,12 @@ def _kernel_lib() -> ctypes.CDLL:
              lib.artt_num_weights(), lib.artt_num_bf_weights(),
              lib.artt_field_pack_floats(), lib.artt_field_block(),
              lib.artt_max_field_t(), lib.artt_max_obstacles(),
-             lib.artt_update_block())
+             lib.artt_update_block(), lib.artt_exact_block(),
+             lib.artt_group_block())
     want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
             KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
-            MAX_FIELD_KERNEL_T, MAX_OBSTACLES, UPDATE_BLOCK)
+            MAX_FIELD_KERNEL_T, MAX_OBSTACLES, UPDATE_BLOCK, EXACT_BLOCK,
+            GROUP_BLOCK)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -212,6 +234,87 @@ def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
         int(rng), int(bf), T, n_obs, device, out), "field_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
+
+
+class ExactGeometry(NamedTuple):
+    """A launch of kernel 1 or exact pass 1: ``group`` lanes share one
+    rollout (G; 1: one rollout a thread), ``block`` threads a block,
+    ``grid`` blocks."""
+
+    group: int
+    block: int
+    grid: int
+
+
+def exact_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
+    """The geometry of kernel 1 for K rollouts on a card of ``num_sms``
+    SMs.  The MLP takes lane groups while the smallest
+    group's K G / 32 warps fit in one wave of the group kernel: the
+    smallest G that gives every SM ``GROUP_TARGET_WARPS_PER_SM`` warps, or
+    the largest.  Beyond that, and for the BF model, one rollout a thread.
+    (The lane groups' times against K: ``tools/exact_variants.py``.)"""
+    if not bf and K * min(LANE_GROUPS) <= 32 * GROUP_WARPS_PER_SM * num_sms:
+        for G in sorted(LANE_GROUPS):
+            if K * G >= 32 * GROUP_TARGET_WARPS_PER_SM * num_sms:
+                break
+        return _geometry(K, G, GROUP_BLOCK)
+    return _geometry(K, 1, EXACT_BLOCK)
+
+
+def _geometry(K: int, group: int, block: int) -> ExactGeometry:
+    return ExactGeometry(group, block, -(-K // (block // group)))
+
+
+def exact_rollout_slots(geom: ExactGeometry, K: int, k_offset: int = 0):
+    """What each thread of a launch of ``geom`` over K rollouts runs, as the
+    kernels compute it (csrc ``group_slot`` and the one-rollout kernels):
+    ``(k, store)``, arrays (grid, block) of the global rollout index
+    (``k_offset`` + local; -1 where the thread has left) and whether the
+    thread stores that rollout's results.  A rollout past K runs rollout
+    K - 1 and stores nothing."""
+    G, B = geom.group, geom.block
+    b = np.arange(geom.grid)[:, None]
+    i = np.arange(B)[None, :]
+    k = b * (B // G) + i // G
+    if G > 1:
+        # a lane group leaves only with its whole warp
+        leave = b * (B // G) + (i & ~31) // G >= K
+        store = (k < K) & (i % G == 0)
+    else:
+        leave = k >= K
+        store = k < K
+    k = np.where(leave, -1, np.minimum(k, K - 1) + int(k_offset))
+    return k, store & ~leave
+
+
+def _launch_geometry(K: int, dev, model) -> ExactGeometry:
+    """The geometry a launch of kernel 1 takes on ``dev``
+    (``exact_geometry``, looked up in this module at call time)."""
+    return exact_geometry(K, num_sms(dev.index or 0),
+                          bf=type(model) is BasisFunctionDynamics)
+
+
+@functools.cache
+def num_sms(index: int) -> int:
+    """The SM count of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def exact_kernel_info(rng: bool, bf: bool, geom: ExactGeometry, T: int,
+                      n_obs: int = 0, device: int = 0) -> dict:
+    """What the CUDA runtime reports of the instance of kernel 1 (pass 1
+    when ``rng``) that ``geom`` launches, for a launch at ``T`` with
+    ``n_obs`` circle slots: registers and local-memory bytes a thread,
+    dynamic shared memory bytes, resident blocks an SM, and the launch's
+    waves (its blocks over one wave's)."""
+    out = (ctypes.c_int * 4)()
+    _check_launch(_kernel_lib().artt_exact_kernel_info(
+        int(rng), int(bf), geom.group, geom.block, T, n_obs, device, out),
+        "exact_kernel_info")
+    info = dict(zip(("registers", "local_bytes", "smem_bytes",
+                     "blocks_per_sm"), out))
+    info["waves"] = geom.grid / max(1, info["blocks_per_sm"] * num_sms(device))
+    return info
 
 
 def has_kernel_form(model) -> bool:
@@ -545,13 +648,18 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    entry = getattr(_kernel_lib(), {
-        "exact": "artt_fused_exact_rollout_cost",
-        "field": "artt_fused_field_rollout_cost"}[kind])
+    lib = _kernel_lib()
+    if kind == "exact":
+        geom = _launch_geometry(K, dev, model)
+        entry, geo_args = lib.artt_fused_exact_rollout_cost, geom[:2]
+    else:
+        geom, geo_args = None, ()
+        entry = lib.artt_fused_field_rollout_cost
 
     def launch():
         err = entry(
-            ctypes.addressof(fsc), ctypes.addressof(isc), dev.index or 0,
+            ctypes.addressof(fsc), ctypes.addressof(isc), *geo_args,
+            dev.index or 0,
             ptrs["s0"], ptrs["rngs"], ptrs["U"], ptrs["eps"],
             ptrs["surface"], ptrs["weights"],
             None if packed is None else packed.data_ptr(), costs.data_ptr(),
@@ -561,6 +669,7 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
 
     launch.inputs = (args, packed)           # keeps the buffers alive
     launch.name = fn + _form(model, n_obs)
+    launch.geometry = geom
     return launch, (costs, u_seq, crash)
 
 
@@ -853,6 +962,9 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
         _check_launch(err, f"fused_rng_costs ({kind})")
 
     launch.inputs = (args, packed)           # keeps the buffers alive
+    # exact pass 1 runs one rollout a thread at every K
+    launch.geometry = (_geometry(K, 1, EXACT_BLOCK) if kind == "exact"
+                       else None)
     launch.mode = kind
     launch.name = ("fused_rng_costs" + ("_field" if kind == "field" else "")
                    + _form(model, n_obs))

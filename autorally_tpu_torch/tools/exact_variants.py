@@ -1,0 +1,261 @@
+"""What bounds kernel 1 and exact pass 1, and which launch geometry is the
+fastest at each K: time variants of the CUDA source, then every geometry
+the kernels are built for.
+
+Each source variant is the kernel source with one edit, built by nvcc (all
+at once) into ``autorally_tpu_torch/_build/exact_variants/`` and timed
+through the port's own wrappers in the geometry the launcher picks:
+kernel 1 (``fused_exact_rollout_cost``) at K=1920 and exact pass 1
+(``fused_rng_costs``, gaussian) at K=262144, T=100, on the main path's
+seeded configuration (``drive_oval.build``).  The variants' results are
+wrong by design; only their times mean something.
+
+- ``base``: the source as it is;
+- ``no_tanh``: the MLP's tanhf taken away (the identity), in every form;
+- ``no_cost``: the cost step taken away (no lookups, atanf or latches);
+- ``const_weights``: the MLP's weights a constant of their index, folded
+  into the instructions, instead of read from shared memory;
+- ``const_bank``: the MLP's weights (MlpDeriv) read from ``__constant__``
+  memory, copied there from the packed weights on the launch's stream
+  before each launch of exact pass 1 (kernel 1's lane groups keep shared
+  memory); every lane of a warp reads the same weight at the same time;
+- ``no_gather``: the costmap lookups without their load (the texel index
+  arithmetic stays);
+- ``blocks_8``, ``blocks_10``: one rollout a thread with 8 or 10 blocks of
+  64 an SM asked of the compiler (``__launch_bounds__``), at most 128 or
+  102 registers instead of 168, for more warps in flight.
+
+Each variant's SASS of exact pass 1 (``fused_rng_kernel<MlpDeriv>``) is
+counted by opcode (``pass1_sass``): how the weights are read.
+
+Then, with the ``base`` library, every geometry kernel 1 is built for
+(``rk.GEOMETRIES``: lane group G, block) is forced on each form of
+``ab_builds.exact_forms`` (kernel 1 at K=1920 with and without 16 circle
+slots, the BF kernel 1 at K=2560, kernel 1 at K=262144; the BF form takes
+G = 1 only, and K=262144 no lane groups; exact pass 1's four forms at
+K=262144 run their one geometry, one rollout a thread), timed, and its
+outputs (costs, crash flags, u_seq) held bit for bit against one rollout a
+thread.  Last, kernel 1 is timed at the K of ``CROSSOVER_K`` in one
+rollout a thread and each lane group, to place the launcher's choice.
+Exits non-zero when a geometry's outputs differ.
+Usage, from the root of the repository::
+
+    python -m autorally_tpu_torch.tools.exact_variants
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+
+K_A, K_P1 = 1920, 262144
+CROSSOVER_K = (256, 960, 1920, 4224, 8448, 16896, 33792, 67584)
+
+_STAND_IN = ("__device__ __forceinline__ float stand_in(int i) {\n"
+             "  return 0.01f * (float)((i * 7) & 31) - 0.15f;\n}\n\n")
+_SI4 = "make_float4(stand_in({0}), stand_in({0} + 1), stand_in({0} + 2), " \
+       "stand_in({0} + 3))"
+_RNG_LAUNCH = ("  cudaStream_t st = (cudaStream_t)stream;\n"
+               "  with_deriv(s.bf, [&](auto d) {\n"
+               "    using D = decltype(d);\n"
+               "    fused_rng_kernel<D>")
+_COPY = ("  if (!s.bf)\n"
+         "    cudaMemcpyToSymbolAsync(c_w, weights, kNumMlpWeights * 4, 0,\n"
+         "                            cudaMemcpyDeviceToDevice, "
+         "(cudaStream_t)stream);\n")
+VARIANTS = {
+    "base": [],
+    "no_tanh": [
+        ("h1[j] = tanhf(acc + b0[j]);", "h1[j] = (acc + b0[j]);"),
+        ("h2[j] = tanhf(acc + b1[j]);", "h2[j] = (acc + b1[j]);"),
+        ("h1[u] = tanhf(acc + b.z);", "h1[u] = (acc + b.z);"),
+        ("h2[u] = tanhf(acc2[u]", "h2[u] = (acc2[u]")],
+    "no_cost": [("if (t > 0) {", "if (false) {")],
+    "const_weights": [
+        ("struct MlpDeriv {", _STAND_IN + "struct MlpDeriv {"),
+        ("fmaf(W0[j * kIn + i], in[i], acc)",
+         "fmaf(stand_in(j * kIn + i), in[i], acc)"),
+        ("fmaf(W1[j * kH1 + i], h1[i], acc)",
+         "fmaf(stand_in(j * kH1 + i), h1[i], acc)"),
+        ("fmaf(W2[j * kH2 + i], h2[i], acc)",
+         "fmaf(stand_in(j * kH2 + i), h2[i], acc)"),
+        ("const float4 a = r[0], b = r[1];",
+         f"const float4 a = {_SI4.format('u')}, b = {_SI4.format('u + 4')};"),
+        ("wq[u] = reinterpret_cast<const float4*>(W1 + (lane + G * u)\n"
+         "                                                * kGW1)[q];",
+         f"wq[u] = {_SI4.format('q + u')};"),
+        ("const float4 wq = r2[q];",
+         f"const float4 wq = {_SI4.format('q')};")],
+    "const_bank": [
+        ("struct MlpDeriv {",
+         "__constant__ float c_w[kNumMlpWeights];\n\nstruct MlpDeriv {"),
+        ("    const float* W0 = w;\n    const float* b0 = W0 + kH1 * kIn;",
+         "    const float* W0 = c_w;\n    const float* b0 = W0 + kH1 * kIn;"),
+        (_RNG_LAUNCH, _COPY + _RNG_LAUNCH)],
+    "no_gather": [
+        ("return __ldg(ch0 + (size_t)(int)fy * c.W + (int)fx);",
+         "return (fx + fy) * 1e-9f;")],
+    **{f"blocks_{n}": [
+        (f"__launch_bounds__(kBlock, 1)\n{kernel}(",
+         f"__launch_bounds__(kBlock, {n})\n{kernel}(")
+        for kernel in ("fused_exact_kernel", "fused_rng_kernel")]
+       for n in (8, 10)},
+}
+
+
+def pass1_sass(library) -> dict:
+    """Opcode counts in the SASS of ``fused_rng_kernel<MlpDeriv>`` in the
+    built ``library`` (``cuobjdump -sass``): instructions, shared-memory and
+    constant-bank loads, FFMA, and FFMA with a constant-bank operand."""
+    from autorally_tpu_torch.ops import _build
+
+    objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([objdump, "-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    for fn in re.split(r"\n\s*Function : ", out)[1:]:
+        head, body = fn.split("\n", 1)
+        if not re.search(r"\dfused_rng_kernelI\w*?MlpDeriv", head):
+            continue
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9_]*)[\w.]*\s*([^;]*);", body)
+        count = {"instructions": len(ins)}
+        for op in ("LDS", "LDC", "ULDC", "FFMA", "MUFU"):
+            count[op] = sum(o == op for o, _ in ins)
+        count["FFMA c[]"] = sum(o == "FFMA" and "c[" in a for o, a in ins)
+        return count
+    raise RuntimeError(f"{library}: no fused_rng_kernel<MlpDeriv>")
+
+
+@contextlib.contextmanager
+def forced_geometry(group: int, block: int):
+    """Makes every launch of kernel 1 take the geometry (G, block), one of
+    ``rk.GEOMETRIES``, while active."""
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    saved = rk.exact_geometry
+    rk.exact_geometry = lambda K, n_sms, bf=False: rk._geometry(
+        K, group, block)
+    try:
+        yield
+    finally:
+        rk.exact_geometry = saved
+
+
+def events(fn, reps: int) -> float:
+    """Median CUDA-event time of ``fn`` in ms after two warm-up runs."""
+    from autorally_tpu_torch.tools import ab_builds
+
+    ab_builds.events(fn, 2)
+    return statistics.median(ab_builds.events(fn, reps))
+
+
+def main() -> int:
+    import torch
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.tools.ab_builds import exact_forms
+    from autorally_tpu_torch.tools.field_variants import (build_variants,
+                                                          use_library)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip()
+    libs = build_variants(_build.BUILD_DIR / "exact_variants", VARIANTS)
+    dev = torch.device("cuda", 0)
+    timed = exact_forms(dev)
+
+    # the source variants, in the launcher's geometry, two rounds in turns
+    ms = {name: {"kernel1_K1920": [], "pass1_gaussian_K262144": []}
+          for name in libs}
+    for _ in range(2):
+        for name, so in libs.items():
+            use_library(so)
+            for form, reps in (("kernel1_K1920", 40),
+                               ("pass1_gaussian_K262144", 5)):
+                ms[name][form].append(events(timed[form][2]()[0], reps))
+    variants = {name: {f: statistics.mean(v) for f, v in m.items()}
+                for name, m in ms.items()}
+    sass = {name: pass1_sass(so) for name, so in libs.items()}
+    for name, r in variants.items():
+        print(f"[exact variants] {name}: kernel 1 K={K_A} "
+              f"{r['kernel1_K1920']:.4f} ms, exact pass 1 K={K_P1} "
+              f"{r['pass1_gaussian_K262144']:.4f} ms ({card}); pass 1 SASS "
+              f"{sass[name]}")
+
+    # every geometry, with the base library, against G = 1
+    use_library(libs["base"])
+    geometries, ok = {}, True
+    for form, (K, mlp, prepare) in timed.items():
+        with forced_geometry(*rk.GEOMETRIES[0]):
+            launch, ref = prepare()
+            launch()
+            ref = [t.clone() for t in ref]
+        geometries[form] = {}
+        for geom in rk.GEOMETRIES:
+            if geom[0] > 1 and (not mlp or K == K_P1):
+                continue              # BF: G = 1; no groups at 262144
+            with forced_geometry(*geom):
+                launch, out = prepare()
+            reps = 40 if K < K_P1 else 5
+            t = events(launch, reps)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            ok &= same
+            label = "G%d block %d" % geom
+            geometries[form][label] = {"ms": t, "bit_equal": same,
+                                       "launcher": False}
+            print(f"[exact geometry] {form} {label}: {t:.4f} ms, bit equal "
+                  f"to G=1: {same} ({card})")
+            del launch, out
+        picked = timed[form][2]()[0].geometry
+        label = "G%d block %d" % picked[:2]
+        if label in geometries[form]:
+            geometries[form][label]["launcher"] = True
+        print(f"[exact geometry] {form}: the launcher picks {label}")
+    crossover = crossover_sweep(dev, card)
+    print(json.dumps({"card": card, "variants": variants, "pass1_sass": sass,
+                      "geometries": geometries, "crossover": crossover,
+                      "bit_equal": ok}))
+    return 0 if ok else 1
+
+
+def crossover_sweep(dev, card) -> dict:
+    """Kernel 1 (the MLP on the exact map) at each K of ``CROSSOVER_K`` in
+    one rollout a thread and in each lane group: {K: {label: ms}}."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    solver, params, cost_params, costmap, _ = drive_oval.build(
+        rollouts=K_A, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(100, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    out = {}
+    for K in CROSSOVER_K:
+        cfg = solver.cfg.replace(num_rollouts=K)
+        eps = torch.randn((100, K, 2), generator=gen, device=dev)
+        out[K] = {}
+        for geom in rk.GEOMETRIES:
+            with forced_geometry(*geom):
+                launch, _ = rk.prepare_fused_exact_rollout_cost(
+                    solver.model, params, cfg, cost_params, costmap, start,
+                    U, eps)
+            out[K]["G%d block %d" % geom] = events(launch, 20)
+        best = min(out[K], key=out[K].get)
+        print(f"[exact crossover] kernel 1 K={K}: " + ", ".join(
+            f"{g} {t:.4f} ms" for g, t in out[K].items())
+            + f"; fastest {best} ({card})")
+    return out
+
+
+if __name__ == "__main__":
+    sys.exit(main())

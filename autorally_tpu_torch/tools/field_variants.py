@@ -65,14 +65,16 @@ VARIANTS = {
 }
 
 
-def build_variants(out_dir) -> dict:
-    """Build every variant's library at once; returns name -> path."""
+def build_variants(out_dir, variants=None) -> dict:
+    """Build every variant's library (``variants``: name -> [(text, its
+    replacement), ...], ``VARIANTS`` by default) at once; returns name ->
+    path."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, edits in VARIANTS.items():
+    for name, edits in (VARIANTS if variants is None else variants).items():
         text = src
         for old, new in edits:
             if old not in text:

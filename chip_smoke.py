@@ -17,9 +17,10 @@ every CUDA kernel of these paths, in every form, against its plain PyTorch
 version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require eleven kernels (kernels A, B, 3 and both modes of
-   pass 1 in an MLP and a BF instance each, and pass 2) and zero spill
-   bytes in every one (ptxas -v); print the four field instances'
+   (one nvcc), require fourteen kernels (kernels A, B, 3 and both modes
+   of pass 1 in an MLP and a BF instance each, pass 2, and kernel A in
+   each MLP lane group) and zero spill bytes in every one
+   (ptxas -v); print the four field instances'
    registers, dynamic shared memory and blocks an SM (at least 8 warps),
    and require TF32 tensor-core instructions (HMMA) in their SASS
    (``cuobjdump -sass``);
@@ -27,19 +28,27 @@ version.  Phases (any failure exits non-zero):
    K=1920, T=100 in four cases: nominal start, wide swarm (exploration
    std x4), NaN x coordinate, and a fine random map on which the crash
    flags differ between rollouts (there against the plain cost along
-   kernel B's trajectories);
+   kernel B's trajectories), and at K=1921 and on a shard's slice
+   (k_offset != 0), each in every launch geometry that the launcher picks
+   for some K (``launcher_geometries``: one rollout a thread, lane
+   groups), every geometry bit for bit equal to the first;
 3. kernel B (dynamics chain) against its plain version on the same inputs,
    and at its main-path shape (the nominal trajectory, K=1);
 4. the main path: one MPPI iteration on the GPU against the same iteration
    on the CPU, then ``MPPISolver`` on ``cuda`` for one untimed solve and
    200 ticks of slide + solve + plant step, with both kernels' launch
-   counters reset just before and read just after;
+   counters reset just before and read just after; the same drive in ten
+   pairs whose order alternates, kernel A in one rollout a thread and in
+   the launcher's geometry (the same controls), each pair's medians; the host
+   time that the controller state's key adds to a solve;
 5. timing of each kernel at its main-path shape against its plain version
-   and its bound;
+   and its bound, and kernel A's launch geometry (G, block, registers,
+   blocks an SM, waves);
 6. a torch.profiler trace of 50 ticks: device time by kernel and the
    device's idle share;
 7. pass 1 of the capacity mode against its plain version at K=262144,
-   T=100, gaussian and OU, in phase 2's four cases; its in-kernel stream
+   T=100, gaussian and OU, in phase 2's four cases, and at K=262143 and on
+   a shard's slice (one rollout a thread); its in-kernel stream
    must equal the plain stream bit for bit (pass 1 equals kernel A fed the
    plain stream);
 8. pass 2 against its plain version with pass 1's softmax weights, and
@@ -50,7 +59,8 @@ version.  Phases (any failure exits non-zero):
    read after each (1 pass 1, 1 pass 2, 1 kernel B and no kernel A per
    solve);
 10. timing of both passes at K=262144 against their plain versions and
-    bounds, of kernel A at the same K, and of whole solves at K=262144 in
+    bounds (with pass 1's launch geometry), of kernel A at the same K, and
+    of whole solves at K=262144 in
     the capacity and the host-noise modes; a torch.profiler trace of 20
     capacity-mode ticks;
 11. the field: ``drive_oval.build(neural_costmap=True)`` fits it on the
@@ -76,7 +86,9 @@ version.  Phases (any failure exits non-zero):
     pass 1 at the same K;
     whole field solves; torch.profiler traces of 10 ticks of each mode;
 15. the BF instances of kernels A and B against their plain versions at
-    K=2560 in phase 2's cases and at the nominal trajectory (K=1), with
+    K=2560 in phase 2's cases (kernel A also at K=2561 and on a shard's
+    slice, in each of its launch geometries) and at the nominal trajectory
+    (K=1), with
     the seeded theta and with a strong theta whose slip and tan rows are
     scaled by their denominators (dropping any of those rows must move the
     plain chain's states by more than 5 x the tolerance);
@@ -86,8 +98,9 @@ version.  Phases (any failure exits non-zero):
 17. the obstacle forms: two circles in 16 slots placed so that some
     rollouts hit them and some do not, kernel A (K=1920), kernel 3
     (K=65536) and pass 1 on both surfaces (K=262144) against their plain
-    versions, and the BF forms of kernel 3 and pass 1 with the strong
-    theta; pass 1 bit for bit the eps-reading kernel fed the plain stream;
+    versions (the exact-map forms in every launch geometry), and the BF
+    forms of kernel 3 and pass 1 with the strong theta; pass 1 bit for bit
+    the eps-reading kernel fed the plain stream;
     the field obstacle forms also at K=65536-19 and on a shard's slice;
 18. the obstacle path: a live ``CostParams.obstacles`` reaching the kernel,
     200 ticks with the circles moved every tick (1 obstacle kernel A and 1
@@ -124,6 +137,9 @@ PEAK_TF32_FLOP_PER_S = 495e12         # tensor cores, dense
 
 K, T = 1920, 100
 TICKS = 200
+# phase 4's drives of kernel A in the old and the new geometry, in pairs
+# whose order alternates (ten, so that a gain can be told from the spread)
+TURN_PAIRS = 10
 PROFILE_TICKS = 50
 COST_RTOL, COST_ATOL = 1e-4, 1e-3     # 100 fp32 steps, other summation order
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-3
@@ -197,6 +213,10 @@ BF_ROW_SCALE = 10.0 * np.array([BF_SUSPECT_ROWS.get(i, 1.0)
                                 for i in range(25)], np.float32)
 
 
+# registers of each kernel instance, from the build's ptxas report
+PTXAS = {}
+
+
 class PhaseFailed(Exception):
     pass
 
@@ -234,6 +254,65 @@ def agreement(tag, name, kc, kx, pc, px, n, limit=None):
 def check(ok, msg):
     if not ok:
         raise PhaseFailed(msg)
+
+
+def launcher_geometries(rk, bf: bool, k_max: int = KC) -> list:
+    """Every geometry (G, block) of kernel 1 that the launcher
+    (``rk.exact_geometry``) picks on this card for some K in
+    1..k_max, the one at K=1920 (BF: K=2560) first."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    first = rk.exact_geometry(KB if bf else K, sms, bf)[:2]
+    picked = {rk.exact_geometry(k, sms, bf)[:2] for k in range(1, k_max + 1)}
+    return [first] + sorted(picked - {first})
+
+
+def geometry_label(geom) -> str:
+    return "G%d block %d" % tuple(geom[:2])
+
+
+def hold_geometries(tag, geoms, run, check_one):
+    """``run()`` under each forced geometry in ``geoms``: ``check_one(label,
+    outputs)`` on each, and every geometry's outputs bit for bit equal to
+    the first's (the lane groups evaluate the same arithmetic as one
+    rollout a thread).  Returns the first geometry's outputs."""
+    import torch
+    from autorally_tpu_torch.tools.exact_variants import forced_geometry
+
+    first = None
+    for geom in geoms:
+        label = geometry_label(geom)
+        with forced_geometry(*geom):
+            out = run()
+        torch.cuda.synchronize()
+        check_one(label, out)
+        if first is None:
+            first = out
+            continue
+        same = all(torch.equal(a, b) for a, b in zip(out, first)
+                   if torch.is_tensor(a))
+        print(f"[{tag}] {label}: bit equal to {geometry_label(geoms[0])}: "
+              f"{same}")
+        check(same, f"{tag} {label}: differs from "
+              f"{geometry_label(geoms[0])}")
+    return first
+
+
+def geometry_line(rk, tag, launch, rng: bool, bf: bool, card):
+    """Prints the geometry of a launch of kernel 1 or exact pass 1: G,
+    block, grid, registers (ptxas and the runtime), resident blocks an SM
+    and waves (one rollout a thread: R = 1 always)."""
+    g = launch.geometry
+    info = rk.exact_kernel_info(rng, bf, g, T, 0)
+    kern = (f"fused_exact_group_kernel<{g.group}>" if g.group > 1
+            else ("fused_rng" if rng else "fused_exact")
+            + f"_kernel<{'Bf' if bf else 'Mlp'}>")
+    print(f"[{tag}] geometry {geometry_label(g)}, grid {g.grid}: {kern}, "
+          f"{PTXAS.get(kern, '?')} registers (ptxas), {info['registers']} "
+          f"(runtime), {info['local_bytes']} bytes of local memory, "
+          f"{info['blocks_per_sm']} blocks an SM, {info['waves']:.2f} waves "
+          f"({card})")
 
 
 def card_line() -> str:
@@ -329,10 +408,11 @@ def ptxas_report(log: str):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            short = re.search(r"\d+([a-z_]+_kernel)(?:E|I.*?(Mlp|Bf)Deriv)",
-                              m.group(1))
-            name = (short.group(1) + (f"<{short.group(2)}>" if short.group(2)
-                                      else "") if short else m.group(1))
+            short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
+                              r"(Mlp|Bf)Deriv)", m.group(1))
+            arg = short and (short.group(2) or short.group(3))
+            name = (short.group(1) + (f"<{arg}>" if arg else "") if short
+                    else m.group(1))
             spill = None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -471,6 +551,40 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
             if name == "nominal":
                 nominal[sname] = (c, ctx, kc)
             del eps, ac, pc
+    # a K that is a multiple of neither a block nor a warp, and a shard's
+    # slice of the global batch (k_offset != 0): bit for bit kernel A on the
+    # slice's plain stream
+    for name, case, k_off, k_loc in (("ragged_K", "nominal", 0, KC - 1),
+                                     ("shard", "random_map", *SHARD)):
+        ccfg, s0, cmap = cases[case]
+        c = cap_cfg["ou"].replace(steering_std=ccfg.steering_std,
+                                  throttle_std=ccfg.throttle_std)
+        kw = dict(k_offset=k_off, K_local=k_loc)
+        kc, kx, ctx = rk.fused_rng_costs(model, params, c, cost_params, cmap,
+                                         s0, U, key, **kw)
+        pc, px, _ = rk.fused_rng_costs_plain(model, params, c, cost_params,
+                                             cmap, s0, U, key, **kw)
+        eps = rk.rng_noise(ctx)
+        ac, _, ax = rk.fused_exact_rollout_cost(model, params, c, cost_params,
+                                                cmap, s0, U, eps,
+                                                k_offset=k_off)
+        kb, _ = rk.dynamics_chain(model, params, c, s0, U, eps,
+                                  k_offset=k_off)
+        bc, bx = rk.trajectory_cost_plain(model, params, c, cost_params, cmap,
+                                          U, eps, kb, k_offset=k_off)
+        del kb, eps
+        torch.cuda.synchronize()
+        same_as_a = torch.equal(kc, ac) and torch.equal(kx, ax)
+        print(f"[pass 1] ou {name} K={k_loc} k_offset={k_off}: equal to "
+              f"kernel A on the plain stream: {same_as_a}")
+        check(same_as_a, f"pass 1 {name}: differs from kernel A on the plain "
+              "stream")
+        err_p1 = max(err_p1, agreement(
+            f"pass 1 ou K={k_loc} k_offset={k_off} along kernel B", name, kc,
+            kx, bc, bx, k_loc, limit=0))
+        agreement(f"pass 1 ou K={k_loc} k_offset={k_off}", name, kc, kx, pc,
+                  px, k_loc, limit=0 if name == "ragged_K" else None)
+        del kc, pc, ac, bc
     # -- phase 8: pass 2 against its plain version ---------------------------
     err_p2 = 0.0
     first_pure = int(np.ceil(np.float32(cfg.pure_noise_frac * KC)))
@@ -550,6 +664,8 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         launch1, (kc, _), ctx = rk.prepare_fused_rng_costs(
             model, params, c, cost_params, costmap, start, U, key)
         ms1 = cuda_ms(launch1, 20)
+        geometry_line(rk, f"timing pass 1 {sname}", launch1, True, False,
+                      card)
         plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
             model, params, c, cost_params, costmap, start, U, key), 3, 1)
         # inputs read once (U, weights, state, control ranges, key, at most
@@ -579,6 +695,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         model, params, cap_cfg["ou"], cost_params, costmap, start, U, eps)
     print(f"[timing] kernel A fused_exact_rollout_cost K={KC} T={T_}: "
           f"{cuda_ms(launch_a, 20):.4f} ms ({card})")
+    geometry_line(rk, f"timing kernel A K={KC}", launch_a, False, False, card)
     del eps, launch_a
 
     host = MPPISolver(model, solver.cost, cfg.replace(num_rollouts=KC),
@@ -1021,6 +1138,9 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
                   "hit by no rollout or by all")
 
     # -- phase 15: BF kernels 1 and 2 against their plain versions -----------
+    # kernel 1 in every geometry that the launcher picks for the BF model
+    bf_geoms = launcher_geometries(rk, bf=True)
+    geoms = launcher_geometries(rk, bf=False)
     bf, bparams, _, _, note = drive_oval.build(model="bf", rollouts=KB,
                                                device=dev)
     bmodel, bcfg = bf.model, bf.cfg
@@ -1062,9 +1182,11 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
             tag = f"bf {theta_name}"
             c = bcfg.replace(steering_std=ccfg.steering_std,
                              throttle_std=ccfg.throttle_std)
-            kc, ku, kx = rk.fused_exact_rollout_cost(bmodel, prm, c,
-                                                     cost_params, cmap, s0,
-                                                     U, beps)
+            kc, ku, kx = hold_geometries(
+                f"{tag} kernel 1 {name}", bf_geoms,
+                lambda: tuple(rk.fused_exact_rollout_cost(
+                    bmodel, prm, c, cost_params, cmap, s0, U, beps)),
+                lambda label, out: None)
             pc, pu, px = rk.fused_rollout_cost_plain(bmodel, prm, c,
                                                      cost_params, cmap, s0,
                                                      U, beps)
@@ -1111,6 +1233,27 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
         check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
               f"bf {theta_name} nominal trajectory differs")
         note_err("dynamics_chain_bf", e_nom)
+    # a K that is a multiple of neither a block nor a warp, and a shard's
+    # slice (k_offset != 0), of BF kernel 1 in each of its geometries
+    beps_r = torch.randn((T_, KB + 1, 2), generator=gen, device=dev)
+    for name, e, k_off in (("ragged_K", beps_r, 0),
+                           ("shard", beps[:, 301:].contiguous(), 301)):
+        pc, pu, px = rk.fused_rollout_cost_plain(
+            bmodel, bparams, bcfg, cost_params, costmap, start, U, e,
+            k_offset=k_off)
+
+        def check_bf(label, out):
+            kc, ku, kx = out
+            note_err("fused_exact_rollout_cost_bf", agreement(
+                f"bf seeded kernel 1 {label} K={e.shape[1]} k_offset={k_off}",
+                name, kc, kx, pc, px, e.shape[1], limit=0))
+            check(torch.equal(ku, pu), f"bf kernel 1 {name}: u_seq differs")
+
+        hold_geometries(f"bf kernel 1 {name}", bf_geoms, lambda: tuple(
+            rk.fused_exact_rollout_cost(bmodel, bparams, bcfg, cost_params,
+                                        costmap, start, U, e,
+                                        k_offset=k_off)), check_bf)
+    del beps_r
 
     # -- phase 16: the BF path, closed loop ----------------------------------
     cpu_bf, cpu_bparams, _, cpu_map, _ = drive_oval.build(
@@ -1150,9 +1293,11 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     # version, whose trajectories differ by rounding, a rollout that grazes
     # a circle's edge (or a texel's) may latch on one side only: 1 %.
     for name, (ccfg, s0, cmap) in cases.items():
-        kc, ku, kx = rk.fused_exact_rollout_cost(model, params, ccfg,
-                                                 cost_params, cmap, s0, U,
-                                                 eps, **okw)
+        kc, ku, kx = hold_geometries(
+            f"obstacles kernel 1 {name}", geoms, lambda: tuple(
+                rk.fused_exact_rollout_cost(model, params, ccfg, cost_params,
+                                            cmap, s0, U, eps, **okw)),
+            lambda label, out: None)
         pc, pu, px = rk.fused_rollout_cost_plain(model, params, ccfg,
                                                  cost_params, cmap, s0, U,
                                                  eps, **okw)
@@ -1435,6 +1580,9 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     times = {}
     for form, (launch, plain, reps, plain_reps, bnd, _) in timed.items():
         ms = cuda_ms(launch, reps)
+        if getattr(launch, "geometry", None) is not None:
+            geometry_line(rk, f"timing {form}", launch, "rng" in form,
+                          "_bf" in form, card)
         plain_ms = cuda_ms(plain, plain_reps, 1) if plain else None
         times[form] = (ms, plain_ms)
         fp32 = (f", fp32 bound {bnd[2]:.5f} ms ({bnd[3]})" if len(bnd) > 2
@@ -1525,10 +1673,12 @@ def main() -> int:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
         # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain),
-        # and pass 2
-        check(len(report) == 11, f"ptxas reported {len(report)} kernels, "
-              "expected 11")
+        # pass 2, and kernel 1 in its lane groups (the MLP)
+        n_kernels = 11 + len(rk.LANE_GROUPS)
+        check(len(report) == n_kernels, f"ptxas reported {len(report)} "
+              f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
+        PTXAS.update((name, regs) for name, regs, _ in report)
     print(f"[build] total {build_s:.1f}s ({card})")
     # the field kernels: resources at the main path's T, and their SASS
     for rng, name in ((False, "fused_field_kernel"),
@@ -1588,42 +1738,71 @@ def main() -> int:
     # kernel A is held against the plain cost along kernel B's trajectories
     # (the same chain code), which isolates its cost and lookup arithmetic;
     # at most 1 % of the rollouts may differ from the whole plain version.
+    # Every geometry that the launcher picks for some K (lane groups, one
+    # or two rollouts a thread) runs each case, and also a K that is a
+    # multiple of neither a block nor a warp and a shard's slice
+    # (k_offset != 0); each bit for bit equal to the first.
+    geoms = launcher_geometries(rk, bf=False)
+    bf_geoms = launcher_geometries(rk, bf=True)
+    print(f"[geometry] the launcher picks {[geometry_label(g) for g in geoms]}"
+          f" (MLP), {[geometry_label(g) for g in bf_geoms]} (BF); at K={K} "
+          f"{geometry_label(geoms[0])}, at K={KB} (BF) "
+          f"{geometry_label(bf_geoms[0])}")
     err_a = 0.0
-    for name, (ccfg, s0, cmap) in cases.items():
-        kc, ku, kx = rk.fused_exact_rollout_cost(
-            model, params, ccfg, cost_params, cmap, s0, U, eps)
+    eps_r = torch.randn((T, K + 1, 2), generator=gen, device=dev)
+    shard_a = (K // 3 + 61, K - K // 3 - 61)  # (k_offset, K_local): 701
+    a_cases = dict(cases, ragged_K=(cfg, start, costmap),
+                   shard=(cfg, start, costmap))
+    for name, (ccfg, s0, cmap) in a_cases.items():
+        e, kw = {"ragged_K": (eps_r, {}),
+                 "shard": (eps[:, shard_a[0]:].contiguous(),
+                           dict(k_offset=shard_a[0]))}.get(name, (eps, {}))
+        k_n = e.shape[1]
         pc, pu, px = rk.fused_rollout_cost_plain(
-            model, params, ccfg, cost_params, cmap, s0, U, eps)
+            model, params, ccfg, cost_params, cmap, s0, U, e, **kw)
         note = ""
         if name == "random_map":
-            near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
-            n_differ = int((~near).sum().item())
-            note = (f"; {n_differ} rollouts differ from the plain version's "
-                    f"own trajectories, held against the plain cost along "
-                    f"kernel B's")
-            check(n_differ <= MAX_RANDOM_MAP_DIFFER, f"A random_map: "
-                  f"{n_differ} rollouts differ from the plain version, more "
-                  f"than {MAX_RANDOM_MAP_DIFFER}")
-            kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, eps)
+            kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, e)
+            pc0 = pc
             pc, px = rk.trajectory_cost_plain(model, params, ccfg,
-                                              cost_params, cmap, U, eps, kb)
+                                              cost_params, cmap, U, e, kb)
             check(0 < px.sum().item() < K, "A random_map: crash flags do "
                   "not differ between rollouts")
-        torch.cuda.synchronize()
-        e_cost = (kc - pc).abs().max().item()
-        e_u = (ku - pu).abs().max().item()
-        n_crash_diff = int((kx != px).sum().item())
-        print(f"[kernel A] {name}: max|cost err| {e_cost:.3e} "
-              f"(cost range {pc.min().item():.4g}..{pc.max().item():.4g}), "
-              f"max|u_seq err| {e_u:.3e}, crash {int(px.sum().item())}/{K} "
-              f"rollouts, crash mismatches {n_crash_diff}{note}")
-        check(torch.isfinite(kc).all().item(), f"A {name}: non-finite costs")
-        check(torch.allclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL),
-              f"A {name}: costs differ beyond rtol {COST_RTOL} atol "
-              f"{COST_ATOL}")
-        check(n_crash_diff == 0, f"A {name}: crash flags differ")
-        check(torch.equal(ku, pu), f"A {name}: u_seq differs")
-        err_a = max(err_a, e_cost)
+            note = (", held against the plain cost along kernel B's "
+                    "trajectories")
+
+        def check_a(label, out):
+            kc, ku, kx = out
+            nonlocal err_a
+            if name == "random_map":
+                near = torch.isclose(kc, pc0, rtol=COST_RTOL, atol=COST_ATOL)
+                n_differ = int((~near).sum().item())
+                print(f"[kernel A] {label} random_map: {n_differ} rollouts "
+                      f"differ from the plain version's own trajectories")
+                check(n_differ <= MAX_RANDOM_MAP_DIFFER, f"A random_map: "
+                      f"{n_differ} rollouts differ from the plain version, "
+                      f"more than {MAX_RANDOM_MAP_DIFFER}")
+            e_cost = (kc - pc).abs().max().item()
+            e_u = (ku - pu).abs().max().item()
+            n_crash_diff = int((kx != px).sum().item())
+            print(f"[kernel A] {label} {name} K={k_n}: max|cost err| "
+                  f"{e_cost:.3e} (cost range {pc.min().item():.4g}.."
+                  f"{pc.max().item():.4g}), max|u_seq err| {e_u:.3e}, crash "
+                  f"{int(px.sum().item())}/{k_n} rollouts, crash mismatches "
+                  f"{n_crash_diff}{note}")
+            check(torch.isfinite(kc).all().item(),
+                  f"A {label} {name}: non-finite costs")
+            check(torch.allclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL),
+                  f"A {label} {name}: costs differ beyond rtol {COST_RTOL} "
+                  f"atol {COST_ATOL}")
+            check(n_crash_diff == 0, f"A {label} {name}: crash flags differ")
+            check(torch.equal(ku, pu), f"A {label} {name}: u_seq differs")
+            err_a = max(err_a, e_cost)
+
+        hold_geometries(f"kernel A {name}", geoms, lambda: tuple(
+            rk.fused_exact_rollout_cost(model, params, ccfg, cost_params,
+                                        cmap, s0, U, e, **kw)), check_a)
+    del eps_r
 
     # -- phase 3: kernel B against its plain version -------------------------
     err_b = 0.0
@@ -1680,6 +1859,56 @@ def main() -> int:
         check(n >= TICKS, f"{name} launched {n} times in {TICKS} ticks")
     results["latency"] = (float(np.percentile(st, 50)),
                           float(np.percentile(st, 99)))
+    # the same drive with kernel A in one rollout a thread (the previous
+    # design, the same bits: the same trajectory) and in the launcher's
+    # geometry, in TURN_PAIRS pairs whose order alternates (old then new,
+    # new then old, ...): each pair's p50 and p99 and the p50's gain
+    from autorally_tpu_torch.tools.exact_variants import forced_geometry
+    old, new = rk.GEOMETRIES[0], launcher_geometries(rk, False)[0]
+    turns = []
+    for i in range(TURN_PAIRS):
+        pair = {}
+        for geom in ((old, new) if i % 2 == 0 else (new, old)):
+            with forced_geometry(*geom):
+                o = drive_oval.drive(solver, params, cost_params, costmap,
+                                     TICKS, log=lambda m: None)
+            check(np.array_equal(o["controls"], out["controls"]),
+                  f"main path with kernel A in {geometry_label(geom)}: "
+                  "other controls")
+            pair["old" if geom == old else "new"] = (
+                float(np.percentile(o["solve_ms"], 50)),
+                float(np.percentile(o["solve_ms"], 99)))
+        pair["first"] = "old" if i % 2 == 0 else "new"
+        pair["gain_p50"] = pair["old"][0] - pair["new"][0]
+        turns.append(pair)
+        print(f"[main path] pair {i} ({pair['first']} first), the same "
+              f"controls: kernel A in {geometry_label(old)} p50 "
+              f"{pair['old'][0]:.3f} p99 {pair['old'][1]:.3f} ms, in "
+              f"{geometry_label(new)} p50 {pair['new'][0]:.3f} p99 "
+              f"{pair['new'][1]:.3f} ms, p50 gain {pair['gain_p50']:.3f} ms")
+    gains = [p["gain_p50"] for p in turns]
+    q = {g: np.percentile([p[g][0] for p in turns], [25, 50, 75])
+         for g in ("old", "new")}
+    print(f"[main path] p50 gain of {geometry_label(new)} over "
+          f"{geometry_label(old)} over {TURN_PAIRS} pairs: median "
+          f"{statistics.median(gains):.3f} ms, range {min(gains):.3f}.."
+          f"{max(gains):.3f} ms, won {sum(g > 0 for g in gains)} of "
+          f"{TURN_PAIRS}; the drives' p50 median {q['old'][1]:.3f} against "
+          f"{q['new'][1]:.3f} ms, quartile spread {q['old'][2] - q['old'][0]:.3f}"
+          f" against {q['new'][2] - q['new'][0]:.3f} ms ({TICKS} ticks a "
+          f"drive; {card})")
+    results["latency_turns"] = turns
+    # what the controller state's key adds to a solve on the host: the
+    # split and the host-noise generator seeded from the subkey
+    from autorally_tpu_torch.ops import kernel_rng
+    key = solver.init_state().key
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        key, sub = kernel_rng.split(key)
+        solver._noise_generator(sub)
+    key_us = (time.perf_counter() - t0) * 1e3
+    print(f"[main path] the key's host time a solve: {key_us:.1f} us "
+          f"(split + generator, host clock, mean of 1000; {card})")
 
     # -- phase 5: timing -----------------------------------------------------
     flops_step = mlp_flops(model.layers)
@@ -1701,6 +1930,7 @@ def main() -> int:
     bound_b, by_b = bound(bytes_b, flops_step * T)
     print(f"[timing] A fused_exact_rollout_cost K={K} T={T}: {ms_a:.4f} ms, "
           f"plain {plain_a:.3f} ms, bound {bound_a:.5f} ms ({by_a}) ({card})")
+    geometry_line(rk, "timing A", launch_a, False, False, card)
     print(f"[timing] B dynamics_chain K=1 T={T}: {ms_b:.4f} ms, plain "
           f"{plain_b:.3f} ms, bound {bound_b:.7f} ms ({by_b}) ({card})")
 
@@ -1728,7 +1958,8 @@ def main() -> int:
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1013",
          "launches": launches["fused_exact_rollout_cost"],
          "max_abs_err": err_a, "ms": ms_a, "plain_ms": plain_a,
-         "bound_ms": bound_a, "bound_by": by_a, "library_ms": None},
+         "bound_ms": bound_a, "bound_by": by_a, "library_ms": None,
+         "geometry": geometry_label(launch_a.geometry)},
         {"name": "dynamics_chain", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:389",
          "launches": launches["dynamics_chain"],
@@ -1737,6 +1968,7 @@ def main() -> int:
     ] + cap_kernels + field_kernels + bf_obs_kernels
     print(json.dumps({"kernels": kernels, "card": card,
                       "solve_ms_p50_p99": results["latency"],
+                      "solve_ms_turns": results["latency_turns"],
                       "capacity_solve_ms_p50_p99": cap_latency,
                       "field_solve_ms_p50_p99": field_latency,
                       "bf_obstacle_solve_ms_p50_p99": bf_obs_latency}))

@@ -313,24 +313,26 @@ def test_bf_iterate_matches_jax(mode):
 @pytest.mark.parametrize("mode", ["host_noise", "capacity"])
 def test_bf_solve_matches_jax(mode):
     """One ``solve`` (iteration, Savitzky-Golay, nominal trajectory) against
-    JAX fed the same noise (the capacity solve's key from a twin
-    generator of the same seed)."""
+    JAX fed the same noise (the capacity solve's stream from the subkey
+    that ``jax.random.split`` takes from the JAX state's key); both solves
+    return the same new key."""
     solver, params, jsolver, jparams = _pair(kernel_rng=mode == "capacity")
     cm, jcm = _maps()
     state, _, eps = _inputs()
+    jcs0 = jsolver.init_state()
     if mode == "capacity":
-        twin = torch.Generator()
-        twin.manual_seed(solver.cfg.seed)
-        key = torch.randint(0, 1 << 32, (2,), generator=twin,
-                            dtype=torch.int64)
+        sub = jax.random.split(jcs0.key)[1]
+        key = torch.tensor(np.asarray(jax.random.key_data(sub)),
+                           dtype=torch.int64)
         eps = kr.kernel_noise(key, 0, K, T, None).numpy()
     else:
         solver._sample_noise = lambda gen, shape: torch.tensor(eps)
     jsolver._sample_noise = lambda key, shape: jnp.asarray(eps)
     cs, stats = solver.solve(params, CostParams(), cm, state,
                              solver.init_state())
-    jcs, jstats = jsolver.solve(jparams, JaxCostParams(), jcm, state,
-                                jsolver.init_state())
+    jcs, jstats = jsolver.solve(jparams, JaxCostParams(), jcm, state, jcs0)
+    np.testing.assert_array_equal(cs.key,
+                                  np.asarray(jax.random.key_data(jcs.key)))
     for name in ("U", "control_solution", "state_solution"):
         np.testing.assert_allclose(getattr(cs, name).numpy(),
                                    np.asarray(getattr(jcs, name)),

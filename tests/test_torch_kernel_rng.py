@@ -328,29 +328,32 @@ def test_capacity_iteration_matches_jax_iterate(sampler):
 def test_three_tick_capacity_scenario_matches_jax(sampler):
     """slide + solve three times in the capacity mode (K=256, T=32,
     ppm=4) against JAX slide + iterate + savitzky_golay +
-    nominal_trajectory fed the same per-tick stream: the port's solve
-    draws one key per tick from its generator, and a twin generator of
-    the same seed gives the JAX side the stream of that key."""
+    nominal_trajectory fed the same per-tick stream: the JAX side splits
+    its own state's key as its ``_solve`` does (``jax.random.split``) and
+    draws the stream of the subkey; the two states' keys are equal after
+    every tick."""
     Kp, Tp = 256, 32
     port, params, cm, jsolver, jparams, jcm = _capacity_pair(
         sampler, K=Kp, T=Tp, ppm=4.0, seed=1234)
-    twin = torch.Generator()
-    twin.manual_seed(port.cfg.seed)
     cp, jcp = CostParams(desired_speed=5.0), JaxCostParams(desired_speed=5.0)
     jstate = jnp.asarray(SCENARIO_START)
     cs, jcs = port.init_state(), jsolver.init_state()
     for _ in range(3):
         cs = port.slide(cs, 1)
         cs, stats = port.solve(params, cp, cm, SCENARIO_START, cs)
-        key = torch.randint(0, 1 << 32, (2,), generator=twin,
-                            dtype=torch.int64)
+        jkey, sub = jax.random.split(jcs.key)
+        key = torch.tensor(np.asarray(jax.random.key_data(sub)),
+                           dtype=torch.int64)
         eps = kr.kernel_noise(key, 0, Kp, Tp, _theta(sampler)).numpy()
         jcs = jsolver.slide(jcs, 1)
         jU, jstats = jsolver.iterate(jparams, jcp, jcm, jstate, jcs.U,
                                      jnp.asarray(eps))
         jU = jmppi.savitzky_golay(jU, jcs.control_hist)
         jss, jctl = jsolver.nominal_trajectory(jparams, jstate, jU)
-        jcs = jcs._replace(U=jU, state_solution=jss, control_solution=jctl)
+        jcs = jcs._replace(U=jU, state_solution=jss, control_solution=jctl,
+                           key=jkey)
+        np.testing.assert_array_equal(
+            cs.key, np.asarray(jax.random.key_data(jcs.key)))
     for name in ("U", "control_hist", "control_solution", "state_solution"):
         np.testing.assert_allclose(getattr(cs, name).numpy(),
                                    np.asarray(getattr(jcs, name)),

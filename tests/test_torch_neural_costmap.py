@@ -288,17 +288,18 @@ def test_solve_matches_jax(mode):
     """One ``solve`` on a field (iteration, Savitzky-Golay, nominal
     trajectory) against JAX fed the same noise: the host-noise solve's
     sampler is replaced by fixed noise on both sides; the capacity solve
-    draws its key from its generator, and a twin generator of the same seed
-    gives JAX the stream of that key."""
+    draws the stream of the subkey that ``jax.random.split`` takes from the
+    JAX state's own key, and JAX is fed that stream; both solves return the
+    same new key."""
     solver, params, jsolver, jparams = _pair(
         kernel_rng=mode == "capacity")
     field, jfield = _fields()
     state, _, eps = _inputs()
+    jcs0 = jsolver.init_state()
     if mode == "capacity":
-        twin = torch.Generator()
-        twin.manual_seed(solver.cfg.seed)
-        key = torch.randint(0, 1 << 32, (2,), generator=twin,
-                            dtype=torch.int64)
+        sub = jax.random.split(jcs0.key)[1]
+        key = torch.tensor(np.asarray(jax.random.key_data(sub)),
+                           dtype=torch.int64)
         eps = kr.kernel_noise(key, 0, K, T, None).numpy()
     else:
         solver._sample_noise = lambda gen, shape: torch.tensor(eps)
@@ -306,7 +307,9 @@ def test_solve_matches_jax(mode):
     cs, stats = solver.solve(params, CostParams(), field, state,
                              solver.init_state())
     jcs, jstats = jsolver.solve(jparams, JaxCostParams(), jfield, state,
-                                jsolver.init_state())
+                                jcs0)
+    np.testing.assert_array_equal(cs.key,
+                                  np.asarray(jax.random.key_data(jcs.key)))
     for name in ("U", "control_solution", "state_solution"):
         np.testing.assert_allclose(getattr(cs, name).numpy(),
                                    np.asarray(getattr(jcs, name)),

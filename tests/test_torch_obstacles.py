@@ -363,6 +363,8 @@ def test_launch_names_follow_the_kernel_instance(monkeypatch):
             return lambda *a: 0
 
     monkeypatch.setattr(rk, "_kernel_lib", lambda: Lib())
+    # the launch geometry reads the card's SM count (an H100's here)
+    monkeypatch.setattr(rk, "num_sms", lambda index: 132)
     solver, params, _, _ = _pair()
     bf = BasisFunctionDynamics(solver.cfg.dt, device="cpu")
     bparams = bf.init_params(0)

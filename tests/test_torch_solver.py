@@ -20,6 +20,7 @@ from autorally_tpu.tools.track_generator import oval_track
 from autorally_tpu_torch.config import CostParams, MPPIConfig
 from autorally_tpu_torch.costs import MPPICost, make_costmap
 from autorally_tpu_torch.models import NeuralNetDynamics
+from autorally_tpu_torch.ops import kernel_rng
 from autorally_tpu_torch.solver import mppi
 
 # Costs agree to ~1e-6 relative (fp32 MLP sums in another order); the
@@ -159,12 +160,21 @@ def test_three_tick_scenario_matches_jax(backend):
 
 
 def test_controller_state_helpers():
-    solver, *_ = _pair(K=128, T=16, init_throttle=0.2)
+    solver, params, cm, *_ = _pair(K=128, T=16, init_throttle=0.2)
     a, b = solver.init_state(), solver.init_state()
+    np.testing.assert_array_equal(a.key, b.key)
+    assert a.key.dtype == np.uint32 and a.key.shape == (2,)
+    # a solve returns the split key and leaves its input state as it was
+    key = a.key.copy()
+    out, _ = solver.solve(params, CostParams(), cm, SCENARIO_START, a)
+    np.testing.assert_array_equal(a.key, key)
+    np.testing.assert_array_equal(out.key, kernel_rng.split(key)[0])
     shape = (16, 128, 2)
-    first = solver._sample_noise(a.generator, shape)
-    assert torch.equal(first, solver._sample_noise(b.generator, shape))
-    assert not torch.equal(first, solver._sample_noise(a.generator, shape))
+    first = solver._sample_noise(solver._noise_generator(a.key), shape)
+    assert torch.equal(first, solver._sample_noise(
+        solver._noise_generator(b.key), shape))
+    assert not torch.equal(first, solver._sample_noise(
+        solver._noise_generator(out.key), shape))
     assert first.dtype == torch.float32 and first.shape == shape
     assert a.U.shape == (16, 2) and torch.all(a.U[:, 1] == 0.2)
     moved = a._replace(U=torch.ones(16, 2))
