@@ -40,10 +40,12 @@ SIGNATURES = {
     "artt_update_block": [],
     "artt_exact_block": [],
     "artt_group_block": [],
+    "artt_chain_warp_block": [],
+    "artt_max_t": [],
     # fsc, isc, lane group, block, device, then device pointers + stream
     "artt_fused_exact_rollout_cost": [_P, _P, _I, _I, _I] + [_P] * 11,
     "artt_fused_field_rollout_cost": [_P, _P, _I] + [_P] * 11,
-    "artt_dynamics_chain": [_P, _P, _I] + [_P] * 8,
+    "artt_dynamics_chain": [_P, _P, _I, _I, _I] + [_P] * 8,
     # fsc, isc, k_offset, ou_a, ou_b, device, then device pointers + stream
     "artt_fused_rng_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,
     "artt_fused_rng_field_costs": [_P, _P, _I, _F, _F, _I] + [_P] * 10,

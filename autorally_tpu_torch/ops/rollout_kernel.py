@@ -32,8 +32,10 @@ package's wrappers take them.
 
 Kernel 1 launches in the geometry that :func:`exact_geometry` picks from
 K and the card's SM count: lane groups of G lanes a rollout (the MLP at
-small K) or one rollout a thread, with the same bits in both.  Exact
-pass 1 runs one rollout a thread.
+small K) or one rollout a thread, with the same bits in both.  Kernel 2
+launches in the geometry of :func:`chain_geometry`: one rollout a warp at
+small K (the nominal trajectory's K = 1 always) or one rollout a thread,
+again with the same bits.  Exact pass 1 runs one rollout a thread.
 
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
@@ -103,7 +105,9 @@ MAX_OBSTACLES = 64
 # MAX_OBSTACLES circles; the other kernels stay under the 48 KB a launch
 # gets without opting in (34,048 bytes at T = 4096), the field kernels,
 # which add the field and their tiles, opt in to what T = 2048 needs
-# (csrc kMaxFieldT; 122,944 bytes for the MLP with 64 circles).
+# (csrc kMaxFieldT; 122,944 bytes for the MLP with 64 circles), and kernel
+# 2's warp form, which adds its rollouts' eps, to what T = 4096 needs
+# (csrc kMaxT; 170,048 bytes for the MLP).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
 
@@ -135,6 +139,15 @@ GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
 # time and more lanes a rollout only add redundant work.
 GROUP_WARPS_PER_SM = 16
 GROUP_TARGET_WARPS_PER_SM = 3
+# Kernel 2's geometries (csrc chain_geometry_ok): one rollout a thread in
+# blocks of EXACT_BLOCK, or one rollout a warp in blocks of CHAIN_WARP_BLOCK
+# (csrc kChainWarpBlock); and, for each model, the most rollouts an SM for
+# which the launcher takes the warp form (``chain_geometry``).
+CHAIN_WARP_BLOCK = 128
+CHAIN_GEOMETRIES = ((1, EXACT_BLOCK), (32, CHAIN_WARP_BLOCK))
+CHAIN_WARP_ROLLOUTS_PER_SM = {False: 32, True: 20}
+# The outputs a rollout of kernel 2 stores a step: 7 states, 2 controls.
+CHAIN_OUTPUTS = 9
 
 
 # ---------------------------------------------------------------------------
@@ -212,11 +225,12 @@ def _kernel_lib() -> ctypes.CDLL:
              lib.artt_field_pack_floats(), lib.artt_field_block(),
              lib.artt_max_field_t(), lib.artt_max_obstacles(),
              lib.artt_update_block(), lib.artt_exact_block(),
-             lib.artt_group_block())
+             lib.artt_group_block(), lib.artt_chain_warp_block(),
+             lib.artt_max_t())
     want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
             KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
             MAX_FIELD_KERNEL_T, MAX_OBSTACLES, UPDATE_BLOCK, EXACT_BLOCK,
-            GROUP_BLOCK)
+            GROUP_BLOCK, CHAIN_WARP_BLOCK, MAX_KERNEL_T)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -291,6 +305,43 @@ def _launch_geometry(K: int, dev, model) -> ExactGeometry:
     """The geometry a launch of kernel 1 takes on ``dev``
     (``exact_geometry``, looked up in this module at call time)."""
     return exact_geometry(K, num_sms(dev.index or 0),
+                          bf=type(model) is BasisFunctionDynamics)
+
+
+def chain_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
+    """The geometry of kernel 2 for K rollouts on a card of ``num_sms``
+    SMs: one rollout a warp (G = 32) while K is at most
+    ``CHAIN_WARP_ROLLOUTS_PER_SM[bf]`` rollouts an SM, the nominal
+    trajectory's K = 1 always; beyond that one rollout a thread.  (The two
+    forms' times against K: ``tools/exact_variants.py``.)"""
+    if K <= CHAIN_WARP_ROLLOUTS_PER_SM[bool(bf)] * num_sms:
+        return _geometry(K, *CHAIN_GEOMETRIES[1])
+    return _geometry(K, *CHAIN_GEOMETRIES[0])
+
+
+def chain_store_slots(geom: ExactGeometry, K: int, k_offset: int = 0):
+    """What each thread of a launch of kernel 2 in ``geom`` over K rollouts
+    stores, as the kernels compute it: ``(k, stores)``, ``k`` as
+    :func:`exact_rollout_slots` gives it and ``stores`` a bool array (grid,
+    block, ``CHAIN_OUTPUTS``) of the outputs of rollout k that the thread
+    writes every step (states 0..6, then u_seq rows 0 and 1): all of them
+    in one rollout a thread, output l on lane l in one rollout a warp."""
+    k, first = exact_rollout_slots(geom, K, k_offset)
+    out = np.arange(CHAIN_OUTPUTS)
+    if geom.group == 1:
+        return k, np.broadcast_to(first[..., None], first.shape + out.shape)
+    lane = np.arange(geom.block)[None, :, None] % 32
+    # the warp's own rollout, past K for the dummy rollouts
+    local = (np.arange(geom.grid)[:, None] * (geom.block // geom.group)
+             + np.arange(geom.block)[None, :] // geom.group)
+    valid = (k >= 0) & (local < K)
+    return k, valid[..., None] & (lane == out)
+
+
+def _chain_launch_geometry(K: int, dev, model) -> ExactGeometry:
+    """The geometry a launch of kernel 2 takes on ``dev``
+    (``chain_geometry``, looked up in this module at call time)."""
+    return chain_geometry(K, num_sms(dev.index or 0),
                           bf=type(model) is BasisFunctionDynamics)
 
 
@@ -786,10 +837,12 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
                          device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
     lib = _kernel_lib()
+    geom = _chain_launch_geometry(K, dev, model)
 
     def launch():
         err = lib.artt_dynamics_chain(
-            ctypes.addressof(fsc), ctypes.addressof(isc), dev.index or 0,
+            ctypes.addressof(fsc), ctypes.addressof(isc), geom.group,
+            geom.block, dev.index or 0,
             ptrs["s0"], ptrs["rngs"], ptrs["U"], ptrs["eps"],
             ptrs["weights"], states.data_ptr(), u_seq.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
@@ -797,6 +850,7 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
 
     launch.inputs = args
     launch.name = "dynamics_chain" + _form(model, 0)
+    launch.geometry = geom
     return launch, (states, u_seq)
 
 

@@ -1,24 +1,26 @@
-"""Time kernel 1 and exact pass 1 of two checkouts of the port on one GPU,
-in one call, and hold their outputs bit for bit.
+"""Time kernels 1 and 2 and exact pass 1 of two checkouts of the port on
+one GPU, in one call, and hold their outputs bit for bit.
 
 The forms (``exact_forms``) are kernel 1 (``fused_exact_rollout_cost``) at
 K=1920, with 16 circle slots at K=1920, the BF kernel 1 at K=2560, exact
 pass 1 (``fused_rng_costs``) at K=262144 with gaussian and OU noise, its
-BF form and its form with 16 slots, and kernel 1 at K=262144, all at
-T=100 on the main path's seeded configuration (``drive_oval.build``),
-each in the geometry its checkout's launcher picks.  Each checkout builds
-its own kernels from its own source and runs in its own process, in the
-order other, this, this, other, so that a drift of the card over the call
-falls on both alike.  Each prints the CUDA-event medians and a digest of
-each form's outputs (costs, crash flags, u_seq); equal digests show
-bit-equal results.  The SASS of the kernels that a change of these two
-should not touch (``UNTOUCHED_KERNELS``: kernel 2 and the four field
-kernels, MLP and BF each, and pass 2) is compared between the two builds'
-libraries (``cuobjdump -sass``), function by function; so is, for the
-record and without being required, that of kernel 1 and exact pass 1 in
-one rollout a thread (``ONE_THREAD_KERNELS``).  The summary gives
-each checkout's mean of its two runs and the ratio of this checkout to
-the other.
+BF form and its form with 16 slots, and kernel 1 at K=262144; and
+(``chain_forms``) kernel 2 (``dynamics_chain``), MLP and BF, at the
+nominal trajectory's K=1 and at K=1920 and K=2560; all at T=100 on the
+main path's seeded configuration (``drive_oval.build``), each in the
+geometry its checkout's launcher picks.  Each checkout builds its own
+kernels from its own source and runs in its own process, in the order
+other, this, this, other, so that a drift of the card over the call falls
+on both alike.  Each prints the CUDA-event medians and a digest of each
+form's outputs; equal digests show bit-equal results.  The SASS of the
+kernels that a change of kernel 2 and exact pass 1 should not touch
+(``UNTOUCHED_KERNELS``: kernel 1 in one rollout a thread and in its lane
+groups, kernel 3 and field pass 1, MLP and BF each, and pass 2) is
+compared between the two builds' libraries (``cuobjdump -sass``),
+function by function; so is, for the record and without being required,
+that of exact pass 1 and kernel 2 in one rollout a thread
+(``RECORD_KERNELS``).  The summary gives each checkout's mean of its two
+runs and the ratio of this checkout to the other.
 
 Usage (``DIR``: another checkout's root, e.g. ``git archive`` of a parent
 commit unpacked under ``autorally_tpu_torch/_build/``)::
@@ -43,11 +45,16 @@ K_A, K_BF, K_P1, T = 1920, 2560, 262144, 100
 KEY = (0x2545F491, 0x9E3779B9)
 N_SLOTS = 16
 CIRCLES = [[30.0, 5.0, 0.5], [29.5, 8.0, 0.5]]
-UNTOUCHED_KERNELS = ("dynamics_chain_kernel", "fused_field_kernel",
-                     "fused_rng_field_kernel", "weighted_update_kernel")
-N_UNTOUCHED = 7                      # 3 kernels in 2 instances, and pass 2
-ONE_THREAD_KERNELS = ("fused_exact_kernel", "fused_rng_kernel")
-
+# kernels whose SASS must equal the other build's: kernel 1 in one rollout
+# a thread (MLP, BF) and in its lane groups (8, 16, 32), kernel 3 and field
+# pass 1 (MLP, BF), pass 2
+UNTOUCHED_KERNELS = ("fused_exact_kernel", "fused_exact_group_kernel",
+                     "fused_field_kernel", "fused_rng_field_kernel",
+                     "weighted_update_kernel")
+N_UNTOUCHED = 10
+# kernels whose SASS is compared for the record, not required: exact pass 1
+# and kernel 2 in one rollout a thread (MLP, BF)
+RECORD_KERNELS = ("fused_rng_kernel", "dynamics_chain_kernel")
 
 def seeded_field(costmap, device, seed: int = 7):
     """A field of the CUDA kernels' spec (34-64-64-1, F = 8) on
@@ -131,6 +138,34 @@ def exact_forms(dev) -> dict:
     }
 
 
+def chain_forms(dev) -> dict:
+    """name -> (K, whether the model is the MLP, ``prepare()``) for kernel 2
+    (``prepare_dynamics_chain``), MLP and BF, at the nominal trajectory's
+    K=1 (zero noise) and at the fine-map checks' K (1920, 2560), each in
+    the geometry its checkout's launcher picks."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    solver, params, _, _, _ = drive_oval.build(rollouts=K_A, device=dev)
+    bf, bparams, _, _, _ = drive_oval.build(model="bf", rollouts=K_BF,
+                                            device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    forms = {}
+    for label, (s, p, mlp) in (("", (solver, params, True)),
+                               ("_bf", (bf, bparams, False))):
+        for K in (1, K_A if mlp else K_BF):
+            eps = (torch.zeros((T, 1, 2), device=dev) if K == 1 else
+                   torch.randn((T, K, 2), generator=gen, device=dev))
+            forms[f"kernel2{label}_K{K}"] = (
+                K, mlp, lambda s=s, p=p, eps=eps: rk.prepare_dynamics_chain(
+                    s.model, p, s.cfg, start, U, eps))
+    return forms
+
+
 def events(fn, reps: int) -> list:
     import torch
 
@@ -159,7 +194,8 @@ def time_checkout(root: str, rounds: int) -> dict:
         raise RuntimeError(f"imported {pkg}, not the checkout at {root}")
     dev = torch.device("cuda", 0)
     launches = {}
-    for name, (K, _, prepare) in exact_forms(dev).items():
+    for name, (K, _, prepare) in {**exact_forms(dev),
+                                  **chain_forms(dev)}.items():
         launch, out = prepare()
         launches[name] = (launch, out, 40 if K < K_P1 else 4)
     for launch, _, _ in launches.values():     # build, load, warm up
@@ -181,8 +217,8 @@ def time_checkout(root: str, rounds: int) -> dict:
 
 def untouched_sass(library: str, dump: str) -> dict:
     """The SASS of each instance of ``UNTOUCHED_KERNELS`` and
-    ``ONE_THREAD_KERNELS`` in the built ``library``, by short name (e.g.
-    ``fused_field_kernel<MlpDeriv>``); the
+    ``RECORD_KERNELS`` in the built ``library``, by short name (e.g.
+    ``fused_field_kernel<MlpDeriv>``, ``fused_exact_group_kernel<8>``); the
     whole ``cuobjdump -sass`` output is written to ``dump``.  The kernels
     live in an anonymous namespace, whose mangled name differs between
     builds, so it is cut from the names and the code, and runs of spaces
@@ -194,19 +230,20 @@ def untouched_sass(library: str, dump: str) -> dict:
                          text=True, check=True, timeout=300).stdout
     with open(dump, "w") as f:
         f.write(out)
-    names = "|".join(UNTOUCHED_KERNELS + ONE_THREAD_KERNELS)
+    names = "|".join(UNTOUCHED_KERNELS + RECORD_KERNELS)
     sass = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
-        m = re.search(rf"\d({names})(?:I.*?(Mlp|Bf)Deriv)?", head)
+        m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?", head)
         if m:
+            arg = m.group(2) or m.group(3)
             body = re.sub(r"_GLOBAL__N__\w+", "", body)
             # cuobjdump pads each line to the module's widest instruction,
             # which other kernels set: compare the lines' words
-            sass[m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")] = (
+            sass[m.group(1) + (f"<{arg}>" if arg else "")] = (
                 "\n".join(" ".join(line.split())
                           for line in body.splitlines()))
-    n = N_UNTOUCHED + 2 * len(ONE_THREAD_KERNELS)
+    n = N_UNTOUCHED + 2 * len(RECORD_KERNELS)
     if len(sass) != n:
         raise RuntimeError(f"{library}: found the SASS of {sorted(sass)}, "
                            f"not of the {n} kernels compared")
@@ -254,12 +291,12 @@ def main() -> int:
             for lb in ("this", "other")}
     same = {name: sass["this"].get(name) == sass["other"].get(name)
             for name in sorted(set(sass["this"]) | set(sass["other"]))}
-    one_thread = {n: v for n, v in same.items()
-                  if n.split("<")[0] in ONE_THREAD_KERNELS}
-    sass_equal = {n: v for n, v in same.items() if n not in one_thread}
+    record = {n: v for n, v in same.items()
+              if n.split("<")[0] in RECORD_KERNELS}
+    sass_equal = {n: v for n, v in same.items() if n not in record}
     summary = {"card": card, "mean": mean, "bit_equal": bit_equal,
                "untouched_sass_equal": sass_equal,
-               "one_thread_sass_equal": one_thread,
+               "record_sass_equal": record,
                "this_over_other": {n: mean["this"][n] / mean["other"][n]
                                    for n in names}}
     for n in names:
@@ -268,7 +305,8 @@ def main() -> int:
               f"{summary['this_over_other'][n]:.3f}, outputs bit equal "
               f"{bit_equal[n]} ({card})")
     print(f"[ab] untouched kernels' SASS equal to the other build's: "
-          f"{sass_equal}; one rollout a thread (not required): {one_thread}")
+          f"{sass_equal}; exact pass 1 and kernel 2 in one rollout a thread "
+          f"(not required): {record}")
     for name, equal in same.items():
         if not equal:
             a, b = (sass[lb].get(name, "").splitlines()

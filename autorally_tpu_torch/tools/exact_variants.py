@@ -1,46 +1,61 @@
-"""What bounds kernel 1 and exact pass 1, and which launch geometry is the
-fastest at each K: time variants of the CUDA source, then every geometry
-the kernels are built for.
+"""What bounds kernels 1 and 2 and exact pass 1, and which launch geometry
+is the fastest at each K: time variants of the CUDA source, then every
+geometry the kernels are built for.
 
 Each source variant is the kernel source with one edit, built by nvcc (all
-at once) into ``autorally_tpu_torch/_build/exact_variants/`` and timed
-through the port's own wrappers in the geometry the launcher picks:
-kernel 1 (``fused_exact_rollout_cost``) at K=1920 and exact pass 1
+at once) into
+``autorally_tpu_torch/_build/exact_variants/`` and timed through the
+port's own wrappers in the geometry the launcher picks: kernel 1
+(``fused_exact_rollout_cost``) at K=1920 and exact pass 1
 (``fused_rng_costs``, gaussian) at K=262144, T=100, on the main path's
 seeded configuration (``drive_oval.build``).  The variants' results are
-wrong by design; only their times mean something.
+wrong by design, but for those that only move the weights (the constant
+bank ones) or the eps reads; only their times mean something.
 
 - ``base``: the source as it is;
 - ``no_tanh``: the MLP's tanhf taken away (the identity), in every form;
 - ``no_cost``: the cost step taken away (no lookups, atanf or latches);
 - ``const_weights``: the MLP's weights a constant of their index, folded
   into the instructions, instead of read from shared memory;
-- ``const_bank``: the MLP's weights (MlpDeriv) read from ``__constant__``
-  memory, copied there from the packed weights on the launch's stream
-  before each launch of exact pass 1 (kernel 1's lane groups keep shared
-  memory); every lane of a warp reads the same weight at the same time;
+- exact pass 1's MLP weights in the constant bank, copied there from the
+  packed weights before each launch: ``const_bank`` (``__constant__``,
+  read through a generic pointer, the step's compiler barrier kept);
+  ``const_operand`` (a derivative type indexing the ``__constant__`` array
+  at compile-time indices, no barrier); ``const_operand_b`` (the same, the
+  weight fmaf's second factor); ``const_layer1`` (only W1 and b1 there,
+  the rest in shared memory, the barrier kept); ``grid_constant_operand``
+  (a ``__grid_constant__`` parameter of the packed weights, indexed the
+  same way, no barrier);
 - ``no_gather``: the costmap lookups without their load (the texel index
   arithmetic stays);
 - ``blocks_8``, ``blocks_10``: one rollout a thread with 8 or 10 blocks of
   64 an SM asked of the compiler (``__launch_bounds__``), at most 128 or
-  102 registers instead of 168, for more warps in flight.
+  102 registers instead of 168, for more warps in flight;
+- ``chain_eps_in_step``: kernel 2 in one rollout a thread reading each
+  step's eps in that step (the earlier chain), not a step ahead.
 
 Each variant's SASS of exact pass 1 (``fused_rng_kernel<MlpDeriv>``) is
-counted by opcode (``pass1_sass``): how the weights are read.
+counted by opcode (``pass1_sass``): how the weights are read.  Kernel 2
+(``chain_sweep``) is timed at each K of ``CHAIN_K``, the MLP and the BF
+model, in each of its geometries (``rk.CHAIN_GEOMETRIES``) with the base
+library and in one rollout a thread with each ``chain_*`` variant, its
+states and u_seq held bit for bit against the base one-thread chain: what
+places ``rk.chain_geometry``'s choice.
 
-Then, with the ``base`` library, every geometry kernel 1 is built for
-(``rk.GEOMETRIES``: lane group G, block) is forced on each form of
-``ab_builds.exact_forms`` (kernel 1 at K=1920 with and without 16 circle
-slots, the BF kernel 1 at K=2560, kernel 1 at K=262144; the BF form takes
-G = 1 only, and K=262144 no lane groups; exact pass 1's four forms at
-K=262144 run their one geometry, one rollout a thread), timed, and its
-outputs (costs, crash flags, u_seq) held bit for bit against one rollout a
-thread.  Last, kernel 1 is timed at the K of ``CROSSOVER_K`` in one
-rollout a thread and each lane group, to place the launcher's choice.
-Exits non-zero when a geometry's outputs differ.
+Then (unless ``--no-geometries``), with the ``base`` library, every
+geometry kernel 1 is built for (``rk.GEOMETRIES``: lane group G, block) is
+forced on each form of ``ab_builds.exact_forms`` (kernel 1 at K=1920 with
+and without 16 circle slots, the BF kernel 1 at K=2560, kernel 1 at
+K=262144; the BF form takes G = 1 only, and K=262144 no lane groups;
+exact pass 1's four forms at K=262144 run their one geometry, one rollout
+a thread), timed, and its outputs (costs, crash flags, u_seq) held bit for
+bit against one rollout a thread.  Last, kernel 1 is timed at the K of
+``CROSSOVER_K`` in one rollout a thread and each lane group, to place the
+launcher's choice.  Exits non-zero when a geometry's outputs differ.
 Usage, from the root of the repository::
 
-    python -m autorally_tpu_torch.tools.exact_variants
+    python -m autorally_tpu_torch.tools.exact_variants [--variants a,b]
+        [--no-geometries]
 """
 
 from __future__ import annotations
@@ -55,6 +70,9 @@ import sys
 
 K_A, K_P1 = 1920, 262144
 CROSSOVER_K = (256, 960, 1920, 4224, 8448, 16896, 33792, 67584)
+# kernel 2's K: the nominal trajectory's 1, the fine-map checks' 1920 and
+# 2560, and around one wave of the warp form (16 rollouts an SM, 2112)
+CHAIN_K = (1, 33, 132, 528, 1056, 1920, 2112, 2560, 4224, 8448)
 
 _STAND_IN = ("__device__ __forceinline__ float stand_in(int i) {\n"
              "  return 0.01f * (float)((i * 7) & 31) - 0.15f;\n}\n\n")
@@ -68,6 +86,130 @@ _COPY = ("  if (!s.bf)\n"
          "    cudaMemcpyToSymbolAsync(c_w, weights, kNumMlpWeights * 4, 0,\n"
          "                            cudaMemcpyDeviceToDevice, "
          "(cudaStream_t)stream);\n")
+_MLP_BF_ANCHOR = "// BfDeriv: theta^T phi, the 25 car basis functions"
+_PASS1_CALL = "rollout_cost<false, Deriv>(s, c, s0, rngs, U_s, w_s, obs_s,"
+_STEP_TOP = ("    weights_barrier();\n    float u0, u1, du0, du1;\n"
+             "    perturb(s, U_s, noise(t), t, zero_rollout, pure_noise, u0, "
+             "u1, du0, du1);\n    if (kStoreU && active) {")
+
+
+def _const_deriv(name, w0, w1, w2, swap: bool = False):
+    """The source of a derivative type ``name``: MlpDeriv's loops with the
+    weights of layer l read as the C++ expression ``wl`` of a compile-time
+    index (``{i}``), the weight the second factor of each fmaf when
+    ``swap`` (the same product), and ``PassDerivOf`` mapping MlpDeriv to it
+    in exact pass 1."""
+    def fma(w, x):
+        return f"fmaf({x}, {w}, acc)" if swap else f"fmaf({w}, {x}, acc)"
+
+    return f"""struct {name} {{
+  static constexpr int kNumWeights = kNumMlpWeights;
+  static __device__ __forceinline__ void eval(const float* __restrict__ w,
+                                              const float d[kOut], float u0,
+                                              float u1, float out[kOut]) {{
+    constexpr int b0 = kH1 * kIn, W1 = b0 + kH1, b1 = W1 + kH2 * kH1;
+    constexpr int W2 = b1 + kH2, b2 = W2 + kOut * kH2;
+    const float in[kIn] = {{d[0], d[1], d[2], d[3], u0, u1}};
+    float h1[kH1];
+#pragma unroll
+    for (int j = 0; j < kH1; ++j) {{
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kIn; ++i)
+        acc = {fma(w0.format(i='j * kIn + i'), 'in[i]')};
+      h1[j] = tanhf(acc + {w0.format(i='b0 + j')});
+    }}
+    float h2[kH2];
+#pragma unroll
+    for (int j = 0; j < kH2; ++j) {{
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kH1; ++i)
+        acc = {fma(w1.format(i='W1 + j * kH1 + i'), 'h1[i]')};
+      h2[j] = tanhf(acc + {w1.format(i='b1 + j')});
+    }}
+#pragma unroll
+    for (int j = 0; j < kOut; ++j) {{
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < kH2; ++i)
+        acc = {fma(w2.format(i='W2 + j * kH2 + i'), 'h2[i]')};
+      out[j] = acc + {w2.format(i='b2 + j')};
+    }}
+  }}
+}};
+
+template <class D> struct PassDerivOf {{ using type = D; }};
+template <> struct PassDerivOf<MlpDeriv> {{ using type = {name}; }};
+
+"""
+
+
+def _pass1_edits(deriv_src, barrier: bool, copy: str = "",
+                 grid: bool = False):
+    """Exact pass 1's MLP instance on the derivative of ``deriv_src``:
+    ``copy`` is launcher code run before each launch, ``barrier`` keeps
+    the compiler barrier a step in that instance, ``grid`` passes the
+    packed weights as a ``__grid_constant__`` parameter (copied to the host
+    once per weights pointer) whose address the derivative reads."""
+    edits = [(_MLP_BF_ANCHOR, deriv_src + _MLP_BF_ANCHOR),
+             (_PASS1_CALL, "rollout_cost<false, typename PassDerivOf<Deriv>"
+              "::type>(s, c, s0, rngs, U_s, "
+              + ("std::is_same_v<Deriv, MlpDeriv> ? gw.w : w_s"
+                 if grid else "w_s") + ", obs_s,")]
+    if not barrier:
+        edits.append((_STEP_TOP, _STEP_TOP.replace(
+            "    weights_barrier();",
+            "    if constexpr (!std::is_same_v<Deriv, typename PassDerivOf<"
+            "MlpDeriv>::type>)\n      weights_barrier();")))
+    if copy:
+        edits.append((_RNG_LAUNCH, copy + _RNG_LAUNCH))
+    if grid:
+        edits += [
+            ("fused_rng_kernel(ChainScalars s, CostScalars c, StreamScalars "
+             "r,", "fused_rng_kernel(const __grid_constant__ GridWeights gw,"
+             " ChainScalars s, CostScalars c,\n                 StreamScalars"
+             " r,"),
+            ("    fused_rng_kernel<D><<<blocks, kBlock, smem_bytes<D>(s.T, "
+             "c.n_obs), st>>>(\n        s, c, r,",
+             "    fused_rng_kernel<D><<<blocks, kBlock, smem_bytes<D>(s.T, "
+             "c.n_obs), st>>>(\n        host_weights(weights, s.bf), s, c, "
+             "r,"),
+            (_NAMESPACE_END, _HOST_WEIGHTS + _NAMESPACE_END)]
+    return edits
+
+
+_NAMESPACE_END = "}  // namespace\n\nextern \"C\" {"
+_GRID_STRUCT = ("struct GridWeights {\n  float w[kNumMlpWeights];\n};\n\n")
+_HOST_WEIGHTS = """GridWeights host_weights(const float* weights, int bf) {
+  static GridWeights h;
+  static const float* last = nullptr;
+  if (!bf && weights != last) {
+    cudaMemcpy(h.w, weights, sizeof h.w, cudaMemcpyDeviceToHost);
+    last = weights;
+  }
+  return h;
+}
+
+"""
+_CONST_W = "__constant__ float c_w[kNumMlpWeights];\n\n"
+_CONST_W1 = "__constant__ float c_w1[kH2 * kH1 + kH2];\n\n"
+_COPY_W1 = ("  if (!s.bf)\n"
+            "    cudaMemcpyToSymbolAsync(c_w1, weights + kH1 * kIn + kH1,\n"
+            "                            (kH2 * kH1 + kH2) * 4, 0,\n"
+            "                            cudaMemcpyDeviceToDevice, "
+            "(cudaStream_t)stream);\n")
+# the one-rollout-a-thread chain with each step's eps read in its own step,
+# behind the step's compiler barrier (the parent's chain)
+_CHAIN_EPS_IN_STEP = [
+    ("  // each step's eps pair is read a step ahead, so that no step waits "
+     "on it\n  float2 e_next = noise(0);\n", ""),
+    ("    const float2 e_t = e_next;\n"
+     "    if (t + 1 < s.T) e_next = noise(t + 1);\n"
+     "    float u0, u1, du0, du1;\n"
+     "    perturb(s, U_s, e_t, t,",
+     "    float u0, u1, du0, du1;\n"
+     "    perturb(s, U_s, noise(t), t,")]
 VARIANTS = {
     "base": [],
     "no_tanh": [
@@ -97,6 +239,21 @@ VARIANTS = {
         ("    const float* W0 = w;\n    const float* b0 = W0 + kH1 * kIn;",
          "    const float* W0 = c_w;\n    const float* b0 = W0 + kH1 * kIn;"),
         (_RNG_LAUNCH, _COPY + _RNG_LAUNCH)],
+    "const_operand": _pass1_edits(
+        _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]", "c_w[{i}]",
+                                "c_w[{i}]"), barrier=False, copy=_COPY),
+    "const_operand_b": _pass1_edits(
+        _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]", "c_w[{i}]",
+                                "c_w[{i}]", swap=True), barrier=False,
+        copy=_COPY),
+    "const_layer1": _pass1_edits(
+        _CONST_W1 + _const_deriv("MlpConstDeriv", "w[{i}]",
+                                 "c_w1[{i} - W1]", "w[{i}]"),
+        barrier=True, copy=_COPY_W1),
+    "grid_constant_operand": _pass1_edits(
+        _GRID_STRUCT + _const_deriv("MlpGridDeriv", "w[{i}]", "w[{i}]",
+                                    "w[{i}]"), barrier=False, grid=True),
+    "chain_eps_in_step": _CHAIN_EPS_IN_STEP,
     "no_gather": [
         ("return __ldg(ch0 + (size_t)(int)fy * c.W + (int)fx);",
          "return (fx + fy) * 1e-9f;")],
@@ -156,6 +313,8 @@ def events(fn, reps: int) -> float:
 
 
 def main() -> int:
+    import argparse
+
     import torch
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
@@ -163,11 +322,20 @@ def main() -> int:
     from autorally_tpu_torch.tools.field_variants import (build_variants,
                                                           use_library)
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--variants", default=",".join(VARIANTS),
+                    help="comma-separated names of VARIANTS to build, "
+                    "base among them")
+    ap.add_argument("--no-geometries", action="store_true",
+                    help="skip kernel 1's geometries and crossover sweep")
+    args = ap.parse_args()
+    names = args.variants.split(",")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    libs = build_variants(_build.BUILD_DIR / "exact_variants", VARIANTS)
+    libs = build_variants(_build.BUILD_DIR / "exact_variants",
+                          {n: VARIANTS[n] for n in names})
     dev = torch.device("cuda", 0)
     timed = exact_forms(dev)
 
@@ -189,8 +357,26 @@ def main() -> int:
               f"{r['pass1_gaussian_K262144']:.4f} ms ({card}); pass 1 SASS "
               f"{sass[name]}")
 
-    # every geometry, with the base library, against G = 1
-    use_library(libs["base"])
+    chain, ok = chain_sweep(libs, dev, card)
+    geometries, crossover = {}, {}
+    if not args.no_geometries:
+        use_library(libs["base"])
+        geometries, same = geometry_holds(timed, card)
+        ok &= same
+        crossover = crossover_sweep(dev, card)
+    print(json.dumps({"card": card, "variants": variants, "pass1_sass": sass,
+                      "chain": chain, "geometries": geometries,
+                      "crossover": crossover, "bit_equal": ok}))
+    return 0 if ok else 1
+
+
+def geometry_holds(timed, card):
+    """Every geometry of kernel 1 forced on each form of ``timed``, timed
+    and held bit for bit against one rollout a thread: ({form: {label:
+    {ms, bit_equal, launcher}}}, whether all are bit equal)."""
+    import torch
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
     geometries, ok = {}, True
     for form, (K, mlp, prepare) in timed.items():
         with forced_geometry(*rk.GEOMETRIES[0]):
@@ -219,11 +405,74 @@ def main() -> int:
         if label in geometries[form]:
             geometries[form][label]["launcher"] = True
         print(f"[exact geometry] {form}: the launcher picks {label}")
-    crossover = crossover_sweep(dev, card)
-    print(json.dumps({"card": card, "variants": variants, "pass1_sass": sass,
-                      "geometries": geometries, "crossover": crossover,
-                      "bit_equal": ok}))
-    return 0 if ok else 1
+    return geometries, ok
+
+
+@contextlib.contextmanager
+def forced_chain_geometry(group: int, block: int):
+    """Makes every launch of kernel 2 take the geometry (G, block), one of
+    ``rk.CHAIN_GEOMETRIES``, while active."""
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    saved = rk.chain_geometry
+    rk.chain_geometry = lambda K, n_sms, bf=False: rk._geometry(
+        K, group, block)
+    try:
+        yield
+    finally:
+        rk.chain_geometry = saved
+
+
+def chain_sweep(libs, dev, card):
+    """Kernel 2 (the MLP and the BF model, seeded weights) at each K of
+    ``CHAIN_K`` in each geometry of ``rk.CHAIN_GEOMETRIES`` with the base
+    library, and in one rollout a thread with each ``chain_*`` variant's:
+    the time of each, and its states and u_seq held bit for bit against the
+    base library's one rollout a thread.  Returns ({library: {model: {K:
+    {label: ms}}}}, whether all are bit equal)."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.tools.field_variants import use_library
+
+    mlp, mparams, _, _, _ = drive_oval.build(rollouts=K_A, device=dev)
+    bf, bparams, _, _, _ = drive_oval.build(model="bf", rollouts=K_A,
+                                            device=dev)
+    models = {"mlp": (mlp, mparams), "bf": (bf, bparams)}
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(100, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    eps = {K: torch.randn((100, K, 2), generator=gen, device=dev)
+           for K in CHAIN_K}
+    out, refs, ok = {}, {}, True
+    for lib in [n for n in libs if n == "base" or n.startswith("chain_")]:
+        use_library(libs[lib])
+        out[lib] = {}
+        for mname, (solver, params) in models.items():
+            out[lib][mname] = {}
+            for K in CHAIN_K:
+                out[lib][mname][K] = {}
+                for geom in rk.CHAIN_GEOMETRIES:
+                    if lib != "base" and geom[0] > 1:
+                        continue
+                    with forced_chain_geometry(*geom):
+                        launch, res = rk.prepare_dynamics_chain(
+                            solver.model, params, solver.cfg, start, U,
+                            eps[K])
+                    t = events(launch, 100 if K < 8192 else 20)
+                    torch.cuda.synchronize()
+                    ref = refs.setdefault((mname, K),
+                                          [r.clone() for r in res])
+                    same = all(torch.equal(a, b) for a, b in zip(res, ref))
+                    ok &= same
+                    label = "G%d block %d" % geom
+                    out[lib][mname][K][label] = t
+                    print(f"[chain] {lib} {mname} K={K} {label}: {t:.4f} ms,"
+                          f" bit equal to the base one-thread chain: {same}"
+                          f" ({card})")
+                    del launch, res
+    return out, ok
 
 
 def crossover_sweep(dev, card) -> dict:

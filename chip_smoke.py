@@ -17,9 +17,10 @@ every CUDA kernel of these paths, in every form, against its plain PyTorch
 version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require fourteen kernels (kernels A, B, 3 and both modes
-   of pass 1 in an MLP and a BF instance each, pass 2, and kernel A in
-   each MLP lane group) and zero spill bytes in every one
+   (one nvcc), require sixteen kernels (kernels A, B, 3 and both modes
+   of pass 1 in an MLP and a BF instance each, pass 2, kernel A in each
+   MLP lane group, and kernel B one rollout a warp, MLP and BF) and zero
+   spill bytes in every one
    (ptxas -v); print the four field instances'
    registers, dynamic shared memory and blocks an SM (at least 8 warps),
    and require TF32 tensor-core instructions (HMMA) in their SASS
@@ -33,24 +34,32 @@ version.  Phases (any failure exits non-zero):
    for some K (``launcher_geometries``: one rollout a thread, lane
    groups), every geometry bit for bit equal to the first;
 3. kernel B (dynamics chain) against its plain version on the same inputs,
-   and at its main-path shape (the nominal trajectory, K=1);
+   on a shard's slice and at its main-path shape (the nominal trajectory,
+   K=1), each in both of its geometries (``rk.CHAIN_GEOMETRIES``: one
+   rollout a thread, one a warp), bit for bit equal to one rollout a
+   thread;
 4. the main path: one MPPI iteration on the GPU against the same iteration
    on the CPU, then ``MPPISolver`` on ``cuda`` for one untimed solve and
    200 ticks of slide + solve + plant step, with both kernels' launch
    counters reset just before and read just after; the same drive in ten
    pairs whose order alternates, kernel A in one rollout a thread and in
-   the launcher's geometry (the same controls), each pair's medians; the host
-   time that the controller state's key adds to a solve;
+   the launcher's geometry (the same controls), each pair's medians, and
+   again for kernel B (one rollout a thread, one a warp); the host time
+   that the controller state's key adds to a solve;
 5. timing of each kernel at its main-path shape against its plain version
-   and its bound, and kernel A's launch geometry (G, block, registers,
-   blocks an SM, waves);
+   and its bound, kernel A's launch geometry (G, block, registers, blocks
+   an SM, waves), and kernel B in both geometries with its latency floor
+   (T times the step's longest dependent chain, counted from its SASS by
+   ``tools/sass_chain.py`` at the card's highest SM clock);
 6. a torch.profiler trace of 50 ticks: device time by kernel and the
    device's idle share;
 7. pass 1 of the capacity mode against its plain version at K=262144,
    T=100, gaussian and OU, in phase 2's four cases, and at K=262143 and on
    a shard's slice (one rollout a thread); its in-kernel stream
    must equal the plain stream bit for bit (pass 1 equals kernel A fed the
-   plain stream);
+   plain stream); and two models with different weights whose launches
+   alternate on one stream, each bit for bit kernel A with its own weights
+   and held against its own plain versions;
 8. pass 2 against its plain version with pass 1's softmax weights, and
    one-hot weights that extract single rollouts' controls;
 9. the capacity path: one iteration on the GPU against the CPU at
@@ -87,8 +96,8 @@ version.  Phases (any failure exits non-zero):
     whole field solves; torch.profiler traces of 10 ticks of each mode;
 15. the BF instances of kernels A and B against their plain versions at
     K=2560 in phase 2's cases (kernel A also at K=2561 and on a shard's
-    slice, in each of its launch geometries) and at the nominal trajectory
-    (K=1), with
+    slice, in each of its launch geometries; kernel B in both of its
+    geometries, bit for bit) and at the nominal trajectory (K=1), with
     the seeded theta and with a strong theta whose slip and tan rows are
     scaled by their denominators (dropping any of those rows must move the
     plain chain's states by more than 5 x the tolerance);
@@ -105,12 +114,14 @@ version.  Phases (any failure exits non-zero):
 18. the obstacle path: a live ``CostParams.obstacles`` reaching the kernel,
     200 ticks with the circles moved every tick (1 obstacle kernel A and 1
     kernel B per solve), 20 ticks of each other BF and obstacle form,
-    every form's timing against its plain version and bound, the MLP
-    kernels without obstacles re-timed in the same run, and a 50-tick
-    torch.profiler trace of the BF path.
+    every form's timing against its plain version and bound (BF kernel B
+    in both geometries, with its latency floor), the MLP kernels without
+    obstacles re-timed in the same run, and a 50-tick torch.profiler trace
+    of the BF path.
 
-Prints the card's name and power limit, one ``{"kernels": [...]}`` line,
-and as its last line ``{"ok": true, "device": {...}}``.  Needs one CUDA
+Prints the card's name and power limit, one ``{"kernels": [...]}`` line
+(each kernel with its geometry or design), and as its last line
+``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
 
 Usage::
@@ -213,8 +224,10 @@ BF_ROW_SCALE = 10.0 * np.array([BF_SUSPECT_ROWS.get(i, 1.0)
                                 for i in range(25)], np.float32)
 
 
-# registers of each kernel instance, from the build's ptxas report
+# registers of each kernel instance, from the build's ptxas report; the
+# library's SASS (phase 1)
 PTXAS = {}
+SASS = []
 
 
 class PhaseFailed(Exception):
@@ -268,29 +281,42 @@ def launcher_geometries(rk, bf: bool, k_max: int = KC) -> list:
     return [first] + sorted(picked - {first})
 
 
+def bit_equal(a, b) -> bool:
+    """Equal bit for bit: float32 tensors compared as their int32 bits, so
+    that a NaN (a state of the NaN-x case) equals the same NaN."""
+    import torch
+
+    if a.dtype == b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
 def geometry_label(geom) -> str:
     return "G%d block %d" % tuple(geom[:2])
 
 
-def hold_geometries(tag, geoms, run, check_one):
-    """``run()`` under each forced geometry in ``geoms``: ``check_one(label,
-    outputs)`` on each, and every geometry's outputs bit for bit equal to
-    the first's (the lane groups evaluate the same arithmetic as one
-    rollout a thread).  Returns the first geometry's outputs."""
+def hold_geometries(tag, geoms, run, check_one, chain: bool = False):
+    """``run()`` under each forced geometry in ``geoms`` (of kernel 1, or
+    of kernel 2 when ``chain``): ``check_one(label, outputs)`` on each, and
+    every geometry's outputs bit for bit equal to the first's (lane groups
+    and warps evaluate the same arithmetic as one rollout a thread).
+    Returns the first geometry's outputs."""
     import torch
-    from autorally_tpu_torch.tools.exact_variants import forced_geometry
+    from autorally_tpu_torch.tools.exact_variants import (
+        forced_chain_geometry, forced_geometry)
 
+    force = forced_chain_geometry if chain else forced_geometry
     first = None
     for geom in geoms:
         label = geometry_label(geom)
-        with forced_geometry(*geom):
+        with force(*geom):
             out = run()
         torch.cuda.synchronize()
         check_one(label, out)
         if first is None:
             first = out
             continue
-        same = all(torch.equal(a, b) for a, b in zip(out, first)
+        same = all(bit_equal(a, b) for a, b in zip(out, first)
                    if torch.is_tensor(a))
         print(f"[{tag}] {label}: bit equal to {geometry_label(geoms[0])}: "
               f"{same}")
@@ -313,6 +339,84 @@ def geometry_line(rk, tag, launch, rng: bool, bf: bool, card):
           f"(runtime), {info['local_bytes']} bytes of local memory, "
           f"{info['blocks_per_sm']} blocks an SM, {info['waves']:.2f} waves "
           f"({card})")
+
+
+def drive_turns(drive_oval, what, chain, old, new, solver, params,
+                cost_params, costmap, controls, card) -> list:
+    """The main path's drive with ``what`` (kernel 1, or kernel 2 when
+    ``chain``) forced into geometry ``old`` and ``new`` in TURN_PAIRS pairs
+    whose order alternates (old then new, new then old, ...), each drive's
+    controls equal to ``controls``: each pair's p50 and p99 and the p50's
+    gain, and a summary line."""
+    from autorally_tpu_torch.tools.exact_variants import (
+        forced_chain_geometry, forced_geometry)
+
+    force = forced_chain_geometry if chain else forced_geometry
+    turns = []
+    for i in range(TURN_PAIRS):
+        pair = {}
+        for geom in ((old, new) if i % 2 == 0 else (new, old)):
+            with force(*geom):
+                o = drive_oval.drive(solver, params, cost_params, costmap,
+                                     TICKS, log=lambda m: None)
+            check(np.array_equal(o["controls"], controls),
+                  f"main path with {what} in {geometry_label(geom)}: other "
+                  "controls")
+            pair["old" if geom == old else "new"] = (
+                float(np.percentile(o["solve_ms"], 50)),
+                float(np.percentile(o["solve_ms"], 99)))
+        pair["first"] = "old" if i % 2 == 0 else "new"
+        pair["gain_p50"] = pair["old"][0] - pair["new"][0]
+        turns.append(pair)
+        print(f"[main path] {what} pair {i} ({pair['first']} first), the "
+              f"same controls: in {geometry_label(old)} p50 "
+              f"{pair['old'][0]:.3f} p99 {pair['old'][1]:.3f} ms, in "
+              f"{geometry_label(new)} p50 {pair['new'][0]:.3f} p99 "
+              f"{pair['new'][1]:.3f} ms, p50 gain {pair['gain_p50']:.3f} ms")
+    gains = [p["gain_p50"] for p in turns]
+    q = {g: np.percentile([p[g][0] for p in turns], [25, 50, 75])
+         for g in ("old", "new")}
+    print(f"[main path] {what}: p50 gain of {geometry_label(new)} over "
+          f"{geometry_label(old)} over {TURN_PAIRS} pairs: median "
+          f"{statistics.median(gains):.3f} ms, range {min(gains):.3f}.."
+          f"{max(gains):.3f} ms, won {sum(g > 0 for g in gains)} of "
+          f"{TURN_PAIRS}; the drives' p50 median {q['old'][1]:.3f} against "
+          f"{q['new'][1]:.3f} ms, quartile spread "
+          f"{q['old'][2] - q['old'][0]:.3f} against "
+          f"{q['new'][2] - q['new'][0]:.3f} ms ({TICKS} ticks a drive; "
+          f"{card})")
+    return turns
+
+
+def chain_timing(rk, tag, model, params, cfg, start, U, eps, bf, reps,
+                 card) -> dict:
+    """Kernel 2 at ``eps``'s K in the launcher's geometry and in one rollout
+    a thread (CUDA events), and its latency floor in the launcher's
+    geometry (``chain_floor``): {ms, geometry, one_thread_ms, floor_ms}."""
+    from autorally_tpu_torch.tools.exact_variants import forced_chain_geometry
+
+    launch, _ = rk.prepare_dynamics_chain(model, params, cfg, start, U, eps)
+    with forced_chain_geometry(*rk.CHAIN_GEOMETRIES[0]):
+        one, _ = rk.prepare_dynamics_chain(model, params, cfg, start, U, eps)
+    ms, ms_one = cuda_ms(launch, reps), cuda_ms(one, reps)
+    floor = chain_floor(SASS[0], bf, launch.geometry, max_sm_clock_mhz())
+    print(f"[timing] {tag} K={eps.shape[1]} in {geometry_label(launch.geometry)}"
+          f": {ms:.4f} ms; in one rollout a thread {ms_one:.4f} ms; latency "
+          f"floor {floor['ms']:.4f} ms: the step's longest dependent chain "
+          f"{floor['cycles']} clocks ({floor['chain']} instructions on it; "
+          f"{floor['in_order']} clocks in issue order; {floor['body']} "
+          f"instructions a step, {floor['skipped']} behind forward branches "
+          f"left out) x T={T} at {floor['clock_mhz']:.0f} MHz (clocks.max.sm)"
+          f", a floor for a dependent chain, not a roofline ({card})")
+    return {"ms": ms, "geometry": launch.geometry, "one_thread_ms": ms_one,
+            "floor_ms": floor["ms"]}
+
+
+def chain_entry(chain: dict) -> dict:
+    """Kernel 2's own keys in the ``kernels`` line."""
+    return {"geometry": geometry_label(chain["geometry"]),
+            "one_thread_ms": chain["one_thread_ms"],
+            "latency_floor_ms": chain["floor_ms"]}
 
 
 def card_line() -> str:
@@ -383,15 +487,23 @@ def field_bounds(nbytes: float, other_ops: float, n_evals: float, field):
                   n_evals * 3 * products))
 
 
-def check_field_sass(so_path: str, objdump: str) -> dict:
-    """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of each
-    field kernel instance of the built library."""
-    out = subprocess.run([objdump, "-sass", so_path], capture_output=True,
-                         text=True, timeout=300)
+def library_sass() -> str:
+    """``cuobjdump -sass`` of the built kernel library."""
+    from autorally_tpu_torch.ops import _build
+
+    objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    out = subprocess.run([objdump, "-sass", str(_build.library_path())],
+                         capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise PhaseFailed(f"cuobjdump failed: {out.stderr.strip()}")
+    return out.stdout
+
+
+def check_field_sass(sass: str) -> dict:
+    """The TF32 tensor-core instructions (HMMA ... TF32) in the SASS of each
+    field kernel instance of the built library."""
     found = {}
-    for fn in re.split(r"\n\s*Function : ", out.stdout)[1:]:
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         short = re.search(r"\d+((?:fused_rng_field|fused_field)_kernel)I.*?"
                           r"(Mlp|Bf)Deriv", fn.split("\n", 1)[0])
         if short:
@@ -399,6 +511,33 @@ def check_field_sass(so_path: str, objdump: str) -> dict:
                 1 for line in fn.splitlines()
                 if "HMMA" in line and "TF32" in line)
     return found
+
+
+def max_sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        raise PhaseFailed(f"nvidia-smi failed: {out.stderr.strip()}")
+    return float(out.stdout.strip().splitlines()[0])
+
+
+def chain_floor(sass: str, bf: bool, geom, clock_mhz: float) -> dict:
+    """Kernel 2's latency floor in ``geom``: T times the longest dependent
+    chain of a step of its time loop, counted from its SASS at documented
+    latencies (``tools/sass_chain.py``), at ``clock_mhz``.  A floor for a
+    dependent chain, not a roofline."""
+    from autorally_tpu_torch.tools import sass_chain
+
+    name = ("dynamics_chain_warp_kernel" if geom.group > 1
+            else "dynamics_chain_kernel")
+    chain = sass_chain.loop_chain(sass_chain.instructions(
+        sass, rf"\d{name}I\w*?{'Bf' if bf else 'Mlp'}Deriv"))
+    chain["ms"] = T * chain["cycles"] / (clock_mhz * 1e3)
+    chain["clock_mhz"] = clock_mhz
+    return chain
 
 
 def ptxas_report(log: str):
@@ -585,6 +724,52 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         agreement(f"pass 1 ou K={k_loc} k_offset={k_off}", name, kc, kx, pc,
                   px, k_loc, limit=0 if name == "ragged_K" else None)
         del kc, pc, ac, bc
+    # two models with different weights, their launches alternating on one
+    # stream with no synchronisation between them (as an ensemble's members
+    # run): each bit for bit kernel A fed the plain stream with its own
+    # weights, and held against its own plain cost along kernel B's
+    # trajectories (every rollout) and its whole plain version (the second
+    # model's seeded weights drive some rollouts off the track, where the
+    # summation order moves a cost: 1 %, as in the other non-nominal cases)
+    other, _, _, _, _ = drive_oval.build(rollouts=K, device=dev)
+    oparams = other.model.init_params(1)
+    ccfg = cap_cfg["gaussian"]
+    runs = []
+    for mdl, prm in ((model, params), (other.model, oparams)):
+        launch, (kc, kx), ctx = rk.prepare_fused_rng_costs(
+            mdl, prm, ccfg, cost_params, costmap, start, U, key)
+        runs.append((mdl, prm, launch, kc, kx, ctx))
+    for _ in range(3):
+        for run in runs:
+            run[2]()
+    torch.cuda.synchronize()
+    for i, (mdl, prm, _, kc, kx, ctx) in enumerate(runs):
+        name = "nominal" if i == 0 else "other_weights"
+        eps = rk.rng_noise(ctx)
+        ac, _, ax = rk.fused_exact_rollout_cost(mdl, prm, ccfg, cost_params,
+                                                costmap, start, U, eps)
+        kb, _ = rk.dynamics_chain(mdl, prm, ccfg, start, U, eps)
+        bc, bx = rk.trajectory_cost_plain(mdl, prm, ccfg, cost_params,
+                                          costmap, U, eps, kb)
+        del kb, eps
+        pc, px, _ = rk.fused_rng_costs_plain(mdl, prm, ccfg, cost_params,
+                                             costmap, start, U, key)
+        torch.cuda.synchronize()
+        same_as_a = torch.equal(kc, ac) and torch.equal(kx, ax)
+        print(f"[pass 1] two models alternating on one stream, model {i} "
+              f"(weights seed {i}): equal to kernel A on the plain stream "
+              f"with its own weights: {same_as_a}")
+        check(same_as_a, f"pass 1 two models: model {i} differs from kernel "
+              "A with its own weights")
+        err_p1 = max(err_p1, agreement(
+            f"pass 1 two models, model {i} along kernel B", name, kc, kx, bc,
+            bx, KC, limit=0))
+        agreement(f"pass 1 two models, model {i}", name, kc, kx, pc, px, KC)
+        del ac, bc, pc
+    check(not torch.equal(runs[0][3], runs[1][3]), "pass 1 two models: the "
+          "two models' costs are equal")
+    del runs
+
     # -- phase 8: pass 2 against its plain version ---------------------------
     err_p2 = 0.0
     first_pure = int(np.ceil(np.float32(cfg.pure_noise_frac * KC)))
@@ -1190,7 +1375,11 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
             pc, pu, px = rk.fused_rollout_cost_plain(bmodel, prm, c,
                                                      cost_params, cmap, s0,
                                                      U, beps)
-            ks, kbu = rk.dynamics_chain(bmodel, prm, c, s0, U, beps)
+            ks, kbu = hold_geometries(
+                f"{tag} kernel 2 {name}", rk.CHAIN_GEOMETRIES,
+                lambda: tuple(rk.dynamics_chain(bmodel, prm, c, s0, U,
+                                                beps)),
+                lambda label, out: None, chain=True)
             ps, _ = rk.dynamics_chain_plain(bmodel, prm, c, s0, U, beps)
             bc, bx = rk.trajectory_cost_plain(bmodel, prm, c, cost_params,
                                               cmap, U, beps, ks)
@@ -1223,7 +1412,11 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
             if name != "nan_x":
                 note_err("dynamics_chain_bf", e_s)
             del ks, ps
-        ks, _ = rk.nominal_trajectory(bmodel, prm, bcfg, start, U)
+        ks, _ = hold_geometries(
+            f"bf {theta_name} kernel 2 nominal trajectory (K=1)",
+            rk.CHAIN_GEOMETRIES, lambda: tuple(rk.nominal_trajectory(
+                bmodel, prm, bcfg, start, U)), lambda label, out: None,
+            chain=True)
         ps, _ = rk.dynamics_chain_plain(bmodel, prm, bcfg, start, U,
                                         torch.zeros((T_, 1, 2), device=dev))
         ps = torch.cat([start[None], ps[:, :, 0].T[:-1]])
@@ -1580,7 +1773,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     times = {}
     for form, (launch, plain, reps, plain_reps, bnd, _) in timed.items():
         ms = cuda_ms(launch, reps)
-        if getattr(launch, "geometry", None) is not None:
+        if (getattr(launch, "geometry", None) is not None
+                and not form.startswith("dynamics_chain")):
             geometry_line(rk, f"timing {form}", launch, "rng" in form,
                           "_bf" in form, card)
         plain_ms = cuda_ms(plain, plain_reps, 1) if plain else None
@@ -1591,6 +1785,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
               f"{'-' if plain_ms is None else f'{plain_ms:.3f}'} ms, "
               f"{'tensor-core ' if fp32 else ''}bound {bnd[0]:.5f} ms "
               f"({bnd[1]}){fp32} ({card})")
+    chain_bf = chain_timing(rk, "dynamics_chain_bf", bmodel, bparams, bcfg,
+                            start, U, z_1, True, 100, card)
     print(f"[timing] MLP without obstacles in this run: kernel A K={K} "
           f"{times['fused_exact_rollout_cost'][0]:.4f} ms, exact pass 1 "
           f"K={KC} {times['fused_rng_costs'][0]:.4f} ms; with {N_SLOTS} slots "
@@ -1621,7 +1817,9 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
              "launches": launches[path][form],
              "max_abs_err": errs[form], "ms": ms, "plain_ms": plain_ms,
              "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-             **({"fp32_bound_ms": bnd[2]} if len(bnd) > 2 else {})})
+             **({"fp32_bound_ms": bnd[2]} if len(bnd) > 2 else {}),
+             **(chain_entry(chain_bf) if form == "dynamics_chain_bf"
+                else {})})
     return kernels, latency
 
 
@@ -1673,8 +1871,9 @@ def main() -> int:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
         # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain),
-        # pass 2, and kernel 1 in its lane groups (the MLP)
-        n_kernels = 11 + len(rk.LANE_GROUPS)
+        # pass 2, kernel 1 in its lane groups (the MLP), and kernel 2 one
+        # rollout a warp (MLP and BF)
+        n_kernels = 11 + len(rk.LANE_GROUPS) + 2
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -1694,8 +1893,8 @@ def main() -> int:
                   f"an SM")
             check(info["blocks_per_sm"] * rk.FIELD_BLOCK >= 256,
                   f"{name}: fewer than 8 resident warps an SM")
-    hmma = check_field_sass(str(_build.library_path()), os.path.join(
-        os.path.dirname(_build.nvcc_path()), "cuobjdump"))
+    SASS.append(library_sass())
+    hmma = check_field_sass(SASS[0])
     print(f"[build] TF32 HMMA instructions in the field kernels' SASS: "
           f"{hmma}")
     check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
@@ -1805,22 +2004,37 @@ def main() -> int:
     del eps_r
 
     # -- phase 3: kernel B against its plain version -------------------------
+    # in each of its geometries (one rollout a thread, one a warp), each bit
+    # for bit equal to one rollout a thread: at the cases' K=1920 (the fine
+    # random map's included), on a shard's slice at a K that is not a
+    # multiple of the warp form's block, and at the nominal trajectory (K=1)
     err_b = 0.0
-    for name, (ccfg, s0, _) in cases.items():
-        ks, ku = rk.dynamics_chain(model, params, ccfg, s0, U, eps)
-        ps, pu = rk.dynamics_chain_plain(model, params, ccfg, s0, U, eps)
+    shard_b = 701
+    b_cases = dict(cases, shard=(cfg, start, costmap))
+    for name, (ccfg, s0, _) in b_cases.items():
+        e, kw = ((eps[:, shard_b:].contiguous(), dict(k_offset=shard_b))
+                 if name == "shard" else (eps, {}))
+        ks, ku = hold_geometries(f"kernel B {name}", rk.CHAIN_GEOMETRIES,
+                                 lambda: tuple(rk.dynamics_chain(
+                                     model, params, ccfg, s0, U, e, **kw)),
+                                 lambda label, out: None, chain=True)
+        ps, pu = rk.dynamics_chain_plain(model, params, ccfg, s0, U, e, **kw)
         torch.cuda.synchronize()
         same_nan = torch.equal(torch.isnan(ks), torch.isnan(ps))
         fin = torch.isfinite(ps)
         e_s = (ks[fin] - ps[fin]).abs().max().item() if fin.any() else 0.0
-        print(f"[kernel B] {name}: max|state err| {e_s:.3e}, "
+        print(f"[kernel B] {name} K={e.shape[1]}: max|state err| {e_s:.3e}, "
               f"max|u_seq err| {(ku - pu).abs().max().item():.3e}")
         check(same_nan, f"B {name}: NaN pattern differs")
         check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL,
                              equal_nan=True), f"B {name}: states differ")
         check(torch.equal(ku, pu), f"B {name}: u_seq differs")
         err_b = max(err_b, e_s)
-    ks, _ = rk.nominal_trajectory(model, params, cfg, start, U)
+    ks, _ = hold_geometries("kernel B nominal trajectory (K=1)",
+                            rk.CHAIN_GEOMETRIES, lambda: tuple(
+                                rk.nominal_trajectory(model, params, cfg,
+                                                      start, U)),
+                            lambda label, out: None, chain=True)
     eps1 = torch.zeros((T, 1, 2), device=dev)
     ps, _ = rk.dynamics_chain_plain(model, params, cfg, start, U, eps1)
     ps = torch.cat([start[None], ps[:, :, 0].T[:-1]])
@@ -1859,45 +2073,19 @@ def main() -> int:
         check(n >= TICKS, f"{name} launched {n} times in {TICKS} ticks")
     results["latency"] = (float(np.percentile(st, 50)),
                           float(np.percentile(st, 99)))
-    # the same drive with kernel A in one rollout a thread (the previous
-    # design, the same bits: the same trajectory) and in the launcher's
-    # geometry, in TURN_PAIRS pairs whose order alternates (old then new,
-    # new then old, ...): each pair's p50 and p99 and the p50's gain
-    from autorally_tpu_torch.tools.exact_variants import forced_geometry
-    old, new = rk.GEOMETRIES[0], launcher_geometries(rk, False)[0]
-    turns = []
-    for i in range(TURN_PAIRS):
-        pair = {}
-        for geom in ((old, new) if i % 2 == 0 else (new, old)):
-            with forced_geometry(*geom):
-                o = drive_oval.drive(solver, params, cost_params, costmap,
-                                     TICKS, log=lambda m: None)
-            check(np.array_equal(o["controls"], out["controls"]),
-                  f"main path with kernel A in {geometry_label(geom)}: "
-                  "other controls")
-            pair["old" if geom == old else "new"] = (
-                float(np.percentile(o["solve_ms"], 50)),
-                float(np.percentile(o["solve_ms"], 99)))
-        pair["first"] = "old" if i % 2 == 0 else "new"
-        pair["gain_p50"] = pair["old"][0] - pair["new"][0]
-        turns.append(pair)
-        print(f"[main path] pair {i} ({pair['first']} first), the same "
-              f"controls: kernel A in {geometry_label(old)} p50 "
-              f"{pair['old'][0]:.3f} p99 {pair['old'][1]:.3f} ms, in "
-              f"{geometry_label(new)} p50 {pair['new'][0]:.3f} p99 "
-              f"{pair['new'][1]:.3f} ms, p50 gain {pair['gain_p50']:.3f} ms")
-    gains = [p["gain_p50"] for p in turns]
-    q = {g: np.percentile([p[g][0] for p in turns], [25, 50, 75])
-         for g in ("old", "new")}
-    print(f"[main path] p50 gain of {geometry_label(new)} over "
-          f"{geometry_label(old)} over {TURN_PAIRS} pairs: median "
-          f"{statistics.median(gains):.3f} ms, range {min(gains):.3f}.."
-          f"{max(gains):.3f} ms, won {sum(g > 0 for g in gains)} of "
-          f"{TURN_PAIRS}; the drives' p50 median {q['old'][1]:.3f} against "
-          f"{q['new'][1]:.3f} ms, quartile spread {q['old'][2] - q['old'][0]:.3f}"
-          f" against {q['new'][2] - q['new'][0]:.3f} ms ({TICKS} ticks a "
-          f"drive; {card})")
-    results["latency_turns"] = turns
+    # the same drive with kernel A, then kernel 2, in one rollout a thread
+    # (the previous design, the same bits: the same trajectory) and in the
+    # launcher's geometry, in TURN_PAIRS pairs whose order alternates
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results["latency_turns"] = {
+        "kernel A": drive_turns(
+            drive_oval, "kernel A", False, rk.GEOMETRIES[0],
+            launcher_geometries(rk, False)[0], solver, params, cost_params,
+            costmap, out["controls"], card),
+        "kernel B": drive_turns(
+            drive_oval, "kernel B", True, rk.CHAIN_GEOMETRIES[0],
+            rk.chain_geometry(1, sms)[:2], solver, params, cost_params,
+            costmap, out["controls"], card)}
     # what the controller state's key adds to a solve on the host: the
     # split and the host-noise generator seeded from the subkey
     from autorally_tpu_torch.ops import kernel_rng
@@ -1922,8 +2110,9 @@ def main() -> int:
                    + 2 * K * (T - 1))        # + one texel per front/back lookup
     bound_a, by_a = bound(bytes_a, flops_step * K * T)
 
-    launch_b, _ = rk.prepare_dynamics_chain(model, params, cfg, start, U, eps1)
-    ms_b = cuda_ms(launch_b, 100)
+    chain_b = chain_timing(rk, "B dynamics_chain", model, params, cfg, start,
+                           U, eps1, False, 100, card)
+    ms_b = chain_b["ms"]
     plain_b = cuda_ms(lambda: rk.dynamics_chain_plain(
         model, params, cfg, start, U, eps1), 10)
     bytes_b = 4 * (T * 2 + 7 * T + 2 * T + T * 2 + n_w + 7 + 4)
@@ -1932,7 +2121,8 @@ def main() -> int:
           f"plain {plain_a:.3f} ms, bound {bound_a:.5f} ms ({by_a}) ({card})")
     geometry_line(rk, "timing A", launch_a, False, False, card)
     print(f"[timing] B dynamics_chain K=1 T={T}: {ms_b:.4f} ms, plain "
-          f"{plain_b:.3f} ms, bound {bound_b:.7f} ms ({by_b}) ({card})")
+          f"{plain_b:.3f} ms, bound {bound_b:.7f} ms ({by_b}), latency floor "
+          f"{chain_b['floor_ms']:.4f} ms ({card})")
 
     # -- phase 6: where a tick's time goes ---------------------------------
     profile_ticks(drive_oval, solver, params, cost_params, costmap, card)
@@ -1964,8 +2154,27 @@ def main() -> int:
          "replaces": "autorally_tpu/ops/rollout_kernel.py:389",
          "launches": launches["dynamics_chain"],
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
-         "bound_ms": bound_b, "bound_by": by_b, "library_ms": None},
+         "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
+         **chain_entry(chain_b)},
     ] + cap_kernels + field_kernels + bf_obs_kernels
+    # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
+    # the form's K) or design
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    field_design = ("a lane a rollout, the field on the warp's mma.sync "
+                    "3xTF32 tiles, blocks of %d" % rk.FIELD_BLOCK)
+    for k in kernels:
+        name = k["name"]
+        if name.startswith("fused_exact_rollout_cost"):
+            k.setdefault("geometry", geometry_label(rk.exact_geometry(
+                KB if "_bf" in name else K, sms, "_bf" in name)))
+        elif name.startswith(("fused_rollout_cost", "fused_rng_costs_field")):
+            k["design"] = field_design
+        elif name.startswith("fused_rng_costs"):
+            k["design"] = ("one rollout a thread, blocks of %d, weights in "
+                           "shared memory" % rk.EXACT_BLOCK)
+        elif name == "fused_rng_numer":
+            k["design"] = ("a thread a rollout, fixed-order block sums, "
+                           "blocks of %d" % rk.UPDATE_BLOCK)
     print(json.dumps({"kernels": kernels, "card": card,
                       "solve_ms_p50_p99": results["latency"],
                       "solve_ms_turns": results["latency_turns"],
