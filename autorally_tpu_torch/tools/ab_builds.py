@@ -13,13 +13,11 @@ kernels from its own source and runs in its own process, in the order
 other, this, this, other, so that a drift of the card over the call falls
 on both alike.  Each prints the CUDA-event medians and a digest of each
 form's outputs; equal digests show bit-equal results.  The SASS of the
-kernels that a change of kernel 2 and exact pass 1 should not touch
-(``UNTOUCHED_KERNELS``: kernel 1 in one rollout a thread and in its lane
-groups, kernel 3 and field pass 1, MLP and BF each, and pass 2) is
-compared between the two builds' libraries (``cuobjdump -sass``),
-function by function; so is, for the record and without being required,
-that of exact pass 1 and kernel 2 in one rollout a thread
-(``RECORD_KERNELS``).  The summary gives each checkout's mean of its two
+kernels that a new form of kernel 2 should not touch (``UNTOUCHED_KERNELS``:
+kernel 1 in one rollout a thread and in its lane groups, exact pass 1,
+kernel 2 in one rollout a thread, kernel 3 and field pass 1, MLP and BF
+each, and pass 2) is compared between the two builds' libraries
+(``cuobjdump -sass``), function by function.  The summary gives each checkout's mean of its two
 runs and the ratio of this checkout to the other.
 
 Usage (``DIR``: another checkout's root, e.g. ``git archive`` of a parent
@@ -46,15 +44,14 @@ KEY = (0x2545F491, 0x9E3779B9)
 N_SLOTS = 16
 CIRCLES = [[30.0, 5.0, 0.5], [29.5, 8.0, 0.5]]
 # kernels whose SASS must equal the other build's: kernel 1 in one rollout
-# a thread (MLP, BF) and in its lane groups (8, 16, 32), kernel 3 and field
-# pass 1 (MLP, BF), pass 2
+# a thread (MLP, BF) and in its lane groups (8, 16, 32), exact pass 1 and
+# kernel 2 in one rollout a thread, kernel 3 and field pass 1 (MLP, BF each),
+# pass 2
 UNTOUCHED_KERNELS = ("fused_exact_kernel", "fused_exact_group_kernel",
+                     "fused_rng_kernel", "dynamics_chain_kernel",
                      "fused_field_kernel", "fused_rng_field_kernel",
                      "weighted_update_kernel")
-N_UNTOUCHED = 10
-# kernels whose SASS is compared for the record, not required: exact pass 1
-# and kernel 2 in one rollout a thread (MLP, BF)
-RECORD_KERNELS = ("fused_rng_kernel", "dynamics_chain_kernel")
+N_UNTOUCHED = 14
 
 def seeded_field(costmap, device, seed: int = 7):
     """A field of the CUDA kernels' spec (34-64-64-1, F = 8) on
@@ -216,8 +213,8 @@ def time_checkout(root: str, rounds: int) -> dict:
 
 
 def untouched_sass(library: str, dump: str) -> dict:
-    """The SASS of each instance of ``UNTOUCHED_KERNELS`` and
-    ``RECORD_KERNELS`` in the built ``library``, by short name (e.g.
+    """The SASS of each instance of ``UNTOUCHED_KERNELS`` in the built
+    ``library``, by short name (e.g.
     ``fused_field_kernel<MlpDeriv>``, ``fused_exact_group_kernel<8>``); the
     whole ``cuobjdump -sass`` output is written to ``dump``.  The kernels
     live in an anonymous namespace, whose mangled name differs between
@@ -230,7 +227,7 @@ def untouched_sass(library: str, dump: str) -> dict:
                          text=True, check=True, timeout=300).stdout
     with open(dump, "w") as f:
         f.write(out)
-    names = "|".join(UNTOUCHED_KERNELS + RECORD_KERNELS)
+    names = "|".join(UNTOUCHED_KERNELS)
     sass = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
@@ -243,10 +240,9 @@ def untouched_sass(library: str, dump: str) -> dict:
             sass[m.group(1) + (f"<{arg}>" if arg else "")] = (
                 "\n".join(" ".join(line.split())
                           for line in body.splitlines()))
-    n = N_UNTOUCHED + 2 * len(RECORD_KERNELS)
-    if len(sass) != n:
+    if len(sass) != N_UNTOUCHED:
         raise RuntimeError(f"{library}: found the SASS of {sorted(sass)}, "
-                           f"not of the {n} kernels compared")
+                           f"not of the {N_UNTOUCHED} kernels compared")
     return sass
 
 
@@ -291,12 +287,8 @@ def main() -> int:
             for lb in ("this", "other")}
     same = {name: sass["this"].get(name) == sass["other"].get(name)
             for name in sorted(set(sass["this"]) | set(sass["other"]))}
-    record = {n: v for n, v in same.items()
-              if n.split("<")[0] in RECORD_KERNELS}
-    sass_equal = {n: v for n, v in same.items() if n not in record}
     summary = {"card": card, "mean": mean, "bit_equal": bit_equal,
-               "untouched_sass_equal": sass_equal,
-               "record_sass_equal": record,
+               "untouched_sass_equal": same,
                "this_over_other": {n: mean["this"][n] / mean["other"][n]
                                    for n in names}}
     for n in names:
@@ -305,8 +297,7 @@ def main() -> int:
               f"{summary['this_over_other'][n]:.3f}, outputs bit equal "
               f"{bit_equal[n]} ({card})")
     print(f"[ab] untouched kernels' SASS equal to the other build's: "
-          f"{sass_equal}; exact pass 1 and kernel 2 in one rollout a thread "
-          f"(not required): {record}")
+          f"{same}")
     for name, equal in same.items():
         if not equal:
             a, b = (sass[lb].get(name, "").splitlines()
@@ -315,7 +306,7 @@ def main() -> int:
             print(f"[ab] {name}: {len(a)} against {len(b)} lines, "
                   f"{len(diff)} differ; first: {diff[:2]}")
     print(json.dumps(summary))
-    return 0 if all(bit_equal.values()) and all(sass_equal.values()) else 1
+    return 0 if all(bit_equal.values()) and all(same.values()) else 1
 
 
 if __name__ == "__main__":

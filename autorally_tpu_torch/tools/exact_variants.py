@@ -9,38 +9,30 @@ port's own wrappers in the geometry the launcher picks: kernel 1
 (``fused_exact_rollout_cost``) at K=1920 and exact pass 1
 (``fused_rng_costs``, gaussian) at K=262144, T=100, on the main path's
 seeded configuration (``drive_oval.build``).  The variants' results are
-wrong by design, but for those that only move the weights (the constant
-bank ones) or the eps reads; only their times mean something.
+wrong by design, but for ``const_operand``, which only moves the weights;
+only their times mean something.
 
 - ``base``: the source as it is;
 - ``no_tanh``: the MLP's tanhf taken away (the identity), in every form;
 - ``no_cost``: the cost step taken away (no lookups, atanf or latches);
 - ``const_weights``: the MLP's weights a constant of their index, folded
   into the instructions, instead of read from shared memory;
-- exact pass 1's MLP weights in the constant bank, copied there from the
-  packed weights before each launch: ``const_bank`` (``__constant__``,
-  read through a generic pointer, the step's compiler barrier kept);
-  ``const_operand`` (a derivative type indexing the ``__constant__`` array
-  at compile-time indices, no barrier); ``const_operand_b`` (the same, the
-  weight fmaf's second factor); ``const_layer1`` (only W1 and b1 there,
-  the rest in shared memory, the barrier kept); ``grid_constant_operand``
-  (a ``__grid_constant__`` parameter of the packed weights, indexed the
-  same way, no barrier);
+- ``const_operand``: exact pass 1's MLP weights in the constant bank,
+  copied there from the packed weights before each launch, read by a
+  derivative type that indexes the ``__constant__`` array at compile-time
+  indices, with no compiler barrier a step;
 - ``no_gather``: the costmap lookups without their load (the texel index
   arithmetic stays);
 - ``blocks_8``, ``blocks_10``: one rollout a thread with 8 or 10 blocks of
   64 an SM asked of the compiler (``__launch_bounds__``), at most 128 or
-  102 registers instead of 168, for more warps in flight;
-- ``chain_eps_in_step``: kernel 2 in one rollout a thread reading each
-  step's eps in that step (the earlier chain), not a step ahead.
+  102 registers instead of 168, for more warps in flight.
 
 Each variant's SASS of exact pass 1 (``fused_rng_kernel<MlpDeriv>``) is
 counted by opcode (``pass1_sass``): how the weights are read.  Kernel 2
 (``chain_sweep``) is timed at each K of ``CHAIN_K``, the MLP and the BF
 model, in each of its geometries (``rk.CHAIN_GEOMETRIES``) with the base
-library and in one rollout a thread with each ``chain_*`` variant, its
-states and u_seq held bit for bit against the base one-thread chain: what
-places ``rk.chain_geometry``'s choice.
+library, its states and u_seq held bit for bit against one rollout a
+thread: what places ``rk.chain_geometry``'s choice.
 
 Then (unless ``--no-geometries``), with the ``base`` library, every
 geometry kernel 1 is built for (``rk.GEOMETRIES``: lane group G, block) is
@@ -91,17 +83,14 @@ _PASS1_CALL = "rollout_cost<false, Deriv>(s, c, s0, rngs, U_s, w_s, obs_s,"
 _STEP_TOP = ("    weights_barrier();\n    float u0, u1, du0, du1;\n"
              "    perturb(s, U_s, noise(t), t, zero_rollout, pure_noise, u0, "
              "u1, du0, du1);\n    if (kStoreU && active) {")
+_CONST_W = "__constant__ float c_w[kNumMlpWeights];\n\n"
 
 
-def _const_deriv(name, w0, w1, w2, swap: bool = False):
-    """The source of a derivative type ``name``: MlpDeriv's loops with the
-    weights of layer l read as the C++ expression ``wl`` of a compile-time
-    index (``{i}``), the weight the second factor of each fmaf when
-    ``swap`` (the same product), and ``PassDerivOf`` mapping MlpDeriv to it
-    in exact pass 1."""
-    def fma(w, x):
-        return f"fmaf({x}, {w}, acc)" if swap else f"fmaf({w}, {x}, acc)"
-
+def _const_deriv(name, w):
+    """The source of a derivative type ``name``: MlpDeriv's loops with each
+    weight read as the C++ expression ``w`` of a compile-time index
+    (``{i}``), and ``PassDerivOf`` mapping MlpDeriv to it in exact
+    pass 1."""
     return f"""struct {name} {{
   static constexpr int kNumWeights = kNumMlpWeights;
   static __device__ __forceinline__ void eval(const float* __restrict__ w,
@@ -116,8 +105,8 @@ def _const_deriv(name, w0, w1, w2, swap: bool = False):
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < kIn; ++i)
-        acc = {fma(w0.format(i='j * kIn + i'), 'in[i]')};
-      h1[j] = tanhf(acc + {w0.format(i='b0 + j')});
+        acc = fmaf({w.format(i='j * kIn + i')}, in[i], acc);
+      h1[j] = tanhf(acc + {w.format(i='b0 + j')});
     }}
     float h2[kH2];
 #pragma unroll
@@ -125,16 +114,16 @@ def _const_deriv(name, w0, w1, w2, swap: bool = False):
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < kH1; ++i)
-        acc = {fma(w1.format(i='W1 + j * kH1 + i'), 'h1[i]')};
-      h2[j] = tanhf(acc + {w1.format(i='b1 + j')});
+        acc = fmaf({w.format(i='W1 + j * kH1 + i')}, h1[i], acc);
+      h2[j] = tanhf(acc + {w.format(i='b1 + j')});
     }}
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {{
       float acc = 0.f;
 #pragma unroll
       for (int i = 0; i < kH2; ++i)
-        acc = {fma(w2.format(i='W2 + j * kH2 + i'), 'h2[i]')};
-      out[j] = acc + {w2.format(i='b2 + j')};
+        acc = fmaf({w.format(i='W2 + j * kH2 + i')}, h2[i], acc);
+      out[j] = acc + {w.format(i='b2 + j')};
     }}
   }}
 }};
@@ -145,71 +134,18 @@ template <> struct PassDerivOf<MlpDeriv> {{ using type = {name}; }};
 """
 
 
-def _pass1_edits(deriv_src, barrier: bool, copy: str = "",
-                 grid: bool = False):
-    """Exact pass 1's MLP instance on the derivative of ``deriv_src``:
-    ``copy`` is launcher code run before each launch, ``barrier`` keeps
-    the compiler barrier a step in that instance, ``grid`` passes the
-    packed weights as a ``__grid_constant__`` parameter (copied to the host
-    once per weights pointer) whose address the derivative reads."""
-    edits = [(_MLP_BF_ANCHOR, deriv_src + _MLP_BF_ANCHOR),
-             (_PASS1_CALL, "rollout_cost<false, typename PassDerivOf<Deriv>"
-              "::type>(s, c, s0, rngs, U_s, "
-              + ("std::is_same_v<Deriv, MlpDeriv> ? gw.w : w_s"
-                 if grid else "w_s") + ", obs_s,")]
-    if not barrier:
-        edits.append((_STEP_TOP, _STEP_TOP.replace(
-            "    weights_barrier();",
-            "    if constexpr (!std::is_same_v<Deriv, typename PassDerivOf<"
-            "MlpDeriv>::type>)\n      weights_barrier();")))
-    if copy:
-        edits.append((_RNG_LAUNCH, copy + _RNG_LAUNCH))
-    if grid:
-        edits += [
-            ("fused_rng_kernel(ChainScalars s, CostScalars c, StreamScalars "
-             "r,", "fused_rng_kernel(const __grid_constant__ GridWeights gw,"
-             " ChainScalars s, CostScalars c,\n                 StreamScalars"
-             " r,"),
-            ("    fused_rng_kernel<D><<<blocks, kBlock, smem_bytes<D>(s.T, "
-             "c.n_obs), st>>>(\n        s, c, r,",
-             "    fused_rng_kernel<D><<<blocks, kBlock, smem_bytes<D>(s.T, "
-             "c.n_obs), st>>>(\n        host_weights(weights, s.bf), s, c, "
-             "r,"),
-            (_NAMESPACE_END, _HOST_WEIGHTS + _NAMESPACE_END)]
-    return edits
-
-
-_NAMESPACE_END = "}  // namespace\n\nextern \"C\" {"
-_GRID_STRUCT = ("struct GridWeights {\n  float w[kNumMlpWeights];\n};\n\n")
-_HOST_WEIGHTS = """GridWeights host_weights(const float* weights, int bf) {
-  static GridWeights h;
-  static const float* last = nullptr;
-  if (!bf && weights != last) {
-    cudaMemcpy(h.w, weights, sizeof h.w, cudaMemcpyDeviceToHost);
-    last = weights;
-  }
-  return h;
-}
-
-"""
-_CONST_W = "__constant__ float c_w[kNumMlpWeights];\n\n"
-_CONST_W1 = "__constant__ float c_w1[kH2 * kH1 + kH2];\n\n"
-_COPY_W1 = ("  if (!s.bf)\n"
-            "    cudaMemcpyToSymbolAsync(c_w1, weights + kH1 * kIn + kH1,\n"
-            "                            (kH2 * kH1 + kH2) * 4, 0,\n"
-            "                            cudaMemcpyDeviceToDevice, "
-            "(cudaStream_t)stream);\n")
-# the one-rollout-a-thread chain with each step's eps read in its own step,
-# behind the step's compiler barrier (the parent's chain)
-_CHAIN_EPS_IN_STEP = [
-    ("  // each step's eps pair is read a step ahead, so that no step waits "
-     "on it\n  float2 e_next = noise(0);\n", ""),
-    ("    const float2 e_t = e_next;\n"
-     "    if (t + 1 < s.T) e_next = noise(t + 1);\n"
-     "    float u0, u1, du0, du1;\n"
-     "    perturb(s, U_s, e_t, t,",
-     "    float u0, u1, du0, du1;\n"
-     "    perturb(s, U_s, noise(t), t,")]
+# exact pass 1's MLP instance on MlpConstDeriv, without the step's compiler
+# barrier, the weights copied to c_w before each launch
+_CONST_OPERAND = [
+    (_MLP_BF_ANCHOR,
+     _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]") + _MLP_BF_ANCHOR),
+    (_PASS1_CALL, "rollout_cost<false, typename PassDerivOf<Deriv>::type>("
+     "s, c, s0, rngs, U_s, w_s, obs_s,"),
+    (_STEP_TOP, _STEP_TOP.replace(
+        "    weights_barrier();",
+        "    if constexpr (!std::is_same_v<Deriv, typename PassDerivOf<"
+        "MlpDeriv>::type>)\n      weights_barrier();")),
+    (_RNG_LAUNCH, _COPY + _RNG_LAUNCH)]
 VARIANTS = {
     "base": [],
     "no_tanh": [
@@ -233,27 +169,7 @@ VARIANTS = {
          f"wq[u] = {_SI4.format('q + u')};"),
         ("const float4 wq = r2[q];",
          f"const float4 wq = {_SI4.format('q')};")],
-    "const_bank": [
-        ("struct MlpDeriv {",
-         "__constant__ float c_w[kNumMlpWeights];\n\nstruct MlpDeriv {"),
-        ("    const float* W0 = w;\n    const float* b0 = W0 + kH1 * kIn;",
-         "    const float* W0 = c_w;\n    const float* b0 = W0 + kH1 * kIn;"),
-        (_RNG_LAUNCH, _COPY + _RNG_LAUNCH)],
-    "const_operand": _pass1_edits(
-        _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]", "c_w[{i}]",
-                                "c_w[{i}]"), barrier=False, copy=_COPY),
-    "const_operand_b": _pass1_edits(
-        _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]", "c_w[{i}]",
-                                "c_w[{i}]", swap=True), barrier=False,
-        copy=_COPY),
-    "const_layer1": _pass1_edits(
-        _CONST_W1 + _const_deriv("MlpConstDeriv", "w[{i}]",
-                                 "c_w1[{i} - W1]", "w[{i}]"),
-        barrier=True, copy=_COPY_W1),
-    "grid_constant_operand": _pass1_edits(
-        _GRID_STRUCT + _const_deriv("MlpGridDeriv", "w[{i}]", "w[{i}]",
-                                    "w[{i}]"), barrier=False, grid=True),
-    "chain_eps_in_step": _CHAIN_EPS_IN_STEP,
+    "const_operand": _CONST_OPERAND,
     "no_gather": [
         ("return __ldg(ch0 + (size_t)(int)fy * c.W + (int)fx);",
          "return (fx + fy) * 1e-9f;")],
@@ -357,7 +273,7 @@ def main() -> int:
               f"{r['pass1_gaussian_K262144']:.4f} ms ({card}); pass 1 SASS "
               f"{sass[name]}")
 
-    chain, ok = chain_sweep(libs, dev, card)
+    chain, ok = chain_sweep(libs["base"], dev, card)
     geometries, crossover = {}, {}
     if not args.no_geometries:
         use_library(libs["base"])
@@ -423,13 +339,12 @@ def forced_chain_geometry(group: int, block: int):
         rk.chain_geometry = saved
 
 
-def chain_sweep(libs, dev, card):
+def chain_sweep(library, dev, card):
     """Kernel 2 (the MLP and the BF model, seeded weights) at each K of
-    ``CHAIN_K`` in each geometry of ``rk.CHAIN_GEOMETRIES`` with the base
-    library, and in one rollout a thread with each ``chain_*`` variant's:
-    the time of each, and its states and u_seq held bit for bit against the
-    base library's one rollout a thread.  Returns ({library: {model: {K:
-    {label: ms}}}}, whether all are bit equal)."""
+    ``CHAIN_K`` in each geometry of ``rk.CHAIN_GEOMETRIES`` with
+    ``library``: the time of each, and its states and u_seq held bit for
+    bit against one rollout a thread.  Returns ({model: {K: {label: ms}}},
+    whether all are bit equal)."""
     import torch
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.ops import rollout_kernel as rk
@@ -445,33 +360,26 @@ def chain_sweep(libs, dev, card):
     gen.manual_seed(6)
     eps = {K: torch.randn((100, K, 2), generator=gen, device=dev)
            for K in CHAIN_K}
-    out, refs, ok = {}, {}, True
-    for lib in [n for n in libs if n == "base" or n.startswith("chain_")]:
-        use_library(libs[lib])
-        out[lib] = {}
-        for mname, (solver, params) in models.items():
-            out[lib][mname] = {}
-            for K in CHAIN_K:
-                out[lib][mname][K] = {}
-                for geom in rk.CHAIN_GEOMETRIES:
-                    if lib != "base" and geom[0] > 1:
-                        continue
-                    with forced_chain_geometry(*geom):
-                        launch, res = rk.prepare_dynamics_chain(
-                            solver.model, params, solver.cfg, start, U,
-                            eps[K])
-                    t = events(launch, 100 if K < 8192 else 20)
-                    torch.cuda.synchronize()
-                    ref = refs.setdefault((mname, K),
-                                          [r.clone() for r in res])
-                    same = all(torch.equal(a, b) for a, b in zip(res, ref))
-                    ok &= same
-                    label = "G%d block %d" % geom
-                    out[lib][mname][K][label] = t
-                    print(f"[chain] {lib} {mname} K={K} {label}: {t:.4f} ms,"
-                          f" bit equal to the base one-thread chain: {same}"
-                          f" ({card})")
-                    del launch, res
+    use_library(library)
+    out, ok = {}, True
+    for mname, (solver, params) in models.items():
+        out[mname] = {}
+        for K in CHAIN_K:
+            out[mname][K], ref = {}, None
+            for geom in rk.CHAIN_GEOMETRIES:         # one a thread first
+                with forced_chain_geometry(*geom):
+                    launch, res = rk.prepare_dynamics_chain(
+                        solver.model, params, solver.cfg, start, U, eps[K])
+                t = events(launch, 100 if K < 8192 else 20)
+                torch.cuda.synchronize()
+                ref = ref or [r.clone() for r in res]
+                same = all(torch.equal(a, b) for a, b in zip(res, ref))
+                ok &= same
+                label = "G%d block %d" % geom
+                out[mname][K][label] = t
+                print(f"[chain] {mname} K={K} {label}: {t:.4f} ms, bit "
+                      f"equal to one rollout a thread: {same} ({card})")
+                del launch, res
     return out, ok
 
 

@@ -5,18 +5,21 @@ throughput bound says anything about it.  ``loop_chain`` reads a kernel's
 SASS (``cuobjdump -sass``), takes its time loop (the backward branch of the
 widest span), and follows the registers through one pass of the loop body
 in program order, each instruction ready a fixed latency after the last of
-its source registers (``LATENCY``: documented Hopper latencies, FFMA 4
-clocks, MUFU 20, shuffles 25, shared loads 23); the registers live into the
-loop are ready at 0.  The step's longest dependent chain is the latest
+its source registers (``LATENCY``: assumed latencies, since NVIDIA does not
+publish Hopper's: FFMA 4 clocks, MUFU 20, shuffles 25, shared loads 23);
+the registers live into the loop are ready at 0.  Given the store
+instructions of one step (``stores``), it counts the loop body's ``STG``
+and refuses a body that holds another number of them: a loop that ptxas
+unrolled would make T times its chain more than the floor.  The step's longest dependent chain is the latest
 ready time of a register that the loop body redefines and reads before it
 does (carried into the next step).  Code behind a forward branch (a slow
 path, an if) is left out, and issue limits and stalls are ignored, so
-that ``T`` times the chain is a floor for a dependent chain, not a
-roofline: the kernel cannot run its T steps faster.
+that ``T`` times the chain is a floor for a dependent chain at these
+latencies, not a roofline and not a measurement.
 
 Usage, on a ``cuobjdump -sass`` dump::
 
-    python -m autorally_tpu_torch.tools.sass_chain DUMP KERNEL_REGEX
+    python -m autorally_tpu_torch.tools.sass_chain DUMP KERNEL_REGEX [STORES]
 """
 
 from __future__ import annotations
@@ -82,12 +85,14 @@ def _dests_sources(op: str, mods: str, operands: str):
     return dests, _regs(",".join(parts[n_dest:]))
 
 
-def loop_chain(ins: list) -> dict:
+def loop_chain(ins: list, stores: int | None = None) -> dict:
     """The longest dependent chain of one pass of the time loop of ``ins``
     (``instructions``): {"cycles", "chain" (instructions on it),
     "in_order" (clocks until the last instruction of the pass can issue,
     when instructions also issue in program order), "body" (instructions
-    in the pass), "skipped" (behind forward branches)}."""
+    in the pass), "skipped" (behind forward branches), "stores" (``STG``
+    in the pass, skipped code included)}.  Raises ValueError when
+    ``stores`` is given and the pass holds another number of ``STG``."""
     addr = [a for a, *_ in ins]
     loops = []
     for i, (a, guard, op, mods, operands) in enumerate(ins):
@@ -98,6 +103,10 @@ def loop_chain(ins: list) -> dict:
     if not loops:
         raise ValueError("no backward branch")
     _, lo, hi = max(loops)
+    n_stg = sum(op == "STG" for _, _, op, _, _ in ins[lo:hi + 1])
+    if stores is not None and n_stg != stores:
+        raise ValueError(f"the loop body holds {n_stg} STG, not the "
+                         f"{stores} of one step")
     skip = set()
     for i in range(lo, hi):
         a, guard, op, mods, operands = ins[i]
@@ -126,13 +135,15 @@ def loop_chain(ins: list) -> dict:
     carried = [r for r in written & read_first if r in ready]
     crit = max(carried, key=lambda r: ready[r])
     return {"cycles": ready[crit], "chain": depth[crit], "in_order": issue,
-            "body": hi - lo + 1 - len(skip), "skipped": len(skip)}
+            "body": hi - lo + 1 - len(skip), "skipped": len(skip),
+            "stores": n_stg}
 
 
 def main() -> int:
     dump, kernel = sys.argv[1], sys.argv[2]
+    stores = int(sys.argv[3]) if len(sys.argv) > 3 else None
     with open(dump) as f:
-        print(loop_chain(instructions(f.read(), kernel)))
+        print(loop_chain(instructions(f.read(), kernel), stores))
     return 0
 
 

@@ -407,7 +407,8 @@ def chain_timing(rk, tag, model, params, cfg, start, U, eps, bf, reps,
           f"{floor['in_order']} clocks in issue order; {floor['body']} "
           f"instructions a step, {floor['skipped']} behind forward branches "
           f"left out) x T={T} at {floor['clock_mhz']:.0f} MHz (clocks.max.sm)"
-          f", a floor for a dependent chain, not a roofline ({card})")
+          f", a floor for a dependent chain at assumed latencies, not a "
+          f"roofline ({card})")
     return {"ms": ms, "geometry": launch.geometry, "one_thread_ms": ms_one,
             "floor_ms": floor["ms"]}
 
@@ -415,8 +416,7 @@ def chain_timing(rk, tag, model, params, cfg, start, U, eps, bf, reps,
 def chain_entry(chain: dict) -> dict:
     """Kernel 2's own keys in the ``kernels`` line."""
     return {"geometry": geometry_label(chain["geometry"]),
-            "one_thread_ms": chain["one_thread_ms"],
-            "latency_floor_ms": chain["floor_ms"]}
+            "one_thread_ms": chain["one_thread_ms"]}
 
 
 def card_line() -> str:
@@ -526,15 +526,19 @@ def max_sm_clock_mhz() -> float:
 
 def chain_floor(sass: str, bf: bool, geom, clock_mhz: float) -> dict:
     """Kernel 2's latency floor in ``geom``: T times the longest dependent
-    chain of a step of its time loop, counted from its SASS at documented
-    latencies (``tools/sass_chain.py``), at ``clock_mhz``.  A floor for a
-    dependent chain, not a roofline."""
+    chain of a step of its time loop, counted from its SASS at assumed
+    latencies (``tools/sass_chain.py``), at ``clock_mhz``; the loop's body
+    must hold one step's stores (the warp's one store instruction, or the
+    thread's 7 states and 2 controls).  A floor for a dependent chain, not
+    a roofline and not a measurement."""
+    from autorally_tpu_torch.ops.rollout_kernel import CHAIN_OUTPUTS
     from autorally_tpu_torch.tools import sass_chain
 
-    name = ("dynamics_chain_warp_kernel" if geom.group > 1
-            else "dynamics_chain_kernel")
+    warp = geom.group > 1
+    name = "dynamics_chain_warp_kernel" if warp else "dynamics_chain_kernel"
     chain = sass_chain.loop_chain(sass_chain.instructions(
-        sass, rf"\d{name}I\w*?{'Bf' if bf else 'Mlp'}Deriv"))
+        sass, rf"\d{name}I\w*?{'Bf' if bf else 'Mlp'}Deriv"),
+        stores=1 if warp else CHAIN_OUTPUTS)
     chain["ms"] = T * chain["cycles"] / (clock_mhz * 1e3)
     chain["clock_mhz"] = clock_mhz
     return chain

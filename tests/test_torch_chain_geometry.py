@@ -174,6 +174,14 @@ _SASS = """
         ..........
         Function : _Z3barv
         /*0000*/                   EXIT ;
+        ..........
+        Function : _Z3bazv
+        /*0000*/                   FFMA R2, R2, R3, R4 ;
+        /*0010*/                   STG.E [R6.64], R2 ;
+        /*0020*/                   FFMA R2, R2, R3, R4 ;
+        /*0030*/                   STG.E [R6.64+0x4], R2 ;
+        /*0040*/               @P0 BRA 0x0 ;
+        /*0050*/                   EXIT ;
 """
 
 
@@ -192,6 +200,19 @@ def test_sass_chain_follows_the_loop_carried_registers():
         == (["R7"], ["R5"])
     got = sass_chain.loop_chain(ins)
     assert got == {"cycles": 53, "chain": 4, "in_order": 49, "body": 7,
-                   "skipped": 1}
+                   "skipped": 1, "stores": 0}
     with pytest.raises(ValueError):
         sass_chain.loop_chain(sass_chain.instructions(_SASS, r"_Z3barv"))
+
+
+def test_sass_chain_refuses_a_loop_body_of_more_than_one_step():
+    """A time loop that ptxas unrolled twice holds two steps' stores: given
+    one step's, ``loop_chain`` refuses it, since T times its chain would
+    count each step twice; given two, it counts the pass."""
+    from autorally_tpu_torch.tools import sass_chain
+
+    ins = sass_chain.instructions(_SASS, r"_Z3bazv")
+    with pytest.raises(ValueError, match="2 STG, not the 1"):
+        sass_chain.loop_chain(ins, stores=1)
+    got = sass_chain.loop_chain(ins, stores=2)
+    assert got["stores"] == 2 and got["cycles"] == 8 and got["chain"] == 2
