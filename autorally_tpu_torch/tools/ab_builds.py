@@ -1,24 +1,34 @@
-"""Time kernels 1 and 2 and exact pass 1 of two checkouts of the port on
-one GPU, in one call, and hold their outputs bit for bit.
+"""Time kernels 1 and 2 and both passes of the capacity mode of two
+checkouts of the port on one GPU, in one call, and hold their outputs bit
+for bit.
 
 The forms (``exact_forms``) are kernel 1 (``fused_exact_rollout_cost``) at
-K=1920, with 16 circle slots at K=1920, the BF kernel 1 at K=2560, exact
+K=1920, with 16 circle slots at K=1920, the BF kernel 1 at K=2560 on
+random noise and on the inputs of the last tick of a 50-tick BF closed
+loop (``bf_closed_loop_tick``), exact
 pass 1 (``fused_rng_costs``) at K=262144 with gaussian and OU noise, its
-BF form and its form with 16 slots, and kernel 1 at K=262144; and
+BF form and its form with 16 slots, and kernel 1 at K=262144;
 (``chain_forms``) kernel 2 (``dynamics_chain``), MLP and BF, at the
-nominal trajectory's K=1 and at K=1920 and K=2560; all at T=100 on the
-main path's seeded configuration (``drive_oval.build``), each in the
-geometry its checkout's launcher picks.  Each checkout builds its own
-kernels from its own source and runs in its own process, in the order
-other, this, this, other, so that a drift of the card over the call falls
-on both alike.  Each prints the CUDA-event medians and a digest of each
-form's outputs; equal digests show bit-equal results.  The SASS of the
-kernels that a new form of kernel 2 should not touch (``UNTOUCHED_KERNELS``:
-kernel 1 in one rollout a thread and in its lane groups, exact pass 1,
-kernel 2 in one rollout a thread, kernel 3 and field pass 1, MLP and BF
-each, and pass 2) is compared between the two builds' libraries
-(``cuobjdump -sass``), function by function.  The summary gives each checkout's mean of its two
-runs and the ratio of this checkout to the other.
+nominal trajectory's K=1 and at K=1920 and K=2560; and (``update_forms``)
+pass 2 (``fused_rng_numer``'s kernel) at K=262144 on four weight vectors:
+the softmax weights of pass 1's costs from the start (nominal), the same
+with three warps of every four zeroed (sparse), those of the last tick of
+a capacity-mode drive (closed loop), and all ones (dense), each with its
+share of warps whose 32 weights are all 0; all at
+T=100 on the main path's seeded configuration (``drive_oval.build``),
+each in the geometry its checkout's launcher picks.  Each checkout builds
+its own kernels from its own source and runs in its own process, in the
+order other, this, this, other, so that a drift of the card over the call
+falls on both alike.  Each prints the CUDA-event medians and a digest of
+each form's outputs; equal digests show bit-equal results.  The SASS of
+the kernels that this slice must not change (``UNTOUCHED_KERNELS``:
+kernel 1 in one rollout a thread and the MLP's lane groups, exact pass 1,
+kernel 2 in both of its forms, kernel 3 and field pass 1, MLP and BF
+each) is compared between the two builds' libraries (``cuobjdump
+-sass``), function by function.  The summary gives each checkout's mean
+of its two runs and the ratio of this checkout to the other.  Run against
+an identical copy of this checkout (A/A), it measures the order's own
+bias.
 
 Usage (``DIR``: another checkout's root, e.g. ``git archive`` of a parent
 commit unpacked under ``autorally_tpu_torch/_build/``)::
@@ -43,15 +53,23 @@ K_A, K_BF, K_P1, T = 1920, 2560, 262144, 100
 KEY = (0x2545F491, 0x9E3779B9)
 N_SLOTS = 16
 CIRCLES = [[30.0, 5.0, 0.5], [29.5, 8.0, 0.5]]
-# kernels whose SASS must equal the other build's: kernel 1 in one rollout
-# a thread (MLP, BF) and in its lane groups (8, 16, 32), exact pass 1 and
-# kernel 2 in one rollout a thread, kernel 3 and field pass 1 (MLP, BF each),
-# pass 2
-UNTOUCHED_KERNELS = ("fused_exact_kernel", "fused_exact_group_kernel",
-                     "fused_rng_kernel", "dynamics_chain_kernel",
-                     "fused_field_kernel", "fused_rng_field_kernel",
-                     "weighted_update_kernel")
-N_UNTOUCHED = 14
+# kernels whose SASS must equal the other build's (short names, as
+# sass_chain.kernel_name gives them): kernel 1 in one rollout a thread and
+# in the MLP's lane groups, exact pass 1, kernel 2 in one rollout a thread
+# and a rollout a warp, kernel 3 and field pass 1, MLP and BF each
+UNTOUCHED_KERNELS = tuple(
+    [f"{k}<{m}>" for k in ("fused_exact_kernel", "fused_rng_kernel",
+                           "dynamics_chain_kernel",
+                           "dynamics_chain_warp_kernel",
+                           "fused_field_kernel", "fused_rng_field_kernel")
+     for m in ("Mlp", "Bf")]
+    + [f"fused_exact_group_kernel<Mlp, {g}>" for g in (8, 16, 32)])
+# pass 2's forms: K, the capacity-mode ticks whose last weights are the
+# closed loop's, CUDA-event repetitions a round; the BF path's ticks whose
+# last inputs of kernel 1 are timed
+K_P2, CLOSED_LOOP_TICKS, P2_REPS = 262144, 20, 20
+BF_TICKS = 50
+
 
 def seeded_field(costmap, device, seed: int = 7):
     """A field of the CUDA kernels' spec (34-64-64-1, F = 8) on
@@ -117,6 +135,9 @@ def exact_forms(dev) -> dict:
         return lambda: rk.prepare_fused_rng_costs(
             m, p, c, cost_params, costmap, start, U, key, **kw)[:2]
 
+    # the BF path's inputs of kernel 1 at the last tick of a closed loop
+    tick = bf_closed_loop_tick(bf, bparams, cost_params, costmap)
+
     return {
         "kernel1_K1920": (K_A, True, lambda: exact(
             model, params, cfg, cost_params, costmap, start, U, eps)),
@@ -124,6 +145,8 @@ def exact_forms(dev) -> dict:
             model, params, cfg, cost_params, costmap, start, U, eps, **okw)),
         "kernel1_bf_K2560": (K_BF, False, lambda: exact(
             bmodel, bparams, bcfg, cost_params, costmap, start, U, beps)),
+        "kernel1_bf_closed_loop_K2560": (K_BF, False, lambda: exact(
+            *tick[0], **tick[1])),
         "pass1_gaussian_K262144": (K_P1, True, pass1(model, params, cap)),
         "pass1_ou_K262144": (K_P1, True, pass1(model, params, ou)),
         "pass1_bf_K262144": (K_P1, False, pass1(bmodel, bparams, bcap)),
@@ -133,6 +156,29 @@ def exact_forms(dev) -> dict:
             model, params, cap.replace(kernel_rng=False), cost_params,
             costmap, start, U, big)),
     }
+
+
+def bf_closed_loop_tick(solver, params, cost_params, costmap,
+                        ticks: int = BF_TICKS):
+    """The arguments (args, kwargs) of the BF path's last kernel-1 call in a
+    ``ticks``-tick closed loop of ``solver`` from the start (its state, U
+    and eps at K=2560): the traffic the BF path sends kernel 1."""
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    last, fused = {}, rk.fused_exact_rollout_cost
+
+    def capture(*args, **kw):
+        last["args"] = (args, kw)
+        return fused(*args, **kw)
+
+    rk.fused_exact_rollout_cost = capture
+    try:
+        drive_oval.drive(solver, params, cost_params, costmap, ticks,
+                         log=lambda m: None)
+    finally:
+        rk.fused_exact_rollout_cost = fused
+    return last["args"]
 
 
 def chain_forms(dev) -> dict:
@@ -163,6 +209,64 @@ def chain_forms(dev) -> dict:
     return forms
 
 
+def zero_warp_share(w) -> float:
+    """The share of pass 2's warps (32 rollouts each, the last padded with
+    zeros) whose weights are all 0."""
+    import torch
+
+    n = -(-w.numel() // 32)
+    pad = torch.zeros(n * 32, dtype=w.dtype, device=w.device)
+    pad[:w.numel()] = w
+    return float((pad.reshape(n, 32) == 0).all(dim=1).float().mean())
+
+
+def update_forms(dev) -> dict:
+    """name -> (K, whether the model is the MLP, ``prepare()``, the share
+    of all-zero warps) for pass 2 (``prepare_fused_rng_numer``) at K=262144,
+    gaussian, on the nominal weights (pass 1's costs from the start), the
+    same with three warps of every four zeroed (sparse), the closed loop's
+    (the last tick of a ``CLOSED_LOOP_TICKS``-tick capacity drive from the
+    start) and dense ones (all 1)."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.config import effective_gamma
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    solver, params, cost_params, costmap, _ = drive_oval.build(
+        rollouts=K_A, device=dev)
+    cap = solver.cfg.replace(num_rollouts=K_P2, kernel_rng=True)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    costs, _, ctx = rk.fused_rng_costs(solver.model, params, cap,
+                                       cost_params, costmap, start, U, key)
+    nominal = torch.exp(-effective_gamma(cap, cost_params)
+                        * (costs - costs.min()))
+    last = {}
+    numer = rk.fused_rng_numer
+
+    def capture(c, w):
+        last["ctx_w"] = (c, w)
+        return numer(c, w)
+
+    rk.fused_rng_numer = capture
+    try:
+        drive_oval.drive(MPPISolver(solver.model, solver.cost, cap,
+                                    device=dev), params, cost_params,
+                         costmap, CLOSED_LOOP_TICKS, log=lambda m: None)
+    finally:
+        rk.fused_rng_numer = numer
+    sparse = torch.where(torch.arange(K_P2, device=dev) // 32 % 4 == 0,
+                         nominal, torch.zeros_like(nominal))
+    weights = {"nominal": (ctx, nominal), "sparse": (ctx, sparse),
+               "closed_loop": last["ctx_w"],
+               "dense": (ctx, torch.ones_like(nominal))}
+    return {f"pass2_{name}_K{K_P2}": (
+        K_P2, True, lambda c=c, w=w: rk.prepare_fused_rng_numer(c, w),
+        zero_warp_share(w)) for name, (c, w) in weights.items()}
+
+
 def events(fn, reps: int) -> list:
     import torch
 
@@ -190,11 +294,15 @@ def time_checkout(root: str, rounds: int) -> dict:
     if os.path.dirname(pkg) != os.path.abspath(root):
         raise RuntimeError(f"imported {pkg}, not the checkout at {root}")
     dev = torch.device("cuda", 0)
-    launches = {}
+    launches, shares = {}, {}
     for name, (K, _, prepare) in {**exact_forms(dev),
                                   **chain_forms(dev)}.items():
         launch, out = prepare()
         launches[name] = (launch, out, 40 if K < K_P1 else 4)
+    for name, (K, _, prepare, share) in update_forms(dev).items():
+        launch, partials = prepare()
+        launches[name] = (launch, (partials,), P2_REPS)
+        shares[name] = share
     for launch, _, _ in launches.values():     # build, load, warm up
         events(launch, 2)
     ms = {name: [] for name in launches}
@@ -209,40 +317,38 @@ def time_checkout(root: str, rounds: int) -> dict:
         digests[name] = h.hexdigest()[:16]
     return {"root": os.path.abspath(root),
             "ms": {name: statistics.median(v) for name, v in ms.items()},
-            "digests": digests, "library": str(_build.library_path())}
+            "digests": digests, "zero_warp_share": shares,
+            "library": str(_build.library_path())}
 
 
 def untouched_sass(library: str, dump: str) -> dict:
-    """The SASS of each instance of ``UNTOUCHED_KERNELS`` in the built
-    ``library``, by short name (e.g.
-    ``fused_field_kernel<MlpDeriv>``, ``fused_exact_group_kernel<8>``); the
-    whole ``cuobjdump -sass`` output is written to ``dump``.  The kernels
-    live in an anonymous namespace, whose mangled name differs between
-    builds, so it is cut from the names and the code, and runs of spaces
-    are one space."""
+    """The SASS of each kernel of ``UNTOUCHED_KERNELS`` in the built
+    ``library``, by short name (``sass_chain.kernel_name``); the whole
+    ``cuobjdump -sass`` output is written to ``dump``.  The kernels live in
+    an anonymous namespace, whose mangled name differs between builds, so
+    it is cut from the code, and runs of spaces are one space."""
     from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.tools.sass_chain import kernel_name
 
     objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([objdump, "-sass", library], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     with open(dump, "w") as f:
         f.write(out)
-    names = "|".join(UNTOUCHED_KERNELS)
     sass = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
-        m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?", head)
-        if m:
-            arg = m.group(2) or m.group(3)
+        name = kernel_name(head)
+        if name in UNTOUCHED_KERNELS:
             body = re.sub(r"_GLOBAL__N__\w+", "", body)
             # cuobjdump pads each line to the module's widest instruction,
             # which other kernels set: compare the lines' words
-            sass[m.group(1) + (f"<{arg}>" if arg else "")] = (
-                "\n".join(" ".join(line.split())
-                          for line in body.splitlines()))
-    if len(sass) != N_UNTOUCHED:
+            sass[name] = "\n".join(" ".join(line.split())
+                                   for line in body.splitlines())
+    if len(sass) != len(UNTOUCHED_KERNELS):
         raise RuntimeError(f"{library}: found the SASS of {sorted(sass)}, "
-                           f"not of the {N_UNTOUCHED} kernels compared")
+                           f"not of the {len(UNTOUCHED_KERNELS)} kernels "
+                           "compared")
     return sass
 
 
@@ -291,11 +397,15 @@ def main() -> int:
                "untouched_sass_equal": same,
                "this_over_other": {n: mean["this"][n] / mean["other"][n]
                                    for n in names}}
+    shares = runs["this"][0]["zero_warp_share"]
+    summary["zero_warp_share"] = shares
     for n in names:
+        share = (f", all-zero warps {100 * shares[n]:.2f} %" if n in shares
+                 else "")
         print(f"[ab] {n}: this {mean['this'][n]:.4f} ms, other "
               f"{mean['other'][n]:.4f} ms, ratio "
               f"{summary['this_over_other'][n]:.3f}, outputs bit equal "
-              f"{bit_equal[n]} ({card})")
+              f"{bit_equal[n]}{share} ({card})")
     print(f"[ab] untouched kernels' SASS equal to the other build's: "
           f"{same}")
     for name, equal in same.items():

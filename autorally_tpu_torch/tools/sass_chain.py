@@ -17,6 +17,14 @@ path, an if) is left out, and issue limits and stalls are ignored, so
 that ``T`` times the chain is a floor for a dependent chain at these
 latencies, not a roofline and not a measurement.
 
+``loop_mix`` counts the instructions of a step of a kernel whose time loop
+replays the capacity mode's noise stream (the loop whose body holds the
+most Threefry rotations, ``SHF.L.W``, 20 a step), by the pipe that issues
+them: every instruction takes one of a scheduler's issue slots, the integer
+ones (``INT_OPS``) one of the SM's 64 INT32 lanes a thread.  ``kernel_name``
+gives a kernel's short name from its mangled one (``fused_exact_kernel<Mlp>``,
+``fused_exact_group_kernel<Bf, 8>``).
+
 Usage, on a ``cuobjdump -sass`` dump::
 
     python -m autorally_tpu_torch.tools.sass_chain DUMP KERNEL_REGEX [STORES]
@@ -39,6 +47,13 @@ NO_DEST = ("ST", "STS", "STG", "STL", "BRA", "EXIT", "BAR", "NOP", "RED",
            "BSSY", "BSYNC", "WARPSYNC", "YIELD", "CALL", "RET", "MEMBAR",
            "DEPBAR", "ERRBAR", "CCTL", "BPT", "JMP", "BREAK", "SYNCS")
 
+# opcodes of the INT32 pipe (integer add, logic, shift, compare, select;
+# IMAD and IMUL issue to the FMA pipe and are not counted)
+INT_OPS = ("IADD3", "IADD", "IADD32I", "VIADD", "VIADDMNMX", "IABS",
+           "IMNMX", "ISETP", "ISCADD", "LOP3", "LOP", "LOP32I", "SHF", "SHL",
+           "SHR", "LEA", "PRMT", "SEL", "BMSK", "BREV", "FLO", "POPC")
+ROTATIONS_A_STEP = 20                # Threefry-2x32-20: one SHF.L.W a round
+
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)((?:\.[\w]+)*)\s*([^;]*);")
 _REG = re.compile(r"\b(U?R\d+|U?P\d+)(\.64|\.128)?")
@@ -55,6 +70,24 @@ def instructions(sass: str, kernel: str) -> list:
                      m.group(3), m.group(4), m.group(5))
                     for m in _LINE.finditer(body)]
     raise ValueError(f"no function matching {kernel!r}")
+
+
+def kernel_name(head: str) -> str:
+    """A kernel's short name from its mangled name in ``head``: the kernel,
+    then its model and lane group where it has them, e.g.
+    ``fused_exact_kernel<Mlp>``, ``fused_exact_group_kernel<Bf, 8>``,
+    ``weighted_update_kernel``.  A lane group with no model (the MLP's
+    groups before they were templated on the model) is the MLP's."""
+    m = re.search(r"\d+([a-z_]+_kernel)(?=[IE])(\w*)", head)
+    if not m:
+        raise ValueError(f"no kernel name in {head!r}")
+    rest = m.group(2)              # template arguments end before "Ev"
+    args = rest[:rest.find("Ev")] if rest.startswith("I") else ""
+    model = re.search(r"(Mlp|Bf)Deriv", args)
+    group = re.search(r"Li(\d+)E", args)
+    parts = [model.group(1) if model else "Mlp"] if group or model else []
+    parts += [group.group(1)] if group else []
+    return m.group(1) + (f"<{', '.join(parts)}>" if parts else "")
 
 
 def _regs(text: str, wide: int = 1) -> list:
@@ -93,13 +126,7 @@ def loop_chain(ins: list, stores: int | None = None) -> dict:
     in the pass), "skipped" (behind forward branches), "stores" (``STG``
     in the pass, skipped code included)}.  Raises ValueError when
     ``stores`` is given and the pass holds another number of ``STG``."""
-    addr = [a for a, *_ in ins]
-    loops = []
-    for i, (a, guard, op, mods, operands) in enumerate(ins):
-        m = re.search(r"0x([0-9a-f]+)", operands)
-        if op == "BRA" and m and int(m.group(1), 16) < a:
-            loops.append((a - int(m.group(1), 16), addr.index(
-                int(m.group(1), 16)), i))
+    loops = _loops(ins)
     if not loops:
         raise ValueError("no backward branch")
     _, lo, hi = max(loops)
@@ -137,6 +164,74 @@ def loop_chain(ins: list, stores: int | None = None) -> dict:
     return {"cycles": ready[crit], "chain": depth[crit], "in_order": issue,
             "body": hi - lo + 1 - len(skip), "skipped": len(skip),
             "stores": n_stg}
+
+
+def _loops(ins: list) -> list:
+    """(span in bytes, first index, last index) of each backward branch."""
+    addr = [a for a, *_ in ins]
+    loops = []
+    for i, (a, guard, op, mods, operands) in enumerate(ins):
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if op == "BRA" and m and int(m.group(1), 16) < a:
+            loops.append((a - int(m.group(1), 16), addr.index(
+                int(m.group(1), 16)), i))
+    return loops
+
+
+def loop_mix(ins: list) -> dict:
+    """Instructions a step of the stream's time loop of ``ins``
+    (``instructions``): the loop whose body holds the most ``SHF.L.W`` (the
+    smallest such), its steps a pass (those rotations over
+    ``ROTATIONS_A_STEP``), and a step's instructions and integer ones
+    (``INT_OPS``), all of them and those not behind a forward branch (which
+    every step issues): {"steps", "instructions", "int",
+    "instructions_always", "int_always"}."""
+    def rotations(lo, hi):
+        return sum(op == "SHF" and ".L.W" in mods
+                   for _, _, op, mods, _ in ins[lo:hi + 1])
+
+    loops = [(rotations(lo, hi), -span, lo, hi)
+             for span, lo, hi in _loops(ins)]
+    if not loops or max(loops)[0] < ROTATIONS_A_STEP:
+        raise ValueError("no loop holds a step of the stream")
+    n_rot, _, lo, hi = max(loops)
+    if n_rot % ROTATIONS_A_STEP:
+        raise ValueError(f"the loop holds {n_rot} rotations, not whole "
+                         "steps of the stream")
+    skip = set()
+    for i in range(lo, hi):
+        a, _, op, _, operands = ins[i]
+        m = re.search(r"0x([0-9a-f]+)", operands)
+        if op == "BRA" and m and int(m.group(1), 16) > a:
+            end = int(m.group(1), 16)
+            skip.update(j for j in range(i + 1, hi) if ins[j][0] < end)
+    steps = n_rot // ROTATIONS_A_STEP
+    body = range(lo, hi + 1)
+    is_int = [ins[i][2] in INT_OPS for i in body]
+    always = [i not in skip for i in body]
+    return {"steps": steps,
+            "instructions": len(body) / steps,
+            "int": sum(is_int) / steps,
+            "instructions_always": sum(always) / steps,
+            "int_always": sum(a and b for a, b in zip(always, is_int))
+            / steps}
+
+
+def pipe_bounds(mix: dict, K: int, T: int, num_sms: int, clock_mhz: float,
+                branched: bool = False) -> dict:
+    """Two floors, in ms, for K rollouts of T steps of a kernel whose step
+    ``loop_mix`` counted: its integer instructions on 64 INT32 lanes an SM,
+    and all its instructions at four warp instructions a clock an SM (one
+    for each scheduler), both at ``clock_mhz``.  They count the
+    instructions outside forward branches, which every step issues, or
+    with ``branched`` the whole loop body, for a loop whose forward
+    branches every rollout of the run takes (pass 2's test of the rollouts
+    past K)."""
+    clocks_ms = num_sms * clock_mhz * 1e3
+    n_int, n_all = ((mix["int"], mix["instructions"]) if branched
+                    else (mix["int_always"], mix["instructions_always"]))
+    return {"int_ms": n_int * K * T / (64 * clocks_ms),
+            "issue_ms": n_all * (K / 32) * T / (4 * clocks_ms)}
 
 
 def main() -> int:

@@ -216,3 +216,64 @@ def test_sass_chain_refuses_a_loop_body_of_more_than_one_step():
         sass_chain.loop_chain(ins, stores=1)
     got = sass_chain.loop_chain(ins, stores=2)
     assert got["stores"] == 2 and got["cycles"] == 8 and got["chain"] == 2
+
+
+def _stream_sass(steps: int, tail: int) -> str:
+    """A kernel whose time loop holds ``steps`` steps of a stand-in stream
+    (20 rotations, 10 integer adds, 5 FMUL a step) and, behind a forward
+    branch, ``tail`` more integer instructions."""
+    body = (["SHF.L.W.U32.HI R2, R3, 0xd, R3 ;", "IADD3 R4, R2, R5, RZ ;"]
+            * 10 + ["SHF.L.W.U32.HI R2, R3, 0xf, R3 ;"] * 10
+            + ["FMUL R6, R6, R7 ;"] * 5) * steps
+    n = len(body)
+    lines = ["MOV R1, c[0x0][0x28] ;", f"@P1 BRA 0x{16 * (n + 3 + tail):x} ;"]
+    lines += body + ["LOP3.LUT R8, R8, R9, RZ, 0x3c, !PT ;"] * tail
+    lines += ["@P0 BRA 0x10 ;", "EXIT ;"]
+    return "\n        Function : _Z3quxv\n" + "\n".join(
+        f"        /*{16 * i:04x}*/                   {ins}"
+        for i, ins in enumerate(lines))
+
+
+@pytest.mark.parametrize("steps", [1, 4])
+def test_loop_mix_counts_a_step_of_the_stream(steps):
+    """``loop_mix`` takes the loop with the stream's rotations, divides it
+    into steps (20 rotations each), counts a step's instructions and
+    integer ones, and apart those behind a forward branch; ``pipe_bounds``
+    turns a step into floors (64 INT32 lanes, 4 warp instructions a clock
+    an SM)."""
+    from autorally_tpu_torch.tools import sass_chain
+
+    ins = sass_chain.instructions(_stream_sass(steps, 8), r"_Z3quxv")
+    mix = sass_chain.loop_mix(ins)
+    n = 35 * steps + 8 + 1 + 1       # body, tail, the branch over it, loop
+    assert mix["steps"] == steps
+    assert mix["instructions"] == n / steps
+    assert mix["int"] == (30 * steps + 8) / steps
+    assert mix["instructions_always"] == 2 / steps and mix["int_always"] == 0
+    floors = sass_chain.pipe_bounds(mix, 64 * 132, 1980, 132, 1980.0,
+                                    branched=True)
+    assert floors["int_ms"] == pytest.approx(mix["int"] * 1e-3)
+    assert floors["issue_ms"] == pytest.approx(
+        mix["instructions"] * 64 * 132 / 32 * 1980 / (4 * 132 * 1980e3))
+    with pytest.raises(ValueError, match="no loop holds a step"):
+        sass_chain.loop_mix(sass_chain.instructions(_SASS, r"_Z3foov"))
+
+
+@pytest.mark.parametrize("head, name", [
+    ("_ZN12_GLOBAL__N_124fused_exact_group_kernelILi8EEEvNS_12ChainScalarsE",
+     "fused_exact_group_kernel<Mlp, 8>"),
+    ("_ZN46_GLOBAL__N__e6b1e4e0_18_rollout_kernels_cu_3b1f6d9c24fused_exact_"
+     "group_kernelIN46_GLOBAL__N__e6b1e4e0_18_rollout_kernels_cu_3b1f6d9c7Bf"
+     "DerivELi16EEEvNS_12ChainScalarsE", "fused_exact_group_kernel<Bf, 16>"),
+    ("_ZN12_GLOBAL__N_118fused_exact_kernelINS_8MlpDerivEEEvNS_12Chain"
+     "ScalarsE", "fused_exact_kernel<Mlp>"),
+    ("_ZN12_GLOBAL__N_122weighted_update_kernelENS_12ChainScalarsE",
+     "weighted_update_kernel")])
+def test_kernel_name_reads_both_builds_group_kernels(head, name):
+    """Short names from mangled ones: the MLP's lane groups of the earlier
+    builds (``<8>``) and of this one (``<MlpDeriv, 8>``) take one name, so
+    that ``tools/ab_builds.py`` compares their SASS; the anonymous
+    namespace's ``_rollout_kernels_cu`` is not taken for a kernel."""
+    from autorally_tpu_torch.tools.sass_chain import kernel_name
+
+    assert kernel_name(head) == name
