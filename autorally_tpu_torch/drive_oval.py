@@ -108,7 +108,8 @@ def drive(solver, params, cost_params, costmap, steps: int, log=print,
     tick's ``CostParams`` (the live-update path: moving obstacles through
     ``CostParams.obstacles``, as ``examples/two_car_demo.py`` does).
     Returns a dict of the run's results (per-tick solve latencies in ms,
-    laps, final state, last stats)."""
+    laps, final state, last stats, and the controller state after the last
+    solve)."""
     cfg, model = solver.cfg, solver.model
     cs = solver.init_state()
     state = np.array(START, dtype=np.float32)
@@ -156,7 +157,7 @@ def drive(solver, params, cost_params, costmap, steps: int, log=print,
                 f"crash%={float(stats.crash_frac) * 100:4.1f}")
     return {"solve_ms": np.array(solve_ms), "controls": np.array(controls),
             "laps": abs(total_angle) / (2 * math.pi), "state": state,
-            "stats": stats}
+            "stats": stats, "control_state": cs}
 
 
 def parse_circles(text: str):

@@ -31,8 +31,8 @@ kernel; and the fused kernels (A, 3, pass 1) price the circles of an
 package's wrappers take them.
 
 Kernel 1 launches in the geometry that :func:`exact_geometry` picks from
-K, the card's SM count and the model: lane groups of G lanes a rollout
-(at small K) or one rollout a thread, with the same bits in both.  Kernel 2
+K and the card's SM count: lane groups of G lanes a rollout (the MLP at
+small K) or one rollout a thread, with the same bits in both.  Kernel 2
 launches in the geometry of :func:`chain_geometry`: one rollout a warp at
 small K (the nominal trajectory's K = 1 always) or one rollout a thread,
 again with the same bits.  Exact pass 1 runs one rollout a thread.
@@ -128,29 +128,17 @@ UPDATE_BLOCK = 256
 # kBlock), and of kernel 1 in lane groups (csrc kGroupBlock).
 EXACT_BLOCK = 64
 GROUP_BLOCK = 128
-# The lane groups kernel 1 is built for, the MLP's and the BF model's, and
-# every (G, block) it takes for each (csrc geometry_ok; exact pass 1 the
-# first only).
+# The lane groups kernel 1 is built for, and every (G, block) it takes
+# (csrc geometry_ok; the BF model and exact pass 1 the first only).
 LANE_GROUPS = (8, 16, 32)
-BF_LANE_GROUPS = (4, 8, 16, 32)
 GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
                                          for G in LANE_GROUPS)
-BF_GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
-                                            for G in BF_LANE_GROUPS)
 # A lane-group kernel's resident warps an SM at its launch bounds (128
 # threads, 4 blocks), and the warps an SM it aims for: about one for each
 # of an SM's four schedulers, where each warp's dependent chain sets the
 # time and more lanes a rollout only add redundant work.
 GROUP_WARPS_PER_SM = 16
 GROUP_TARGET_WARPS_PER_SM = 3
-# The BF model's kernel 1 takes groups of 32 while K is at most this many
-# rollouts an SM, else one rollout a thread: from its sweep against K on
-# the BF closed loop's state and U (tools/exact_variants.py), where groups
-# of 32 are the fastest geometry up to K = 960 on 132 SMs, the best group
-# is within 1 % of one rollout a thread at 1920 and slower from 2560 (on
-# random noise from rest with U = [0, 0.3], groups of 8 and 16 are faster
-# up to K = 4224).
-BF_GROUP_ROLLOUTS_PER_SM = 10
 # Kernel 2's geometries (csrc chain_geometry_ok): one rollout a thread in
 # blocks of EXACT_BLOCK, or one rollout a warp in blocks of CHAIN_WARP_BLOCK
 # (csrc kChainWarpBlock); and, for each model, the most rollouts an SM for
@@ -272,24 +260,14 @@ class ExactGeometry(NamedTuple):
     grid: int
 
 
-def geometries(bf: bool = False) -> tuple:
-    """Every (G, block) of kernel 1 for the MLP, or the BF model when
-    ``bf``: one rollout a thread first, then the lane groups."""
-    return BF_GEOMETRIES if bf else GEOMETRIES
-
-
 def exact_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
     """The geometry of kernel 1 for K rollouts on a card of ``num_sms``
-    SMs.  The MLP takes lane groups while the smallest group's K G / 32
-    warps fit in one wave of the group kernel: the smallest G that gives
-    every SM ``GROUP_TARGET_WARPS_PER_SM`` warps, or the largest.  The BF
-    model takes groups of 32 up to ``BF_GROUP_ROLLOUTS_PER_SM`` rollouts an
-    SM.  Beyond that, one rollout a thread.  (The geometries' times against
-    K: ``tools/exact_variants.py``.)"""
-    if bf:
-        if K <= BF_GROUP_ROLLOUTS_PER_SM * num_sms:
-            return _geometry(K, max(BF_LANE_GROUPS), GROUP_BLOCK)
-    elif K * min(LANE_GROUPS) <= 32 * GROUP_WARPS_PER_SM * num_sms:
+    SMs.  The MLP takes lane groups while the smallest
+    group's K G / 32 warps fit in one wave of the group kernel: the
+    smallest G that gives every SM ``GROUP_TARGET_WARPS_PER_SM`` warps, or
+    the largest.  Beyond that, and for the BF model, one rollout a thread.
+    (The lane groups' times against K: ``tools/exact_variants.py``.)"""
+    if not bf and K * min(LANE_GROUPS) <= 32 * GROUP_WARPS_PER_SM * num_sms:
         for G in sorted(LANE_GROUPS):
             if K * G >= 32 * GROUP_TARGET_WARPS_PER_SM * num_sms:
                 break
@@ -1090,28 +1068,6 @@ def fused_rng_numer_plain(ctx: RngContext, w):
     return torch.einsum("k,tkc->ct", w, u)
 
 
-# Pass 2's bound on |U| and |nu| under which a warp of zero weights skips
-# its replay (csrc kSkipBound): then every control it would form is finite.
-SKIP_BOUND = 1e30
-
-
-def skipped_warps(ctx: RngContext, w) -> torch.Tensor:
-    """The warps of pass 2 over ``w`` (K,) that skip their replay, as the
-    kernel decides it: bool (ceil(K / 32),), True where the warp's 32
-    weights are all 0 (rollouts past K count as 0), unless some |U| or
-    |nu| exceeds ``SKIP_BOUND`` or is not a number (each block stages all
-    of U, so then no warp skips)."""
-    nu = torch.tensor(ctx.cfg.exploration_std, dtype=torch.float32)
-    n = -(-ctx.K // 32)
-    zero = torch.ones(n * 32, dtype=torch.bool, device=w.device)
-    zero[:ctx.K] = w == 0
-    skip = zero.reshape(n, 32).all(dim=1)
-    if not (bool((ctx.U.abs() <= SKIP_BOUND).all())
-            and bool((nu.abs() <= SKIP_BOUND).all())):
-        skip[:] = False
-    return skip
-
-
 def prepare_fused_rng_numer(ctx: RngContext, w):
     """Validate pass 2's inputs and allocate its partial sums (G, C, T),
     G = ceil(K / UPDATE_BLOCK).  Returns ``(launch, partials)``."""
@@ -1146,9 +1102,7 @@ def fused_rng_numer(ctx: RngContext, w):
     stream and contract it with the softmax weights ``w`` (K,).  Returns
     the un-normalised (C, T) numerator (a sharded caller sums it over
     shards before dividing by the global eta).  The kernel's block sums
-    come in a fixed order; their sum over blocks is a ``torch.sum``.  A
-    warp of 32 zero weights skips its replay (:func:`skipped_warps`), which
-    leaves every bit of the sums as it was."""
+    come in a fixed order; their sum over blocks is a ``torch.sum``."""
     if _dispatch(w) == "plain":
         return fused_rng_numer_plain(ctx, w)
     launch, partials = prepare_fused_rng_numer(ctx, w)

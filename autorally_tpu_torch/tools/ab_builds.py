@@ -5,30 +5,26 @@ for bit.
 The forms (``exact_forms``) are kernel 1 (``fused_exact_rollout_cost``) at
 K=1920, with 16 circle slots at K=1920, the BF kernel 1 at K=2560 on
 random noise and on the inputs of the last tick of a 50-tick BF closed
-loop (``bf_closed_loop_tick``), exact
-pass 1 (``fused_rng_costs``) at K=262144 with gaussian and OU noise, its
-BF form and its form with 16 slots, and kernel 1 at K=262144;
-(``chain_forms``) kernel 2 (``dynamics_chain``), MLP and BF, at the
-nominal trajectory's K=1 and at K=1920 and K=2560; and (``update_forms``)
-pass 2 (``fused_rng_numer``'s kernel) at K=262144 on four weight vectors:
-the softmax weights of pass 1's costs from the start (nominal), the same
-with three warps of every four zeroed (sparse), those of the last tick of
-a capacity-mode drive (closed loop), and all ones (dense), each with its
-share of warps whose 32 weights are all 0; all at
-T=100 on the main path's seeded configuration (``drive_oval.build``),
-each in the geometry its checkout's launcher picks.  Each checkout builds
-its own kernels from its own source and runs in its own process, in the
-order other, this, this, other, so that a drift of the card over the call
-falls on both alike.  Each prints the CUDA-event medians and a digest of
-each form's outputs; equal digests show bit-equal results.  The SASS of
-the kernels that this slice must not change (``UNTOUCHED_KERNELS``:
-kernel 1 in one rollout a thread and the MLP's lane groups, exact pass 1,
-kernel 2 in both of its forms, kernel 3 and field pass 1, MLP and BF
-each) is compared between the two builds' libraries (``cuobjdump
--sass``), function by function.  The summary gives each checkout's mean
-of its two runs and the ratio of this checkout to the other.  Run against
-an identical copy of this checkout (A/A), it measures the order's own
-bias.
+loop (``bf_closed_loop_tick``), exact pass 1 (``fused_rng_costs``) at
+K=262144 with gaussian and OU noise, its BF form and its form with 16
+slots, and kernel 1 at K=262144; (``chain_forms``) kernel 2
+(``dynamics_chain``), MLP and BF, at the nominal trajectory's K=1 and at
+K=1920 and K=2560; and (``update_forms``) pass 2 (``fused_rng_numer``'s
+kernel) at K=262144 on three weight vectors: the softmax weights of pass
+1's costs from the start (nominal), those of the last tick of a
+capacity-mode drive (closed loop) and all ones (dense), each with its
+share of warps whose 32 weights are all 0; all at T=100 on the main
+path's seeded configuration (``drive_oval.build``), each in the geometry
+its checkout's launcher picks.  Each checkout builds its own kernels from
+its own source and runs in its own process, in the order other, this,
+this, other, so that a drift of the card over the call falls on both
+alike.  Each prints the CUDA-event medians and a digest of each form's
+outputs; equal digests show bit-equal results.  The SASS of the kernels
+named in ``UNTOUCHED_KERNELS`` (every kernel of the library) is compared
+between the two builds' libraries (``cuobjdump -sass``), function by
+function.  The summary gives each checkout's mean of its two runs and the
+ratio of this checkout to the other.  Run against an identical copy of
+this checkout (A/A), it measures the order's own bias.
 
 Usage (``DIR``: another checkout's root, e.g. ``git archive`` of a parent
 commit unpacked under ``autorally_tpu_torch/_build/``)::
@@ -39,6 +35,7 @@ commit unpacked under ``autorally_tpu_torch/_build/``)::
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -53,17 +50,15 @@ K_A, K_BF, K_P1, T = 1920, 2560, 262144, 100
 KEY = (0x2545F491, 0x9E3779B9)
 N_SLOTS = 16
 CIRCLES = [[30.0, 5.0, 0.5], [29.5, 8.0, 0.5]]
-# kernels whose SASS must equal the other build's (short names, as
-# sass_chain.kernel_name gives them): kernel 1 in one rollout a thread and
-# in the MLP's lane groups, exact pass 1, kernel 2 in one rollout a thread
-# and a rollout a warp, kernel 3 and field pass 1, MLP and BF each
-UNTOUCHED_KERNELS = tuple(
-    [f"{k}<{m}>" for k in ("fused_exact_kernel", "fused_rng_kernel",
-                           "dynamics_chain_kernel",
-                           "dynamics_chain_warp_kernel",
-                           "fused_field_kernel", "fused_rng_field_kernel")
-     for m in ("Mlp", "Bf")]
-    + [f"fused_exact_group_kernel<Mlp, {g}>" for g in (8, 16, 32)])
+# kernels whose SASS must equal the other build's: kernel 1 in one rollout
+# a thread (MLP, BF) and in its lane groups (8, 16, 32), exact pass 1 and
+# kernel 2 in one rollout a thread and a rollout a warp, kernel 3 and field
+# pass 1 (MLP, BF each), pass 2: every kernel of the library
+UNTOUCHED_KERNELS = ("fused_exact_kernel", "fused_exact_group_kernel",
+                     "fused_rng_kernel", "dynamics_chain_kernel",
+                     "dynamics_chain_warp_kernel", "fused_field_kernel",
+                     "fused_rng_field_kernel", "weighted_update_kernel")
+N_UNTOUCHED = 16
 # pass 2's forms: K, the capacity-mode ticks whose last weights are the
 # closed loop's, CUDA-event repetitions a round; the BF path's ticks whose
 # last inputs of kernel 1 are timed
@@ -158,6 +153,27 @@ def exact_forms(dev) -> dict:
     }
 
 
+@contextlib.contextmanager
+def last_call(module, name: str):
+    """Wraps ``module.<name>`` while the block runs and yields a dict whose
+    "args" holds the (args, kwargs) of the last call; raises RuntimeError
+    at the block's end if nothing called it (a caller that does not reach
+    it through the module attribute)."""
+    fn, got = getattr(module, name), {}
+
+    def wrapped(*args, **kw):
+        got["args"] = (args, kw)
+        return fn(*args, **kw)
+
+    setattr(module, name, wrapped)
+    try:
+        yield got
+    finally:
+        setattr(module, name, fn)
+    if "args" not in got:
+        raise RuntimeError(f"{module.__name__}.{name} was not called")
+
+
 def bf_closed_loop_tick(solver, params, cost_params, costmap,
                         ticks: int = BF_TICKS):
     """The arguments (args, kwargs) of the BF path's last kernel-1 call in a
@@ -166,18 +182,9 @@ def bf_closed_loop_tick(solver, params, cost_params, costmap,
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
-    last, fused = {}, rk.fused_exact_rollout_cost
-
-    def capture(*args, **kw):
-        last["args"] = (args, kw)
-        return fused(*args, **kw)
-
-    rk.fused_exact_rollout_cost = capture
-    try:
+    with last_call(rk, "fused_exact_rollout_cost") as last:
         drive_oval.drive(solver, params, cost_params, costmap, ticks,
                          log=lambda m: None)
-    finally:
-        rk.fused_exact_rollout_cost = fused
     return last["args"]
 
 
@@ -224,9 +231,8 @@ def update_forms(dev) -> dict:
     """name -> (K, whether the model is the MLP, ``prepare()``, the share
     of all-zero warps) for pass 2 (``prepare_fused_rng_numer``) at K=262144,
     gaussian, on the nominal weights (pass 1's costs from the start), the
-    same with three warps of every four zeroed (sparse), the closed loop's
-    (the last tick of a ``CLOSED_LOOP_TICKS``-tick capacity drive from the
-    start) and dense ones (all 1)."""
+    closed loop's (the last tick of a ``CLOSED_LOOP_TICKS``-tick capacity
+    drive from the start) and dense ones (all 1)."""
     import torch
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.config import effective_gamma
@@ -243,24 +249,11 @@ def update_forms(dev) -> dict:
                                        cost_params, costmap, start, U, key)
     nominal = torch.exp(-effective_gamma(cap, cost_params)
                         * (costs - costs.min()))
-    last = {}
-    numer = rk.fused_rng_numer
-
-    def capture(c, w):
-        last["ctx_w"] = (c, w)
-        return numer(c, w)
-
-    rk.fused_rng_numer = capture
-    try:
+    with last_call(rk, "fused_rng_numer") as last:
         drive_oval.drive(MPPISolver(solver.model, solver.cost, cap,
                                     device=dev), params, cost_params,
                          costmap, CLOSED_LOOP_TICKS, log=lambda m: None)
-    finally:
-        rk.fused_rng_numer = numer
-    sparse = torch.where(torch.arange(K_P2, device=dev) // 32 % 4 == 0,
-                         nominal, torch.zeros_like(nominal))
-    weights = {"nominal": (ctx, nominal), "sparse": (ctx, sparse),
-               "closed_loop": last["ctx_w"],
+    weights = {"nominal": (ctx, nominal), "closed_loop": last["args"][0],
                "dense": (ctx, torch.ones_like(nominal))}
     return {f"pass2_{name}_K{K_P2}": (
         K_P2, True, lambda c=c, w=w: rk.prepare_fused_rng_numer(c, w),
@@ -322,33 +315,36 @@ def time_checkout(root: str, rounds: int) -> dict:
 
 
 def untouched_sass(library: str, dump: str) -> dict:
-    """The SASS of each kernel of ``UNTOUCHED_KERNELS`` in the built
-    ``library``, by short name (``sass_chain.kernel_name``); the whole
-    ``cuobjdump -sass`` output is written to ``dump``.  The kernels live in
-    an anonymous namespace, whose mangled name differs between builds, so
-    it is cut from the code, and runs of spaces are one space."""
+    """The SASS of each instance of ``UNTOUCHED_KERNELS`` in the built
+    ``library``, by short name (e.g.
+    ``fused_field_kernel<MlpDeriv>``, ``fused_exact_group_kernel<8>``); the
+    whole ``cuobjdump -sass`` output is written to ``dump``.  The kernels
+    live in an anonymous namespace, whose mangled name differs between
+    builds, so it is cut from the names and the code, and runs of spaces
+    are one space."""
     from autorally_tpu_torch.ops import _build
-    from autorally_tpu_torch.tools.sass_chain import kernel_name
 
     objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([objdump, "-sass", library], capture_output=True,
                          text=True, check=True, timeout=300).stdout
     with open(dump, "w") as f:
         f.write(out)
+    names = "|".join(UNTOUCHED_KERNELS)
     sass = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
-        name = kernel_name(head)
-        if name in UNTOUCHED_KERNELS:
+        m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?", head)
+        if m:
+            arg = m.group(2) or m.group(3)
             body = re.sub(r"_GLOBAL__N__\w+", "", body)
             # cuobjdump pads each line to the module's widest instruction,
             # which other kernels set: compare the lines' words
-            sass[name] = "\n".join(" ".join(line.split())
-                                   for line in body.splitlines())
-    if len(sass) != len(UNTOUCHED_KERNELS):
+            sass[m.group(1) + (f"<{arg}>" if arg else "")] = (
+                "\n".join(" ".join(line.split())
+                          for line in body.splitlines()))
+    if len(sass) != N_UNTOUCHED:
         raise RuntimeError(f"{library}: found the SASS of {sorted(sass)}, "
-                           f"not of the {len(UNTOUCHED_KERNELS)} kernels "
-                           "compared")
+                           f"not of the {N_UNTOUCHED} kernels compared")
     return sass
 
 

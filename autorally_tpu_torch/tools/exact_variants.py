@@ -1,19 +1,16 @@
-"""What bounds kernels 1 and 2 and both passes of the capacity mode, and
-which launch geometry is the fastest at each K: time variants of the CUDA
-source, then every geometry the kernels are built for.
+"""What bounds kernels 1 and 2 and exact pass 1, and which launch geometry
+is the fastest at each K: time variants of the CUDA source, then every
+geometry the kernels are built for.
 
 Each source variant is the kernel source with one edit, built by nvcc (all
 at once) into
 ``autorally_tpu_torch/_build/exact_variants/`` and timed through the
 port's own wrappers in the geometry the launcher picks: kernel 1
-(``fused_exact_rollout_cost``) at K=1920, the BF kernel 1 at K=2560 on
-random noise and on a BF closed loop's last tick, exact pass 1
-(``fused_rng_costs``, gaussian) at K=262144 and pass 2 at K=262144 on the
-weight vectors of ``ab_builds.update_forms``, T=100, on the main path's
+(``fused_exact_rollout_cost``) at K=1920 and exact pass 1
+(``fused_rng_costs``, gaussian) at K=262144, T=100, on the main path's
 seeded configuration (``drive_oval.build``).  The variants' results are
 wrong by design, but for ``const_operand``, which only moves the weights;
-only their times mean something.  Pass 2's partial sums are held bit for
-bit against the base's in every variant (none of them edits pass 2).
+only their times mean something.
 
 - ``base``: the source as it is;
 - ``no_tanh``: the MLP's tanhf taken away (the identity), in every form;
@@ -31,28 +28,23 @@ bit against the base's in every variant (none of them edits pass 2).
   102 registers instead of 168, for more warps in flight.
 
 Each variant's SASS of exact pass 1 (``fused_rng_kernel<MlpDeriv>``) is
-counted by opcode (``pass1_sass``): how the weights are read; and a step of
-both passes' stream loop by pipe (``sass_chain.loop_mix``: instructions,
-integer ones), with the floors they give (``sass_chain.pipe_bounds``).
-Kernel 2 (``chain_sweep``) is timed at each K of ``CHAIN_K``, the MLP and
-the BF model, in each of its geometries (``rk.CHAIN_GEOMETRIES``) with the
-base library, its states and u_seq held bit for bit against one rollout a
+counted by opcode (``pass1_sass``): how the weights are read.  Kernel 2
+(``chain_sweep``) is timed at each K of ``CHAIN_K``, the MLP and the BF
+model, in each of its geometries (``rk.CHAIN_GEOMETRIES``) with the base
+library, its states and u_seq held bit for bit against one rollout a
 thread: what places ``rk.chain_geometry``'s choice.
 
 Then (unless ``--no-geometries``), with the ``base`` library, every
-geometry kernel 1 is built for (``rk.geometries(bf)``: lane group G,
-block) is forced on each form of ``ab_builds.exact_forms`` (kernel 1 at
-K=1920 with and without 16 circle slots, the BF kernel 1 at K=2560 (also
-G = 4), kernel 1 at K=262144 (no lane groups); exact pass 1's four forms
-at K=262144 run their one geometry, one rollout a thread), timed, and its
-outputs (costs, crash flags, u_seq) held bit for bit against one rollout
-a thread.  Last, kernel 1 is timed at the K of ``CROSSOVER_K`` (the MLP)
-and ``BF_CROSSOVER_K`` (the BF model, from the start with U = [0, 0.3] and
-from a BF closed loop's last state and U) in one rollout a thread and each
-of the model's lane groups, its outputs held bit for bit against one
-rollout a thread, to place the launcher's choice.  Exits non-zero when a
-geometry's or a pass-2 variant's outputs differ.  Usage, from the root of
-the repository::
+geometry kernel 1 is built for (``rk.GEOMETRIES``: lane group G, block) is
+forced on each form of ``ab_builds.exact_forms`` (kernel 1 at K=1920 with
+and without 16 circle slots, the BF kernel 1 at K=2560, kernel 1 at
+K=262144; the BF form takes G = 1 only, and K=262144 no lane groups;
+exact pass 1's four forms at K=262144 run their one geometry, one rollout
+a thread), timed, and its outputs (costs, crash flags, u_seq) held bit for
+bit against one rollout a thread.  Last, kernel 1 is timed at the K of
+``CROSSOVER_K`` in one rollout a thread and each lane group, to place the
+launcher's choice.  Exits non-zero when a geometry's outputs differ.
+Usage, from the root of the repository::
 
     python -m autorally_tpu_torch.tools.exact_variants [--variants a,b]
         [--no-geometries]
@@ -68,9 +60,8 @@ import statistics
 import subprocess
 import sys
 
-K_A, K_BF, K_P1 = 1920, 2560, 262144
+K_A, K_P1 = 1920, 262144
 CROSSOVER_K = (256, 960, 1920, 4224, 8448, 16896, 33792, 67584)
-BF_CROSSOVER_K = (256, 960, 1920, 2560, 4224, 8448, 16896)
 # kernel 2's K: the nominal trajectory's 1, the fine-map checks' 1920 and
 # 2560, and around one wave of the warp form (16 rollouts an SM, 2112)
 CHAIN_K = (1, 33, 132, 528, 1056, 1920, 2112, 2560, 4224, 8448)
@@ -188,12 +179,6 @@ VARIANTS = {
         for kernel in ("fused_exact_kernel", "fused_rng_kernel")]
        for n in (8, 10)},
 }
-# the forms each variant is timed on, CUDA-event repetitions a round
-VARIANT_FORMS = {"kernel1_K1920": 40, "kernel1_bf_K2560": 40,
-                 "kernel1_bf_closed_loop_K2560": 40,
-                 "pass1_gaussian_K262144": 5,
-                 "pass2_nominal_K262144": 20, "pass2_sparse_K262144": 20,
-                 "pass2_closed_loop_K262144": 20, "pass2_dense_K262144": 20}
 
 
 def pass1_sass(library) -> dict:
@@ -218,40 +203,6 @@ def pass1_sass(library) -> dict:
         count["FFMA c[]"] = sum(o == "FFMA" and "c[" in a for o, a in ins)
         return count
     raise RuntimeError(f"{library}: no fused_rng_kernel<MlpDeriv>")
-
-
-def stream_mix(library, num_sms: int, clock_mhz: float) -> dict:
-    """A step of each pass's stream loop in the built ``library`` by pipe
-    (``sass_chain.loop_mix``), with its integer-pipe and issue floors at
-    K=262144, T=100 (``sass_chain.pipe_bounds``; pass 2's over its whole
-    loop body): exact pass 1 (MLP, BF) and pass 2."""
-    from autorally_tpu_torch.ops import _build
-    from autorally_tpu_torch.tools import sass_chain
-
-    objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    out = subprocess.run([objdump, "-sass", str(library)],
-                         capture_output=True, text=True, check=True,
-                         timeout=300).stdout
-    mix = {}
-    for name, regex in (("pass1_mlp", r"\dfused_rng_kernelI\w*?MlpDeriv"),
-                        ("pass1_bf", r"\dfused_rng_kernelI\w*?BfDeriv"),
-                        ("pass2", r"\dweighted_update_kernel")):
-        m = sass_chain.loop_mix(sass_chain.instructions(out, regex))
-        m.update(sass_chain.pipe_bounds(m, K_P1, 100, num_sms, clock_mhz,
-                                        branched=name == "pass2"))
-        mix[name] = m
-    return mix
-
-
-def ptxas_lines(library, kernel: str) -> list:
-    """The ptxas -v lines of ``kernel`` in a variant's build log."""
-    log = open(os.path.splitext(str(library))[0] + ".log").read().splitlines()
-    out = []
-    for i, line in enumerate(log):
-        if "Compiling entry function" in line and kernel in line:
-            out += [x.strip() for x in log[i + 1:i + 4]
-                    if "registers" in x or "spill" in x]
-    return out
 
 
 @contextlib.contextmanager
@@ -283,7 +234,7 @@ def main() -> int:
     import torch
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
-    from autorally_tpu_torch.tools.ab_builds import exact_forms, update_forms
+    from autorally_tpu_torch.tools.ab_builds import exact_forms
     from autorally_tpu_torch.tools.field_variants import (build_variants,
                                                           use_library)
 
@@ -299,77 +250,37 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    clock = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0])
     libs = build_variants(_build.BUILD_DIR / "exact_variants",
                           {n: VARIANTS[n] for n in names})
     dev = torch.device("cuda", 0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     timed = exact_forms(dev)
-    updates = update_forms(dev)
-    timed.update(updates)
 
-    # the source variants, in the launcher's geometry, two rounds in turns;
-    # pass 2's partial sums of every variant held against the base's
-    ms = {name: {f: [] for f in VARIANT_FORMS} for name in libs}
-    partials, ok = {}, True                     # pass 2's, by variant
+    # the source variants, in the launcher's geometry, two rounds in turns
+    ms = {name: {"kernel1_K1920": [], "pass1_gaussian_K262144": []}
+          for name in libs}
     for _ in range(2):
         for name, so in libs.items():
             use_library(so)
-            for form, reps in VARIANT_FORMS.items():
-                launch, out = timed[form][2]()
-                ms[name][form].append(events(launch, reps))
-                if form in updates:
-                    partials[name, form] = out.clone()
-    same_p2 = {name: all(torch.equal(partials[name, f].view(torch.int32),
-                                     partials["base", f].view(torch.int32))
-                         for f in updates) for name in libs
-               if "base" in libs}
-    ok &= all(same_p2.values())
+            for form, reps in (("kernel1_K1920", 40),
+                               ("pass1_gaussian_K262144", 5)):
+                ms[name][form].append(events(timed[form][2]()[0], reps))
     variants = {name: {f: statistics.mean(v) for f, v in m.items()}
                 for name, m in ms.items()}
     sass = {name: pass1_sass(so) for name, so in libs.items()}
-    mix = {name: stream_mix(so, sms, clock) for name, so in libs.items()}
     for name, r in variants.items():
         print(f"[exact variants] {name}: kernel 1 K={K_A} "
               f"{r['kernel1_K1920']:.4f} ms, exact pass 1 K={K_P1} "
               f"{r['pass1_gaussian_K262144']:.4f} ms ({card}); pass 1 SASS "
               f"{sass[name]}")
-        print(f"[exact variants] {name}: pass 2 K={K_P1} " + ", ".join(
-            f"{f.split('_K')[0][6:]} {r[f]:.4f} ms ({100 * timed[f][3]:.2f} "
-            f"% all-zero warps)" for f in updates)
-            + f"; partials bit equal to the base's: {same_p2.get(name)}; "
-            f"{'; '.join(ptxas_lines(libs[name], 'weighted_update_kernel'))}"
-            f" ({card})")
-        print(f"[exact variants] {name}: BF kernel 1 K={K_BF} "
-              f"{r['kernel1_bf_K2560']:.4f} ms on random noise from the "
-              f"start, {r['kernel1_bf_closed_loop_K2560']:.4f} ms on a BF "
-              f"closed loop's last tick ({card})")
-        for k, m in mix[name].items():
-            print(f"[exact variants] {name}: {k} a step {m['instructions']:.1f}"
-                  f" instructions, {m['int']:.1f} integer "
-                  f"({m['instructions_always']:.1f} and {m['int_always']:.1f}"
-                  f" not behind a forward branch); floors at K={K_P1} T=100: "
-                  f"integer pipe {m['int_ms']:.4f} ms, issue "
-                  f"{m['issue_ms']:.4f} ms ({sms} SMs at {clock:.0f} MHz)")
 
-    chain, same = chain_sweep(libs["base"], dev, card)
-    ok &= same
+    chain, ok = chain_sweep(libs["base"], dev, card)
     geometries, crossover = {}, {}
     if not args.no_geometries:
         use_library(libs["base"])
         geometries, same = geometry_holds(timed, card)
         ok &= same
-        crossover = {"mlp": crossover_sweep(dev, card, False)[0]}
-        crossover["bf"], same = crossover_sweep(dev, card, True)
-        ok &= same
-        crossover["bf_closed_loop"], same = crossover_sweep(dev, card, True,
-                                                            True)
-        ok &= same
+        crossover = crossover_sweep(dev, card)
     print(json.dumps({"card": card, "variants": variants, "pass1_sass": sass,
-                      "stream_mix": mix, "pass2_bit_equal": same_p2,
                       "chain": chain, "geometries": geometries,
                       "crossover": crossover, "bit_equal": ok}))
     return 0 if ok else 1
@@ -383,17 +294,15 @@ def geometry_holds(timed, card):
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     geometries, ok = {}, True
-    for form, (K, mlp, prepare, *_) in timed.items():
-        if form.startswith("pass2"):
-            continue                  # pass 2 has one geometry
+    for form, (K, mlp, prepare) in timed.items():
         with forced_geometry(*rk.GEOMETRIES[0]):
             launch, ref = prepare()
             launch()
             ref = [t.clone() for t in ref]
         geometries[form] = {}
-        for geom in rk.geometries(bf=not mlp):
-            if geom[0] > 1 and K == K_P1:
-                continue              # no lane groups at 262144
+        for geom in rk.GEOMETRIES:
+            if geom[0] > 1 and (not mlp or K == K_P1):
+                continue              # BF: G = 1; no groups at 262144
             with forced_geometry(*geom):
                 launch, out = prepare()
             reps = 40 if K < K_P1 else 5
@@ -474,54 +383,35 @@ def chain_sweep(library, dev, card):
     return out, ok
 
 
-def crossover_sweep(dev, card, bf: bool, closed_loop: bool = False):
-    """Kernel 1 on the exact map, the MLP at each K of ``CROSSOVER_K`` or
-    the BF model at each K of ``BF_CROSSOVER_K``, in one rollout a thread
-    and in each of the model's lane groups, each held bit for bit against
-    one rollout a thread: ({K: {label: ms}}, whether all are bit equal).
-    The state and U are the start and [0, 0.3], or with ``closed_loop``
-    those of the last tick of a BF closed loop at K=2560
-    (``ab_builds.bf_closed_loop_tick``); the noise is random."""
+def crossover_sweep(dev, card) -> dict:
+    """Kernel 1 (the MLP on the exact map) at each K of ``CROSSOVER_K`` in
+    one rollout a thread and in each lane group: {K: {label: ms}}."""
     import torch
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.ops import rollout_kernel as rk
-    from autorally_tpu_torch.tools.ab_builds import bf_closed_loop_tick
 
     solver, params, cost_params, costmap, _ = drive_oval.build(
-        model="bf" if bf else "nn", rollouts=K_A, device=dev)
+        rollouts=K_A, device=dev)
     U = torch.tensor([0.0, 0.3], device=dev).repeat(100, 1)
     start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
-    if closed_loop:
-        path, *_ = drive_oval.build(model="bf", device=dev)
-        args, _ = bf_closed_loop_tick(path, params, cost_params, costmap)
-        start, U = args[5], args[6]
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
-    out, ok = {}, True
-    for K in (BF_CROSSOVER_K if bf else CROSSOVER_K):
+    out = {}
+    for K in CROSSOVER_K:
         cfg = solver.cfg.replace(num_rollouts=K)
         eps = torch.randn((100, K, 2), generator=gen, device=dev)
-        out[K], ref = {}, None
-        for geom in rk.geometries(bf):            # one a thread first
+        out[K] = {}
+        for geom in rk.GEOMETRIES:
             with forced_geometry(*geom):
-                launch, res = rk.prepare_fused_exact_rollout_cost(
+                launch, _ = rk.prepare_fused_exact_rollout_cost(
                     solver.model, params, cfg, cost_params, costmap, start,
                     U, eps)
             out[K]["G%d block %d" % geom] = events(launch, 20)
-            torch.cuda.synchronize()
-            ref = ref or [r.clone() for r in res]
-            ok &= all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-                      for a, b in zip(res, ref))
         best = min(out[K], key=out[K].get)
-        print(f"[exact crossover] {'BF ' if bf else ''}kernel 1 K={K}"
-              f"{' (closed-loop state and U)' if closed_loop else ''}: "
-              + ", ".join(f"{g} {t:.4f} ms" for g, t in out[K].items())
-              + f"; fastest {best}; the launcher picks "
-              + "G%d block %d" % rk.exact_geometry(
-                  K, torch.cuda.get_device_properties(0).multi_processor_count,
-                  bf)[:2]
-              + f"; bit equal to one rollout a thread: {ok} ({card})")
-    return out, ok
+        print(f"[exact crossover] kernel 1 K={K}: " + ", ".join(
+            f"{g} {t:.4f} ms" for g, t in out[K].items())
+            + f"; fastest {best} ({card})")
+    return out
 
 
 if __name__ == "__main__":

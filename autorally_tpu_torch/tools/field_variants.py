@@ -67,8 +67,8 @@ VARIANTS = {
 
 def build_variants(out_dir, variants=None) -> dict:
     """Build every variant's library (``variants``: name -> [(text, its
-    replacement), ...], ``VARIANTS`` by default) at once, each compiler
-    log (ptxas -v) beside it as ``<name>.log``; returns name -> path."""
+    replacement), ...], ``VARIANTS`` by default) at once; returns name ->
+    path."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
@@ -90,7 +90,6 @@ def build_variants(out_dir, variants=None) -> dict:
         log = proc.communicate()[0]
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        so.with_suffix(".log").write_text(log)
     return {name: so for name, (so, _) in procs.items()}
 
 

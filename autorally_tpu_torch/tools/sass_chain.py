@@ -21,9 +21,7 @@ latencies, not a roofline and not a measurement.
 replays the capacity mode's noise stream (the loop whose body holds the
 most Threefry rotations, ``SHF.L.W``, 20 a step), by the pipe that issues
 them: every instruction takes one of a scheduler's issue slots, the integer
-ones (``INT_OPS``) one of the SM's 64 INT32 lanes a thread.  ``kernel_name``
-gives a kernel's short name from its mangled one (``fused_exact_kernel<Mlp>``,
-``fused_exact_group_kernel<Bf, 8>``).
+ones (``INT_OPS``) one of the SM's 64 INT32 lanes a thread.
 
 Usage, on a ``cuobjdump -sass`` dump::
 
@@ -70,24 +68,6 @@ def instructions(sass: str, kernel: str) -> list:
                      m.group(3), m.group(4), m.group(5))
                     for m in _LINE.finditer(body)]
     raise ValueError(f"no function matching {kernel!r}")
-
-
-def kernel_name(head: str) -> str:
-    """A kernel's short name from its mangled name in ``head``: the kernel,
-    then its model and lane group where it has them, e.g.
-    ``fused_exact_kernel<Mlp>``, ``fused_exact_group_kernel<Bf, 8>``,
-    ``weighted_update_kernel``.  A lane group with no model (the MLP's
-    groups before they were templated on the model) is the MLP's."""
-    m = re.search(r"\d+([a-z_]+_kernel)(?=[IE])(\w*)", head)
-    if not m:
-        raise ValueError(f"no kernel name in {head!r}")
-    rest = m.group(2)              # template arguments end before "Ev"
-    args = rest[:rest.find("Ev")] if rest.startswith("I") else ""
-    model = re.search(r"(Mlp|Bf)Deriv", args)
-    group = re.search(r"Li(\d+)E", args)
-    parts = [model.group(1) if model else "Mlp"] if group or model else []
-    parts += [group.group(1)] if group else []
-    return m.group(1) + (f"<{', '.join(parts)}>" if parts else "")
 
 
 def _regs(text: str, wide: int = 1) -> list:

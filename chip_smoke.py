@@ -17,10 +17,10 @@ every CUDA kernel of these paths, in every form, against its plain PyTorch
 version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require twenty kernels (kernels A, B, 3 and both modes
+   (one nvcc), require sixteen kernels (kernels A, B, 3 and both modes
    of pass 1 in an MLP and a BF instance each, pass 2, kernel A in each
-   lane group of each model (MLP 8, 16, 32; BF 4, 8, 16, 32), and kernel
-   B one rollout a warp, MLP and BF) and zero spill bytes in every one
+   MLP lane group, and kernel B one rollout a warp, MLP and BF) and zero
+   spill bytes in every one
    (ptxas -v); print the four field instances'
    registers, dynamic shared memory and blocks an SM (at least 8 warps),
    and require TF32 tensor-core instructions (HMMA) in their SASS
@@ -61,23 +61,22 @@ version.  Phases (any failure exits non-zero):
    alternate on one stream, each bit for bit kernel A with its own weights
    and held against its own plain versions;
 8. pass 2 against its plain version with pass 1's softmax weights, the
-   same with three warps of every four zeroed (sparse: those warps skip
-   their replay) and all 1 (dense), with a NaN in U (NaN where the plain
-   version has it; no warp skips then, and every other partial is bit for
-   bit the sparse run's, whose warps skipped), and one-hot weights that
-   extract single rollouts' controls;
+   same with three warps of every four zeroed (sparse) and all 1 (dense),
+   with a NaN in U (NaN where the plain version has it, and every other
+   partial bit for bit the run's without the NaN), and one-hot weights
+   that extract single rollouts' controls;
 9. the capacity path: one iteration on the GPU against the CPU at
    K=16384, then 100 ticks of ``drive_oval.drive`` on a capacity-mode
    solver at K=262144 for each sampler, launch counters reset before and
    read after each (1 pass 1, 1 pass 2, 1 kernel B and no kernel A per
-   solve), and pass 2 on the last tick's weights against its plain
-   version;
+   solve), then one more, untimed tick whose pass-2 inputs are held
+   against the plain version;
 10. timing of both passes at K=262144 against their plain versions and
-    bounds (fp32 rate; integer pipe and issue, from a step of their stream
-    loop in the SASS), pass 2 on the nominal weights, the sparse ones, the
-    closed loop's last tick's and dense ones, each with its share of warps
-    that skip
-    (with pass 1's launch geometry), of kernel A at the same K, and
+    bounds (with pass 1's launch geometry; the integer-pipe and issue
+    floors of a step of their stream loop in the SASS printed beside),
+    pass 2 on the nominal weights, the closed loop's tick's and dense
+    ones, each with its share of all-zero warps, of kernel A at the same
+    K, and
     of whole solves at K=262144 in
     the capacity and the host-noise modes; a torch.profiler trace of 20
     capacity-mode ticks;
@@ -105,16 +104,15 @@ version.  Phases (any failure exits non-zero):
     whole field solves; torch.profiler traces of 10 ticks of each mode;
 15. the BF instances of kernels A and B against their plain versions at
     K=2560 in phase 2's cases (kernel A also at K=2561 and on a shard's
-    slice, in every geometry it is built for, one rollout a thread and
-    lane groups of 4 to 32, bit for bit; kernel B in both of its
+    slice, in each of its launch geometries; kernel B in both of its
     geometries, bit for bit) and at the nominal trajectory (K=1), with
     the seeded theta and with a strong theta whose slip and tan rows are
     scaled by their denominators (dropping any of those rows must move the
     plain chain's states by more than 5 x the tolerance);
 16. the BF path: one iteration on the GPU against the CPU, then 200 ticks
     of ``drive_oval.build(model="bf")`` (1 BF kernel A and 1 BF kernel B
-    per solve, nothing else, no plain version), keeping the last tick's
-    inputs of BF kernel A;
+    per solve, nothing else, no plain version), then one more, untimed
+    tick whose inputs of BF kernel A phase 18 times;
 17. the obstacle forms: two circles in 16 slots placed so that some
     rollouts hit them and some do not, kernel A (K=1920), kernel 3
     (K=65536) and pass 1 on both surfaces (K=262144) against their plain
@@ -127,8 +125,7 @@ version.  Phases (any failure exits non-zero):
     kernel B per solve), 20 ticks of each other BF and obstacle form,
     every form's timing against its plain version and bound (BF kernel B
     in both geometries, with its latency floor; BF kernel A on random
-    noise and on phase 16's last tick, in each of its geometries), the MLP
-    kernels without
+    noise and on phase 16's tick), the MLP kernels without
     obstacles re-timed in the same run, and a 50-tick torch.profiler trace
     of the BF path.
 
@@ -342,10 +339,10 @@ def hold_geometries(tag, geoms, run, check_one, chain: bool = False):
 def exact_instance(geom, rng: bool, bf: bool) -> str:
     """The CUDA instance of kernel 1 (exact pass 1 when ``rng``) that
     ``geom`` launches, by its short name."""
-    model = "Bf" if bf else "Mlp"
     if geom.group > 1:
-        return f"fused_exact_group_kernel<{model}, {geom.group}>"
-    return f"{'fused_rng' if rng else 'fused_exact'}_kernel<{model}>"
+        return f"fused_exact_group_kernel<{geom.group}>"
+    return (f"{'fused_rng' if rng else 'fused_exact'}_kernel"
+            f"<{'Bf' if bf else 'Mlp'}>")
 
 
 def geometry_line(rk, tag, launch, rng: bool, bf: bool, card):
@@ -576,26 +573,18 @@ def stream_mix(sass: str) -> dict:
                 ("pass2", r"\dweighted_update_kernel"))}
 
 
-def pipe_bounds(mix: dict, k: int, t: int, sms: int, clock_mhz: float,
-                branched: bool = False):
-    """The integer-pipe and issue floors of ``k`` rollouts of ``t`` steps
-    (``tools/sass_chain.pipe_bounds``)."""
-    from autorally_tpu_torch.tools import sass_chain
-
-    return sass_chain.pipe_bounds(mix, k, t, sms, clock_mhz, branched)
-
-
 def ptxas_report(log: str):
     """(kernel, registers, spill store + load bytes) for each entry
-    function in ``ptxas -v`` output, by short name
-    (``sass_chain.kernel_name``)."""
-    from autorally_tpu_torch.tools.sass_chain import kernel_name
-
+    function in ``ptxas -v`` output."""
     rows, name, spill = [], None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            name = kernel_name(m.group(1))
+            short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
+                              r"(Mlp|Bf)Deriv)", m.group(1))
+            arg = short and (short.group(2) or short.group(3))
+            name = (short.group(1) + (f"<{arg}>" if arg else "") if short
+                    else m.group(1))
             spill = None
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -606,6 +595,20 @@ def ptxas_report(log: str):
             rows.append((name, int(m.group(1)), spill))
             name = None
     return rows
+
+
+def next_tick_args(rk, name, solver, params, cost_params, costmap, out):
+    """The arguments (args, kwargs) with which one more tick after a drive
+    (``out``: ``drive_oval.drive``'s result) calls ``rk.<name>``: the
+    inputs that the closed loop sends that function, taken with it wrapped
+    (``tools/ab_builds.last_call``) outside the drive's timed ticks."""
+    from autorally_tpu_torch.tools.ab_builds import last_call
+
+    with last_call(rk, name) as got:
+        cs = solver.slide(out["control_state"],
+                          solver.cfg.optimization_stride)
+        solver.solve(params, cost_params, costmap, out["state"], cs)
+    return got["args"]
 
 
 def random_costmap(device):
@@ -667,6 +670,8 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
     from autorally_tpu_torch.config import effective_gamma
     from autorally_tpu_torch.ops import rollout_kernel as rk
     from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools import sass_chain
+    from autorally_tpu_torch.tools.ab_builds import zero_warp_share
 
     cfg, model = solver.cfg, solver.model
     dev = U.device
@@ -825,8 +830,8 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
 
     def hold_numer(tag, ctx, w, u_abs):
         """Pass 2 on weights ``w`` against its plain version, within
-        NUMER_RTOL of sum_k |w_k u_k|; prints the share of warps that
-        skip.  Returns the max abs error."""
+        NUMER_RTOL of sum_k |w_k u_k|; prints the share of warps whose
+        32 weights are all 0.  Returns the max abs error."""
         kn = rk.fused_rng_numer(ctx, w)
         pn = rk.fused_rng_numer_plain(ctx, w)
         scale = torch.einsum("k,ctk->ct", w.abs(), u_abs)
@@ -837,8 +842,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
               f"{err.max().item():.3e}, max err / sum|w u| {rel:.3e} (limit "
               f"{NUMER_RTOL}), ess {(w.sum() ** 2 / (w * w).sum()).item():.1f}"
               f", {int((w != 0).sum().item())} non-zero weights, "
-              f"{100 * rk.skipped_warps(ctx, w).float().mean().item():.2f} % "
-              f"of the warps skip")
+              f"{100 * zero_warp_share(w):.2f} % all-zero warps")
         check(bool((err <= NUMER_RTOL * scale).all()), f"pass 2 {tag}: "
               f"numerator differs beyond {NUMER_RTOL} of sum|w u|")
         return err.max().item()
@@ -857,9 +861,8 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
             err_p2 = max(err_p2, hold_numer(f"{sname} {wname}", ctx, wv,
                                             u_abs))
         del u_abs
-        # a NaN in U: NaN exactly where the plain version has it, and no
-        # warp skips then (each block stages all of U), so every other
-        # partial is bit for bit the sparse run's, whose warps skipped
+        # a NaN in U: NaN exactly where the plain version has it, and every
+        # other partial bit for bit the run's without the NaN
         U_nan = ctx.U.clone()
         U_nan[T // 2, 1] = float("nan")
         ctx_nan = ctx._replace(U=U_nan)
@@ -875,17 +878,16 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         keep[:, 1, T // 2] = False
         same_nan = torch.equal(torch.isnan(kn), torch.isnan(pn))
         same_bits = bit_equal(part_nan[keep], part[keep])
-        skip_nan = rk.skipped_warps(ctx_nan, sparse).float().mean().item()
-        print(f"[pass 2] {sname} NaN in U[{T // 2}, 1]: NaN in "
-              f"{int(torch.isnan(kn).sum().item())} numerator entries, where "
-              f"the plain version has them: {same_nan}; the other partials "
-              f"(no warp skips) bit equal to the sparse run's (whose warps "
-              f"skip): {same_bits}; {100 * skip_nan:.2f} % skip with the NaN")
+        print(f"[pass 2] {sname} NaN in U[{T // 2}, 1], sparse weights: NaN "
+              f"in {int(torch.isnan(kn).sum().item())} numerator entries, "
+              f"where the plain version has them: {same_nan}; the other "
+              f"partials bit equal to the run's without the NaN: "
+              f"{same_bits}")
         check(same_nan and bool(torch.isnan(kn[1, T // 2])),
               f"pass 2 {sname} NaN in U: NaN pattern differs")
         check(torch.equal(kn[~torch.isnan(kn)], ks[~torch.isnan(kn)]),
               f"pass 2 {sname} NaN in U: other entries differ")
-        check(same_bits, f"pass 2 {sname}: the warps' skip changed bits")
+        check(same_bits, f"pass 2 {sname} NaN in U: other partials differ")
         del kn, ks, pn, part, part_nan
         for k in (0, 1, first_pure, KC - 1):
             onehot = torch.zeros(KC, device=dev)
@@ -911,25 +913,15 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
 
     want = {"fused_rng_costs": 1, "fused_rng_numer": 1, "dynamics_chain": 1}
     cap_solvers, latency, run_launches = {}, {}, {}
-    # the last tick's pass-2 inputs of each drive (its ctx and weights)
-    closed_loop, numer = {}, rk.fused_rng_numer
+    # each drive's pass-2 inputs (ctx, weights) of one more, untimed tick
+    closed_loop = {}
     for sname, c in cap_cfg.items():
         cap = MPPISolver(model, solver.cost, c, device=dev)
         check(cap._use_kernel_rng(costmap), f"{sname}: not in capacity mode")
         cap_solvers[sname] = cap
-
-        def capture(ctx, w, sname=sname):
-            closed_loop[sname] = (ctx, w)
-            return numer(ctx, w)
-
-        rk.fused_rng_numer = capture
         rk.LAUNCHES.clear()
-        try:
-            out = drive_oval.drive(cap, params, cost_params, costmap,
-                                   CAP_TICKS,
-                                   log=lambda m: print(f"[capacity] {m}"))
-        finally:
-            rk.fused_rng_numer = numer
+        out = drive_oval.drive(cap, params, cost_params, costmap, CAP_TICKS,
+                               log=lambda m: print(f"[capacity] {m}"))
         launches = dict(rk.LAUNCHES)
         st, stats = out["solve_ms"], out["stats"]
         latency[sname] = (float(np.percentile(st, 50)),
@@ -946,10 +938,12 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
               f"{sname}: launches {launches} in {solves} solves, expected "
               f"{want} per solve (and nothing else)")
         run_launches[sname] = launches
-        ctx_cl, w_cl = closed_loop[sname]
+        closed_loop[sname] = next_tick_args(rk, "fused_rng_numer", cap,
+                                            params, cost_params, costmap,
+                                            out)[0]
         err_p2 = max(err_p2, hold_numer(
-            f"{sname} closed loop, tick {CAP_TICKS}", ctx_cl, w_cl,
-            abs_controls(c, ctx_cl)))
+            f"{sname} closed loop, tick {CAP_TICKS + 1}",
+            *closed_loop[sname], abs_controls(c, closed_loop[sname][0])))
 
     # -- phase 10: timing ----------------------------------------------------
     flops_step = mlp_flops(model.layers)
@@ -980,48 +974,42 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
                   + 4 * min(costmap.height * costmap.width, 2 * KC * (T_ - 1))
                   + 16)
         bound1 = bound(bytes1, (flops_step + STREAM_OPS + ou) * KC * T_)
-        floors1 = pipe_bounds(mix["pass1_mlp"], KC, T_, sms, clock)
+        floors1 = sass_chain.pipe_bounds(mix["pass1_mlp"], KC, T_, sms,
+                                         clock)
         w = torch.exp(-effective_gamma(c, cost_params) * (kc - kc.min()))
         plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), 3, 1)
-        # pass 2 on the nominal weights (phase 8's), with three warps of
-        # every four zeroed, the closed loop's last tick (phase 9's) and
-        # dense ones; its floors count the rollouts whose weight is not 0,
-        # the work that these weights need
+        # pass 2 on the nominal weights (phase 8's), the closed loop's tick
+        # (phase 9's) and dense ones; its bound counts the rollouts whose
+        # weight is not 0, the work that these weights need; the design's
+        # floors, all K rollouts, which it replays whatever the weights
+        # (its loop's one forward branch over the stream is the test of
+        # rollouts past K, which every rollout here takes)
         p2 = {}
-        sparse = torch.where(torch.arange(KC, device=dev) // 32 % 4 == 0, w,
-                             torch.zeros_like(w))
+        floors2 = sass_chain.pipe_bounds(mix["pass2"], KC, T_, sms, clock,
+                                         branched=True)
         for wname, (cx, wv) in (("nominal", (ctx, w)),
-                                ("sparse", (ctx, sparse)),
                                 ("closed_loop", closed_loop[sname]),
                                 ("dense", (ctx, torch.ones_like(w)))):
             launch2, partials = rk.prepare_fused_rng_numer(cx, wv)
             ms2 = cuda_ms(launch2, 50)
             k_need = int((wv != 0).sum().item())
             bytes2 = 4 * (KC + T_ * 2 + partials.numel()) + 16
-            p2[wname] = {
-                "ms": ms2, "nonzero": k_need,
-                "share": rk.skipped_warps(cx, wv).float().mean().item(),
-                "bound": bound(bytes2, (STREAM_OPS + ou + UPDATE_OPS)
-                               * k_need * T_),
-                # its loop's one forward branch over the stream is the
-                # test of rollouts past K, which every rollout here takes
-                **pipe_bounds(mix["pass2"], k_need, T_, sms, clock,
-                              branched=True)}
+            p2[wname] = (ms2, bound(bytes2, (STREAM_OPS + ou + UPDATE_OPS)
+                                    * k_need * T_))
             print(f"[timing] pass 2 fused_rng_numer {sname} {wname} K={KC} "
                   f"T={T_}: {ms2:.4f} ms; {k_need} non-zero weights, "
-                  f"{100 * p2[wname]['share']:.2f} % of the warps skip; "
-                  f"floors for those rollouts: fp32 "
-                  f"{p2[wname]['bound'][0]:.5f} ms ({p2[wname]['bound'][1]}), "
-                  f"integer pipe {p2[wname]['int_ms']:.5f} ms, issue "
-                  f"{p2[wname]['issue_ms']:.5f} ms ({sms} SMs at "
-                  f"{clock:.0f} MHz) ({card})")
-        times[sname] = (ms1, plain1, bound1, floors1, plain2, p2)
+                  f"{100 * zero_warp_share(wv):.2f} % all-zero warps; bound "
+                  f"{p2[wname][1][0]:.5f} ms ({p2[wname][1][1]}) ({card})")
+        times[sname] = (ms1, plain1, bound1, plain2, p2)
         print(f"[timing] pass 1 fused_rng_costs {sname} K={KC} T={T_}: "
               f"{ms1:.4f} ms, plain {plain1:.3f} ms, bound {bound1[0]:.5f} "
-              f"ms ({bound1[1]}), integer pipe {floors1['int_ms']:.5f} ms, "
-              f"issue {floors1['issue_ms']:.5f} ms ({card})")
+              f"ms ({bound1[1]}); its SASS's floors: integer pipe "
+              f"{floors1['int_ms']:.5f} ms, issue {floors1['issue_ms']:.5f} "
+              f"ms ({sms} SMs at {clock:.0f} MHz) ({card})")
         print(f"[timing] pass 2 fused_rng_numer {sname}: plain {plain2:.3f} "
-              f"ms ({card})")
+              f"ms; its SASS's floors at K={KC}: integer pipe "
+              f"{floors2['int_ms']:.5f} ms, issue {floors2['issue_ms']:.5f} "
+              f"ms ({sms} SMs at {clock:.0f} MHz) ({card})")
 
     # kernel A at the same K on the plain stream: pass 1 less the generator
     # (and plus the eps reads and u_seq writes)
@@ -1054,29 +1042,20 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
                   tag="capacity profile")
 
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
-    ms1, plain1, bound1, floors1, plain2, p2 = times["gaussian"]
+    ms1, plain1, bound1, plain2, p2 = times["gaussian"]
+    ms2, bound2 = p2["nominal"]
     kernels = [
         {"name": "fused_rng_costs", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1221",
          "launches": run_launches["gaussian"]["fused_rng_costs"],
          "max_abs_err": err_p1, "ms": ms1, "plain_ms": plain1,
-         "bound_ms": bound1[0], "bound_by": bound1[1], "library_ms": None,
-         "int_bound_ms": floors1["int_ms"],
-         "issue_bound_ms": floors1["issue_ms"]},
+         "bound_ms": bound1[0], "bound_by": bound1[1], "library_ms": None},
         {"name": "fused_rng_numer", "route": "cuda", "source": src,
          "replaces": "autorally_tpu/ops/rollout_kernel.py:1346",
          "launches": run_launches["gaussian"]["fused_rng_numer"],
-         "max_abs_err": err_p2, "ms": p2["nominal"]["ms"],
-         "plain_ms": plain2, "bound_ms": p2["nominal"]["bound"][0],
-         "bound_by": p2["nominal"]["bound"][1], "library_ms": None,
-         "int_bound_ms": p2["nominal"]["int_ms"],
-         "issue_bound_ms": p2["nominal"]["issue_ms"],
-         "weights": {wname: {"ms": r["ms"], "nonzero": r["nonzero"],
-                             "skipped_warp_share": r["share"],
-                             "bound_ms": r["bound"][0],
-                             "int_bound_ms": r["int_ms"],
-                             "issue_bound_ms": r["issue_ms"]}
-                     for wname, r in p2.items()}},
+         "max_abs_err": err_p2, "ms": ms2, "plain_ms": plain2,
+         "bound_ms": bound2[0], "bound_by": bound2[1], "library_ms": None,
+         "weights_ms": {wname: r[0] for wname, r in p2.items()}},
     ]
     return kernels, latency
 
@@ -1274,7 +1253,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
                 "dynamics_chain": 1})}
     latency, launches = {}, {}
     for label, (s, ticks, per_solve) in runs.items():
-        latency[label], launches[label] = drive_counted(
+        latency[label], launches[label], _ = drive_counted(
             drive_oval, rk, f"field path {label}", s, params, cost_params,
             field, ticks, per_solve, card)
 
@@ -1402,7 +1381,7 @@ def drive_counted(drive_oval, rk, tag, solver, params, cost_params, surface,
     to 0 just before and read just after: exactly ``per_solve`` launches of
     each form in every solve (ticks + the untimed first), none of any other
     and no plain-version call.  Returns (latency p50, p99 in ms, the
-    counts)."""
+    counts, the drive's result)."""
     rk.LAUNCHES.clear()
     with PlainCalls(rk) as plain:
         out = drive_oval.drive(solver, params, cost_params, surface, ticks,
@@ -1421,7 +1400,7 @@ def drive_counted(drive_oval, rk, tag, solver, params, cost_params, surface,
     check(got == want, f"{tag}: launches {got}, expected {want}")
     check(not any(plain.calls.values()), f"{tag}: a plain version ran on "
           f"the card: {plain.calls}")
-    return latency, got
+    return latency, got, out
 
 
 def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
@@ -1484,9 +1463,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
                   "hit by no rollout or by all")
 
     # -- phase 15: BF kernels 1 and 2 against their plain versions -----------
-    # kernel 1 in every geometry it is built for, each bit for bit against
-    # one rollout a thread (the first)
-    bf_geoms = list(rk.geometries(bf=True))
+    # kernel 1 in every geometry that the launcher picks for the BF model
+    bf_geoms = launcher_geometries(rk, bf=True)
     geoms = launcher_geometries(rk, bf=False)
     bf, bparams, _, _, note = drive_oval.build(model="bf", rollouts=KB,
                                                device=dev)
@@ -1624,23 +1602,16 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     latency, launches = {}, {}
 
     def run(label, solver, prm, surface, ticks, per_solve, tick_params=None):
-        latency[label], launches[label] = drive_counted(
+        latency[label], launches[label], out = drive_counted(
             drive_oval, rk, label, solver, prm, cost_params, surface, ticks,
             per_solve, card, tick_params)
+        return out
 
-    # the last tick's inputs of BF kernel 1 (state, U, eps), timed in 18
-    bf_tick, fused = {}, rk.fused_exact_rollout_cost
-
-    def capture(*args, **kw):
-        bf_tick["args"] = (args, kw)
-        return fused(*args, **kw)
-
-    rk.fused_exact_rollout_cost = capture
-    try:
-        run("bf path", bf, bparams, costmap, BF_TICKS,
-            {"fused_exact_rollout_cost_bf": 1, "dynamics_chain_bf": 1})
-    finally:
-        rk.fused_exact_rollout_cost = fused
+    out = run("bf path", bf, bparams, costmap, BF_TICKS,
+              {"fused_exact_rollout_cost_bf": 1, "dynamics_chain_bf": 1})
+    # BF kernel 1's inputs (state, U, eps) of one more tick, timed in 18
+    bf_tick = next_tick_args(rk, "fused_exact_rollout_cost", bf, bparams,
+                             cost_params, costmap, out)
 
     # -- phase 17: obstacles, kernel forms against their plain versions ------
     # the seeded car hardly moves from rest: the circles lie ahead of a
@@ -1960,32 +1931,23 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
               f"({bnd[1]}){fp32} ({card})")
     chain_bf = chain_timing(rk, "dynamics_chain_bf", bmodel, bparams, bcfg,
                             start, U, z_1, True, 100, card)
-    # BF kernel 1 at K=2560 on e_b (above) and on the closed loop's last
-    # tick (state, U, eps), in each of its geometries in turns, three rounds
-    from autorally_tpu_torch.tools.exact_variants import forced_geometry
-    args, kw = bf_tick["args"]
-    bf1 = {"e_b": (bmodel, bparams, bcfg, cost_params, costmap, start, U,
-                   e_b), "closed_loop": args}
-    bf1_ms = {}
-    for inputs, a in bf1.items():
-        launches_g = {}
-        for geom in rk.geometries(bf=True):
-            with forced_geometry(*geom):
-                launches_g[geometry_label(geom)] = (
-                    rk.prepare_fused_exact_rollout_cost(*a, **kw)[0])
-        ms = {g: [] for g in launches_g}
-        for _ in range(3):
-            for g, launch in launches_g.items():
-                ms[g].append(cuda_ms(launch, 100))
-        bf1_ms[inputs] = {g: statistics.median(v) for g, v in ms.items()}
-        picked = geometry_label(rk.exact_geometry(
-            KB, torch.cuda.get_device_properties(0).multi_processor_count,
-            True))
-        print(f"[timing] fused_exact_rollout_cost_bf K={KB} on {inputs}: "
-              + ", ".join(f"{g} {t:.4f} ms" for g, t in
-                          bf1_ms[inputs].items())
-              + f" (medians of three rounds of 100 in turns); the launcher "
-              f"picks {picked} ({card})")
+    # BF kernel 1 at K=2560 on e_b (above) and on phase 16's closed-loop
+    # tick (state, U, eps), in turns, three rounds
+    bf1 = {"e_b": rk.prepare_fused_exact_rollout_cost(
+               bmodel, bparams, bcfg, cost_params, costmap, start, U,
+               e_b)[0],
+           "closed_loop": rk.prepare_fused_exact_rollout_cost(
+               *bf_tick[0], **bf_tick[1])[0]}
+    ms = {inputs: [] for inputs in bf1}
+    for _ in range(3):
+        for inputs, launch in bf1.items():
+            ms[inputs].append(cuda_ms(launch, 100))
+    bf1_ms = {inputs: statistics.median(v) for inputs, v in ms.items()}
+    print(f"[timing] fused_exact_rollout_cost_bf K={KB}: "
+          + ", ".join(f"{t:.4f} ms on {inputs}" for inputs, t in
+                      bf1_ms.items())
+          + f" (medians of three rounds of 100 in turns, "
+          f"{geometry_label(bf1['e_b'].geometry)}) ({card})")
     print(f"[timing] MLP without obstacles in this run: kernel A K={K} "
           f"{times['fused_exact_rollout_cost'][0]:.4f} ms, exact pass 1 "
           f"K={KC} {times['fused_rng_costs'][0]:.4f} ms; with {N_SLOTS} slots "
@@ -2020,7 +1982,7 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
              **(chain_entry(chain_bf) if form == "dynamics_chain_bf"
                 else {})})
         if form == "fused_exact_rollout_cost_bf":
-            kernels[-1]["geometries_ms"] = bf1_ms
+            kernels[-1]["inputs_ms"] = bf1_ms
     return kernels, latency
 
 
@@ -2072,9 +2034,9 @@ def main() -> int:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
         # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain),
-        # pass 2, kernel 1 in each lane group of each model, and kernel 2
-        # one rollout a warp (MLP and BF)
-        n_kernels = 11 + len(rk.LANE_GROUPS) + len(rk.BF_LANE_GROUPS) + 2
+        # pass 2, kernel 1 in its lane groups (the MLP), and kernel 2 one
+        # rollout a warp (MLP and BF)
+        n_kernels = 11 + len(rk.LANE_GROUPS) + 2
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -2386,7 +2348,6 @@ def main() -> int:
             k["instance"] = f"fused_rng_kernel<{model}>"
         elif name == "fused_rng_numer":
             k["design"] = ("a thread a rollout, fixed-order block sums, "
-                           "a warp of zero weights skips its replay, "
                            "blocks of %d" % rk.UPDATE_BLOCK)
             k["instance"] = "weighted_update_kernel"
     # every compiled instance with its registers (ptxas, phase 1), the ones

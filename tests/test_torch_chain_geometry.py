@@ -257,23 +257,3 @@ def test_loop_mix_counts_a_step_of_the_stream(steps):
         mix["instructions"] * 64 * 132 / 32 * 1980 / (4 * 132 * 1980e3))
     with pytest.raises(ValueError, match="no loop holds a step"):
         sass_chain.loop_mix(sass_chain.instructions(_SASS, r"_Z3foov"))
-
-
-@pytest.mark.parametrize("head, name", [
-    ("_ZN12_GLOBAL__N_124fused_exact_group_kernelILi8EEEvNS_12ChainScalarsE",
-     "fused_exact_group_kernel<Mlp, 8>"),
-    ("_ZN46_GLOBAL__N__e6b1e4e0_18_rollout_kernels_cu_3b1f6d9c24fused_exact_"
-     "group_kernelIN46_GLOBAL__N__e6b1e4e0_18_rollout_kernels_cu_3b1f6d9c7Bf"
-     "DerivELi16EEEvNS_12ChainScalarsE", "fused_exact_group_kernel<Bf, 16>"),
-    ("_ZN12_GLOBAL__N_118fused_exact_kernelINS_8MlpDerivEEEvNS_12Chain"
-     "ScalarsE", "fused_exact_kernel<Mlp>"),
-    ("_ZN12_GLOBAL__N_122weighted_update_kernelENS_12ChainScalarsE",
-     "weighted_update_kernel")])
-def test_kernel_name_reads_both_builds_group_kernels(head, name):
-    """Short names from mangled ones: the MLP's lane groups of the earlier
-    builds (``<8>``) and of this one (``<MlpDeriv, 8>``) take one name, so
-    that ``tools/ab_builds.py`` compares their SASS; the anonymous
-    namespace's ``_rollout_kernels_cu`` is not taken for a kernel."""
-    from autorally_tpu_torch.tools.sass_chain import kernel_name
-
-    assert kernel_name(head) == name

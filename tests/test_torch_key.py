@@ -134,13 +134,14 @@ def test_every_geometry_covers_each_rollout_once(forced, K, k_offset):
 @pytest.mark.parametrize("K", [1, 1920, 1921, 2560, 16384, 65536 - 19,
                                262143, 262144])
 def test_exact_geometry_is_one_the_kernels_take(K, bf, k_offset):
-    """The launcher's pick on an H100 (132 SMs): a geometry built for the
-    model (``rk.geometries(bf)``; the BF model's pick at each K:
-    ``tests/test_torch_bf_groups.py``), lane groups for the MLP at the main
-    path's K = 1920; and it covers every rollout."""
+    """The launcher's pick on an H100 (132 SMs): a built geometry
+    (``rk.GEOMETRIES``), one rollout a thread for the BF model, lane groups
+    for the MLP at the main path's K = 1920; and it covers every rollout."""
     geom = rk.exact_geometry(K, H100_SMS, bf)
-    assert geom[:2] in rk.geometries(bf)
+    assert geom[:2] in rk.GEOMETRIES
     assert geom.grid == -(-K // (geom.block // geom.group))
+    if bf:
+        assert geom.group == 1
     if K == 1920 and not bf:
         assert geom.group > 1
     _check_slots(geom, K, k_offset)
