@@ -54,6 +54,9 @@ SIGNATURES = {
     "artt_field_kernel_info": [_I] * 5 + [_P],
     # rng, bf, lane group, block, T, n_obs, device, out (4 ints)
     "artt_exact_kernel_info": [_I] * 7 + [_P],
+    # out (int64 host array or null); device, counts (device), stream
+    "artt_const_divisors": [_P],
+    "artt_div_const_check": [_I, _P, _P],
 }
 
 _lib = None

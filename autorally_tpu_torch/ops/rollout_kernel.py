@@ -35,7 +35,11 @@ K and the card's SM count: lane groups of G lanes a rollout (the MLP at
 small K) or one rollout a thread, with the same bits in both.  Kernel 2
 launches in the geometry of :func:`chain_geometry`: one rollout a warp at
 small K (the nominal trajectory's K = 1 always) or one rollout a thread,
-again with the same bits.  Exact pass 1 runs one rollout a thread.
+again with the same bits.  Exact pass 1 runs one rollout a thread; its BF
+instance (``fused_rng_bf_kernel``) takes the basis functions' quotients by
+constants without the division's slow path (:func:`const_quotient_check`
+holds them against IEEE division on the card) and draws the stream a step
+ahead, with the bits of the MLP's design.
 
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
@@ -366,6 +370,26 @@ def exact_kernel_info(rng: bool, bf: bool, geom: ExactGeometry, T: int,
                      "blocks_per_sm"), out))
     info["waves"] = geom.grid / max(1, info["blocks_per_sm"] * num_sms(device))
     return info
+
+
+def const_quotient_check(device: int = 0) -> dict:
+    """The exhaustive check, on the card, of BF exact pass 1's branch-free
+    arithmetic: {divisor: the count of the 2^32 float32 bit patterns x
+    whose quotient (csrc ``div_const`` with its guard) differs from IEEE
+    ``x / d``, a NaN equal to any NaN}, and under "stream_div" and
+    "stream_sqrt" the counts of the stream's 2^23 uniforms u1 whose
+    quotient in log u1 or root of -2 log u1 differs from the IEEE one."""
+    lib = _kernel_lib()
+    n = lib.artt_const_divisors(None)
+    divisors = (ctypes.c_longlong * n)()
+    lib.artt_const_divisors(divisors)
+    dev = torch.device("cuda", device)
+    counts = torch.zeros(n + 2, dtype=torch.int64, device=dev)
+    _check_launch(lib.artt_div_const_check(
+        device, counts.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream), "const_quotient_check")
+    return dict(zip([*divisors, "stream_div", "stream_sqrt"],
+                    counts.tolist()))
 
 
 def has_kernel_form(model) -> bool:

@@ -6,8 +6,8 @@ The forms (``exact_forms``) are kernel 1 (``fused_exact_rollout_cost``) at
 K=1920, with 16 circle slots at K=1920, the BF kernel 1 at K=2560 on
 random noise and on the inputs of the last tick of a 50-tick BF closed
 loop (``bf_closed_loop_tick``), exact pass 1 (``fused_rng_costs``) at
-K=262144 with gaussian and OU noise, its BF form and its form with 16
-slots, and kernel 1 at K=262144; (``chain_forms``) kernel 2
+K=262144 with gaussian and OU noise, its form with 16 slots, its BF form
+gaussian, OU and with 16 slots, and kernel 1 at K=262144; (``chain_forms``) kernel 2
 (``dynamics_chain``), MLP and BF, at the nominal trajectory's K=1 and at
 K=1920 and K=2560; and (``update_forms``) pass 2 (``fused_rng_numer``'s
 kernel) at K=262144 on three weight vectors: the softmax weights of pass
@@ -20,9 +20,10 @@ its own source and runs in its own process, in the order other, this,
 this, other, so that a drift of the card over the call falls on both
 alike.  Each prints the CUDA-event medians and a digest of each form's
 outputs; equal digests show bit-equal results.  The SASS of the kernels
-named in ``UNTOUCHED_KERNELS`` (every kernel of the library) is compared
-between the two builds' libraries (``cuobjdump -sass``), function by
-function.  The summary gives each checkout's mean of its two runs and the
+named in ``UNTOUCHED_KERNELS`` (every kernel of the library but BF exact
+pass 1, which ``fused_rng_bf_kernel`` now runs, and the quotient check) is
+compared between the two builds' libraries (``cuobjdump -sass``), function
+by function.  The summary gives each checkout's mean of its two runs and the
 ratio of this checkout to the other.  Run against an identical copy of
 this checkout (A/A), it measures the order's own bias.
 
@@ -51,14 +52,16 @@ KEY = (0x2545F491, 0x9E3779B9)
 N_SLOTS = 16
 CIRCLES = [[30.0, 5.0, 0.5], [29.5, 8.0, 0.5]]
 # kernels whose SASS must equal the other build's: kernel 1 in one rollout
-# a thread (MLP, BF) and in its lane groups (8, 16, 32), exact pass 1 and
-# kernel 2 in one rollout a thread and a rollout a warp, kernel 3 and field
-# pass 1 (MLP, BF each), pass 2: every kernel of the library
+# a thread (MLP, BF) and in its lane groups (8, 16, 32), exact pass 1 (the
+# MLP's) and kernel 2 in one rollout a thread and a rollout a warp (MLP,
+# BF each), kernel 3 and field pass 1 (MLP, BF each), pass 2; BF exact pass
+# 1 (REDESIGNED: fused_rng_kernel<BfDeriv> in a build that has it) is not
 UNTOUCHED_KERNELS = ("fused_exact_kernel", "fused_exact_group_kernel",
                      "fused_rng_kernel", "dynamics_chain_kernel",
                      "dynamics_chain_warp_kernel", "fused_field_kernel",
                      "fused_rng_field_kernel", "weighted_update_kernel")
-N_UNTOUCHED = 16
+REDESIGNED = ("fused_rng_kernel<Bf>",)
+N_UNTOUCHED = 15
 # pass 2's forms: K, the capacity-mode ticks whose last weights are the
 # closed loop's, CUDA-event repetitions a round; the BF path's ticks whose
 # last inputs of kernel 1 are timed
@@ -145,6 +148,11 @@ def exact_forms(dev) -> dict:
         "pass1_gaussian_K262144": (K_P1, True, pass1(model, params, cap)),
         "pass1_ou_K262144": (K_P1, True, pass1(model, params, ou)),
         "pass1_bf_K262144": (K_P1, False, pass1(bmodel, bparams, bcap)),
+        "pass1_bf_ou_K262144": (K_P1, False, pass1(
+            bmodel, bparams, bcap.replace(noise_sampler="ou",
+                                          noise_param=0.15))),
+        "pass1_bf_16slots_K262144": (K_P1, False, pass1(bmodel, bparams,
+                                                         bcap, **okw)),
         "pass1_16slots_K262144": (K_P1, True, pass1(model, params, cap,
                                                      **okw)),
         "kernel1_K262144": (K_P1, True, lambda: exact(
@@ -316,7 +324,7 @@ def time_checkout(root: str, rounds: int) -> dict:
 
 def untouched_sass(library: str, dump: str) -> dict:
     """The SASS of each instance of ``UNTOUCHED_KERNELS`` in the built
-    ``library``, by short name (e.g.
+    ``library`` but those of ``REDESIGNED``, by short name (e.g.
     ``fused_field_kernel<MlpDeriv>``, ``fused_exact_group_kernel<8>``); the
     whole ``cuobjdump -sass`` output is written to ``dump``.  The kernels
     live in an anonymous namespace, whose mangled name differs between
@@ -336,12 +344,16 @@ def untouched_sass(library: str, dump: str) -> dict:
         m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?", head)
         if m:
             arg = m.group(2) or m.group(3)
+            name = m.group(1) + (f"<{arg}>" if arg else "")
+            if name in REDESIGNED:
+                continue
             body = re.sub(r"_GLOBAL__N__\w+", "", body)
             # cuobjdump pads each line to the module's widest instruction,
-            # which other kernels set: compare the lines' words
-            sass[m.group(1) + (f"<{arg}>" if arg else "")] = (
-                "\n".join(" ".join(line.split())
-                          for line in body.splitlines()))
+            # which other kernels set: compare the lines' words; the last
+            # function of the dump is followed by a line of dots
+            sass[name] = "\n".join(
+                " ".join(line.split()) for line in body.splitlines()
+                if line.strip(". \t"))
     if len(sass) != N_UNTOUCHED:
         raise RuntimeError(f"{library}: found the SASS of {sorted(sass)}, "
                            f"not of the {N_UNTOUCHED} kernels compared")

@@ -25,10 +25,28 @@ only their times mean something.
   arithmetic stays);
 - ``blocks_8``, ``blocks_10``: one rollout a thread with 8 or 10 blocks of
   64 an SM asked of the compiler (``__launch_bounds__``), at most 128 or
-  102 registers instead of 168, for more warps in flight.
+  102 registers instead of 168, for more warps in flight;
+- BF exact pass 1's designs (the base, ``fused_rng_bf_kernel``, has both
+  the constant quotients and the branch-free stream a step ahead):
+  ``bf_parent``, the parent's kernel (``fused_rng_kernel<BfDeriv>``);
+  ``bf_quotients``, the constant quotients only; ``bf_ahead``, the stream
+  a step ahead only; ``bf_stream_ieee``, the base with the stream's IEEE
+  quotient, root and quadrant switch (their branches); ``bf_blocks_8``,
+  ``bf_blocks_10``, ``bf_blocks_11``, ``bf_blocks_12``,
+  ``bf_blocks_16``: the base at least 8, 10, 11, 12 or 16 blocks of 64 an
+  SM (at most 128, 96, 88, 80 or 64 registers).  These are exact: their
+  BF pass-1 outputs must equal the base's bit for bit.  ``bf_no_guard``
+  takes div_const in every step (no IEEE fallback under the factor
+  floor), which is not exact: it shows the guard's cost and the loop's
+  SASS without the fallback's divisions.
 
 Each variant's SASS of exact pass 1 (``fused_rng_kernel<MlpDeriv>``) is
-counted by opcode (``pass1_sass``): how the weights are read.  Kernel 2
+counted by opcode (``pass1_sass``): how the weights are read.  BF exact
+pass 1 is timed at K=262144, gaussian and OU, in every variant, and the
+kernel that its launcher runs is described by its registers and spills
+(ptxas) and a step of its stream loop (``bf_pass1_sass``:
+``sass_chain.loop_mix``, with ``FCHK``, ``MUFU.RCP``, ``BSSY`` and
+``BSYNC``).  Kernel 2
 (``chain_sweep``) is timed at each K of ``CHAIN_K``, the MLP and the BF
 model, in each of its geometries (``rk.CHAIN_GEOMETRIES``) with the base
 library, its states and u_seq held bit for bit against one rollout a
@@ -84,6 +102,8 @@ _STEP_TOP = ("    weights_barrier();\n    float u0, u1, du0, du1;\n"
              "    perturb(s, U_s, noise(t), t, zero_rollout, pure_noise, u0, "
              "u1, du0, du1);\n    if (kStoreU && active) {")
 _CONST_W = "__constant__ float c_w[kNumMlpWeights];\n\n"
+_BF_BOUNDS = "__launch_bounds__(kBlock, kBfPass1Blocks)"
+BF_FORMS = {"pass1_bf_K262144": "gaussian", "pass1_bf_ou_K262144": "ou"}
 
 
 def _const_deriv(name, w):
@@ -178,6 +198,15 @@ VARIANTS = {
          f"__launch_bounds__(kBlock, {n})\n{kernel}(")
         for kernel in ("fused_exact_kernel", "fused_rng_kernel")]
        for n in (8, 10)},
+    "bf_parent": [("fused_rng_bf_kernel<<<", "fused_rng_kernel<BfDeriv><<<")],
+    "bf_quotients": [("auto noise = stream_noise_ahead(r, key, k, s.T);",
+                      "auto noise = stream_noise(r, key, k);")],
+    "bf_ahead": [("rollout_cost<false, BfConstDivDeriv>(",
+                  "rollout_cost<false, BfDeriv>(")],
+    "bf_stream_ieee": [("w = stream_normals<true>(", "w = stream_normals(")],
+    "bf_no_guard": [("bf_phi<IeeeQuotient>(", "bf_phi<ConstQuotient>(")],
+    **{f"bf_blocks_{n}": [(_BF_BOUNDS, f"__launch_bounds__(kBlock, {n})")]
+       for n in (8, 10, 11, 12, 16)},
 }
 
 
@@ -203,6 +232,33 @@ def pass1_sass(library) -> dict:
         count["FFMA c[]"] = sum(o == "FFMA" and "c[" in a for o, a in ins)
         return count
     raise RuntimeError(f"{library}: no fused_rng_kernel<MlpDeriv>")
+
+
+def bf_pass1_sass(name, library) -> dict:
+    """BF exact pass 1 as variant ``name`` builds it (the kernel that its
+    launcher runs): its registers and spill bytes (the variant's ptxas
+    log) and a step of its stream loop (``sass_chain.loop_mix``)."""
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.tools import sass_chain
+
+    kernel = (r"\dfused_rng_kernelI\w*?BfDeriv" if name == "bf_parent"
+              else r"\dfused_rng_bf_kernel")
+    log = library.with_suffix(".log").read_text()
+    regs = spill = None
+    for entry in re.split(r"Compiling entry function", log)[1:]:
+        if re.search(kernel, entry.split("\n", 1)[0]):
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+            spill = int(m.group(1)) + int(m.group(2)) if m else None
+            m = re.search(r"Used (\d+) registers", entry)
+            regs = int(m.group(1)) if m else None
+    objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([objdump, "-sass", str(library)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    return {"registers": regs, "spill_bytes": spill,
+            "loop": sass_chain.loop_mix(sass_chain.instructions(sass,
+                                                                kernel))}
 
 
 @contextlib.contextmanager
@@ -256,14 +312,20 @@ def main() -> int:
     timed = exact_forms(dev)
 
     # the source variants, in the launcher's geometry, two rounds in turns
-    ms = {name: {"kernel1_K1920": [], "pass1_gaussian_K262144": []}
-          for name in libs}
+    forms = (("kernel1_K1920", 40), ("pass1_gaussian_K262144", 5),
+             *((f, 5) for f in BF_FORMS))
+    ms = {name: {f: [] for f, _ in forms} for name in libs}
+    bf_out = {}
     for _ in range(2):
         for name, so in libs.items():
             use_library(so)
-            for form, reps in (("kernel1_K1920", 40),
-                               ("pass1_gaussian_K262144", 5)):
-                ms[name][form].append(events(timed[form][2]()[0], reps))
+            for form, reps in forms:
+                launch, out = timed[form][2]()
+                ms[name][form].append(events(launch, reps))
+                if form in BF_FORMS:
+                    torch.cuda.synchronize()
+                    bf_out[name, form] = [t.clone() for t in out]
+                del launch, out
     variants = {name: {f: statistics.mean(v) for f, v in m.items()}
                 for name, m in ms.items()}
     sass = {name: pass1_sass(so) for name, so in libs.items()}
@@ -272,8 +334,24 @@ def main() -> int:
               f"{r['kernel1_K1920']:.4f} ms, exact pass 1 K={K_P1} "
               f"{r['pass1_gaussian_K262144']:.4f} ms ({card}); pass 1 SASS "
               f"{sass[name]}")
+    # BF exact pass 1's designs: exact, so bit equal to the base's
+    ok, bf_sass = True, {}
+    for name, so in libs.items():
+        if not (name == "base" or name.startswith("bf_")):
+            continue
+        bf_sass[name] = bf_pass1_sass(name, so)
+        same = all(torch.equal(a, b) for f in BF_FORMS for a, b in zip(
+            bf_out[name, f], bf_out["base", f]))
+        ok &= same or name == "bf_no_guard"
+        variants[name]["bf_bit_equal_to_base"] = same
+        print(f"[exact variants] {name}: BF exact pass 1 K={K_P1} "
+              + ", ".join(f"{label} {variants[name][f]:.4f} ms"
+                          for f, label in BF_FORMS.items())
+              + f"; bit equal to the base: {same}; {bf_sass[name]} "
+              f"({card})")
 
-    chain, ok = chain_sweep(libs["base"], dev, card)
+    chain, same = chain_sweep(libs["base"], dev, card)
+    ok &= same
     geometries, crossover = {}, {}
     if not args.no_geometries:
         use_library(libs["base"])
@@ -281,6 +359,7 @@ def main() -> int:
         ok &= same
         crossover = crossover_sweep(dev, card)
     print(json.dumps({"card": card, "variants": variants, "pass1_sass": sass,
+                      "bf_pass1": bf_sass,
                       "chain": chain, "geometries": geometries,
                       "crossover": crossover, "bit_equal": ok}))
     return 0 if ok else 1

@@ -68,7 +68,8 @@ VARIANTS = {
 def build_variants(out_dir, variants=None) -> dict:
     """Build every variant's library (``variants``: name -> [(text, its
     replacement), ...], ``VARIANTS`` by default) at once; returns name ->
-    path."""
+    path.  Each one's compiler output (ptxas -v) is kept beside it, in
+    ``<name>.log``."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
@@ -88,6 +89,7 @@ def build_variants(out_dir, variants=None) -> dict:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
+        so.with_suffix(".log").write_text(log)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
     return {name: so for name, (so, _) in procs.items()}

@@ -21,7 +21,9 @@ latencies, not a roofline and not a measurement.
 replays the capacity mode's noise stream (the loop whose body holds the
 most Threefry rotations, ``SHF.L.W``, 20 a step), by the pipe that issues
 them: every instruction takes one of a scheduler's issue slots, the integer
-ones (``INT_OPS``) one of the SM's 64 INT32 lanes a thread.
+ones (``INT_OPS``) one of the SM's 64 INT32 lanes a thread; and a step's
+``FCHK``, ``MUFU.RCP``, ``BSSY`` and ``BSYNC`` (``COUNTED_OPS``), the marks
+of IEEE divisions and of branches that end basic blocks.
 
 Usage, on a ``cuobjdump -sass`` dump::
 
@@ -51,6 +53,10 @@ INT_OPS = ("IADD3", "IADD", "IADD32I", "VIADD", "VIADDMNMX", "IABS",
            "IMNMX", "ISETP", "ISCADD", "LOP3", "LOP", "LOP32I", "SHF", "SHL",
            "SHR", "LEA", "PRMT", "SEL", "BMSK", "BREV", "FLO", "POPC")
 ROTATIONS_A_STEP = 20                # Threefry-2x32-20: one SHF.L.W a round
+# opcodes that loop_mix counts a step (an opcode with its leading
+# modifiers): the IEEE division's slow-path check and reciprocal, and the
+# reconvergence marks of a branch that may diverge
+COUNTED_OPS = ("FCHK", "MUFU.RCP", "BSSY", "BSYNC")
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?"
                    r"([A-Z][A-Z0-9_]*)((?:\.[\w]+)*)\s*([^;]*);")
@@ -164,8 +170,9 @@ def loop_mix(ins: list) -> dict:
     smallest such), its steps a pass (those rotations over
     ``ROTATIONS_A_STEP``), and a step's instructions and integer ones
     (``INT_OPS``), all of them and those not behind a forward branch (which
-    every step issues): {"steps", "instructions", "int",
-    "instructions_always", "int_always"}."""
+    every step issues), and each of ``COUNTED_OPS`` in the whole body:
+    {"steps", "instructions", "int", "instructions_always", "int_always",
+    "ops"}."""
     def rotations(lo, hi):
         return sum(op == "SHF" and ".L.W" in mods
                    for _, _, op, mods, _ in ins[lo:hi + 1])
@@ -194,7 +201,10 @@ def loop_mix(ins: list) -> dict:
             "int": sum(is_int) / steps,
             "instructions_always": sum(always) / steps,
             "int_always": sum(a and b for a, b in zip(always, is_int))
-            / steps}
+            / steps,
+            "ops": {name: sum((ins[i][2] + ins[i][3]).startswith(name)
+                              for i in body) / steps
+                    for name in COUNTED_OPS}}
 
 
 def pipe_bounds(mix: dict, K: int, T: int, num_sms: int, clock_mhz: float,

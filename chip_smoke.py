@@ -17,9 +17,10 @@ every CUDA kernel of these paths, in every form, against its plain PyTorch
 version.  Phases (any failure exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require sixteen kernels (kernels A, B, 3 and both modes
-   of pass 1 in an MLP and a BF instance each, pass 2, kernel A in each
-   MLP lane group, and kernel B one rollout a warp, MLP and BF) and zero
+   (one nvcc), require seventeen kernels (kernels A, B, 3 and both modes
+   of pass 1 in an MLP and a BF instance each, BF exact pass 1 being
+   ``fused_rng_bf_kernel``, pass 2, kernel A in each MLP lane group,
+   kernel B one rollout a warp, MLP and BF, and phase 19's check) and zero
    spill bytes in every one
    (ptxas -v); print the four field instances'
    registers, dynamic shared memory and blocks an SM (at least 8 warps),
@@ -73,7 +74,10 @@ version.  Phases (any failure exits non-zero):
    against the plain version;
 10. timing of both passes at K=262144 against their plain versions and
     bounds (with pass 1's launch geometry; the integer-pipe and issue
-    floors of a step of their stream loop in the SASS printed beside),
+    floors of a step of their stream loop in the SASS printed beside,
+    with the step's FCHK, MUFU.RCP, BSSY and BSYNC), BF exact pass 1
+    gaussian and OU with its registers, warps an SM, waves and floors
+    (outside forward branches and over the whole loop body),
     pass 2 on the nominal weights, the closed loop's tick's and dense
     ones, each with its share of all-zero warps, of kernel A at the same
     K, and
@@ -117,7 +121,9 @@ version.  Phases (any failure exits non-zero):
     rollouts hit them and some do not, kernel A (K=1920), kernel 3
     (K=65536) and pass 1 on both surfaces (K=262144) against their plain
     versions (the exact-map forms in every launch geometry), and the BF
-    forms of kernel 3 and pass 1 with the strong theta; pass 1 bit for bit
+    forms of kernel 3 and pass 1 with the strong theta; BF exact pass 1
+    without circles, seeded and strong theta, gaussian and OU, at
+    K=262144, at K=262144-13 and on a shard's slice; pass 1 bit for bit
     the eps-reading kernel fed the plain stream;
     the field obstacle forms also at K=65536-19 and on a shard's slice;
 18. the obstacle path: a live ``CostParams.obstacles`` reaching the kernel,
@@ -125,9 +131,15 @@ version.  Phases (any failure exits non-zero):
     kernel B per solve), 20 ticks of each other BF and obstacle form,
     every form's timing against its plain version and bound (BF kernel B
     in both geometries, with its latency floor; BF kernel A on random
-    noise and on phase 16's tick), the MLP kernels without
-    obstacles re-timed in the same run, and a 50-tick torch.profiler trace
-    of the BF path.
+    noise and on phase 16's tick; BF exact pass 1 also OU), the MLP
+    kernels without obstacles re-timed in the same run, and a 50-tick
+    torch.profiler trace of the BF path;
+19. BF exact pass 1's branch-free arithmetic, on every input: its
+    quotients by the 16 constant divisors (``div_const`` with its guard)
+    against IEEE division for all 2^32 float32 bit patterns, and its
+    stream's quotient and square root against ``__fdiv_rn`` and
+    ``__fsqrt_rn`` for all 2^23 uniforms the stream forms; 0 mismatches,
+    the seconds printed.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, and every
@@ -341,6 +353,8 @@ def exact_instance(geom, rng: bool, bf: bool) -> str:
     ``geom`` launches, by its short name."""
     if geom.group > 1:
         return f"fused_exact_group_kernel<{geom.group}>"
+    if rng and bf:
+        return "fused_rng_bf_kernel"
     return (f"{'fused_rng' if rng else 'fused_exact'}_kernel"
             f"<{'Bf' if bf else 'Mlp'}>")
 
@@ -355,8 +369,9 @@ def geometry_line(rk, tag, launch, rng: bool, bf: bool, card):
     print(f"[{tag}] geometry {geometry_label(g)}, grid {g.grid}: {kern}, "
           f"{PTXAS.get(kern, '?')} registers (ptxas), {info['registers']} "
           f"(runtime), {info['local_bytes']} bytes of local memory, "
-          f"{info['blocks_per_sm']} blocks an SM, {info['waves']:.2f} waves "
-          f"({card})")
+          f"{info['blocks_per_sm']} blocks "
+          f"({info['blocks_per_sm'] * g.block // 32} warps) an SM, "
+          f"{info['waves']:.2f} waves ({card})")
 
 
 def drive_turns(drive_oval, what, chain, old, new, solver, params,
@@ -563,14 +578,17 @@ def chain_floor(sass: str, bf: bool, geom, clock_mhz: float) -> dict:
 
 
 def stream_mix(sass: str) -> dict:
-    """A step of the stream loop of exact pass 1 (MLP) and of pass 2 in the
-    built library's SASS, by pipe (``tools/sass_chain.loop_mix``)."""
+    """A step of the stream loop of exact pass 1 (MLP and BF) and of pass 2
+    in the built library's SASS, by pipe, with its IEEE divisions' and
+    branches' marks (``tools/sass_chain.loop_mix``)."""
     from autorally_tpu_torch.tools import sass_chain
 
     return {name: sass_chain.loop_mix(sass_chain.instructions(sass, regex))
             for name, regex in (
                 ("pass1_mlp", r"\dfused_rng_kernelI\w*?MlpDeriv"),
+                ("pass1_bf", r"\dfused_rng_bf_kernel"),
                 ("pass2", r"\dweighted_update_kernel"))}
+
 
 
 def ptxas_report(log: str):
@@ -581,7 +599,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
-                              r"(Mlp|Bf)Deriv)", m.group(1))
+                              r"(Mlp|Bf)Deriv|IJ)", m.group(1))
             arg = short and (short.group(2) or short.group(3))
             name = (short.group(1) + (f"<{arg}>" if arg else "") if short
                     else m.group(1))
@@ -958,7 +976,9 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
               f"{m['instructions']:.1f} instructions, {m['int']:.1f} of them "
               f"integer; {m['instructions_always']:.1f} and "
               f"{m['int_always']:.1f} outside forward branches ({m['steps']} "
-              f"steps a pass of the loop; SASS of the built library)")
+              f"steps a pass of the loop); a step's "
+              + ", ".join(f"{op} {n:.1f}" for op, n in m["ops"].items())
+              + " (SASS of the built library)")
     for sname, c in cap_cfg.items():
         ou = OU_OPS if sname == "ou" else 0
         launch1, (kc, _), ctx = rk.prepare_fused_rng_costs(
@@ -1010,6 +1030,39 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
               f"ms; its SASS's floors at K={KC}: integer pipe "
               f"{floors2['int_ms']:.5f} ms, issue {floors2['issue_ms']:.5f} "
               f"ms ({sms} SMs at {clock:.0f} MHz) ({card})")
+
+    # BF exact pass 1 (fused_rng_bf_kernel) at the same K: its floors from
+    # the instructions outside forward branches and from the whole loop
+    # body (the draws a step ahead and the rare IEEE step sit behind
+    # forward branches)
+    bsolver, bparams, _, _, _ = drive_oval.build(model="bf", rollouts=KB,
+                                                 device=dev)
+    n_bf = rk.KERNEL_BF_WEIGHTS
+    floors_bf = {b: sass_chain.pipe_bounds(mix["pass1_bf"], KC, T_, sms,
+                                           clock, branched=b)
+                 for b in (False, True)}
+    for sname, kw in SAMPLERS.items():
+        c = bsolver.cfg.replace(num_rollouts=KC, kernel_rng=True, **kw)
+        launch_bf, _, _ = rk.prepare_fused_rng_costs(
+            bsolver.model, bparams, c, cost_params, costmap, start, U, key)
+        ms_bf = cuda_ms(launch_bf, 20)
+        geometry_line(rk, f"timing BF pass 1 {sname}", launch_bf, True, True,
+                      card)
+        bytes_bf = (4 * (T_ * 2 + n_bf + 7 + 4 + 2 * KC)
+                    + 4 * min(costmap.height * costmap.width,
+                              2 * KC * (T_ - 1)) + 16)
+        bound_bf = bound(bytes_bf, (BF_STEP_OPS + STREAM_OPS
+                                    + (OU_OPS if sname == "ou" else 0))
+                         * KC * T_)
+        print(f"[timing] BF pass 1 fused_rng_costs_bf {sname} K={KC} "
+              f"T={T_}: {ms_bf:.4f} ms, bound {bound_bf[0]:.5f} ms "
+              f"({bound_bf[1]}); its SASS's floors outside forward "
+              f"branches: integer pipe {floors_bf[False]['int_ms']:.5f} ms, "
+              f"issue {floors_bf[False]['issue_ms']:.5f} ms; over the whole "
+              f"loop body: integer pipe {floors_bf[True]['int_ms']:.5f} ms, "
+              f"issue {floors_bf[True]['issue_ms']:.5f} ms ({sms} SMs at "
+              f"{clock:.0f} MHz) ({card})")
+        del launch_bf
 
     # kernel A at the same K on the plain stream: pass 1 less the generator
     # (and plus the eps reads and u_seq writes)
@@ -1428,11 +1481,12 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
 
     def pass1_forms(tag, name, form, mdl, prm, ccfg, s0, surf, kw, limit_b,
                     k_offset=0, k_local=KC):
-        """Pass 1 on ``surf`` (gaussian) for the ``k_local`` rollouts from
-        ``k_offset`` of K=262144: bit for bit the eps-reading kernel fed
-        the plain stream, against the plain cost along kernel 2's
-        trajectories on that stream (``limit_b`` rollouts may differ; None:
-        ``agreement``'s rule) and against the whole plain version (1 %)."""
+        """Pass 1 on ``surf`` (``ccfg``'s sampler) for the ``k_local``
+        rollouts from ``k_offset`` of K=262144: bit for bit the eps-reading
+        kernel fed the plain stream, against the plain cost along kernel
+        2's trajectories on that stream (``limit_b`` rollouts may differ;
+        None: ``agreement``'s rule) and against the whole plain version
+        (1 %)."""
         c = ccfg.replace(num_rollouts=KC, kernel_rng=True)
         kc, kx, ctx = rk.fused_rng_costs(mdl, prm, c, cost_params, surf, s0,
                                          U, key, k_offset=k_offset,
@@ -1740,6 +1794,22 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     del eps3
     pass1_forms(f"bf obstacles pass 1 K={KC}", "ahead", "fused_rng_costs_bf",
                 bmodel, strong, bcfg, slow_start, costmap, bokw, 0)
+    # BF exact pass 1 without circles: the seeded and the strong theta,
+    # gaussian and OU, at K=262144, at a K that is not a multiple of 32 and
+    # on a shard's slice (k_offset != 0), each bit for bit the eps-reading
+    # BF kernel 1 fed the plain stream
+    for theta_name, prm in (("seeded", bparams), ("strong", strong)):
+        for sname, kw in SAMPLERS.items():
+            pass1_forms(f"bf {theta_name} pass 1 K={KC}", sname,
+                        "fused_rng_costs_bf", bmodel, prm,
+                        bcfg.replace(**kw), start, costmap, {}, None)
+    pass1_forms(f"bf seeded pass 1 K={KC - 13}", "ragged_K",
+                "fused_rng_costs_bf", bmodel, bparams, bcfg, start, costmap,
+                {}, None, k_local=KC - 13)
+    pass1_forms(f"bf strong pass 1 K={SHARD[1]} k_offset={SHARD[0]}", "ou",
+                "fused_rng_costs_bf", bmodel, strong,
+                bcfg.replace(**SAMPLERS["ou"]), start, costmap, {}, None,
+                k_offset=SHARD[0], k_local=SHARD[1])
     pass1_forms(f"bf obstacles pass 1 field K={KC}", "ahead",
                 "fused_rng_costs_field_bf", bmodel, strong, bcfg, slow_start,
                 field, bokw, None)
@@ -1892,6 +1962,9 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     for form, mdl, prm, c, surf, kw, step, n_w in (
             ("fused_rng_costs_bf", bmodel, bparams, bcap, costmap, {},
              BF_STEP_OPS, n_bf),
+            ("fused_rng_costs_bf_ou", bmodel, bparams,
+             bcap.replace(**SAMPLERS["ou"]), costmap, {},
+             BF_STEP_OPS + OU_OPS, n_bf),
             ("fused_rng_costs_obstacles", model, params, ocap, costmap, fkw,
              mlp_step, n_mlp),
             ("fused_rng_costs_field_bf", bmodel, bparams, bcap, field, {},
@@ -1983,6 +2056,8 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
                 else {})})
         if form == "fused_exact_rollout_cost_bf":
             kernels[-1]["inputs_ms"] = bf1_ms
+        if form == "fused_rng_costs_bf":
+            kernels[-1]["ou_ms"] = times["fused_rng_costs_bf_ou"][0]
     return kernels, latency
 
 
@@ -2033,10 +2108,11 @@ def main() -> int:
         for name, regs, spill in report:
             print(f"[build] {name}: {regs} registers, {spill} bytes of "
                   f"spill stores and loads")
-        # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain),
-        # pass 2, kernel 1 in its lane groups (the MLP), and kernel 2 one
-        # rollout a warp (MLP and BF)
-        n_kernels = 11 + len(rk.LANE_GROUPS) + 2
+        # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain;
+        # BF exact pass 1 is fused_rng_bf_kernel), pass 2, kernel 1 in its
+        # lane groups (the MLP), kernel 2 one rollout a warp (MLP and BF),
+        # and the constant quotients' check (phase 19)
+        n_kernels = 11 + len(rk.LANE_GROUPS) + 2 + 1
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -2305,6 +2381,21 @@ def main() -> int:
         drive_oval, model, params, cost_params, costmap, field, cases, eps,
         U, start, slow_start, card)
 
+    # -- phase 19: BF exact pass 1's constant quotients, every input ------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mismatches = rk.const_quotient_check()
+    quotient_s = time.perf_counter() - t0
+    print(f"[quotients] div_const with its guard against __fdiv_rn, all "
+          f"2^32 float32 bit patterns for each of {len(mismatches) - 2} "
+          f"divisors, and the branch-free stream's quotient and root "
+          f"against __fdiv_rn and __fsqrt_rn for all 2^23 uniforms: "
+          f"mismatches {mismatches} ({sum(mismatches.values())} in all), "
+          f"{quotient_s:.2f} s ({card})")
+    check(len(mismatches) == 18 and not any(mismatches.values()),
+          f"BF pass 1's branch-free arithmetic differs from IEEE "
+          f"division or root: {mismatches}")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -2343,9 +2434,20 @@ def main() -> int:
                 "fused_rollout_cost") else "fused_rng_field_kernel") + (
                 f"<{model}>")
         elif name.startswith("fused_rng_costs"):
+            geom = rk._geometry(KC, 1, rk.EXACT_BLOCK)
             k["design"] = ("one rollout a thread, blocks of %d, weights in "
                            "shared memory" % rk.EXACT_BLOCK)
-            k["instance"] = f"fused_rng_kernel<{model}>"
+            k["instance"] = exact_instance(geom, True, "_bf" in name)
+            if "_bf" in name:
+                info = rk.exact_kernel_info(True, True, geom, T)
+                k["design"] += (
+                    "; the basis functions' quotients by constants without "
+                    "the division's slow path (BfConstDivDeriv), the stream "
+                    "drawn a step ahead (StreamNoiseAhead); %d registers, "
+                    "%d warps an SM, %.2f waves at K=%d" % (
+                        info["registers"],
+                        info["blocks_per_sm"] * rk.EXACT_BLOCK // 32,
+                        info["waves"], KC))
         elif name == "fused_rng_numer":
             k["design"] = ("a thread a rollout, fixed-order block sums, "
                            "blocks of %d" % rk.UPDATE_BLOCK)
