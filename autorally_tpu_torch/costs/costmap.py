@@ -55,6 +55,14 @@ class Costmap:
                    *(torch.as_tensor(c, device=dev) for c in cols),
                    tuple(float(v) for c in cols for v in c))
 
+    @property
+    def bounds(self) -> Tuple[Tuple[float, float], Tuple[float, float]]:
+        """((xmin, xmax), (ymin, ymax)) world bounds: the inverse of the
+        axis-aligned transform that :func:`make_costmap` builds."""
+        r1, r2 = self.transform[0], self.transform[4]
+        xmin, ymin = -self.transform[6] / r1, -self.transform[7] / r2
+        return (xmin, xmin + 1.0 / r1), (ymin, ymin + 1.0 / r2)
+
     def world_to_norm(self, x: torch.Tensor, y: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Projective transform of world (x, y) to normalized map coords
@@ -114,3 +122,18 @@ def make_costmap(data: np.ndarray, x_bounds, y_bounds, device=None) -> Costmap:
     return Costmap.build(data, *_bounds_transform(
         float(x_bounds[0]), float(x_bounds[1]),
         float(y_bounds[0]), float(y_bounds[1])), device=device)
+
+
+def save_costmap(cm_data: np.ndarray, x_bounds, y_bounds, ppm: float,
+                 path: str) -> None:
+    """Write a (H, W, 4) costmap in the reference ``.npz`` format, which
+    :func:`load_costmap` reads back."""
+    cm_data = np.asarray(cm_data)
+    np.savez(
+        path,
+        xBounds=np.asarray(x_bounds, dtype=np.float32),
+        yBounds=np.asarray(y_bounds, dtype=np.float32),
+        pixelsPerMeter=np.asarray([ppm], dtype=np.float32),
+        **{f"channel{i}": np.ascontiguousarray(cm_data[..., i]).reshape(-1)
+           for i in range(4)},
+    )

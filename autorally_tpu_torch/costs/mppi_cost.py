@@ -40,6 +40,19 @@ class MPPICost:
         err = ux - p.desired_speed
         return p.speed_coeff * (torch.abs(err) if self.l1_cost else err * err)
 
+    @staticmethod
+    def footprint_track_cost(costmap: Costmap, x, y, yaw) -> torch.Tensor:
+        """Max of the front/back channel-0 samples at one vehicle footprint:
+        the exact points the crash latch of :meth:`track_cost_c` tests
+        (``getTrackCost``, costs.cu:359-393).  The degeneracy guard's
+        position gate (``runtime/controller.py``) reads it, so that the
+        gate cannot drift from the latch.  NaN coordinates sample texel
+        (0, 0), as every lookup does."""
+        c, s = torch.cos(yaw), torch.sin(yaw)
+        pts = costmap.lookup_ch0(torch.stack([x + FRONT_D * c, x + BACK_D * c]),
+                                 torch.stack([y + FRONT_D * s, y + BACK_D * s]))
+        return torch.max(pts)
+
     def track_cost_c(self, p: CostParams, costmap: Costmap, x, y, yaw,
                      crash) -> Tuple[torch.Tensor, torch.Tensor]:
         """``getTrackCost`` (costs.cu:359-393): channel 0 sampled at the

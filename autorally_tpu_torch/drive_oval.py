@@ -61,20 +61,26 @@ def oval_costmap(device=None):
 
 def build(rollouts: int = None, desired_speed: float = 6.0,
           model_path: str = None, device=None, neural_costmap: bool = False,
-          fit_kwargs=None, model: str = "nn", obstacles=None):
+          fit_kwargs=None, model: str = "nn", obstacles=None, cfg=None,
+          cost_params=None):
     """The demo's (solver, params, cost_params, costmap, note): the
     ``path_integral_nn`` configuration (``model="nn"``, K=1920) or the
     ``path_integral_bf`` one (``model="bf"``, K=2560) on the 560 x 800 oval
     map, or, with ``neural_costmap``, on a field fitted to it on the device
     (``fit_neural_costmap(costmap, **fit_kwargs)``; the note gives the
     fit's quality).  ``obstacles``: circles [[x, y, r], ...] priced by an
-    ``ObstacleCost`` (16 slots, the demo's coefficients)."""
+    ``ObstacleCost`` (16 slots, the demo's coefficients).  ``cfg`` and
+    ``cost_params``, when given, replace the demo's (T=100 and K
+    ``rollouts``; ``desired_speed``): ``run_tube_mppi`` passes a launch
+    file's or its own."""
     dev = resolve_device(device)
     cls, default_k, default_path, init_name = MODELS[model]
     rollouts = default_k if rollouts is None else rollouts
     model_path = default_path if model_path is None else model_path
-    cfg = MPPIConfig(num_rollouts=rollouts, num_timesteps=100, hz=50)
-    cost_params = CostParams(desired_speed=desired_speed)
+    if cfg is None:
+        cfg = MPPIConfig(num_rollouts=rollouts, num_timesteps=100, hz=50)
+    if cost_params is None:
+        cost_params = CostParams(desired_speed=desired_speed)
     costmap = oval_costmap(dev)
     fit_note = ""
     if neural_costmap:

@@ -81,6 +81,30 @@ class NeuralNetDynamics(Dynamics):
         return self._hold(params_np["weights"], params_np["biases"],
                           params_np["control_rngs"])
 
+    @classmethod
+    def from_npz(cls, path: str, dt: float,
+                 control_ranges=((-0.99, 0.99), (-0.99, 0.65)),
+                 negate_yaw_der: bool = True, device=None):
+        """A model whose layer spec is inferred from the ``.npz``, with its
+        params loaded: ``(model, params)``.  The spec comes from element
+        counts (a bias's size is its layer's fan-out), so flat or oddly
+        shaped weight arrays, which :meth:`load_params` reshapes, infer the
+        spec it loads (e.g. 6-64-64-64-64-4; the CUDA kernels take only
+        ``KERNEL_LAYERS``, other specs run the plain versions)."""
+        data = np.load(path)
+        layers = []
+        i = 1
+        while f"dynamics_W{i}" in data.files:
+            out = int(np.asarray(data[f"dynamics_b{i}"]).size)
+            if not layers:
+                layers.append(
+                    int(np.asarray(data[f"dynamics_W{i}"]).size) // out)
+            layers.append(out)
+            i += 1
+        model = cls(dt, layers=layers, control_ranges=control_ranges,
+                    negate_yaw_der=negate_yaw_der, device=device)
+        return model, model.load_params(path)
+
     def load_params(self, path: str) -> Params:
         """Load ``dynamics_W{i}/b{i}`` from the reference ``.npz`` (float64
         (out, in) -> float32 (in, out)), as ``neural_net_model.cu:73-106``."""
@@ -101,6 +125,30 @@ class NeuralNetDynamics(Dynamics):
             out[f"dynamics_W{i + 1}"] = W.detach().cpu().double().numpy().T
             out[f"dynamics_b{i + 1}"] = b.detach().cpu().double().numpy()
         np.savez(path, **out)
+
+    def update_model(self, params: Params, description: Sequence[int],
+                     flat_data) -> Params:
+        """Hot-swap the weights from a flat buffer (the reference's live
+        ``neuralNetModel`` topic, ``neural_net_model.cu:152-180``): every
+        weight matrix first, row-major (out, in), then every bias.  Returns
+        new params with the other entries of ``params`` kept, or ``params``
+        itself when ``description`` is not this model's layer spec.  The
+        held weights are left as they are.  The kernels' packed weights
+        follow the new tensors (``rollout_kernel._pack_weights`` keys its
+        cache on them)."""
+        if tuple(int(n) for n in description) != self.layers:
+            return params
+        flat = np.asarray(flat_data, dtype=np.float32).reshape(-1)
+        weights, biases = [], []
+        stride = 0
+        for fan_in, fan_out in zip(self.layers[:-1], self.layers[1:]):
+            W = flat[stride:stride + fan_out * fan_in].reshape(fan_out, fan_in)
+            weights.append(self._tensor(np.ascontiguousarray(W.T)))
+            stride += fan_out * fan_in
+        for fan_out in self.layers[1:]:
+            biases.append(self._tensor(flat[stride:stride + fan_out]))
+            stride += fan_out
+        return {**params, "weights": weights, "biases": biases}
 
     @property
     def num_params(self) -> int:

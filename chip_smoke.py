@@ -12,9 +12,11 @@ a 34-64-64-1 field fitted to that map on the card (``bench.py``'s
 ``neural_K65536`` and ``rng_K262144``) — the basis-function path —
 BASELINE config #2 (``path_integral_bf``), the 25-basis-function model with
 seeded theta at K=2560 — and the obstacle path — the main path with an
-``ObstacleCost`` of 16 slots whose circles move every tick — and checks
-every CUDA kernel of these paths, in every form, against its plain PyTorch
-version.  Phases (any failure exits non-zero):
+``ObstacleCost`` of 16 slots whose circles move every tick — and the tube
+loop — the main path's configuration in ``run_tube_mppi``'s two
+controllers with DDP gains — and checks every CUDA kernel of these paths,
+in every form, against its plain PyTorch version.  Phases (any failure
+exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
    (one nvcc), require seventeen kernels (kernels A, B, 3 and both modes
@@ -139,11 +141,26 @@ version.  Phases (any failure exits non-zero):
     against IEEE division for all 2^32 float32 bit patterns, and its
     stream's quotient and square root against ``__fdiv_rn`` and
     ``__fsqrt_rn`` for all 2^23 uniforms the stream forms; 0 mismatches,
-    the seconds printed.
+    the seconds printed;
+20. the tube loop (``run_tube_mppi``: two controllers at K=1920 solving
+    every tick, DDP gains on, a lockstep ``SyntheticPlant`` at 50 Hz):
+    (a) the DDP on a warmed-up tick's inputs, captured bit for bit the
+    eager run and within DDP_CPU_REL of the port's CPU run, timed captured,
+    eager and as two overlapped runs, the eager run's launches counted by
+    the profiler; (b) 200 ticks with exactly 2 launches of kernels A and B
+    a tick, no plain-version call, finite controls, the car accelerating
+    and moving, status 0, the arbitration's outcomes and the tick's p50 /
+    p99 split into the solves, the DDP runs, the plant step and the rest;
+    (c) a weight push (the next solve bit for bit a fresh solver's on the
+    new weights, the next DDP run an eager run's on them), a cost push
+    reaching both controllers and a throttle cut zeroing the DDP's
+    throttle limit, mid-run; (d) 20 ticks with the BF model (K=2560), its
+    DDP captured bit for bit its eager run.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
-(each kernel with its CUDA instance and its geometry or design, and every
-compiled instance with its registers), and as its last line
+(each kernel with its CUDA instance and its geometry or design, every
+compiled instance with its registers, the paths' latencies and the tube's
+tick p50 / p99), and as its last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
 
@@ -246,6 +263,24 @@ BF_SUSPECT_ROWS = {2: 1200.0, 3: 1.44e6, 4: 1.728e9, 9: 40.0, 10: 1400.0,
 BF_ROW_SCALE = 10.0 * np.array([BF_SUSPECT_ROWS.get(i, 1.0)
                                 for i in range(25)], np.float32)
 
+
+# The tube loop (phase 20): BASELINE #1 in run_tube_mppi's loop, both
+# controllers at K=1920, DDP gains on, a lockstep SyntheticPlant at 50 Hz.
+TUBE_TICKS = 200
+WARM_TICKS = 10                       # (a)'s inputs: a warmed-up tick's
+HOT_TICKS = 12                        # (c): pushes at tick 10, cut at 11
+TUBE_BF_TICKS = 20
+DDP_REPS, DDP_EAGER_REPS = 50, 5
+# the DDP on the card against the port's CPU run on the same inputs, each
+# field's max |error| over its max |value|: fp32 rollouts of 100 steps and
+# a 99-step recursion whose sums cuBLAS and the CPU's BLAS order apart
+DDP_CPU_REL = 1e-3
+# The car accelerates from rest: u_x over 0.5 m/s after TUBE_TICKS ticks.
+# tests/test_runtime.py holds the loop to 1.5 m/s with the reference
+# weights, which the repository does not hold; the seeded MLP (Glorot,
+# seed 0) is weaker: the same loop reaches 1.13 m/s in 200 ticks on the
+# plain path (run_tube_mppi --cpu --ticks 200) and 0.868 on the card
+TUBE_MIN_SPEED = 0.5
 
 # registers of each kernel instance, from the build's ptxas report; the
 # library's SASS (phase 1)
@@ -2061,6 +2096,317 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
     return kernels, latency
 
 
+# -- phase 20: the tube loop -------------------------------------------------
+
+def _ddp_inputs(ctrl, state):
+    """The DDP's inputs as ``Controller.compute_feedback_gains`` passes them
+    (the measured state, U, the state and control solutions, the limits)."""
+    import torch
+
+    rngs = ctrl.model_params["control_rngs"]
+    x0 = torch.as_tensor(np.asarray(state, np.float32), device=ctrl.device)
+    return (x0, ctrl.cs.U, ctrl.cs.state_solution, ctrl.cs.control_solution,
+            rngs[:, 0], rngs[:, 1])
+
+
+def _numpy_params(params) -> dict:
+    """A params dict as numpy arrays, as ``params_from_jax`` takes them."""
+    return {k: ([t.cpu().numpy() for t in v] if isinstance(v, list)
+                else v.cpu().numpy()) for k, v in params.items()}
+
+
+def _ddp_results_equal(a, b) -> bool:
+    return all(bit_equal(x, y) for x, y in zip(a, b))
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| over max |b|: a field's error relative to its scale."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _timed(fn, samples: list):
+    """``fn`` that appends its host time in ms to ``samples``."""
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        samples.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def ddp_on_card(tube, state, card) -> dict:
+    """Phase 20 (a): the DDP on a warmed-up tick's inputs: captured against
+    eager (bit for bit) and against the CPU run, timed both ways, and the
+    eager run's kernel launches counted by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from autorally_tpu_torch.solver.ddp import DDPSolver
+
+    ctrl, ddp = tube.actual, tube.actual.ddp
+    params, inputs = ctrl.model_params, _ddp_inputs(ctrl, state)
+    check(ddp.captures, "the default DDP configuration does not capture")
+    captured = ddp.run(params, *inputs)
+    eager = ddp.run(params, *inputs, eager=True)
+    torch.cuda.synchronize()
+    same = _ddp_results_equal(captured, eager)
+    print(f"[tube ddp] captured against eager on a warmed-up tick's inputs "
+          f"(K={tube.cfg.num_rollouts} solve, T={ddp.T}): bit for bit "
+          f"{same}; cost {float(captured.cost):.6g}, max|K| "
+          f"{captured.feedback_gain.abs().max().item():.4g}")
+    check(same, "the captured DDP run differs from the eager run")
+    for name, t in zip(captured._fields, captured):
+        check(torch.isfinite(t).all().item(), f"DDP {name} not finite")
+
+    cls = type(ctrl.model)
+    cpu_model = cls(ddp.dt, control_ranges=tube.cfg.control_ranges,
+                    device="cpu")
+    cpu_params = cpu_model.params_from_jax(_numpy_params(params))
+    cpu_res = DDPSolver(cpu_model, ddp.dt, ddp.T, ddp.cfg, device="cpu").run(
+        cpu_params, *(t.cpu() for t in inputs))
+    errs = {n: _rel_err(g, c) for n, g, c in zip(captured._fields, captured,
+                                                 cpu_res)}
+    print(f"[tube ddp] GPU against the port's CPU run, max|err| over the "
+          f"field's max|value|: {errs} (limit {DDP_CPU_REL})")
+    check(all(e <= DDP_CPU_REL for e in errs.values()),
+          f"DDP on the card and on the CPU differ: {errs}")
+
+    def host_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    run_c = lambda: ddp.run(params, *inputs)
+    run_e = lambda: ddp.run(params, *inputs, eager=True)
+    # two runs at once, each on its own stream, as the tube's controllers
+    # run theirs
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    run_pair = lambda: [ddp.run(params, *inputs, stream=s) for s in streams]
+    t = {"eager_ms": cuda_ms(run_e, DDP_EAGER_REPS, warmup=1),
+         "eager_host_ms": host_ms(run_e, DDP_EAGER_REPS),
+         "captured_ms": cuda_ms(run_c, DDP_REPS),
+         "captured_host_ms": host_ms(run_c, DDP_REPS),
+         "pair_host_ms": host_ms(run_pair, DDP_REPS)}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_e()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(1 for e in prof.events()
+                   if e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                 "cuLaunchKernel", "cuLaunchKernelEx"))
+    t["eager_device_events"] = len(kernels)
+    t["eager_kernel_launches"] = launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run_c()
+        torch.cuda.synchronize()
+    t["captured_device_events"] = sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"[tube ddp] one DDP run (T={ddp.T}): eager {t['eager_ms']:.3f} ms "
+          f"(CUDA events) / {t['eager_host_ms']:.3f} ms (host clock), "
+          f"{launches} kernel launches from the host, {len(kernels)} device "
+          f"events (profiler); captured {t['captured_ms']:.3f} ms (CUDA "
+          f"events) / {t['captured_host_ms']:.3f} ms (host clock, one graph "
+          f"launch and the copies in and out), "
+          f"{t['captured_device_events']} device events; two captured runs "
+          f"on two streams at once {t['pair_host_ms']:.3f} ms (host clock) "
+          f"({card})")
+    return t
+
+
+def tube_drive(run_tube_mppi, rk, tag, model, ticks, card):
+    """``ticks`` ticks of ``run_tube_mppi``'s loop with the launch counters
+    set to 0 just before and read just after: exactly two launches of
+    kernel 1 and two of kernel 2 a tick, no plain-version call; the tick's
+    host time split into the solves, the DDP runs, the plant step and the
+    rest.  Returns (tube, drive result, split, the car's final u_x and
+    distance from the start)."""
+    import torch
+
+    from autorally_tpu_torch import drive_oval
+
+    tube = run_tube_mppi.build(ticks=ticks, model=model,
+                               device=torch.device("cuda", 0))
+    split = {"solve": [], "ddp": [], "gains": [], "plant": []}
+    for ctrl in (tube.actual, tube.predicted):
+        ctrl.compute_control = _timed(ctrl.compute_control, split["solve"])
+        # each DDP run is enqueued on its controller's stream; the loop
+        # waits for the chosen one's when it reads its gains
+        ctrl.compute_feedback_gains = _timed(ctrl.compute_feedback_gains,
+                                             split["ddp"])
+        ctrl.get_feedback_gains = _timed(ctrl.get_feedback_gains,
+                                         split["gains"])
+    tube.plant.step_sim = _timed(tube.plant.step_sim, split["plant"])
+    sfx = "_bf" if model == "bf" else ""
+    rk.LAUNCHES.clear()
+    with PlainCalls(rk) as plain:
+        out = run_tube_mppi.drive(tube, log=lambda m: print(f"[{tag}] {m}"))
+    got = dict(rk.LAUNCHES)
+    want = {"fused_exact_rollout_cost" + sfx: 2 * ticks,
+            "dynamics_chain" + sfx: 2 * ticks}
+    timing, plant = out["timing"], tube.plant
+    tick_ms = np.array(timing.tick_samples_ms)
+    # the loop's first DDP runs (before tick 1) are not in a tick; a tick
+    # enqueues two and waits for the chosen one's gains
+    ddp = (np.array(split["ddp"][2:]).reshape(ticks, 2).sum(1)
+           + np.array(split["gains"]))
+    solve = np.array(split["solve"]).reshape(ticks, 2).sum(1)
+    plant_ms = np.array(split["plant"])
+    rest = tick_ms - solve - ddp
+    pct = lambda a: (float(np.percentile(a, 50)), float(np.percentile(a, 99)))
+    res = {"tick": pct(tick_ms), "solves": pct(solve), "ddp": pct(ddp),
+           "plant": pct(plant_ms), "rest": pct(rest)}
+    s = plant.true_state
+    moved = float(np.hypot(*(s[:2] - np.array(drive_oval.START[:2]))))
+    pub = np.array([p[1:] for p in plant.published], np.float64)
+    status = plant.check_status(plant.get_last_pose_time())
+    print(f"[{tag}] K={tube.cfg.num_rollouts} {ticks} ticks in "
+          f"{out['wall_s']:.2f} s: arbitration {out['used']}; launches {got};"
+          f" plain-version calls {plain.calls}; final u_x {s[4]:.3f} m/s, "
+          f"moved {moved:.2f} m, status {status}, controls published "
+          f"{len(pub)} ({card})")
+    print(f"[{tag}] tick p50 / p99 (ms, host clock; ddp: enqueueing both "
+          f"runs and waiting for the chosen one's gains; the plant step "
+          f"comes after the tick): " + ", ".join(
+              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in res.items()))
+    check(got == want, f"{tag}: launches {got}, expected {want}")
+    check(not any(plain.calls.values()), f"{tag}: a plain version ran on "
+          f"the card: {plain.calls}")
+    check(len(pub) >= ticks and np.isfinite(pub).all(),
+          f"{tag}: {len(pub)} controls published, or not finite")
+    check(status == 0, f"{tag}: status {status} at the end")
+    return tube, out, res, (float(s[4]), moved)
+
+
+def tube_hot_updates(run_tube_mppi, rk, card):
+    """Phase 20 (c): a model push and a cost-params push in the middle of
+    a run, each seen by the next tick's solves and DDP runs, and a throttle
+    cut seen by the next DDP clamp."""
+    import torch
+
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    tube = run_tube_mppi.build(ticks=HOT_TICKS,
+                               device=torch.device("cuda", 0))
+    actual, predicted, plant = tube.actual, tube.predicted, tube.plant
+    model, ddp, solver = actual.model, actual.ddp, actual.solver
+    old = actual.model_params
+    new = {**old, "weights": [w * 1.1 for w in old["weights"]],
+           "biases": [b * 1.1 for b in old["biases"]]}
+    new_cost = actual.cost_params.replace(desired_speed=4.0)
+    push = HOT_TICKS - 2
+    calls = {"rollouts": [], "ddp": []}
+    rollout_costs, run = solver.rollout_costs, ddp.run
+
+    def recorder(fn, name):
+        def recorded(*a, **kw):
+            out = fn(*a, **kw)
+            calls[name].append((a, kw, out))
+            return out
+        return recorded
+
+    solver.rollout_costs = recorder(rollout_costs, "rollouts")
+    ddp.run = recorder(run, "ddp")
+    ticks = {}
+
+    def on_tick(i, chosen, used, state):
+        ticks[i] = {k: list(v) for k, v in calls.items()}
+        for v in calls.values():
+            v.clear()
+        if i == push:
+            plant.push_model_params(new)
+            plant.push_cost_params(new_cost)
+        elif i == push + 1:
+            ticks["cost"] = (actual.cost_params is new_cost
+                             and predicted.cost_params is new_cost)
+            actual.cut_throttle()
+
+    run_tube_mppi.drive(tube, log=lambda m: None, on_tick=on_tick)
+    torch.cuda.synchronize()             # the DDP streams' last runs
+    # the actual controller's solve after the push (its first rollouts)
+    # against a fresh solver and model on the new weights, and the old
+    a, kw, out = ticks[push + 1]["rollouts"][0]
+    fresh_model = NeuralNetDynamics(model.dt,
+                                    control_ranges=tube.cfg.control_ranges,
+                                    device=model.device)
+    fresh_params = fresh_model.params_from_jax(_numpy_params(new))
+    fresh = MPPISolver(fresh_model, solver.cost, tube.cfg,
+                       device=model.device).rollout_costs(
+                           fresh_params, *a[1:], **kw)
+    stale = rollout_costs(old, *a[1:], **kw)
+    check(a[0] is new, "the solve after the push was not given the new "
+          "weights")
+    same_costs = bit_equal(out[0], fresh[0])
+    moved_costs = not bit_equal(out[0], stale[0])
+    # the actual controller's DDP run after the push against eager runs
+    da, _, dout = ticks[push + 1]["ddp"][0]
+    same_ddp = _ddp_results_equal(dout, run(*da, eager=True))
+    moved_ddp = not bit_equal(dout.feedback_gain,
+                              run(old, *da[1:], eager=True).feedback_gain)
+    ca, _, cout = ticks[push + 2]["ddp"][0]
+    cut_max = float(ca[6][1])
+    cut_thr = float(cout.control_traj[:, 1].max())
+    print(f"[tube hot] model push (weights x1.1) at tick {push}: kernel 1's "
+          f"costs of the next solve bit for bit a fresh solver's on the new "
+          f"weights {same_costs}, and not the old weights' {moved_costs}; "
+          f"the next DDP run bit for bit an eager run on the new weights "
+          f"{same_ddp}, its gains not the old weights' {moved_ddp}; cost "
+          f"params on both controllers {ticks['cost']}; after cut_throttle "
+          f"the DDP's throttle limit {cut_max} and its highest throttle "
+          f"{cut_thr:.4g} ({card})")
+    check(same_costs and moved_costs, "the solve after a model push did "
+          "not run on the new weights")
+    check(same_ddp and moved_ddp, "the DDP run after a model push did not "
+          "run on the new weights")
+    check(ticks["cost"], "a cost-params push did not reach both "
+          "controllers")
+    check(cut_max == 0.0 and cut_thr <= 0.0,
+          "cut_throttle did not zero the DDP's throttle limit")
+
+
+def tube_phase(run_tube_mppi, rk, card) -> dict:
+    """Phase 20: the tube loop at BASELINE #1's width (a)-(d)."""
+    import torch
+
+    # (a) the DDP on the inputs of a warmed-up tick
+    warm = tube_drive(run_tube_mppi, rk, "tube warm-up", "nn", WARM_TICKS,
+                      card)[0]
+    ddp_t = ddp_on_card(warm, warm.plant.full_state.to_vector(), card)
+    # (b) 200 ticks, lockstep, DDP gains on
+    _, out, split, (u_x, moved) = tube_drive(run_tube_mppi, rk, "tube",
+                                             "nn", TUBE_TICKS, card)
+    check(u_x > TUBE_MIN_SPEED, f"tube: the car did not accelerate: u_x "
+          f"{u_x:.3f} m/s, not over {TUBE_MIN_SPEED}")
+    check(moved > 1.0, f"tube: the car moved {moved:.2f} m")
+    # (c) hot updates mid-run
+    tube_hot_updates(run_tube_mppi, rk, card)
+    # (d) the BF model's Jacobians through the DDP on the card
+    bf, _, bf_split, _ = tube_drive(run_tube_mppi, rk, "tube BF", "bf",
+                                    TUBE_BF_TICKS, card)
+    bf_inputs = _ddp_inputs(bf.actual, bf.plant.full_state.to_vector())
+    bf_same = _ddp_results_equal(
+        bf.actual.ddp.run(bf.actual.model_params, *bf_inputs),
+        bf.actual.ddp.run(bf.actual.model_params, *bf_inputs, eager=True))
+    torch.cuda.synchronize()
+    print(f"[tube BF] captured DDP bit for bit the eager run on the last "
+          f"tick's inputs: {bf_same}")
+    check(bf_same, "tube BF: the captured DDP differs from the eager run")
+    return {"ddp": ddp_t, "split": split, "bf_split": bf_split,
+            "used": out["used"]}
+
+
 def main() -> int:
     import torch
 
@@ -2396,6 +2742,10 @@ def main() -> int:
           f"BF pass 1's branch-free arithmetic differs from IEEE "
           f"division or root: {mismatches}")
 
+    # -- phase 20: the tube loop ----------------------------------------
+    from autorally_tpu_torch import run_tube_mppi
+    tube = tube_phase(run_tube_mppi, rk, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -2459,7 +2809,8 @@ def main() -> int:
                       "solve_ms_turns": results["latency_turns"],
                       "capacity_solve_ms_p50_p99": cap_latency,
                       "field_solve_ms_p50_p99": field_latency,
-                      "bf_obstacle_solve_ms_p50_p99": bf_obs_latency}))
+                      "bf_obstacle_solve_ms_p50_p99": bf_obs_latency,
+                      "tube_tick_ms_p50_p99": tube["split"]["tick"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
