@@ -73,6 +73,40 @@ def car_basis_functions(states: torch.Tensor,
     return torch.stack(phi, dim=-1)
 
 
+# The rows of car_basis_functions as products of a few primitives over a
+# constant divisor, (factors, divisor) in row order: "sin" sin(steer), "tf"
+# tan_front, "abs_tf" |tan_front|, and, zero unless u_x > 0.1, "q" uy/ux,
+# "r13" the rear slip proxy and "abs_r13" its magnitude.  The DDP's fused
+# BF step (``solver/ddp.py``) forms every row from these.
+BF_PRODUCTS = (
+    (("thr",), 1.0),                                   # 0
+    (("ux",), 10.0),                                   # 1
+    (("sin", "tf"), 1200.0),                           # 2
+    (("sin", "tf", "abs_tf"), 1440000.0),              # 3
+    (("sin", "tf", "tf", "tf"), 1728000000.0),         # 4
+    (("yd", "uy"), 25.0),                              # 5
+    (("yd",), 10.0),                                   # 6
+    (("uy",), 10.0),                                   # 7
+    (("sin",), 1.0),                                   # 8
+    (("q",), 40.0),                                    # 9
+    (("tf",), 1400.0),                                 # 10
+    (("tf", "abs_tf"), 1960000.0),                     # 11
+    (("tf", "tf", "tf"), 2744000000.0),                # 12
+    (("r13",), 40.0),                                  # 13
+    (("r13", "abs_r13"), 1600.0),                      # 14
+    (("r13", "r13", "r13"), 64000.0),                  # 15
+    (("yd", "ux"), 50.0),                              # 16
+    (("roll",), 1.0),                                  # 17
+    (("roll", "yd"), 1.0),                             # 18
+    (("roll", "ux"), 3.0),                             # 19
+    (("roll", "ux", "yd"), 5.0),                       # 20
+    (("ux", "ux"), 100.0),                             # 21
+    (("ux", "ux", "ux"), 1000.0),                      # 22
+    (("thr", "thr"), 1.0),                             # 23
+    (("thr", "thr", "thr"), 1.0),                      # 24
+)
+
+
 class BasisFunctionDynamics(Dynamics):
     """``phi(s, u) @ theta`` dynamics with theta (25, 4), stored transposed
     relative to the reference's (4, 25) ``W`` as in the JAX package."""

@@ -16,10 +16,12 @@ Usage::
     python -m autorally_tpu_torch.run_tube_mppi [--ticks 400] [--cpu]
         [--launch XML] [--rollouts K] [--timesteps T] [--bf] [--model PATH]
         [--desired-speed V] [--pred-rollouts K] [--degeneracy-guard]
+        [--ess-target FRAC]
 
-The JAX example's telemetry, runstop, log, camera, ESS-tuner and async-loop
-options are not ported yet; each exits with an error naming its ROADMAP.md
-item.
+``--ess-target`` adapts the softmax temperature every tick toward an ESS of
+FRAC*K (``runtime/ess_tuner.py``: ``EssTuner.attach``).  The JAX example's
+telemetry, runstop, log, camera and async-loop options are not ported yet;
+each exits with an error naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -38,12 +40,12 @@ from autorally_tpu_torch.runtime import (ControlLoopConfig, Controller,
                                          LapStats, StatusMonitor,
                                          SyntheticPlant, TimingStats,
                                          run_control_loop)
+from autorally_tpu_torch.runtime.ess_tuner import EssTuner
 from autorally_tpu_torch.solver.ddp import DDPSolver
 from autorally_tpu_torch.solver.mppi import validate_tube_pair
 
 # option -> the ROADMAP.md item that ports what it needs
 UNPORTED = {
-    "--ess-target": "Queue 1 item 3 (runtime/ess_tuner.py)",
     "--telemetry-port": "Queue 1 item 11 (runtime/telemetry_bus.py)",
     "--runstop-port": "Queue 1 item 11 (runtime/telemetry_bus.py)",
     "--log": "Queue 1 item 11 (runtime/telemetry_bus.py)",
@@ -173,6 +175,10 @@ def main(argv=None) -> None:
                     dest="degeneracy_guard",
                     help="brake flat-softmax plans when the measured car "
                          "is off the track boundary at speed")
+    ap.add_argument("--ess-target", type=float, default=None,
+                    metavar="FRAC",
+                    help="adapt the softmax temperature every tick toward "
+                         "an ESS of FRAC*K (EssTuner)")
     for opt in UNPORTED:
         ap.add_argument(opt, nargs="?", const=True, default=None,
                         help=f"not ported: {UNPORTED[opt]}")
@@ -188,7 +194,10 @@ def main(argv=None) -> None:
                  degeneracy_guard=args.degeneracy_guard,
                  device="cpu" if args.cpu else None)
     print(tube.note)
-    out = drive(tube)
+    tuner = (None if args.ess_target is None
+             else EssTuner(tube.cfg, target_frac=args.ess_target))
+    out = drive(tube, on_tick=None if tuner is None
+                else tuner.attach(tube.actual, tube.predicted))
     timing, plant, cfg = out["timing"], tube.plant, tube.cfg
     print(f"\n{args.ticks} ticks in {out['wall_s']:.1f}s wall")
     print(f"controller usage: {out['used']}")
@@ -198,6 +207,9 @@ def main(argv=None) -> None:
           f"{len(plant.published)}")
     print(f"final state: pos=({plant.true_state[0]:.2f},"
           f"{plant.true_state[1]:.2f}) speed={plant.true_state[4]:.2f}")
+    if tuner is not None:
+        print(f"ess tuner: target ESS {tuner.target:.0f}, gamma "
+              f"{tuner.base:.4g} -> {tuner.gamma:.4g}")
 
 
 if __name__ == "__main__":

@@ -39,9 +39,10 @@ launch from the host.  Every other configuration, and every CPU run, runs
 the same code eagerly.  A replay copies the caller's model params and
 inputs into the buffers the graph captured, so a hot model update reaches
 it, and returns copies of the graph's outputs, so that two controllers
-sharing one solver never share a result.  The MLP's rollouts take a fused
-Euler step (:meth:`DDPSolver._stepper`) of fewer kernels than the model's
-``step``, since every kernel is a graph node.
+sharing one solver never share a result.  The MLP's and the BF model's
+rollouts take a fused Euler step (:meth:`DDPSolver._stepper`) of fewer
+kernels than the model's ``step`` (9 and 17 against 22 and about 60),
+since every kernel is a graph node.
 """
 
 from __future__ import annotations
@@ -54,8 +55,23 @@ import numpy as np
 import torch
 
 from autorally_tpu_torch.config import resolve_device
+from autorally_tpu_torch.models.basis_function import (BF_PRODUCTS,
+                                                       BasisFunctionDynamics)
 from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
 from autorally_tpu_torch.solver.boxqp import boxqp
+
+
+# The fused BF step's columns of a rollout row (:meth:`DDPSolver._rows`):
+# the row's states, controls and 1, then its scratch: 10-11 the front and
+# rear slip proxies (atan taken of the front's), 12-13 [uy, yd] / u_x,
+# 14-16 [atan(front), r13, q] masked by u_x > 0.1, 17 tan_front, 18-20 the
+# magnitudes of [r13, q, tan_front], 21 sin(steer).  The width stays even.
+BF_COLUMNS = {"roll": 3, "ux": 4, "uy": 5, "yd": 6, "thr": 8, "one": 9,
+              "r13": 15, "q": 16, "tf": 17, "abs_r13": 18, "abs_tf": 20,
+              "sin": 21}
+BF_SCRATCH = 12
+# factors a basis function (BF_PRODUCTS' longest row)
+BF_FACTORS = 4
 
 
 class DDPResult(NamedTuple):
@@ -144,8 +160,21 @@ class DDPSolver:
         self._zero_x = torch.zeros(S, **f32)
         self._zero_u = torch.zeros(C, **f32)
         self._one = torch.ones((), **f32)
+        self._zero = torch.zeros((), **f32)
         self._adj_sign = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], **f32)
         self._captured: Dict[Optional[int], _Captured] = {}
+        self._row_width = S + C + 1
+        if type(model) is BasisFunctionDynamics:
+            # the BF step's tables, made here: a capture cannot copy from
+            # the host
+            self._row_width += BF_SCRATCH
+            self._bf_tables = (
+                torch.tensor([[BF_COLUMNS[f] for f in names]
+                              + [BF_COLUMNS["one"]] * (BF_FACTORS - len(names))
+                              for names, _ in BF_PRODUCTS],
+                             device=self.device).reshape(-1),
+                torch.tensor([d for _, d in BF_PRODUCTS], **f32),
+                torch.tensor([0.45, -0.35], **f32))
 
     @property
     def captures(self) -> bool:
@@ -169,11 +198,12 @@ class DDPSolver:
 
     def _rows(self, x0, us) -> torch.Tensor:
         """The rollouts' buffer: row t is [x_t, u_t, 1] (T, S+C+1), x_0 and
-        the controls ``us`` (T, C) filled in.  The last column is the MLP
-        step's bias input, and keeps every row's offset even, so that
-        (u_x, u_y) can be read as one complex number (:meth:`_stepper`)."""
+        the controls ``us`` (T, C) filled in, then the BF step's scratch
+        columns (``BF_COLUMNS``) for the BF model.  The 1 is the MLP step's
+        bias input; every row's offset stays even, so that (u_x, u_y) can
+        be read as one complex number (:meth:`_stepper`)."""
         S, C = self.model.STATE_DIM, self.model.CONTROL_DIM
-        XU = torch.ones((self.T, S + C + 1), dtype=torch.float32,
+        XU = torch.ones((self.T, self._row_width), dtype=torch.float32,
                         device=self.device)
         XU[0, :S] = x0
         XU[:, S:S + C] = us
@@ -181,36 +211,29 @@ class DDPSolver:
 
     def _stepper(self, params):
         """``step(XU, t)``: XU[t+1, :S] <- the Euler step ``x + f(x, u) dt``
-        from row t.  Any model but the MLP takes its own ``step``.
+        from row t.  A model other than the MLP and the BF model takes its
+        own ``step``.
 
-        The MLP's takes nine kernels where its ``state_deriv`` and ``step``
-        take 22 (a run is thousands of tiny kernels, each a graph node):
-        each layer is one product with its bias as the last column (the
-        input ends in a 1: row t's [roll, u_x, u_y, yaw rate, steering,
-        throttle, 1] for the first layer), tanh written into a buffer that
-        ends in a 1; the kinematics (c u_x - s u_y, s u_x + c u_y) one
-        complex product e^(i yaw) (u_x + i u_y).  The same arithmetic as
-        ``NeuralNetDynamics.step`` up to the rounding of a fused bias,
-        product or update."""
+        The MLP's and the BF model's steps are written in few kernels (a
+        run is thousands of tiny kernels, each a graph node): the learned
+        derivative (:meth:`_mlp_derivative`, :meth:`_bf_derivative`) into
+        D[3:], the kinematics (c u_x - s u_y, s u_x + c u_y) as one complex
+        product e^(i yaw) (u_x + i u_y), and one fused update.  The same
+        arithmetic as the model's ``step`` up to the rounding of a fused
+        bias, product or update."""
         model, dt = self.model, self.dt
         S, C = model.STATE_DIM, model.CONTROL_DIM
-        if type(model) is not NeuralNetDynamics:
+        if type(model) not in (NeuralNetDynamics, BasisFunctionDynamics):
             def step(XU, t):
                 XU[t + 1, :S] = model.step(params, XU[t, :S],
                                            XU[t, S:S + C])
             return step
-        f32 = dict(dtype=torch.float32, device=self.device)
-        layers = [torch.cat([W.t(), b[:, None]], dim=1)
-                  for W, b in zip(params["weights"], params["biases"])]
-        hidden = [torch.ones(w.shape[0] + 1, **f32) for w in layers[:-1]]
-        D = torch.empty(S + 1, **f32)
+        D = torch.empty(S + 1, dtype=torch.float32, device=self.device)
+        derivative = (self._mlp_derivative if type(model) is NeuralNetDynamics
+                      else self._bf_derivative)(params, D[3:S])
 
         def step(XU, t):
-            h = XU[t, 3:S + C + 1]
-            for w, out in zip(layers, hidden):
-                torch.tanh(torch.mv(w, h), out=out[:-1])
-                h = out
-            torch.mv(layers[-1], h, out=D[3:S])
+            derivative(XU[t])
             torch.mul(torch.polar(self._one, XU[t, 2]),
                       torch.view_as_complex(XU[t, 4:6]),
                       out=torch.view_as_complex(D[0:2]))
@@ -220,6 +243,59 @@ class DDPSolver:
                 D[2] = XU[t, 6]
             torch.add(XU[t, :S], D[:S], alpha=dt, out=XU[t + 1, :S])
         return step
+
+    def _mlp_derivative(self, params, out):
+        """``derivative(row)``: the MLP's [roll, u_x, u_y, yaw rate]
+        derivative of a row into ``out`` in five kernels (the whole step in
+        nine, where the model's ``step`` takes 22): each layer one product
+        with its bias as the last column (the input ends in a 1: the row's
+        [roll, u_x, u_y, yaw rate, steering, throttle, 1] for the first
+        layer), tanh written into a buffer that ends in a 1."""
+        S, C = self.model.STATE_DIM, self.model.CONTROL_DIM
+        layers = [torch.cat([W.t(), b[:, None]], dim=1)
+                  for W, b in zip(params["weights"], params["biases"])]
+        hidden = [torch.ones(w.shape[0] + 1, dtype=torch.float32,
+                             device=self.device) for w in layers[:-1]]
+
+        def derivative(row):
+            h = row[3:S + C + 1]
+            for w, buf in zip(layers, hidden):
+                torch.tanh(torch.mv(w, h), out=buf[:-1])
+                h = buf
+            torch.mv(layers[-1], h, out=out)
+        return derivative
+
+    def _bf_derivative(self, params, out):
+        """``derivative(row)``: the BF model's ``phi @ theta`` of a row into
+        ``out`` in 13 kernels (the whole step in 17, where the model's
+        ``step`` takes about 60): the primitives of ``BF_PRODUCTS`` written
+        into the row's scratch columns (``BF_COLUMNS``) by a few vector
+        operations, the 25 basis functions as one gather of four factors a
+        function (padded with the row's 1) and their product, and one
+        product with theta^T over the divisors (4, 25).  The same functions
+        up to the rounding of a reordered product: a quotient by a divisor
+        is taken from theta, and 0.45 yd / u_x as 0.45 (yd / u_x)."""
+        factors, divisors, slip = self._bf_tables
+        W = (params["theta"] / divisors[:, None]).t().contiguous()
+        n = len(BF_PRODUCTS)
+
+        def derivative(row):
+            moving = torch.gt(row[4], 0.1)
+            # [uy, yd] / u_x (1 where u_x <= 0.1); the front and rear slip
+            # proxies uy/u_x + (0.45, -0.35) yd/u_x, atan of the front's
+            torch.div(row[5:7], torch.where(moving, row[4], self._one),
+                      out=row[12:14])
+            torch.addcmul(row[12], row[13], slip, out=row[10:12])
+            row[10].atan_()
+            # [atan(front), r13, q], each 0 where u_x <= 0.1; tan_front =
+            # tan(atan(front) - steer)
+            torch.where(moving, row[10:13], self._zero, out=row[14:17])
+            torch.tan(row[14] - row[7], out=row[17])
+            torch.abs(row[15:18], out=row[18:21])
+            torch.sin(row[7], out=row[21])
+            phi = torch.index_select(row, 0, factors).view(n, -1).prod(1)
+            torch.mv(W, phi, out=out)
+        return derivative
 
     def _backward(self, params, xs, us, x_targets, u_targets, u_min,
                   u_max) -> torch.Tensor:

@@ -287,27 +287,50 @@ class MPPISolver:
     def _solve(self, model_params, cost_params: CostParams, costmap: Costmap,
                state: torch.Tensor, cs: ControllerState
                ) -> Tuple[ControllerState, SolveStats]:
-        cfg = self.cfg
-        shape = (cfg.num_timesteps, cfg.num_rollouts, self.model.CONTROL_DIM)
-        U = cs.U
         key = cs.key
+        draws = []
+        for _ in range(self.cfg.num_iters):                  # usually 1
+            key, sub = kernel_rng.split(key)
+            draws.append(self._draw(costmap, sub))
+        cs, stats = self._solve_drawn(model_params, cost_params, costmap,
+                                      state, cs, draws)
+        return cs._replace(key=key), stats
+
+    def _draw(self, costmap, sub: np.ndarray) -> torch.Tensor:
+        """One iteration's randomness from the subkey ``sub``: the kernels'
+        key (int64 (2,)) in the capacity mode, else the noise eps (T, K, C)
+        of the host-noise generator seeded with it."""
+        if self._use_kernel_rng(costmap):
+            return self._device_key(sub)
+        cfg = self.cfg
+        return self._sample_noise(
+            self._noise_generator(sub),
+            (cfg.num_timesteps, cfg.num_rollouts, self.model.CONTROL_DIM))
+
+    def _solve_drawn(self, model_params, cost_params: CostParams,
+                     costmap: Costmap, state: torch.Tensor,
+                     cs: ControllerState, draws
+                     ) -> Tuple[ControllerState, SolveStats]:
+        """The solve from given draws, one an iteration (:meth:`_draw`'s
+        noise, or the capacity mode's device key): the iterations, the
+        smoothing and the nominal trajectory.  Reads nothing from the host
+        and keeps ``cs.key``, so that a CUDA graph can capture it
+        (``runtime/episode.py``)."""
+        U = cs.U
         stats = None
         capacity = self._use_kernel_rng(costmap)
-        for _ in range(cfg.num_iters):                         # usually 1
-            key, sub = kernel_rng.split(key)
+        for draw in draws:
             if capacity:
                 U, stats = self._iterate_kernel_rng(
-                    model_params, cost_params, costmap, state, U,
-                    self._device_key(sub))
+                    model_params, cost_params, costmap, state, U, draw)
             else:
-                eps = self._sample_noise(self._noise_generator(sub), shape)
                 U, stats = self.iterate(model_params, cost_params, costmap,
-                                        state, U, eps)
+                                        state, U, draw)
         U = savitzky_golay(U, cs.control_hist)
         states_sol, controls_sol = self.nominal_trajectory(model_params,
                                                            state, U)
         return cs._replace(U=U, state_solution=states_sol,
-                           control_solution=controls_sol, key=key), stats
+                           control_solution=controls_sol), stats
 
     def _device_key(self, sub: np.ndarray) -> torch.Tensor:
         """The capacity mode's kernel key: ``sub`` as an int64 (2,) tensor

@@ -14,7 +14,9 @@ BASELINE config #2 (``path_integral_bf``), the 25-basis-function model with
 seeded theta at K=2560 — and the obstacle path — the main path with an
 ``ObstacleCost`` of 16 slots whose circles move every tick — and the tube
 loop — the main path's configuration in ``run_tube_mppi``'s two
-controllers with DDP gains — and checks every CUDA kernel of these paths,
+controllers with DDP gains — and the closed-loop episode — the same tube
+with the tick captured as one CUDA graph — and checks every CUDA kernel of
+these paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
@@ -155,12 +157,32 @@ exits non-zero):
     new weights, the next DDP run an eager run's on them), a cost push
     reaching both controllers and a throttle cut zeroing the DDP's
     throttle limit, mid-run; (d) 20 ticks with the BF model (K=2560), its
-    DDP captured bit for bit its eager run.
+    DDP captured bit for bit its eager run, a captured run's graph nodes
+    (device events) and time with the fused BF Euler step, then 200 BF
+    ticks; each drive also prints Python's collections inside it;
+21. the closed-loop episode (``runtime/episode.py``'s ``EpisodeRunner``,
+    the tick captured once as one CUDA graph and replayed) at the main
+    path's width on the oval of ``tools/lap_eval.load_track("oval")``:
+    (a) 50 ticks with DDP gains, two plant substeps a tick and an ESS
+    target, captured against the same ticks run eagerly on the card, every
+    ``EpisodeResult`` field bit for bit; again with another desired speed
+    (captured anew, other states: no stale graph) and with other seeds (the
+    same graph); (b) 10 replayed ticks under the profiler: exactly 2
+    launches of kernel 1 and 2 of kernel 2 a tick, no plain-version call;
+    (c) 20 ticks each, captured bit for bit eager and finite: moving
+    obstacles (16 slots), the capacity mode (K=262144), the asymmetric
+    tube (K_pred=480); (d) the capture's seconds, ms a replayed tick (CUDA
+    events), ticks/s and sim-seconds a wall-second and ``episode_metrics``
+    for 1,000 ticks without gains, 200 with, and the BF model at K=2560
+    with gains (200 ticks); (e) ``tools/lap_suite.run_config`` on an oval
+    and a winding row, 500 ticks, the artifact checked by
+    ``validate_laps``'s rules (the winding track allowed).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
-compiled instance with its registers, the paths' latencies and the tube's
-tick p50 / p99), and as its last line
+compiled instance with its registers, the paths' latencies, the tube's and
+the BF tube's tick p50 / p99, the BF DDP run's nodes and the episode's
+launches and timings), and as its last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
 
@@ -169,6 +191,7 @@ Usage::
     python3 chip_smoke.py
 """
 
+import gc
 import json
 import os
 import re
@@ -270,6 +293,8 @@ TUBE_TICKS = 200
 WARM_TICKS = 10                       # (a)'s inputs: a warmed-up tick's
 HOT_TICKS = 12                        # (c): pushes at tick 10, cut at 11
 TUBE_BF_TICKS = 20
+# (d) again for a p99 that is not the slowest of 20 ticks
+TUBE_BF_LONG_TICKS = 200
 DDP_REPS, DDP_EAGER_REPS = 50, 5
 # the DDP on the card against the port's CPU run on the same inputs, each
 # field's max |error| over its max |value|: fp32 rollouts of 100 steps and
@@ -281,6 +306,21 @@ DDP_CPU_REL = 1e-3
 # seed 0) is weaker: the same loop reaches 1.13 m/s in 200 ticks on the
 # plain path (run_tube_mppi --cpu --ticks 200) and 0.868 on the card
 TUBE_MIN_SPEED = 0.5
+
+# The closed-loop episode (phase 21): BASELINE #1 (the MLP, seeded Glorot
+# weights, K=1920, T=100) as runtime/episode.py's EpisodeRunner on the 60 m
+# x 36 m oval of tools/lap_eval.load_track("oval"), the tick one CUDA graph.
+EP_BIT_TICKS = 50                     # (a) captured against eager
+EP_PROFILE_TICKS = 10                 # (b) launches counted by the profiler
+EP_SHORT_TICKS = 20                   # (c) obstacles, capacity, asymmetric
+EP_K_PRED = 480
+EP_TICKS, EP_GAIN_TICKS, EP_BF_TICKS = 1000, 200, 200     # (d) timing
+EP_LAP_TICKS = 500                    # (e) the lap suite's run_config
+EP_LAP_ROWS = (
+    {"name": "oval_nn_gaussian", "track": "oval", "K": K, "T": T,
+     "desired_speed": 6.0, "noise": "gaussian"},
+    {"name": "winding_nn_gaussian", "track": "winding", "K": K, "T": T,
+     "desired_speed": 6.0, "noise": "gaussian"})
 
 # registers of each kernel instance, from the build's ptxas report; the
 # library's SASS (phase 1)
@@ -2249,9 +2289,25 @@ def tube_drive(run_tube_mppi, rk, tag, model, ticks, card):
                                          split["gains"])
     tube.plant.step_sim = _timed(tube.plant.step_sim, split["plant"])
     sfx = "_bf" if model == "bf" else ""
+    # Python's collections during the drive (a full one over this process's
+    # heap can outlast a tick): generation and ms of each
+    collections, started = [], []
+
+    def on_gc(phase, info):
+        if phase == "start":
+            started[:] = [time.perf_counter()]
+        elif started:
+            collections.append((info["generation"],
+                                (time.perf_counter() - started[0]) * 1e3))
+
     rk.LAUNCHES.clear()
-    with PlainCalls(rk) as plain:
-        out = run_tube_mppi.drive(tube, log=lambda m: print(f"[{tag}] {m}"))
+    gc.callbacks.append(on_gc)
+    try:
+        with PlainCalls(rk) as plain:
+            out = run_tube_mppi.drive(tube,
+                                      log=lambda m: print(f"[{tag}] {m}"))
+    finally:
+        gc.callbacks.remove(on_gc)
     got = dict(rk.LAUNCHES)
     want = {"fused_exact_rollout_cost" + sfx: 2 * ticks,
             "dynamics_chain" + sfx: 2 * ticks}
@@ -2279,7 +2335,14 @@ def tube_drive(run_tube_mppi, rk, tag, model, ticks, card):
     print(f"[{tag}] tick p50 / p99 (ms, host clock; ddp: enqueueing both "
           f"runs and waiting for the chosen one's gains; the plant step "
           f"comes after the tick): " + ", ".join(
-              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in res.items()))
+              f"{k} {v[0]:.3f} / {v[1]:.3f}" for k, v in res.items())
+          + f"; the slowest tick {tick_ms.max():.3f} (tick "
+          f"{int(tick_ms.argmax()) + 1})")
+    slow = max(collections, key=lambda c: c[1], default=(None, 0.0))
+    print(f"[{tag}] Python's collections in the drive (the DDP's captures "
+          f"collect once a stream, before the first tick): {len(collections)}"
+          f", {sum(1 for g, _ in collections if g == 2)} of generation 2; "
+          f"the slowest {slow[1]:.3f} ms (generation {slow[0]})")
     check(got == want, f"{tag}: launches {got}, expected {want}")
     check(not any(plain.calls.values()), f"{tag}: a plain version ran on "
           f"the card: {plain.calls}")
@@ -2403,8 +2466,342 @@ def tube_phase(run_tube_mppi, rk, card) -> dict:
     print(f"[tube BF] captured DDP bit for bit the eager run on the last "
           f"tick's inputs: {bf_same}")
     check(bf_same, "tube BF: the captured DDP differs from the eager run")
+    bf_ddp = ddp_nodes(bf.actual.ddp, bf.actual.model_params, bf_inputs)
+    print(f"[tube BF] one captured BF DDP run (the fused BF step): "
+          f"{bf_ddp['nodes']} device events (graph nodes), "
+          f"{bf_ddp['ms']:.3f} ms (CUDA events); the MLP's "
+          f"{ddp_t['captured_device_events']} and {ddp_t['captured_ms']:.3f} "
+          f"ms; BF tube tick p50 / p99 {bf_split['tick'][0]:.3f} / "
+          f"{bf_split['tick'][1]:.3f} ms against the 20 ms budget ({card})")
+    _, _, bf_long, _ = tube_drive(run_tube_mppi, rk, "tube BF long", "bf",
+                                  TUBE_BF_LONG_TICKS, card)
     return {"ddp": ddp_t, "split": split, "bf_split": bf_split,
-            "used": out["used"]}
+            "bf_long_split": bf_long, "used": out["used"], "bf_ddp": bf_ddp}
+
+
+def ddp_nodes(ddp, params, inputs) -> dict:
+    """One captured DDP run's device events (its graph's kernel nodes,
+    profiler) and its time (CUDA events, median of DDP_REPS)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run = lambda: ddp.run(params, *inputs)
+    ms = cuda_ms(run, DDP_REPS)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    nodes = sum(1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return {"nodes": nodes, "ms": ms}
+
+
+def episode_equal(a, b) -> bool:
+    """Every field of two ``EpisodeResult``s bit for bit."""
+    return all(bit_equal(x, y) for x, y in zip(a, b))
+
+
+class Captures:
+    """Counts and times a runner's captures (``EpisodeRunner._capture``:
+    the eager warm-up tick and the capture)."""
+
+    def __init__(self, runner):
+        self.seconds = []
+        capture = runner._capture
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            capture(*a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+        runner._capture = timed
+
+
+def episode_setup(dev, model: str = "nn", rollouts: int = K, cost=None,
+                  **cfg_kw):
+    """(solver, params, costmap, start, lap line, crossings) of phase 21:
+    the oval of ``load_track``, seeded weights (``init_params(0)``)."""
+    from autorally_tpu_torch.config import MPPIConfig
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.models import (BasisFunctionDynamics,
+                                            NeuralNetDynamics)
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.lap_eval import load_track
+
+    cm, start_pose, line, xings = load_track("oval", device=dev)
+    cfg = MPPIConfig(num_rollouts=rollouts, num_timesteps=T, **cfg_kw)
+    cls = BasisFunctionDynamics if model == "bf" else NeuralNetDynamics
+    dyn = cls(cfg.dt, control_ranges=cfg.control_ranges, device=dev)
+    params = dyn.init_params(0)
+    solver = MPPISolver(dyn, cost or MPPICost(cfg.l1_cost), cfg, device=dev)
+    start = [start_pose[0], start_pose[1], start_pose[2], 0, 0, 0, 0]
+    return solver, params, cm, start, line, xings
+
+
+def episode_held(tag, runner, args, kw=None) -> dict:
+    """One captured run of ``runner`` against the same run eagerly on the
+    card: every field bit for bit, every value finite.  Returns the
+    captured run's result and the captures it took."""
+    import torch
+
+    kw = kw or {}
+    caps = getattr(runner, "_smoke_captures", None)
+    if caps is None:
+        caps = runner._smoke_captures = Captures(runner)
+    n0 = len(caps.seconds)
+    cap = runner.run(*args, **kw)
+    eag = runner.run(*args, eager=True, **kw)
+    torch.cuda.synchronize()
+    same = episode_equal(cap, eag)
+    finite = all(torch.isfinite(t.float()).all().item() for t in cap)
+    used = int(cap.used_actual.sum().item())
+    print(f"[episode] {tag}: {runner.n_ticks} ticks captured ("
+          f"{len(caps.seconds) - n0} capture(s)) bit for bit the eager run "
+          f"{same}, finite {finite}, actual-state controller used {used} / "
+          f"{runner.n_ticks}, final u_x {cap.states[-1, 4].item():.3f} m/s")
+    check(same, f"episode {tag}: the captured run differs from the eager "
+          f"run")
+    check(finite, f"episode {tag}: a value is not finite")
+    return {"result": cap, "captures": len(caps.seconds) - n0}
+
+
+def episode_launches(rk, runner, args, card) -> dict:
+    """Phase 21 (b): ``EP_PROFILE_TICKS`` replayed ticks under the
+    profiler: exactly two launches of kernel 1's and two of kernel 2's
+    instances a tick, and no plain-version call in the capture or the
+    replays.  (``rk.LAUNCHES`` counts in Python: under replay it sees the
+    capture only.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with PlainCalls(rk) as plain:
+        runner.run(*args)                     # captures
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            runner.run(*args)                 # replays only
+            torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = {"kernel 1": [n for n in names if "fused_exact" in n],
+            "kernel 2": [n for n in names if "dynamics_chain" in n],
+            "other": [n for n in names if any(
+                k in n for k in ("fused_rng", "fused_field",
+                                 "weighted_update"))]}
+    count = {k: len(v) for k, v in ours.items()}
+    n = runner.n_ticks
+    print(f"[episode launches] {n} replayed ticks (profiler): kernel 1 "
+          f"{count['kernel 1']} ({sorted(set(ours['kernel 1']))[:1]}), "
+          f"kernel 2 {count['kernel 2']} "
+          f"({sorted(set(ours['kernel 2']))[:1]}), other rollout kernels "
+          f"{count['other']}; {len(names)} device events in all "
+          f"({len(names) / n:.0f} a tick); plain-version calls "
+          f"{plain.calls} ({card})")
+    check(names, "episode: the profiler recorded no device events")
+    check(count == {"kernel 1": 2 * n, "kernel 2": 2 * n, "other": 0},
+          f"episode: launches {count}, expected 2 + 2 a tick")
+    check(not any(plain.calls.values()), f"episode: a plain version ran "
+          f"on the card: {plain.calls}")
+    return {"kernel 1": count["kernel 1"] / n, "kernel 2":
+            count["kernel 2"] / n, "device_events_per_tick": len(names) / n}
+
+
+def episode_timing(tag, runner, args, line, xings, card) -> dict:
+    """Phase 21 (d): a first run (the capture, timed) and a second,
+    replayed run timed with CUDA events (ms a tick, the host's staging and
+    noise draws included) and the host clock (ticks/s, sim-seconds a
+    wall-second); the second run's ``episode_metrics``."""
+    import torch
+
+    from autorally_tpu_torch.tools.lap_eval import episode_metrics
+
+    caps = Captures(runner)
+    t0 = time.perf_counter()
+    runner.run(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    res = runner.run(*args)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, dt = runner.n_ticks, runner.solver.cfg.dt
+    ms = e0.elapsed_time(e1) / n
+    m = episode_metrics(res, args[2], line, xings, dt,
+                        float(args[1].boundary_threshold))
+    out = {"capture_s": caps.seconds[0] if caps.seconds else None,
+           "first_run_s": first_s, "ms_per_tick": ms,
+           "ticks_per_s": n / wall, "sim_s_per_wall_s": n * dt / wall,
+           "laps": m["laps"], "mean_speed": m["mean_speed"],
+           "offtrack_frac": m["offtrack_frac"], "mean_ess": m["mean_ess"]}
+    check(len(caps.seconds) == 1, f"episode {tag}: {len(caps.seconds)} "
+          f"captures in two runs, expected 1")
+    print(f"[episode timing] {tag}: capture {out['capture_s']:.3f} s "
+          f"(warm-up tick and capture; first run {first_s:.3f} s); "
+          f"{n} replayed ticks {ms:.4f} ms a tick (CUDA events), "
+          f"{out['ticks_per_s']:.1f} ticks/s, "
+          f"{out['sim_s_per_wall_s']:.3f} sim-s a wall-s (host clock); laps "
+          f"{m['laps']}, mean speed {m['mean_speed']} m/s, off-track "
+          f"{m['offtrack_frac']}, mean ESS {m['mean_ess']} ({card})")
+    check(torch.isfinite(res.states).all().item(), f"episode {tag}: "
+          f"states not finite")
+    return out
+
+
+def laps_artifact_errors(d: dict) -> list:
+    """The rules of ``tests/test_artifacts.py::validate_laps``, the
+    winding track allowed beside ccrf, marietta and oval: a list of what
+    breaks them."""
+    num = lambda x: isinstance(x, (int, float)) and not isinstance(x, bool)
+    errs = []
+    if d.get("artifact") != "laps" or not isinstance(d.get("round"), int):
+        errs.append("header")
+    for row in d.get("rows") or [None]:
+        if not isinstance(row, dict):
+            errs.append("no rows")
+            continue
+        if not (isinstance(row.get("name"), str)
+                and row.get("track") in ("ccrf", "marietta", "oval",
+                                         "winding")
+                and isinstance(row.get("K"), int)
+                and isinstance(row.get("T"), int)
+                and num(row.get("desired_speed")) and row.get("runs")):
+            errs.append(f"row {row.get('name')}")
+        for r in row.get("runs") or []:
+            keys = ("mean_speed", "max_speed", "max_slip", "offtrack_frac",
+                    "rollout_crash_frac", "mean_ess")
+            if not (isinstance(r.get("laps"), int)
+                    and isinstance(r.get("lap_times_s"), list)
+                    and (r.get("best_lap_s") is None
+                         or num(r.get("best_lap_s")))
+                    and all(num(r.get(k)) for k in keys)
+                    and 0.0 <= r["offtrack_frac"] <= 1.0):
+                errs.append(f"run of {row.get('name')}")
+    return errs
+
+
+def episode_phase(rk, card, dev=None) -> dict:
+    """Phase 21: the closed-loop episode on the card (a)-(e)."""
+    import torch
+
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.costs import ObstacleCost, make_obstacles
+    from autorally_tpu_torch.drive_oval import (OBSTACLE_COEFF,
+                                                OBSTACLE_INFLATION)
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.runtime.episode import EpisodeRunner
+    from autorally_tpu_torch.tools import lap_suite
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    cp = CostParams(desired_speed=6.0)
+    solver, params, cm, start, line, xings = episode_setup(dev)
+    cfg = solver.cfg
+    out = {}
+
+    def tube(n_ticks, **kw):
+        """The tube with gains, two plant substeps a tick and an ESS
+        target on the seeded MLP."""
+        true = NeuralNetDynamics(cfg.dt / 2, control_ranges=cfg.control_ranges,
+                                 device=dev)
+        return EpisodeRunner(solver, true_model=true, n_ticks=n_ticks,
+                             use_feedback_gains=True, pose_substeps=2,
+                             ess_target_frac=0.25, **kw)
+
+    # (a) bit equality, and no stale graph after other cost params
+    runner = tube(EP_BIT_TICKS)
+    first = episode_held("gains, 2 substeps, ESS target 0.25", runner,
+                         (params, cp, cm, start))
+    cp2 = cp.replace(desired_speed=4.0)
+    second = episode_held("the same runner, desired speed 4 m/s", runner,
+                          (params, cp2, cm, start))
+    reseeded = episode_held("the same runner and cost params, seeds 2, 3",
+                            runner, (params, cp2, cm, start),
+                            dict(seed_a=2, seed_p=3))
+    moved = not bit_equal(first["result"].states, second["result"].states)
+    g = first["result"].gamma
+    print(f"[episode] other cost params captured again "
+          f"{second['captures'] == 1} and gave other states {moved}; other "
+          f"seeds replayed the same graph {reseeded['captures'] == 0}; "
+          f"gamma {g[0].item():.4g} -> {g[-1].item():.4g} (ESS target "
+          f"{0.25 * cfg.num_rollouts:.0f}) ({card})")
+    check(first["captures"] == 1 and second["captures"] == 1
+          and reseeded["captures"] == 0, "episode: captures "
+          f"{first['captures']}, {second['captures']}, "
+          f"{reseeded['captures']}, expected 1, 1, 0")
+    check(moved, "episode: a run with other cost params replayed the "
+          "stale graph")
+    check(g[-1].item() != g[0].item(), "episode: the ESS law kept gamma")
+    del runner, first, second, reseeded
+
+    # (b) launches of the replayed tick
+    out["launches"] = episode_launches(rk, tube(EP_PROFILE_TICKS),
+                                       (params, cp, cm, start), card)
+
+    # (c) short runs: moving obstacles, the capacity mode, the asymmetric
+    # tube
+    traj = torch.full((EP_SHORT_TICKS, N_SLOTS, 3), -1.0, device=dev)
+    steps = torch.arange(EP_SHORT_TICKS, device=dev, dtype=torch.float32)
+    traj[:, 0, 0], traj[:, 0, 1], traj[:, 0, 2] = 30.3, 2.0 - 0.01 * steps, 0.5
+    traj[:, 1, 0], traj[:, 1, 1], traj[:, 1, 2] = 29.5 + 0.01 * steps, 3.5, 0.5
+    osolver, oparams, *_ = episode_setup(dev, cost=ObstacleCost(
+        make_obstacles(traj[0].tolist(), N_SLOTS, device=dev),
+        OBSTACLE_COEFF, OBSTACLE_INFLATION))
+    episode_held("moving obstacles (16 slots)",
+                 EpisodeRunner(osolver, n_ticks=EP_SHORT_TICKS),
+                 (oparams, cp, cm, start), dict(obstacle_traj=traj))
+    csolver, cparams, *_ = episode_setup(dev, rollouts=KC, kernel_rng=True)
+    check(csolver._use_kernel_rng(cm), "the capacity solver's mode")
+    episode_held(f"the capacity mode (K={KC})",
+                 EpisodeRunner(csolver, n_ticks=EP_SHORT_TICKS),
+                 (cparams, cp, cm, start))
+    episode_held(f"the asymmetric tube (K_pred={EP_K_PRED})",
+                 EpisodeRunner(solver, n_ticks=EP_SHORT_TICKS,
+                               solver_predicted=solver.with_rollouts(
+                                   EP_K_PRED)),
+                 (params, cp, cm, start))
+    del osolver, csolver
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) timing
+    out["timing"] = {
+        "nn": episode_timing(f"MLP K={K}, {EP_TICKS} ticks", EpisodeRunner(
+            solver, n_ticks=EP_TICKS), (params, cp, cm, start), line, xings,
+            card),
+        "nn_gains": episode_timing(
+            f"MLP K={K} with gains, {EP_GAIN_TICKS} ticks", EpisodeRunner(
+                solver, n_ticks=EP_GAIN_TICKS, use_feedback_gains=True),
+            (params, cp, cm, start), line, xings, card)}
+    bsolver, bparams, *_ = episode_setup(dev, model="bf", rollouts=KB)
+    out["timing"]["bf_gains"] = episode_timing(
+        f"BF K={KB} with gains, {EP_BF_TICKS} ticks", EpisodeRunner(
+            bsolver, n_ticks=EP_BF_TICKS, use_feedback_gains=True),
+        (bparams, cp, cm, start), line, xings, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (e) the lap suite's rows
+    artifact = {"artifact": "laps", "round": 6, "ticks": EP_LAP_TICKS,
+                "seeds": 1, "smoke": False, "rows": []}
+    for row in EP_LAP_ROWS:
+        t0 = time.perf_counter()
+        runs = lap_suite.run_config(row, EP_LAP_TICKS, 1, device=dev)
+        artifact["rows"].append({**row, "weights": runs[0]["weights"],
+                                 "runs": runs})
+        r = runs[0]
+        print(f"[episode laps] {row['name']}: {EP_LAP_TICKS} ticks in "
+              f"{time.perf_counter() - t0:.2f} s (capture included): laps "
+              f"{r['laps']}, mean speed {r['mean_speed']} m/s, max speed "
+              f"{r['max_speed']}, off-track {r['offtrack_frac']}, rollout "
+              f"crash {r['rollout_crash_frac']}, mean ESS {r['mean_ess']}; "
+              f"weights {r['weights']} ({card})")
+    errs = laps_artifact_errors(artifact)
+    print(f"[episode laps] the artifact against validate_laps's rules "
+          f"(winding allowed): {errs or 'valid'}")
+    check(not errs, f"episode laps: the artifact breaks {errs}")
+    return out
 
 
 def main() -> int:
@@ -2746,6 +3143,9 @@ def main() -> int:
     from autorally_tpu_torch import run_tube_mppi
     tube = tube_phase(run_tube_mppi, rk, card)
 
+    # -- phase 21: the closed-loop episode, the tick one CUDA graph -------
+    episode = episode_phase(rk, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -2810,7 +3210,13 @@ def main() -> int:
                       "capacity_solve_ms_p50_p99": cap_latency,
                       "field_solve_ms_p50_p99": field_latency,
                       "bf_obstacle_solve_ms_p50_p99": bf_obs_latency,
-                      "tube_tick_ms_p50_p99": tube["split"]["tick"]}))
+                      "tube_tick_ms_p50_p99": tube["split"]["tick"],
+                      "bf_tube_tick_ms_p50_p99": tube["bf_split"]["tick"],
+                      "bf_tube_200_tick_ms_p50_p99":
+                          tube["bf_long_split"]["tick"],
+                      "bf_ddp": tube["bf_ddp"],
+                      "episode_launches_per_tick": episode["launches"],
+                      "episode_timing": episode["timing"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,7 +7,7 @@ with ``params_from_jax``.
   slope has the wrong sign, so that the line search of every later
   iteration halves alpha past ``min_alpha`` and keeps the previous
   trajectory; a linear system against the numpy LQR recursion; the MLP's
-  fused Euler step against the model's own.
+  and the BF model's fused Euler steps against the models' own.
 - The captured run's bookkeeping (a stand-in for ``torch.cuda.CUDAGraph``
   that replays by running the captured call again): each replay reads the
   caller's current weights and inputs and returns results of its own.
@@ -29,6 +29,7 @@ from autorally_tpu.solver.ddp import DDPSolver as JaxDDP
 from autorally_tpu_torch.models import (BasisFunctionDynamics,
                                         NeuralNetDynamics)
 from autorally_tpu_torch.models.base import Dynamics
+from autorally_tpu_torch.models.basis_function import car_basis_functions
 from autorally_tpu_torch.solver import ddp as ddp_mod
 from autorally_tpu_torch.solver.boxqp import boxqp
 from autorally_tpu_torch.solver.ddp import DDPConfig, DDPSolver
@@ -272,6 +273,62 @@ def test_mlp_step_is_the_model_step(negate):
         want = model.step(params, rows[t, :7], rows[t, 7:9])
         np.testing.assert_allclose(XU[t + 1, :7].numpy(), want.numpy(),
                                    rtol=1e-6, atol=1e-6, err_msg=str(t))
+        XU[t + 1] = rows[t + 1]           # the next row's own inputs
+
+
+# The BF step's tolerance: its basis functions are the model's up to the
+# rounding of a reordered product (a divisor taken from theta, 0.45 (yd /
+# u_x) for 0.45 yd / u_x), measured within 3.1e-7 of the sum of the terms'
+# magnitudes; each state is held within 1e-6 of its own magnitude plus dt
+# times those of its derivative's terms.
+BF_STEP_REL = 1e-6
+# theta rows 2-4 and 9-15 scaled by their divisors (and 14, 15 more), so
+# that every basis function moves the step well above the tolerance
+BF_ROW_SCALE = 10.0 * np.array(
+    [{2: 1200.0, 3: 1.44e6, 4: 1.728e9, 9: 40.0, 10: 1400.0, 11: 1.96e6,
+      12: 2.744e9, 13: 40.0, 14: 4.8e4, 15: 1.92e7}.get(i, 1.0)
+     for i in range(25)], np.float32)
+
+
+@pytest.mark.parametrize("strong", [False, True])
+def test_bf_step_is_the_model_step(strong):
+    """The DDP's fused BF step against the model's own ``step`` on rows on
+    both sides of u_x = 0.1 (0.1 itself, just above it, reversing), with
+    both signs of the front and rear slip proxies, a steering of 0 and
+    near tan's range, for the seeded and a strong theta."""
+    model = BasisFunctionDynamics(DT, device="cpu")
+    params = model.init_params(5)
+    if strong:
+        params = model.params_from_jax({
+            "theta": params["theta"].numpy() * BF_ROW_SCALE[:, None],
+            "control_rngs": params["control_rngs"].numpy()})
+    n = 64
+    rs = np.random.default_rng(9)
+    X = rs.standard_normal((n, 7)) * [20, 20, 3, 0.3, 3, 1, 1]
+    X[:16, 4] = [0.1, np.nextafter(np.float32(0.1), np.float32(1)), 0.05,
+                 -0.5, 0.0, 0.1000001, 0.0999999, -3.0] * 2
+    X[16:24, 5] = [2.0, -2.0] * 4                 # both slip signs
+    X[16:24, 6] = [1.5, 1.5, -1.5, -1.5] * 2
+    X[16:24, 4] = [0.5, 0.5, 0.5, 0.5, 4.0, 4.0, 4.0, 4.0]
+    Uc = rs.uniform(-0.99, 0.99, (n, 2))
+    Uc[:4, 0] = [0.0, 0.98, -0.98, 1e-3]
+    solver = DDPSolver(model, DT, n, device="cpu")
+    XU = solver._rows(torch.zeros(7), torch.zeros(n, 2))
+    XU[:, :7] = torch.tensor(X, dtype=torch.float32)
+    XU[:, 7:9] = torch.tensor(Uc, dtype=torch.float32)
+    rows = XU.clone()
+    assert (rows[:, 4] > 0.1).any() and (rows[:, 4] <= 0.1).any()
+    step = solver._stepper(params)
+    for t in range(n - 1):
+        step(XU, t)
+        x, u = rows[t, :7], rows[t, 7:9]
+        want = model.step(params, x, u)
+        phi = car_basis_functions(x, u)
+        terms = (phi[:, None] * params["theta"]).abs().sum(0)
+        scale = x.abs() + DT * torch.cat([
+            (x[4].abs() + x[5].abs()).expand(2), x[6].abs()[None], terms])
+        err = (XU[t + 1, :7] - want).abs()
+        assert (err <= BF_STEP_REL * scale).all(), (t, err, scale)
         XU[t + 1] = rows[t + 1]           # the next row's own inputs
 
 

@@ -536,6 +536,19 @@ def test_run_tube_mppi_on_the_cpu(capsys):
     assert sum(res["used"].values()) == 2
 
 
+def test_run_tube_mppi_ess_target_moves_gamma(capsys):
+    """``--ess-target`` drives the loop through ``EssTuner.attach``: 20
+    ticks on the CPU, and gamma ends off its start."""
+    run_tube_mppi.main(["--cpu", "--ticks", "20", "--rollouts", "64",
+                        "--timesteps", "16", "--ess-target", "0.25"])
+    out = capsys.readouterr().out
+    assert "20 ticks in" in out and "controls published: 20" in out
+    line = next(l for l in out.splitlines() if l.startswith("ess tuner:"))
+    assert "target ESS 16," in line
+    start, end = (float(v) for v in line.split("gamma ")[1].split(" -> "))
+    assert start == 0.15 and end != start
+
+
 @pytest.mark.parametrize("option", sorted(run_tube_mppi.UNPORTED))
 def test_run_tube_mppi_unported_options_name_the_roadmap(option, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -159,6 +159,38 @@ def test_three_tick_scenario_matches_jax(backend):
     assert np.isfinite(cs.U.numpy()).all()
 
 
+def test_solve_from_a_nan_speed_is_finite_and_matches_eager_jax():
+    """A solve from a state whose u_x is NaN: every rollout latches at the
+    1e12 clamp, so the weights are all 1; U and the control solution stay
+    finite, and the stats equal the JAX solver's run eagerly (under
+    ``jax.disable_jit()``: jitted, XLA computes the costs' minimum and the
+    exponent's costs apart and the normalizer overflows; ROADMAP.md, Queue
+    3).  The same noise on both sides, picked by the subkey."""
+    solver, params, cm, jsolver, jparams, jcm = _pair(K=64, T=12)
+    T, K = solver.cfg.num_timesteps, solver.cfg.num_rollouts
+    table = np.random.default_rng(2).standard_normal(
+        (4, T, K, 2)).astype(np.float32)
+    solver._sample_noise = lambda gen, shape: torch.tensor(
+        table[(gen.initial_seed() & 0xFFFFFFFF) % 4])
+    jsolver._sample_noise = lambda key, shape: jnp.asarray(
+        table[int(key[1]) % 4])
+    state = np.array([25.0, 0.0, np.pi / 2, 0.0, np.nan, 0.1, 0.0],
+                     np.float32)
+    cs, stats = solver.solve(params, CostParams(), cm, state,
+                             solver.init_state(7))
+    with jax.disable_jit():
+        jcs, jstats = jsolver.solve(jparams, JaxCostParams(), jcm,
+                                    jnp.asarray(state),
+                                    jsolver.init_state(7))
+    assert torch.isfinite(cs.U).all()
+    assert torch.isfinite(cs.control_solution).all()
+    assert float(stats.normalizer) == K == float(stats.ess)
+    assert float(stats.crash_frac) == 1.0
+    _assert_stats(stats, jstats, ITER_RTOL, ITER_ATOL)
+    np.testing.assert_allclose(cs.U.numpy(), np.asarray(jcs.U),
+                               rtol=ITER_RTOL, atol=ITER_ATOL)
+
+
 def test_controller_state_helpers():
     solver, params, cm, *_ = _pair(K=128, T=16, init_throttle=0.2)
     a, b = solver.init_state(), solver.init_state()
