@@ -16,12 +16,16 @@ Usage::
     python -m autorally_tpu_torch.run_tube_mppi [--ticks 400] [--cpu]
         [--launch XML] [--rollouts K] [--timesteps T] [--bf] [--model PATH]
         [--desired-speed V] [--pred-rollouts K] [--degeneracy-guard]
-        [--ess-target FRAC]
+        [--ess-target FRAC] [--async-loop [--depth N]]
 
 ``--ess-target`` adapts the softmax temperature every tick toward an ESS of
-FRAC*K (``runtime/ess_tuner.py``: ``EssTuner.attach``).  The JAX example's
-telemetry, runstop, log, camera and async-loop options are not ported yet;
-each exits with an error naming its ROADMAP.md item.
+FRAC*K (``runtime/ess_tuner.py``: ``EssTuner.attach``, or ``attach_async``
+with ``--async-loop``).  ``--async-loop`` runs the async-dispatch loop
+(``runtime/async_loop.py``: both controllers one dispatched tick, captured
+as one CUDA graph on the card, published ``--depth`` ticks later) in
+lockstep against the plant.  The JAX example's telemetry, runstop, log and
+camera options are not ported yet; each exits with an error naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -40,6 +44,9 @@ from autorally_tpu_torch.runtime import (ControlLoopConfig, Controller,
                                          LapStats, StatusMonitor,
                                          SyntheticPlant, TimingStats,
                                          run_control_loop)
+from autorally_tpu_torch.runtime.async_loop import (AsyncLoopConfig,
+                                                    AsyncTubeController,
+                                                    run_control_loop_async)
 from autorally_tpu_torch.runtime.ess_tuner import EssTuner
 from autorally_tpu_torch.solver.ddp import DDPSolver
 from autorally_tpu_torch.solver.mppi import validate_tube_pair
@@ -50,8 +57,6 @@ UNPORTED = {
     "--runstop-port": "Queue 1 item 11 (runtime/telemetry_bus.py)",
     "--log": "Queue 1 item 11 (runtime/telemetry_bus.py)",
     "--camera": "Queue 1 item 11 (vision/)",
-    "--async-loop": "Queue 1 item 4 (runtime/async_loop.py)",
-    "--depth": "Queue 1 item 4 (runtime/async_loop.py)",
 }
 # the start line: the segment x in [25, 35] on the +x side (y sign flip)
 LAP_LINE = (0.0, 0.0, 25.0, 35.0)
@@ -117,12 +122,37 @@ def build(ticks: int = 400, rollouts: Optional[int] = None,
     return Tube(actual, predicted, plant, loop_cfg, cfg, note + weights)
 
 
-def drive(tube: Tube, log=print,
-          on_tick: Optional[Callable] = None) -> dict:
+class _Shim:
+    """The async loop's harvested ``TubeTickOutput`` where ``drive``'s
+    ``on_tick`` consumers take a controller (its ``stats`` and computed
+    trajectory cost)."""
+
+    def __init__(self, out):
+        self.stats = out
+
+    def get_computed_trajectory_cost(self) -> float:
+        return float(self.stats.trajectory_cost)
+
+
+def async_tube(tube: Tube) -> AsyncTubeController:
+    """The tube's two controllers as one ``AsyncTubeController`` (seeds 0
+    and 1, as ``examples/run_tube_mppi.py --async-loop`` makes it)."""
+    a, p = tube.actual, tube.predicted
+    return AsyncTubeController(
+        a.solver, a.model_params, a.cost_params, a.costmap,
+        use_feedback_gains=tube.cfg.use_feedback_gains,
+        solver_predicted=None if p.solver is a.solver else p.solver)
+
+
+def drive(tube: Tube, log=print, on_tick: Optional[Callable] = None,
+          atube: Optional[AsyncTubeController] = None, depth: int = 1,
+          on_tick_async: Optional[Callable] = None) -> dict:
     """Run the loop to its ``max_iter`` ticks with the watchdog and lap
     statistics; ``on_tick(i, chosen, used, state)`` also runs every tick.
-    Returns the run's timing stats, controller usage, laps, monitor and
-    wall seconds."""
+    With ``atube`` the async loop drives it instead, publishing ``depth``
+    ticks late (``chosen`` is then a shim over the harvested output), and
+    ``on_tick_async`` takes each harvest first.  Returns the run's timing
+    stats, controller usage, laps, monitor and wall seconds."""
     plant = tube.plant
     monitor = StatusMonitor()
     laps = LapStats(line=LAP_LINE)
@@ -145,9 +175,26 @@ def drive(tube: Tube, log=print,
             on_tick(i, chosen, used, state)
 
     t_wall = time.time()
-    timing = run_control_loop(tube.predicted, tube.actual, plant,
-                              tube.loop_cfg, monitor=monitor, on_tick=tick,
-                              timing=TimingStats())
+    if atube is None:
+        timing = run_control_loop(tube.predicted, tube.actual, plant,
+                                  tube.loop_cfg, monitor=monitor,
+                                  on_tick=tick, timing=TimingStats())
+    else:
+        lc = tube.loop_cfg
+
+        def harvested(num_iter, used, state, out, harvest_ms, age_s):
+            if on_tick_async is not None:
+                on_tick_async(num_iter, used, state, out, harvest_ms, age_s)
+            tick(num_iter, _Shim(out), used, state)
+
+        acfg = AsyncLoopConfig(hz=lc.hz, num_timesteps=lc.num_timesteps,
+                               optimization_stride=lc.optimization_stride,
+                               depth=depth, realtime=False,
+                               max_iter=lc.max_iter,
+                               degeneracy_guard=lc.degeneracy_guard)
+        timing = run_control_loop_async(atube, plant, acfg, monitor=monitor,
+                                        on_tick=harvested,
+                                        timing=TimingStats())
     return {"timing": timing, "used": used_counts, "laps": laps,
             "monitor": monitor, "wall_s": time.time() - t_wall}
 
@@ -179,6 +226,11 @@ def main(argv=None) -> None:
                     metavar="FRAC",
                     help="adapt the softmax temperature every tick toward "
                          "an ESS of FRAC*K (EssTuner)")
+    ap.add_argument("--async-loop", action="store_true",
+                    help="async-dispatch loop: both controllers one "
+                         "dispatched tick, published --depth ticks later")
+    ap.add_argument("--depth", type=int, default=1,
+                    help="async-loop ticks in flight before a harvest")
     for opt in UNPORTED:
         ap.add_argument(opt, nargs="?", const=True, default=None,
                         help=f"not ported: {UNPORTED[opt]}")
@@ -196,10 +248,17 @@ def main(argv=None) -> None:
     print(tube.note)
     tuner = (None if args.ess_target is None
              else EssTuner(tube.cfg, target_frac=args.ess_target))
-    out = drive(tube, on_tick=None if tuner is None
-                else tuner.attach(tube.actual, tube.predicted))
+    if args.async_loop:
+        atube = async_tube(tube)
+        out = drive(tube, atube=atube, depth=args.depth,
+                    on_tick_async=None if tuner is None
+                    else tuner.attach_async(atube))
+    else:
+        out = drive(tube, on_tick=None if tuner is None
+                    else tuner.attach(tube.actual, tube.predicted))
     timing, plant, cfg = out["timing"], tube.plant, tube.cfg
-    print(f"\n{args.ticks} ticks in {out['wall_s']:.1f}s wall")
+    loop = f"async loop, depth {args.depth}" if args.async_loop else "loop"
+    print(f"\n{args.ticks} ticks in {out['wall_s']:.1f}s wall ({loop})")
     print(f"controller usage: {out['used']}")
     print(f"timing: avg tick {timing.avg_tick_ms:.2f} ms "
           f"(budget {1000.0 * cfg.optimization_stride / cfg.hz:.0f} ms)")

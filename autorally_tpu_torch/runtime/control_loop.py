@@ -17,9 +17,13 @@ Two execution modes:
   (interpolation + feedback application).
 - ``realtime``: wall-clock paced to ``optimization_stride / hz`` with the
   plant fed externally (a live pose stream), matching the reference's
-  paced-sleep behavior (run_control_loop.cuh:304-312) with ``time.sleep``
-  (the JAX package's native absolute-deadline pacer waits for the port of
-  ``runtime/native.py``, ROADMAP.md Queue 1 item 11).
+  paced-sleep behavior (run_control_loop.cuh:304-312) with the native
+  absolute-deadline pacer (``runtime/native.py``: ``clock_nanosleep`` to
+  the next deadline; a loop that cannot load it raises).
+
+``TimingStats.pacer`` says which pacer ran: "native", "lockstep" (a plant
+with ``step_sim`` outside realtime) or "sleep" (``time.sleep`` to the end
+of the period, a plant without ``step_sim`` outside realtime).
 """
 
 from __future__ import annotations
@@ -100,6 +104,19 @@ def run_control_loop(predicted: Controller, actual: Controller,
     num_iter = 0
     degenerate_ticks = 0
     max_iter = cfg.max_iter if cfg.max_iter is not None else 2 ** 31
+
+    # realtime pacing with the native absolute-deadline pacer in place of
+    # the reference's 50 us usleep polling (run_control_loop.cuh:304-312),
+    # made after the initialization so that its first deadline is armed
+    # when the loop starts ticking
+    lockstep = not cfg.realtime and hasattr(plant, "step_sim")
+    pacer = None
+    if cfg.realtime:
+        from autorally_tpu_torch.runtime.native import Pacer
+
+        pacer = Pacer(period)          # raises if the library cannot load
+    timing.pacer = ("native" if pacer is not None
+                    else "lockstep" if lockstep else "sleep")
 
     while alive() and num_iter < max_iter and not plant.shutdown:
         tick_start = time.perf_counter()
@@ -182,9 +199,13 @@ def run_control_loop(predicted: Controller, actual: Controller,
         # advance / pace: any plant exposing step_sim (SyntheticPlant,
         # the physics SimVehiclePlant) advances in lockstep
         missed = 0
-        if not cfg.realtime and hasattr(plant, "step_sim"):
+        if lockstep:
             plant.step_sim(stride_default)       # lockstep sim advance
             last_sleep = 0.0
+        elif pacer is not None:
+            t_sleep = time.perf_counter()
+            missed = pacer.wait()                # whole deadlines overrun
+            last_sleep = time.perf_counter() - t_sleep
         else:
             remaining = period - tick_s
             last_sleep = max(0.0, remaining)
@@ -197,5 +218,7 @@ def run_control_loop(predicted: Controller, actual: Controller,
                       last_sleep * 1000.0, missed=missed)
         plant.set_timing_info(timing.avg_loop_ms, timing.avg_tick_ms,
                               timing.avg_sleep_ms)
+    if pacer is not None:
+        pacer.close()
     timing.degenerate_ticks = degenerate_ticks    # guard telemetry
     return timing

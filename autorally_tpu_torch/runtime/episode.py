@@ -79,6 +79,57 @@ class EpisodeResult(NamedTuple):
     gamma: torch.Tensor            # (n_ticks,) softmax temperature used
 
 
+class TubeSolve(NamedTuple):
+    """One tube tick's solves (:func:`tube_solve`), on the device."""
+
+    cs_a: object                   # the actual-state controller's new state
+    cs_p: object                   # the predicted one's, resynced
+    st_a: object                   # their SolveStats
+    st_p: object
+    use_actual: torch.Tensor       # () bool: the actual-state plan won
+    control: torch.Tensor          # (T, C) the chosen clamped plan
+    states: torch.Tensor           # (T, S) the chosen nominal trajectory
+    gains: Optional[torch.Tensor]  # (T, C, S) DDP gains, or None
+
+    def stat(self, name: str) -> torch.Tensor:
+        """The winning solve's ``SolveStats`` field ``name``."""
+        return torch.where(self.use_actual, getattr(self.st_a, name),
+                           getattr(self.st_p, name))
+
+
+def tube_solve(solvers, ddp: Optional[DDPSolver], params, cost_params,
+               costmap, state, cs_a, cs_p, draws_a, draws_p) -> TubeSolve:
+    """The tube tick between the slide and the plant, shared by the episode
+    and the async loop (``runtime/async_loop.py``): the actual-state solve
+    from ``state`` and the predicted-state one from its own first nominal
+    state (``run_control_loop.cuh:218-219``), each from its draws; the
+    arbitration by computed trajectory cost on the device (``:246-286``);
+    the predicted controller's resync when the actual one wins
+    (``:263-266``); and with a ``ddp``, its gains around the chosen plan
+    (``computeFeedbackGains``, ``mppi_controller.cu:427-439``), run
+    uncaptured (the caller's graph holds it).  Reads nothing from the
+    host."""
+    solver, solver_p = solvers
+    cs_a, st_a = solver._solve_drawn(params, cost_params, costmap, state,
+                                     cs_a, draws_a)
+    cs_p, st_p = solver_p._solve_drawn(params, cost_params, costmap,
+                                       cs_p.state_solution[0], cs_p, draws_p)
+    use_actual = st_a.trajectory_cost < st_p.trajectory_cost
+    pick = lambda a, p: torch.where(use_actual, a, p)
+    chosen_ctrl = pick(cs_a.control_solution, cs_p.control_solution)
+    chosen_states = pick(cs_a.state_solution, cs_p.state_solution)
+    chosen_U = pick(cs_a.U, cs_p.U)
+    cs_p = cs_p._replace(state_solution=chosen_states,
+                         control_solution=chosen_ctrl, U=chosen_U)
+    gains = None
+    if ddp is not None:
+        rngs = params["control_rngs"].reshape(-1, 2)[-2:]
+        gains = ddp._run(params, state, chosen_U, chosen_states, chosen_ctrl,
+                         rngs[:, 0], rngs[:, 1]).feedback_gain
+    return TubeSolve(cs_a, cs_p, st_a, st_p, use_actual, chosen_ctrl,
+                     chosen_states, gains)
+
+
 def _signature(obj, keep: list):
     """A comparable description of ``obj`` (params trees, dataclasses,
     tensors by identity and version); the tensors are appended to
@@ -268,32 +319,9 @@ class EpisodeRunner:
         # receding-horizon slide (run_control_loop.cuh:206-215)
         cs_a, cs_p = (s._slide(c, cfg.optimization_stride)
                       for s, c in zip(solvers, plan.carries))
-        # actual-state and predicted-state solves (:218-219)
-        cs_a, st_a = self.solver._solve_drawn(params_ctrl, cp, costmap,
-                                              plan.state, cs_a,
-                                              plan.draws(0))
-        cs_p, st_p = self.solver_predicted._solve_drawn(
-            params_ctrl, cp, costmap, cs_p.state_solution[0], cs_p,
-            plan.draws(1))
-        # arbitration by computed trajectory cost (:246-286), on the device
-        use_actual = st_a.trajectory_cost < st_p.trajectory_cost
-        pick = lambda a, p: torch.where(use_actual, a, p)
-        chosen_ctrl = pick(cs_a.control_solution, cs_p.control_solution)
-        chosen_states = pick(cs_a.state_solution, cs_p.state_solution)
-        chosen_U = pick(cs_a.U, cs_p.U)
-        # the predicted controller resyncs when the actual one wins
-        # (:263-266)
-        cs_p = cs_p._replace(state_solution=chosen_states,
-                             control_solution=chosen_ctrl, U=chosen_U)
-        gains = None
-        if self.ddp is not None:
-            # DDP feedback gains around the chosen solution
-            # (computeFeedbackGains, mppi_controller.cu:427-439); the
-            # episode's own graph holds the run, so it runs uncaptured
-            rngs = params_ctrl["control_rngs"].reshape(-1, 2)[-2:]
-            gains = self.ddp._run(params_ctrl, plan.state, chosen_U,
-                                  chosen_states, chosen_ctrl, rngs[:, 0],
-                                  rngs[:, 1]).feedback_gain
+        ts = tube_solve(solvers, self.ddp, params_ctrl, cp, costmap,
+                        plan.state, cs_a, cs_p, plan.draws(0), plan.draws(1))
+        chosen_ctrl, chosen_states, gains = ts.control, ts.states, ts.gains
         # the plant under the true model at the pose rate (debug-mode
         # self-propagation through the plant's pipeline)
         state, u0 = plan.state, None
@@ -302,18 +330,17 @@ class EpisodeRunner:
                                        gains)
             state, _ = self.true_model.update_state(params_true, state, u)
             u0 = u if u0 is None else u0
-        pick_stat = lambda name: pick(getattr(st_a, name), getattr(st_p, name))
-        ess = pick_stat("ess")
-        row = torch.cat([state, u0, use_actual.to(torch.float32)[None],
-                         pick_stat("trajectory_cost")[None], ess[None],
-                         pick_stat("crash_frac")[None], plan.gamma[None]])
+        ess = ts.stat("ess")
+        row = torch.cat([state, u0, ts.use_actual.to(torch.float32)[None],
+                         ts.stat("trajectory_cost")[None], ess[None],
+                         ts.stat("crash_frac")[None], plan.gamma[None]])
         plan.out.index_copy_(0, plan.tick, row[None])
         # the carries, after everything that reads them
         if self._ess_target is not None:
             plan.gamma.copy_(gamma_step_traced(
                 plan.gamma, ess, self._ess_target, self._ess_alpha,
                 plan.g_lo, plan.g_hi))
-        for carry, new in zip(plan.carries, (cs_a, cs_p)):
+        for carry, new in zip(plan.carries, (ts.cs_a, ts.cs_p)):
             for name in _CARRIED:
                 getattr(carry, name).copy_(getattr(new, name))
         plan.state.copy_(state)

@@ -112,8 +112,18 @@ class EssTuner:
         return on_tick
 
     def attach_async(self, tube):
-        """The ``on_tick`` hook of the async loop, which the port does not
-        have yet."""
-        raise NotImplementedError(
-            "EssTuner.attach_async needs runtime/async_loop.py, which is not "
-            "ported yet (ROADMAP.md, Queue 1 item 4)")
+        """``on_tick`` hook for :func:`~autorally_tpu_torch.runtime.
+        async_loop.run_control_loop_async`: one :meth:`update` from each
+        harvested ``TubeTickOutput.ess`` (``depth`` ticks stale, which this
+        slow multiplicative law tolerates by design), the new gamma (in
+        float32) riding the next dispatch's gamma buffer, which captures
+        nothing.  Seeds an unseeded tube at attach time, as :meth:`attach`
+        does."""
+        if tube.cost_params.gamma is None:
+            tube.update_cost_params(self.seed(tube.cost_params))
+
+        def on_tick(num_iter, used, state, out, harvest_ms, age_s):
+            g = float(np.float32(self.update(float(out.ess))))
+            tube.update_cost_params(tube.cost_params.replace(gamma=g))
+
+        return on_tick

@@ -397,6 +397,29 @@ class MPPISolver:
         new_ss = torch.cat([ss[s:], ss[T - s:]])
         return cs._replace(U=new_U, control_hist=new_hist, state_solution=new_ss)
 
+    def _slide_device(self, cs: ControllerState, stride: torch.Tensor
+                      ) -> ControllerState:
+        """:meth:`_slide` with the stride a 0-d int64 tensor on the device,
+        bit for bit the same (gathers and selects copy values), for any
+        stride >= 0; reads nothing from the host, so that one captured
+        graph serves every stride (``runtime/async_loop.py``)."""
+        T, C = self.cfg.num_timesteps, self.model.CONTROL_DIM
+        s = torch.clamp(stride, max=T)
+        src = torch.arange(T, device=self.device) + s
+        kept = (src < T)[:, None]
+        src = torch.clamp(src, max=T - 1)
+        new_U = torch.where(kept, cs.U[src], self.init_u)
+        # the tail keeps its old values, as cat([ss[s:], ss[T - s:]])
+        new_ss = torch.where(kept, cs.state_solution[src], cs.state_solution)
+        ext = torch.cat([cs.control_hist.reshape(-1), cs.U.reshape(-1)])
+        start = torch.where(
+            stride == 0, 0, torch.where(
+                stride == 1, 2, torch.clamp(stride + 2,
+                                            max=ext.numel() - 2 * C)))
+        new_hist = ext[start + torch.arange(2 * C, device=self.device)]
+        return cs._replace(U=new_U, control_hist=new_hist.reshape(2, C),
+                           state_solution=new_ss)
+
     def slide(self, cs: ControllerState, stride) -> ControllerState:
         return self._slide(cs, stride)
 

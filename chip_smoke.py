@@ -176,13 +176,34 @@ exits non-zero):
     for 1,000 ticks without gains, 200 with, and the BF model at K=2560
     with gains (200 ticks); (e) ``tools/lap_suite.run_config`` on an oval
     and a winding row, 500 ticks, the artifact checked by
-    ``validate_laps``'s rules (the winding track allowed).
+    ``validate_laps``'s rules (the winding track allowed);
+22. the async loop (``runtime/async_loop.py`` through ``run_tube_mppi``'s
+    ``--async-loop`` path: both controllers one dispatched tick, captured
+    once as one CUDA graph, DDP gains on, a lockstep ``SyntheticPlant``):
+    (a) 50 dispatches of a captured tube bit for bit an eager one's, the
+    strides 0, 1, 2 and T-1 mixed and a cost push at tick 25 (one more
+    capture); (b) 10 replayed dispatches under the profiler: exactly 2 + 2
+    kernel launches a tick, the graph's nodes; (c)-(e) 200 ticks at depth
+    1 and 2 with ``EssTuner.attach_async`` moving gamma every harvest: the
+    solution published exactly ``depth`` dispatches late, one capture in
+    all, the host's dispatch ms, the harvest's wait, each dispatch's device
+    span (CUDA events), and at depth 1 the device's busy share of the
+    period over 20 ticks under ``runtime/profiling.device_trace``;
+23. the realtime gates (``runtime/realtime_gate.py``; the simulator
+    ``tools/sim_node.py --cpu`` a second process on seeded weights, UDP
+    over loopback, the native pacer): the sequential loop at K=64, T=16
+    and the async loop at K=1920, T=100, depth 2 adaptive, both with
+    gains, 3 s passes, at most 3 attempts; each must pace natively, reach
+    100 valid ticks, p99 under 20 ms, missed 0, missed_raw 0 (or at most
+    the tainted ticks + 2 when some were tainted) and capture nothing in
+    the measured passes; the sequential loop's kernel launches counted.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
 compiled instance with its registers, the paths' latencies, the tube's and
-the BF tube's tick p50 / p99, the BF DDP run's nodes and the episode's
-launches and timings), and as its last line
+the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
+launches and timings, the async tick's launches and timings and both
+gates' results), and as its last line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
 
@@ -191,6 +212,7 @@ Usage::
     python3 chip_smoke.py
 """
 
+import dataclasses
 import gc
 import json
 import os
@@ -321,6 +343,17 @@ EP_LAP_ROWS = (
      "desired_speed": 6.0, "noise": "gaussian"},
     {"name": "winding_nn_gaussian", "track": "winding", "K": K, "T": T,
      "desired_speed": 6.0, "noise": "gaussian"})
+
+# The async loop (phase 22): BASELINE #1 in run_tube_mppi's async loop, the
+# tick one CUDA graph, gains on, a lockstep SyntheticPlant at 50 Hz.
+ASYNC_BIT_TICKS = 50                  # (a) captured against eager
+ASYNC_PUSH_AT = 25                    # (a) a cost push: one more capture
+ASYNC_PROFILE_TICKS = 10              # (b) launches counted by the profiler
+ASYNC_TICKS = 200                     # (c)-(e) at depth 1 and 2
+ASYNC_TRACE_TICKS = 20                # (e) under device_trace
+# The realtime gates (phase 23): 3 s passes, at most 3 attempts each.
+GATE_SECONDS, GATE_ATTEMPTS = 3.0, 3
+GATE_WARMUP = 8                       # the sequential gate's warm-up ticks
 
 # registers of each kernel instance, from the build's ptxas report; the
 # library's SASS (phase 1)
@@ -2804,6 +2837,338 @@ def episode_phase(rk, card, dev=None) -> dict:
     return out
 
 
+# -- phase 22: the async loop -------------------------------------------------
+
+def _bits(out_a, out_b) -> bool:
+    """Two harvested ``TubeTickOutput``s bit for bit."""
+    return all((x is None and y is None) or (
+        x is not None and y is not None
+        and np.asarray(x).tobytes() == np.asarray(y).tobytes())
+        for x, y in zip(out_a, out_b))
+
+
+def _busy_ms(events) -> float:
+    """The union of the device events' intervals (profiler, us) in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def async_captured_vs_eager(run_tube_mppi, card) -> dict:
+    """Phase 22 (a): one tube captured, one eager on the card, the same
+    states and strides (0, 1, 2, T-1 mixed) and a cost push at tick
+    ASYNC_PUSH_AT: every harvested output and the final carries bit for
+    bit; the captured tube captured twice (the push), the eager one never."""
+    import torch
+
+    from autorally_tpu_torch.runtime.async_loop import AsyncTubeController
+    from autorally_tpu_torch.runtime.profiling import count_solve_traces
+
+    tube = run_tube_mppi.build(ticks=1, device=torch.device("cuda", 0))
+    a = tube.actual
+    tubes = [AsyncTubeController(a.solver, a.model_params, a.cost_params,
+                                 a.costmap, eager=eager)
+             for eager in (False, True)]
+    traces = [count_solve_traces(t) for t in tubes]
+    rs = np.random.default_rng(22)
+    start = np.array(tube.plant.true_state, np.float32)
+    strides = [(0, 1, 2, T - 1, 1)[i % 5] for i in range(ASYNC_BIT_TICKS)]
+    for t in tubes:
+        t.reset(start)
+    same, finite = 0, True
+    for i, stride in enumerate(strides):
+        if i == ASYNC_PUSH_AT:
+            for t in tubes:
+                t.update_cost_params(t.cost_params.replace(
+                    desired_speed=4.0))
+        state = start + rs.normal(0, 0.05, 7).astype(np.float32)
+        outs = [t.dispatch(state, stride).result() for t in tubes]
+        same += _bits(*outs)
+        finite &= all(np.isfinite(np.asarray(x, np.float64)).all()
+                      for x in outs[0] if x is not None)
+    carries = all(
+        torch.equal(getattr(getattr(tubes[0], h), f),
+                    getattr(getattr(tubes[1], h), f))
+        for h in ("cs_a", "cs_p") for f in ("U", "control_hist",
+                                            "state_solution",
+                                            "control_solution"))
+    n = ASYNC_BIT_TICKS
+    print(f"[async] (a) {n} dispatches, strides {sorted(set(strides))} "
+          f"mixed, a cost push at tick {ASYNC_PUSH_AT}: captured bit for bit "
+          f"the eager tick in {same} / {n}, final carries equal {carries}, "
+          f"finite {finite}; captures {traces[0]['n']} (captured tube), "
+          f"{traces[1]['n']} (eager) ({card})")
+    check(same == n and carries, f"async (a): captured dispatches differ "
+          f"from eager ones ({same} / {n} equal, carries {carries})")
+    check(finite, "async (a): a harvested value is not finite")
+    check(traces == [{"n": 2}, {"n": 0}], f"async (a): captures {traces}, "
+          f"expected 2 (the first dispatch and the push) and 0")
+    return {"bit_equal": same, "captures": traces[0]["n"]}
+
+
+def async_launches(run_tube_mppi, rk, card) -> dict:
+    """Phase 22 (b): ASYNC_PROFILE_TICKS replayed dispatches under the
+    profiler: exactly two launches of kernel 1's instances and two of
+    kernel 2's a tick, no other rollout kernel, no plain-version call; and
+    the graph's nodes (the device events of one bare replay)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    tube = run_tube_mppi.build(ticks=1, device=torch.device("cuda", 0))
+    atube = run_tube_mppi.async_tube(tube)
+    state = np.array(tube.plant.true_state, np.float32)
+    atube.reset(state)
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with PlainCalls(rk) as plain:
+        atube.dispatch(state, 1).result()           # captures
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            for i in range(ASYNC_PROFILE_TICKS):
+                atube.dispatch(state, i % 3).result()
+            torch.cuda.synchronize()
+        with profile(activities=acts) as bare:
+            with torch.cuda.stream(atube._stream):
+                atube._graph.replay()
+            torch.cuda.synchronize()
+    dev = torch.autograd.DeviceType.CUDA
+    names = [e.name for e in prof.events() if e.device_type == dev]
+    nodes = sum(1 for e in bare.events() if e.device_type == dev)
+    count = {"kernel 1": sum("fused_exact" in x for x in names),
+             "kernel 2": sum("dynamics_chain" in x for x in names),
+             "other": sum(any(k in x for k in ("fused_rng", "fused_field",
+                                                "weighted_update"))
+                          for x in names)}
+    n = ASYNC_PROFILE_TICKS
+    print(f"[async] (b) {n} replayed dispatches (profiler): kernel 1 "
+          f"{count['kernel 1']}, kernel 2 {count['kernel 2']}, other rollout "
+          f"kernels {count['other']}; {len(names)} device events "
+          f"({len(names) / n:.0f} a dispatch: the graph, the noise draws, "
+          f"the copies); the graph alone {nodes} device events; plain-"
+          f"version calls {plain.calls} ({card})")
+    check(names, "async (b): the profiler recorded no device events")
+    check(count == {"kernel 1": 2 * n, "kernel 2": 2 * n, "other": 0},
+          f"async (b): launches {count}, expected 2 + 2 a tick")
+    check(not any(plain.calls.values()), f"async (b): a plain version ran "
+          f"on the card: {plain.calls}")
+    return {"kernel 1": count["kernel 1"] / n,
+            "kernel 2": count["kernel 2"] / n, "graph_nodes": nodes,
+            "device_events_per_dispatch": len(names) / n}
+
+
+def async_drive(run_tube_mppi, depth: int, card, trace_dir=None) -> dict:
+    """Phase 22 (c)-(e): ASYNC_TICKS lockstep ticks of ``run_tube_mppi``'s
+    async loop at ``depth`` with ``EssTuner.attach_async`` moving gamma
+    every harvest: the first harvest at tick depth + 1 and every later
+    solution exactly ``depth`` periods old; one capture in all; finite
+    controls, status 0, the car moving; each tick's host dispatch ms, the
+    harvest's wait and the dispatch's device span (CUDA events on the
+    tube's stream).  With ``trace_dir`` the last ASYNC_TRACE_TICKS ticks run
+    under ``device_trace`` for the device's busy share of the period."""
+    import torch
+
+    from autorally_tpu_torch.runtime.ess_tuner import EssTuner
+    from autorally_tpu_torch.runtime.profiling import (count_solve_traces,
+                                                       device_trace)
+
+    n = ASYNC_TICKS
+    tube = run_tube_mppi.build(ticks=n, device=torch.device("cuda", 0))
+    atube = run_tube_mppi.async_tube(tube)
+    traces = count_solve_traces(atube)
+    tuner = EssTuner(tube.cfg, target_frac=0.25)
+    ess_hook = tuner.attach_async(atube)
+    ages, gammas = [], []
+    dispatch_ms, spans = [], []
+    dispatch = atube.dispatch
+
+    def timed_dispatch(state, stride):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record(atube._stream)
+        t0 = time.perf_counter()
+        out = dispatch(state, stride)
+        dispatch_ms.append((time.perf_counter() - t0) * 1e3)
+        e1.record(atube._stream)
+        spans.append((e0, e1))
+        return out
+
+    atube.dispatch = timed_dispatch
+
+    def hook(num_iter, used, state, out, harvest_ms, age_s):
+        ess_hook(num_iter, used, state, out, harvest_ms, age_s)
+        ages.append((num_iter, age_s))
+        gammas.append(atube.cost_params.gamma)
+
+    out = run_tube_mppi.drive(tube, log=lambda m: None, atube=atube,
+                              depth=depth, on_tick_async=hook)
+    torch.cuda.synchronize()
+    timing, plant = out["timing"], tube.plant
+    dev_ms = [a.elapsed_time(b) for a, b in spans]
+    harvest = list(timing.harvest_samples_ms)
+    dt = tube.cfg.dt
+    # the loop harvests n - depth solutions, the drain the last depth
+    steady = [a for _, a in ages[:n - depth]]
+    lag_ok = (ages[0][0] == depth + 1 and len(ages) == n and all(
+        abs(a - depth * dt) < dt / 2 for a in steady))
+    s = plant.true_state
+    pub = np.array([p[1:] for p in plant.published], np.float64)
+    status = plant.check_status(plant.get_last_pose_time())
+    pct = lambda a: (float(np.percentile(a, 50)), float(np.percentile(a, 99)))
+    res = {"depth": depth, "dispatch_ms": pct(dispatch_ms[1:]),
+           "harvest_ms": pct(harvest[depth:]), "device_ms": pct(dev_ms[1:]),
+           "tick_ms": pct(list(timing.tick_samples_ms)[1:]),
+           "first_dispatch_ms": dispatch_ms[0], "captures": traces["n"],
+           "u_x": float(s[4])}
+    print(f"[async] depth {depth}: {n} lockstep ticks in {out['wall_s']:.2f}"
+          f" s, arbitration {out['used']}; the first harvest at tick "
+          f"{ages[0][0]}, solution ages {min(steady):.4f}..{max(steady):.4f} "
+          f"s (depth x dt = {depth * dt:.4f}); captures {traces['n']} "
+          f"(gamma {gammas[0]:.4g} -> {gammas[-1]:.4g} by attach_async); "
+          f"final u_x {s[4]:.3f} m/s, status {status}, controls published "
+          f"{len(pub)} ({card})")
+    print(f"[async] depth {depth} p50 / p99 (ms): host dispatch "
+          f"{res['dispatch_ms'][0]:.3f} / {res['dispatch_ms'][1]:.3f} (the "
+          f"first, which captures, {dispatch_ms[0]:.3f}), harvest wait "
+          f"{res['harvest_ms'][0]:.3f} / {res['harvest_ms'][1]:.3f}, device "
+          f"span of a dispatch (CUDA events) {res['device_ms'][0]:.3f} / "
+          f"{res['device_ms'][1]:.3f}, the loop's tick "
+          f"{res['tick_ms'][0]:.3f} / {res['tick_ms'][1]:.3f} ({card})")
+    check(lag_ok, f"async depth {depth}: the published solution does not "
+          f"lag by exactly {depth} dispatches: {ages[:4]}...")
+    check(traces["n"] == 1, f"async depth {depth}: {traces['n']} captures "
+          f"in {n} ticks with gamma moving, expected 1")
+    check(len(set(gammas)) > 2, f"async depth {depth}: gamma did not move")
+    check(len(pub) >= n - depth and np.isfinite(pub).all(),
+          f"async depth {depth}: {len(pub)} controls published, or not "
+          f"finite")
+    check(status == 0, f"async depth {depth}: status {status} at the end")
+    if trace_dir is not None:
+        import tempfile
+
+        atube.dispatch = dispatch
+        tube2 = tube._replace(loop_cfg=dataclasses.replace(
+            tube.loop_cfg, max_iter=ASYNC_TRACE_TICKS))
+        with tempfile.TemporaryDirectory(dir=trace_dir) as d:
+            with device_trace(d) as prof:
+                t0 = time.perf_counter()
+                run_tube_mppi.drive(tube2, log=lambda m: None, atube=atube,
+                                    depth=depth)
+                wall = (time.perf_counter() - t0) * 1e3
+            cuda = [e for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            size = os.path.getsize(prof.trace_path)
+        busy = _busy_ms(cuda) / ASYNC_TRACE_TICKS
+        period = 1e3 / tube.cfg.hz
+        res["busy_ms_per_tick"] = busy
+        res["busy_share_of_period"] = busy / period
+        print(f"[async] depth {depth} device_trace over {ASYNC_TRACE_TICKS} "
+              f"lockstep ticks ({wall:.1f} ms wall under the profiler, a "
+              f"{size / 2**20:.1f} MiB Chrome trace): device busy "
+              f"{busy:.3f} ms a tick (the union of {len(cuda)} device "
+              f"events), {100 * busy / period:.1f} % of the {period:.0f} ms "
+              f"period ({card})")
+        check(cuda, "async: device_trace recorded no device events")
+    return res
+
+
+def async_phase(run_tube_mppi, rk, card) -> dict:
+    """Phase 22: the async loop on the card (a)-(e)."""
+    out = {"captured_vs_eager": async_captured_vs_eager(run_tube_mppi, card),
+           "launches": async_launches(run_tube_mppi, rk, card)}
+    for depth in (1, 2):
+        out[f"depth{depth}"] = async_drive(
+            run_tube_mppi, depth, card,
+            trace_dir=os.path.join(HERE, "autorally_tpu_torch", "_build")
+            if depth == 1 else None)
+    return out
+
+
+# -- phase 23: the realtime gates ---------------------------------------------
+
+def gate_lines(tag, res, card) -> None:
+    g = lambda k: res.get(k)
+    print(f"[gate] {tag}: p50 {g('p50_ms')} ms, p99 {g('p99_ms')} ms "
+          f"(budget {g('budget_ms')}), missed {g('missed')}, missed_raw "
+          f"{g('missed_raw')}, valid {g('valid_ticks')} / {g('ticks')} ticks, "
+          f"tainted {g('tainted_ticks')}, attempts {g('attempts_used')}, "
+          f"p99 over all ticks {g('p99_all_ms')}; pacer {g('pacer')}; the "
+          f"warm-up's first tick {g('first_tick_ms'):.3f} ms; captures in "
+          f"the measured passes {g('captures')}, full collections in "
+          f"measured ticks {g('full_collections')}; {g('weights')} ({card})")
+    if "depth_final" in res:
+        print(f"[gate] {tag}: harvest p50 / p99 {g('harvest_p50_ms')} / "
+              f"{g('harvest_p99_ms')} ms, solution age p50 / p99 "
+              f"{g('age_p50_s')} / {g('age_p99_s')} s, depth "
+              f"{g('depth')} -> final {g('depth_final')} (max "
+              f"{g('depth_max')}), p99 net of the harvest {g('p99_net_ms')} "
+              f"ms, best attempt p99 {g('best_attempt_p99_ms')} ms ({card})")
+
+
+def gate_passes(tag, res) -> None:
+    """The JAX test's rules (tests/test_realtime_gate.py), without its
+    skip, the native pacer, and no capture in the measured passes."""
+    check(res["pacer"] == "native", f"gate {tag}: the loop paced with "
+          f"{res['pacer']}, not the native pacer")
+    check(res["valid_ticks"] >= 100, f"gate {tag}: {res['valid_ticks']} "
+          f"valid ticks, fewer than 100")
+    check(res["p99_ms"] < res["budget_ms"], f"gate {tag}: p99 "
+          f"{res['p99_ms']} ms over the {res['budget_ms']} ms budget")
+    check(res["missed"] == 0, f"gate {tag}: {res['missed']} missed")
+    bound = 0 if res["tainted_ticks"] == 0 else res["tainted_ticks"] + 2
+    check(res["missed_raw"] <= bound, f"gate {tag}: missed_raw "
+          f"{res['missed_raw']} over {bound}")
+    check(res["captures"] == 0, f"gate {tag}: {res['captures']} captures "
+          f"in the measured passes")
+
+
+def gate_phase(rk, card) -> dict:
+    """Phase 23: both realtime gates on the card, the simulator a second
+    process (``sim_node --cpu``, seeded weights) over loopback UDP."""
+    from autorally_tpu_torch.runtime import realtime_gate as gate
+
+    rk.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    seq = gate.run_realtime_gate(seconds=GATE_SECONDS,
+                                 attempts=GATE_ATTEMPTS,
+                                 warmup_iters=GATE_WARMUP)
+    seq_s = time.perf_counter() - t0
+    launches = {n: rk.LAUNCHES[n] for n in ("fused_exact_rollout_cost",
+                                            "dynamics_chain")}
+    gate_lines(f"sequential K={seq['num_rollouts']} "
+               f"T={seq['num_timesteps']} with gains ({seq_s:.1f} s)", seq,
+               card)
+    # warm-up included: the sequential loop solves uncaptured, two solves
+    # a tick, so the counters see every launch
+    want = 2 * (GATE_WARMUP + seq["ticks"])
+    print(f"[gate] sequential: launches {launches} over the warm-up's "
+          f"{GATE_WARMUP} and "
+          f"the passes' {seq['ticks']} ticks (expected {want} each)")
+    check(all(v == want for v in launches.values()),
+          f"gate sequential: launches {launches}, expected {want} each")
+    t0 = time.perf_counter()
+    asy = gate.run_realtime_gate_async(seconds=GATE_SECONDS,
+                                       attempts=GATE_ATTEMPTS, depth=2,
+                                       adaptive_depth=True)
+    asy_s = time.perf_counter() - t0
+    gate_lines(f"async K={asy['num_rollouts']} T={asy['num_timesteps']} "
+               f"with gains, depth 2 adaptive ({asy_s:.1f} s)", asy, card)
+    gate_passes("sequential", seq)
+    gate_passes("async", asy)
+    keep = ("p50_ms", "p99_ms", "missed", "missed_raw", "valid_ticks",
+            "tainted_ticks", "ticks", "first_tick_ms", "captures",
+            "full_collections", "harvest_p50_ms", "harvest_p99_ms",
+            "age_p50_s", "age_p99_s", "depth_final", "depth_max",
+            "p99_net_ms")
+    return {"sequential": {k: seq[k] for k in keep if k in seq},
+            "async": {k: asy[k] for k in keep if k in asy}}
+
+
 def main() -> int:
     import torch
 
@@ -3146,6 +3511,12 @@ def main() -> int:
     # -- phase 21: the closed-loop episode, the tick one CUDA graph -------
     episode = episode_phase(rk, card)
 
+    # -- phase 22: the async loop, the tick one CUDA graph ----------------
+    async_loop = async_phase(run_tube_mppi, rk, card)
+
+    # -- phase 23: the realtime gates, the simulator a second process -----
+    gates = gate_phase(rk, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -3216,7 +3587,11 @@ def main() -> int:
                           tube["bf_long_split"]["tick"],
                       "bf_ddp": tube["bf_ddp"],
                       "episode_launches_per_tick": episode["launches"],
-                      "episode_timing": episode["timing"]}))
+                      "episode_timing": episode["timing"],
+                      "async_launches_per_tick": async_loop["launches"],
+                      "async_depth1": async_loop["depth1"],
+                      "async_depth2": async_loop["depth2"],
+                      "gates": gates}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,6 +19,8 @@ from autorally_tpu_torch.runtime.ess_tuner import (EssTuner,
                                                    gamma_step_traced)
 from test_torch_runtime import FLAT_MAP, _tube_pair
 
+from autorally_tpu.config import CostParams as JaxCostParams
+
 K = 128
 ESS_GRID = (0.0, 1.0, 4.0, 31.9, 32.0, 120.0, float(K), 1e9, float("nan"),
             float("inf"))
@@ -76,8 +78,10 @@ def test_clamps_reset_seed_and_target_check():
     g0 = ours.update(40.0)
     assert ours.update(float("nan")) == g0
     assert ours.update(float("inf")) == g0
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        ours.attach_async(object())
+    # attach_async seeds an unseeded tube at attach time
+    tube = _DuckTube(CostParams())
+    ours.attach_async(tube)
+    assert tube.cost_params.gamma == np.float32(ours.gamma)
 
 
 def test_attach_drives_the_tube_loop_like_jax():
@@ -108,3 +112,59 @@ def test_attach_drives_the_tube_loop_like_jax():
     assert len(gammas["port"]) == len(gammas["jax"]) == 12
     np.testing.assert_allclose(gammas["port"], gammas["jax"], rtol=LAW_RTOL)
     assert len(set(gammas["port"])) > 2
+
+
+class _DuckTube:
+    """What ``attach_async`` needs of a tube: cost params and their
+    update."""
+
+    def __init__(self, cost_params):
+        self.cost_params = cost_params
+
+    def update_cost_params(self, cost_params):
+        self.cost_params = cost_params
+
+
+class _Out:
+    def __init__(self, ess):
+        self.ess = ess
+
+
+def test_attach_async_gammas_match_jax():
+    """``attach_async`` on both packages over one sequence of harvested
+    ESS values (NaN and inf among them): the tubes are seeded at attach
+    time and carry the same gamma after every harvest."""
+    ours, ref = _tuners(target_frac=0.25)
+    tubes = _DuckTube(CostParams()), _DuckTube(JaxCostParams())
+    hooks = ours.attach_async(tubes[0]), ref.attach_async(tubes[1])
+    assert tubes[0].cost_params.gamma == float(tubes[1].cost_params.gamma)
+    seq = np.random.default_rng(5).uniform(0.0, K, 40).tolist()
+    seq[7:7] = [float("nan"), 1.0, float("inf"), float(K), 1e9]
+    for i, ess in enumerate(seq):
+        for hook in hooks:
+            hook(i, "actual", None, _Out(np.float32(ess)), 0.0, 0.0)
+        g, jg = (t.cost_params.gamma for t in tubes)
+        assert type(g) is float and g == np.float32(g)
+        assert g == float(jg), (i, ess)
+    assert ours.gamma != ours.base
+
+
+def test_attach_async_drives_the_async_loop():
+    """``attach_async`` on the port's async tube (the CPU, 12 lockstep
+    ticks): one update a harvest from the harvested ESS, gamma into the
+    next dispatch."""
+    from test_torch_async_loop import _build, _lockstep
+    from autorally_tpu_torch.runtime.async_loop import run_control_loop_async
+
+    tube, plant, cfg = _build()
+    hook = EssTuner(cfg, target_frac=0.5).attach_async(tube)
+    law = EssTuner(cfg, target_frac=0.5)
+    seen = []
+
+    def on_tick(i, used, state, out, harvest_ms, age_s):
+        hook(i, used, state, out, harvest_ms, age_s)
+        seen.append(float(np.float32(law.update(float(out.ess)))))
+        assert tube.cost_params.gamma == seen[-1]
+
+    run_control_loop_async(tube, plant, _lockstep(1, 12), on_tick=on_tick)
+    assert len(seen) == 12 and len(set(seen)) > 2

@@ -6,6 +6,7 @@ solver (as ``tests/test_torch_solver.py`` injects it); and
 ``run_tube_mppi`` itself."""
 
 import math
+import time
 
 import jax
 import jax.numpy as jnp
@@ -557,3 +558,42 @@ def test_run_tube_mppi_unported_options_name_the_roadmap(option, capsys):
     err = capsys.readouterr().err
     assert f"{option} is not ported yet" in err
     assert run_tube_mppi.UNPORTED[option] in err and "ROADMAP.md" in err
+
+
+def test_run_tube_mppi_async_loop_on_the_cpu(capsys):
+    """``--async-loop --depth 2`` drives the async tube in lockstep (the
+    first two ticks publish nothing yet), with ``--ess-target`` through
+    ``EssTuner.attach_async``."""
+    run_tube_mppi.main(["--cpu", "--ticks", "6", "--rollouts", "64",
+                        "--timesteps", "16", "--async-loop", "--depth", "2",
+                        "--ess-target", "0.25"])
+    out = capsys.readouterr().out
+    assert "6 ticks in" in out and "(async loop, depth 2)" in out
+    assert "controls published: 4" in out
+    line = next(l for l in out.splitlines() if l.startswith("ess tuner:"))
+    start, end = (float(v) for v in line.split("gamma ")[1].split(" -> "))
+    assert start == 0.15 and end != start
+    usage = out.split("controller usage: ")[1].splitlines()[0]
+    assert sum(eval(usage).values()) == 6
+
+
+def test_sequential_loop_paces_with_the_native_pacer(monkeypatch):
+    """The realtime loop paces with the native absolute-deadline pacer and
+    says so (``TimingStats.pacer``); lockstep says lockstep; a realtime
+    loop whose pacer cannot load raises instead of sleeping."""
+    from autorally_tpu_torch.runtime import native
+
+    pair = _tube_pair(max_iter=3)
+    actual, predicted, syn, lcfg, lp = pair["port"]
+    timing = lp.run_control_loop(predicted, actual, syn, lcfg)
+    assert timing.pacer == "lockstep"
+    lcfg.realtime = True
+    t0 = time.perf_counter()
+    timing = lp.run_control_loop(predicted, actual, syn, lcfg)
+    assert timing.pacer == "native" and timing.num_iter == 3
+    assert time.perf_counter() - t0 >= 3 * 0.02 * 0.9
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "SO_PATH", native.BUILD_DIR / "absent.so")
+    monkeypatch.setattr(native, "SOURCE", native.BUILD_DIR / "absent.cpp")
+    with pytest.raises(RuntimeError, match="absent.cpp"):
+        lp.run_control_loop(predicted, actual, syn, lcfg)
