@@ -81,9 +81,14 @@ def effective_gamma(cfg: "MPPIConfig", cost_params: CostParams):
 @dataclasses.dataclass(frozen=True)
 class MPPIConfig:
     """Static solver configuration; same fields and defaults as the JAX
-    package.  ``scan_unroll``, ``use_pallas_rollout`` and ``exact_fused``
-    are TPU performance knobs with no semantic effect, kept so configs
-    compare field by field."""
+    package.  ``scan_unroll`` and ``exact_fused`` are TPU performance knobs
+    with no semantic effect, kept so configs compare field by field.
+    ``use_pallas_rollout=True`` has one semantic effect, as in the JAX
+    package: it forces the kernel form for a model whose ``KERNEL_KIND`` is
+    set but whose subclass overrides a method the kernels replace, and the
+    kernels then evaluate the declaring class's math; ``None`` and
+    ``False`` leave the choice to the model and the cost
+    (``solver/mppi.py``)."""
 
     num_rollouts: int = 1920          # K  (path_integral_main.cu:66)
     num_timesteps: int = 100          # T  (launch: num_timesteps)

@@ -32,6 +32,12 @@ class Dynamics(nn.Module):
     CONTROL_DIM: int = 2
     KINEMATICS_DIM: int = 3
 
+    #: The CUDA kernels' in-kernel form of the model
+    #: (``ops/rollout_kernel.py``): ``"mlp"`` (the tanh MLP), ``"bf"`` (the
+    #: basis functions), or ``None`` when the model has none (the solver then
+    #: runs its plain chain, ``solver/mppi.py``).
+    KERNEL_KIND = None
+
     def __init__(self, dt: float, negate_yaw_der: bool = True, device=None):
         super().__init__()
         self.dt = float(dt)

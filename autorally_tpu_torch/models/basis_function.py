@@ -168,6 +168,8 @@ class BasisFunctionDynamics(Dynamics):
 
     # -- in-kernel form (ops/rollout_kernel.py) ------------------------------
 
+    KERNEL_KIND = "bf"
+
     def kernel_weights(self, params: Params) -> list:
         """One (4, 25) theta panel, the layout of the JAX package's kernels
         and of the CUDA kernels' weight buffer."""

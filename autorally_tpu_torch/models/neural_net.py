@@ -156,6 +156,8 @@ class NeuralNetDynamics(Dynamics):
 
     # -- in-kernel form (ops/rollout_kernel.py) ------------------------------
 
+    KERNEL_KIND = "mlp"
+
     def kernel_weights(self, params: Params) -> list:
         """(out, in) weight panels + (out, 1) bias columns, the layout of
         the JAX package's kernels and of the CUDA kernels' packed buffer."""

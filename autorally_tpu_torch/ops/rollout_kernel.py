@@ -67,9 +67,7 @@ from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
 from autorally_tpu_torch.costs.obstacles import obstacle_terms
-from autorally_tpu_torch.models.basis_function import (NUM_BFS,
-                                                       BasisFunctionDynamics)
-from autorally_tpu_torch.models.neural_net import NeuralNetDynamics
+from autorally_tpu_torch.models.basis_function import NUM_BFS
 from autorally_tpu_torch.ops import _build
 from autorally_tpu_torch.ops.kernel_rng import kernel_noise
 from autorally_tpu_torch.ops.sampling import ou_coefficients
@@ -201,7 +199,7 @@ def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
     floats = [nu0, nu1, float(cfg.optimization_stride),
               _pure_thresh(cfg, k_offset), float(np.float32(model.dt))]
     ints = [T, K, int(int(k_offset) == 0), int(model.negate_yaw_der),
-            int(type(model) is BasisFunctionDynamics)]
+            int(_is_bf(model))]
     if cost_params is None:
         floats += [0.0] * (len(_FLOAT_SCALARS) - len(floats))
         ints += [0] * (len(_INT_SCALARS) - len(ints))
@@ -309,7 +307,7 @@ def _launch_geometry(K: int, dev, model) -> ExactGeometry:
     """The geometry a launch of kernel 1 takes on ``dev``
     (``exact_geometry``, looked up in this module at call time)."""
     return exact_geometry(K, num_sms(dev.index or 0),
-                          bf=type(model) is BasisFunctionDynamics)
+                          bf=_is_bf(model))
 
 
 def chain_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
@@ -346,7 +344,7 @@ def _chain_launch_geometry(K: int, dev, model) -> ExactGeometry:
     """The geometry a launch of kernel 2 takes on ``dev``
     (``chain_geometry``, looked up in this module at call time)."""
     return chain_geometry(K, num_sms(dev.index or 0),
-                          bf=type(model) is BasisFunctionDynamics)
+                          bf=_is_bf(model))
 
 
 @functools.cache
@@ -392,20 +390,42 @@ def const_quotient_check(device: int = 0) -> dict:
                     counts.tolist()))
 
 
-def has_kernel_form(model) -> bool:
-    """Whether the CUDA kernels can evaluate ``model``'s dynamics."""
-    return (type(model) is BasisFunctionDynamics
-            or (type(model) is NeuralNetDynamics
-                and model.layers == KERNEL_LAYERS))
+def _is_bf(model) -> bool:
+    return model.KERNEL_KIND == "bf"
 
 
-def _check_kernel_model(model) -> None:
-    if type(model) not in (NeuralNetDynamics, BasisFunctionDynamics):
+def kernel_form_applies(model, cfg=None) -> bool:
+    """Whether the kernels evaluate ``model`` (the solver's choice, as the
+    JAX package's ``_decide_pallas`` makes it): its ``KERNEL_KIND`` is set,
+    and the class that declared it owns every method the kernels replace
+    (``solver.mppi._kernel_form_consistent``), unless
+    ``cfg.use_pallas_rollout`` is True, which forces the kernel form: the
+    kernels then evaluate the declaring class's math."""
+    from autorally_tpu_torch.solver.mppi import _kernel_form_consistent
+
+    if model.KERNEL_KIND is None:
+        return False
+    forced = cfg is not None and cfg.use_pallas_rollout is True
+    return forced or _kernel_form_consistent(model)
+
+
+def has_kernel_form(model, cfg=None) -> bool:
+    """Whether the CUDA kernels can evaluate ``model``'s dynamics: its kernel
+    form applies (:func:`kernel_form_applies`) and, for the MLP, its layers
+    are the compiled ones."""
+    return (kernel_form_applies(model, cfg)
+            and (_is_bf(model) or model.layers == KERNEL_LAYERS))
+
+
+def _check_kernel_model(model, cfg=None) -> None:
+    if not kernel_form_applies(model, cfg):
         raise NotImplementedError(
-            f"{type(model).__name__} has no CUDA kernel form: the port's "
-            "kernels evaluate NeuralNetDynamics and BasisFunctionDynamics "
-            "(ROADMAP.md, Queue 1)")
-    if type(model) is NeuralNetDynamics and model.layers != KERNEL_LAYERS:
+            f"{type(model).__name__} has no CUDA kernel form: the kernels "
+            "evaluate a model whose KERNEL_KIND is set and whose declaring "
+            "class owns every method they replace (the MPPI solver runs its "
+            "plain chain for any other; cfg.use_pallas_rollout=True forces "
+            "the declaring class's form; ROADMAP.md)")
+    if not _is_bf(model) and model.layers != KERNEL_LAYERS:
         raise NotImplementedError(
             f"the CUDA kernels are compiled for layers {KERNEL_LAYERS}, got "
             f"{model.layers} (ROADMAP.md, Queue 2: other layer specs)")
@@ -474,11 +494,34 @@ def _pack_weights(model, model_params) -> torch.Tensor:
     for the MLP the (out, in) panels and biases in layer order (1,412
     floats for 6-32-32-4), for the BF model theta^T (4, 25), row-major
     (100 floats).  Packed once per set of weight tensors."""
-    src = ((model_params["theta"],) if type(model) is BasisFunctionDynamics
-           else (*model_params["weights"], *model_params["biases"]))
-    return _cached_pack(
-        model, src, lambda: torch.cat([w.reshape(-1) for w in
-                                       model.kernel_weights(model_params)]))
+    return _cached_pack(model, _weight_tensors(model, model_params),
+                        lambda: _flat_weights(model, model_params))
+
+
+def _weight_tensors(model, model_params) -> tuple:
+    """The tensors of ``model_params`` that the weight buffer packs."""
+    return ((model_params["theta"],) if _is_bf(model)
+            else (*model_params["weights"], *model_params["biases"]))
+
+
+def _flat_weights(model, model_params) -> torch.Tensor:
+    return torch.cat([w.reshape(-1) for w in
+                      model.kernel_weights(model_params)])
+
+
+def pack_members(model, stacked_params, owner) -> torch.Tensor:
+    """The weight buffers of M members, (M, 1,412) for the MLP ((M, 100)
+    for the BF model), from stacked params (leading axis M on every
+    tensor; ``models/ensemble.py``), packed once per set of stacked tensors
+    and kept on ``owner``: member m's launches take row m
+    (``packed_weights=``), so that M launches share one pack."""
+    from autorally_tpu_torch.models.ensemble import member_params
+
+    src = _weight_tensors(model, stacked_params)
+    M = src[0].shape[0]
+    return _cached_pack(owner, src, lambda: torch.stack(
+        [_flat_weights(model, member_params(stacked_params, m))
+         for m in range(M)]))
 
 
 def _obstacle_circles(cost_params, obstacles) -> Optional[torch.Tensor]:
@@ -518,14 +561,24 @@ def _obstacle_launch(circles: Optional[torch.Tensor], dev):
 
 
 # Kernel launches by instance name (the wrapper's name, ``_field`` for pass
-# 1's field mode, then ``_form``'s suffix), counted where a wrapper launches.
+# 1's field mode, then ``_form``'s suffix), counted where a wrapper launches;
+# kernels 1, 2 and 3 also by (instance name, K) in LAUNCHES_BY_K.
 LAUNCHES = collections.Counter()
+LAUNCHES_BY_K = collections.Counter()
+
+
+def _launch_counted(launch, K: int) -> None:
+    """Run a prepared launch of kernel 1, 2 or 3 over K rollouts and count
+    it."""
+    launch()
+    LAUNCHES[launch.name] += 1
+    LAUNCHES_BY_K[launch.name, K] += 1
 
 
 def _form(model, n_obs: int) -> str:
     """The suffix of a kernel instance's name: ``_bf`` for the BF model,
     ``_obstacles`` with circle slots."""
-    return (("_bf" if type(model) is BasisFunctionDynamics else "")
+    return (("_bf" if _is_bf(model) else "")
             + ("_obstacles" if n_obs else ""))
 
 
@@ -605,9 +658,11 @@ def _dispatch(t: torch.Tensor) -> str:
 
 
 def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
-                   max_T: int = MAX_KERNEL_T):
+                   max_T: int = MAX_KERNEL_T, packed_weights=None):
     """Shape checks and the device tensors every rollout kernel reads
-    (with ``eps`` (T, K, C) for the kernels that read their noise)."""
+    (with ``eps`` (T, K, C) for the kernels that read their noise; the
+    weight buffer ``packed_weights`` when given, a row of
+    :func:`pack_members`, else :func:`_pack_weights`)."""
     T, C = U.shape
     if (C != 2 or state.shape != (model.STATE_DIM,)
             or (eps is not None and eps.shape != (T, K, C))):
@@ -620,7 +675,8 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
         s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
         U=U.to(torch.float32).contiguous(),
-        weights=_pack_weights(model, model_params))
+        weights=(_pack_weights(model, model_params) if packed_weights is None
+                 else packed_weights))
     if eps is not None:
         args["eps"] = eps
     return args
@@ -698,19 +754,20 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
 
 def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
                    surface, state, U, eps, l1_cost, k_offset, obstacles,
-                   obstacle_coeff, inflation):
+                   obstacle_coeff, inflation, packed_weights):
     """Validate a fused kernel's inputs (``surface`` must be a ``cls``) and
     allocate its outputs.  Returns ``(launch, (costs, u_seq, crash))``:
     each ``launch()`` runs the kernel once into those outputs on the
     current stream (uncounted; the wrapper counts ``launch.name``)."""
     _expect(surface, cls, fn)
-    _check_kernel_model(model)
+    _check_kernel_model(model, cfg)
     circles = _obstacle_circles(cost_params, obstacles)
     kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
     args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
-        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
+        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T),
+        packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -753,37 +810,41 @@ def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                                      l1_cost: bool = False, k_offset=0,
                                      obstacles=None,
                                      obstacle_coeff: float = 0.0,
-                                     inflation: float = 1.0):
+                                     inflation: float = 1.0,
+                                     packed_weights=None):
     """Kernel A's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(Costmap, "fused_exact_rollout_cost", model,
                           model_params, cfg, cost_params, costmap, state, U,
                           eps, l1_cost, k_offset, obstacles, obstacle_coeff,
-                          inflation)
+                          inflation, packed_weights)
 
 
 def prepare_fused_rollout_cost(model, model_params, cfg, cost_params,
                                field: NeuralCostmap, state, U, eps,
                                l1_cost: bool = False, k_offset=0,
                                obstacles=None, obstacle_coeff: float = 0.0,
-                               inflation: float = 1.0):
+                               inflation: float = 1.0, packed_weights=None):
     """Kernel 3's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(NeuralCostmap, "fused_rollout_cost", model,
                           model_params, cfg, cost_params, field, state, U,
                           eps, l1_cost, k_offset, obstacles, obstacle_coeff,
-                          inflation)
+                          inflation, packed_weights)
 
 
 def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                              costmap: Costmap, state, U, eps,
                              l1_cost: bool = False, k_offset=0,
                              obstacles=None, obstacle_coeff: float = 0.0,
-                             inflation: float = 1.0):
+                             inflation: float = 1.0, packed_weights=None):
     """Fused rollout + exact-costmap cost (``fused_exact_rollout_cost_pallas``).
 
     ``state`` (S,), ``U`` (T, C), ``eps`` (T, K, C) standard normal;
     ``k_offset`` is the global index of this batch's first rollout;
     ``obstacles`` (N, 3) circles priced with ``obstacle_coeff`` and
-    ``inflation`` (``ObstacleCost.kernel_kwargs``), or None.
+    ``inflation`` (``ObstacleCost.kernel_kwargs``), or None;
+    ``packed_weights``: the kernel's weight buffer when the caller packed
+    it (a row of :func:`pack_members`; the plain version reads
+    ``model_params``).
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
     _expect(costmap, Costmap, "fused_exact_rollout_cost")
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
@@ -793,16 +854,17 @@ def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                                         cost_params, costmap, state, U, eps,
                                         **kw)
     launch, out = prepare_fused_exact_rollout_cost(
-        model, model_params, cfg, cost_params, costmap, state, U, eps, **kw)
-    launch()
-    LAUNCHES[launch.name] += 1
+        model, model_params, cfg, cost_params, costmap, state, U, eps,
+        packed_weights=packed_weights, **kw)
+    _launch_counted(launch, eps.shape[1])
     return out
 
 
 def fused_rollout_cost(model, model_params, cfg, cost_params,
                        field: NeuralCostmap, state, U, eps,
                        l1_cost: bool = False, k_offset=0, obstacles=None,
-                       obstacle_coeff: float = 0.0, inflation: float = 1.0):
+                       obstacle_coeff: float = 0.0, inflation: float = 1.0,
+                       packed_weights=None):
     """Fused rollout + neural-field cost (``fused_rollout_cost_pallas``):
     :func:`fused_exact_rollout_cost`'s contract with a ``NeuralCostmap``.
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
@@ -814,9 +876,9 @@ def fused_rollout_cost(model, model_params, cfg, cost_params,
                                         cost_params, field, state, U, eps,
                                         **kw)
     launch, out = prepare_fused_rollout_cost(
-        model, model_params, cfg, cost_params, field, state, U, eps, **kw)
-    launch()
-    LAUNCHES[launch.name] += 1
+        model, model_params, cfg, cost_params, field, state, U, eps,
+        packed_weights=packed_weights, **kw)
+    _launch_counted(launch, eps.shape[1])
     return out
 
 
@@ -845,13 +907,14 @@ def dynamics_chain_plain(model, model_params, cfg, state, U, eps, k_offset=0):
 
 
 def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
-                           k_offset=0):
+                           k_offset=0, packed_weights=None):
     """Validate the chain kernel's inputs and allocate its outputs; returns
     ``(launch, (states, u_seq))`` as :func:`prepare_fused_exact_rollout_cost`."""
-    _check_kernel_model(model)
+    _check_kernel_model(model, cfg)
     T, K, C = eps.shape
     dev = eps.device
-    args = _kernel_inputs(model, model_params, state, U, K, eps)
+    args = _kernel_inputs(model, model_params, state, U, K, eps,
+                          packed_weights=packed_weights)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
     fsc = _host_array(ctypes.c_float, floats)
@@ -878,21 +941,24 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
     return launch, (states, u_seq)
 
 
-def dynamics_chain(model, model_params, cfg, state, U, eps, k_offset=0):
+def dynamics_chain(model, model_params, cfg, state, U, eps, k_offset=0,
+                   packed_weights=None):
     """The dynamics chain (``dynamics_chain_pallas``): same perturb/clamp/
-    derivative/Euler as the fused kernel, emitting every state.
+    derivative/Euler as the fused kernel, emitting every state
+    (``packed_weights`` as :func:`fused_exact_rollout_cost` takes it).
     Returns (states (S, T, K), u_seq (C, T, K))."""
     if _dispatch(eps) == "plain":
         return dynamics_chain_plain(model, model_params, cfg, state, U, eps,
                                     k_offset=k_offset)
     launch, out = prepare_dynamics_chain(model, model_params, cfg, state, U,
-                                         eps, k_offset=k_offset)
-    launch()
-    LAUNCHES[launch.name] += 1
+                                         eps, k_offset=k_offset,
+                                         packed_weights=packed_weights)
+    _launch_counted(launch, eps.shape[1])
     return out
 
 
-def nominal_trajectory(model, model_params, cfg, state, U):
+def nominal_trajectory(model, model_params, cfg, state, U,
+                       packed_weights=None):
     """Re-rollout of the solution (``computeNominalTraj``,
     ``mppi_controller.cu:501-519``; ``nominal_trajectory_pallas``): one
     noise-free rollout through :func:`dynamics_chain` (K = 1).  Returns
@@ -901,7 +967,8 @@ def nominal_trajectory(model, model_params, cfg, state, U):
     T, C = U.shape
     state = state.to(U.device, torch.float32)
     eps = torch.zeros((T, 1, C), dtype=torch.float32, device=U.device)
-    states, _ = dynamics_chain(model, model_params, cfg, state, U, eps)
+    states, _ = dynamics_chain(model, model_params, cfg, state, U, eps,
+                               packed_weights=packed_weights)
     traj = states[:, :, 0].T                                 # s_1 .. s_T
     states_sol = torch.cat([state[None, :], traj[:-1]], dim=0)
     rngs = _control_rngs(model_params, C)
@@ -1005,7 +1072,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     ``fused_rng_field_kernel`` for a ``NeuralCostmap``) once on the current
     stream (uncounted; the wrapper counts); ``launch.mode`` names the
     mode, ``launch.name`` the kernel instance."""
-    _check_kernel_model(model)
+    _check_kernel_model(model, cfg)
     circles = _obstacle_circles(cost_params, obstacles)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)

@@ -15,8 +15,11 @@ seeded theta at K=2560 — and the obstacle path — the main path with an
 ``ObstacleCost`` of 16 slots whose circles move every tick — and the tube
 loop — the main path's configuration in ``run_tube_mppi``'s two
 controllers with DDP gains — and the closed-loop episode — the same tube
-with the tick captured as one CUDA graph — and checks every CUDA kernel of
-these paths,
+with the tick captured as one CUDA graph — and the general rollout path
+— a cost subclass through kernel 2 and a batched cost epilogue, a model
+without a kernel form through the solver's plain chain — and the model
+ensembles — BASELINE config #5's 8 members through ``EnsembleMPPISolver``
+at K=16384 and K=65536 — and checks every CUDA kernel of these paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
@@ -196,14 +199,42 @@ exits non-zero):
     gains, 3 s passes, at most 3 attempts; each must pace natively, reach
     100 valid ticks, p99 under 20 ms, missed 0, missed_raw 0 (or at most
     the tainted ticks + 2 when some were tainted) and capture nothing in
-    the measured passes; the sequential loop's kernel launches counted.
+    the measured passes; the sequential loop's kernel launches counted;
+24. the general rollout path (``solver/mppi.py``'s chain and batched cost
+    epilogue): (a) kernel 2 at K=1920 (MLP) and K=2560 (BF) against its
+    plain version (phases 3 and 15 hold both of its geometries); (b) a
+    cost subclass (the speed cost doubled) at BASELINE #1: kernel 2 and
+    the epilogue against the plain chain and the epilogue, a subclass that
+    overrides nothing against kernel 1, 200 ticks of ``drive_oval.drive``
+    (20 with the BF model at K=2560) with exactly 2 kernel-2 launches a
+    solve (one at K, one at K=1, by ``rk.LAUNCHES_BY_K``), no kernel 1 and
+    no plain version; (c) ``EnsembleDynamics`` (M=8) through
+    ``MPPISolver`` at K=1920, the solver's plain chain: 50 ticks eager
+    with no rollout-kernel launch, and 50 captured episode ticks bit for
+    bit the eager ones, each replay timed (CUDA events);
+25. the ensemble solver (``solver/ensemble.py``) at bench.py's rows, M=8,
+    K=16384 and K=65536, T=100, ``__graft_entry__.py``'s members and
+    state: (a) 8 identical members bit for bit ``MPPISolver`` (U, the
+    nominal trajectory, every stat); (b) each member's kernel 1 at K/M
+    against the plain cost along kernel 2's trajectories (every rollout),
+    at most 1 % of the rollouts apart from the whole plain version, u_seq
+    exactly, the nominal trajectory (member 0, kernel 2); (c) 100 solves
+    with a sync after each (p50 / p99) and 100 back to back (solves/s),
+    peak device memory, exactly 8 kernel-1 launches at K/M and 1 kernel-2
+    launch at K=1 a solve, no plain version; kernel 1 at K/M timed; (d)
+    ``tools/ensemble_ab.py --track oval --members 8 --rollouts 4096
+    --ticks 300 --seeds 1`` through the captured episode: each arm's
+    captured ticks bit for bit its eager ones, its launches a tick (the
+    capture's warm-up and captured ticks), ms a replayed tick, both arms'
+    JSON.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
 compiled instance with its registers, the paths' latencies, the tube's and
 the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
-launches and timings, the async tick's launches and timings and both
-gates' results), and as its last line
+launches and timings, the async tick's launches and timings, both gates'
+results, the general path's latencies and the ensemble's), and as its last
+line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
 
@@ -354,6 +385,22 @@ ASYNC_TRACE_TICKS = 20                # (e) under device_trace
 # The realtime gates (phase 23): 3 s passes, at most 3 attempts each.
 GATE_SECONDS, GATE_ATTEMPTS = 3.0, 3
 GATE_WARMUP = 8                       # the sequential gate's warm-up ticks
+
+# The general rollout path (phase 24): a cost subclass at BASELINE #1 (and
+# the BF model's K=2560) through kernel 2 and the batched cost epilogue;
+# EnsembleDynamics (M=8) through MPPISolver, the solver's plain chain.
+GEN_TICKS = 200
+GEN_BF_TICKS = 20
+GEN_ENS_TICKS = 50
+ENS_M = 8
+# The ensemble solver (phase 25): bench.py's ensemble8_K16384 and
+# ensemble8_K65536 rows from __graft_entry__.py's state, chained solves;
+# tools/ensemble_ab.py through the captured episode.
+ENS_KS = (16384, 65536)
+ENS_SOLVES = 100
+ENS_START = (25.0, 0.0, 1.57, 0.0, 2.0, 0.0, 0.0)
+AB_ARGS = ["--track", "oval", "--members", str(ENS_M), "--rollouts", "4096",
+           "--ticks", "300", "--seeds", "1"]
 
 # registers of each kernel instance, from the build's ptxas report; the
 # library's SASS (phase 1)
@@ -3169,6 +3216,466 @@ def gate_phase(rk, card) -> dict:
             "async": {k: asy[k] for k in keep if k in asy}}
 
 
+# -- phase 24: the general rollout path --------------------------------------
+
+def doubled_speed_cost():
+    """A cost subclass that overrides one term (the speed cost, doubled),
+    so that the epilogue's dispatch through the subclass shows."""
+    from autorally_tpu_torch.costs import MPPICost
+
+    class DoubledSpeed(MPPICost):
+        def speed_cost_c(self, p, ux):
+            return 2.0 * super().speed_cost_c(p, ux)
+
+    return DoubledSpeed()
+
+
+def ensemble_members(base_params, num_members: int, noise: float = 0.05):
+    """BASELINE #5's members as ``__graft_entry__.py`` builds them, stacked:
+    member 0 the base, every other the base plus ``noise`` N(0, 1) from
+    ``RandomState(0)`` (drawn for member 0 too, weights then biases)."""
+    import torch
+    from autorally_tpu_torch.models.ensemble import stack_params
+
+    rng = np.random.RandomState(0)
+    members = []
+    for m in range(num_members):
+        scale = 0.0 if m == 0 else noise
+        plus = [[x + scale * torch.as_tensor(
+            rng.randn(*x.shape).astype(np.float32), device=x.device)
+            for x in base_params[name]] for name in ("weights", "biases")]
+        members.append({"weights": plus[0], "biases": plus[1],
+                        "control_rngs": base_params["control_rngs"]})
+    return stack_params(members)
+
+
+def replayed_tick_ms(runner, args) -> tuple:
+    """(p50, p99) of the device time of each replayed tick of a run of the
+    captured ``runner`` (CUDA events around each replay; the run captures
+    first when it has to)."""
+    import torch
+
+    runner.run(*args)
+    plan = runner._captured
+    graph, events = plan.graph, []
+
+    class Timed:
+        def replay(self):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            events.append((e0, e1))
+
+    plan.graph = Timed()
+    try:
+        runner.run(*args)
+    finally:
+        plan.graph = graph
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in events]
+    return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+
+def chain_row(rk, name, model, params, cfg, start, U, eps, bf, err, card,
+              launches) -> dict:
+    """The ``kernels`` row of kernel 2 at ``eps``'s K: its time in the
+    launcher's geometry, its plain version's, its bound (each input read
+    once, states and u_seq written once; the MLP's or the BF step's
+    operations)."""
+    K_n = eps.shape[1]
+    chain = chain_timing(rk, name, model, params, cfg, start, U, eps, bf, 100,
+                         card)
+    plain = cuda_ms(lambda: rk.dynamics_chain_plain(model, params, cfg,
+                                                    start, U, eps), 3, 1)
+    n_w = rk.KERNEL_BF_WEIGHTS if bf else rk.KERNEL_NUM_WEIGHTS
+    step = BF_STEP_OPS if bf else mlp_flops(model.layers)
+    bnd, by = bound(4 * (11 * T * K_n + 2 * T + n_w + 7 + 4), step * T * K_n)
+    print(f"[timing] {name} K={K_n}: {chain['ms']:.4f} ms, plain "
+          f"{plain:.3f} ms, bound {bnd:.5f} ms ({by}) ({card})")
+    return {"name": name, "route": "cuda",
+            "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+            "replaces": "autorally_tpu/ops/rollout_kernel.py:389",
+            "launches": launches, "max_abs_err": err, "ms": chain["ms"],
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "K": K_n, **chain_entry(chain)}
+
+
+def general_phase(drive_oval, rk, card, dev=None) -> dict:
+    """Phase 24: the general rollout path, (a) kernel 2 at K against its
+    plain version, (b) a cost subclass at BASELINE #1 through kernel 2 and
+    the batched epilogue, (c) ``EnsembleDynamics`` through ``MPPISolver``
+    (the plain chain, no kernel), eager and captured."""
+    import torch
+
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.models import EnsembleDynamics
+    from autorally_tpu_torch.runtime.episode import EpisodeRunner
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.lap_eval import load_track
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    solver, params, cost_params, costmap, _ = drive_oval.build(
+        rollouts=K, device=dev)
+    cfg, model = solver.cfg, solver.model
+    bsolver, bparams, *_ = drive_oval.build(model="bf", device=dev)
+    bcfg, bmodel = bsolver.cfg, bsolver.model
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(24)
+    eps = torch.randn((T, K, 2), generator=gen, device=dev)
+    eps_b = torch.randn((T, KB, 2), generator=gen, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    out = {}
+
+    # (a) kernel 2 at the general path's K (phases 3 and 15 hold both of
+    # its geometries on their cases; here the row's inputs)
+    errs = {}
+    for tag, (mdl, prm, ccfg, e) in {
+            "dynamics_chain": (model, params, cfg, eps),
+            "dynamics_chain_bf": (bmodel, bparams, bcfg, eps_b)}.items():
+        ks, ku = rk.dynamics_chain(mdl, prm, ccfg, start, U, e)
+        ps, pu = rk.dynamics_chain_plain(mdl, prm, ccfg, start, U, e)
+        torch.cuda.synchronize()
+        errs[tag] = (ks - ps).abs().max().item()
+        print(f"[general path] {tag} K={e.shape[1]} against its plain "
+              f"version: max|state err| {errs[tag]:.3e}, u_seq equal "
+              f"{torch.equal(ku, pu)}")
+        check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"general path {tag}: states differ")
+        check(torch.equal(ku, pu), f"general path {tag}: u_seq differs")
+
+    # (b) a cost subclass: kernel 2 and the epilogue against the plain
+    # chain and the epilogue, the doubled term showing; a subclass that
+    # overrides nothing against kernel 1
+    sub = MPPISolver(model, doubled_speed_cost(), cfg, device=dev)
+    check(sub.kernel_form and not sub._fusable_cost(),
+          "general path: the subclass's solver does not take the chain")
+    tot, u_seq, crash = sub.rollout_costs(params, cost_params, costmap,
+                                          start, U, eps)
+    ps, pu = rk.dynamics_chain_plain(model, params, cfg, start, U, eps)
+    ptot, pcrash = sub._cost_epilogue(params, cost_params, costmap, eps, ps,
+                                      pu)
+    fused = solver.rollout_costs(params, cost_params, costmap, start, U, eps)
+
+    class Same(MPPICost):
+        pass
+
+    same = MPPISolver(model, Same(), cfg, device=dev).rollout_costs(
+        params, cost_params, costmap, start, U, eps)
+    torch.cuda.synchronize()
+    e_sub = (tot - ptot).abs().max().item()
+    e_same = (same[0] - fused[0]).abs().max().item()
+    n_crash = int((crash != pcrash).sum().item())
+    n_same = int((same[2] != fused[2]).sum().item())
+    print(f"[general path] a cost subclass (speed cost doubled) K={K}: "
+          f"kernel 2 + epilogue against the plain chain + epilogue max|cost "
+          f"err| {e_sub:.3e}, crash mismatches {n_crash} "
+          f"({int(crash.sum().item())} crashed); a subclass overriding "
+          f"nothing against kernel 1: max|cost err| {e_same:.3e}, crash "
+          f"mismatches {n_same}; the doubled term moves the mean cost "
+          f"{fused[0].mean().item():.4g} -> {tot.mean().item():.4g}")
+    check(torch.allclose(tot, ptot, rtol=COST_RTOL, atol=COST_ATOL),
+          "general path: the subclass's costs differ from the plain chain's")
+    check(n_crash == 0 and torch.equal(u_seq, pu),
+          "general path: the subclass's crash flags or u_seq differ")
+    check(torch.allclose(same[0], fused[0], rtol=COST_RTOL, atol=COST_ATOL)
+          and n_same == 0 and torch.equal(same[1], fused[1]),
+          "general path: an unchanged subclass differs from kernel 1")
+    check(not torch.allclose(tot, fused[0], rtol=1e-3),
+          "general path: the doubled speed cost does not show")
+
+    # the closed loops: 2 kernel-2 launches a solve (K and the nominal
+    # trajectory's K=1), no kernel 1, no plain version
+    by_k = {}
+    for tag, (slv, prm, ticks, name, k_n) in {
+            "general path": (sub, params, GEN_TICKS, "dynamics_chain", K),
+            "general path bf": (MPPISolver(bmodel, doubled_speed_cost(), bcfg,
+                                           device=dev), bparams, GEN_BF_TICKS,
+                                "dynamics_chain_bf", KB)}.items():
+        rk.LAUNCHES_BY_K.clear()
+        latency, _, _ = drive_counted(drive_oval, rk, tag, slv, prm,
+                                      cost_params, costmap, ticks,
+                                      {name: 2}, card)
+        by_k[name] = dict(rk.LAUNCHES_BY_K)
+        want = {(name, k_n): ticks + 1, (name, 1): ticks + 1}
+        print(f"[{tag}] launches by K: {by_k[name]}")
+        check(by_k[name] == want, f"{tag}: launches by K {by_k[name]}, "
+              f"expected {want}")
+        out[tag] = latency
+    rows = [chain_row(rk, "dynamics_chain_general", model, params, cfg,
+                      start, U, eps, False, errs["dynamics_chain"], card,
+                      by_k["dynamics_chain"][("dynamics_chain", K)]),
+            chain_row(rk, "dynamics_chain_bf_general", bmodel, bparams, bcfg,
+                      start, U, eps_b, True, errs["dynamics_chain_bf"], card,
+                      by_k["dynamics_chain_bf"][("dynamics_chain_bf", KB)])]
+    del eps_b, ps, pu
+
+    # (c) EnsembleDynamics through MPPISolver: the solver's plain chain
+    ens = MPPISolver(EnsembleDynamics(model, ENS_M), MPPICost(), cfg,
+                     device=dev)
+    stacked = ensemble_members(params, ENS_M)
+    check(not ens.kernel_form, "EnsembleDynamics took a kernel form")
+    out["ensemble_dynamics_eager"], _, _ = drive_counted(
+        drive_oval, rk, "EnsembleDynamics plain chain", ens, stacked,
+        cost_params, costmap, GEN_ENS_TICKS, {}, card)
+    cm, start_pose, _, _ = load_track("oval", device=dev)
+    args = (stacked, cost_params, cm,
+            [start_pose[0], start_pose[1], start_pose[2], 0, 0, 0, 0])
+    runner = EpisodeRunner(ens, n_ticks=GEN_ENS_TICKS)
+    with PlainCalls(rk) as plain:
+        rk.LAUNCHES.clear()
+        episode_held(f"EnsembleDynamics (M={ENS_M}) plain chain", runner,
+                     args)
+        tick = replayed_tick_ms(runner, args)
+    print(f"[general path] EnsembleDynamics (M={ENS_M}) K={K} episode: "
+          f"{GEN_ENS_TICKS} replayed ticks (two solves and the plant each) "
+          f"p50 {tick[0]:.3f} ms p99 {tick[1]:.3f} ms (CUDA events around "
+          f"each replay); rollout-kernel launches {dict(rk.LAUNCHES)}, "
+          f"plain-version calls {plain.calls} ({card})")
+    check(not rk.LAUNCHES and not any(plain.calls.values()),
+          "EnsembleDynamics episode: a rollout kernel or plain version ran")
+    out["ensemble_dynamics_episode_tick"] = tick
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "latency": out}
+
+
+# -- phase 25: the ensemble solver -------------------------------------------
+
+def member_row(rk, ens, stacked, cfg, cm, cp, state, U, eps, err, card,
+               launches) -> dict:
+    """The ``kernels`` row of kernel 1 at an ensemble member's K/M (the
+    last member's block, the pure-noise band's): its time, its plain
+    version's and its bound (as phase 5's at this K)."""
+    from autorally_tpu_torch.models.ensemble import member_params
+
+    M = ens.num_members
+    k_m = eps.shape[1] // M
+    base = ens._base_solver.model
+    pm = member_params(stacked, M - 1)
+    e_m = eps[:, (M - 1) * k_m:].contiguous()
+    kw = dict(k_offset=(M - 1) * k_m)
+    launch, _ = rk.prepare_fused_exact_rollout_cost(
+        base, pm, cfg, cp, cm, state, U, e_m, **kw,
+        packed_weights=ens._member_packs(stacked)[M - 1])
+    ms = cuda_ms(launch, 100)
+    plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+        base, pm, cfg, cp, cm, state, U, e_m, **kw), 3, 1)
+    n_w = rk.KERNEL_NUM_WEIGHTS
+    bnd, by = bound(4 * (T * k_m * 2 + 2 * T * k_m + 2 * k_m + T * 2 + n_w
+                         + 7 + 4 + 2 * k_m * (T - 1)),
+                    mlp_flops(base.layers) * k_m * T)
+    print(f"[timing] fused_exact_rollout_cost K/M={k_m} (member {M - 1} of "
+          f"{M}, k_offset {(M - 1) * k_m}): {ms:.4f} ms in "
+          f"{geometry_label(launch.geometry)}, plain {plain:.3f} ms, bound "
+          f"{bnd:.5f} ms ({by}) ({card})")
+    return {"name": f"fused_exact_rollout_cost_member_K{k_m}",
+            "route": "cuda",
+            "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+            "replaces": "autorally_tpu/ops/rollout_kernel.py:1013",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "K": k_m,
+            "geometry": geometry_label(launch.geometry)}
+
+
+def ensemble_phase(rk, card, dev=None) -> dict:
+    """Phase 25: ``EnsembleMPPISolver`` at bench.py's two ensemble rows
+    (M=8, K=16384 and 65536, T=100, BASELINE #5's members on the exact
+    oval): (a) identical members bit for bit ``MPPISolver``, (b) against the
+    plain versions, (c) 100 chained solves, (d) ``tools/ensemble_ab.py``
+    through the captured episode."""
+    import torch
+
+    from autorally_tpu_torch.config import CostParams, MPPIConfig
+    from autorally_tpu_torch.costs import MPPICost, make_costmap
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.models.ensemble import (member_params,
+                                                     stack_params)
+    from autorally_tpu_torch.solver import EnsembleMPPISolver, MPPISolver
+    from autorally_tpu_torch.tools import ensemble_ab
+    from autorally_tpu_torch.tools import track_generator as tg
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    data, xb, yb = tg.oval_track(ppm=4.0)
+    cm = make_costmap(data, xb, yb, device=dev)
+    cp = CostParams()
+    state = np.array(ENS_START, np.float32)
+    state_t = torch.tensor(state, device=dev)
+    rows, out = [], {}
+    for k_tot in ENS_KS:
+        cfg = MPPIConfig(num_rollouts=k_tot, num_timesteps=T)
+        base = NeuralNetDynamics(cfg.dt, control_ranges=cfg.control_ranges,
+                                 device=dev)
+        p0 = base.init_params(0)
+        stacked = ensemble_members(p0, ENS_M)
+        ens = EnsembleMPPISolver(base, MPPICost(cfg.l1_cost), cfg,
+                                 num_members=ENS_M, device=dev)
+        single = MPPISolver(base, MPPICost(cfg.l1_cost), cfg, device=dev)
+        k_m = k_tot // ENS_M
+        tag = f"ensemble M={ENS_M} K={k_tot}"
+
+        # (a) M identical members: MPPISolver's solve, bit for bit
+        cs_e, st_e = ens.solve(stack_params([p0] * ENS_M), cp, cm, state,
+                               ens.init_state())
+        cs_s, st_s = single.solve(p0, cp, cm, state, single.init_state())
+        torch.cuda.synchronize()
+        same = {f: bit_equal(getattr(cs_e, f), getattr(cs_s, f)) for f in
+                ("U", "state_solution", "control_solution")}
+        same.update({f: bit_equal(getattr(st_e, f), getattr(st_s, f))
+                     for f in st_e._fields})
+        print(f"[{tag}] {ENS_M} identical members against MPPISolver at "
+              f"K={k_tot}, bit for bit: {same}")
+        check(all(same.values()), f"{tag}: identical members differ from "
+              f"MPPISolver in {[f for f, v in same.items() if not v]}")
+
+        # (b) against the plain versions, member by member.  As phase 2
+        # does on its random map: a moving swarm on 25 cm texels, where the
+        # plain chain's fp32 rounding (another summation order in the MLP)
+        # moves a few rollouts' lookups across a texel edge, so kernel 1 is
+        # held against the plain cost along kernel 2's trajectories in
+        # every rollout, and at most 1 % of the rollouts may differ from
+        # the whole plain version
+        eps = ens._draw(cm, np.array([13, k_tot], np.uint32))
+        U = ens.init_state().U
+        tot, u_seq, crash = ens.rollout_costs(stacked, cp, cm, state_t, U,
+                                              eps)
+        along, whole = [], []
+        for m in range(ENS_M):
+            pm, kw = member_params(stacked, m), dict(k_offset=m * k_m)
+            e_m = eps[:, m * k_m:(m + 1) * k_m].contiguous()
+            kb, _ = rk.dynamics_chain(base, pm, cfg, state_t, U, e_m, **kw)
+            along.append(rk.trajectory_cost_plain(base, pm, cfg, cp, cm, U,
+                                                  e_m, kb, **kw))
+            whole.append(rk.fused_rollout_cost_plain(base, pm, cfg, cp, cm,
+                                                     state_t, U, e_m, **kw))
+        ptot = torch.cat([p[0] for p in along])
+        pcrash = torch.cat([p[1] for p in along])
+        wtot = torch.cat([p[0] for p in whole])
+        pu = torch.cat([p[1] for p in whole], dim=2)
+        ns, _ = ens.nominal_trajectory(stacked, state_t, U)
+        ps = rk.dynamics_chain_plain(base, member_params(stacked, 0), cfg,
+                                     state_t, U, torch.zeros_like(eps[:, :1]))
+        ps = torch.cat([state_t[None], ps[0][:, :, 0].T[:-1]])
+        torch.cuda.synchronize()
+        err = (tot - ptot).abs().max().item()
+        n_crash = int((crash != pcrash).sum().item())
+        n_differ = int((~torch.isclose(tot, wtot, rtol=COST_RTOL,
+                                       atol=COST_ATOL)).sum().item())
+        e_nom = (ns - ps).abs().max().item()
+        print(f"[{tag}] against the plain versions (kernel 1 a member at "
+              f"K/M={k_m}): along kernel 2's trajectories max|cost err| "
+              f"{err:.3e}, crash mismatches {n_crash} "
+              f"({int(crash.sum().item())} crashed); {n_differ} rollouts "
+              f"differ from the whole plain version (max|cost err| "
+              f"{(tot - wtot).abs().max().item():.3e}); u_seq equal "
+              f"{torch.equal(u_seq, pu)}; nominal (member 0, kernel 2 K=1) "
+              f"max|state err| {e_nom:.3e}")
+        check(torch.allclose(tot, ptot, rtol=COST_RTOL, atol=COST_ATOL)
+              and n_crash == 0 and torch.equal(u_seq, pu),
+              f"{tag}: the members' kernels differ from the plain versions")
+        check(n_differ <= k_tot // 100, f"{tag}: {n_differ} rollouts differ "
+              f"from the whole plain version, more than {k_tot // 100}")
+        check(torch.allclose(ns, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
+              f"{tag}: the nominal trajectory differs")
+        del along, whole, pu
+
+        # (c) chained solves: latency (a sync after each), throughput (one
+        # sync after all), peak memory, launches by K
+        cs = ens.init_state()
+        cs, _ = ens.solve(stacked, cp, cm, state, cs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated() / 2**20
+        rk.LAUNCHES.clear()
+        rk.LAUNCHES_BY_K.clear()
+        with PlainCalls(rk) as calls:
+            ms = []
+            for _ in range(ENS_SOLVES):
+                t0 = time.perf_counter()
+                cs, st = ens.solve(stacked, cp, cm, state, cs)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            for _ in range(ENS_SOLVES):
+                cs, st = ens.solve(stacked, cp, cm, state, cs)
+            torch.cuda.synchronize()
+            rate = ENS_SOLVES / (time.perf_counter() - t0)
+        # the solves' own peak, above what was allocated before them (the
+        # stacked weights, the pack, and what earlier phases hold)
+        peak = torch.cuda.max_memory_allocated() / 2**20 - held
+        by_k = dict(rk.LAUNCHES_BY_K)
+        n = 2 * ENS_SOLVES
+        want = {("fused_exact_rollout_cost", k_m): ENS_M * n,
+                ("dynamics_chain", 1): n}
+        lat = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)))
+        print(f"[{tag}] {ENS_SOLVES} chained solves: p50 {lat[0]:.3f} ms p99 "
+              f"{lat[1]:.3f} ms (a sync after each, host clock); "
+              f"{rate:.1f} solves/s ({ENS_SOLVES} back to back, one sync); "
+              f"peak device memory {peak:.1f} MiB above the {held:.1f} "
+              f"allocated before the solves; launches by K over "
+              f"{n} solves {by_k}; plain-version calls {calls.calls}; ess "
+              f"{st.ess.item():.1f}, crash% {st.crash_frac.item() * 100:.1f} "
+              f"({card})")
+        check(by_k == want, f"{tag}: launches {by_k}, expected {want}")
+        check(not any(calls.calls.values()), f"{tag}: a plain version ran")
+        check(torch.isfinite(cs.U).all().item(), f"{tag}: non-finite U")
+        out[f"K{k_tot}"] = {"solve_ms_p50_p99": lat, "solves_per_s": rate,
+                            "peak_mib": peak, "held_mib": held}
+        rows.append(member_row(rk, ens, stacked, cfg, cm, cp, state_t, U,
+                               eps, err, card,
+                               by_k[("fused_exact_rollout_cost", k_m)]))
+        del ens, single, stacked, eps, cs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the A/B tool through the captured episode
+    args = ensemble_ab.parse_args(AB_ARGS)
+    config, arms, run_args = ensemble_ab.build(args, dev)
+    ab = {"config": config, "single": [], "ensemble": []}
+    per_tick = {"single": {"fused_exact_rollout_cost": 2,
+                           "dynamics_chain": 2},
+                "ensemble": {"fused_exact_rollout_cost": 2 * args.members,
+                             "dynamics_chain": 2}}
+    for arm, runner, p_ctrl in arms:
+        ep = (p_ctrl, *run_args[:3])
+        kw = dict(params_true=run_args[3], seed_a=0, seed_p=1)
+        rk.LAUNCHES.clear()
+        with PlainCalls(rk) as calls:
+            cap = runner.run(*ep, **kw)      # an eager tick, the capture
+            ticked = {n: v / 2 for n, v in rk.LAUNCHES.items()}
+            eag = runner.run(*ep, eager=True, **kw)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            runner.run(*ep, **kw)
+            e1.record()
+            torch.cuda.synchronize()
+        bits = episode_equal(cap, eag)
+        tick_ms = e0.elapsed_time(e1) / args.ticks
+        print(f"[ensemble_ab] {arm}: {args.ticks} ticks captured bit for bit "
+              f"the eager run {bits}; launches a tick {ticked}; "
+              f"{tick_ms:.4f} ms a replayed tick (CUDA events, noise staging "
+              f"included); plain-version calls {calls.calls} ({card})")
+        check(bits, f"ensemble_ab {arm}: the captured run differs")
+        check(ticked == per_tick[arm], f"ensemble_ab {arm}: launches a tick "
+              f"{ticked}, expected {per_tick[arm]}")
+        check(not any(calls.calls.values()), f"ensemble_ab {arm}: a plain "
+              "version ran")
+        ab[arm].append(ensemble_ab.run_arm(runner, p_ctrl, *run_args[:4], 0,
+                                           *run_args[4:]))
+        out[f"ab_{arm}"] = {"launches_per_tick": ticked,
+                            "ms_per_tick": tick_ms}
+        del cap, eag
+    print(f"[ensemble_ab] {json.dumps(ensemble_ab.summarize(ab))}")
+    out["ab"] = {arm: ab[f"{arm}_summary"] for arm in ("single", "ensemble")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "results": out}
+
+
 def main() -> int:
     import torch
 
@@ -3517,6 +4024,12 @@ def main() -> int:
     # -- phase 23: the realtime gates, the simulator a second process -----
     gates = gate_phase(rk, card)
 
+    # -- phase 24: the general rollout path -------------------------------
+    general = general_phase(drive_oval, rk, card)
+
+    # -- phase 25: the ensemble solver, a kernel launch a member ----------
+    ensemble = ensemble_phase(rk, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -3531,7 +4044,8 @@ def main() -> int:
          "max_abs_err": err_b, "ms": ms_b, "plain_ms": plain_b,
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
          **chain_entry(chain_b)},
-    ] + cap_kernels + field_kernels + bf_obs_kernels
+    ] + cap_kernels + field_kernels + bf_obs_kernels + general["kernels"] + (
+        ensemble["kernels"])
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -3541,14 +4055,14 @@ def main() -> int:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
         if name.startswith("fused_exact_rollout_cost"):
-            geom = rk.exact_geometry(KB if "_bf" in name else K, sms,
-                                     "_bf" in name)
+            geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
+                                     sms, "_bf" in name)
             k.setdefault("geometry", geometry_label(geom))
             k["instance"] = exact_instance(geom, False, "_bf" in name)
         elif name.startswith("dynamics_chain"):
             k["instance"] = ("dynamics_chain_warp_kernel" if rk.chain_geometry(
-                1, sms, "_bf" in name).group > 1 else "dynamics_chain_kernel"
-                ) + f"<{model}>"
+                k.get("K", 1), sms, "_bf" in name).group > 1
+                else "dynamics_chain_kernel") + f"<{model}>"
         elif name.startswith(("fused_rollout_cost", "fused_rng_costs_field")):
             k["design"] = field_design
             k["instance"] = ("fused_field_kernel" if name.startswith(
@@ -3591,7 +4105,9 @@ def main() -> int:
                       "async_launches_per_tick": async_loop["launches"],
                       "async_depth1": async_loop["depth1"],
                       "async_depth2": async_loop["depth2"],
-                      "gates": gates}))
+                      "gates": gates,
+                      "general_path": general["latency"],
+                      "ensemble": ensemble["results"]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -394,8 +394,10 @@ def test_launch_names_follow_the_kernel_instance(monkeypatch):
 def test_obstacle_refusals():
     """Circles without an ObstacleCost's coefficients, more slots than the
     kernels stage, and malformed arrays are refused before any build or
-    launch; other cost types are refused by the solver."""
-    solver, params, _, _ = _pair()
+    launch; a subclass of ObstacleCost, which the solver once refused,
+    takes the general path (the chain and the batched cost epilogue) and
+    matches the JAX solver's iteration."""
+    solver, params, jsolver, jparams = _pair()
     cm, _ = _surfaces("exact")
     state, U, eps = (torch.tensor(a) for a in _inputs())
     plain = mppi.MPPISolver(solver.model, MPPICost(), solver.cfg,
@@ -420,9 +422,24 @@ def test_obstacle_refusals():
     class SubCost(ObstacleCost):
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mppi.MPPISolver(solver.model, SubCost(np.zeros((1, 3))), solver.cfg,
-                        device="cpu")
+    class JaxSubCost(JaxObstacleCost):
+        pass
+
+    sub = mppi.MPPISolver(solver.model, SubCost(solver.cost.obstacles, COEFF,
+                                                INFLATION), solver.cfg,
+                          device="cpu")
+    jsub = jmppi.MPPISolver(jsolver.model, JaxSubCost(
+        jsolver.cost.obstacles, COEFF, INFLATION), jsolver.cfg)
+    jcm = _surfaces("exact")[1]
+    cp = CostParams(desired_speed=6.0)
+    U_new, stats = sub.iterate(params, cp, cm, state, U, eps)
+    jU, jstats = jsub.iterate(jparams, JaxCostParams(desired_speed=6.0), jcm,
+                              *(jnp.asarray(a.numpy()) for a in (state, U,
+                                                                 eps)))
+    np.testing.assert_allclose(U_new.numpy(), np.asarray(jU),
+                               rtol=ITER_RTOL, atol=ITER_ATOL)
+    _assert_stats(stats, jstats, ITER_RTOL, ITER_ATOL)
+    assert float(stats.crash_frac) > 0
 
 
 # ---------------------------------------------------------------------------

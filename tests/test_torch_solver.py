@@ -230,8 +230,11 @@ def test_controller_state_helpers():
     dict(noise_sampler="ou", noise_param=0.15), dict(matmul_precision="default")])
 def test_unported_options_raise_and_name_the_roadmap(option):
     """Options still unported raise and name the roadmap; the ones ported
-    since (the capacity mode, colored and OU noise) construct and solve."""
-    solver, params, cm, *_ = _pair(K=128, T=16)
+    since (the capacity mode, colored and OU noise) construct and solve,
+    and so does a cost subclass, once refused: it takes the general path
+    (the chain and the batched cost epilogue) and matches the JAX solver's
+    iteration."""
+    solver, params, cm, jsolver, jparams, jcm = _pair(K=128, T=16)
     model, cfg = solver.model, solver.cfg
     if "matmul_precision" not in option:
         ported = mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
@@ -245,11 +248,26 @@ def test_unported_options_raise_and_name_the_roadmap(option):
     class SubCost(MPPICost):
         pass
 
+    class JaxSubCost(JaxCost):
+        pass
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
                         device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mppi.MPPISolver(model, SubCost(), cfg, device="cpu")
+    sub = mppi.MPPISolver(model, SubCost(), cfg, device="cpu")
+    jsub = jmppi.MPPISolver(jsolver.model, JaxSubCost(), jsolver.cfg)
+    rs = np.random.default_rng(8)
+    eps_s = rs.standard_normal((16, 128, 2)).astype(np.float32)
+    U_s = np.tile(np.array([0.05, 0.3], np.float32), (16, 1))
+    U_new, stats = sub.iterate(params, CostParams(), cm,
+                               torch.tensor(SCENARIO_START),
+                               torch.tensor(U_s), torch.tensor(eps_s))
+    jU, jstats = jsub.iterate(jparams, JaxCostParams(), jcm,
+                              jnp.asarray(SCENARIO_START), jnp.asarray(U_s),
+                              jnp.asarray(eps_s))
+    np.testing.assert_allclose(U_new.numpy(), np.asarray(jU),
+                               rtol=ITER_RTOL, atol=ITER_ATOL)
+    _assert_stats(stats, jstats, ITER_RTOL, ITER_ATOL)
     state = torch.zeros(7)
     U = torch.zeros(16, 2)
     eps = torch.zeros(16, 128, 2)
