@@ -1,2 +1,2 @@
-"""Checkpoints of the controllers' states (port of ``autorally_tpu/io``;
-``compile_cache.py`` is listed in ROADMAP.md, Queue 1 item 8)."""
+"""Checkpoints of the controllers' states and the persistent build cache
+(port of ``autorally_tpu/io``)."""

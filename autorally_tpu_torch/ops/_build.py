@@ -3,14 +3,20 @@
 ``autorally_tpu_torch/csrc/rollout_kernels.cu`` exposes a plain C
 interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library under ``autorally_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the source and the flags, and loaded
-with ``ctypes``.  Nothing is built when the module is imported, so the CPU
-tests import it on machines without ``nvcc``.
+``.gitignore``), or the persistent cache directory that
+``io/compile_cache.enable_persistent_cache`` sets, named by a hash of the
+source and the flags, and loaded with ``ctypes``.  The check and the
+build run under an exclusive lock on a file beside the library, so that
+processes that start together (the ranks of a sharded solve) run ``nvcc``
+once and the others load its library.  Nothing is built when the module
+is imported, so the CPU tests import it on machines without ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -77,6 +83,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"{SOURCE.stem}_{digest[:16]}.so"
 
 
+@contextlib.contextmanager
+def file_lock(path: Path):
+    """An exclusive ``flock`` on ``path`` (created if missing) for the
+    ``with`` block; the kernel releases it if the process dies."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def set_build_dir(path) -> None:
+    """Build and load the library in ``path`` from now on; raises if this
+    process already loaded it from another directory."""
+    global BUILD_DIR
+    path = Path(path).resolve()
+    if _lib is not None and Path(_lib._name).parent != path:
+        raise RuntimeError(f"the kernel library is already loaded from "
+                           f"{Path(_lib._name).parent}, not {path}")
+    BUILD_DIR = path
+
+
+def _compile(out: Path) -> tuple:
+    """Compile the source into ``out`` (atomically: a reader sees no
+    library or the whole one); returns (seconds, compiler output)."""
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+                          capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
+    os.replace(tmp, out)
+    return time.perf_counter() - t0, log
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, compiled first when its ``.so`` is missing
     (raises with the compiler's output if that fails).  The library's
@@ -87,19 +133,9 @@ def load() -> ctypes.CDLL:
         return _lib
     out = library_path()
     build = None
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-                               str(SOURCE)], capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
-        os.replace(tmp, out)                  # the library appears atomically
-        build = (time.perf_counter() - t0, log)
+    with file_lock(out.with_suffix(".lock")):
+        if not out.exists():
+            build = _compile(out)
     lib = ctypes.CDLL(str(out))
     for fn, argtypes in SIGNATURES.items():
         getattr(lib, fn).argtypes = argtypes

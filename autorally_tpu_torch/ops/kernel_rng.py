@@ -110,6 +110,16 @@ def split(key) -> Tuple[np.ndarray, np.ndarray]:
     return np.array(new, np.uint32), np.array(sub, np.uint32)
 
 
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` of a key of two uint32 words, bit
+    for bit: Threefry-2x32 of the key over the counter (0, data), on host
+    integers.  A shard folds its index into the iteration's subkey, so that
+    every shard draws its own stream (``parallel/sharded.py``)."""
+    k0, k1 = (int(w) & _MASK for w in key)
+    return np.array(threefry2x32((k0, k1), (0, int(data) & _MASK)),
+                    np.uint32)
+
+
 def stream_log(x: torch.Tensor) -> torch.Tensor:
     """Natural log of float32 ``x`` in (0, 1]: x = m 2^e with m in
     [sqrt(1/2), sqrt(2)), log m = 2 atanh((m - 1) / (m + 1))."""

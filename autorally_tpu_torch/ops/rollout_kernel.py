@@ -524,6 +524,18 @@ def pack_members(model, stacked_params, owner) -> torch.Tensor:
          for m in range(M)]))
 
 
+def pack_member(model, stacked_params, m: int, owner) -> torch.Tensor:
+    """Member m's weight buffer alone (1,412 floats for the MLP, 100 for the
+    BF model), from stacked params, packed once per set of stacked tensors
+    and kept on ``owner``: a rank that evaluates one member
+    (``parallel/ensemble_sharded.py``) packs only its own."""
+    from autorally_tpu_torch.models.ensemble import member_params
+
+    return _cached_pack(owner, _weight_tensors(model, stacked_params),
+                        lambda: _flat_weights(
+                            model, member_params(stacked_params, m)))
+
+
 def _obstacle_circles(cost_params, obstacles) -> Optional[torch.Tensor]:
     """The circles to price, (N, 3) float32 as given (any device), or None
     without obstacle terms.  ``CostParams.obstacles`` without obstacle terms

@@ -8,8 +8,12 @@ role ROS pub/sub plays for the reference).
 
 The library is ``native/artpu_rt.cpp``, compiled at first use by ``g++``
 with ``native/Makefile``'s flags into
-``autorally_tpu_torch/_build/libartpu_rt.so`` (listed in ``.gitignore``);
-``native/`` itself is only read.  A failed build or load raises with the
+``autorally_tpu_torch/_build/libartpu_rt.so`` (listed in ``.gitignore``),
+or into the persistent cache directory, named by a hash of the source and
+the flags, once ``io/compile_cache.enable_persistent_cache`` sets one;
+``native/`` itself is only read.  The check and the build run under the
+kernel build's file lock (``ops/_build.file_lock``), so that processes
+that start together run ``g++`` once.  A failed build or load raises with the
 compiler's output wherever the caller needs the library;
 ``native_available()`` answers whether it loads.
 """
@@ -17,6 +21,7 @@ compiler's output wherever the caller needs the library;
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -25,6 +30,8 @@ from pathlib import Path
 from typing import Optional
 
 import numpy as np
+
+from autorally_tpu_torch.ops._build import file_lock
 
 _ROOT = Path(__file__).resolve().parent.parent.parent
 SOURCE = _ROOT / "native" / "artpu_rt.cpp"
@@ -79,13 +86,30 @@ def _build() -> None:
     os.replace(tmp, SO_PATH)
 
 
+def set_build_dir(path) -> None:
+    """Build and load the library in ``path`` from now on, named by a hash
+    of the source and the flags; raises if this process already loaded it
+    from another directory."""
+    global BUILD_DIR, SO_PATH
+    path = Path(path).resolve()
+    digest = hashlib.sha256(SOURCE.read_bytes()
+                            + " ".join(CXX_FLAGS).encode()).hexdigest()
+    so_path = path / f"libartpu_rt_{digest[:16]}.so"
+    with _LOCK:
+        if _LIB is not None and Path(_LIB._name) != so_path:
+            raise RuntimeError(f"the native library is already loaded from "
+                               f"{_LIB._name}, not {so_path}")
+        BUILD_DIR, SO_PATH = path, so_path
+
+
 def load() -> ctypes.CDLL:
     """The native library, built first when its ``.so`` is missing."""
     global _LIB
     with _LOCK:
         if _LIB is None:
-            if not SO_PATH.exists():
-                _build()
+            with file_lock(SO_PATH.with_suffix(".lock")):
+                if not SO_PATH.exists():
+                    _build()
             lib = ctypes.CDLL(str(SO_PATH))
             for name, (res, args) in SIGNATURES.items():
                 fn = getattr(lib, name)

@@ -364,13 +364,17 @@ class MPPISolver:
                       * (total - baseline))                    # (K,)
         eta = torch.sum(w)
         sum_w2 = torch.sum(w * w)
+        # the means as sums over K, as jnp.mean and the sharded solver
+        # (parallel/sharded.py) take them: CUDA's torch.mean multiplies by
+        # 1/K instead
+        K = total.shape[0]
         return SolveStats(
             baseline=baseline,
             normalizer=eta,
             trajectory_cost=sum_w2 / eta,
             ess=(eta * eta) / sum_w2,
-            mean_cost=torch.mean(total),
-            crash_frac=torch.mean(crash.to(torch.float32)),
+            mean_cost=torch.sum(total) / K,
+            crash_frac=torch.sum(crash.to(torch.float32)) / K,
         ), w
 
     def _iterate_kernel_rng(self, model_params, cost_params: CostParams,
@@ -442,19 +446,25 @@ class MPPISolver:
         (``runtime/episode.py``)."""
         U = cs.U
         stats = None
-        capacity = self._use_kernel_rng(costmap)
         for draw in draws:
-            if capacity:
-                U, stats = self._iterate_kernel_rng(
-                    model_params, cost_params, costmap, state, U, draw)
-            else:
-                U, stats = self.iterate(model_params, cost_params, costmap,
-                                        state, U, draw)
+            U, stats = self._iterate_drawn(model_params, cost_params, costmap,
+                                           state, U, draw)
         U = savitzky_golay(U, cs.control_hist)
         states_sol, controls_sol = self.nominal_trajectory(model_params,
                                                            state, U)
         return cs._replace(U=U, state_solution=states_sol,
                            control_solution=controls_sol), stats
+
+    def _iterate_drawn(self, model_params, cost_params: CostParams,
+                       costmap: Costmap, state: torch.Tensor,
+                       U: torch.Tensor, draw
+                       ) -> Tuple[torch.Tensor, SolveStats]:
+        """One iteration from one of :meth:`_draw`'s draws."""
+        if self._use_kernel_rng(costmap):
+            return self._iterate_kernel_rng(model_params, cost_params,
+                                            costmap, state, U, draw)
+        return self.iterate(model_params, cost_params, costmap, state, U,
+                            draw)
 
     def _device_key(self, sub: np.ndarray) -> torch.Tensor:
         """The capacity mode's kernel key: ``sub`` as an int64 (2,) tensor

@@ -19,7 +19,10 @@ with the tick captured as one CUDA graph — and the general rollout path
 — a cost subclass through kernel 2 and a batched cost epilogue, a model
 without a kernel form through the solver's plain chain — and the model
 ensembles — BASELINE config #5's 8 members through ``EnsembleMPPISolver``
-at K=16384 and K=65536 — and checks every CUDA kernel of these paths,
+at K=16384 and K=65536 — and the sharded solvers — the main path's
+rollouts over 1, 2 and 4 ranks of ``torch.distributed`` on the one card,
+the capacity mode over 2 and the ensemble over a 2 x 2 mesh — and checks
+every CUDA kernel of these paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
@@ -226,14 +229,38 @@ exits non-zero):
     --ticks 300 --seeds 1`` through the captured episode: each arm's
     captured ticks bit for bit its eager ones, its launches a tick (the
     capture's warm-up and captured ticks), ms a replayed tick, both arms'
-    JSON.
+    JSON;
+26. the sharded solvers (``parallel/``), ranks started by
+    ``parallel/launch.py`` after the kernel library is built here, each
+    reporting 0 builds of its own: (a) one rank over NCCL,
+    ``ShardedMPPISolver`` at K=1920 with ``force_collectives`` bit for bit
+    its inline body (an iteration and 50 chained solves), the inline body
+    bit for bit ``MPPISolver.iterate`` on ``fold_in(sub, 0)``'s noise, 1
+    kernel-1 and 1 kernel-2 launch a solve; (b) 2 and 4 ranks sharing the
+    card over gloo (NCCL refuses two ranks on one card), K=1920 host noise:
+    U within rtol 1e-4 / atol 1e-5 of ``MPPISolver.iterate`` on the
+    shards' noise concatenated, the baseline within rtol 1e-5, each rank's
+    kernel 1 at its ``k_offset`` against its plain version, every rank's U
+    and controller state bit for bit equal, 50 chained solves (p50 / p99);
+    (c) the capacity mode over 2 ranks at K=262144, gaussian and OU: passes
+    1 and 2 of each shard (``k_offset`` 0 and 131072) against their plain
+    versions, the reduced U against the plain passes' combination; (d)
+    ``EnsembleShardedMPPISolver``, 2 members x 2 rollout shards on 4 ranks,
+    K=16384, against ``EnsembleMPPISolver.iterate`` on the member-block
+    noise, 1 kernel-1 launch an iteration a rank;
+27. the tools and the build cache: ``tools/solve_breakdown.py`` at K=1920
+    and with the capacity mode at K=262144, ``tools/scaling_bench.py`` over
+    1 and 2 ranks (``--mode both --k-local 1920``; the 2-rank rows share
+    the card), and two processes loading the kernel library at once from
+    a fresh ``enable_persistent_cache`` directory: one ``nvcc`` run.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
 compiled instance with its registers, the paths' latencies, the tube's and
 the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
 launches and timings, the async tick's launches and timings, both gates'
-results, the general path's latencies and the ensemble's), and as its last
+results, the general path's latencies, the ensemble's, the sharded
+solvers' and the tools'), and as its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
@@ -3676,6 +3703,483 @@ def ensemble_phase(rk, card, dev=None) -> dict:
     return {"kernels": rows, "results": out}
 
 
+# -- phase 26: the sharded solvers on the card --------------------------------
+
+# the sharded iteration against the single-process one on the same noise
+# (tests/test_sharding.py's tolerances: fp32 sums over shards in another
+# order)
+SHARD_RTOL, SHARD_ATOL, SHARD_BASELINE_RTOL = 1e-4, 1e-5, 1e-5
+SHARD_SOLVES = 50                     # (a), (b): chained solves a rank
+SHARD_CAP_SOLVES = 20                 # (c), (d)
+SHARD_ENS_K, SHARD_ENS_M, SHARD_ENS_R = 16384, 2, 2
+SHARD_SUB = (0x0BADF00D, 0x5EED1234)  # the iteration's subkey
+RANK_TIMEOUT = 300
+# two processes load the kernel library from a fresh build cache at once
+COLD_LOADER = (
+    "import sys, time\n"
+    "from autorally_tpu_torch.io.compile_cache import "
+    "enable_persistent_cache\n"
+    "from autorally_tpu_torch.ops import _build\n"
+    "enable_persistent_cache(sys.argv[1])\n"
+    "t0 = time.perf_counter()\n"
+    "lib = _build.load()\n"
+    "print('built' if lib.build else 'loaded',\n"
+    "      f'{time.perf_counter() - t0:.1f}', lib._name)\n")
+
+
+def shard_spec(params, U, cfg_kw=None, **kw) -> dict:
+    """``sharded_program``'s spec of the main path's configuration
+    (``drive_oval.build``'s map, cost params, start and weights)."""
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.parallel.launch import to_numpy
+    from autorally_tpu_torch.tools import track_generator as tg
+
+    return dict(cfg={"num_rollouts": K, "num_timesteps": T, **(cfg_kw or {})},
+                params=to_numpy(params),
+                costmap=tg.oval_track(half_length=30.0, half_width=18.0,
+                                      track_width=6.0, ppm=10.0),
+                cost_params=dict(desired_speed=6.0),
+                state=np.array(drive_oval.START, np.float32),
+                U=U.cpu().numpy(), sub=np.array(SHARD_SUB, np.uint32), **kw)
+
+
+def ranks_equal(results) -> bool:
+    """Every rank's iteration U and stats and last controller state bit for
+    bit rank 0's."""
+    first = results[0]
+    return all(
+        np.array_equal(r["U"], first["U"])
+        and all(np.array_equal(r["stats"][f], v)
+                for f, v in first["stats"].items())
+        and all(np.array_equal(r["solve"][f], first["solve"][f])
+                for f in ("U", "state_solution", "control_solution"))
+        for r in results[1:])
+
+
+def held_on_shard(rk, tag, model, params, cfg, cp, cm, start, U, eps,
+                  k_offset, shard) -> float:
+    """A rank's kernel-1 or pass-1 costs and crash flags (``shard``) at
+    ``k_offset`` against the plain cost along kernel 2's trajectories on
+    the shard's noise ``eps`` in every rollout, and against the whole
+    plain version in all but 1 % (as phase 7 holds a shard's slice: a
+    rounding of the MLP's sums can move a lookup across a texel edge).
+    Returns the max cost error of the first."""
+    import torch
+
+    kc = torch.as_tensor(shard["total"], device=eps.device)
+    kx = torch.as_tensor(shard["crash"], device=eps.device)
+    kb, _ = rk.dynamics_chain(model, params, cfg, start, U, eps,
+                              k_offset=k_offset)
+    bc, bx = rk.trajectory_cost_plain(model, params, cfg, cp, cm, U, eps, kb,
+                                      k_offset=k_offset)
+    del kb
+    err = agreement(f"{tag} along kernel 2", "shard", kc, kx, bc, bx,
+                    eps.shape[1], limit=0)
+    pc, _, px = rk.fused_rollout_cost_plain(model, params, cfg, cp, cm,
+                                            start, U, eps, k_offset=k_offset)
+    agreement(tag, "shard", kc, kx, pc, px, eps.shape[1])
+    return err
+
+
+def start_cold_loaders():
+    """Two processes that load the kernel library at once from a fresh
+    persistent cache (phase 27 reads them): (directory, processes)."""
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="artpu_cold_cache_")
+    procs = [subprocess.Popen([sys.executable, "-c", COLD_LOADER, tmp],
+                              cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for _ in range(2)]
+    return tmp, procs
+
+
+def stop_cold_loaders(cold) -> None:
+    """Stop the loaders still running and remove their directory."""
+    import shutil
+
+    tmp, procs = cold
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait(timeout=60)
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
+    """Phase 26: (a) one NCCL rank, forced collectives against the inline
+    body and ``MPPISolver``; (b) 2 and 4 gloo ranks sharing the card, host
+    noise; (c) the capacity mode over 2 gloo ranks at K=262144, gaussian
+    and OU; (d) ``EnsembleShardedMPPISolver`` on a 2 x 2 mesh."""
+    import torch
+
+    from autorally_tpu_torch.config import MPPIConfig, effective_gamma
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.ops import kernel_rng
+    from autorally_tpu_torch.parallel import launch
+    from autorally_tpu_torch.parallel.launch import to_numpy
+    from autorally_tpu_torch.solver import EnsembleMPPISolver
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    check(_build.load() is not None, "the kernel library did not load")
+    solver, params, cp, cm, _ = drive_oval.build(rollouts=K, device=dev)
+    cfg, model = solver.cfg, solver.model
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    sub = np.array(SHARD_SUB, np.uint32)
+    cards = torch.cuda.device_count()
+    out, rows = {}, []
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+
+    def run(n, backend, specs):
+        """Each spec's results on ``n`` ranks (a list over ranks each)."""
+        t0 = time.perf_counter()
+        res = launch.run(launch.sharded_programs, n, (specs,),
+                         backend=backend, device="cuda",
+                         timeout=RANK_TIMEOUT)
+        builds = sum(r["built_here"] for rr in res for r in rr)
+        print(f"[sharded] {n} rank(s) over {backend} on {cards} card(s) "
+              f"({-(-n // cards)} a card): {len(specs)} sharded run(s) in "
+              f"{time.perf_counter() - t0:.1f} s, spawn and CUDA start-up "
+              f"included; kernel builds inside the ranks {builds}")
+        check(builds == 0, f"{n} ranks: a rank built the kernel library")
+        return [[rr[i] for rr in res] for i in range(len(specs))]
+
+    def t(x):
+        return torch.as_tensor(x, device=dev)
+
+    def p50_p99(ms):
+        return float(np.percentile(ms, 50)), float(np.percentile(ms, 99))
+
+    def shard_noise(n, key_of):
+        """(T, K_local, 2) host noise of each of ``n`` shards, keyed by
+        ``key_of(i)``."""
+        return [solver._sample_noise(solver._noise_generator(key_of(i)),
+                                     (T, K // n, 2)) for i in range(n)]
+
+    # (a) one rank over NCCL: the forced collectives against the inline
+    # body, the inline body against MPPISolver on fold_in(sub, 0)'s noise
+    (a,) = run(1, "nccl", [shard_spec(params, U, force_collectives=True,
+                                      reference=True, solves=SHARD_SOLVES)])
+    r = a[0]
+    ref = r["reference"]
+    forced_inline = (np.array_equal(r["U"], ref["U"])
+                     and all(np.array_equal(v, ref["stats"][f])
+                             for f, v in r["stats"].items())
+                     and all(np.array_equal(r["solve"][f], ref["solve"][f])
+                             for f in ("U", "state_solution",
+                                       "control_solution")))
+    inline_single = (np.array_equal(ref["U"], r["single"]["U"])
+                     and all(np.array_equal(v, r["single"]["stats"][f])
+                             for f, v in ref["stats"].items()))
+    want = [("dynamics_chain", 1, SHARD_SOLVES),
+            ("fused_exact_rollout_cost", K, SHARD_SOLVES)]
+    lat_f, lat_i = p50_p99(r["solve"]["ms"]), p50_p99(ref["solve"]["ms"])
+    print(f"[sharded] (a) one NCCL rank, K={K} T={T}: forced collectives bit "
+          f"for bit the inline body (iteration and {SHARD_SOLVES} chained "
+          f"solves) {forced_inline}; the inline body bit for bit "
+          f"MPPISolver.iterate on fold_in(sub, 0)'s noise {inline_single}; "
+          f"launches an iteration {r['launches']}, over the solves "
+          f"{r['solve']['launches_by_k']} (inline "
+          f"{ref['solve']['launches_by_k']}); solve p50 / p99 {lat_f[0]:.3f}"
+          f" / {lat_f[1]:.3f} ms with the collectives, {lat_i[0]:.3f} / "
+          f"{lat_i[1]:.3f} ms inline (a sync after each, host clock; "
+          f"{card})")
+    check(forced_inline, "(a) the forced collectives differ from the inline "
+          "body")
+    check(inline_single, "(a) the inline body differs from MPPISolver")
+    check(r["launches"] == {"fused_exact_rollout_cost": 1},
+          f"(a) launches an iteration {r['launches']}")
+    check(r["solve"]["launches_by_k"] == want
+          and ref["solve"]["launches_by_k"] == want,
+          f"(a) launches over the solves, expected {want}")
+    out["nccl_1"] = {"forced_ms_p50_p99": lat_f, "inline_ms_p50_p99": lat_i}
+
+    # (b)-(d) on gloo ranks that share the card: 2 ranks run the host-noise
+    # solve and the capacity mode, 4 ranks the host-noise solve and the
+    # ensemble
+    cap_cfg = {s: cfg.replace(num_rollouts=KC, kernel_rng=True, **kw)
+               for s, kw in SAMPLERS.items()}
+    ens_cfg = cfg.replace(num_rollouts=SHARD_ENS_K)
+    stacked = ensemble_members(params, SHARD_ENS_M)
+    host = shard_spec(params, U, solves=SHARD_SOLVES)
+    two = run(2, "gloo", [host] + [
+        shard_spec(params, U, dict(num_rollouts=KC, kernel_rng=True, **kw),
+                   solves=SHARD_CAP_SOLVES) for kw in SAMPLERS.values()])
+    four = run(4, "gloo", [host, shard_spec(
+        stacked, U, dict(num_rollouts=SHARD_ENS_K),
+        mesh=(SHARD_ENS_M, SHARD_ENS_R), solves=SHARD_CAP_SOLVES)])
+
+    # (b) host noise, K=1920 over 2 and 4 ranks
+    for n, res in ((2, two[0]), (4, four[0])):
+        Kl = K // n
+        offs = [x["k_offset"] for x in res]
+        eps = shard_noise(n, lambda i: kernel_rng.fold_in(sub, i))
+        U_s, st_s = solver.iterate(params, cp, cm, start, U,
+                                   torch.cat(eps, dim=1))
+        e_U = (t(res[0]["U"]) - U_s).abs().max().item()
+        ok_U = torch.allclose(t(res[0]["U"]), U_s, rtol=SHARD_RTOL,
+                              atol=SHARD_ATOL)
+        ok_b = bool(np.isclose(res[0]["stats"]["baseline"],
+                               st_s.baseline.item(), rtol=SHARD_BASELINE_RTOL,
+                               atol=0.0))
+        errs = [held_on_shard(
+            rk, f"sharded (b) {n} ranks: kernel 1 of rank {i} K_local={Kl} "
+            f"k_offset={offs[i]}", model, params, cfg, cp, cm, start, U,
+            eps[i], offs[i], x["shard"]) for i, x in enumerate(res)]
+        want = [("dynamics_chain", 1, SHARD_SOLVES),
+                ("fused_exact_rollout_cost", Kl, SHARD_SOLVES)]
+        lat = p50_p99(res[0]["solve"]["ms"])
+        same = ranks_equal(res)
+        print(f"[sharded] (b) {n} gloo ranks on one card, K={K} (K_local "
+              f"{Kl}, k_offsets {offs}), host noise: against MPPISolver."
+              f"iterate on the shards' noise max|U err| {e_U:.3e} (rtol "
+              f"{SHARD_RTOL}, atol {SHARD_ATOL}), baseline "
+              f"{float(res[0]['stats']['baseline']):.6g} vs "
+              f"{st_s.baseline.item():.6g}; ranks bit for bit equal {same}; "
+              f"launches a rank over {SHARD_SOLVES} solves "
+              f"{[x['solve']['launches_by_k'] for x in res]}; solve p50 / "
+              f"p99 {lat[0]:.3f} / {lat[1]:.3f} ms (rank 0, a sync after "
+              f"each, host clock; {card})")
+        check(offs == [i * Kl for i in range(n)], f"(b) k_offsets {offs}")
+        check(ok_U and ok_b, f"(b) {n} ranks differ from MPPISolver.iterate")
+        check(same, f"(b) {n} ranks: the replicas differ")
+        check(all(x["solve"]["launches_by_k"] == want for x in res),
+              f"(b) {n} ranks: launches, expected {want} a rank")
+        out[f"gloo_{n}"] = {"solve_ms_p50_p99": lat, "max_U_err": e_U}
+        if n == 2:
+            # kernel 1 on rank 1's slice: K_local 960 at k_offset 960
+            kw = dict(k_offset=offs[1])
+            launch1, _ = rk.prepare_fused_exact_rollout_cost(
+                model, params, cfg, cp, cm, start, U, eps[1], **kw)
+            ms = cuda_ms(launch1, 100)
+            plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+                model, params, cfg, cp, cm, start, U, eps[1], **kw), 3, 1)
+            n_w = rk.KERNEL_NUM_WEIGHTS
+            bnd, by = bound(4 * (T * Kl * 2 + 2 * T * Kl + 2 * Kl + T * 2
+                                 + n_w + 7 + 4 + 2 * Kl * (T - 1)),
+                            mlp_flops(model.layers) * Kl * T)
+            print(f"[timing] fused_exact_rollout_cost K_local={Kl} k_offset="
+                  f"{offs[1]} (rank 1 of 2): {ms:.4f} ms in "
+                  f"{geometry_label(launch1.geometry)}, plain {plain:.3f} "
+                  f"ms, bound {bnd:.5f} ms ({by}) ({card})")
+            rows.append({
+                "name": f"fused_exact_rollout_cost_shard_K{Kl}",
+                "route": "cuda", "source": src,
+                "replaces": "autorally_tpu/ops/rollout_kernel.py:1013",
+                "launches": {(nm, k_): v for nm, k_, v in res[1]["solve"][
+                    "launches_by_k"]}.get(("fused_exact_rollout_cost", Kl),
+                                          0),
+                "max_abs_err": errs[1], "ms": ms, "plain_ms": plain,
+                "bound_ms": bnd, "bound_by": by, "library_ms": None,
+                "K": Kl, "k_offset": offs[1],
+                "geometry": geometry_label(launch1.geometry)})
+
+    # (c) the capacity mode over 2 ranks, K=262144 (K_local 131072)
+    Kl = KC // 2
+    flops_step = mlp_flops(model.layers)
+    n_w = rk.KERNEL_NUM_WEIGHTS
+    for (sname, c), res in zip(cap_cfg.items(), two[1:]):
+        offs = [x["k_offset"] for x in res]
+        keys = [torch.from_numpy(kernel_rng.fold_in(sub, i).astype(np.int64))
+                .to(dev) for i in range(2)]
+        eta = sum(float(np.sum(np.exp(-effective_gamma(c, cp) * (
+            x["shard"]["total"].astype(np.float64)
+            - float(res[0]["stats"]["baseline"]))))) for x in res)
+        err1 = err2 = 0.0
+        numer_sum = scale_sum = 0.0
+        for i, x in enumerate(res):
+            kc = t(x["shard"]["total"])
+            ctx = rk._rng_context(model, c, cp, cm, U, keys[i], offs[i],
+                                  Kl)
+            err1 = max(err1, held_on_shard(
+                rk, f"sharded (c) {sname}: pass 1 of rank {i} K_local={Kl} "
+                f"k_offset={offs[i]}", model, params, c, cp, cm, start, U,
+                rk.rng_noise(ctx), offs[i], x["shard"]))
+            w = torch.exp(-effective_gamma(c, cp)
+                          * (kc - float(res[0]["stats"]["baseline"])))
+            pn = rk.fused_rng_numer_plain(ctx, w)
+            kn = t(x["shard"]["numer"]).T
+            _, u_seq, _ = rk.fused_exact_rollout_cost(
+                model, params, c, cp, cm, start, U, rk.rng_noise(ctx),
+                k_offset=offs[i])
+            scale = torch.einsum("k,ctk->ct", w.abs(), u_seq.abs_())
+            del u_seq
+            e2 = (kn - pn).abs()
+            print(f"[sharded] (c) {sname}: pass 2 of rank {i} K_local={Kl} "
+                  f"k_offset={offs[i]} at the global weights: max|numer "
+                  f"err| {e2.max().item():.3e}, max err / sum|w u| "
+                  f"{(e2 / scale.clamp(min=1e-30)).max().item():.3e} (limit "
+                  f"{NUMER_RTOL})")
+            check(bool((e2 <= NUMER_RTOL * scale).all()), f"(c) {sname}: "
+                  f"rank {i}'s pass 2 differs beyond {NUMER_RTOL} of "
+                  "sum|w u|")
+            err2 = max(err2, e2.max().item())
+            numer_sum = numer_sum + pn.double()
+            scale_sum = scale_sum + scale.double()
+            if i == 1 and sname == "gaussian":
+                shard1 = (c, keys[i], offs[i], ctx, w, e2.max().item())
+        U_plain = (numer_sum / eta).T
+        e_U = (t(res[0]["U"]).double() - U_plain).abs()
+        lim = NUMER_RTOL * scale_sum.T / eta + 1e-7
+        want = {"fused_rng_costs": SHARD_CAP_SOLVES,
+                "fused_rng_numer": SHARD_CAP_SOLVES,
+                "dynamics_chain": SHARD_CAP_SOLVES}
+        lat = p50_p99(res[0]["solve"]["ms"])
+        same = ranks_equal(res)
+        print(f"[sharded] (c) capacity {sname}, 2 gloo ranks, K={KC} "
+              f"(k_offsets {offs}): the reduced U against the plain passes' "
+              f"combination of the two shards max|err| {e_U.max().item():.3e}"
+              f" (limit {NUMER_RTOL} of sum|w u| / eta); ranks bit for bit "
+              f"equal {same}; launches a rank over {SHARD_CAP_SOLVES} solves "
+              f"{[x['solve']['launches'] for x in res]}; solve p50 / p99 "
+              f"{lat[0]:.3f} / {lat[1]:.3f} ms (rank 0; {card})")
+        check(offs == [0, Kl], f"(c) k_offsets {offs}")
+        check(bool((e_U <= lim).all()), f"(c) {sname}: the reduced U "
+              "differs from the plain combination")
+        check(same, f"(c) {sname}: the replicas differ")
+        check(all(x["solve"]["launches"] == want for x in res),
+              f"(c) {sname}: launches, expected {want} a rank")
+        out[f"capacity_{sname}"] = {"solve_ms_p50_p99": lat}
+        if sname == "gaussian":
+            cap_launches = res[1]["solve"]["launches"]
+            errs_c = (err1, err2)
+
+    # passes 1 and 2 on rank 1's slice: K_local 131072 at k_offset 131072
+    c, key1, off1, ctx1, w1, _ = shard1
+    kw = dict(k_offset=off1, K_local=Kl)
+    launch1, _, _ = rk.prepare_fused_rng_costs(model, params, c, cp, cm,
+                                               start, U, key1, **kw)
+    ms1 = cuda_ms(launch1, 20)
+    plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
+        model, params, c, cp, cm, start, U, key1, **kw), 3, 1)
+    bytes1 = (4 * (T * 2 + n_w + 7 + 4 + 2 * Kl)
+              + 4 * min(cm.height * cm.width, 2 * Kl * (T - 1)) + 16)
+    bound1 = bound(bytes1, (flops_step + STREAM_OPS) * Kl * T)
+    launch2, partials = rk.prepare_fused_rng_numer(ctx1, w1)
+    ms2 = cuda_ms(launch2, 50)
+    plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx1, w1), 3, 1)
+    k_need = int((w1 != 0).sum().item())
+    bound2 = bound(4 * (Kl + T * 2 + partials.numel()) + 16,
+                   (STREAM_OPS + UPDATE_OPS) * k_need * T)
+    print(f"[timing] shard of the capacity mode (rank 1 of 2, gaussian, "
+          f"K_local={Kl}, k_offset={off1}): pass 1 {ms1:.4f} ms, plain "
+          f"{plain1:.3f} ms, bound {bound1[0]:.5f} ms ({bound1[1]}); pass 2 "
+          f"{ms2:.4f} ms on the global weights ({k_need} non-zero), plain "
+          f"{plain2:.3f} ms, bound {bound2[0]:.5f} ms ({bound2[1]}) ({card})")
+    for name, ms, plain, bnd, n_l, err, extra in (
+            ("fused_rng_costs", ms1, plain1, bound1,
+             cap_launches.get("fused_rng_costs", 0), errs_c[0], {}),
+            ("fused_rng_numer", ms2, plain2, bound2,
+             cap_launches.get("fused_rng_numer", 0), errs_c[1],
+             {"design": "a thread a rollout, fixed-order block sums, blocks "
+                        "of %d" % rk.UPDATE_BLOCK,
+              "instance": "weighted_update_kernel"})):
+        rows.append({"name": f"{name}_shard_K{Kl}", "route": "cuda",
+                     "source": src,
+                     "replaces": "autorally_tpu/ops/rollout_kernel.py:" + (
+                         "1221" if name == "fused_rng_costs" else "1346"),
+                     "launches": n_l, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain, "bound_ms": bnd[0],
+                     "bound_by": bnd[1], "library_ms": None, "K": Kl,
+                     "k_offset": off1, **extra})
+    del launch1, launch2, partials, shard1, ctx1
+
+    # (d) the ensemble on a 2 x 2 mesh of 4 ranks, K=16384
+    res = four[1]
+    M, R = SHARD_ENS_M, SHARD_ENS_R
+    Kl = SHARD_ENS_K // (M * R)
+    offs = [x["k_offset"] for x in res]
+    ens = EnsembleMPPISolver(model, MPPICost(cfg.l1_cost), ens_cfg,
+                             num_members=M, device=dev)
+    eps = torch.cat([ens._sample_noise(ens._noise_generator(
+        kernel_rng.fold_in(kernel_rng.fold_in(sub, e), r)), (T, Kl, 2))
+        for e in range(M) for r in range(R)], dim=1)
+    U_s, st_s = ens.iterate(stacked, cp, cm, start, U, eps)
+    e_U = (t(res[0]["U"]) - U_s).abs().max().item()
+    ok = (torch.allclose(t(res[0]["U"]), U_s, rtol=SHARD_RTOL,
+                         atol=SHARD_ATOL)
+          and bool(np.isclose(res[0]["stats"]["baseline"],
+                              st_s.baseline.item(),
+                              rtol=SHARD_BASELINE_RTOL, atol=0.0)))
+    want = [("dynamics_chain", 1, SHARD_CAP_SOLVES),
+            ("fused_exact_rollout_cost", Kl, SHARD_CAP_SOLVES)]
+    lat = p50_p99(res[0]["solve"]["ms"])
+    same = ranks_equal(res)
+    print(f"[sharded] (d) EnsembleShardedMPPISolver M={M} x {R} rollout "
+          f"shards on 4 gloo ranks, K={SHARD_ENS_K} (k_offsets {offs}): "
+          f"against EnsembleMPPISolver.iterate on the member-block noise "
+          f"max|U err| {e_U:.3e}; ranks bit for bit equal {same}; launches "
+          f"an iteration {[x['launches'] for x in res]}, over "
+          f"{SHARD_CAP_SOLVES} solves {[x['solve']['launches_by_k'] for x in res]}"
+          f"; solve p50 / p99 {lat[0]:.3f} / {lat[1]:.3f} ms (rank 0; "
+          f"{card})")
+    check(offs == [i * Kl for i in range(M * R)], f"(d) k_offsets {offs}")
+    check(ok, "(d) the ensemble shards differ from EnsembleMPPISolver")
+    check(same, "(d) the replicas differ")
+    check(all(x["launches"] == {"fused_exact_rollout_cost": 1} for x in res),
+          "(d) launches an iteration: not one kernel-1 launch on every "
+          "rank")
+    check(all(x["solve"]["launches_by_k"] == want for x in res),
+          f"(d) launches, expected {want} a rank")
+    out["ensemble_2x2"] = {"solve_ms_p50_p99": lat, "max_U_err": e_U}
+    del ens, eps, two, four
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "results": out}
+
+
+# -- phase 27: the tools and the build cache ---------------------------------
+
+def tools_phase(card, cold, dev=None) -> dict:
+    """Phase 27: ``tools/solve_breakdown.py`` (the main path, then the
+    capacity mode at K=262144), ``tools/scaling_bench.py`` over 1 and 2
+    ranks, and the cold build cache's two loaders (``cold``)."""
+    import torch
+
+    from autorally_tpu_torch.tools import scaling_bench, solve_breakdown
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    out = {}
+    for tag, kw in (("main", dict(rollouts=K)),
+                    ("kernel_rng", dict(rollouts=KC, kernel_rng=True))):
+        res = solve_breakdown.run_breakdown(timesteps=T, device=dev, **kw)
+        print(f"[solve_breakdown] {tag}: {json.dumps(res)} ({card})")
+        check(all(np.isfinite(v) and v > 0 for v in res["stages_ms"].values()),
+              f"solve_breakdown {tag}: a stage time is not positive")
+        check(res["kernel_rng"] == (tag == "kernel_rng"),
+              f"solve_breakdown {tag}: the wrong mode ran")
+        out[f"breakdown_{tag}"] = res
+    res = scaling_bench.run_scaling([1, 2], mode="both", k_local=K,
+                                    num_timesteps=T)
+    print(f"[scaling_bench] {json.dumps(res)} ({card}; the 2-rank rows share "
+          "one card over gloo: no multi-card scaling)")
+    for m in ("weak", "strong"):
+        check([(r["devices"], r["ranks_per_device"], r["backend"])
+               for r in res[m]] == [(1, 1, "nccl"), (2, 2, "gloo")],
+              f"scaling_bench {m}: rows {res[m]}")
+    out["scaling"] = res
+
+    lines = []
+    try:
+        for p in cold[1]:
+            o, _ = p.communicate(timeout=900)
+            check(p.returncode == 0, f"cold cache loader failed:\n{o}")
+            lines.append(o.strip().splitlines()[-1].split())
+    finally:
+        stop_cold_loaders(cold)
+    kinds = sorted(w[0] for w in lines)
+    print(f"[build cache] two processes loading at once from a fresh "
+          f"enable_persistent_cache directory: {kinds}, seconds "
+          f"{[float(w[1]) for w in lines]} ({card})")
+    check(kinds == ["built", "loaded"], f"cold cache: {kinds}, expected one "
+          "nvcc run")
+    out["cold_cache"] = {"loaders": kinds,
+                         "seconds": [float(w[1]) for w in lines]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4030,6 +4534,14 @@ def main() -> int:
     # -- phase 25: the ensemble solver, a kernel launch a member ----------
     ensemble = ensemble_phase(rk, card)
 
+    # -- phases 26-27: the sharded solvers, the tools, the build cache ----
+    cold = start_cold_loaders()
+    try:
+        sharded = sharded_phase(drive_oval, rk, card)
+        tools = tools_phase(card, cold)
+    finally:
+        stop_cold_loaders(cold)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -4045,7 +4557,7 @@ def main() -> int:
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
          **chain_entry(chain_b)},
     ] + cap_kernels + field_kernels + bf_obs_kernels + general["kernels"] + (
-        ensemble["kernels"])
+        ensemble["kernels"]) + sharded["kernels"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4107,7 +4619,14 @@ def main() -> int:
                       "async_depth2": async_loop["depth2"],
                       "gates": gates,
                       "general_path": general["latency"],
-                      "ensemble": ensemble["results"]}))
+                      "ensemble": ensemble["results"],
+                      "sharded": sharded["results"],
+                      "tools": {"scaling": tools["scaling"],
+                                "cold_cache": tools["cold_cache"],
+                                "breakdown_full_solve_ms": {
+                                    k: tools[f"breakdown_{k}"]["stages_ms"][
+                                        "FULL_SOLVE"]
+                                    for k in ("main", "kernel_rng")}}}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
