@@ -89,8 +89,8 @@ class NeuralNetDynamics(Dynamics):
         params loaded: ``(model, params)``.  The spec comes from element
         counts (a bias's size is its layer's fan-out), so flat or oddly
         shaped weight arrays, which :meth:`load_params` reshapes, infer the
-        spec it loads (e.g. 6-64-64-64-64-4; the CUDA kernels take only
-        ``KERNEL_LAYERS``, other specs run the plain versions)."""
+        spec it loads (e.g. 6-64-64-64-64-4, which kernels 1 and 2 run
+        from a library built for it at first use)."""
         data = np.load(path)
         layers = []
         i = 1

@@ -5,11 +5,17 @@ interface.  At first use it is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library under ``autorally_tpu_torch/_build/`` (listed in
 ``.gitignore``), or the persistent cache directory that
 ``io/compile_cache.enable_persistent_cache`` sets, named by a hash of the
-source and the flags, and loaded with ``ctypes``.  The check and the
-build run under an exclusive lock on a file beside the library, so that
-processes that start together (the ranks of a sharded solve) run ``nvcc``
-once and the others load its library.  Nothing is built when the module
-is imported, so the CPU tests import it on machines without ``nvcc``.
+source and the flags, and loaded with ``ctypes``.  The default library
+holds every kernel, its MLP instances for the 6-32-32-4 spec
+(``DEFAULT_LAYERS``); an MLP of another layer spec gets a library of its
+own at first use, built from the same source with the spec's hidden widths
+as a define (in a header that nvcc includes first: nvcc splits a ``-D``
+value at its commas), which holds kernels 1 and 2 alone
+(``load(layers)``), as the JAX kernels compile per spec.  The check and the build run under an
+exclusive lock on a file beside the library, so that processes that start
+together (the ranks of a sharded solve) run ``nvcc`` once and the others
+load its library.  Nothing is built when the module is imported, so the
+CPU tests import it on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -22,14 +28,18 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
+from typing import Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "rollout_kernels.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The MLP spec of the default library (csrc ARTT_MLP_HIDDEN's default).
+DEFAULT_LAYERS = (6, 32, 32, 4)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library: every pointer and the stream as c_void_p,
@@ -63,9 +73,25 @@ SIGNATURES = {
     # out (int64 host array or null); device, counts (device), stream
     "artt_const_divisors": [_P],
     "artt_div_const_check": [_I, _P, _P],
+    # out (int host array or null); no arguments
+    "artt_mlp_layers": [_P],
+    "artt_lane_groups": [],
+    # bf, lane group, block, T, device, out (4 ints)
+    "artt_chain_kernel_info": [_I] * 5 + [_P],
 }
+# What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): kernels 1
+# and 2 and the queries of their layouts and instances.
+SPEC_FUNCTIONS = (
+    "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
+    "artt_num_int_scalars", "artt_exact_block", "artt_group_block",
+    "artt_chain_warp_block", "artt_max_t", "artt_mlp_layers",
+    "artt_lane_groups", "artt_fused_exact_rollout_cost",
+    "artt_dynamics_chain", "artt_exact_kernel_info",
+    "artt_chain_kernel_info")
 
-_lib = None
+_lib = None                   # the default library
+_spec_libs = {}               # layers -> the library of that MLP spec
+_load_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -77,10 +103,37 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path() -> Path:
+def _spec(layers: Optional[Sequence[int]]) -> Optional[tuple]:
+    """The spec a library is built for: None for the default library."""
+    if layers is None or tuple(layers) == DEFAULT_LAYERS:
+        return None
+    layers = tuple(int(n) for n in layers)
+    if len(layers) < 3 or min(layers) < 1:
+        raise ValueError(f"an MLP spec with at least one hidden layer, got "
+                         f"{layers}")
+    return layers
+
+
+def spec_defines(layers: Optional[Sequence[int]] = None) -> str:
+    """The defines of the library of ``layers``: none for the default
+    library (None or ``DEFAULT_LAYERS``)."""
+    spec = _spec(layers)
+    if spec is None:
+        return ""
+    hidden = ", ".join(str(n) for n in spec[1:-1])
+    return f"#define ARTT_MLP_HIDDEN {hidden}\n#define ARTT_SPEC_LIBRARY\n"
+
+
+def library_path(layers: Optional[Sequence[int]] = None) -> Path:
+    """Where the library of ``layers`` is built, named by a hash of the
+    source, the flags and the spec's defines."""
     digest = hashlib.sha256(SOURCE.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{SOURCE.stem}_{digest[:16]}.so"
+                            + " ".join(NVCC_FLAGS).encode()
+                            + spec_defines(layers).encode()).hexdigest()
+    spec = _spec(layers)
+    name = SOURCE.stem + ("" if spec is None else
+                          "_mlp" + "-".join(str(n) for n in spec))
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
 @contextlib.contextmanager
@@ -101,45 +154,61 @@ def set_build_dir(path) -> None:
     process already loaded it from another directory."""
     global BUILD_DIR
     path = Path(path).resolve()
-    if _lib is not None and Path(_lib._name).parent != path:
-        raise RuntimeError(f"the kernel library is already loaded from "
-                           f"{Path(_lib._name).parent}, not {path}")
+    for lib in [_lib, *_spec_libs.values()]:
+        if lib is not None and Path(lib._name).parent != path:
+            raise RuntimeError(f"the kernel library is already loaded from "
+                               f"{Path(lib._name).parent}, not {path}")
     BUILD_DIR = path
 
 
-def _compile(out: Path) -> tuple:
-    """Compile the source into ``out`` (atomically: a reader sees no
-    library or the whole one); returns (seconds, compiler output)."""
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                          capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
-    os.replace(tmp, out)
+def _compile(out: Path, defines: str) -> tuple:
+    """Compile the source with ``defines`` (a header included first) into
+    ``out`` (atomically: a reader sees no library or the whole one);
+    returns (seconds, compiler output)."""
+    nvcc = nvcc_path()
+    flags = NVCC_FLAGS
+    with tempfile.TemporaryDirectory(dir=out.parent) as work:
+        if defines:
+            header = Path(work) / "spec.h"
+            header.write_text(defines)
+            flags += ("-include", str(header))
+        tmp = str(Path(work) / out.name)
+        t0 = time.perf_counter()
+        proc = subprocess.run([nvcc, *flags, "-o", tmp, str(SOURCE)],
+                              capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
+        os.replace(tmp, out)
     return time.perf_counter() - t0, log
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, compiled first when its ``.so`` is missing
-    (raises with the compiler's output if that fails).  The library's
-    ``build`` attribute is ``(seconds, compiler output)`` of a compile made
-    by this process, else None."""
+def load(layers: Optional[Sequence[int]] = None) -> ctypes.CDLL:
+    """The kernel library of the MLP spec ``layers`` (the default library
+    for None or ``DEFAULT_LAYERS``), compiled first when its ``.so`` is
+    missing (raises with the compiler's output if that fails).  The
+    library's ``build`` attribute is ``(seconds, compiler output)`` of a
+    compile made by this process, else None.  Threads may load different
+    specs at once (each ``nvcc`` runs in its own process)."""
     global _lib
-    if _lib is not None:
-        return _lib
-    out = library_path()
+    spec = _spec(layers)
+    lib = _lib if spec is None else _spec_libs.get(spec)
+    if lib is not None:
+        return lib
+    out = library_path(spec)
     build = None
     with file_lock(out.with_suffix(".lock")):
         if not out.exists():
-            build = _compile(out)
+            build = _compile(out, spec_defines(spec))
     lib = ctypes.CDLL(str(out))
-    for fn, argtypes in SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
+    names = SIGNATURES if spec is None else SPEC_FUNCTIONS
+    for fn in names:
+        getattr(lib, fn).argtypes = SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = build
-    _lib = lib
+    with _load_lock:
+        if spec is None:
+            _lib = lib
+        else:
+            _spec_libs[spec] = lib
     return lib

@@ -22,10 +22,14 @@ solver runs:
   T x K reaches device memory; :func:`fused_rng_solve_iteration` composes
   them into one MPPI iteration.
 
-The kernels evaluate either model of the JAX package's kernels: the
-6-32-32-4 ``NeuralNetDynamics`` or the 25-function
-``BasisFunctionDynamics`` (``_bf_deriv``), each its own instance of every
-kernel; and the fused kernels (A, 3, pass 1) price the circles of an
+The kernels evaluate either model of the JAX package's kernels: a
+``NeuralNetDynamics`` or the 25-function ``BasisFunctionDynamics``
+(``_bf_deriv``), each its own instance of every kernel.  The default
+library is compiled for the 6-32-32-4 MLP (``KERNEL_LAYERS``); kernels 1
+and 2 take an MLP of any other layer spec from a library built for that
+spec at first use (``ops/_build.py``), as the JAX kernels compile per
+spec, while kernels 3 and 4 take 6-32-32-4 alone for now (ROADMAP.md,
+Queue 2 A1).  The fused kernels (A, 3, pass 1) price the circles of an
 ``ObstacleCost`` (``_make_obstacle_terms``) when the caller passes
 ``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
 package's wrappers take them.
@@ -46,7 +50,9 @@ launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
 launches in :data:`LAUNCHES` by instance: the wrapper's name for the MLP
 without obstacles, with ``_bf``, ``_obstacles`` or ``_bf_obstacles`` for
-the others (``fused_rng_costs_field*`` for pass 1's field mode).  Layouts
+the others (``fused_rng_costs_field*`` for pass 1's field mode) and the
+MLP's spec for another spec than ``KERNEL_LAYERS`` (e.g.
+``fused_exact_rollout_cost_6-64-64-64-64-4``).  Layouts
 are those of the JAX package's public functions: eps (T, K, C) in, u_seq
 (C, T, K), states (S, T, K), costs and crash (K,) out, the capacity mode's
 numerator (C, T).
@@ -72,10 +78,18 @@ from autorally_tpu_torch.ops import _build
 from autorally_tpu_torch.ops.kernel_rng import kernel_noise
 from autorally_tpu_torch.ops.sampling import ou_coefficients
 
-# The layer spec the CUDA kernels are compiled for (csrc kIn/kH1/kH2/kOut).
-KERNEL_LAYERS = (6, 32, 32, 4)
-KERNEL_NUM_WEIGHTS = sum(a * b + b for a, b in zip(KERNEL_LAYERS[:-1],
-                                                    KERNEL_LAYERS[1:]))
+# The MLP spec of the default library, which every kernel takes (csrc
+# ARTT_MLP_HIDDEN's default); kernels 1 and 2 take other specs from
+# libraries of their own.
+KERNEL_LAYERS = _build.DEFAULT_LAYERS
+
+
+def num_weights(layers) -> int:
+    """Floats of an MLP's packed weights (``kernel_weights``)."""
+    return sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+
+
+KERNEL_NUM_WEIGHTS = num_weights(KERNEL_LAYERS)
 # The basis-function form's weights: theta^T (4, 25) (csrc kNumBfs).
 KERNEL_BF_WEIGHTS = NUM_BFS * 4
 # The field spec the field kernels are compiled for (csrc kFreqs, kFieldIn,
@@ -105,11 +119,13 @@ FIELD_BLOCK = 128
 MAX_OBSTACLES = 64
 # Dynamic shared memory holds the weights, U (T x 2) and up to
 # MAX_OBSTACLES circles; the other kernels stay under the 48 KB a launch
-# gets without opting in (34,048 bytes at T = 4096), the field kernels,
-# which add the field and their tiles, opt in to what T = 2048 needs
-# (csrc kMaxFieldT; 122,944 bytes for the MLP with 64 circles), and kernel
-# 2's warp form, which adds its rollouts' eps, to what T = 4096 needs
-# (csrc kMaxT; 170,048 bytes for the MLP).
+# gets without opting in (34,048 bytes at T = 4096) for the default spec,
+# the field kernels, which add the field and their tiles, opt in to what T
+# = 2048 needs (csrc kMaxFieldT; 122,944 bytes for the MLP with 64
+# circles), and kernel 2's warp form, which adds its rollouts' eps, to what
+# T = 4096 needs (csrc kMaxT; 170,048 bytes for the MLP).  A wide spec's
+# kernels 1 and 2 opt in too, and their library's longest horizon is 4096
+# or what its weights leave room for (``max_kernel_t``).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
 
@@ -130,8 +146,9 @@ UPDATE_BLOCK = 256
 # kBlock), and of kernel 1 in lane groups (csrc kGroupBlock).
 EXACT_BLOCK = 64
 GROUP_BLOCK = 128
-# The lane groups kernel 1 is built for, and every (G, block) it takes
-# (csrc geometry_ok; the BF model and exact pass 1 the first only).
+# The lane groups kernel 1 is built for, and every (G, block) it takes for
+# the default spec (csrc geometry_ok; the BF model and exact pass 1 the
+# first only; another spec ``geometries(layers)``).
 LANE_GROUPS = (8, 16, 32)
 GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
                                          for G in LANE_GROUPS)
@@ -141,13 +158,25 @@ GEOMETRIES = ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
 # time and more lanes a rollout only add redundant work.
 GROUP_WARPS_PER_SM = 16
 GROUP_TARGET_WARPS_PER_SM = 3
+# Up to how many of the smallest group's waves lane groups beat one rollout
+# a thread, by MLP spec (``chip_smoke.py`` phase 28's sweep, PERF.md): one
+# for 6-32-32-4; for 6-64-64-64-64-4, whose one rollout a thread runs four
+# blocks an SM and takes about 6.3 ms at any K up to a wave, 3.5 (the
+# 8-lane groups 3.58 against 6.38 ms at K=16896, 7.08 against 6.65 at
+# 33792).  A spec not listed takes the default spec's.
+GROUP_WAVES = {(6, 32, 32, 4): 1.0, (6, 64, 64, 64, 64, 4): 3.5}
 # Kernel 2's geometries (csrc chain_geometry_ok): one rollout a thread in
 # blocks of EXACT_BLOCK, or one rollout a warp in blocks of CHAIN_WARP_BLOCK
-# (csrc kChainWarpBlock); and, for each model, the most rollouts an SM for
+# (csrc kChainWarpBlock; an MLP whose hidden widths are multiples of 32,
+# ``chain_geometries``); and, for each model, the most rollouts an SM for
 # which the launcher takes the warp form (``chain_geometry``).
 CHAIN_WARP_BLOCK = 128
 CHAIN_GEOMETRIES = ((1, EXACT_BLOCK), (32, CHAIN_WARP_BLOCK))
 CHAIN_WARP_ROLLOUTS_PER_SM = {False: 32, True: 20}
+# the MLP's by spec where measured (phase 28's sweep): the 6-64-64-64-64-4
+# warp form 5.24 against 6.29 ms at 128 rollouts an SM, 10.53 against 6.48
+# at 256; a spec not listed takes 6-32-32-4's
+CHAIN_WARP_ROLLOUTS_PER_SM_MLP = {(6, 64, 64, 64, 64, 4): 128}
 # The outputs a rollout of kernel 2 stores a step: 7 states, 2 controls.
 CHAIN_OUTPUTS = 9
 
@@ -217,26 +246,83 @@ def launch_scalars(model, cfg, k_offset, T: int, K: int, cost_params=None,
     return floats, ints
 
 
+def lane_groups(layers=KERNEL_LAYERS) -> tuple:
+    """The lane groups of ``LANE_GROUPS`` that kernel 1 takes for the MLP
+    spec ``layers``: those that divide every hidden width (csrc
+    ``groups_fit``), so that a group owns whole units."""
+    hidden = tuple(layers[1:-1])
+    return tuple(G for G in LANE_GROUPS
+                 if hidden and all(h % G == 0 for h in hidden))
+
+
+def geometries(layers=KERNEL_LAYERS) -> tuple:
+    """Every (G, block) of kernel 1 for the MLP spec ``layers``."""
+    return ((1, EXACT_BLOCK),) + tuple((G, GROUP_BLOCK)
+                                       for G in lane_groups(layers))
+
+
+def chain_geometries(layers=KERNEL_LAYERS, bf: bool = False) -> tuple:
+    """Every (G, block) of kernel 2 for the model: one rollout a warp for
+    the BF model and an MLP whose hidden widths are multiples of 32."""
+    if bf or 32 in lane_groups(layers):
+        return CHAIN_GEOMETRIES
+    return CHAIN_GEOMETRIES[:1]
+
+
+def kernel_layers(model) -> tuple:
+    """The MLP spec of the library that runs ``model``'s kernels 1 and 2:
+    its own layers (``KERNEL_LAYERS`` for the BF model)."""
+    return KERNEL_LAYERS if _is_bf(model) else tuple(model.layers)
+
+
 @functools.cache
-def _kernel_lib() -> ctypes.CDLL:
-    """The kernel library, checked once against the layouts this module
+def _kernel_lib(layers: tuple = KERNEL_LAYERS) -> ctypes.CDLL:
+    """The kernel library of the MLP spec ``layers`` (the default one for
+    ``KERNEL_LAYERS``), checked once against the layouts this module
     packs."""
-    lib = _build.load()
-    built = (lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
-             lib.artt_num_weights(), lib.artt_num_bf_weights(),
-             lib.artt_field_pack_floats(), lib.artt_field_block(),
-             lib.artt_max_field_t(), lib.artt_max_obstacles(),
-             lib.artt_update_block(), lib.artt_exact_block(),
-             lib.artt_group_block(), lib.artt_chain_warp_block(),
-             lib.artt_max_t())
-    want = (len(_FLOAT_SCALARS), len(_INT_SCALARS), KERNEL_NUM_WEIGHTS,
-            KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
-            MAX_FIELD_KERNEL_T, MAX_OBSTACLES, UPDATE_BLOCK, EXACT_BLOCK,
-            GROUP_BLOCK, CHAIN_WARP_BLOCK, MAX_KERNEL_T)
+    lib = _build.load(layers)
+    n = lib.artt_mlp_layers(None)
+    spec = (ctypes.c_int * n)()
+    lib.artt_mlp_layers(spec)
+    groups = lib.artt_lane_groups()
+    built = (tuple(spec), tuple(G for i, G in enumerate(LANE_GROUPS)
+                                if groups >> i & 1),
+             lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
+             lib.artt_num_weights(), lib.artt_max_obstacles(),
+             lib.artt_exact_block(), lib.artt_group_block(),
+             lib.artt_chain_warp_block())
+    want = (tuple(layers), lane_groups(layers), len(_FLOAT_SCALARS),
+            len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
+            EXACT_BLOCK, GROUP_BLOCK, CHAIN_WARP_BLOCK)
+    if layers == KERNEL_LAYERS:
+        built += (lib.artt_num_bf_weights(), lib.artt_field_pack_floats(),
+                  lib.artt_field_block(), lib.artt_max_field_t(),
+                  lib.artt_update_block(), lib.artt_max_t())
+        want += (KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
+                 MAX_FIELD_KERNEL_T, UPDATE_BLOCK, MAX_KERNEL_T)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
+    if lib.artt_max_t() < 1:
+        raise NotImplementedError(
+            f"the weights of layers {layers} ({num_weights(layers)} floats) "
+            "do not fit in a block's shared memory beside U")
     return lib
+
+
+def _spec_lib(layers) -> ctypes.CDLL:
+    """The library of the MLP spec ``layers`` (``_kernel_lib()`` for the
+    default spec)."""
+    layers = tuple(layers)
+    return _kernel_lib() if layers == KERNEL_LAYERS else _kernel_lib(layers)
+
+
+def max_kernel_t(layers=KERNEL_LAYERS) -> int:
+    """The longest horizon kernels 1 and 2 take for the MLP spec
+    ``layers`` (csrc kMaxT: ``MAX_KERNEL_T`` for the default spec)."""
+    if tuple(layers) == KERNEL_LAYERS:
+        return MAX_KERNEL_T
+    return _spec_lib(layers).artt_max_t()
 
 
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
@@ -262,15 +348,22 @@ class ExactGeometry(NamedTuple):
     grid: int
 
 
-def exact_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
+def exact_geometry(K: int, num_sms: int, bf: bool = False,
+                   layers=KERNEL_LAYERS) -> ExactGeometry:
     """The geometry of kernel 1 for K rollouts on a card of ``num_sms``
-    SMs.  The MLP takes lane groups while the smallest
-    group's K G / 32 warps fit in one wave of the group kernel: the
-    smallest G that gives every SM ``GROUP_TARGET_WARPS_PER_SM`` warps, or
-    the largest.  Beyond that, and for the BF model, one rollout a thread.
-    (The lane groups' times against K: ``tools/exact_variants.py``.)"""
-    if not bf and K * min(LANE_GROUPS) <= 32 * GROUP_WARPS_PER_SM * num_sms:
-        for G in sorted(LANE_GROUPS):
+    SMs.  The MLP takes lane groups (those of its spec, ``lane_groups``)
+    while the smallest group's K G / 32 warps fit in one wave of the group
+    kernel: the smallest G that gives every SM
+    ``GROUP_TARGET_WARPS_PER_SM`` warps, or the largest.  Beyond that, for
+    the BF model and for a spec that takes no group, one rollout a thread;
+    a spec whose one rollout a thread is slower keeps the groups for more
+    waves (``GROUP_WAVES``).  (The lane groups' times against K:
+    ``tools/exact_variants.py``, ``chip_smoke.py`` phase 28.)"""
+    groups = () if bf else lane_groups(layers)
+    waves = GROUP_WAVES.get(tuple(layers), GROUP_WAVES[KERNEL_LAYERS])
+    if (groups and K * groups[0]
+            <= 32 * GROUP_WARPS_PER_SM * num_sms * waves):
+        for G in groups:
             if K * G >= 32 * GROUP_TARGET_WARPS_PER_SM * num_sms:
                 break
         return _geometry(K, G, GROUP_BLOCK)
@@ -306,19 +399,26 @@ def exact_rollout_slots(geom: ExactGeometry, K: int, k_offset: int = 0):
 def _launch_geometry(K: int, dev, model) -> ExactGeometry:
     """The geometry a launch of kernel 1 takes on ``dev``
     (``exact_geometry``, looked up in this module at call time)."""
-    return exact_geometry(K, num_sms(dev.index or 0),
-                          bf=_is_bf(model))
+    return exact_geometry(K, num_sms(dev.index or 0), bf=_is_bf(model),
+                          layers=kernel_layers(model))
 
 
-def chain_geometry(K: int, num_sms: int, bf: bool = False) -> ExactGeometry:
+def chain_geometry(K: int, num_sms: int, bf: bool = False,
+                   layers=KERNEL_LAYERS) -> ExactGeometry:
     """The geometry of kernel 2 for K rollouts on a card of ``num_sms``
-    SMs: one rollout a warp (G = 32) while K is at most
-    ``CHAIN_WARP_ROLLOUTS_PER_SM[bf]`` rollouts an SM, the nominal
+    SMs: one rollout a warp (G = 32, where the model takes it,
+    ``chain_geometries``) while K is at most
+    ``CHAIN_WARP_ROLLOUTS_PER_SM[bf]`` rollouts an SM (an MLP spec's own in
+    ``CHAIN_WARP_ROLLOUTS_PER_SM_MLP``), the nominal
     trajectory's K = 1 always; beyond that one rollout a thread.  (The two
     forms' times against K: ``tools/exact_variants.py``.)"""
-    if K <= CHAIN_WARP_ROLLOUTS_PER_SM[bool(bf)] * num_sms:
-        return _geometry(K, *CHAIN_GEOMETRIES[1])
-    return _geometry(K, *CHAIN_GEOMETRIES[0])
+    geoms = chain_geometries(layers, bf)
+    per_sm = (CHAIN_WARP_ROLLOUTS_PER_SM[True] if bf else
+              CHAIN_WARP_ROLLOUTS_PER_SM_MLP.get(
+                  tuple(layers), CHAIN_WARP_ROLLOUTS_PER_SM[False]))
+    if len(geoms) > 1 and K <= per_sm * num_sms:
+        return _geometry(K, *geoms[1])
+    return _geometry(K, *geoms[0])
 
 
 def chain_store_slots(geom: ExactGeometry, K: int, k_offset: int = 0):
@@ -343,8 +443,8 @@ def chain_store_slots(geom: ExactGeometry, K: int, k_offset: int = 0):
 def _chain_launch_geometry(K: int, dev, model) -> ExactGeometry:
     """The geometry a launch of kernel 2 takes on ``dev``
     (``chain_geometry``, looked up in this module at call time)."""
-    return chain_geometry(K, num_sms(dev.index or 0),
-                          bf=_is_bf(model))
+    return chain_geometry(K, num_sms(dev.index or 0), bf=_is_bf(model),
+                          layers=kernel_layers(model))
 
 
 @functools.cache
@@ -354,16 +454,32 @@ def num_sms(index: int) -> int:
 
 
 def exact_kernel_info(rng: bool, bf: bool, geom: ExactGeometry, T: int,
-                      n_obs: int = 0, device: int = 0) -> dict:
+                      n_obs: int = 0, device: int = 0,
+                      layers=KERNEL_LAYERS) -> dict:
     """What the CUDA runtime reports of the instance of kernel 1 (pass 1
-    when ``rng``) that ``geom`` launches, for a launch at ``T`` with
-    ``n_obs`` circle slots: registers and local-memory bytes a thread,
-    dynamic shared memory bytes, resident blocks an SM, and the launch's
-    waves (its blocks over one wave's)."""
+    when ``rng``) that ``geom`` launches for the MLP spec ``layers``, for a
+    launch at ``T`` with ``n_obs`` circle slots: registers and local-memory
+    bytes a thread, dynamic shared memory bytes, resident blocks an SM, and
+    the launch's waves (its blocks over one wave's)."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_kernel_lib().artt_exact_kernel_info(
+    _check_launch(_spec_lib(layers).artt_exact_kernel_info(
         int(rng), int(bf), geom.group, geom.block, T, n_obs, device, out),
         "exact_kernel_info")
+    return _info(out, geom, device)
+
+
+def chain_kernel_info(bf: bool, geom: ExactGeometry, T: int,
+                      device: int = 0, layers=KERNEL_LAYERS) -> dict:
+    """:func:`exact_kernel_info` of the instance of kernel 2 that ``geom``
+    launches."""
+    out = (ctypes.c_int * 4)()
+    _check_launch(_spec_lib(layers).artt_chain_kernel_info(
+        int(bf), geom.group, geom.block, T, device, out),
+        "chain_kernel_info")
+    return _info(out, geom, device)
+
+
+def _info(out, geom: ExactGeometry, device: int) -> dict:
     info = dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
     info["waves"] = geom.grid / max(1, info["blocks_per_sm"] * num_sms(device))
@@ -409,15 +525,25 @@ def kernel_form_applies(model, cfg=None) -> bool:
     return forced or _kernel_form_consistent(model)
 
 
-def has_kernel_form(model, cfg=None) -> bool:
-    """Whether the CUDA kernels can evaluate ``model``'s dynamics: its kernel
-    form applies (:func:`kernel_form_applies`) and, for the MLP, its layers
-    are the compiled ones."""
+# The TPU kernels' numbers (ROADMAP.md Queue 2) of the CUDA kernels that
+# evaluate a model: 1 kernel A, 2 the chain, 3 the field kernel, 4 pass 1.
+KERNEL_NAMES = {1: "fused_exact_rollout_cost", 2: "dynamics_chain",
+                3: "fused_rollout_cost", 4: "fused_rng_costs"}
+
+
+def has_kernel_form(model, cfg=None, kernel: int = 1) -> bool:
+    """Whether CUDA kernel ``kernel`` (1-4, ``KERNEL_NAMES``) can evaluate
+    ``model``'s dynamics: its kernel form applies
+    (:func:`kernel_form_applies`) and, for an MLP in kernels 3 and 4, its
+    layers are ``KERNEL_LAYERS`` (kernels 1 and 2 take any spec)."""
     return (kernel_form_applies(model, cfg)
-            and (_is_bf(model) or model.layers == KERNEL_LAYERS))
+            and (kernel in (1, 2) or _is_bf(model)
+                 or tuple(model.layers) == KERNEL_LAYERS))
 
 
-def _check_kernel_model(model, cfg=None) -> None:
+def _check_kernel_model(model, cfg=None, kernel: int = 1) -> None:
+    """Raise unless CUDA kernel ``kernel`` can evaluate ``model``
+    (:func:`has_kernel_form`), before any build or launch."""
     if not kernel_form_applies(model, cfg):
         raise NotImplementedError(
             f"{type(model).__name__} has no CUDA kernel form: the kernels "
@@ -425,10 +551,12 @@ def _check_kernel_model(model, cfg=None) -> None:
             "class owns every method they replace (the MPPI solver runs its "
             "plain chain for any other; cfg.use_pallas_rollout=True forces "
             "the declaring class's form; ROADMAP.md)")
-    if not _is_bf(model) and model.layers != KERNEL_LAYERS:
+    if not has_kernel_form(model, cfg, kernel):
         raise NotImplementedError(
-            f"the CUDA kernels are compiled for layers {KERNEL_LAYERS}, got "
-            f"{model.layers} (ROADMAP.md, Queue 2: other layer specs)")
+            f"CUDA kernel {kernel} ({KERNEL_NAMES[kernel]}) is compiled for "
+            f"layers {KERNEL_LAYERS}, got {tuple(model.layers)}: kernels 1 "
+            "and 2 take any MLP spec, kernels 3 and 4 at other layer specs "
+            "are still to port (ROADMAP.md, Queue 2 A1)")
 
 
 def _check_kernel_field(field: NeuralCostmap) -> None:
@@ -589,8 +717,12 @@ def _launch_counted(launch, K: int) -> None:
 
 def _form(model, n_obs: int) -> str:
     """The suffix of a kernel instance's name: ``_bf`` for the BF model,
-    ``_obstacles`` with circle slots."""
-    return (("_bf" if _is_bf(model) else "")
+    the spec (``_6-64-64-64-64-4``) for an MLP of another spec than
+    ``KERNEL_LAYERS``, ``_obstacles`` with circle slots."""
+    layers = kernel_layers(model)
+    spec = ("" if layers == KERNEL_LAYERS
+            else "_" + "-".join(str(n) for n in layers))
+    return (("_bf" if _is_bf(model) else "") + spec
             + ("_obstacles" if n_obs else ""))
 
 
@@ -674,7 +806,8 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
     """Shape checks and the device tensors every rollout kernel reads
     (with ``eps`` (T, K, C) for the kernels that read their noise; the
     weight buffer ``packed_weights`` when given, a row of
-    :func:`pack_members`, else :func:`_pack_weights`)."""
+    :func:`pack_members`, else :func:`_pack_weights`); ``max_T`` the
+    kernel's longest horizon."""
     T, C = U.shape
     if (C != 2 or state.shape != (model.STATE_DIM,)
             or (eps is not None and eps.shape != (T, K, C))):
@@ -772,13 +905,14 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     each ``launch()`` runs the kernel once into those outputs on the
     current stream (uncounted; the wrapper counts ``launch.name``)."""
     _expect(surface, cls, fn)
-    _check_kernel_model(model, cfg)
+    _check_kernel_model(model, cfg, 3 if cls is NeuralCostmap else 1)
     circles = _obstacle_circles(cost_params, obstacles)
     kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
     args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
-        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T),
+        MAX_FIELD_KERNEL_T if kind == "field"
+        else max_kernel_t(kernel_layers(model))),
         packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
@@ -792,13 +926,13 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
     if kind == "exact":
         geom = _launch_geometry(K, dev, model)
-        entry, geo_args = lib.artt_fused_exact_rollout_cost, geom[:2]
+        entry = _spec_lib(kernel_layers(model)).artt_fused_exact_rollout_cost
+        geo_args = geom[:2]
     else:
         geom, geo_args = None, ()
-        entry = lib.artt_fused_field_rollout_cost
+        entry = _kernel_lib().artt_fused_field_rollout_cost
 
     def launch():
         err = entry(
@@ -922,10 +1056,12 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
                            k_offset=0, packed_weights=None):
     """Validate the chain kernel's inputs and allocate its outputs; returns
     ``(launch, (states, u_seq))`` as :func:`prepare_fused_exact_rollout_cost`."""
-    _check_kernel_model(model, cfg)
+    _check_kernel_model(model, cfg, 2)
     T, K, C = eps.shape
     dev = eps.device
+    layers = kernel_layers(model)
     args = _kernel_inputs(model, model_params, state, U, K, eps,
+                          max_T=max_kernel_t(layers),
                           packed_weights=packed_weights)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
@@ -935,7 +1071,7 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
     states = torch.empty((model.STATE_DIM, T, K), dtype=torch.float32,
                          device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
+    lib = _spec_lib(layers)
     geom = _chain_launch_geometry(K, dev, model)
 
     def launch():
@@ -1084,7 +1220,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     ``fused_rng_field_kernel`` for a ``NeuralCostmap``) once on the current
     stream (uncounted; the wrapper counts); ``launch.mode`` names the
     mode, ``launch.name`` the kernel instance."""
-    _check_kernel_model(model, cfg)
+    _check_kernel_model(model, cfg, 4)
     circles = _obstacle_circles(cost_params, obstacles)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)

@@ -30,10 +30,12 @@ With ``kernel_rng=True`` (the capacity mode) an iteration draws only a key
 and runs the two kernel-RNG passes (``rk.fused_rng_solve_iteration``): the
 noise is drawn inside the kernels, so neither eps nor u_seq (T x K x C
 each) reaches device memory.  The dispatch (:meth:`MPPISolver._use_kernel_rng`)
-keeps the JAX package's semantic gates: a model with a kernel form, white
-or OU noise with theta in (0, 2), ``MPPICost`` or ``ObstacleCost``, and a
-``NeuralCostmap`` or the exact ``Costmap`` with ``exact_fused``; anything
-else takes the host-noise path.
+keeps the JAX package's semantic gates: a model with a kernel form
+(whatever its layer spec: on the card pass 1 raises for an MLP spec it is
+not built for, ROADMAP.md Queue 2 A1, and never falls back to host noise),
+white or OU noise with theta in (0, 2), ``MPPICost`` or ``ObstacleCost``,
+and a ``NeuralCostmap`` or the exact ``Costmap`` with ``exact_fused``;
+anything else takes the host-noise path.
 It drops the TPU-only gate of the VMEM budget of the exact map
 (``exact_map_fits``), as the host-noise path dropped ``K % 128``: the CUDA
 kernels take any K and read the map from device memory.  A cost subclass or
@@ -403,7 +405,9 @@ class MPPISolver:
         # a field qualifies without exact_fused, as in the JAX package
         surface_ok = (type(costmap) is NeuralCostmap
                       or (type(costmap) is Costmap and cfg.exact_fused))
-        return bool(cfg.kernel_rng and rk.has_kernel_form(self.model, cfg)
+        # any model with a kernel form, whatever its spec, as in the JAX
+        # package: on the card pass 1 refuses what it is not built for
+        return bool(cfg.kernel_rng and rk.kernel_form_applies(self.model, cfg)
                     and sampler_ok
                     and type(self.cost) in (MPPICost, ObstacleCost)
                     and surface_ok)

@@ -268,8 +268,8 @@ def forced_geometry(group: int, block: int):
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     saved = rk.exact_geometry
-    rk.exact_geometry = lambda K, n_sms, bf=False: rk._geometry(
-        K, group, block)
+    rk.exact_geometry = lambda K, n_sms, bf=False, layers=None: (
+        rk._geometry(K, group, block))
     try:
         yield
     finally:
@@ -410,8 +410,8 @@ def forced_chain_geometry(group: int, block: int):
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     saved = rk.chain_geometry
-    rk.chain_geometry = lambda K, n_sms, bf=False: rk._geometry(
-        K, group, block)
+    rk.chain_geometry = lambda K, n_sms, bf=False, layers=None: (
+        rk._geometry(K, group, block))
     try:
         yield
     finally:

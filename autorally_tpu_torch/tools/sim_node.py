@@ -74,6 +74,29 @@ def log_topics(log, i: int, t: float, state: np.ndarray,
             "lfSpeed": w, "rfSpeed": w, "lbSpeed": w, "rbSpeed": w}) + "\n")
 
 
+def teacher_drive_log(path: str, model, params, seconds: float = 60.0,
+                      hz: int = 50, start=(0.0, 0.0, 0.0, 0.0, 2.0, 0.0, 0.0)
+                      ) -> str:
+    """Write a ``seconds`` long drive log at ``hz`` in :func:`log_topics`'
+    format, the state integrated by ``model`` (``update_state`` at 1/hz, on
+    the device of ``params``) under sinusoidal controls [0.25 sin(0.37 t),
+    0.4 + 0.2 sin(0.13 t)], as the JAX package's ML tests synthesise
+    theirs: a training log made from a known teacher, for the ML pipeline
+    where no recorded log is at hand.  Returns ``path``."""
+    dev = params["control_rngs"].device
+    dt = 1.0 / hz
+    s = torch.tensor(start, dtype=torch.float32, device=dev)
+    t = 0.0
+    with open(path, "w") as f, torch.no_grad():
+        for i in range(int(seconds * hz)):
+            u = np.array([0.25 * math.sin(0.37 * t),
+                          0.4 + 0.2 * math.sin(0.13 * t)], dtype=np.float32)
+            s, _ = model.update_state(params, s, torch.from_numpy(u).to(dev))
+            t += dt
+            log_topics(f, i, t, s.cpu().numpy(), u)
+    return path
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--pose-port", type=int, default=47800,

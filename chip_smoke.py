@@ -21,13 +21,20 @@ without a kernel form through the solver's plain chain — and the model
 ensembles — BASELINE config #5's 8 members through ``EnsembleMPPISolver``
 at K=16384 and K=65536 — and the sharded solvers — the main path's
 rollouts over 1, 2 and 4 ranks of ``torch.distributed`` on the one card,
-the capacity mode over 2 and the ensemble over a 2 x 2 mesh — and checks
-every CUDA kernel of these paths,
+the capacity mode over 2 and the ensemble over a 2 x 2 mesh — and the ML
+pipeline — BASELINE config #3: a 6-64-64-64-64-4 model trained on the
+card by ``ml.trainer`` from a drive log, then driven at K=8192 through
+kernels 1 and 2 built for its spec — and checks every CUDA kernel of these
+paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (one nvcc), require seventeen kernels (kernels A, B, 3 and both modes
+   (the default library and the libraries of phase 28's two other MLP
+   specs, one nvcc each, started together; each other spec's instances
+   printed with their registers, spills, dynamic shared memory and blocks
+   an SM, zero spill bytes in every one), require seventeen kernels in the
+   default library (kernels A, B, 3 and both modes
    of pass 1 in an MLP and a BF instance each, BF exact pass 1 being
    ``fused_rng_bf_kernel``, pass 2, kernel A in each MLP lane group,
    kernel B one rollout a warp, MLP and BF, and phase 19's check) and zero
@@ -252,7 +259,31 @@ exits non-zero):
     and with the capacity mode at K=262144, ``tools/scaling_bench.py`` over
     1 and 2 ranks (``--mode both --k-local 1920``; the 2-rank rows share
     the card), and two processes loading the kernel library at once from
-    a fresh ``enable_persistent_cache`` directory: one ``nvcc`` run.
+    a fresh ``enable_persistent_cache`` directory: one ``nvcc`` run;
+28. kernels 1 and 2 at two other MLP specs, 6-64-64-64-64-4 (BASELINE
+    #3's) and 6-24-4 (a width only the 8-lane group divides), seeded
+    weights: kernel 1 at K=8192, T=100 in phase 2's four cases (the fine
+    random map from 0.3 m/s) and on a shard's slice, kernel 2 at K=1 and
+    K=8192, each in every geometry its launcher takes for the spec, against
+    their plain versions and bit for bit equal to one another; times (CUDA
+    events) beside the bounds, kernel 2's latency floor at K=1 from the
+    spec library's SASS, the wide spec's geometries against K, the
+    6-32-32-4 kernel 1 at K=8192; 20 ticks of the 6-24-4 spec through the
+    solver (its launches);
+29. BASELINE #3: a 60 s, 50 Hz drive log from a seeded 6-32-32-4 teacher
+    (its output layer scaled by 0.3, so that its car does not roll over)
+    under sinusoidal controls (``tools/sim_node.teacher_drive_log``),
+    ``ml.trainer.run`` on the card (6-64-64-64-64-4, standardized, 30
+    epochs, horizons 10 and 50: seconds, epochs a second, best validation
+    loss; the trained RMSE under half a fresh init's), the exported
+    ``model.npz`` through ``NeuralNetDynamics.from_npz`` at its spec; one
+    iteration on the card against the CPU; ``MPPISolver`` at K=8192, T=100
+    on the oval, one untimed solve and 200 ticks with exactly one launch of
+    kernel 1 and one of kernel 2 a solve and no plain version (p50 / p99
+    against 20 ms, printed, not a gate); an ``update_model`` swap at tick
+    10 of a 20-tick drive (its solve bit for bit a fresh solver's on the
+    new weights, the weights repacked); ``kernel_rng=True`` refused naming
+    ROADMAP.md Queue 2 A1; a 20-tick profile.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -260,7 +291,8 @@ compiled instance with its registers, the paths' latencies, the tube's and
 the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
 launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
-solvers' and the tools'), and as its last
+solvers' and the tools', BASELINE #3's, the other specs' sweeps), and as
+its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
 GPU; exits non-zero without one, or without the package beside it.
@@ -474,15 +506,20 @@ def check(ok, msg):
         raise PhaseFailed(msg)
 
 
-def launcher_geometries(rk, bf: bool, k_max: int = KC) -> list:
+def launcher_geometries(rk, bf: bool, k_max: int = KC, layers=None,
+                        k_first: int = None) -> list:
     """Every geometry (G, block) of kernel 1 that the launcher
     (``rk.exact_geometry``) picks on this card for some K in
-    1..k_max, the one at K=1920 (BF: K=2560) first."""
+    1..k_max for the MLP spec ``layers`` (the default library's when
+    None), the one at ``k_first`` (K=1920, BF: K=2560) first."""
     import torch
 
+    kw = {} if layers is None else {"layers": layers}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    first = rk.exact_geometry(KB if bf else K, sms, bf)[:2]
-    picked = {rk.exact_geometry(k, sms, bf)[:2] for k in range(1, k_max + 1)}
+    k_first = k_first or (KB if bf else K)
+    first = rk.exact_geometry(k_first, sms, bf, **kw)[:2]
+    picked = {rk.exact_geometry(k, sms, bf, **kw)[:2]
+              for k in range(1, k_max + 1)}
     return [first] + sorted(picked - {first})
 
 
@@ -604,17 +641,19 @@ def drive_turns(drive_oval, what, chain, old, new, solver, params,
 
 
 def chain_timing(rk, tag, model, params, cfg, start, U, eps, bf, reps,
-                 card) -> dict:
+                 card, sass: str = None) -> dict:
     """Kernel 2 at ``eps``'s K in the launcher's geometry and in one rollout
     a thread (CUDA events), and its latency floor in the launcher's
-    geometry (``chain_floor``): {ms, geometry, one_thread_ms, floor_ms}."""
+    geometry (``chain_floor`` on ``sass``, the default library's when
+    None): {ms, geometry, one_thread_ms, floor_ms}."""
     from autorally_tpu_torch.tools.exact_variants import forced_chain_geometry
 
     launch, _ = rk.prepare_dynamics_chain(model, params, cfg, start, U, eps)
     with forced_chain_geometry(*rk.CHAIN_GEOMETRIES[0]):
         one, _ = rk.prepare_dynamics_chain(model, params, cfg, start, U, eps)
     ms, ms_one = cuda_ms(launch, reps), cuda_ms(one, reps)
-    floor = chain_floor(SASS[0], bf, launch.geometry, max_sm_clock_mhz())
+    floor = chain_floor(SASS[0] if sass is None else sass, bf,
+                        launch.geometry, max_sm_clock_mhz())
     print(f"[timing] {tag} K={eps.shape[1]} in {geometry_label(launch.geometry)}"
           f": {ms:.4f} ms; in one rollout a thread {ms_one:.4f} ms; latency "
           f"floor {floor['ms']:.4f} ms: the step's longest dependent chain "
@@ -702,12 +741,14 @@ def field_bounds(nbytes: float, other_ops: float, n_evals: float, field):
                   n_evals * 3 * products))
 
 
-def library_sass() -> str:
-    """``cuobjdump -sass`` of the built kernel library."""
+def library_sass(layers=None) -> str:
+    """``cuobjdump -sass`` of the built kernel library (of the MLP spec
+    ``layers``; the default one when None)."""
     from autorally_tpu_torch.ops import _build
 
     objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
-    out = subprocess.run([objdump, "-sass", str(_build.library_path())],
+    out = subprocess.run([objdump, "-sass",
+                          str(_build.library_path(layers))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise PhaseFailed(f"cuobjdump failed: {out.stderr.strip()}")
@@ -4180,6 +4221,540 @@ def tools_phase(card, cold, dev=None) -> dict:
     return out
 
 
+# -- phases 28-29: kernels 1 and 2 at other MLP specs; BASELINE #3 ----------
+
+# the specs of the other-spec libraries: BASELINE #3's 6-64-64-64-64-4 (the
+# JAX package's wider model, neural_net.py:76-78) and 6-24-4, whose width
+# only the 8-lane group divides (no warp form of kernel 2)
+SPEC_LAYERS = ((6, 64, 64, 64, 64, 4), (6, 24, 4))
+KS = 8192                              # BASELINE #3's rollouts
+SPEC_FORM_TICKS = 20                   # the 6-24-4 drive's ticks
+# kernel 1 and 2 of the wide spec in each geometry against K (where the
+# launchers' choices stand): multiples of the card's 132 SMs' 32 rollouts
+SPEC_SWEEP_K = (1920, 4224, 8192, 16896, 33792)
+B3_LAYERS = [6, 64, 64, 64, 64, 4]
+B3_LOG_SECONDS, B3_HZ = 60.0, 50
+B3_EPOCHS = 30
+B3_HORIZONS = [10, 50]
+B3_TICKS = 200
+B3_SWAP_TICKS, B3_SWAP_AT = 20, 10     # the update_model drive
+B3_PROFILE_TICKS = 20
+B3_MAX_RMSE_RATIO = 0.5                # tests/test_ml_loop.py:198-200
+# The teacher's output layer scaled down: at init_params(0) as it is, the
+# seeded 6-32-32-4 rolls the car over and on past +-pi within the 60 s,
+# where the log's quaternion round trip wraps the roll and spikes roll_der
+# to -199 (the labels' RMSE is then those spikes: trained 1.89 against a
+# fresh init's 2.46, my chip call 4, PR 15); at 0.3 the roll stays in
+# (-3.11, 0] and the speeds within 7 m/s, as a drive's would
+B3_TEACHER_OUTPUT_SCALE = 0.3
+B3_BUDGET_MS = 20.0
+
+
+def spec_label(layers) -> str:
+    return "-".join(str(n) for n in layers)
+
+
+def build_libraries(rk) -> dict:
+    """The default library and one of each spec of ``SPEC_LAYERS``, one
+    ``nvcc`` each, all started together (threads; each ``nvcc`` its own
+    process): {None or layers: (library, seconds)}."""
+    import threading
+
+    from autorally_tpu_torch.ops import _build
+
+    libs, errors = {}, {}
+
+    def build(layers):
+        t0 = time.perf_counter()
+        try:
+            libs[layers] = (_build.load(layers), time.perf_counter() - t0)
+        except Exception as e:               # reported below, then fail
+            errors[layers] = e
+
+    threads = [threading.Thread(target=build, args=(layers,))
+               for layers in (None,) + SPEC_LAYERS]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    for layers, e in errors.items():
+        print(f"[build] {layers or 'default'}: {e}", file=sys.stderr)
+    check(not errors, f"the kernel libraries of {sorted(map(str, errors))} "
+          "did not build")
+    return libs
+
+
+def spec_instances(rk, layers, lib, card) -> None:
+    """Phase 1 for a library of another spec: its ptxas report (kernel 1
+    in one rollout a thread and in each lane group the spec takes, kernel
+    2 in one rollout a thread and, where 32 divides the widths, a warp;
+    zero spill bytes in every one: the launchers pick each for some K) and
+    each instance's registers, dynamic shared memory and blocks an SM at
+    T=100."""
+    tag = f"build {spec_label(layers)}"
+    if lib.build is not None:
+        report = ptxas_report(lib.build[1])
+        for name, regs, spill in report:
+            print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
+                  f"stores and loads")
+        n_want = 2 + len(rk.lane_groups(layers)) + (
+            len(rk.chain_geometries(layers)) - 1)
+        check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
+              f"kernels, expected {n_want}")
+        check(all(spill == 0 for _, _, spill in report),
+              f"{tag}: a kernel spills")
+        PTXAS.update((f"{name} [{spec_label(layers)}]", regs)
+                     for name, regs, _ in report)
+    for geom in rk.geometries(layers):
+        g = rk._geometry(KS, *geom)
+        info = rk.exact_kernel_info(False, False, g, T, layers=layers)
+        print(f"[{tag}] kernel 1 {geometry_label(g)} "
+              f"({exact_instance(g, False, False)}): {info['registers']} "
+              f"registers, {info['local_bytes']} bytes of local memory, "
+              f"{info['smem_bytes']} bytes of dynamic shared memory at T={T}, "
+              f"{info['blocks_per_sm']} blocks "
+              f"({info['blocks_per_sm'] * g.block // 32} warps) an SM, "
+              f"{info['waves']:.2f} waves at K={KS} ({card})")
+    for geom in rk.chain_geometries(layers):
+        g = rk._geometry(1, *geom)
+        info = rk.chain_kernel_info(False, g, T, layers=layers)
+        print(f"[{tag}] kernel 2 {geometry_label(g)}: {info['registers']} "
+              f"registers, {info['smem_bytes']} bytes of dynamic shared "
+              f"memory at T={T}, {info['blocks_per_sm']} blocks an SM "
+              f"({card})")
+
+
+def spec_setup(layers, dev, seed: int = 0):
+    """(model, params, cfg) of the MLP spec ``layers`` at K=KS, T=100:
+    seeded Glorot weights (``init_params(seed)``)."""
+    from autorally_tpu_torch.config import MPPIConfig
+    from autorally_tpu_torch.models import NeuralNetDynamics
+
+    cfg = MPPIConfig(num_rollouts=KS, num_timesteps=T, hz=50)
+    model = NeuralNetDynamics(cfg.dt, layers=layers,
+                              control_ranges=cfg.control_ranges, device=dev)
+    return model, model.init_params(seed), cfg
+
+
+def spec_phase(drive_oval, rk, card, dev=None) -> dict:
+    """Phase 28: kernels 1 and 2 of each spec of ``SPEC_LAYERS`` against
+    their plain versions, as phases 2 and 3 hold the default spec's: kernel
+    1 at K=KS, T=100 in phase 2's four cases and on a shard's slice, in
+    every geometry its launcher takes for the spec, bit for bit equal to
+    one another; kernel 2 at K=1 and K=KS in each of its geometries; the
+    times (CUDA events) beside the bounds, kernel 2's latency floor at
+    K=1 (the spec library's SASS); each geometry of the wide spec against
+    K; the 6-32-32-4 kernel 1 at K=KS (the cost of the width); and a
+    drive of the 6-24-4 spec (its launches).  Returns {"rows": the 6-24-4
+    rows and the wide spec's timings for phase 29's rows, "sweep": ...}."""
+    import torch
+
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.exact_variants import (
+        forced_chain_geometry, forced_geometry)
+
+    dev = dev or torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cp = CostParams(desired_speed=6.0)
+    costmap = drive_oval.oval_costmap(dev)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    nan_start = start.clone()
+    nan_start[0] = float("nan")
+    edge_start = torch.tensor([37.0, 0.0, 0.3, 0.0, 6.0, 0.0, 0.0],
+                              device=dev)
+    # the specs' seeded models keep the car's speed: from 1 m/s every
+    # rollout reaches a texel over the boundary, from 0.3 some do not
+    slow_start = start.clone()
+    slow_start[4] = 0.3
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(28)
+    eps = torch.randn((T, KS, 2), generator=gen, device=dev)
+    eps1 = torch.zeros((T, 1, 2), device=dev)
+    out = {}
+    for layers in SPEC_LAYERS:
+        label = spec_label(layers)
+        model, params, cfg = spec_setup(layers, dev)
+        wide = cfg.replace(steering_std=4 * cfg.steering_std,
+                           throttle_std=4 * cfg.throttle_std)
+        shard = KS // 3 + 61
+        cases = {"nominal": (cfg, start, costmap, eps, {}),
+                 "wide_swarm": (wide, edge_start, costmap, eps, {}),
+                 "nan_x": (cfg, nan_start, costmap, eps, {}),
+                 "random_map": (wide, slow_start, random_costmap(dev), eps,
+                                {}),
+                 "shard": (cfg, start, costmap,
+                           eps[:, shard:].contiguous(),
+                           dict(k_offset=shard))}
+        geoms = launcher_geometries(rk, False, layers=layers, k_first=KS)
+        print(f"[spec {label}] kernel 1's launcher picks "
+              f"{[geometry_label(g) for g in geoms]} (at K={KS} "
+              f"{geometry_label(geoms[0])}); kernel 2's "
+              f"{[geometry_label(g) for g in rk.chain_geometries(layers)]}")
+        err_1 = 0.0
+        for name, (ccfg, s0, cmap, e, kw) in cases.items():
+            k_n = e.shape[1]
+            pc, pu, px = rk.fused_rollout_cost_plain(
+                model, params, ccfg, cp, cmap, s0, U, e, **kw)
+            if name == "random_map":
+                kb, _ = rk.dynamics_chain(model, params, ccfg, s0, U, e)
+                pc0 = pc
+                pc, px = rk.trajectory_cost_plain(model, params, ccfg, cp,
+                                                  cmap, U, e, kb)
+                check(0 < px.sum().item() < k_n, f"spec {label} random_map:"
+                      " crash flags do not differ between rollouts")
+
+            def check_1(glabel, res):
+                nonlocal err_1
+                kc, ku, kx = res
+                if name == "random_map":
+                    n_differ = int((~torch.isclose(
+                        kc, pc0, rtol=COST_RTOL, atol=COST_ATOL)).sum())
+                    check(n_differ <= k_n // 100, f"spec {label} kernel 1 "
+                          f"random_map: {n_differ} rollouts differ from the "
+                          "plain version's own trajectories")
+                e_c = (kc - pc).abs().max().item()
+                n_x = int((kx != px).sum().item())
+                print(f"[spec {label}] kernel 1 {glabel} {name} K={k_n}: "
+                      f"max|cost err| {e_c:.3e}, u_seq equal "
+                      f"{torch.equal(ku, pu)}, crash "
+                      f"{int(px.sum().item())}/{k_n}, crash mismatches {n_x}")
+                check(torch.isfinite(kc).all().item(), f"spec {label} "
+                      f"kernel 1 {glabel} {name}: non-finite costs")
+                check(torch.allclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL),
+                      f"spec {label} kernel 1 {glabel} {name}: costs differ")
+                check(n_x == 0, f"spec {label} kernel 1 {glabel} {name}: "
+                      "crash flags differ")
+                check(torch.equal(ku, pu), f"spec {label} kernel 1 {glabel}"
+                      f" {name}: u_seq differs")
+                err_1 = max(err_1, e_c)
+
+            hold_geometries(f"spec {label} kernel 1 {name}", geoms,
+                            lambda: tuple(rk.fused_exact_rollout_cost(
+                                model, params, ccfg, cp, cmap, s0, U, e,
+                                **kw)), check_1)
+        # kernel 2 at the nominal trajectory's K=1 and at K=KS
+        err_2 = 0.0
+        chains = rk.chain_geometries(layers)
+        for e in (eps1, eps):
+            ks, ku = hold_geometries(
+                f"spec {label} kernel 2 K={e.shape[1]}", chains,
+                lambda: tuple(rk.dynamics_chain(model, params, cfg, start, U,
+                                                e)),
+                lambda glabel, res: None, chain=True)
+            ps, pu = rk.dynamics_chain_plain(model, params, cfg, start, U, e)
+            e_s = (ks - ps).abs().max().item()
+            print(f"[spec {label}] kernel 2 K={e.shape[1]}: max|state err| "
+                  f"{e_s:.3e}, u_seq equal {torch.equal(ku, pu)}")
+            check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
+                  f"spec {label} kernel 2 K={e.shape[1]}: states differ")
+            check(torch.equal(ku, pu), f"spec {label} kernel 2 "
+                  f"K={e.shape[1]}: u_seq differs")
+            err_2 = max(err_2, e_s)
+
+        # timing beside the bounds (each input read once, each output
+        # written once; the step's operations)
+        n_w = rk.num_weights(layers)
+        step = mlp_flops(layers)
+        launch_1, _ = rk.prepare_fused_exact_rollout_cost(
+            model, params, cfg, cp, costmap, start, U, eps)
+        ms_1 = cuda_ms(launch_1, 50)
+        plain_1 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+            model, params, cfg, cp, costmap, start, U, eps), 3, 1)
+        bound_1, by_1 = bound(4 * (T * KS * 2 + 2 * T * KS + 2 * KS + T * 2
+                                   + n_w + 7 + 4 + 2 * KS * (T - 1)),
+                              step * KS * T)
+        print(f"[timing] spec {label} kernel 1 K={KS} T={T} in "
+              f"{geometry_label(launch_1.geometry)}: {ms_1:.4f} ms, plain "
+              f"{plain_1:.3f} ms, bound {bound_1:.5f} ms ({by_1}) ({card})")
+        sass = library_sass(layers)
+        timings = {}
+        for e in (eps1, eps):
+            k_n = e.shape[1]
+            c = chain_timing(rk, f"spec {label} kernel 2", model, params,
+                             cfg, start, U, e, False, 100 if k_n == 1 else 20,
+                             card, sass=sass)
+            plain = cuda_ms(lambda: rk.dynamics_chain_plain(
+                model, params, cfg, start, U, e), 3, 1)
+            bnd, by = bound(4 * (11 * T * k_n + 2 * T + n_w + 7 + 4),
+                            step * T * k_n)
+            print(f"[timing] spec {label} kernel 2 K={k_n}: {c['ms']:.4f} ms"
+                  f" in {geometry_label(c['geometry'])}, plain {plain:.3f} "
+                  f"ms, bound {bnd:.7f} ms ({by}), latency floor "
+                  f"{c['floor_ms']:.4f} ms ({card})")
+            timings[k_n] = dict(c, plain_ms=plain, bound_ms=bnd, bound_by=by)
+        out[layers] = {"kernel1": dict(ms=ms_1, plain_ms=plain_1,
+                                       bound_ms=bound_1, bound_by=by_1,
+                                       err=err_1,
+                                       geometry=launch_1.geometry),
+                       "kernel2": timings, "err2": err_2}
+
+    # each geometry of the wide spec against K (CUDA events)
+    wide_layers = SPEC_LAYERS[0]
+    model, params, cfg = spec_setup(wide_layers, dev)
+    sweep = {"kernel1": {}, "kernel2": {}}
+    for k_n in SPEC_SWEEP_K:
+        e = torch.randn((T, k_n, 2), generator=gen, device=dev)
+        c = cfg.replace(num_rollouts=k_n)
+        for geom in rk.geometries(wide_layers):
+            with forced_geometry(*geom):
+                launch, _ = rk.prepare_fused_exact_rollout_cost(
+                    model, params, c, cp, costmap, start, U, e)
+            sweep["kernel1"][f"{geometry_label(geom)} K={k_n}"] = cuda_ms(
+                launch, 10, 2)
+        for geom in rk.chain_geometries(wide_layers):
+            with forced_chain_geometry(*geom):
+                launch, _ = rk.prepare_dynamics_chain(model, params, c,
+                                                      start, U, e)
+            sweep["kernel2"][f"{geometry_label(geom)} K={k_n}"] = cuda_ms(
+                launch, 10, 2)
+        picks = (rk.exact_geometry(k_n, sms, layers=wide_layers)[:2],
+                 rk.chain_geometry(k_n, sms, layers=wide_layers)[:2])
+        print(f"[spec sweep {spec_label(wide_layers)}] K={k_n}: kernel 1 "
+              f"{picks[0]} picked, kernel 2 {picks[1]} picked; " + ", ".join(
+                  f"{n} {v:.4f} ms" for kind in sweep.values()
+                  for n, v in kind.items() if n.endswith(f"K={k_n}"))
+              + f" ({card})")
+    # the cost of the width: the 6-32-32-4 kernel 1 at K=KS
+    base = drive_oval.build(rollouts=KS, device=dev)
+    launch, _ = rk.prepare_fused_exact_rollout_cost(
+        base[0].model, base[1], base[0].cfg, cp, costmap, start, U, eps)
+    sweep["kernel1_default_spec_K%d" % KS] = cuda_ms(launch, 50)
+    print(f"[timing] 6-32-32-4 kernel 1 K={KS} in "
+          f"{geometry_label(launch.geometry)}: "
+          f"{sweep['kernel1_default_spec_K%d' % KS]:.4f} ms ({card})")
+
+    # the 6-24-4 spec through the solver: its launches
+    narrow = SPEC_LAYERS[1]
+    model, params, cfg = spec_setup(narrow, dev)
+    solver = MPPISolver(model, MPPICost(), cfg, device=dev)
+    label = spec_label(narrow)
+    names = (f"fused_exact_rollout_cost_{label}", f"dynamics_chain_{label}")
+    latency, got, _ = drive_counted(drive_oval, rk, f"spec {label} drive",
+                                    solver, params, cp, costmap,
+                                    SPEC_FORM_TICKS, dict.fromkeys(names, 1),
+                                    card)
+    res = out[narrow]
+    rows = [spec_rows(rk, narrow, res, got[names[0]], got[names[1]])]
+    return {"rows": [r for pair in rows for r in pair], "specs": out,
+            "sweep": sweep, "narrow_latency": latency}
+
+
+def spec_rows(rk, layers, res, launches_1, launches_2) -> tuple:
+    """The ``kernels`` rows of kernel 1 at K=KS and kernel 2 at K=1 of the
+    spec ``layers`` (``spec_phase``'s measurements, the drive's
+    launches)."""
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    label = spec_label(layers)
+    k1, k2 = res["kernel1"], res["kernel2"][1]
+    return (
+        {"name": f"fused_exact_rollout_cost_{label}", "route": "cuda",
+         "source": src, "replaces": "autorally_tpu/ops/rollout_kernel.py:1013",
+         "launches": launches_1, "max_abs_err": k1["err"], "ms": k1["ms"],
+         "plain_ms": k1["plain_ms"], "bound_ms": k1["bound_ms"],
+         "bound_by": k1["bound_by"], "library_ms": None, "K": KS,
+         "layers": list(layers), "geometry": geometry_label(k1["geometry"])},
+        {"name": f"dynamics_chain_{label}", "route": "cuda", "source": src,
+         "replaces": "autorally_tpu/ops/rollout_kernel.py:389",
+         "launches": launches_2, "max_abs_err": res["err2"], "ms": k2["ms"],
+         "plain_ms": k2["plain_ms"], "bound_ms": k2["bound_ms"],
+         "bound_by": k2["bound_by"], "library_ms": None, "K": 1,
+         "layers": list(layers), "geometry": geometry_label(k2["geometry"]),
+         "one_thread_ms": k2["one_thread_ms"],
+         "latency_floor_ms": k2["floor_ms"]})
+
+
+def baseline3_phase(drive_oval, rk, card, spec, dev=None) -> dict:
+    """Phase 29: BASELINE #3, a model trained on the card that then drives
+    through kernels 1 and 2 of its own spec.  A 60 s, 50 Hz drive log from
+    a seeded 6-32-32-4 teacher under sinusoidal controls
+    (``tools/sim_node.teacher_drive_log``), ``ml.trainer.run`` on the card
+    (6-64-64-64-64-4, standardized, 30 epochs, horizons 10 and 50; its
+    seconds, epochs a second and best validation loss; the trained RMSE
+    under half a fresh init's), ``from_npz`` giving the spec; one iteration
+    on the card against the CPU; ``MPPISolver`` at K=8192, T=100 on the oval
+    for one untimed solve and 200 ticks with exactly one launch of each
+    kernel a solve and no plain version (p50 / p99 against 20 ms); a
+    20-tick drive with an ``update_model`` swap at tick 10 (the swap's
+    solve bit for bit a fresh solver's on the new weights, the weights
+    repacked); the capacity mode refused by name; a 20-tick profile.
+    ``spec``: ``spec_phase``'s measurements of this spec."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import autorally_tpu_torch.ml as ml
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.ml import trainer
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.sim_node import teacher_drive_log
+
+    dev = dev or torch.device("cuda", 0)
+    layers = tuple(B3_LAYERS)
+    label = spec_label(layers)
+    work = tempfile.mkdtemp(prefix="baseline3_")
+    results = {}
+    try:
+        teacher = NeuralNetDynamics(1.0 / B3_HZ, device=dev)
+        tparams = teacher.init_params(0)
+        with torch.no_grad():
+            tparams["weights"][-1].mul_(B3_TEACHER_OUTPUT_SCALE)
+            tparams["biases"][-1].mul_(B3_TEACHER_OUTPUT_SCALE)
+        t0 = time.perf_counter()
+        log = teacher_drive_log(os.path.join(work, "drive.jsonl"), teacher,
+                                tparams, seconds=B3_LOG_SECONDS, hz=B3_HZ)
+        results["log_s"] = time.perf_counter() - t0
+        cfg = dict(trainer.DEFAULTS)
+        cfg.update(log_jsonl=log, results_dir=os.path.join(work, "out"),
+                   nn_layers=list(B3_LAYERS), standardize_data=True,
+                   epochs=B3_EPOCHS, horizons=list(B3_HORIZONS))
+        timed = {}
+        train_dynamics = ml.train_dynamics
+
+        def timed_train(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = train_dynamics(*a, **kw)
+            torch.cuda.synchronize()
+            timed["train_s"] = time.perf_counter() - t
+            return out
+
+        ml.train_dynamics = timed_train
+        try:
+            t0 = time.perf_counter()
+            res = trainer.run(cfg, device=dev)
+            results["run_s"] = time.perf_counter() - t0
+        finally:
+            ml.train_dynamics = train_dynamics
+        results.update(best_val_loss=res["best_val_loss"],
+                       train_s=timed["train_s"],
+                       epochs_per_s=B3_EPOCHS / timed["train_s"],
+                       multistep=res["multistep"])
+        model, params = NeuralNetDynamics.from_npz(
+            os.path.join(cfg["results_dir"], "model.npz"), 1.0 / B3_HZ,
+            device=dev)
+        check(model.layers == layers, f"from_npz read {model.layers}, "
+              f"trained {layers}")
+        d = np.load(os.path.join(cfg["results_dir"], "dataset.npz"))
+        fresh_model = NeuralNetDynamics(1.0 / B3_HZ, layers=layers,
+                                        device=dev)
+        trained = ml.instantaneous_errors(model, params, d["inputs"],
+                                          d["labels"])["rmse"].mean()
+        fresh = ml.instantaneous_errors(fresh_model,
+                                        fresh_model.init_params(9),
+                                        d["inputs"], d["labels"])[
+            "rmse"].mean()
+        results["rmse_ratio"] = float(trained / fresh)
+        print(f"[baseline3] log {B3_LOG_SECONDS:.0f} s at {B3_HZ} Hz "
+              f"({len(d['inputs'])} rows) in {results['log_s']:.2f} s; "
+              f"trainer.run {results['run_s']:.2f} s, training "
+              f"{results['train_s']:.2f} s for {B3_EPOCHS} epochs "
+              f"({results['epochs_per_s']:.2f} epochs/s), best val loss "
+              f"{results['best_val_loss']:.5f}; RMSE trained {trained:.4f} "
+              f"against a fresh init's {fresh:.4f} (ratio "
+              f"{results['rmse_ratio']:.3f}); multistep {res['multistep']};"
+              f" from_npz layers {model.layers} ({card})")
+        check(results["rmse_ratio"] < B3_MAX_RMSE_RATIO, f"the trained "
+              f"model's RMSE is {results['rmse_ratio']:.3f} of a fresh "
+              f"init's, not under {B3_MAX_RMSE_RATIO}")
+
+        # the solver at BASELINE #3: K=8192, T=100 on the oval
+        _, _, scfg = spec_setup(layers, dev)
+        cp = CostParams(desired_speed=6.0)
+        costmap = drive_oval.oval_costmap(dev)
+        solver = MPPISolver(model, MPPICost(), scfg, device=dev)
+        cpu_model, cpu_params = NeuralNetDynamics.from_npz(
+            os.path.join(cfg["results_dir"], "model.npz"), 1.0 / B3_HZ,
+            device="cpu")
+        cpu_solver = MPPISolver(cpu_model, MPPICost(), scfg, device="cpu")
+        start = torch.tensor(drive_oval.START, dtype=torch.float32,
+                             device=dev)
+        U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(29)
+        eps = torch.randn((T, KS, 2), generator=gen, device=dev)
+        Ug, stg = solver.iterate(params, cp, costmap, start, U, eps)
+        Uc, stc = cpu_solver.iterate(cpu_params, cp,
+                                     drive_oval.oval_costmap("cpu"),
+                                     start.cpu(), U.cpu(), eps.cpu())
+        e_it = (Ug.cpu() - Uc).abs().max().item()
+        print(f"[baseline3] one iteration GPU vs CPU at K={KS}: max|U_new "
+              f"err| {e_it:.3e}, ess {stg.ess.item():.2f} vs "
+              f"{stc.ess.item():.2f}")
+        check(e_it <= ITER_ATOL, f"baseline3 iterate: GPU and CPU differ by "
+              f"{e_it}")
+        names = (f"fused_exact_rollout_cost_{label}",
+                 f"dynamics_chain_{label}")
+        latency, got, out = drive_counted(
+            drive_oval, rk, "baseline3", solver, params, cp, costmap,
+            B3_TICKS, dict.fromkeys(names, 1), card)
+        results["latency"] = latency
+        results["launches"] = got
+        print(f"[baseline3] solve p99 {latency[1]:.3f} ms against the "
+              f"{B3_BUDGET_MS:.0f} ms budget: "
+              f"{'inside' if latency[1] <= B3_BUDGET_MS else 'MISSED'} "
+              f"({card})")
+
+        # an update_model swap mid-drive (the reference's live topic)
+        swap = NeuralNetDynamics(1.0 / B3_HZ, layers=layers, device="cpu")
+        sp = swap.init_params(5)
+        flat = np.concatenate(
+            [w.numpy().T.reshape(-1) for w in sp["weights"]]
+            + [b.numpy() for b in sp["biases"]])
+        cs = solver.init_state()
+        state = start.clone()
+        p = params
+        old_pack = rk._pack_weights(model, params)
+        for tick in range(B3_SWAP_TICKS):
+            if tick == B3_SWAP_AT:
+                p = model.update_model(params, layers, flat)
+                check(p is not params, "update_model kept the old weights")
+                pack = rk._pack_weights(model, p)
+                check(pack is not old_pack and torch.equal(
+                    pack, rk._flat_weights(model, p)), "the swap's weights "
+                    "were not repacked")
+                fresh = MPPISolver(model, MPPICost(), scfg, device=dev)
+                want, _ = fresh.solve(p, cp, costmap, state,
+                                      solver.slide(cs, 1))
+            cs = solver.slide(cs, 1)
+            cs, _ = solver.solve(p, cp, costmap, state, cs)
+            if tick == B3_SWAP_AT:
+                same = all(bit_equal(getattr(cs, f), getattr(want, f))
+                           for f in ("U", "state_solution",
+                                     "control_solution"))
+                print(f"[baseline3] update_model at tick {tick}: the solve "
+                      f"bit for bit a fresh solver's on the new weights "
+                      f"{same}; weights repacked")
+                check(same, "the swap's solve differs from a fresh "
+                      "solver's on the new weights")
+            state, _ = model.update_state(p, state, cs.control_solution[0])
+        check(torch.isfinite(cs.U).all().item(), "baseline3 swap drive: "
+              "non-finite controls")
+        # the capacity mode with this spec: pass 1 refuses it by name
+        cap = MPPISolver(model, MPPICost(), scfg.replace(kernel_rng=True),
+                         device=dev)
+        try:
+            cap.solve(params, cp, costmap, start, cap.init_state())
+        except NotImplementedError as e:
+            print(f"[baseline3] kernel_rng=True: {e}")
+            check("Queue 2 A1" in str(e), "the capacity mode's refusal does "
+                  "not name ROADMAP.md Queue 2 A1")
+        else:
+            raise PhaseFailed("the capacity mode ran a 6-64-64-64-64-4 model"
+                              " on the card")
+        profile_ticks(drive_oval, solver, params, cp, costmap, card,
+                      ticks=B3_PROFILE_TICKS, tag="baseline3 profile")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rows = spec_rows(rk, layers, spec, got[names[0]], got[names[1]])
+    return {"rows": list(rows), "results": results}
+
+
 def main() -> int:
     import torch
 
@@ -4213,9 +4788,10 @@ def main() -> int:
     results = {}
 
     # -- phase 1: build ------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = _build.load()
-    build_s = time.perf_counter() - t0
+    # the default library and the other specs' (phase 28), one nvcc each,
+    # all started together
+    libs = build_libraries(rk)
+    lib, build_s = libs[None]
     if lib.build is None:
         print(f"[build] {_build.library_path().name} was already built")
     else:
@@ -4237,6 +4813,13 @@ def main() -> int:
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
         PTXAS.update((name, regs) for name, regs, _ in report)
     print(f"[build] total {build_s:.1f}s ({card})")
+    for layers in SPEC_LAYERS:
+        spec_lib, spec_s = libs[layers]
+        print(f"[build {spec_label(layers)}] "
+              f"{_build.library_path(layers).name}: "
+              + (f"nvcc {spec_lib.build[0]:.1f}s" if spec_lib.build
+                 else "already built") + f", {spec_s:.1f}s ({card})")
+        spec_instances(rk, layers, spec_lib, card)
     # the field kernels: resources at the main path's T, and their SASS
     for rng, name in ((False, "fused_field_kernel"),
                       (True, "fused_rng_field_kernel")):
@@ -4542,6 +5125,13 @@ def main() -> int:
     finally:
         stop_cold_loaders(cold)
 
+    # -- phase 28: kernels 1 and 2 at other MLP specs ---------------------
+    spec = spec_phase(drive_oval, rk, card)
+
+    # -- phase 29: BASELINE #3, a model trained on the card drives --------
+    baseline3 = baseline3_phase(drive_oval, rk, card,
+                                spec["specs"][SPEC_LAYERS[0]])
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -4557,7 +5147,8 @@ def main() -> int:
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
          **chain_entry(chain_b)},
     ] + cap_kernels + field_kernels + bf_obs_kernels + general["kernels"] + (
-        ensemble["kernels"]) + sharded["kernels"]
+        ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + (
+        baseline3["rows"])
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -4566,14 +5157,15 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
+        layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
-                                     sms, "_bf" in name)
+                                     sms, "_bf" in name, layers=layers)
             k.setdefault("geometry", geometry_label(geom))
             k["instance"] = exact_instance(geom, False, "_bf" in name)
         elif name.startswith("dynamics_chain"):
             k["instance"] = ("dynamics_chain_warp_kernel" if rk.chain_geometry(
-                k.get("K", 1), sms, "_bf" in name).group > 1
+                k.get("K", 1), sms, "_bf" in name, layers=layers).group > 1
                 else "dynamics_chain_kernel") + f"<{model}>"
         elif name.startswith(("fused_rollout_cost", "fused_rng_costs_field")):
             k["design"] = field_design
@@ -4621,6 +5213,16 @@ def main() -> int:
                       "general_path": general["latency"],
                       "ensemble": ensemble["results"],
                       "sharded": sharded["results"],
+                      "baseline3": baseline3["results"],
+                      "spec_sweep_ms": spec["sweep"],
+                      "spec_kernel2_K%d" % KS: {
+                          spec_label(sp): {
+                              "ms": r["kernel2"][KS]["ms"],
+                              "one_thread_ms": r["kernel2"][KS][
+                                  "one_thread_ms"],
+                              "plain_ms": r["kernel2"][KS]["plain_ms"],
+                              "bound_ms": r["kernel2"][KS]["bound_ms"]}
+                          for sp, r in spec["specs"].items()},
                       "tools": {"scaling": tools["scaling"],
                                 "cold_cache": tools["cold_cache"],
                                 "breakdown_full_solve_ms": {

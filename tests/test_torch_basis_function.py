@@ -378,17 +378,23 @@ def test_kernel_form_packing_and_scalars():
 
 
 def test_check_kernel_model_still_refuses_other_mlp_specs():
-    """The BF form is accepted; an MLP of another layer spec is still
-    refused, by name, before any build or launch."""
+    """The BF form is accepted by every kernel; an MLP of another layer
+    spec is accepted by kernels 1 and 2 and still refused by kernels 3 and
+    4, by name, before any build or launch."""
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
-    assert not rk.has_kernel_form(wide)
-    with pytest.raises(NotImplementedError, match="other layer specs"):
-        rk._check_kernel_model(wide)
     solver, params, *_ = _pair()
+    for kernel in (1, 2, 3, 4):
+        assert rk.has_kernel_form(solver.model, kernel=kernel)
+        assert rk.has_kernel_form(wide, kernel=kernel) is (kernel < 3)
+    for kernel in (3, 4):
+        with pytest.raises(NotImplementedError, match="other layer specs"):
+            rk._check_kernel_model(wide, kernel=kernel)
     state, U, eps = (torch.tensor(a) for a in _inputs())
+    cm = make_costmap(*oval_track(ppm=1.0), device="cpu")
     with pytest.raises(NotImplementedError, match="other layer specs"):
-        rk.prepare_dynamics_chain(wide, wide.init_params(0), solver.cfg,
-                                  state, U, eps)
+        rk.prepare_fused_rng_costs(wide, wide.init_params(0), solver.cfg,
+                                   CostParams(), cm, state, U,
+                                   torch.tensor([1, 2]))
 
 
 def test_drive_oval_with_the_bf_model():

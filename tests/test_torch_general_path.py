@@ -305,13 +305,16 @@ def test_kernel_form_consistent_cases():
         use_pallas_rollout=True))
     with pytest.raises(NotImplementedError, match="kernel form"):
         rk._check_kernel_model(ensemble)
-    # another layer spec keeps the kernel path, refused on the card by the
-    # kernels' check (its plain versions run on the CPU)
+    # another layer spec keeps the kernel path: kernels 1 and 2 take it (a
+    # library built for its spec), kernels 3 and 4 refuse it on the card
+    # (its plain versions run on the CPU)
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
     assert mppi.MPPISolver(wide, MPPICost(), cfg, device="cpu").kernel_form
-    assert not rk.has_kernel_form(wide)
+    assert rk.has_kernel_form(wide) and rk.has_kernel_form(wide, kernel=2)
+    rk._check_kernel_model(wide)
+    assert not rk.has_kernel_form(wide, kernel=3)
     with pytest.raises(NotImplementedError, match="other layer specs"):
-        rk._check_kernel_model(wide)
+        rk._check_kernel_model(wide, kernel=4)
 
 
 @pytest.mark.parametrize("case", ["cost_subclass", "no_kernel_form"])

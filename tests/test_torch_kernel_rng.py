@@ -384,8 +384,10 @@ def test_use_kernel_rng_gates():
     assert not mk(noise_sampler="ou", noise_param=0.0)._use_kernel_rng(cm)
     assert not mk(noise_sampler="colored")._use_kernel_rng(cm)
     assert not mk(exact_fused=False)._use_kernel_rng(cm)
+    # another MLP spec keeps the capacity mode, as in the JAX package (pass
+    # 1 refuses it on the card, never the host-noise path instead)
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
-    assert not mk(model=wide)._use_kernel_rng(cm)             # no kernel form
+    assert mk(model=wide)._use_kernel_rng(cm)
     assert not mk()._use_kernel_rng(object())                 # not a Costmap
     big = make_costmap(np.zeros((1200, 1400, 4), np.float32), (0.0, 140.0),
                        (0.0, 120.0), device="cpu")

@@ -253,23 +253,52 @@ def test_wrappers_dispatch_by_device_and_count_only_kernel_launches():
         rk.dynamics_chain(s.model, s.params, s.cfg, *s.torch_args()[:2], meta)
 
 
-def test_kernel_refuses_what_it_was_not_built_for():
-    """Other models, layer specs and obstacle terms are refused before any
-    build or launch, never run by the plain version instead."""
+def test_kernel_refuses_what_it_was_not_built_for(monkeypatch):
+    """A model without a kernel form and obstacle terms are refused before
+    any build or launch, never run by the plain version instead; an MLP of
+    another layer spec goes to kernels 1 and 2 of a library built for its
+    spec, and is refused by kernels 3 and 4 (ROADMAP.md Queue 2 A1)."""
     s = make_setup()
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
+    wide_params = wide.init_params(0)
 
     class OtherModel(Dynamics):
         pass
 
-    for model in (wide, OtherModel(0.02, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            rk.prepare_dynamics_chain(model, s.params, s.cfg,
-                                      *s.torch_args())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        rk.prepare_dynamics_chain(OtherModel(0.02, device="cpu"), s.params,
+                                  s.cfg, *s.torch_args())
     with pytest.raises(NotImplementedError, match="obstacle"):
         rk.prepare_fused_exact_rollout_cost(
             s.model, s.params, s.cfg, CostParams(obstacles=np.zeros((1, 3))),
             s.costmap, *s.torch_args())
+    asked = []
+
+    def load(layers=None):
+        asked.append(layers)
+        raise LookupError("no build here")
+
+    monkeypatch.setattr(rk._build, "load", load)
+    rk._kernel_lib.cache_clear()
+    for prepare, args in (
+            (rk.prepare_dynamics_chain, ()),
+            (rk.prepare_fused_exact_rollout_cost, (CostParams(), s.costmap))):
+        with pytest.raises(LookupError):
+            prepare(wide, wide_params, s.cfg, *args, *s.torch_args())
+    assert asked == [(6, 64, 4), (6, 64, 4)]
+    for kernel in (1, 2):
+        assert rk.has_kernel_form(wide, kernel=kernel)
+        rk._check_kernel_model(wide, kernel=kernel)
+    for kernel in (3, 4):
+        assert not rk.has_kernel_form(wide, kernel=kernel)
+        with pytest.raises(NotImplementedError, match="Queue 2 A1"):
+            rk._check_kernel_model(wide, kernel=kernel)
+    with pytest.raises(NotImplementedError, match="Queue 2 A1"):
+        rk.prepare_fused_rng_costs(wide, wide_params, s.cfg, CostParams(),
+                                   s.costmap, *s.torch_args()[:2],
+                                   torch.tensor([1, 2]))
+    assert asked == [(6, 64, 4), (6, 64, 4)]          # refused unbuilt
+    rk._kernel_lib.cache_clear()
 
 
 def test_packed_weights_are_reused_until_the_weights_change():
