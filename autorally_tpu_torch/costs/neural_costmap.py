@@ -77,7 +77,7 @@ class NeuralCostmap:
             if np.asarray(w).dtype != np.float32:
                 raise NotImplementedError(
                     f"field weights of dtype {np.asarray(w).dtype}: the port "
-                    "evaluates float32 fields only (ROADMAP.md, Queue 2: "
+                    "evaluates float32 fields only (ROADMAP.md, Queue 2 A4: "
                     "bf16 field weights)")
         return cls.build(field.weights, field.biases, field.freqs,
                          field.r_c1, field.r_c2, field.trs, device=device)

@@ -10,8 +10,10 @@ holds every kernel, its MLP instances for the 6-32-32-4 spec
 (``DEFAULT_LAYERS``); an MLP of another layer spec gets a library of its
 own at first use, built from the same source with the spec's hidden widths
 as a define (in a header that nvcc includes first: nvcc splits a ``-D``
-value at its commas), which holds kernels 1 and 2 alone
-(``load(layers)``), as the JAX kernels compile per spec.  The check and the build run under an
+value at its commas), which holds the MLP's instances of kernels 1-4
+(kernel 1 in its geometries, kernel 2, kernel 3 and both modes of pass 1;
+not the BF model's, nor pass 2, which the default library runs for every
+spec) (``load(layers)``), as the JAX kernels compile per spec.  The check and the build run under an
 exclusive lock on a file beside the library, so that processes that start
 together (the ranks of a sharded solve) run ``nvcc`` once and the others
 load its library.  Nothing is built when the module is imported, so the
@@ -79,15 +81,18 @@ SIGNATURES = {
     # bf, lane group, block, T, device, out (4 ints)
     "artt_chain_kernel_info": [_I] * 5 + [_P],
 }
-# What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): kernels 1
-# and 2 and the queries of their layouts and instances.
+# What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
+# kernels 1-4 and the queries of their layouts and instances.
 SPEC_FUNCTIONS = (
     "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
     "artt_num_int_scalars", "artt_exact_block", "artt_group_block",
     "artt_chain_warp_block", "artt_max_t", "artt_mlp_layers",
-    "artt_lane_groups", "artt_fused_exact_rollout_cost",
-    "artt_dynamics_chain", "artt_exact_kernel_info",
-    "artt_chain_kernel_info")
+    "artt_lane_groups", "artt_field_pack_floats", "artt_field_block",
+    "artt_max_field_t", "artt_fused_exact_rollout_cost",
+    "artt_dynamics_chain", "artt_fused_field_rollout_cost",
+    "artt_fused_rng_costs", "artt_fused_rng_field_costs",
+    "artt_exact_kernel_info", "artt_chain_kernel_info",
+    "artt_field_kernel_info")
 
 _lib = None                   # the default library
 _spec_libs = {}               # layers -> the library of that MLP spec

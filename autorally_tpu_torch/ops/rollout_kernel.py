@@ -25,11 +25,11 @@ solver runs:
 The kernels evaluate either model of the JAX package's kernels: a
 ``NeuralNetDynamics`` or the 25-function ``BasisFunctionDynamics``
 (``_bf_deriv``), each its own instance of every kernel.  The default
-library is compiled for the 6-32-32-4 MLP (``KERNEL_LAYERS``); kernels 1
-and 2 take an MLP of any other layer spec from a library built for that
-spec at first use (``ops/_build.py``), as the JAX kernels compile per
-spec, while kernels 3 and 4 take 6-32-32-4 alone for now (ROADMAP.md,
-Queue 2 A1).  The fused kernels (A, 3, pass 1) price the circles of an
+library is compiled for the 6-32-32-4 MLP (``KERNEL_LAYERS``); kernels
+1-4 take an MLP of any other layer spec from a library built for that spec
+at first use (``ops/_build.py``), as the JAX kernels compile per spec, and
+pass 2, which evaluates no model, runs the default library's kernel for
+every spec.  The fused kernels (A, 3, pass 1) price the circles of an
 ``ObstacleCost`` (``_make_obstacle_terms``) when the caller passes
 ``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
 package's wrappers take them.
@@ -113,8 +113,11 @@ FIELD_TILE_FEATURES = (0, 1, -1, -1) + tuple(
 # 4 floats a lane, then b0, b1, W2, b2 and freqs padded to a float4.
 FIELD_PACK_FLOATS = ((FIELD_TILE_K // 8 + 64 // 8) * (64 // 8) * 32 * 4
                      + -(-(64 * 3 + 1 + FIELD_KERNEL_FREQS) // 4) * 4)
-# Rollouts per block of the field kernels (csrc kFieldBlock).
+# Rollouts per block of the field kernels (csrc kFieldBlock): the default
+# library's, and a library of another MLP spec's (csrc kSpecFieldBlock;
+# ``field_block``).
 FIELD_BLOCK = 128
+SPEC_FIELD_BLOCK = 256
 # Circles the fused kernels stage in shared memory (csrc kMaxObstacles).
 MAX_OBSTACLES = 64
 # Dynamic shared memory holds the weights, U (T x 2) and up to
@@ -124,10 +127,16 @@ MAX_OBSTACLES = 64
 # = 2048 needs (csrc kMaxFieldT; 122,944 bytes for the MLP with 64
 # circles), and kernel 2's warp form, which adds its rollouts' eps, to what
 # T = 4096 needs (csrc kMaxT; 170,048 bytes for the MLP).  A wide spec's
-# kernels 1 and 2 opt in too, and their library's longest horizon is 4096
-# or what its weights leave room for (``max_kernel_t``).
+# kernels 1, 2 and exact pass 1 opt in too, and their library's longest
+# horizon is 4096 or what its weights leave room for (``max_kernel_t``);
+# its field kernels' is 2048 or what its weights leave room for
+# (``max_field_kernel_t``).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
+# A block's shared memory (232,448 bytes) in floats, and a field warp's tile
+# (csrc kTileFloats: 64 rows of 44 floats and the 64 values).
+SMEM_FLOATS = 232448 // 4
+FIELD_TILE_FLOATS = 64 * 44 + 64
 
 # Host launch scalars, in the order csrc/rollout_kernels.cu unpacks them.
 _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
@@ -294,12 +303,14 @@ def _kernel_lib(layers: tuple = KERNEL_LAYERS) -> ctypes.CDLL:
     want = (tuple(layers), lane_groups(layers), len(_FLOAT_SCALARS),
             len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
             EXACT_BLOCK, GROUP_BLOCK, CHAIN_WARP_BLOCK)
+    built += (lib.artt_field_pack_floats(), lib.artt_field_block(),
+              lib.artt_max_field_t())
+    want += (FIELD_PACK_FLOATS, field_block(layers),
+             max_field_kernel_t(layers))
     if layers == KERNEL_LAYERS:
-        built += (lib.artt_num_bf_weights(), lib.artt_field_pack_floats(),
-                  lib.artt_field_block(), lib.artt_max_field_t(),
-                  lib.artt_update_block(), lib.artt_max_t())
-        want += (KERNEL_BF_WEIGHTS, FIELD_PACK_FLOATS, FIELD_BLOCK,
-                 MAX_FIELD_KERNEL_T, UPDATE_BLOCK, MAX_KERNEL_T)
+        built += (lib.artt_num_bf_weights(), lib.artt_update_block(),
+                  lib.artt_max_t())
+        want += (KERNEL_BF_WEIGHTS, UPDATE_BLOCK, MAX_KERNEL_T)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -325,14 +336,48 @@ def max_kernel_t(layers=KERNEL_LAYERS) -> int:
     return _spec_lib(layers).artt_max_t()
 
 
+def field_block(layers=KERNEL_LAYERS) -> int:
+    """Rollouts per block of the field kernels of the MLP spec ``layers``'s
+    library (csrc kFieldBlock): 4 warps, two blocks an SM, in the default
+    library; 8 warps, one block an SM, in a library of another spec, whose
+    wide weights leave room for one block beside the field and the tiles."""
+    return FIELD_BLOCK if tuple(layers) == KERNEL_LAYERS else SPEC_FIELD_BLOCK
+
+
+def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0,
+                      n_obs: int = 0) -> dict:
+    """The MLP field kernels' dynamic shared memory (csrc FieldSmem), in
+    floats from its start: the packed weights first (``num_weights``
+    floats), the packed field at ``f`` (the weights rounded up to a float4,
+    so that the field is read as float4), the warps' tiles at ``tiles``, U
+    (2 T) at ``U``, the circles (3 n_obs) at ``obs``; ``bytes`` in all for
+    a launch at ``T`` with ``n_obs`` slots."""
+    f = -(-num_weights(layers) // 4) * 4
+    tiles = f + FIELD_PACK_FLOATS
+    U = tiles + field_block(layers) // 32 * FIELD_TILE_FLOATS
+    obs = U + 2 * T
+    return dict(f=f, tiles=tiles, U=U, obs=obs, bytes=4 * (obs + 3 * n_obs))
+
+
+def max_field_kernel_t(layers=KERNEL_LAYERS) -> int:
+    """The longest horizon the field kernels take for the MLP spec
+    ``layers`` (csrc kLibMaxFieldT): ``MAX_FIELD_KERNEL_T``, or what the
+    weights leave room for beside the field, the tiles and
+    ``MAX_OBSTACLES`` circles in a block's shared memory (0: no room)."""
+    room = (SMEM_FLOATS - field_smem_layout(layers)["U"]
+            - 3 * MAX_OBSTACLES) // 2
+    return max(0, min(MAX_FIELD_KERNEL_T, room))
+
+
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
-                      device: int = 0) -> dict:
+                      device: int = 0, layers=KERNEL_LAYERS) -> dict:
     """What the CUDA runtime reports of a field kernel instance (pass 1's
-    field mode when ``rng``, else kernel 3; the BF model when ``bf``) for a
-    launch at ``T`` with ``n_obs`` circle slots: registers and local-memory
-    bytes a thread, dynamic shared memory bytes, resident blocks an SM."""
+    field mode when ``rng``, else kernel 3; the BF model when ``bf``) of
+    the MLP spec ``layers``'s library, for a launch at ``T`` with ``n_obs``
+    circle slots: registers and local-memory bytes a thread, dynamic shared
+    memory bytes, resident blocks an SM."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_kernel_lib().artt_field_kernel_info(
+    _check_launch(_spec_lib(layers).artt_field_kernel_info(
         int(rng), int(bf), T, n_obs, device, out), "field_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
@@ -525,38 +570,25 @@ def kernel_form_applies(model, cfg=None) -> bool:
     return forced or _kernel_form_consistent(model)
 
 
-# The TPU kernels' numbers (ROADMAP.md Queue 2) of the CUDA kernels that
-# evaluate a model: 1 kernel A, 2 the chain, 3 the field kernel, 4 pass 1.
-KERNEL_NAMES = {1: "fused_exact_rollout_cost", 2: "dynamics_chain",
-                3: "fused_rollout_cost", 4: "fused_rng_costs"}
-
-
 def has_kernel_form(model, cfg=None, kernel: int = 1) -> bool:
-    """Whether CUDA kernel ``kernel`` (1-4, ``KERNEL_NAMES``) can evaluate
-    ``model``'s dynamics: its kernel form applies
-    (:func:`kernel_form_applies`) and, for an MLP in kernels 3 and 4, its
-    layers are ``KERNEL_LAYERS`` (kernels 1 and 2 take any spec)."""
-    return (kernel_form_applies(model, cfg)
-            and (kernel in (1, 2) or _is_bf(model)
-                 or tuple(model.layers) == KERNEL_LAYERS))
+    """Whether CUDA kernel ``kernel`` (1-4, the TPU kernels' numbers in
+    ROADMAP.md Queue 2: kernel A, the chain, the field kernel, pass 1) can
+    evaluate ``model``'s dynamics: its kernel form applies
+    (:func:`kernel_form_applies`); every kernel takes the BF model and an
+    MLP of any layer spec (from a library built for the spec)."""
+    return kernel_form_applies(model, cfg)
 
 
 def _check_kernel_model(model, cfg=None, kernel: int = 1) -> None:
     """Raise unless CUDA kernel ``kernel`` can evaluate ``model``
     (:func:`has_kernel_form`), before any build or launch."""
-    if not kernel_form_applies(model, cfg):
+    if not has_kernel_form(model, cfg, kernel):
         raise NotImplementedError(
             f"{type(model).__name__} has no CUDA kernel form: the kernels "
             "evaluate a model whose KERNEL_KIND is set and whose declaring "
             "class owns every method they replace (the MPPI solver runs its "
             "plain chain for any other; cfg.use_pallas_rollout=True forces "
             "the declaring class's form; ROADMAP.md)")
-    if not has_kernel_form(model, cfg, kernel):
-        raise NotImplementedError(
-            f"CUDA kernel {kernel} ({KERNEL_NAMES[kernel]}) is compiled for "
-            f"layers {KERNEL_LAYERS}, got {tuple(model.layers)}: kernels 1 "
-            "and 2 take any MLP spec, kernels 3 and 4 at other layer specs "
-            "are still to port (ROADMAP.md, Queue 2 A1)")
 
 
 def _check_kernel_field(field: NeuralCostmap) -> None:
@@ -566,7 +598,7 @@ def _check_kernel_field(field: NeuralCostmap) -> None:
             f"the CUDA field kernels are compiled for layers "
             f"{FIELD_KERNEL_LAYERS} with {FIELD_KERNEL_FREQS} frequencies, "
             f"got {field.layers} with {field.freqs.numel()} (ROADMAP.md, "
-            "Queue 2: other field specs)")
+            "Queue 2 A3: other field specs)")
 
 
 def _surface(surface) -> Tuple[str, torch.Tensor]:
@@ -694,7 +726,7 @@ def _obstacle_launch(circles: Optional[torch.Tensor], dev):
     n = circles.shape[0]
     if n > MAX_OBSTACLES:
         raise ValueError(f"the CUDA kernels stage at most {MAX_OBSTACLES} "
-                         f"obstacle slots, got {n}")
+                         f"obstacle slots, got {n} (ROADMAP.md, Queue 2 A5)")
     packed = torch.empty((3, n), dtype=torch.float32, device=dev)
     packed.copy_(circles.t())
     return n, packed.reshape(-1)
@@ -910,10 +942,10 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
+    layers = kernel_layers(model)
     args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
-        MAX_FIELD_KERNEL_T if kind == "field"
-        else max_kernel_t(kernel_layers(model))),
-        packed_weights=packed_weights)
+        max_field_kernel_t(layers) if kind == "field"
+        else max_kernel_t(layers)), packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -926,13 +958,14 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
+    lib = _spec_lib(layers)
     if kind == "exact":
         geom = _launch_geometry(K, dev, model)
-        entry = _spec_lib(kernel_layers(model)).artt_fused_exact_rollout_cost
+        entry = lib.artt_fused_exact_rollout_cost
         geo_args = geom[:2]
     else:
         geom, geo_args = None, ()
-        entry = _kernel_lib().artt_fused_field_rollout_cost
+        entry = lib.artt_fused_field_rollout_cost
 
     def launch():
         err = entry(
@@ -1227,8 +1260,10 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     kind, buf = _surface(field)
     T, K = ctx.U.shape[0], ctx.K
     dev = ctx.U.device
+    layers = kernel_layers(model)
     args = _kernel_inputs(model, model_params, state, ctx.U, K, max_T=(
-        MAX_FIELD_KERNEL_T if kind == "field" else MAX_KERNEL_T))
+        max_field_kernel_t(layers) if kind == "field"
+        else max_kernel_t(layers)))
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -1241,7 +1276,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
 
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
-    entry = getattr(_kernel_lib(), {
+    entry = getattr(_spec_lib(layers), {
         "exact": "artt_fused_rng_costs",
         "field": "artt_fused_rng_field_costs"}[kind])
 
@@ -1309,7 +1344,9 @@ def fused_rng_numer_plain(ctx: RngContext, w):
 
 def prepare_fused_rng_numer(ctx: RngContext, w):
     """Validate pass 2's inputs and allocate its partial sums (G, C, T),
-    G = ceil(K / UPDATE_BLOCK).  Returns ``(launch, partials)``."""
+    G = ceil(K / UPDATE_BLOCK).  Returns ``(launch, partials)``.  Pass 2
+    evaluates no model: the default library's kernel runs it for every
+    MLP spec."""
     T, C = ctx.U.shape
     dev = w.device
     if w.shape != (ctx.K,):

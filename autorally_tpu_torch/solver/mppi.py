@@ -31,8 +31,9 @@ and runs the two kernel-RNG passes (``rk.fused_rng_solve_iteration``): the
 noise is drawn inside the kernels, so neither eps nor u_seq (T x K x C
 each) reaches device memory.  The dispatch (:meth:`MPPISolver._use_kernel_rng`)
 keeps the JAX package's semantic gates: a model with a kernel form
-(whatever its layer spec: on the card pass 1 raises for an MLP spec it is
-not built for, ROADMAP.md Queue 2 A1, and never falls back to host noise),
+(whatever its layer spec: on the card pass 1 runs from the spec's own
+library, and raises for what it is not built for, never falling back to
+host noise),
 white or OU noise with theta in (0, 2), ``MPPICost`` or ``ObstacleCost``,
 and a ``NeuralCostmap`` or the exact ``Costmap`` with ``exact_fused``;
 anything else takes the host-noise path.
@@ -159,7 +160,7 @@ class MPPISolver:
             raise NotImplementedError(
                 "the port computes the dynamics in full fp32 only "
                 "(matmul_precision='highest'); reduced precision is not "
-                "ported (ROADMAP.md, Queue 2)")
+                "ported (ROADMAP.md, Queue 2 A2)")
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, solver on "
                              f"{self.device}")

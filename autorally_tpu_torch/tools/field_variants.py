@@ -24,10 +24,18 @@ The variants run in turns, two rounds, in one process.  Then ``base`` and
 in ``chip_smoke.py``'s nominal field case (the fitted field of
 ``drive_oval.build(neural_costmap=True)``, kernel 3 at K=65536 and pass 1
 gaussian at K=262144): that comparison must pass the kernel as built and
-fail one that drops to a single TF32 product.  Usage, from the root of the
-repository (``chip_smoke.py`` is imported from there)::
+fail one that drops to a single TF32 product.
 
-    python -m autorally_tpu_torch.tools.field_variants
+With ``--spec`` (an MLP layer spec, e.g. ``6-64-64-64-64-4``) it times the
+field block of that spec's library instead (``SPEC_BLOCK_VARIANTS``):
+blocks of 256 threads, one an SM (8 warps; csrc kSpecFieldBlock as built),
+against blocks of 128 (4 warps: a wide spec's weights leave room for no
+second block), kernel 3 and field pass 1 (gaussian) at each K of
+``SPEC_KS``, seeded weights, in turns, two rounds; the two builds' outputs
+must be equal bit for bit.  Usage, from the root of the repository
+(``chip_smoke.py`` is imported from there)::
+
+    python -m autorally_tpu_torch.tools.field_variants [--spec 6-64-64-64-64-4]
 """
 
 from __future__ import annotations
@@ -50,8 +58,8 @@ _FAKE_B = ("const float4 b = make_float4(__int_as_float(lane + nt), "
 _MMA3 = """  mma_tf32(d, al, h0, h1);
   mma_tf32(d, ah, __float_as_uint(b.z), __float_as_uint(b.w));
   mma_tf32(d, ah, h0, h1);"""
-_SMEM = ("  return (size_t)(Deriv::kNumWeights + kFieldPack + kFieldWarps * "
-         "kTileFloats")
+_SMEM = ("  return (size_t)(field_weight_floats<Deriv>() + kFieldPack\n"
+         "                  + kFieldWarps * kTileFloats")
 VARIANTS = {
     "base": [],
     "1xtf32": [(_MMA3, "  mma_tf32(d, ah, h0, h1);")],
@@ -63,17 +71,30 @@ VARIANTS = {
     "no_b_loads": [(_LOAD1, _FAKE_B), (_LOAD2, _FAKE_B)],
     "one_block_per_sm": [(_SMEM, _SMEM + " + 16384")],
 }
+# a spec library's field block (``--spec``)
+SPEC_BLOCK_VARIANTS = {
+    "spec_block_256": [],
+    "spec_block_128": [("constexpr int kSpecFieldBlock = 256;",
+                        "constexpr int kSpecFieldBlock = 128;")],
+}
+SPEC_KS = (8192, 65536)
 
 
-def build_variants(out_dir, variants=None) -> dict:
+def build_variants(out_dir, variants=None, layers=None) -> dict:
     """Build every variant's library (``variants``: name -> [(text, its
-    replacement), ...], ``VARIANTS`` by default) at once; returns name ->
-    path.  Each one's compiler output (ptxas -v) is kept beside it, in
+    replacement), ...], ``VARIANTS`` by default; of the MLP spec
+    ``layers``'s library when given) at once; returns name -> path.  Each
+    one's compiler output (ptxas -v) is kept beside it, in
     ``<name>.log``."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
+    flags = _build.NVCC_FLAGS
+    if layers is not None:
+        header = out_dir / "spec.h"
+        header.write_text(_build.spec_defines(layers))
+        flags += ("-include", str(header))
     procs = {}
     for name, edits in (VARIANTS if variants is None else variants).items():
         text = src
@@ -85,7 +106,7 @@ def build_variants(out_dir, variants=None) -> dict:
         cu, so = out_dir / f"{name}.cu", out_dir / f"{name}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
-            [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            [_build.nvcc_path(), *flags, "-o", str(so), str(cu)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     for name, (so, proc) in procs.items():
         log = proc.communicate()[0]
@@ -95,31 +116,148 @@ def build_variants(out_dir, variants=None) -> dict:
     return {name: so for name, (so, _) in procs.items()}
 
 
-def use_library(path) -> None:
-    """Make the wrappers launch the kernels of the library at ``path``."""
+def use_library(path, layers=None) -> None:
+    """Make the wrappers launch the kernels of the library at ``path`` (the
+    library of the MLP spec ``layers`` when given)."""
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     lib = ctypes.CDLL(str(path))
-    for fn, argtypes in _build.SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
+    names = _build.SIGNATURES if layers is None else _build.SPEC_FUNCTIONS
+    for fn in names:
+        getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = None
-    _build._lib = lib
+    if layers is None:
+        _build._lib = lib
+    else:
+        _build._spec_libs[tuple(layers)] = lib
     rk._kernel_lib.cache_clear()
 
 
-def main() -> int:
+def events(fn, reps):
+    """CUDA-event times (ms) of ``reps`` runs of ``fn`` after two warm-up
+    runs."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return times
+
+
+def spec_blocks(layers, card) -> dict:
+    """Kernel 3 and field pass 1 (gaussian) of the MLP spec ``layers``'s
+    library in each field block of ``SPEC_BLOCK_VARIANTS``: seeded weights
+    (``init_params(0)``) on ``ab_builds.seeded_field``, each K of
+    ``SPEC_KS``, T=100, in turns, two rounds; each variant's field
+    instances (registers, blocks an SM) and whether its outputs equal the
+    first variant's bit for bit.  Returns {variant: {form: median ms}}."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+    from autorally_tpu_torch.config import CostParams, MPPIConfig
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+
+    libs = build_variants(_build.BUILD_DIR / "variants_spec",
+                          SPEC_BLOCK_VARIANTS, layers)
+    blocks = {name: int(name.rsplit("_", 1)[1]) for name in libs}
+    dev = torch.device("cuda", 0)
+    cp = CostParams(desired_speed=6.0)
+    field = seeded_field(drive_oval.oval_costmap(dev), dev)
+    cfg = MPPIConfig(num_timesteps=T, hz=50)
+    model = NeuralNetDynamics(cfg.dt, layers=layers,
+                              control_ranges=cfg.control_ranges, device=dev)
+    params = model.init_params(0)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    eps = {k: torch.randn((T, k, 2), generator=gen, device=dev)
+           for k in SPEC_KS}
+    ms, outs = {name: {} for name in libs}, {}
+    built_block = rk.SPEC_FIELD_BLOCK
+    try:
+        for rnd in range(2):
+            for name, so in libs.items():
+                rk.SPEC_FIELD_BLOCK = blocks[name]
+                use_library(so, layers)
+                if rnd == 0:
+                    for rng in (False, True):
+                        info = rk.field_kernel_info(rng, False, T,
+                                                    layers=layers)
+                        print(f"[spec blocks] {name} "
+                              f"{'field pass 1' if rng else 'kernel 3'}: "
+                              f"{info['registers']} registers, "
+                              f"{info['local_bytes']} bytes of local memory,"
+                              f" {info['blocks_per_sm']} blocks of "
+                              f"{blocks[name]} an SM ({card})")
+                for k in SPEC_KS:
+                    c = cfg.replace(num_rollouts=k)
+                    launch_3, out_3 = rk.prepare_fused_rollout_cost(
+                        model, params, c, cp, field, start, U, eps[k])
+                    launch_f, out_f, _ = rk.prepare_fused_rng_costs(
+                        model, params, c.replace(kernel_rng=True), cp, field,
+                        start, U, key)
+                    for form, launch in ((f"kernel3_K{k}", launch_3),
+                                         (f"field_pass1_K{k}", launch_f)):
+                        ms[name].setdefault(form, []).extend(
+                            events(launch, 10 if k == SPEC_KS[0] else 5))
+                    if rnd == 0:
+                        outs[name, k] = (out_3, out_f)
+    finally:
+        rk.SPEC_FIELD_BLOCK = built_block
+    first = next(iter(libs))
+    for name in libs:
+        same = all(torch.equal(a, b) for k in SPEC_KS
+                   for pair_a, pair_b in zip(outs[name, k], outs[first, k])
+                   for a, b in zip(pair_a, pair_b))
+        print(f"[spec blocks] {name}: outputs bit equal to {first}'s: "
+              f"{same}")
+        if not same:
+            raise RuntimeError(f"{name}'s outputs differ from {first}'s")
+    result = {name: {form: statistics.median(v) for form, v in m.items()}
+              for name, m in ms.items()}
+    for name, r in result.items():
+        print(f"[spec blocks] {name} ({'-'.join(map(str, layers))}, T={T}):"
+              + ", ".join(f" {form} {v:.4f} ms" for form, v in r.items())
+              + f" ({card})")
+    return result
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
     from autorally_tpu_torch.tools.ab_builds import seeded_field
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--spec", help="time the field block of this MLP "
+                    "spec's library instead, e.g. 6-64-64-64-64-4")
+    args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
+    if args.spec:
+        layers = tuple(int(n) for n in args.spec.split("-"))
+        print(json.dumps({"card": card,
+                          "spec_blocks": spec_blocks(layers, card)}))
+        return 0
     libs = build_variants(_build.BUILD_DIR / "variants")
     dev = torch.device("cuda", 0)
     solver, params, cost_params, costmap, _ = drive_oval.build(
@@ -133,20 +271,6 @@ def main() -> int:
     gen.manual_seed(1)
     eps = torch.randn((T, K_3, 2), generator=gen, device=dev)
     cap = cfg.replace(num_rollouts=K_P1, kernel_rng=True)
-
-    def events(fn, reps):
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(reps):
-            e0 = torch.cuda.Event(enable_timing=True)
-            e1 = torch.cuda.Event(enable_timing=True)
-            e0.record()
-            fn()
-            e1.record()
-            e1.synchronize()
-            times.append(e0.elapsed_time(e1))
-        return times
 
     ms = {name: {"kernel3_ms": [], "field_pass1_ms": []} for name in libs}
     for _ in range(2):

@@ -24,16 +24,20 @@ rollouts over 1, 2 and 4 ranks of ``torch.distributed`` on the one card,
 the capacity mode over 2 and the ensemble over a 2 x 2 mesh — and the ML
 pipeline — BASELINE config #3: a 6-64-64-64-64-4 model trained on the
 card by ``ml.trainer`` from a drive log, then driven at K=8192 through
-kernels 1 and 2 built for its spec — and checks every CUDA kernel of these
-paths,
+kernels 1-4 built for its spec, on the exact map, on the field and in the
+capacity mode — and checks every CUDA kernel of these paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (the default library and the libraries of phase 28's two other MLP
-   specs, one nvcc each, started together; each other spec's instances
-   printed with their registers, spills, dynamic shared memory and blocks
-   an SM, zero spill bytes in every one), require seventeen kernels in the
+   (the default library and the libraries of phase 28's three other MLP
+   specs, one nvcc each, started together; the other specs' libraries
+   build on while phases 2-27 run, and when phase 28 takes them each
+   one's instances, kernels 3 and 4 among them, are printed with their
+   registers, spills, dynamic shared memory and blocks an SM, zero spill
+   bytes in every one, its field instances at least 8 warps an SM, in
+   blocks of 256, and TF32 HMMA in their SASS), require seventeen kernels
+   in the
    default library (kernels A, B, 3 and both modes
    of pass 1 in an MLP and a BF instance each, BF exact pass 1 being
    ``fused_rng_bf_kernel``, pass 2, kernel A in each MLP lane group,
@@ -269,7 +273,16 @@ exits non-zero):
     events) beside the bounds, kernel 2's latency floor at K=1 from the
     spec library's SASS, the wide spec's geometries against K, the
     6-32-32-4 kernel 1 at K=8192; 20 ticks of the 6-24-4 spec through the
-    solver (its launches);
+    solver (its launches); kernels 3 and 4 at those specs and 6-25-4 (279
+    weights: the field after them at a float4), on phase 11's field at
+    K=8192: kernel 3 in phase 11's cases (the random field from 0.3 m/s),
+    at K=8173 and on a shard's slice against its plain version; pass 1 on
+    the exact map and the field, gaussian and OU, bit for bit kernel 1 or 3
+    fed the plain stream, also at K=8193 and on a shard's slice, and
+    against its plain version; pass 2 on those weights against its plain
+    version; times beside the bounds (exact pass 1 also at K=65536); 20
+    ticks of each narrow spec on the field, in the capacity mode on the
+    exact map and on the field (their launches);
 29. BASELINE #3: a 60 s, 50 Hz drive log from a seeded 6-32-32-4 teacher
     (its output layer scaled by 0.3, so that its car does not roll over)
     under sinusoidal controls (``tools/sim_node.teacher_drive_log``),
@@ -282,8 +295,13 @@ exits non-zero):
     kernel 1 and one of kernel 2 a solve and no plain version (p50 / p99
     against 20 ms, printed, not a gate); an ``update_model`` swap at tick
     10 of a 20-tick drive (its solve bit for bit a fresh solver's on the
-    new weights, the weights repacked); ``kernel_rng=True`` refused naming
-    ROADMAP.md Queue 2 A1; a 20-tick profile.
+    new weights, the weights repacked); the trained model on phase 11's
+    field with host noise (100 ticks; kernel 3 + kernel 2 a solve), in the
+    capacity mode on the exact map, gaussian and OU, and on the field (50
+    ticks each; pass 1 + pass 2 + kernel 2 a solve), each with one
+    iteration on the card against the CPU, exact launch counts, no plain
+    version and p50 / p99 against 20 ms (printed, not a gate); a 20-tick
+    profile.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -291,7 +309,8 @@ compiled instance with its registers, the paths' latencies, the tube's and
 the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
 launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
-solvers' and the tools', BASELINE #3's, the other specs' sweeps), and as
+solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
+3 and 4's other timings and drives at the other specs), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -578,13 +597,17 @@ def exact_instance(geom, rng: bool, bf: bool) -> str:
             f"<{'Bf' if bf else 'Mlp'}>")
 
 
-def geometry_line(rk, tag, launch, rng: bool, bf: bool, card):
-    """Prints the geometry of a launch of kernel 1 or exact pass 1: G,
-    block, grid, registers (ptxas and the runtime), resident blocks an SM
-    and waves (one rollout a thread: R = 1 always)."""
+def geometry_line(rk, tag, launch, rng: bool, bf: bool, card, layers=None):
+    """Prints the geometry of a launch of kernel 1 or exact pass 1 (of the
+    MLP spec ``layers``'s library; the default one when None): G, block,
+    grid, registers (ptxas and the runtime), resident blocks an SM and
+    waves (one rollout a thread: R = 1 always)."""
     g = launch.geometry
-    info = rk.exact_kernel_info(rng, bf, g, T, 0)
+    kw = {} if layers is None else {"layers": layers}
+    info = rk.exact_kernel_info(rng, bf, g, T, 0, **kw)
     kern = exact_instance(g, rng, bf)
+    if layers is not None:
+        kern += f" [{spec_label(layers)}]"
     print(f"[{tag}] geometry {geometry_label(g)}, grid {g.grid}: {kern}, "
           f"{PTXAS.get(kern, '?')} registers (ptxas), {info['registers']} "
           f"(runtime), {info['local_bytes']} bytes of local memory, "
@@ -4227,7 +4250,12 @@ def tools_phase(card, cold, dev=None) -> dict:
 # JAX package's wider model, neural_net.py:76-78) and 6-24-4, whose width
 # only the 8-lane group divides (no warp form of kernel 2)
 SPEC_LAYERS = ((6, 64, 64, 64, 64, 4), (6, 24, 4))
+# kernels 3 and 4 also at 6-25-4, whose 279 weights are not a whole number
+# of float4 (the field after them in shared memory at float 280)
+FIELD_SPEC_LAYERS = SPEC_LAYERS + ((6, 25, 4),)
 KS = 8192                              # BASELINE #3's rollouts
+KS_WIDE = 65536                        # exact pass 1 also where K fills the card
+SPEC_FIELD_TICKS = 20                  # each narrow spec's drives on kernels 3-4
 SPEC_FORM_TICKS = 20                   # the 6-24-4 drive's ticks
 # kernel 1 and 2 of the wide spec in each geometry against K (where the
 # launchers' choices stand): multiples of the card's 132 SMs' 32 rollouts
@@ -4248,49 +4276,69 @@ B3_MAX_RMSE_RATIO = 0.5                # tests/test_ml_loop.py:198-200
 # (-3.11, 0] and the speeds within 7 m/s, as a drive's would
 B3_TEACHER_OUTPUT_SCALE = 0.3
 B3_BUDGET_MS = 20.0
+B3_FIELD_TICKS = 100                   # on the field with host noise
+B3_CAP_TICKS = 50                      # each capacity drive
 
 
 def spec_label(layers) -> str:
     return "-".join(str(n) for n in layers)
 
 
-def build_libraries(rk) -> dict:
-    """The default library and one of each spec of ``SPEC_LAYERS``, one
-    ``nvcc`` each, all started together (threads; each ``nvcc`` its own
-    process): {None or layers: (library, seconds)}."""
-    import threading
+class Builds:
+    """The default library and one of each spec of ``FIELD_SPEC_LAYERS``, one
+    ``nvcc`` each, all started at once (threads; each ``nvcc`` its own
+    process, on a core of its own).  ``get(layers)`` waits for that
+    library's build and returns (library, seconds), or fails the phase if
+    it did not build: the main path takes the default library while the
+    other specs' builds (minutes for 6-64-64-64-64-4) run on, until phase
+    28 needs them."""
 
-    from autorally_tpu_torch.ops import _build
+    def __init__(self):
+        import threading
 
-    libs, errors = {}, {}
+        self.libs, self.errors = {}, {}
+        self.threads = {layers: threading.Thread(target=self._build,
+                                                 args=(layers,))
+                        for layers in (None,) + FIELD_SPEC_LAYERS}
+        for th in self.threads.values():
+            th.start()
 
-    def build(layers):
+    def _build(self, layers):
+        from autorally_tpu_torch.ops import _build
+
         t0 = time.perf_counter()
         try:
-            libs[layers] = (_build.load(layers), time.perf_counter() - t0)
-        except Exception as e:               # reported below, then fail
-            errors[layers] = e
+            self.libs[layers] = (_build.load(layers),
+                                 time.perf_counter() - t0)
+        except Exception as e:               # reported by get, then fail
+            self.errors[layers] = e
 
-    threads = [threading.Thread(target=build, args=(layers,))
-               for layers in (None,) + SPEC_LAYERS]
-    for th in threads:
-        th.start()
-    for th in threads:
-        th.join()
-    for layers, e in errors.items():
-        print(f"[build] {layers or 'default'}: {e}", file=sys.stderr)
-    check(not errors, f"the kernel libraries of {sorted(map(str, errors))} "
-          "did not build")
-    return libs
+    def get(self, layers):
+        self.threads[layers].join()
+        if layers in self.errors:
+            print(f"[build] {layers or 'default'}: {self.errors[layers]}",
+                  file=sys.stderr)
+        check(layers not in self.errors, f"the kernel library of "
+              f"{layers or 'the default spec'} did not build")
+        return self.libs[layers]
+
+
+def build_libraries(rk) -> dict:
+    """Every library of ``Builds``, built: {None or layers: (library,
+    seconds)}."""
+    builds = Builds()
+    return {layers: builds.get(layers)
+            for layers in (None,) + FIELD_SPEC_LAYERS}
 
 
 def spec_instances(rk, layers, lib, card) -> None:
     """Phase 1 for a library of another spec: its ptxas report (kernel 1
     in one rollout a thread and in each lane group the spec takes, kernel
-    2 in one rollout a thread and, where 32 divides the widths, a warp;
-    zero spill bytes in every one: the launchers pick each for some K) and
-    each instance's registers, dynamic shared memory and blocks an SM at
-    T=100."""
+    2 in one rollout a thread and, where 32 divides the widths, a warp,
+    kernel 3, exact pass 1 and pass 1's field mode; zero spill bytes in
+    every one: the launchers pick each for some K) and each instance's
+    registers, dynamic shared memory and blocks an SM at T=100; the field
+    instances at least 8 warps an SM and TF32 HMMA in their SASS."""
     tag = f"build {spec_label(layers)}"
     if lib.build is not None:
         report = ptxas_report(lib.build[1])
@@ -4298,7 +4346,7 @@ def spec_instances(rk, layers, lib, card) -> None:
             print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
                   f"stores and loads")
         n_want = 2 + len(rk.lane_groups(layers)) + (
-            len(rk.chain_geometries(layers)) - 1)
+            len(rk.chain_geometries(layers)) - 1) + 3
         check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
               f"kernels, expected {n_want}")
         check(all(spill == 0 for _, _, spill in report),
@@ -4322,6 +4370,43 @@ def spec_instances(rk, layers, lib, card) -> None:
               f"registers, {info['smem_bytes']} bytes of dynamic shared "
               f"memory at T={T}, {info['blocks_per_sm']} blocks an SM "
               f"({card})")
+    g = rk._geometry(KS, 1, rk.EXACT_BLOCK)
+    info = rk.exact_kernel_info(True, False, g, T, layers=layers)
+    print(f"[{tag}] exact pass 1 (fused_rng_kernel<Mlp>): "
+          f"{info['registers']} registers, {info['local_bytes']} bytes of "
+          f"local memory, {info['smem_bytes']} bytes of dynamic shared "
+          f"memory at T={T}, {info['blocks_per_sm']} blocks "
+          f"({info['blocks_per_sm'] * g.block // 32} warps) an SM, "
+          f"{info['waves']:.2f} waves at K={KS} ({card})")
+    field_instances(rk, tag, layers)
+    hmma = check_field_sass(library_sass(layers))
+    print(f"[{tag}] TF32 HMMA instructions in the field kernels' SASS: "
+          f"{hmma}")
+    check(len(hmma) == 2 and all(n > 0 for n in hmma.values()),
+          f"{tag}: the two field kernel instances do not both hold TF32 "
+          "HMMA")
+
+
+def field_instances(rk, tag, layers=None) -> None:
+    """The field kernel instances of a library (the default one's MLP and
+    BF instances, another spec's MLP ones) at T=100: registers, local
+    memory, dynamic shared memory and blocks an SM, at least 8 warps an
+    SM."""
+    block = rk.field_block(layers or rk.KERNEL_LAYERS)
+    kw = {} if layers is None else {"layers": layers}
+    for rng, name in ((False, "fused_field_kernel"),
+                      (True, "fused_rng_field_kernel")):
+        for bf in ((False, True) if layers is None else (False,)):
+            info = rk.field_kernel_info(rng, bf, T, **kw)
+            warps = info["blocks_per_sm"] * block // 32
+            print(f"[{tag}] {name}<{'Bf' if bf else 'Mlp'}>: "
+                  f"{info['registers']} registers, {info['local_bytes']} "
+                  f"bytes of local memory a thread, {info['smem_bytes']} "
+                  f"bytes of dynamic shared memory at T={T}, "
+                  f"{info['blocks_per_sm']} blocks of {block} ({warps} "
+                  f"warps) an SM")
+            check(warps >= 8, f"{tag} {name}: {warps} resident warps an SM, "
+                  "fewer than 8")
 
 
 def spec_setup(layers, dev, seed: int = 0):
@@ -4566,9 +4651,295 @@ def spec_rows(rk, layers, res, launches_1, launches_2) -> tuple:
          "latency_floor_ms": k2["floor_ms"]})
 
 
-def baseline3_phase(drive_oval, rk, card, spec, dev=None) -> dict:
+def spec_drives(drive_oval, rk, tag, model, params, cfg, cp, costmap,
+                field, ticks, card, samplers=("gaussian",)) -> dict:
+    """Drives of an MLP spec's model through kernels 3 and 4 of its library
+    (``drive_counted``): on the field with host noise (kernel 3 + kernel
+    2), in the capacity mode on the exact map for each of ``samplers``
+    (exact pass 1 + pass 2 + kernel 2) and on the field (field pass 1 +
+    pass 2 + kernel 2); ``ticks``: {drive: ticks}.  Returns {drive:
+    {"latency": (p50, p99), "launches": counts}}."""
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    label = spec_label(model.layers)
+    chain = {f"dynamics_chain_{label}": 1}
+    runs = {"field": (cfg, field, {f"fused_rollout_cost_{label}": 1,
+                                   **chain})}
+    for sname in samplers:
+        runs[f"capacity {sname}"] = (
+            cfg.replace(kernel_rng=True, **SAMPLERS[sname]), costmap,
+            {f"fused_rng_costs_{label}": 1, "fused_rng_numer": 1, **chain})
+    runs["capacity field"] = (
+        cfg.replace(kernel_rng=True), field,
+        {f"fused_rng_costs_field_{label}": 1, "fused_rng_numer": 1, **chain})
+    out = {}
+    for name, (c, surface, per_solve) in runs.items():
+        solver = MPPISolver(model, MPPICost(), c, device=model.device)
+        check(solver._use_kernel_rng(surface) == c.kernel_rng,
+              f"{tag} {name}: the solver took the other mode")
+        latency, got, _ = drive_counted(drive_oval, rk, f"{tag} {name}",
+                                        solver, params, cp, surface,
+                                        ticks[name], per_solve, card)
+        print(f"[{tag} {name}] solve p99 {latency[1]:.3f} ms against the "
+              f"{B3_BUDGET_MS:.0f} ms budget: "
+              f"{'inside' if latency[1] <= B3_BUDGET_MS else 'MISSED'} "
+              f"({card})")
+        out[name] = {"latency": latency, "launches": got}
+    return out
+
+
+def field_on(field, device):
+    """The field ``field`` (a ``NeuralCostmap``) rebuilt on ``device``."""
+    from autorally_tpu_torch.costs import NeuralCostmap
+
+    cpu = lambda ts: [t.cpu() for t in ts]
+    return NeuralCostmap.build(cpu(field.weights), cpu(field.biases),
+                               field.freqs.cpu(), field.r_c1.cpu(),
+                               field.r_c2.cpu(), field.trs.cpu(),
+                               device=device)
+
+
+def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
+    """Phase 28, kernels 3 and 4 at each spec of ``FIELD_SPEC_LAYERS``
+    (seeded weights, K=KS, T=100, on phase 11's fitted field): kernel 3 in
+    phase 11's cases, at a K that is a multiple of neither the block nor
+    the warp and on a shard's slice against its plain version (costs rtol
+    COST_RTOL / atol COST_ATOL, u_seq exactly equal, crash flags equal in
+    the nominal and ragged cases, within 1 % elsewhere); pass 1 on the
+    exact map and on the field, gaussian and OU, bit for bit kernel 1 or
+    kernel 3 fed the plain stream, also at K=KS+1 and on a shard's slice,
+    and against its plain version; pass 2 on those pass-1 weights against
+    its plain version; the times (CUDA events) beside the bounds, exact
+    pass 1 also at K=KS_WIDE; and the narrow specs' drives (their
+    launches).  Returns {layers: measurements} and the narrow drives."""
+    import torch
+
+    from autorally_tpu_torch.config import CostParams, effective_gamma
+
+    dev = dev or torch.device("cuda", 0)
+    cp = CostParams(desired_speed=6.0)
+    costmap = drive_oval.oval_costmap(dev)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    nan_start = start.clone()
+    nan_start[0] = float("nan")
+    edge_start = torch.tensor([37.0, 0.0, 0.3, 0.0, 6.0, 0.0, 0.0],
+                              device=dev)
+    # from 1 m/s the seeded 6-25-4 rolls every rollout over (the roll
+    # latch crashes them all), from 0.3 none
+    slow_start = start.clone()
+    slow_start[4] = 0.3
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    eps = torch.randn((T, KS, 2), generator=gen, device=dev)
+    shard = KS // 3 + 61
+    n_f = rk.FIELD_NUM_WEIGHTS
+    field_ops = field_eval_ops(field.layers, field.freqs.numel())
+    out, drives = {}, {}
+    for layers in FIELD_SPEC_LAYERS:
+        label = spec_label(layers)
+        tag = f"spec {label}"
+        model, params, cfg = spec_setup(layers, dev)
+        wide = cfg.replace(steering_std=4 * cfg.steering_std,
+                           throttle_std=4 * cfg.throttle_std)
+        cases = {"nominal": (cfg, start, field),
+                 "wide_swarm": (wide, edge_start, field),
+                 "nan_x": (cfg, nan_start, field),
+                 "random_field": (wide, slow_start, random_field(
+                     field, model, params, wide, slow_start, U))}
+
+        # -- kernel 3 against its plain version
+        err_3 = 0.0
+        runs = [(name, c, s0, f, eps, {}, None)
+                for name, (c, s0, f) in cases.items()]
+        runs += [("ragged_K", cfg, start, field,
+                  eps[:, :KS - 19].contiguous(), {}, 0),
+                 ("shard", cfg, start, field, eps[:, shard:].contiguous(),
+                  dict(k_offset=shard), None)]
+        for name, c, s0, f, e, kw, limit in runs:
+            k_n = e.shape[1]
+            kc, ku, kx = rk.fused_rollout_cost(model, params, c, cp, f, s0, U,
+                                               e, **kw)
+            pc, pu, px = rk.fused_rollout_cost_plain(model, params, c, cp, f,
+                                                     s0, U, e, **kw)
+            torch.cuda.synchronize()
+            err_3 = max(err_3, agreement(f"{tag} kernel 3 K={k_n}", name, kc,
+                                         kx, pc, px, k_n, limit=limit))
+            check(torch.equal(ku, pu), f"{tag} kernel 3 {name}: u_seq "
+                  "differs")
+            del kc, ku, pc, pu
+
+        # -- pass 1, both modes, against kernel 1 / kernel 3 fed the plain
+        # stream and against its plain version; pass 2 on its weights
+        err_p1 = {"exact": 0.0, "field": 0.0}
+        err_p2 = 0.0
+        for mode, surface, fused in (
+                ("exact", costmap, rk.fused_exact_rollout_cost),
+                ("field", field, rk.fused_rollout_cost)):
+            p1_runs = [(sname, "nominal", 0, None)
+                       for sname in SAMPLERS]
+            p1_runs += [("gaussian", "ragged_K", 0, KS + 1),
+                        ("ou", "shard", shard, KS - shard)]
+            for sname, name, k_off, k_loc in p1_runs:
+                c = cfg.replace(kernel_rng=True, **SAMPLERS[sname])
+                if name == "ragged_K":
+                    c = c.replace(num_rollouts=k_loc)
+                kw = {} if k_loc is None else dict(k_offset=k_off,
+                                                   K_local=k_loc)
+                kc, kx, ctx = rk.fused_rng_costs(model, params, c, cp,
+                                                 surface, start, U, key, **kw)
+                pc, px, _ = rk.fused_rng_costs_plain(model, params, c, cp,
+                                                     surface, start, U, key,
+                                                     **kw)
+                ac, au, ax = fused(model, params, c, cp, surface, start, U,
+                                   rk.rng_noise(ctx), k_offset=k_off)
+                torch.cuda.synchronize()
+                same = torch.equal(kc, ac) and torch.equal(kx, ax)
+                print(f"[{tag} pass 1 {mode}] {sname} {name} K={ctx.K} "
+                      f"k_offset={k_off}: equal to kernel "
+                      f"{1 if mode == 'exact' else 3} on the plain stream: "
+                      f"{same}")
+                check(same, f"{tag} pass 1 {mode} {sname} {name}: differs "
+                      "from the eps-reading kernel on the plain stream")
+                err_p1[mode] = max(err_p1[mode], agreement(
+                    f"{tag} pass 1 {mode} {sname} K={ctx.K}", name, kc, kx,
+                    pc, px, ctx.K, limit=0 if name != "shard" else None))
+                if name == "nominal" and sname == "gaussian":
+                    w = torch.exp(-effective_gamma(c, cp) * (kc - kc.min()))
+                    kn = rk.fused_rng_numer(ctx, w)
+                    pn = rk.fused_rng_numer_plain(ctx, w)
+                    scale = torch.einsum("k,ctk->ct", w.abs(), au.abs())
+                    torch.cuda.synchronize()
+                    err = (kn - pn).abs()
+                    print(f"[{tag} pass 2] on {mode} pass 1's weights K={KS}:"
+                          f" max|numer err| {err.max().item():.3e}, max err /"
+                          f" sum|w u| {(err / scale.clamp(min=1e-30)).max().item():.3e}"
+                          f" (limit {NUMER_RTOL}), ess "
+                          f"{(w.sum() ** 2 / (w * w).sum()).item():.1f}")
+                    check(bool((err <= NUMER_RTOL * scale).all()),
+                          f"{tag} pass 2 on {mode} pass 1's weights: "
+                          f"numerator differs beyond {NUMER_RTOL} of sum|w u|")
+                    err_p2 = max(err_p2, err.max().item())
+                    if mode == "exact":
+                        w_exact = (ctx, w)
+                del kc, pc, ac, au
+
+        # -- timing beside the bounds (each input read once, each output
+        # written once; the step's operations; the field forms' tensor-core
+        # bound first)
+        n_w = rk.num_weights(layers)
+        step = mlp_flops(layers)
+        launch_3, _ = rk.prepare_fused_rollout_cost(model, params, cfg, cp,
+                                                    field, start, U, eps)
+        ms_3 = cuda_ms(launch_3, 10)
+        plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+            model, params, cfg, cp, field, start, U, eps), 3, 1)
+        bytes_3 = 4 * (3 * T * KS * 2 + 2 * KS + T * 2 + n_w + n_f + 7 + 4)
+        fp32_3, tc_3 = field_bounds(bytes_3, KS * T * step, KS * (T - 1) * 2,
+                                    field)
+        print(f"[timing] {tag} kernel 3 fused_rollout_cost K={KS} T={T}: "
+              f"{ms_3:.4f} ms, plain {plain_3:.3f} ms, tensor-core bound "
+              f"{tc_3[0]:.4f} ms ({tc_3[1]}), fp32 bound {fp32_3[0]:.4f} ms "
+              f"({fp32_3[1]}) ({card})")
+        del launch_3
+        c = cfg.replace(kernel_rng=True)
+        p1 = {}
+        for k_n in (KS, KS_WIDE):
+            ck = c.replace(num_rollouts=k_n)
+            launch_e, _, _ = rk.prepare_fused_rng_costs(
+                model, params, ck, cp, costmap, start, U, key)
+            ms_e = cuda_ms(launch_e, 10 if k_n == KS else 5)
+            bytes_e = (4 * (T * 2 + n_w + 7 + 4 + 2 * k_n)
+                       + 4 * min(costmap.height * costmap.width,
+                                 2 * k_n * (T - 1)) + 16)
+            bound_e = bound(bytes_e, (step + STREAM_OPS) * k_n * T)
+            plain_e = None
+            if k_n == KS:
+                plain_e = cuda_ms(lambda: rk.fused_rng_costs_plain(
+                    model, params, ck, cp, costmap, start, U, key), 3, 1)
+            geometry_line(rk, f"timing {tag} pass 1 K={k_n}", launch_e, True,
+                          False, card, layers=layers)
+            print(f"[timing] {tag} pass 1 fused_rng_costs gaussian K={k_n} "
+                  f"T={T}: {ms_e:.4f} ms, plain "
+                  f"{'not measured' if plain_e is None else '%.3f ms' % plain_e}"
+                  f", bound {bound_e[0]:.5f} ms ({bound_e[1]}) ({card})")
+            p1[k_n] = dict(ms=ms_e, plain_ms=plain_e, bound_ms=bound_e[0],
+                           bound_by=bound_e[1])
+            del launch_e
+        launch_f, _, _ = rk.prepare_fused_rng_costs(model, params, c, cp,
+                                                    field, start, U, key)
+        ms_f = cuda_ms(launch_f, 10)
+        plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
+            model, params, c, cp, field, start, U, key), 3, 1)
+        bytes_f = 4 * (2 * KS + T * 2 + n_w + n_f + 7 + 4) + 16
+        fp32_f, tc_f = field_bounds(bytes_f, KS * T * (step + STREAM_OPS),
+                                    KS * (T - 1) * 2, field)
+        print(f"[timing] {tag} pass 1 field fused_rng_costs gaussian K={KS} "
+              f"T={T}: {ms_f:.4f} ms, plain {plain_f:.3f} ms, tensor-core "
+              f"bound {tc_f[0]:.4f} ms ({tc_f[1]}), fp32 bound "
+              f"{fp32_f[0]:.4f} ms ({fp32_f[1]}) ({card})")
+        del launch_f
+        launch_2, partials = rk.prepare_fused_rng_numer(*w_exact)
+        ms_2 = cuda_ms(launch_2, 50)
+        bytes_2 = 4 * (KS + T * 2 + partials.numel()) + 16
+        bound_2 = bound(bytes_2, (STREAM_OPS + UPDATE_OPS)
+                        * int((w_exact[1] != 0).sum().item()) * T)
+        print(f"[timing] {tag} pass 2 fused_rng_numer K={KS} on exact pass "
+              f"1's weights: {ms_2:.4f} ms, bound {bound_2[0]:.5f} ms "
+              f"({bound_2[1]}) ({card})")
+        del launch_2, partials, w_exact
+        out[layers] = {
+            "kernel3": dict(ms=ms_3, plain_ms=plain_3, bound_ms=tc_3[0],
+                            bound_by=tc_3[1], fp32_bound_ms=fp32_3[0],
+                            err=err_3),
+            "pass1": dict(p1[KS], err=err_p1["exact"],
+                          ms_K65536=p1[KS_WIDE]["ms"],
+                          bound_ms_K65536=p1[KS_WIDE]["bound_ms"]),
+            "pass1_field": dict(ms=ms_f, plain_ms=plain_f, bound_ms=tc_f[0],
+                                bound_by=tc_f[1], fp32_bound_ms=fp32_f[0],
+                                err=err_p1["field"]),
+            "pass2": dict(ms=ms_2, bound_ms=bound_2[0], err=err_p2)}
+        if layers != SPEC_LAYERS[0]:
+            drives[layers] = spec_drives(
+                drive_oval, rk, f"{tag} drive", model, params, cfg, cp,
+                costmap, field, dict.fromkeys(
+                    ("field", "capacity gaussian", "capacity field"),
+                    SPEC_FIELD_TICKS), card)
+    return {"specs": out, "drives": drives}
+
+
+def spec_field_rows(layers, res, drives) -> list:
+    """The ``kernels`` rows of kernel 3, exact pass 1 and field pass 1 at
+    K=KS of the spec ``layers`` (``spec_field_phase``'s measurements; the
+    launches of ``drives``, ``spec_drives``' result)."""
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    label = spec_label(layers)
+    rows = []
+    for key, name, replaces, drive in (
+            ("kernel3", f"fused_rollout_cost_{label}", 606, "field"),
+            ("pass1", f"fused_rng_costs_{label}", 1221, "capacity gaussian"),
+            ("pass1_field", f"fused_rng_costs_field_{label}", 1221,
+             "capacity field")):
+        r = res[key]
+        row = {"name": name, "route": "cuda", "source": src,
+               "replaces": f"autorally_tpu/ops/rollout_kernel.py:{replaces}",
+               "launches": drives[drive]["launches"][name],
+               "max_abs_err": r["err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+               "bound_by": r["bound_by"], "library_ms": None, "K": KS,
+               "layers": list(layers)}
+        row.update((k, r[k]) for k in ("fp32_bound_ms", "ms_K65536",
+                                       "bound_ms_K65536") if k in r)
+        rows.append(row)
+    return rows
+
+
+def baseline3_phase(drive_oval, rk, card, spec, field_spec, field,
+                    dev=None) -> dict:
     """Phase 29: BASELINE #3, a model trained on the card that then drives
-    through kernels 1 and 2 of its own spec.  A 60 s, 50 Hz drive log from
+    through kernels 1-4 of its own spec.  A 60 s, 50 Hz drive log from
     a seeded 6-32-32-4 teacher under sinusoidal controls
     (``tools/sim_node.teacher_drive_log``), ``ml.trainer.run`` on the card
     (6-64-64-64-64-4, standardized, 30 epochs, horizons 10 and 50; its
@@ -4579,8 +4950,14 @@ def baseline3_phase(drive_oval, rk, card, spec, dev=None) -> dict:
     kernel a solve and no plain version (p50 / p99 against 20 ms); a
     20-tick drive with an ``update_model`` swap at tick 10 (the swap's
     solve bit for bit a fresh solver's on the new weights, the weights
-    repacked); the capacity mode refused by name; a 20-tick profile.
-    ``spec``: ``spec_phase``'s measurements of this spec."""
+    repacked); the same model on the fitted field ``field`` with host
+    noise (kernel 3 + kernel 2, 100 ticks), in the capacity mode on the
+    exact map, gaussian and OU, and on the field (pass 1 + pass 2 + kernel
+    2, 50 ticks each), each with exactly one launch of each a solve, no
+    plain version and p50 / p99 against 20 ms, and one iteration of each on
+    the card against the CPU; a 20-tick profile.  ``spec``, ``field_spec``:
+    ``spec_phase``'s and ``spec_field_phase``'s measurements of this
+    spec."""
     import shutil
     import tempfile
 
@@ -4735,24 +5112,51 @@ def baseline3_phase(drive_oval, rk, card, spec, dev=None) -> dict:
             state, _ = model.update_state(p, state, cs.control_solution[0])
         check(torch.isfinite(cs.U).all().item(), "baseline3 swap drive: "
               "non-finite controls")
-        # the capacity mode with this spec: pass 1 refuses it by name
-        cap = MPPISolver(model, MPPICost(), scfg.replace(kernel_rng=True),
-                         device=dev)
-        try:
-            cap.solve(params, cp, costmap, start, cap.init_state())
-        except NotImplementedError as e:
-            print(f"[baseline3] kernel_rng=True: {e}")
-            check("Queue 2 A1" in str(e), "the capacity mode's refusal does "
-                  "not name ROADMAP.md Queue 2 A1")
-        else:
-            raise PhaseFailed("the capacity mode ran a 6-64-64-64-64-4 model"
-                              " on the card")
+        # kernels 3 and 4: one iteration of each form on the card against
+        # the CPU, then the drives
+        key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+        cpu_field = field_on(field, "cpu")
+        cpu_costmap = drive_oval.oval_costmap("cpu")
+        forms = {"field": ({}, field, cpu_field)}
+        forms.update((f"capacity {sname}", (dict(kernel_rng=True, **kw),
+                                             costmap, cpu_costmap))
+                     for sname, kw in SAMPLERS.items())
+        forms["capacity field"] = (dict(kernel_rng=True), field, cpu_field)
+        for name, (kw, surface, cpu_surface) in forms.items():
+            c = scfg.replace(**kw)
+            g = MPPISolver(model, MPPICost(), c, device=dev)
+            h = MPPISolver(cpu_model, MPPICost(), c, device="cpu")
+            if c.kernel_rng:
+                Ug, stg = g._iterate_kernel_rng(params, cp, surface, start, U,
+                                                key)
+                Uc, stc = h._iterate_kernel_rng(cpu_params, cp, cpu_surface,
+                                                start.cpu(), U.cpu(),
+                                                key.cpu())
+            else:
+                Ug, stg = g.iterate(params, cp, surface, start, U, eps)
+                Uc, stc = h.iterate(cpu_params, cp, cpu_surface, start.cpu(),
+                                    U.cpu(), eps.cpu())
+            e_it = (Ug.cpu() - Uc).abs().max().item()
+            print(f"[baseline3] {name}: one iteration GPU vs CPU at K={KS}: "
+                  f"max|U_new err| {e_it:.3e}, ess {stg.ess.item():.2f} vs "
+                  f"{stc.ess.item():.2f}")
+            check(e_it <= ITER_ATOL, f"baseline3 {name} iterate: GPU and CPU "
+                  f"differ by {e_it}")
+        drives = spec_drives(
+            drive_oval, rk, "baseline3", model, params, scfg, cp, costmap,
+            field, {"field": B3_FIELD_TICKS,
+                    "capacity gaussian": B3_CAP_TICKS,
+                    "capacity ou": B3_CAP_TICKS,
+                    "capacity field": B3_CAP_TICKS}, card,
+            samplers=tuple(SAMPLERS))
+        results["kernels34"] = {n: d["latency"] for n, d in drives.items()}
         profile_ticks(drive_oval, solver, params, cp, costmap, card,
                       ticks=B3_PROFILE_TICKS, tag="baseline3 profile")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    rows = spec_rows(rk, layers, spec, got[names[0]], got[names[1]])
-    return {"rows": list(rows), "results": results}
+    rows = list(spec_rows(rk, layers, spec, got[names[0]], got[names[1]]))
+    rows += spec_field_rows(layers, field_spec, drives)
+    return {"rows": rows, "results": results}
 
 
 def main() -> int:
@@ -4789,9 +5193,11 @@ def main() -> int:
 
     # -- phase 1: build ------------------------------------------------------
     # the default library and the other specs' (phase 28), one nvcc each,
-    # all started together
-    libs = build_libraries(rk)
-    lib, build_s = libs[None]
+    # all started together; the other specs' are checked when phase 28
+    # takes them
+    t_start = time.perf_counter()
+    builds = Builds()
+    lib, build_s = builds.get(None)
     if lib.build is None:
         print(f"[build] {_build.library_path().name} was already built")
     else:
@@ -4813,27 +5219,8 @@ def main() -> int:
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
         PTXAS.update((name, regs) for name, regs, _ in report)
     print(f"[build] total {build_s:.1f}s ({card})")
-    for layers in SPEC_LAYERS:
-        spec_lib, spec_s = libs[layers]
-        print(f"[build {spec_label(layers)}] "
-              f"{_build.library_path(layers).name}: "
-              + (f"nvcc {spec_lib.build[0]:.1f}s" if spec_lib.build
-                 else "already built") + f", {spec_s:.1f}s ({card})")
-        spec_instances(rk, layers, spec_lib, card)
     # the field kernels: resources at the main path's T, and their SASS
-    for rng, name in ((False, "fused_field_kernel"),
-                      (True, "fused_rng_field_kernel")):
-        for bf in (False, True):
-            info = rk.field_kernel_info(rng, bf, T)
-            print(f"[build] {name}<{'Bf' if bf else 'Mlp'}>: "
-                  f"{info['registers']} registers, {info['local_bytes']} "
-                  f"bytes of local memory a thread, {info['smem_bytes']} "
-                  f"bytes of dynamic shared memory at T={T}, "
-                  f"{info['blocks_per_sm']} blocks "
-                  f"({info['blocks_per_sm'] * rk.FIELD_BLOCK // 32} warps) "
-                  f"an SM")
-            check(info["blocks_per_sm"] * rk.FIELD_BLOCK >= 256,
-                  f"{name}: fewer than 8 resident warps an SM")
+    field_instances(rk, "build")
     SASS.append(library_sass())
     hmma = check_field_sass(SASS[0])
     print(f"[build] TF32 HMMA instructions in the field kernels' SASS: "
@@ -5125,12 +5512,25 @@ def main() -> int:
     finally:
         stop_cold_loaders(cold)
 
-    # -- phase 28: kernels 1 and 2 at other MLP specs ---------------------
+    # -- phase 28: kernels 1-4 at other MLP specs -------------------------
+    # phase 1 for the other specs' libraries, built meanwhile
+    t_wait = time.perf_counter()
+    for layers in FIELD_SPEC_LAYERS:
+        spec_lib, spec_s = builds.get(layers)
+        print(f"[build {spec_label(layers)}] "
+              f"{_build.library_path(layers).name}: "
+              + (f"nvcc {spec_lib.build[0]:.1f}s" if spec_lib.build
+                 else "already built") + f", {spec_s:.1f}s, waited "
+              f"{time.perf_counter() - t_wait:.1f}s at phase 28 "
+              f"({t_wait - t_start:.1f}s into the run) ({card})")
+        spec_instances(rk, layers, spec_lib, card)
     spec = spec_phase(drive_oval, rk, card)
+    spec_field = spec_field_phase(drive_oval, rk, card, field)
 
     # -- phase 29: BASELINE #3, a model trained on the card drives --------
     baseline3 = baseline3_phase(drive_oval, rk, card,
-                                spec["specs"][SPEC_LAYERS[0]])
+                                spec["specs"][SPEC_LAYERS[0]],
+                                spec_field["specs"][SPEC_LAYERS[0]], field)
 
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
@@ -5147,13 +5547,15 @@ def main() -> int:
          "bound_ms": bound_b, "bound_by": by_b, "library_ms": None,
          **chain_entry(chain_b)},
     ] + cap_kernels + field_kernels + bf_obs_kernels + general["kernels"] + (
-        ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + (
+        ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + [
+        row for layers, d in spec_field["drives"].items()
+        for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
         baseline3["rows"])
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     field_design = ("a lane a rollout, the field on the warp's mma.sync "
-                    "3xTF32 tiles, blocks of %d" % rk.FIELD_BLOCK)
+                    "3xTF32 tiles, blocks of %d")
     for k in kernels:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
@@ -5168,12 +5570,12 @@ def main() -> int:
                 k.get("K", 1), sms, "_bf" in name, layers=layers).group > 1
                 else "dynamics_chain_kernel") + f"<{model}>"
         elif name.startswith(("fused_rollout_cost", "fused_rng_costs_field")):
-            k["design"] = field_design
+            k["design"] = field_design % rk.field_block(layers)
             k["instance"] = ("fused_field_kernel" if name.startswith(
                 "fused_rollout_cost") else "fused_rng_field_kernel") + (
                 f"<{model}>")
         elif name.startswith("fused_rng_costs"):
-            geom = rk._geometry(KC, 1, rk.EXACT_BLOCK)
+            geom = rk._geometry(k.get("K", KC), 1, rk.EXACT_BLOCK)
             k["design"] = ("one rollout a thread, blocks of %d, weights in "
                            "shared memory" % rk.EXACT_BLOCK)
             k["instance"] = exact_instance(geom, True, "_bf" in name)
@@ -5215,6 +5617,16 @@ def main() -> int:
                       "sharded": sharded["results"],
                       "baseline3": baseline3["results"],
                       "spec_sweep_ms": spec["sweep"],
+                      "spec_kernels34": {
+                          spec_label(sp): {
+                              "pass1_ms_K%d" % KS_WIDE: r["pass1"]["ms_K65536"],
+                              "pass2_ms_K%d" % KS: r["pass2"]["ms"],
+                              "pass2_bound_ms": r["pass2"]["bound_ms"]}
+                          for sp, r in spec_field["specs"].items()},
+                      "spec_kernels34_drives_ms_p50_p99": {
+                          spec_label(sp): {n: v["latency"]
+                                           for n, v in d.items()}
+                          for sp, d in spec_field["drives"].items()},
                       "spec_kernel2_K%d" % KS: {
                           spec_label(sp): {
                               "ms": r["kernel2"][KS]["ms"],
@@ -5229,6 +5641,8 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
+    print(f"[time] phases 1-29 in {time.perf_counter() - t_start:.1f}s "
+          f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

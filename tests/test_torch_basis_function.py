@@ -377,24 +377,34 @@ def test_kernel_form_packing_and_scalars():
     assert dict(zip(rk._INT_SCALARS, ints))["bf"] == 0
 
 
-def test_check_kernel_model_still_refuses_other_mlp_specs():
-    """The BF form is accepted by every kernel; an MLP of another layer
-    spec is accepted by kernels 1 and 2 and still refused by kernels 3 and
-    4, by name, before any build or launch."""
+def test_check_kernel_model_still_refuses_other_mlp_specs(monkeypatch):
+    """The BF form and an MLP of another layer spec are accepted by every
+    kernel (kernels 3 and 4 too, from a library built for the spec); pass 1
+    on the card asks for the spec's own library (``_build.load``, which
+    records the request and raises here: nothing is built, nothing runs
+    the plain version instead)."""
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
     solver, params, *_ = _pair()
     for kernel in (1, 2, 3, 4):
         assert rk.has_kernel_form(solver.model, kernel=kernel)
-        assert rk.has_kernel_form(wide, kernel=kernel) is (kernel < 3)
-    for kernel in (3, 4):
-        with pytest.raises(NotImplementedError, match="other layer specs"):
-            rk._check_kernel_model(wide, kernel=kernel)
+        assert rk.has_kernel_form(wide, kernel=kernel)
+        rk._check_kernel_model(wide, kernel=kernel)
+    asked = []
+
+    def load(layers=None):
+        asked.append(layers)
+        raise LookupError("no build here")
+
+    monkeypatch.setattr(rk._build, "load", load)
+    rk._kernel_lib.cache_clear()
     state, U, eps = (torch.tensor(a) for a in _inputs())
     cm = make_costmap(*oval_track(ppm=1.0), device="cpu")
-    with pytest.raises(NotImplementedError, match="other layer specs"):
+    with pytest.raises(LookupError):
         rk.prepare_fused_rng_costs(wide, wide.init_params(0), solver.cfg,
                                    CostParams(), cm, state, U,
                                    torch.tensor([1, 2]))
+    assert asked == [(6, 64, 4)]
+    rk._kernel_lib.cache_clear()
 
 
 def test_drive_oval_with_the_bf_model():

@@ -6,8 +6,8 @@ tensors) against the JAX Pallas kernels in interpret mode at
 and instance names per spec; and the capacity mode with another spec: it
 is taken as the JAX package takes it (pass 1's plain version on the CPU,
 held against the JAX capacity iterate with zero exploration noise in TPU
-interpret mode), and refused by pass 1 on the card, never run on host
-noise instead.  Same seeded weights (``params_from_jax``), same numpy
+interpret mode), and run on the card by pass 1 of the spec's own
+library, never on host noise instead.  Same seeded weights (``params_from_jax``), same numpy
 noise, K=256, T=24.  The CUDA kernels run only on a GPU:
 ``chip_smoke.py`` holds them against these plain versions there."""
 
@@ -239,9 +239,12 @@ def test_capacity_mode_with_another_spec_matches_the_jax_iterate():
     assert not np.allclose(U_new.numpy()[1:], s["U"][1:])
 
 
-def test_capacity_mode_with_another_spec_never_takes_host_noise():
+def test_capacity_mode_with_another_spec_never_takes_host_noise(
+        monkeypatch):
     """The solve draws the passes' key, not host noise; on the card pass 1
-    refuses the spec by name (ROADMAP.md Queue 2 A1) before any build."""
+    takes the spec's own library (``_build.load``, which records the
+    request and raises here: nothing is built), and a tensor on no CUDA
+    device is refused, never run on host noise instead."""
     s = _setup(SPECS[0], **QUIET)
     solver = mppi.MPPISolver(s["model"], MPPICost(), s["cfg"], device="cpu")
 
@@ -254,8 +257,22 @@ def test_capacity_mode_with_another_spec_never_takes_host_noise():
     cs, stats = solver.solve(s["params"], CostParams(), s["costmap"],
                              s["state"], solver.init_state())
     assert torch.isfinite(cs.U).all() and np.isfinite(float(stats.ess))
-    with pytest.raises(NotImplementedError, match="Queue 2 A1"):
+    asked = []
+
+    def load(layers=None):
+        asked.append(layers)
+        raise LookupError("no build here")
+
+    monkeypatch.setattr(rk._build, "load", load)
+    rk._kernel_lib.cache_clear()
+    with pytest.raises(LookupError):
         rk.prepare_fused_rng_costs(s["model"], s["params"], s["cfg"],
                                    CostParams(), s["costmap"],
                                    torch.tensor(s["state"]),
                                    torch.tensor(s["U"]), draw)
+    assert asked == [SPECS[0]]
+    rk._kernel_lib.cache_clear()
+    with pytest.raises(ValueError, match="no rollout kernel"):
+        rk.fused_rng_costs(s["model"], s["params"], s["cfg"], CostParams(),
+                           s["costmap"], torch.tensor(s["state"]),
+                           torch.tensor(s["U"]).to("meta"), draw)

@@ -44,8 +44,7 @@ START = np.array([0.0, -15.0, 0.0, 0.0, 2.0, 0.0, 0.0], dtype=np.float32)
 @pytest.mark.parametrize("layers", [(6, 32, 32, 4), (6, 64, 64, 64, 64, 4)])
 def test_from_npz_infers_the_spec_of_a_saved_model(layers, tmp_path):
     """Written by ``save_params`` and read back on the CPU, in both
-    packages; kernels 1 and 2 take the spec it reads, kernels 3 and 4 only
-    6-32-32-4 (ROADMAP.md Queue 2 A1)."""
+    packages; kernels 1-4 take the spec it reads."""
     src = NeuralNetDynamics(DT, layers=layers, device="cpu")
     params = src.init_params(3)
     path = str(tmp_path / "model.npz")
@@ -58,13 +57,9 @@ def test_from_npz_infers_the_spec_of_a_saved_model(layers, tmp_path):
                        jloaded["weights"] + jloaded["biases"]):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
         np.testing.assert_array_equal(a.numpy(), np.asarray(j))
-    rk._check_kernel_model(model, kernel=1)
-    rk._check_kernel_model(model, kernel=2)
-    if layers == rk.KERNEL_LAYERS:
-        rk._check_kernel_model(model, kernel=4)
-    else:
-        with pytest.raises(NotImplementedError, match="Queue 2 A1"):
-            rk._check_kernel_model(model, kernel=4)
+    for kernel in (1, 2, 3, 4):
+        assert rk.has_kernel_form(model, kernel=kernel)
+        rk._check_kernel_model(model, kernel=kernel)
 
 
 def _flat(rs, layers):

@@ -256,8 +256,8 @@ def test_wrappers_dispatch_by_device_and_count_only_kernel_launches():
 def test_kernel_refuses_what_it_was_not_built_for(monkeypatch):
     """A model without a kernel form and obstacle terms are refused before
     any build or launch, never run by the plain version instead; an MLP of
-    another layer spec goes to kernels 1 and 2 of a library built for its
-    spec, and is refused by kernels 3 and 4 (ROADMAP.md Queue 2 A1)."""
+    another layer spec goes to kernels 1-4 of a library built for its
+    spec."""
     s = make_setup()
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
     wide_params = wide.init_params(0)
@@ -286,18 +286,14 @@ def test_kernel_refuses_what_it_was_not_built_for(monkeypatch):
         with pytest.raises(LookupError):
             prepare(wide, wide_params, s.cfg, *args, *s.torch_args())
     assert asked == [(6, 64, 4), (6, 64, 4)]
-    for kernel in (1, 2):
+    for kernel in (1, 2, 3, 4):
         assert rk.has_kernel_form(wide, kernel=kernel)
         rk._check_kernel_model(wide, kernel=kernel)
-    for kernel in (3, 4):
-        assert not rk.has_kernel_form(wide, kernel=kernel)
-        with pytest.raises(NotImplementedError, match="Queue 2 A1"):
-            rk._check_kernel_model(wide, kernel=kernel)
-    with pytest.raises(NotImplementedError, match="Queue 2 A1"):
+    with pytest.raises(LookupError):
         rk.prepare_fused_rng_costs(wide, wide_params, s.cfg, CostParams(),
                                    s.costmap, *s.torch_args()[:2],
                                    torch.tensor([1, 2]))
-    assert asked == [(6, 64, 4), (6, 64, 4)]          # refused unbuilt
+    assert asked == [(6, 64, 4)] * 3                  # pass 1: its library
     rk._kernel_lib.cache_clear()
 
 
