@@ -12,7 +12,8 @@ Duck-typed against ``Costmap``: it implements ``world_to_norm``,
 ``lookup_ch0`` (what ``MPPICost.track_cost_c`` samples), ``lookup`` and the
 host ``transform`` the CUDA kernels' launch scalars read.  On the GPU the
 rollout kernels evaluate the field themselves (``csrc/rollout_kernels.cu``,
-``FieldLookup``).
+``FieldLookup``), at any spec and from float32 or bf16 weights (upcast to
+float32, as the JAX kernels upcast them).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ from autorally_tpu_torch.config import resolve_device
 class NeuralCostmap:
     """Fourier-feature ReLU MLP over normalized map coordinates.
 
-    ``weights``: ((in, out), ...) float32; ``biases``: ((out,), ...);
+    ``weights``: ((in, out), ...) float32 or bfloat16; ``biases``:
+    ((out,), ...) float32;
     ``freqs``: (F,) Fourier frequencies (powers of 2 times pi); ``r_c1``,
     ``r_c2``, ``trs``: (3,) columns of the projective world->map transform;
     ``transform``: those nine float32 values on the host, ``r_c1 + r_c2 +
@@ -54,15 +56,21 @@ class NeuralCostmap:
     def device(self) -> torch.device:
         return self.freqs.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        """The weights' dtype: float32 or bfloat16."""
+        return self.weights[0].dtype
+
     @classmethod
-    def build(cls, weights, biases, freqs, r_c1, r_c2, trs,
-              device=None) -> "NeuralCostmap":
-        """Construct from arrays ((in, out) weights) on ``device``."""
+    def build(cls, weights, biases, freqs, r_c1, r_c2, trs, device=None,
+              dtype=torch.float32) -> "NeuralCostmap":
+        """Construct from arrays ((in, out) weights) on ``device``, the
+        weights in ``dtype`` (float32 or bfloat16), the rest float32."""
         dev = resolve_device(device)
         as_t = lambda a: torch.tensor(np.asarray(a, dtype=np.float32),
                                       device=dev)
         cols = [np.asarray(c, dtype=np.float32) for c in (r_c1, r_c2, trs)]
-        return cls(tuple(as_t(w) for w in weights),
+        return cls(tuple(as_t(w).to(dtype) for w in weights),
                    tuple(as_t(b) for b in biases), as_t(freqs),
                    *(as_t(c) for c in cols),
                    tuple(float(v) for c in cols for v in c))
@@ -71,16 +79,29 @@ class NeuralCostmap:
     def from_jax(cls, field, device=None) -> "NeuralCostmap":
         """Carry the JAX package's ``NeuralCostmap`` over, given with numpy
         arrays (``jax.tree_util.tree_map(np.asarray, field)``), so that both
-        packages evaluate the same function.  Only float32 weights are
-        ported."""
-        for w in field.weights:
-            if np.asarray(w).dtype != np.float32:
-                raise NotImplementedError(
-                    f"field weights of dtype {np.asarray(w).dtype}: the port "
-                    "evaluates float32 fields only (ROADMAP.md, Queue 2 A4: "
-                    "bf16 field weights)")
-        return cls.build(field.weights, field.biases, field.freqs,
-                         field.r_c1, field.r_c2, field.trs, device=device)
+        packages evaluate the same function: float32 weights, or bfloat16
+        weights (ml_dtypes' ``bfloat16``) carried bit for bit; another
+        dtype raises."""
+        names = {np.asarray(w).dtype.name for w in field.weights}
+        if len(names) != 1 or names - {"float32", "bfloat16"}:
+            raise TypeError(f"field weights of dtype {sorted(names)}: a "
+                            "NeuralCostmap holds float32 or bfloat16 "
+                            "weights")
+        # bfloat16 values are exact in float32, so the cast back is exact
+        return cls.build([np.asarray(w).astype(np.float32)
+                          for w in field.weights], field.biases,
+                         field.freqs, field.r_c1, field.r_c2, field.trs,
+                         device=device, dtype=(torch.bfloat16 if names == {
+                             "bfloat16"} else torch.float32))
+
+    def to_float32(self) -> "NeuralCostmap":
+        """The field with its weights in float32 (itself when they are):
+        what the CUDA kernels evaluate, as the JAX kernels upcast a bf16
+        field's layers before their launch."""
+        if self.dtype == torch.float32:
+            return self
+        return dataclasses.replace(self, weights=tuple(
+            w.to(torch.float32) for w in self.weights))
 
     def world_to_norm(self, x: torch.Tensor, y: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -112,11 +133,28 @@ class NeuralCostmap:
 
     def lookup_ch0(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """Approximate channel 0 at world (x, y): (...,) -> (...,).  The
-        normalized coordinates are clipped to [0, 1], then NaN -> 0."""
+        normalized coordinates are clipped to [0, 1], then NaN -> 0.  A
+        bf16 field follows the JAX ``lookup_ch0``'s casts: the features in
+        bf16, each layer a float32 product of the bf16 values plus the
+        float32 bias, the ReLU, the result back to bf16; float32 at the
+        end."""
         u, v = self.world_to_norm(x, y)
         u = torch.nan_to_num(torch.clamp(u, 0.0, 1.0))
         v = torch.nan_to_num(torch.clamp(v, 0.0, 1.0))
-        return self.forward_norm(u.reshape(-1), v.reshape(-1)).reshape(u.shape)
+        shape = u.shape
+        u, v = u.reshape(-1), v.reshape(-1)
+        if self.dtype == torch.float32:
+            out = self.forward_norm(u, v)
+        else:
+            acts = self._features(u, v).to(self.dtype)
+            n = len(self.weights)
+            for i, (W, b) in enumerate(zip(self.weights, self.biases)):
+                acts = acts.to(torch.float32) @ W.to(torch.float32) + b
+                if i < n - 1:
+                    acts = torch.relu(acts)
+                acts = acts.to(W.dtype)
+            out = acts[:, 0].to(torch.float32)
+        return out.reshape(shape)
 
     def lookup(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """4-channel interface: channel 0 learned, the rest zero."""
@@ -128,14 +166,17 @@ class NeuralCostmap:
 def fit_neural_costmap(costmap, hidden: Tuple[int, ...] = (64, 64),
                        num_freqs: int = 8, epochs: int = 4000,
                        batch: int = 16384, lr: float = 2e-3,
-                       boundary_threshold: float = 0.65, seed: int = 0,
+                       boundary_threshold: float = 0.65,
+                       dtype=torch.float32, seed: int = 0,
                        device=None, verbose: bool = False
                        ) -> Tuple[NeuralCostmap, Dict[str, float]]:
     """Distil ``costmap`` channel 0 into a :class:`NeuralCostmap` on
     ``device`` (``cuda`` unless given): He-normal weights and zero biases
     from ``seed``, ``epochs`` Adam steps (optax's defaults) on mean squared
     error over ``batch`` pixel centres drawn uniformly, with targets capped
-    at ``max(3, 3 * boundary_threshold)``.
+    at ``max(3, 3 * boundary_threshold)``; the fitted weights are cast to
+    ``dtype`` at the end (float32 or bfloat16; the biases stay float32), as
+    the JAX fit casts them.
 
     Returns (field, metrics) with ``mae`` and ``max_err`` over the
     uncapped pixels and ``boundary_flip_rate``, the fraction of pixels
@@ -190,6 +231,8 @@ def fit_neural_costmap(costmap, hidden: Tuple[int, ...] = (64, 64),
 
     fitted = field([w.detach() for w in weights],
                    [b.detach() for b in biases])
+    cast = dataclasses.replace(fitted, weights=tuple(
+        w.to(dtype) for w in fitted.weights))
     with torch.no_grad():
         pred = torch.cat([fitted.forward_norm(c[:, 0], c[:, 1]) for c in
                           coords_d.split(1 << 18)]).cpu().numpy()
@@ -201,4 +244,4 @@ def fit_neural_costmap(costmap, hidden: Tuple[int, ...] = (64, 64),
     metrics = {"mae": float(err[on_track].mean()),
                "max_err": float(err[on_track].max()),
                "boundary_flip_rate": float(flips[near].mean())}
-    return fitted, metrics
+    return cast, metrics

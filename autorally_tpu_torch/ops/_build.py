@@ -13,7 +13,13 @@ as a define (in a header that nvcc includes first: nvcc splits a ``-D``
 value at its commas), which holds the MLP's instances of kernels 1-4
 (kernel 1 in its geometries, kernel 2, kernel 3 and both modes of pass 1;
 not the BF model's, nor pass 2, which the default library runs for every
-spec) (``load(layers)``), as the JAX kernels compile per spec.  The check and the build run under an
+spec) (``load(layers)``), as the JAX kernels compile per spec.  A neural
+field of another spec than 34-64-64-1 with 8 frequencies (``DEFAULT_FIELD``)
+gets a library of its own for each MLP spec it runs beside
+(``load(layers, field)``), built with the field's spec as a define too,
+which holds only the field kernels (kernel 3 and pass 1's field mode, the
+BF model's instances beside the default MLP spec), as the JAX kernels
+compile per field spec.  The check and the build run under an
 exclusive lock on a file beside the library, so that processes that start
 together (the ranks of a sharded solve) run ``nvcc`` once and the others
 load its library.  Nothing is built when the module is imported, so the
@@ -42,6 +48,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The MLP spec of the default library (csrc ARTT_MLP_HIDDEN's default).
 DEFAULT_LAYERS = (6, 32, 32, 4)
+# The field spec of the default and the MLP spec libraries, F and the hidden
+# widths (csrc ARTT_FIELD_SPEC's default): 34-64-64-1.
+DEFAULT_FIELD = (8, 64, 64)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library: every pointer and the stream as c_void_p,
@@ -77,6 +86,7 @@ SIGNATURES = {
     "artt_div_const_check": [_I, _P, _P],
     # out (int host array or null); no arguments
     "artt_mlp_layers": [_P],
+    "artt_field_spec": [_P],
     "artt_lane_groups": [],
     # bf, lane group, block, T, device, out (4 ints)
     "artt_chain_kernel_info": [_I] * 5 + [_P],
@@ -92,10 +102,18 @@ SPEC_FUNCTIONS = (
     "artt_dynamics_chain", "artt_fused_field_rollout_cost",
     "artt_fused_rng_costs", "artt_fused_rng_field_costs",
     "artt_exact_kernel_info", "artt_chain_kernel_info",
+    "artt_field_kernel_info", "artt_field_spec")
+# What a library of another field holds (-DARTT_FIELD_LIBRARY): the field
+# kernels and the queries of their layouts and instances.
+FIELD_FUNCTIONS = (
+    "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
+    "artt_num_int_scalars", "artt_mlp_layers", "artt_field_spec",
+    "artt_field_pack_floats", "artt_field_block", "artt_max_field_t",
+    "artt_fused_field_rollout_cost", "artt_fused_rng_field_costs",
     "artt_field_kernel_info")
 
 _lib = None                   # the default library
-_spec_libs = {}               # layers -> the library of that MLP spec
+_spec_libs = {}               # (layers, field) -> the library of that pair
 _load_lock = threading.Lock()
 
 
@@ -119,25 +137,52 @@ def _spec(layers: Optional[Sequence[int]]) -> Optional[tuple]:
     return layers
 
 
-def spec_defines(layers: Optional[Sequence[int]] = None) -> str:
-    """The defines of the library of ``layers``: none for the default
-    library (None or ``DEFAULT_LAYERS``)."""
-    spec = _spec(layers)
-    if spec is None:
-        return ""
-    hidden = ", ".join(str(n) for n in spec[1:-1])
-    return f"#define ARTT_MLP_HIDDEN {hidden}\n#define ARTT_SPEC_LIBRARY\n"
+def _field(field: Optional[Sequence[int]]) -> Optional[tuple]:
+    """The field spec (F, hidden widths...) a library is built for: None
+    for ``DEFAULT_FIELD``."""
+    if field is None or tuple(field) == DEFAULT_FIELD:
+        return None
+    field = tuple(int(n) for n in field)
+    if not field or min(field) < 1:
+        raise ValueError(f"a field spec (F, hidden widths...) with F >= 1, "
+                         f"got {field}")
+    return field
 
 
-def library_path(layers: Optional[Sequence[int]] = None) -> Path:
-    """Where the library of ``layers`` is built, named by a hash of the
-    source, the flags and the spec's defines."""
+def field_label(field: Sequence[int]) -> str:
+    """A field spec's label, F and the hidden widths: ``F6-48-48``."""
+    return "F" + "-".join(str(n) for n in field)
+
+
+def spec_defines(layers: Optional[Sequence[int]] = None,
+                 field: Optional[Sequence[int]] = None) -> str:
+    """The defines of the library of ``layers`` and ``field``: none for the
+    default library (None or ``DEFAULT_LAYERS``, None or
+    ``DEFAULT_FIELD``)."""
+    spec, fspec = _spec(layers), _field(field)
+    out = ""
+    if spec is not None:
+        hidden = ", ".join(str(n) for n in spec[1:-1])
+        out += f"#define ARTT_MLP_HIDDEN {hidden}\n#define ARTT_SPEC_LIBRARY\n"
+    if fspec is not None:
+        out += (f"#define ARTT_FIELD_SPEC {', '.join(map(str, fspec))}\n"
+                "#define ARTT_FIELD_LIBRARY\n")
+    return out
+
+
+def library_path(layers: Optional[Sequence[int]] = None,
+                 field: Optional[Sequence[int]] = None) -> Path:
+    """Where the library of ``layers`` and ``field`` is built, named by a
+    hash of the source, the flags and the specs' defines."""
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()
-                            + spec_defines(layers).encode()).hexdigest()
-    spec = _spec(layers)
+                            + spec_defines(layers, field).encode()
+                            ).hexdigest()
+    spec, fspec = _spec(layers), _field(field)
     name = SOURCE.stem + ("" if spec is None else
                           "_mlp" + "-".join(str(n) for n in spec))
+    if fspec is not None:
+        name += "_field" + field_label(fspec)
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
@@ -188,32 +233,41 @@ def _compile(out: Path, defines: str) -> tuple:
     return time.perf_counter() - t0, log
 
 
-def load(layers: Optional[Sequence[int]] = None) -> ctypes.CDLL:
-    """The kernel library of the MLP spec ``layers`` (the default library
-    for None or ``DEFAULT_LAYERS``), compiled first when its ``.so`` is
-    missing (raises with the compiler's output if that fails).  The
-    library's ``build`` attribute is ``(seconds, compiler output)`` of a
-    compile made by this process, else None.  Threads may load different
-    specs at once (each ``nvcc`` runs in its own process)."""
+def functions(layers: Optional[Sequence[int]] = None,
+              field: Optional[Sequence[int]] = None) -> Sequence[str]:
+    """The C functions the library of ``layers`` and ``field`` holds."""
+    if _field(field) is not None:
+        return FIELD_FUNCTIONS
+    return SIGNATURES if _spec(layers) is None else SPEC_FUNCTIONS
+
+
+def load(layers: Optional[Sequence[int]] = None,
+         field: Optional[Sequence[int]] = None) -> ctypes.CDLL:
+    """The kernel library of the MLP spec ``layers`` and the field spec
+    ``field`` (the default library for None or ``DEFAULT_LAYERS`` and None
+    or ``DEFAULT_FIELD``), compiled first when its ``.so`` is missing
+    (raises with the compiler's output if that fails).  The library's
+    ``build`` attribute is ``(seconds, compiler output)`` of a compile made
+    by this process, else None.  Threads may load different specs at once
+    (each ``nvcc`` runs in its own process)."""
     global _lib
-    spec = _spec(layers)
-    lib = _lib if spec is None else _spec_libs.get(spec)
+    key = (_spec(layers), _field(field))
+    lib = _lib if key == (None, None) else _spec_libs.get(key)
     if lib is not None:
         return lib
-    out = library_path(spec)
+    out = library_path(*key)
     build = None
     with file_lock(out.with_suffix(".lock")):
         if not out.exists():
-            build = _compile(out, spec_defines(spec))
+            build = _compile(out, spec_defines(*key))
     lib = ctypes.CDLL(str(out))
-    names = SIGNATURES if spec is None else SPEC_FUNCTIONS
-    for fn in names:
+    for fn in functions(*key):
         getattr(lib, fn).argtypes = SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = build
     with _load_lock:
-        if spec is None:
+        if key == (None, None):
             _lib = lib
         else:
-            _spec_libs[spec] = lib
+            _spec_libs[key] = lib
     return lib

@@ -29,7 +29,13 @@ library is compiled for the 6-32-32-4 MLP (``KERNEL_LAYERS``); kernels
 1-4 take an MLP of any other layer spec from a library built for that spec
 at first use (``ops/_build.py``), as the JAX kernels compile per spec, and
 pass 2, which evaluates no model, runs the default library's kernel for
-every spec.  The fused kernels (A, 3, pass 1) price the circles of an
+every spec.  Kernel 3 and pass 1's field mode take a ``NeuralCostmap`` of
+any spec that the JAX field kernels take (any F and hidden widths,
+``field_spec``; float32 or bf16 weights, packed in float32): a field of
+another spec than 34-64-64-1 (``FIELD_KERNEL_SPEC``) runs from a library
+built for it beside the MLP's spec; the one field refused is one whose pack
+leaves no room in a block's shared memory (``_check_field_room``).  The
+fused kernels (A, 3, pass 1) price the circles of an
 ``ObstacleCost`` (``_make_obstacle_terms``) when the caller passes
 ``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
 package's wrappers take them.
@@ -52,7 +58,8 @@ launches in :data:`LAUNCHES` by instance: the wrapper's name for the MLP
 without obstacles, with ``_bf``, ``_obstacles`` or ``_bf_obstacles`` for
 the others (``fused_rng_costs_field*`` for pass 1's field mode) and the
 MLP's spec for another spec than ``KERNEL_LAYERS`` (e.g.
-``fused_exact_rollout_cost_6-64-64-64-64-4``).  Layouts
+``fused_exact_rollout_cost_6-64-64-64-64-4``), then the field's label for
+another field spec (``fused_rollout_cost_F6-48-48``).  Layouts
 are those of the JAX package's public functions: eps (T, K, C) in, u_seq
 (C, T, K), states (S, T, K), costs and crash (K,) out, the capacity mode's
 numerator (C, T).
@@ -92,27 +99,84 @@ def num_weights(layers) -> int:
 KERNEL_NUM_WEIGHTS = num_weights(KERNEL_LAYERS)
 # The basis-function form's weights: theta^T (4, 25) (csrc kNumBfs).
 KERNEL_BF_WEIGHTS = NUM_BFS * 4
-# The field spec the field kernels are compiled for (csrc kFreqs, kFieldIn,
-# kFieldH1, kFieldH2): fit_neural_costmap's default, F = 8, hidden (64, 64).
-FIELD_KERNEL_LAYERS = (34, 64, 64, 1)
-FIELD_KERNEL_FREQS = 8
-FIELD_NUM_WEIGHTS = sum(a * b + b for a, b in zip(
-    FIELD_KERNEL_LAYERS[:-1], FIELD_KERNEL_LAYERS[1:])) + FIELD_KERNEL_FREQS
-# The field kernels evaluate the two hidden layers on the tensor cores
-# (m16n8k8 TF32, 3xTF32): the features padded to 40 (csrc kFieldK1), in the
-# order of a warp's tile: [u, v, 0, 0, then for each frequency sin uF,
-# sin vF, cos uF, cos vF, then 0 x 4]; entries index the features of
-# NeuralCostmap._features, -1 a zero column.
-FIELD_TILE_K = 40
-FIELD_TILE_FEATURES = (0, 1, -1, -1) + tuple(
-    i for n in range(FIELD_KERNEL_FREQS)
-    for i in (2 + n, 2 + FIELD_KERNEL_FREQS + n,
-              2 + 2 * FIELD_KERNEL_FREQS + n,
-              2 + 3 * FIELD_KERNEL_FREQS + n)) + (-1,) * 4
-# The packed field (csrc kFieldPack): the two hidden layers' B fragments,
-# 4 floats a lane, then b0, b1, W2, b2 and freqs padded to a float4.
-FIELD_PACK_FLOATS = ((FIELD_TILE_K // 8 + 64 // 8) * (64 // 8) * 32 * 4
-                     + -(-(64 * 3 + 1 + FIELD_KERNEL_FREQS) // 4) * 4)
+# The field spec of the default library and of each MLP spec's library
+# (csrc ARTT_FIELD_SPEC's default): F and the hidden widths, (8, 64, 64),
+# fit_neural_costmap's default, 34-64-64-1.  A field of another spec takes
+# a library of its own (``field_spec``; ``_build.load(layers, field)``).
+FIELD_KERNEL_SPEC = _build.DEFAULT_FIELD
+
+
+def field_layers(fspec) -> tuple:
+    """A field spec's layer widths: 2 + 4F features, the hidden widths, one
+    output."""
+    return (2 + 4 * fspec[0],) + tuple(fspec[1:]) + (1,)
+
+
+FIELD_KERNEL_LAYERS = field_layers(FIELD_KERNEL_SPEC)
+FIELD_KERNEL_FREQS = FIELD_KERNEL_SPEC[0]
+
+
+def field_num_weights(fspec) -> int:
+    """Floats of a field's weights, biases and freqs (its function)."""
+    layers = field_layers(fspec)
+    return sum(a * b + b for a, b in zip(layers[:-1], layers[1:])) + fspec[0]
+
+
+FIELD_NUM_WEIGHTS = field_num_weights(FIELD_KERNEL_SPEC)
+
+
+def field_tile_k(fspec) -> int:
+    """The first layer's tile columns (csrc FieldSpec::kK1): u, v, two
+    zeros and four a frequency, rounded up to a k-step of 8."""
+    return -(-(4 + 4 * fspec[0]) // 8) * 8
+
+
+def field_tile_features(fspec) -> tuple:
+    """A warp's tile's columns, the order the packed W0's rows follow:
+    [u, v, 0, 0, then for each frequency sin uF, sin vF, cos uF, cos vF,
+    then zeros up to ``field_tile_k``]; entries index the features of
+    ``NeuralCostmap._features``, -1 a zero column."""
+    F = fspec[0]
+    cols = (0, 1, -1, -1) + tuple(
+        i for n in range(F)
+        for i in (2 + n, 2 + F + n, 2 + 2 * F + n, 2 + 3 * F + n))
+    return cols + (-1,) * (field_tile_k(fspec) - len(cols))
+
+
+def field_pack_layout(fspec) -> dict:
+    """The packed field's layout (csrc FieldSpec, FieldLayout): ``ntiles``
+    each hidden layer's n-tiles of 8 (its width padded); ``pack`` its
+    floats: each hidden layer's B fragments (4 floats a lane,
+    [k-step][n-tile][lane]; the first layer's k-steps over
+    ``field_tile_k``, each next one's over the layer before's n-tiles),
+    each hidden bias and the output weights padded to their n-tiles
+    (without a hidden layer, the output weights in the tile's order), the
+    output bias and freqs, padded to a float4."""
+    hidden = tuple(fspec[1:])
+    ntiles = tuple(-(-h // 8) for h in hidden)
+    ksteps = (field_tile_k(fspec) // 8,) + ntiles[:-1]
+    frags = sum(k * n * 32 * 4 for k, n in zip(ksteps, ntiles))
+    tail = (8 * sum(ntiles) + (8 * ntiles[-1] if hidden
+                               else field_tile_k(fspec)) + 1 + fspec[0])
+    return dict(ntiles=ntiles, pack=-(-(frags + tail) // 4) * 4)
+
+
+def field_pack_floats(fspec) -> int:
+    """Floats of the packed field (csrc kFieldPack)."""
+    return field_pack_layout(fspec)["pack"]
+
+
+def field_tile_floats(fspec) -> int:
+    """A field warp's tile (csrc kTileFloats): 64 rows at a stride of
+    ``field_tile_k`` + 4 floats, and the 64 values."""
+    return 64 * (field_tile_k(fspec) + 4) + 64
+
+
+# The default field's tile and pack (the first layer padded 34 -> 40, 44
+# floats a tile row; 13,516 floats).
+FIELD_TILE_K = field_tile_k(FIELD_KERNEL_SPEC)
+FIELD_TILE_FEATURES = field_tile_features(FIELD_KERNEL_SPEC)
+FIELD_PACK_FLOATS = field_pack_floats(FIELD_KERNEL_SPEC)
 # Rollouts per block of the field kernels (csrc kFieldBlock): the default
 # library's, and a library of another MLP spec's (csrc kSpecFieldBlock;
 # ``field_block``).
@@ -133,10 +197,10 @@ MAX_OBSTACLES = 64
 # (``max_field_kernel_t``).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
-# A block's shared memory (232,448 bytes) in floats, and a field warp's tile
-# (csrc kTileFloats: 64 rows of 44 floats and the 64 values).
+# A block's shared memory (232,448 bytes) in floats, and the default field
+# warp's tile (csrc kTileFloats: 64 rows of 44 floats and the 64 values).
 SMEM_FLOATS = 232448 // 4
-FIELD_TILE_FLOATS = 64 * 44 + 64
+FIELD_TILE_FLOATS = field_tile_floats(FIELD_KERNEL_SPEC)
 
 # Host launch scalars, in the order csrc/rollout_kernels.cu unpacks them.
 _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
@@ -284,37 +348,48 @@ def kernel_layers(model) -> tuple:
     return KERNEL_LAYERS if _is_bf(model) else tuple(model.layers)
 
 
+def _read_ints(fn) -> tuple:
+    """The ints a library query writes (``artt_mlp_layers``,
+    ``artt_field_spec``: called once for the count, once to fill)."""
+    out = (ctypes.c_int * fn(None))()
+    fn(out)
+    return tuple(out)
+
+
 @functools.cache
-def _kernel_lib(layers: tuple = KERNEL_LAYERS) -> ctypes.CDLL:
+def _kernel_lib(layers: tuple = KERNEL_LAYERS,
+                field: Optional[tuple] = None) -> ctypes.CDLL:
     """The kernel library of the MLP spec ``layers`` (the default one for
-    ``KERNEL_LAYERS``), checked once against the layouts this module
-    packs."""
-    lib = _build.load(layers)
-    n = lib.artt_mlp_layers(None)
-    spec = (ctypes.c_int * n)()
-    lib.artt_mlp_layers(spec)
-    groups = lib.artt_lane_groups()
-    built = (tuple(spec), tuple(G for i, G in enumerate(LANE_GROUPS)
-                                if groups >> i & 1),
+    ``KERNEL_LAYERS``), or with a field spec ``field`` (not
+    ``FIELD_KERNEL_SPEC``) the library of that pair, which holds only the
+    field kernels; checked once against the layouts this module packs."""
+    fspec = FIELD_KERNEL_SPEC if field is None else field
+    lib = _build.load(layers) if field is None else _build.load(layers,
+                                                               field)
+    built = (_read_ints(lib.artt_mlp_layers), _read_ints(lib.artt_field_spec),
              lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
              lib.artt_num_weights(), lib.artt_max_obstacles(),
-             lib.artt_exact_block(), lib.artt_group_block(),
-             lib.artt_chain_warp_block())
-    want = (tuple(layers), lane_groups(layers), len(_FLOAT_SCALARS),
+             lib.artt_field_pack_floats(), lib.artt_field_block(),
+             lib.artt_max_field_t())
+    want = (tuple(layers), tuple(fspec), len(_FLOAT_SCALARS),
             len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
-            EXACT_BLOCK, GROUP_BLOCK, CHAIN_WARP_BLOCK)
-    built += (lib.artt_field_pack_floats(), lib.artt_field_block(),
-              lib.artt_max_field_t())
-    want += (FIELD_PACK_FLOATS, field_block(layers),
-             max_field_kernel_t(layers))
-    if layers == KERNEL_LAYERS:
+            field_pack_floats(fspec), field_block(layers),
+            max_field_kernel_t(layers, fspec))
+    if field is None:
+        groups = lib.artt_lane_groups()
+        built += (tuple(G for i, G in enumerate(LANE_GROUPS)
+                        if groups >> i & 1), lib.artt_exact_block(),
+                  lib.artt_group_block(), lib.artt_chain_warp_block())
+        want += (lane_groups(layers), EXACT_BLOCK, GROUP_BLOCK,
+                 CHAIN_WARP_BLOCK)
+    if layers == KERNEL_LAYERS and field is None:
         built += (lib.artt_num_bf_weights(), lib.artt_update_block(),
                   lib.artt_max_t())
         want += (KERNEL_BF_WEIGHTS, UPDATE_BLOCK, MAX_KERNEL_T)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
-    if lib.artt_max_t() < 1:
+    if field is None and lib.artt_max_t() < 1:
         raise NotImplementedError(
             f"the weights of layers {layers} ({num_weights(layers)} floats) "
             "do not fit in a block's shared memory beside U")
@@ -326,6 +401,16 @@ def _spec_lib(layers) -> ctypes.CDLL:
     default spec)."""
     layers = tuple(layers)
     return _kernel_lib() if layers == KERNEL_LAYERS else _kernel_lib(layers)
+
+
+def _field_lib(layers, fspec) -> ctypes.CDLL:
+    """The library that runs the field kernels of the MLP spec ``layers``
+    on a field of spec ``fspec``: the MLP spec's own for the default field
+    (``_spec_lib``), else the pair's field library."""
+    fspec = tuple(fspec)
+    if fspec == FIELD_KERNEL_SPEC:
+        return _spec_lib(layers)
+    return _kernel_lib(tuple(layers), fspec)
 
 
 def max_kernel_t(layers=KERNEL_LAYERS) -> int:
@@ -344,40 +429,60 @@ def field_block(layers=KERNEL_LAYERS) -> int:
     return FIELD_BLOCK if tuple(layers) == KERNEL_LAYERS else SPEC_FIELD_BLOCK
 
 
-def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0,
-                      n_obs: int = 0) -> dict:
-    """The MLP field kernels' dynamic shared memory (csrc FieldSmem), in
-    floats from its start: the packed weights first (``num_weights``
-    floats), the packed field at ``f`` (the weights rounded up to a float4,
-    so that the field is read as float4), the warps' tiles at ``tiles``, U
-    (2 T) at ``U``, the circles (3 n_obs) at ``obs``; ``bytes`` in all for
-    a launch at ``T`` with ``n_obs`` slots."""
+def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0, n_obs: int = 0,
+                      field=FIELD_KERNEL_SPEC) -> dict:
+    """The MLP field kernels' dynamic shared memory (csrc FieldSmem) on a
+    field of spec ``field``, in floats from its start: the packed weights
+    first (``num_weights`` floats), the packed field at ``f`` (the weights
+    rounded up to a float4, so that the field is read as float4), the
+    warps' tiles at ``tiles``, U (2 T) at ``U``, the circles (3 n_obs) at
+    ``obs``; ``bytes`` in all for a launch at ``T`` with ``n_obs``
+    slots."""
     f = -(-num_weights(layers) // 4) * 4
-    tiles = f + FIELD_PACK_FLOATS
-    U = tiles + field_block(layers) // 32 * FIELD_TILE_FLOATS
+    tiles = f + field_pack_floats(field)
+    U = tiles + field_block(layers) // 32 * field_tile_floats(field)
     obs = U + 2 * T
     return dict(f=f, tiles=tiles, U=U, obs=obs, bytes=4 * (obs + 3 * n_obs))
 
 
-def max_field_kernel_t(layers=KERNEL_LAYERS) -> int:
+def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC) -> int:
     """The longest horizon the field kernels take for the MLP spec
-    ``layers`` (csrc kLibMaxFieldT): ``MAX_FIELD_KERNEL_T``, or what the
-    weights leave room for beside the field, the tiles and
-    ``MAX_OBSTACLES`` circles in a block's shared memory (0: no room)."""
-    room = (SMEM_FLOATS - field_smem_layout(layers)["U"]
+    ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT):
+    ``MAX_FIELD_KERNEL_T``, or what the weights and the field leave room
+    for beside the tiles and ``MAX_OBSTACLES`` circles in a block's shared
+    memory (0: no room)."""
+    room = (SMEM_FLOATS - field_smem_layout(layers, field=field)["U"]
             - 3 * MAX_OBSTACLES) // 2
     return max(0, min(MAX_FIELD_KERNEL_T, room))
 
 
+def _check_field_room(layers, fspec, T: int) -> None:
+    """Raise, before any build, where the MLP spec ``layers``'s weights,
+    the packed field of spec ``fspec`` and the tiles leave no room for U
+    at a launch of ``T`` steps (``T`` up to ``MAX_FIELD_KERNEL_T``; a
+    longer horizon is refused as for every field)."""
+    if max_field_kernel_t(layers, fspec) < min(T, MAX_FIELD_KERNEL_T):
+        need = field_smem_layout(layers, T, MAX_OBSTACLES, fspec)["bytes"]
+        raise NotImplementedError(
+            f"the field kernels of layers {tuple(layers)} on a field "
+            f"{_build.field_label(fspec)} ({field_pack_floats(fspec) * 4} "
+            f"bytes packed) need {need} bytes of shared memory a block at "
+            f"T={T} with {MAX_OBSTACLES} circle slots, over the "
+            f"{SMEM_FLOATS * 4} a block can take (ROADMAP.md, Queue 2 A6: "
+            "the field's fragments read from global memory)")
+
+
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
-                      device: int = 0, layers=KERNEL_LAYERS) -> dict:
+                      device: int = 0, layers=KERNEL_LAYERS,
+                      field=FIELD_KERNEL_SPEC) -> dict:
     """What the CUDA runtime reports of a field kernel instance (pass 1's
     field mode when ``rng``, else kernel 3; the BF model when ``bf``) of
-    the MLP spec ``layers``'s library, for a launch at ``T`` with ``n_obs``
-    circle slots: registers and local-memory bytes a thread, dynamic shared
-    memory bytes, resident blocks an SM."""
+    the library of the MLP spec ``layers`` and the field spec ``field``,
+    for a launch at ``T`` with ``n_obs`` circle slots: registers and
+    local-memory bytes a thread, dynamic shared memory bytes, resident
+    blocks an SM."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_spec_lib(layers).artt_field_kernel_info(
+    _check_launch(_field_lib(layers, field).artt_field_kernel_info(
         int(rng), int(bf), T, n_obs, device, out), "field_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
@@ -591,24 +696,28 @@ def _check_kernel_model(model, cfg=None, kernel: int = 1) -> None:
             "the declaring class's form; ROADMAP.md)")
 
 
-def _check_kernel_field(field: NeuralCostmap) -> None:
-    if (field.layers != FIELD_KERNEL_LAYERS
-            or field.freqs.shape != (FIELD_KERNEL_FREQS,)):
-        raise NotImplementedError(
-            f"the CUDA field kernels are compiled for layers "
-            f"{FIELD_KERNEL_LAYERS} with {FIELD_KERNEL_FREQS} frequencies, "
-            f"got {field.layers} with {field.freqs.numel()} (ROADMAP.md, "
-            "Queue 2 A3: other field specs)")
+def field_spec(field: NeuralCostmap) -> tuple:
+    """A field's spec, F and its hidden widths (``(8, 64, 64)`` for
+    34-64-64-1): the library its kernels take.  Its layers must be the
+    Fourier features of its F frequencies, ReLU layers of any width and one
+    output, as ``_make_field_eval`` evaluates them."""
+    F = field.freqs.numel()
+    layers = field.layers
+    if layers[0] != 2 + 4 * F or layers[-1] != 1:
+        raise ValueError(f"a field of {F} frequencies takes {2 + 4 * F} "
+                         f"features and gives one value, got layers "
+                         f"{layers}")
+    return (F,) + tuple(layers[1:-1])
 
 
-def _surface(surface) -> Tuple[str, torch.Tensor]:
-    """The fused kernels' surface operand: ('exact', channel 0) for a
-    ``Costmap``, ('field', the packed field) for a ``NeuralCostmap``."""
+def _surface(surface) -> Tuple[str, torch.Tensor, Optional[tuple]]:
+    """The fused kernels' surface operand: ('exact', channel 0, None) for a
+    ``Costmap``, ('field', the packed field, its spec) for a
+    ``NeuralCostmap``."""
     if type(surface) is Costmap:
-        return "exact", surface.ch0
+        return "exact", surface.ch0, None
     if type(surface) is NeuralCostmap:
-        _check_kernel_field(surface)
-        return "field", _pack_field(surface)
+        return "field", _pack_field(surface), field_spec(surface)
     raise NotImplementedError(
         f"{type(surface).__name__} is not ported: the port's kernels sample "
         "a Costmap or a NeuralCostmap (ROADMAP.md, Queue 1)")
@@ -747,14 +856,18 @@ def _launch_counted(launch, K: int) -> None:
     LAUNCHES_BY_K[launch.name, K] += 1
 
 
-def _form(model, n_obs: int) -> str:
+def _form(model, n_obs: int, fspec=None) -> str:
     """The suffix of a kernel instance's name: ``_bf`` for the BF model,
     the spec (``_6-64-64-64-64-4``) for an MLP of another spec than
-    ``KERNEL_LAYERS``, ``_obstacles`` with circle slots."""
+    ``KERNEL_LAYERS``, the field's label (``_F6-48-48``) for a field of
+    another spec than ``FIELD_KERNEL_SPEC``, ``_obstacles`` with circle
+    slots."""
     layers = kernel_layers(model)
     spec = ("" if layers == KERNEL_LAYERS
             else "_" + "-".join(str(n) for n in layers))
-    return (("_bf" if _is_bf(model) else "") + spec
+    field = ("" if fspec is None or tuple(fspec) == FIELD_KERNEL_SPEC
+             else "_" + _build.field_label(fspec))
+    return (("_bf" if _is_bf(model) else "") + spec + field
             + ("_obstacles" if n_obs else ""))
 
 
@@ -793,22 +906,40 @@ def _b_fragments(W: torch.Tensor, permuted: bool) -> torch.Tensor:
 
 
 def _pack_field(field: NeuralCostmap) -> torch.Tensor:
-    """The field kernels' buffer (FIELD_PACK_FLOATS = 13,516 floats for
-    34-64-64-1, F = 8): layer 1's B fragments from W0 with its rows in the
-    tile's feature order (``FIELD_TILE_FEATURES``), zero-padded to 40;
-    layer 2's from W1 with its input index permuted; both split into TF32
-    hi and lo; then b0, b1, W2, b2 and freqs in float32, zero-padded to a
-    whole float4.  Packed once per field."""
-    (W0, W1, W2), (b0, b1, b2) = field.weights, field.biases
+    """The field kernels' buffer (``field_pack_layout``; 13,516 floats for
+    34-64-64-1, F = 8), from the weights in float32 (bf16 weights upcast,
+    as the JAX kernels' wrappers upcast them): the first hidden layer's B
+    fragments from W0 with its rows in the tile's feature order
+    (``field_tile_features``), zero-padded to ``field_tile_k``; each next
+    one's from its W with the input index permuted; each hidden width
+    zero-padded to its n-tiles; all split into TF32 hi and lo; then the
+    hidden biases and the output weights (each padded to its n-tiles), the
+    output bias and freqs in float32, zero-padded to a whole float4.
+    Without a hidden layer, the output weights in the tile's order.  Packed
+    once per field."""
+    fspec = field_spec(field)
+    lay = field_pack_layout(fspec)
+
+    def pad(t, n):
+        return torch.cat([t, t.new_zeros(n - t.shape[0], *t.shape[1:])])
 
     def pack():
-        order = torch.tensor(FIELD_TILE_FEATURES, device=W0.device)
-        W0p = torch.where((order >= 0)[:, None], W0[order.clamp(min=0)],
-                          torch.zeros((), dtype=W0.dtype, device=W0.device))
-        tail = torch.cat([b0, b1, W2.reshape(-1), b2, field.freqs])
-        parts = [_b_fragments(W0p, False), _b_fragments(W1, True), tail]
-        pad = FIELD_PACK_FLOATS - sum(p.numel() for p in parts)
-        return torch.cat(parts + [tail.new_zeros(pad)])
+        W = [w.to(torch.float32) for w in field.weights]
+        b = [v.to(torch.float32) for v in field.biases]
+        dev = W[0].device
+        order = torch.tensor(field_tile_features(fspec), device=dev)
+        W0p = torch.where((order >= 0)[:, None], W[0][order.clamp(min=0)],
+                          torch.zeros((), device=dev))
+        widths = [8 * n for n in lay["ntiles"]]
+        parts = []
+        for i, n in enumerate(widths):         # (in, out), both padded
+            w = W0p if i == 0 else pad(W[i], widths[i - 1])
+            parts.append(_b_fragments(pad(w.T, n).T, i > 0))
+        parts += [pad(b[i], n) for i, n in enumerate(widths)]
+        parts += [pad(W[-1].reshape(-1), widths[-1]) if widths
+                  else W0p.reshape(-1), b[-1], field.freqs]
+        tail = torch.cat(parts)
+        return torch.cat([tail, tail.new_zeros(lay["pack"] - tail.numel())])
 
     return _cached_pack(field, (*field.weights, *field.biases, field.freqs),
                         pack)
@@ -900,6 +1031,9 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
     T, K, C = eps.shape
     dev = eps.device
     circles = _obstacle_circles(cost_params, obstacles)
+    if type(surface) is NeuralCostmap:
+        # the kernels evaluate a bf16 field from its weights upcast
+        surface = surface.to_float32()
     p = cost_params
     cost = MPPICost(l1_cost)
     nu = torch.tensor(cfg.exploration_std, dtype=torch.float32, device=dev)
@@ -939,12 +1073,14 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     _expect(surface, cls, fn)
     _check_kernel_model(model, cfg, 3 if cls is NeuralCostmap else 1)
     circles = _obstacle_circles(cost_params, obstacles)
-    kind, buf = _surface(surface)
     T, K, C = eps.shape
     dev = eps.device
     layers = kernel_layers(model)
+    kind, buf, fspec = _surface(surface)
+    if kind == "field":
+        _check_field_room(layers, fspec, T)
     args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
-        max_field_kernel_t(layers) if kind == "field"
+        max_field_kernel_t(layers, fspec) if kind == "field"
         else max_kernel_t(layers)), packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
@@ -958,14 +1094,13 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    lib = _spec_lib(layers)
     if kind == "exact":
         geom = _launch_geometry(K, dev, model)
-        entry = lib.artt_fused_exact_rollout_cost
+        entry = _spec_lib(layers).artt_fused_exact_rollout_cost
         geo_args = geom[:2]
     else:
         geom, geo_args = None, ()
-        entry = lib.artt_fused_field_rollout_cost
+        entry = _field_lib(layers, fspec).artt_fused_field_rollout_cost
 
     def launch():
         err = entry(
@@ -979,7 +1114,7 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
         _check_launch(err, fn)
 
     launch.inputs = (args, packed)           # keeps the buffers alive
-    launch.name = fn + _form(model, n_obs)
+    launch.name = fn + _form(model, n_obs, fspec)
     launch.geometry = geom
     return launch, (costs, u_seq, crash)
 
@@ -1257,12 +1392,14 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     circles = _obstacle_circles(cost_params, obstacles)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
-    kind, buf = _surface(field)
     T, K = ctx.U.shape[0], ctx.K
     dev = ctx.U.device
     layers = kernel_layers(model)
+    kind, buf, fspec = _surface(field)
+    if kind == "field":
+        _check_field_room(layers, fspec, T)
     args = _kernel_inputs(model, model_params, state, ctx.U, K, max_T=(
-        max_field_kernel_t(layers) if kind == "field"
+        max_field_kernel_t(layers, fspec) if kind == "field"
         else max_kernel_t(layers)))
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
@@ -1276,9 +1413,8 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
 
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
-    entry = getattr(_spec_lib(layers), {
-        "exact": "artt_fused_rng_costs",
-        "field": "artt_fused_rng_field_costs"}[kind])
+    entry = (_spec_lib(layers).artt_fused_rng_costs if kind == "exact"
+             else _field_lib(layers, fspec).artt_fused_rng_field_costs)
 
     def launch():
         err = entry(
@@ -1295,7 +1431,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
                        else None)
     launch.mode = kind
     launch.name = ("fused_rng_costs" + ("_field" if kind == "field" else "")
-                   + _form(model, n_obs))
+                   + _form(model, n_obs, fspec))
     return launch, (costs, crash), ctx
 
 

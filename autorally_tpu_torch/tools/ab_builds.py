@@ -69,17 +69,19 @@ K_P2, CLOSED_LOOP_TICKS, P2_REPS = 262144, 20, 20
 BF_TICKS = 50
 
 
-def seeded_field(costmap, device, seed: int = 7):
-    """A field of the CUDA kernels' spec (34-64-64-1, F = 8) on
-    ``costmap``'s transform: He-normal weights and small biases from a
-    numpy seed, the output scaled (in float64 numpy on a 101 x 101 grid of
-    the map) to a standard deviation of 0.25 about 0.35, so that part of it
-    lies over the 0.65 crash boundary."""
+def seeded_field(costmap, device, seed: int = 7, fspec=(8, 64, 64)):
+    """A field of the spec ``fspec`` (F and the hidden widths; the default
+    library's 34-64-64-1, F = 8, by default) on ``costmap``'s transform:
+    He-normal weights and small biases from a numpy seed, the output
+    scaled (in float64 numpy on a 101 x 101 grid of the map) to a standard
+    deviation of 0.25 about 0.35, so that part of it lies over the 0.65
+    crash boundary."""
     import numpy as np
     from autorally_tpu_torch.costs import NeuralCostmap
 
     rs = np.random.default_rng(seed)
-    layers, n_freqs = (34, 64, 64, 1), 8
+    n_freqs = fspec[0]
+    layers = (2 + 4 * n_freqs,) + tuple(fspec[1:]) + (1,)
     W = [np.sqrt(2.0 / a) * rs.standard_normal((a, b))
          for a, b in zip(layers[:-1], layers[1:])]
     B = [0.1 * rs.standard_normal(b) for b in layers[1:]]

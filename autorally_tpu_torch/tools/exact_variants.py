@@ -88,10 +88,9 @@ _STAND_IN = ("__device__ __forceinline__ float stand_in(int i) {\n"
              "  return 0.01f * (float)((i * 7) & 31) - 0.15f;\n}\n\n")
 _SI4 = "make_float4(stand_in({0}), stand_in({0} + 1), stand_in({0} + 2), " \
        "stand_in({0} + 3))"
-_RNG_LAUNCH = ("  cudaStream_t st = (cudaStream_t)stream;\n"
-               "  with_deriv(s.bf, [&](auto d) {\n"
-               "    using D = decltype(d);\n"
-               "    fused_rng_kernel<D>")
+_RNG_LAUNCH = ("  err = rng_opt_in<MlpDeriv>(device);\n"
+               "  if (err != cudaSuccess) return (int)err;\n"
+               "  fused_rng_kernel<MlpDeriv><<<")
 _COPY = ("  if (!s.bf)\n"
          "    cudaMemcpyToSymbolAsync(c_w, weights, kNumMlpWeights * 4, 0,\n"
          "                            cudaMemcpyDeviceToDevice, "
@@ -107,44 +106,47 @@ BF_FORMS = {"pass1_bf_K262144": "gaussian", "pass1_bf_ou_K262144": "ou"}
 
 
 def _const_deriv(name, w):
-    """The source of a derivative type ``name``: MlpDeriv's loops with each
-    weight read as the C++ expression ``w`` of a compile-time index
-    (``{i}``), and ``PassDerivOf`` mapping MlpDeriv to it in exact
-    pass 1."""
+    """The source of a derivative type ``name``: MlpDeriv's layers (the
+    library's spec, ``Spec``) with each weight read as the C++ expression
+    ``w`` of a compile-time index (``{i}``), and ``PassDerivOf`` mapping
+    MlpDeriv to it in exact pass 1."""
     return f"""struct {name} {{
   static constexpr int kNumWeights = kNumMlpWeights;
+
+  template <int L>
+  static __device__ __forceinline__ void layer(const float* x, float* y) {{
+    constexpr int n = Spec::width(L), m = Spec::width(L + 1);
+    constexpr int off = mlp_offset<Spec>(L), boff = off + m * n;
+#pragma unroll
+    for (int j = 0; j < m; ++j) {{
+      float acc = 0.f;
+#pragma unroll
+      for (int i = 0; i < n; ++i)
+        acc = fmaf({w.format(i='off + j * n + i')}, x[i], acc);
+      if constexpr (L + 1 < Spec::kLayers)
+        y[j] = tanhf(acc + {w.format(i='boff + j')});
+      else
+        y[j] = acc + {w.format(i='boff + j')};
+    }}
+  }}
+
+  template <int L>
+  static __device__ __forceinline__ void layers(const float* x,
+                                                float out[kOut]) {{
+    if constexpr (L + 1 == Spec::kLayers) {{
+      layer<L>(x, out);
+    }} else {{
+      float h[Spec::width(L + 1)];
+      layer<L>(x, h);
+      layers<L + 1>(h, out);
+    }}
+  }}
+
   static __device__ __forceinline__ void eval(const float* __restrict__ w,
                                               const float d[kOut], float u0,
                                               float u1, float out[kOut]) {{
-    constexpr int b0 = kH1 * kIn, W1 = b0 + kH1, b1 = W1 + kH2 * kH1;
-    constexpr int W2 = b1 + kH2, b2 = W2 + kOut * kH2;
     const float in[kIn] = {{d[0], d[1], d[2], d[3], u0, u1}};
-    float h1[kH1];
-#pragma unroll
-    for (int j = 0; j < kH1; ++j) {{
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < kIn; ++i)
-        acc = fmaf({w.format(i='j * kIn + i')}, in[i], acc);
-      h1[j] = tanhf(acc + {w.format(i='b0 + j')});
-    }}
-    float h2[kH2];
-#pragma unroll
-    for (int j = 0; j < kH2; ++j) {{
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < kH1; ++i)
-        acc = fmaf({w.format(i='W1 + j * kH1 + i')}, h1[i], acc);
-      h2[j] = tanhf(acc + {w.format(i='b1 + j')});
-    }}
-#pragma unroll
-    for (int j = 0; j < kOut; ++j) {{
-      float acc = 0.f;
-#pragma unroll
-      for (int i = 0; i < kH2; ++i)
-        acc = fmaf({w.format(i='W2 + j * kH2 + i')}, h2[i], acc);
-      out[j] = acc + {w.format(i='b2 + j')};
-    }}
+    layers<0>(in, out);
   }}
 }};
 
@@ -169,26 +171,23 @@ _CONST_OPERAND = [
 VARIANTS = {
     "base": [],
     "no_tanh": [
-        ("h1[j] = tanhf(acc + b0[j]);", "h1[j] = (acc + b0[j]);"),
-        ("h2[j] = tanhf(acc + b1[j]);", "h2[j] = (acc + b1[j]);"),
-        ("h1[u] = tanhf(acc + b.z);", "h1[u] = (acc + b.z);"),
-        ("h2[u] = tanhf(acc2[u]", "h2[u] = (acc2[u]")],
+        ("y[j] = tanhf(acc + b[j]);", "y[j] = (acc + b[j]);"),
+        ("h[u] = tanhf(acc + b.z);", "h[u] = (acc + b.z);"),
+        ("y[u] = tanhf(acc[u] + W[(lane + G * u) * stride + n]);",
+         "y[u] = (acc[u] + W[(lane + G * u) * stride + n]);")],
     "no_cost": [("if (t > 0) {", "if (false) {")],
     "const_weights": [
-        ("struct MlpDeriv {", _STAND_IN + "struct MlpDeriv {"),
-        ("fmaf(W0[j * kIn + i], in[i], acc)",
-         "fmaf(stand_in(j * kIn + i), in[i], acc)"),
-        ("fmaf(W1[j * kH1 + i], h1[i], acc)",
-         "fmaf(stand_in(j * kH1 + i), h1[i], acc)"),
-        ("fmaf(W2[j * kH2 + i], h2[i], acc)",
-         "fmaf(stand_in(j * kH2 + i), h2[i], acc)"),
+        ("template <class S>\nstruct MlpDerivOf {",
+         _STAND_IN + "template <class S>\nstruct MlpDerivOf {"),
+        ("acc = fmaf(W[j * n + i], x[i], acc);",
+         "acc = fmaf(stand_in(off + j * n + i), x[i], acc);"),
         ("const float4 a = r[0], b = r[1];",
          f"const float4 a = {_SI4.format('u')}, b = {_SI4.format('u + 4')};"),
-        ("wq[u] = reinterpret_cast<const float4*>(W1 + (lane + G * u)\n"
-         "                                                * kGW1)[q];",
-         f"wq[u] = {_SI4.format('q + u')};"),
-        ("const float4 wq = r2[q];",
-         f"const float4 wq = {_SI4.format('q')};")],
+        ("wq[u] = reinterpret_cast<const float4*>(W + (lane + G * u)\n"
+         "                                                * stride)[q];",
+         f"wq[u] = {_SI4.format('off + q + u')};"),
+        ("const float4 wq = r[q];",
+         f"const float4 wq = {_SI4.format('off + q')};")],
     "const_operand": _CONST_OPERAND,
     "no_gather": [
         ("return __ldg(ch0 + (size_t)(int)fy * c.W + (int)fx);",

@@ -32,10 +32,15 @@ blocks of 256 threads, one an SM (8 warps; csrc kSpecFieldBlock as built),
 against blocks of 128 (4 warps: a wide spec's weights leave room for no
 second block), kernel 3 and field pass 1 (gaussian) at each K of
 ``SPEC_KS``, seeded weights, in turns, two rounds; the two builds' outputs
-must be equal bit for bit.  Usage, from the root of the repository
+must be equal bit for bit.  With ``--field`` (a field spec, F and the
+hidden widths, e.g. ``F6-48-48``) it does the same on a seeded field of
+that spec, in the library of that field beside the MLP spec (the default
+one without ``--spec``, whose field block of 128 threads is timed against
+256: ``FIELD_BLOCK_VARIANTS``).  Usage, from the root of the repository
 (``chip_smoke.py`` is imported from there)::
 
-    python -m autorally_tpu_torch.tools.field_variants [--spec 6-64-64-64-64-4]
+    python -m autorally_tpu_torch.tools.field_variants \
+        [--spec 6-64-64-64-64-4] [--field F6-48-48]
 """
 
 from __future__ import annotations
@@ -51,8 +56,8 @@ KEY = (0x2545F491, 0x9E3779B9)
 HELD = ("base", "1xtf32")          # held against the plain versions
 
 # (variant, [(text in the source, its replacement), ...])
-_LOAD1 = "const float4 b = l1[(ks * kNTiles1 + nt) * 32 + lane];"
-_LOAD2 = "const float4 b = l2[(ks * kNTiles2 + nt) * 32 + lane];"
+_LOAD1 = "const float4 b = l1[(ks * NT + nt) * 32 + lane];"
+_LOAD2 = "const float4 b = l[(ks * NT + nt) * 32 + lane];"
 _FAKE_B = ("const float4 b = make_float4(__int_as_float(lane + nt), "
            "__int_as_float(ks), __int_as_float(lane), __int_as_float(nt));")
 _MMA3 = """  mma_tf32(d, al, h0, h1);
@@ -77,23 +82,38 @@ SPEC_BLOCK_VARIANTS = {
     "spec_block_128": [("constexpr int kSpecFieldBlock = 256;",
                         "constexpr int kSpecFieldBlock = 128;")],
 }
+# the default MLP spec's field block (``--field`` without ``--spec``)
+FIELD_BLOCK_VARIANTS = {
+    "field_block_128": [],
+    "field_block_256": [("constexpr int kFieldBlock = 128;\n"
+                         "constexpr int kFieldMinBlocks = 2;",
+                         "constexpr int kFieldBlock = 256;\n"
+                         "constexpr int kFieldMinBlocks = 1;")],
+}
 SPEC_KS = (8192, 65536)
 
 
-def build_variants(out_dir, variants=None, layers=None) -> dict:
+def parse_field(label: str) -> tuple:
+    """A field spec from its label: ``F6-48-48`` -> (6, 48, 48)."""
+    if not label.startswith("F"):
+        raise ValueError(f"a field label starts with F, got {label!r}")
+    return tuple(int(n) for n in label[1:].split("-"))
+
+
+def build_variants(out_dir, variants=None, layers=None, field=None) -> dict:
     """Build every variant's library (``variants``: name -> [(text, its
-    replacement), ...], ``VARIANTS`` by default; of the MLP spec
-    ``layers``'s library when given) at once; returns name -> path.  Each
-    one's compiler output (ptxas -v) is kept beside it, in
-    ``<name>.log``."""
+    replacement), ...], ``VARIANTS`` by default; of the library of the MLP
+    spec ``layers`` and the field spec ``field`` when given) at once;
+    returns name -> path.  Each one's compiler output (ptxas -v) is kept
+    beside it, in ``<name>.log``."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = _build.NVCC_FLAGS
-    if layers is not None:
+    if _build.spec_defines(layers, field):
         header = out_dir / "spec.h"
-        header.write_text(_build.spec_defines(layers))
+        header.write_text(_build.spec_defines(layers, field))
         flags += ("-include", str(header))
     procs = {}
     for name, edits in (VARIANTS if variants is None else variants).items():
@@ -116,22 +136,23 @@ def build_variants(out_dir, variants=None, layers=None) -> dict:
     return {name: so for name, (so, _) in procs.items()}
 
 
-def use_library(path, layers=None) -> None:
+def use_library(path, layers=None, field=None) -> None:
     """Make the wrappers launch the kernels of the library at ``path`` (the
-    library of the MLP spec ``layers`` when given)."""
+    library of the MLP spec ``layers`` and the field spec ``field`` when
+    given)."""
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     lib = ctypes.CDLL(str(path))
-    names = _build.SIGNATURES if layers is None else _build.SPEC_FUNCTIONS
-    for fn in names:
+    for fn in _build.functions(layers, field):
         getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = None
-    if layers is None:
+    key = (_build._spec(layers), _build._field(field))
+    if key == (None, None):
         _build._lib = lib
     else:
-        _build._spec_libs[tuple(layers)] = lib
+        _build._spec_libs[key] = lib
     rk._kernel_lib.cache_clear()
 
 
@@ -154,13 +175,15 @@ def events(fn, reps):
     return times
 
 
-def spec_blocks(layers, card) -> dict:
-    """Kernel 3 and field pass 1 (gaussian) of the MLP spec ``layers``'s
-    library in each field block of ``SPEC_BLOCK_VARIANTS``: seeded weights
-    (``init_params(0)``) on ``ab_builds.seeded_field``, each K of
-    ``SPEC_KS``, T=100, in turns, two rounds; each variant's field
-    instances (registers, blocks an SM) and whether its outputs equal the
-    first variant's bit for bit.  Returns {variant: {form: median ms}}."""
+def spec_blocks(layers, card, field=None) -> dict:
+    """Kernel 3 and field pass 1 (gaussian) of the library of the MLP spec
+    ``layers`` and the field spec ``field`` (None: the default field) in
+    each field block of ``SPEC_BLOCK_VARIANTS`` (``FIELD_BLOCK_VARIANTS``
+    for the default MLP spec): seeded weights (``init_params(0)``) on
+    ``ab_builds.seeded_field`` of the field's spec, each K of ``SPEC_KS``,
+    T=100, in turns, two rounds; each variant's field instances
+    (registers, blocks an SM) and whether its outputs equal the first
+    variant's bit for bit.  Returns {variant: {form: median ms}}."""
     import torch
     from autorally_tpu_torch import drive_oval
     from autorally_tpu_torch.config import CostParams, MPPIConfig
@@ -169,12 +192,16 @@ def spec_blocks(layers, card) -> dict:
     from autorally_tpu_torch.ops import rollout_kernel as rk
     from autorally_tpu_torch.tools.ab_builds import seeded_field
 
+    default = tuple(layers) == rk.KERNEL_LAYERS
     libs = build_variants(_build.BUILD_DIR / "variants_spec",
-                          SPEC_BLOCK_VARIANTS, layers)
+                          FIELD_BLOCK_VARIANTS if default
+                          else SPEC_BLOCK_VARIANTS, layers, field)
     blocks = {name: int(name.rsplit("_", 1)[1]) for name in libs}
+    block_name = "FIELD_BLOCK" if default else "SPEC_FIELD_BLOCK"
+    fspec = rk.FIELD_KERNEL_SPEC if field is None else tuple(field)
     dev = torch.device("cuda", 0)
     cp = CostParams(desired_speed=6.0)
-    field = seeded_field(drive_oval.oval_costmap(dev), dev)
+    field = seeded_field(drive_oval.oval_costmap(dev), dev, fspec=fspec)
     cfg = MPPIConfig(num_timesteps=T, hz=50)
     model = NeuralNetDynamics(cfg.dt, layers=layers,
                               control_ranges=cfg.control_ranges, device=dev)
@@ -187,16 +214,17 @@ def spec_blocks(layers, card) -> dict:
     eps = {k: torch.randn((T, k, 2), generator=gen, device=dev)
            for k in SPEC_KS}
     ms, outs = {name: {} for name in libs}, {}
-    built_block = rk.SPEC_FIELD_BLOCK
+    built_block = getattr(rk, block_name)
     try:
         for rnd in range(2):
             for name, so in libs.items():
-                rk.SPEC_FIELD_BLOCK = blocks[name]
-                use_library(so, layers)
+                setattr(rk, block_name, blocks[name])
+                use_library(so, layers, fspec)
                 if rnd == 0:
                     for rng in (False, True):
                         info = rk.field_kernel_info(rng, False, T,
-                                                    layers=layers)
+                                                    layers=layers,
+                                                    field=fspec)
                         print(f"[spec blocks] {name} "
                               f"{'field pass 1' if rng else 'kernel 3'}: "
                               f"{info['registers']} registers, "
@@ -217,7 +245,7 @@ def spec_blocks(layers, card) -> dict:
                     if rnd == 0:
                         outs[name, k] = (out_3, out_f)
     finally:
-        rk.SPEC_FIELD_BLOCK = built_block
+        setattr(rk, block_name, built_block)
     first = next(iter(libs))
     for name in libs:
         same = all(torch.equal(a, b) for k in SPEC_KS
@@ -230,7 +258,8 @@ def spec_blocks(layers, card) -> dict:
     result = {name: {form: statistics.median(v) for form, v in m.items()}
               for name, m in ms.items()}
     for name, r in result.items():
-        print(f"[spec blocks] {name} ({'-'.join(map(str, layers))}, T={T}):"
+        print(f"[spec blocks] {name} ({'-'.join(map(str, layers))}, "
+              f"{_build.field_label(fspec)}, T={T}):"
               + ", ".join(f" {form} {v:.4f} ms" for form, v in r.items())
               + f" ({card})")
     return result
@@ -248,15 +277,19 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--spec", help="time the field block of this MLP "
                     "spec's library instead, e.g. 6-64-64-64-64-4")
+    ap.add_argument("--field", help="time the field block of the library "
+                    "of this field spec instead, e.g. F6-48-48")
     args = ap.parse_args(argv)
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip()
-    if args.spec:
-        layers = tuple(int(n) for n in args.spec.split("-"))
-        print(json.dumps({"card": card,
-                          "spec_blocks": spec_blocks(layers, card)}))
+    if args.spec or args.field:
+        layers = (tuple(int(n) for n in args.spec.split("-")) if args.spec
+                  else rk.KERNEL_LAYERS)
+        field = parse_field(args.field) if args.field else None
+        print(json.dumps({"card": card, "spec_blocks": spec_blocks(
+            layers, card, field)}))
         return 0
     libs = build_variants(_build.BUILD_DIR / "variants")
     dev = torch.device("cuda", 0)

@@ -25,14 +25,18 @@ the capacity mode over 2 and the ensemble over a 2 x 2 mesh — and the ML
 pipeline — BASELINE config #3: a 6-64-64-64-64-4 model trained on the
 card by ``ml.trainer`` from a drive log, then driven at K=8192 through
 kernels 1-4 built for its spec, on the exact map, on the field and in the
-capacity mode — and checks every CUDA kernel of these paths,
+capacity mode — and the fields of other specs — kernels 3 and 4 built
+for fields of five other specs (F and the hidden widths), among them the
+JAX package's own 26-48-48-1 fit, fitted on the card and driven at the
+field path's sizes, also in bf16 — and checks every CUDA kernel of these paths,
 in every form, against its plain PyTorch version.  Phases (any failure
 exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
-   (the default library and the libraries of phase 28's three other MLP
-   specs, one nvcc each, started together; the other specs' libraries
-   build on while phases 2-27 run, and when phase 28 takes them each
+   (the default library, the libraries of phase 28's three other MLP
+   specs and phase 30's field libraries, one nvcc each, started together;
+   the others build on while phases 2-27 run, and when phase 28 or 30
+   takes them each
    one's instances, kernels 3 and 4 among them, are printed with their
    registers, spills, dynamic shared memory and blocks an SM, zero spill
    bytes in every one, its field instances at least 8 warps an SM, in
@@ -301,7 +305,24 @@ exits non-zero):
     ticks each; pass 1 + pass 2 + kernel 2 a solve), each with one
     iteration on the card against the CPU, exact launch counts, no plain
     version and p50 / p99 against 20 ms (printed, not a gate); a 20-tick
-    profile.
+    profile;
+30. kernels 3 and 4 on fields of other specs (``FIELD_PAIRS``: F6-48-48,
+    F5-40-20, F4-32-32-32, F8-64, F8-128-128 and F3 beside the default
+    MLP, F5-40-20 beside 6-24-4), each from a library of its own (phase
+    1's rules for each: zero spills, TF32 HMMA in each field instance but
+    F3's, which takes no product, 8 warps an SM or one block where two do
+    not fit), seeded fields: kernel 3 at K=8192 in phase 11's cases, a
+    ragged K, a shard's slice and 16 circle slots, pass 1's field mode
+    gaussian and OU, also at K=8193, on a shard and with the slots, bit for
+    bit kernel 3 fed the plain stream, the BF instances with the strong
+    theta, all against their plain versions; times of kernel 3 at K=65536
+    and pass 1 at K=262144 beside both bounds; 10-tick drives of each pair
+    with host noise and in the capacity mode (their launches); then
+    F6-48-48 fitted on the card (``drive_oval.build(neural_costmap=True,
+    fit_kwargs=FIT_KWARGS)``), 100 host-noise ticks at K=65536 and 50
+    capacity ticks at K=262144 (exactly 1 + 1 and 1 + 1 + 1 launches a
+    solve, no plain version, p50 / p99 against 20 ms, printed), and the
+    same field in bf16 held and driven 20 ticks.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -764,14 +785,15 @@ def field_bounds(nbytes: float, other_ops: float, n_evals: float, field):
                   n_evals * 3 * products))
 
 
-def library_sass(layers=None) -> str:
+def library_sass(layers=None, field=None) -> str:
     """``cuobjdump -sass`` of the built kernel library (of the MLP spec
-    ``layers``; the default one when None)."""
+    ``layers`` and the field spec ``field``; the default one when
+    None)."""
     from autorally_tpu_torch.ops import _build
 
     objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([objdump, "-sass",
-                          str(_build.library_path(layers))],
+                          str(_build.library_path(layers, field))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise PhaseFailed(f"cuobjdump failed: {out.stderr.strip()}")
@@ -4278,57 +4300,80 @@ B3_TEACHER_OUTPUT_SCALE = 0.3
 B3_BUDGET_MS = 20.0
 B3_FIELD_TICKS = 100                   # on the field with host noise
 B3_CAP_TICKS = 50                      # each capacity drive
+# Phase 30: kernels 3 and 4 on fields of other specs, labelled by F and
+# the hidden widths (F6-48-48: 26-48-48-1), each in a library of its own
+# beside the default MLP spec, F5-40-20 beside 6-24-4 too.  F6-48-48 is
+# the spec of the JAX package's own fit (tests/test_neural_costmap.py:
+# 29-30), fitted on the card and driven at the field path's sizes; F5-40-20
+# takes 24 tile columns (no padding) and a width of 20 in a padded n-tile;
+# F4-32-32-32 three hidden layers, F8-64 one, F8-128-128 one m-tile a pass
+# (and no room beside an 8-warp spec library), F3 none.
+FIELD_LABELS = {"F6-48-48": (6, 48, 48), "F5-40-20": (5, 40, 20),
+                "F4-32-32-32": (4, 32, 32, 32), "F8-64": (8, 64),
+                "F8-128-128": (8, 128, 128), "F3": (3,)}
+FIELD_PAIRS = tuple((None, f) for f in FIELD_LABELS.values()) + (
+    ((6, 24, 4), FIELD_LABELS["F5-40-20"]),)
+FIT_FIELD = "F6-48-48"
+FIT_KWARGS = dict(hidden=(48, 48), num_freqs=6)
+FIELD_FORM_TICKS = 10                  # each pair's drives (its launches)
+BF16_TICKS = 20                        # the fitted field in bf16
 
 
 def spec_label(layers) -> str:
     return "-".join(str(n) for n in layers)
 
 
+# Every library the run builds, (MLP spec, field spec), None for the
+# default: the default library, each spec of FIELD_SPEC_LAYERS's, and the
+# field libraries of FIELD_PAIRS.
+LIBRARIES = (((None, None),) + tuple((layers, None)
+                                     for layers in FIELD_SPEC_LAYERS)
+             + FIELD_PAIRS)
+
+
 class Builds:
-    """The default library and one of each spec of ``FIELD_SPEC_LAYERS``, one
-    ``nvcc`` each, all started at once (threads; each ``nvcc`` its own
-    process, on a core of its own).  ``get(layers)`` waits for that
-    library's build and returns (library, seconds), or fails the phase if
-    it did not build: the main path takes the default library while the
-    other specs' builds (minutes for 6-64-64-64-64-4) run on, until phase
-    28 needs them."""
+    """Every library of ``LIBRARIES``, one ``nvcc`` each, all started at
+    once (threads; each ``nvcc`` its own process, on a core of its own).
+    ``get(layers, field)`` waits for that library's build and returns
+    (library, seconds), or fails the phase if it did not build: the main
+    path takes the default library while the others' builds (minutes for
+    6-64-64-64-64-4) run on, until phases 28 and 30 need them."""
 
     def __init__(self):
         import threading
 
         self.libs, self.errors = {}, {}
-        self.threads = {layers: threading.Thread(target=self._build,
-                                                 args=(layers,))
-                        for layers in (None,) + FIELD_SPEC_LAYERS}
+        self.threads = {key: threading.Thread(target=self._build, args=key)
+                        for key in LIBRARIES}
         for th in self.threads.values():
             th.start()
 
-    def _build(self, layers):
+    def _build(self, layers, field):
         from autorally_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
         try:
-            self.libs[layers] = (_build.load(layers),
-                                 time.perf_counter() - t0)
+            self.libs[layers, field] = (_build.load(layers, field),
+                                        time.perf_counter() - t0)
         except Exception as e:               # reported by get, then fail
-            self.errors[layers] = e
+            self.errors[layers, field] = e
 
-    def get(self, layers):
-        self.threads[layers].join()
-        if layers in self.errors:
-            print(f"[build] {layers or 'default'}: {self.errors[layers]}",
-                  file=sys.stderr)
-        check(layers not in self.errors, f"the kernel library of "
-              f"{layers or 'the default spec'} did not build")
-        return self.libs[layers]
+    def get(self, layers, field=None):
+        key = (layers, field)
+        self.threads[key].join()
+        what = f"{layers or 'default'}" + (f" field {field}" if field else "")
+        if key in self.errors:
+            print(f"[build] {what}: {self.errors[key]}", file=sys.stderr)
+        check(key not in self.errors, f"the kernel library of {what} did "
+              "not build")
+        return self.libs[key]
 
 
 def build_libraries(rk) -> dict:
-    """Every library of ``Builds``, built: {None or layers: (library,
-    seconds)}."""
+    """Every library of ``Builds``, built: {(None or layers, None or field
+    spec): (library, seconds)}."""
     builds = Builds()
-    return {layers: builds.get(layers)
-            for layers in (None,) + FIELD_SPEC_LAYERS}
+    return {key: builds.get(*key) for key in LIBRARIES}
 
 
 def spec_instances(rk, layers, lib, card) -> None:
@@ -4387,26 +4432,32 @@ def spec_instances(rk, layers, lib, card) -> None:
           "HMMA")
 
 
-def field_instances(rk, tag, layers=None) -> None:
-    """The field kernel instances of a library (the default one's MLP and
-    BF instances, another spec's MLP ones) at T=100: registers, local
-    memory, dynamic shared memory and blocks an SM, at least 8 warps an
-    SM."""
+def field_instances(rk, tag, layers=None, field=None) -> None:
+    """The field kernel instances of a library (the default MLP spec's MLP
+    and BF instances, another spec's MLP ones; of the field spec ``field``
+    when given) at T=100: registers, local memory, dynamic shared memory
+    and blocks an SM, at least 8 warps an SM, or one block where two
+    blocks' shared memory (and an SM's 1 KB reserved for each) passes the
+    SM's 228 KB (34-128-128-1 beside the default MLP's 4 warps)."""
     block = rk.field_block(layers or rk.KERNEL_LAYERS)
     kw = {} if layers is None else {"layers": layers}
+    if field is not None:
+        kw["field"] = field
     for rng, name in ((False, "fused_field_kernel"),
                       (True, "fused_rng_field_kernel")):
         for bf in ((False, True) if layers is None else (False,)):
             info = rk.field_kernel_info(rng, bf, T, **kw)
             warps = info["blocks_per_sm"] * block // 32
+            two_fit = 2 * (info["smem_bytes"] + 1024) <= 228 * 1024
+            need = min(8, block // 32 * (2 if two_fit else 1))
             print(f"[{tag}] {name}<{'Bf' if bf else 'Mlp'}>: "
                   f"{info['registers']} registers, {info['local_bytes']} "
                   f"bytes of local memory a thread, {info['smem_bytes']} "
                   f"bytes of dynamic shared memory at T={T}, "
                   f"{info['blocks_per_sm']} blocks of {block} ({warps} "
                   f"warps) an SM")
-            check(warps >= 8, f"{tag} {name}: {warps} resident warps an SM, "
-                  "fewer than 8")
+            check(warps >= need, f"{tag} {name}: {warps} resident warps an "
+                  f"SM, fewer than {need}")
 
 
 def spec_setup(layers, dev, seed: int = 0):
@@ -5159,6 +5210,345 @@ def baseline3_phase(drive_oval, rk, card, spec, field_spec, field,
     return {"rows": rows, "results": results}
 
 
+def field_library_instances(rk, layers, fspec, lib, card) -> None:
+    """Phase 1 for a library of another field spec (``FIELD_PAIRS``): its
+    ptxas report (kernel 3 and pass 1's field mode, the MLP's and beside
+    the default MLP spec the BF model's; zero spill bytes in every one),
+    each instance's registers, dynamic shared memory and blocks an SM at
+    T=100 (``field_instances``), and TF32 HMMA in each one's SASS (none
+    for a field without a hidden layer, which takes no product)."""
+    from autorally_tpu_torch.ops import _build
+
+    tag = (f"build {spec_label(layers or rk.KERNEL_LAYERS)} "
+           f"{_build.field_label(fspec)}")
+    n_want = 4 if layers is None else 2
+    if lib.build is not None:
+        report = ptxas_report(lib.build[1])
+        for name, regs, spill in report:
+            print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
+                  f"stores and loads")
+        check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
+              f"kernels, expected {n_want}")
+        check(all(spill == 0 for _, _, spill in report),
+              f"{tag}: a kernel spills")
+        PTXAS.update((f"{name} [{tag[6:]}]", regs) for name, regs, _ in report)
+    field_instances(rk, tag, layers, fspec)
+    hmma = check_field_sass(library_sass(layers, fspec))
+    print(f"[{tag}] TF32 HMMA instructions in the field kernels' SASS: "
+          f"{hmma}")
+    hidden = len(fspec) > 1
+    check(len(hmma) == n_want and all((n > 0) == hidden
+                                      for n in hmma.values()),
+          f"{tag}: the field kernel instances' SASS does not hold TF32 HMMA "
+          f"as the spec asks ({hmma})")
+
+
+def field_spec_phase(drive_oval, rk, card, dev=None) -> dict:
+    """Phase 30: kernels 3 and 4 on the fields of ``FIELD_PAIRS`` (seeded
+    weights, ``ab_builds.seeded_field`` of each spec), each beside its MLP
+    spec: kernel 3 at K=KS in phase 11's cases (the random field from 0.3
+    m/s), at a K that is a multiple of neither the block nor the warp (bit
+    for bit the K=KS launch's first rollouts), on a shard's slice and with
+    16 circle slots, against its plain version (costs rtol COST_RTOL /
+    atol COST_ATOL, u_seq exactly equal, crash flags equal in all but 1 %
+    of the rollouts: the seeded fields cross the 0.65 boundary over much
+    of the map, so that about half of even the nominal swarm crashes, and
+    a value within rounding of the boundary latches a step apart); pass
+    1's field mode gaussian and OU, also at K=KS+1, on a shard's slice and
+    with the slots, bit for bit kernel 3 fed the plain stream and against
+    its plain version; beside the default MLP the BF instances of
+    both with the strong theta; the times (CUDA events) of kernel 3 at
+    K=KF and pass 1 at K=KC beside both bounds and the plain versions;
+    each pair's drives (``FIELD_FORM_TICKS`` ticks with host noise and in
+    the capacity mode: exact launch counts).  Then ``FIT_FIELD``'s spec
+    fitted on the card through ``drive_oval.build``, kernel 3 held on it,
+    and driven: ``FIELD_TICKS`` host-noise ticks at K=KF and
+    ``FIELD_CAP_TICKS`` capacity ticks at K=KC, exactly 1 + 1 and 1 + 1 + 1
+    launches a solve, no plain version, p50 / p99 against 20 ms; the same
+    field in bf16 (the fit cast at the end, as ``fit_neural_costmap(dtype=
+    torch.bfloat16)`` casts it) held and driven ``BF16_TICKS`` ticks.
+    Returns the ``kernels`` rows and the results."""
+    import torch
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.costs import MPPICost, make_obstacles
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+
+    dev = dev or torch.device("cuda", 0)
+    cp = CostParams(desired_speed=6.0)
+    costmap = drive_oval.oval_costmap(dev)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    nan_start = start.clone()
+    nan_start[0] = float("nan")
+    edge_start = torch.tensor([37.0, 0.0, 0.3, 0.0, 6.0, 0.0, 0.0],
+                              device=dev)
+    slow_start = start.clone()
+    slow_start[4] = 0.3
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(31)
+    eps = torch.randn((T, KS, 2), generator=gen, device=dev)
+    shard = KS // 3 + 61
+    okw = dict(obstacle_coeff=drive_oval.OBSTACLE_COEFF,
+               inflation=drive_oval.OBSTACLE_INFLATION)
+    bf_solver, bparams, _, _, _ = drive_oval.build(model="bf", rollouts=KS,
+                                                   device=dev)
+    bmodel, bcfg = bf_solver.model, bf_solver.cfg
+    strong = dict(bparams, theta=bparams["theta"] * torch.tensor(
+        BF_ROW_SCALE, device=dev)[:, None])
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    rows, results = [], {}
+
+    def hold3(tag, name, mdl, prm, c, s0, f, e, kw=None, limit=None):
+        """Kernel 3 against its plain version: (max error, the plain
+        costs, the kernel's costs and crash flags)."""
+        kw = kw or {}
+        kc, ku, kx = rk.fused_rollout_cost(mdl, prm, c, cp, f, s0, U, e,
+                                           **kw)
+        pc, pu, px = rk.fused_rollout_cost_plain(mdl, prm, c, cp, f, s0, U,
+                                                 e, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(ku, pu), f"{tag} {name}: u_seq differs")
+        return agreement(f"{tag} kernel 3 K={e.shape[1]}", name, kc, kx, pc,
+                         px, e.shape[1], limit=limit), pc, (kc, kx)
+
+    def hold_p1(tag, name, mdl, prm, c, s0, f, k_off=0, k_loc=None,
+                kw=None, limit=None):
+        kw = dict(kw or {})
+        if k_loc is not None:
+            kw.update(k_offset=k_off, K_local=k_loc)
+        kc, kx, ctx = rk.fused_rng_costs(mdl, prm, c, cp, f, s0, U, key, **kw)
+        pc, px, _ = rk.fused_rng_costs_plain(mdl, prm, c, cp, f, s0, U, key,
+                                             **kw)
+        kw.pop("K_local", None)
+        kw["k_offset"] = k_off
+        ac, _, ax = rk.fused_rollout_cost(mdl, prm, c, cp, f, s0, U,
+                                          rk.rng_noise(ctx), **kw)
+        torch.cuda.synchronize()
+        same = torch.equal(kc, ac) and torch.equal(kx, ax)
+        print(f"[{tag} pass 1] {name} K={ctx.K} k_offset={k_off}: equal to "
+              f"kernel 3 on the plain stream: {same}")
+        check(same, f"{tag} pass 1 {name}: differs from kernel 3 on the "
+              "plain stream")
+        return agreement(f"{tag} pass 1 K={ctx.K}", name, kc, kx, pc, px,
+                         ctx.K, limit=limit)
+
+    def drives(tag, solvers, surface, params, ticks):
+        out = {}
+        for name, (solver, per_solve, t_) in solvers.items():
+            latency, got, _ = drive_counted(
+                drive_oval, rk, f"{tag} {name}", solver, params, cp,
+                surface, t_ if ticks is None else ticks, per_solve, card)
+            print(f"[{tag} {name}] solve p99 {latency[1]:.3f} ms against the "
+                  f"{B3_BUDGET_MS:.0f} ms budget: "
+                  f"{'inside' if latency[1] <= B3_BUDGET_MS else 'MISSED'} "
+                  f"({card})")
+            out[name] = {"latency": latency, "launches": got}
+        return out
+
+    for layers_opt, fspec in FIELD_PAIRS:
+        layers = layers_opt or rk.KERNEL_LAYERS
+        label = _build.field_label(fspec)
+        sfx = "" if layers_opt is None else "_" + spec_label(layers)
+        tag = f"field {label}" + (f" beside {spec_label(layers)}"
+                                  if layers_opt else "")
+        model, params, cfg = spec_setup(layers, dev)
+        wide = cfg.replace(steering_std=4 * cfg.steering_std,
+                           throttle_std=4 * cfg.throttle_std)
+        field = seeded_field(costmap, dev, fspec=fspec)
+        cases = {"nominal": (cfg, start, field),
+                 "wide_swarm": (wide, edge_start, field),
+                 "nan_x": (cfg, nan_start, field),
+                 "random_field": (wide, slow_start, random_field(
+                     field, model, params, wide, slow_start, U))}
+
+        # -- kernel 3 against its plain version
+        err_3, limit = 0.0, KS // 100
+        for name, (c, s0, f) in cases.items():
+            e_3, _, out = hold3(tag, name, model, params, c, s0, f, eps,
+                                limit=limit)
+            err_3 = max(err_3, e_3)
+            if name == "nominal":
+                nominal = out
+        e_3, _, (rc, rx) = hold3(tag, "ragged_K", model, params, cfg, start,
+                                 field, eps[:, :KS - 19].contiguous(),
+                                 limit=limit)
+        same = (torch.equal(rc, nominal[0][:KS - 19])
+                and torch.equal(rx, nominal[1][:KS - 19]))
+        print(f"[{tag} kernel 3] K={KS - 19}: bit for bit the K={KS} "
+              f"launch's first rollouts: {same}")
+        check(same, f"{tag} kernel 3 ragged_K: differs from the K={KS} "
+              "launch's first rollouts")
+        err_3 = max(err_3, e_3)
+        err_3 = max(err_3, hold3(tag, "shard", model, params, cfg, start,
+                                 field, eps[:, shard:].contiguous(),
+                                 dict(k_offset=shard), limit=limit)[0])
+        # 16 slots, two circles on the lane ahead of the slow start; they
+        # must move the plain version's costs
+        circles = obstacle_circles(model, params, cfg, slow_start, U)
+        ok = dict(okw, obstacles=make_obstacles(circles, N_SLOTS, device=dev))
+        e_slots, pc_slots, _ = hold3(tag, "slots16", model, params, cfg,
+                                     slow_start, field, eps, ok, limit=limit)
+        _, pc_free, _ = hold3(tag, "no_slots", model, params, cfg,
+                              slow_start, field, eps, limit=limit)
+        check(not torch.equal(pc_slots, pc_free), f"{tag}: the circles "
+              "change no rollout's cost")
+        err_3 = max(err_3, e_slots)
+
+        # -- pass 1's field mode: bit for bit kernel 3 on the plain stream
+        err_p1 = 0.0
+        for sname, name, k_off, k_loc, kw, s0 in (
+                ("gaussian", "nominal", 0, None, None, start),
+                ("ou", "nominal", 0, None, None, start),
+                ("gaussian", "ragged_K", 0, KS + 1, None, start),
+                ("ou", "shard", shard, KS - shard, None, start),
+                ("gaussian", "slots16", 0, None, ok, slow_start)):
+            c = cfg.replace(kernel_rng=True, **SAMPLERS[sname])
+            if name == "ragged_K":
+                c = c.replace(num_rollouts=k_loc)
+            err_p1 = max(err_p1, hold_p1(
+                f"{tag} {sname}", name, model, params, c, s0, field, k_off,
+                k_loc, kw, limit=(k_loc or KS) // 100))
+
+        # -- the BF model's instances (the default MLP spec's field
+        # libraries hold them), the strong theta from the slow start
+        if layers_opt is None:
+            hold3(f"{tag} bf", "strong", bmodel, strong, bcfg, slow_start,
+                  field, eps, limit=limit)
+            hold_p1(f"{tag} bf", "strong", bmodel, strong,
+                    bcfg.replace(kernel_rng=True), slow_start, field,
+                    limit=limit)
+
+        # -- times beside the bounds (each input read once, each output
+        # written once; the tensor-core bound first)
+        n_w, n_f = rk.num_weights(layers), rk.field_num_weights(fspec)
+        step = mlp_flops(layers)
+        ck = cfg.replace(num_rollouts=KF)
+        eps_t = torch.randn((T, KF, 2), generator=gen, device=dev)
+        launch_3, _ = rk.prepare_fused_rollout_cost(model, params, ck, cp,
+                                                    field, start, U, eps_t)
+        ms_3 = cuda_ms(launch_3, 10)
+        plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
+            model, params, ck, cp, field, start, U, eps_t), 2, 1)
+        bytes_3 = 4 * (3 * T * KF * 2 + 2 * KF + T * 2 + n_w + n_f + 7 + 4)
+        fp32_3, tc_3 = field_bounds(bytes_3, KF * T * step, KF * (T - 1) * 2,
+                                    field)
+        del launch_3, eps_t
+        cc = cfg.replace(num_rollouts=KC, kernel_rng=True)
+        launch_f, _, _ = rk.prepare_fused_rng_costs(model, params, cc, cp,
+                                                    field, start, U, key)
+        ms_f = cuda_ms(launch_f, 5)
+        plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
+            model, params, cc, cp, field, start, U, key), 2, 1)
+        bytes_f = 4 * (2 * KC + T * 2 + n_w + n_f + 7 + 4) + 16
+        fp32_f, tc_f = field_bounds(bytes_f, KC * T * (step + STREAM_OPS),
+                                    KC * (T - 1) * 2, field)
+        del launch_f
+        info = {rng: rk.field_kernel_info(rng, False, T, layers=layers,
+                                          field=fspec)
+                for rng in (False, True)}
+        for what, k_n, ms, plain, tc, fp32, inf in (
+                ("kernel 3 fused_rollout_cost", KF, ms_3, plain_3, tc_3,
+                 fp32_3, info[False]),
+                ("pass 1 field fused_rng_costs gaussian", KC, ms_f, plain_f,
+                 tc_f, fp32_f, info[True])):
+            print(f"[timing] {tag} {what} K={k_n} T={T}: {ms:.4f} ms, plain "
+                  f"{plain:.3f} ms, tensor-core bound {tc[0]:.4f} ms "
+                  f"({tc[1]}), fp32 bound {fp32[0]:.4f} ms ({fp32[1]}); "
+                  f"{inf['registers']} registers, {inf['blocks_per_sm']} "
+                  f"blocks of {rk.field_block(layers)} an SM ({card})")
+
+        # -- drives through the entry points (their launches)
+        chain = {f"dynamics_chain{sfx}": 1}
+        n3 = f"fused_rollout_cost{sfx}_{label}"
+        np1 = f"fused_rng_costs_field{sfx}_{label}"
+        res = {"kernel3": dict(ms=ms_3, plain_ms=plain_3, bound_ms=tc_3[0],
+                               bound_by=tc_3[1], fp32_bound_ms=fp32_3[0],
+                               err=err_3, K=KF, info=info[False]),
+               "pass1_field": dict(ms=ms_f, plain_ms=plain_f,
+                                   bound_ms=tc_f[0], bound_by=tc_f[1],
+                                   fp32_bound_ms=fp32_f[0], err=err_p1, K=KC,
+                                   info=info[True])}
+        if (layers_opt, label) == (None, FIT_FIELD):
+            res["drives"] = fit_field_drives(
+                drive_oval, rk, card, dev, tag, n3, np1, chain, hold3, drives)
+        else:
+            res["drives"] = drives(tag, {
+                "host-noise": (MPPISolver(model, MPPICost(), cfg, device=dev),
+                               {n3: 1, **chain}, None),
+                "capacity": (MPPISolver(model, MPPICost(), cfg.replace(
+                    kernel_rng=True), device=dev),
+                    {np1: 1, "fused_rng_numer": 1, **chain}, None)},
+                field, params, FIELD_FORM_TICKS)
+        results[f"{spec_label(layers)} {label}"] = res
+        for key_, name, replaces, launches in (
+                ("kernel3", n3, 606,
+                 res["drives"]["host-noise"]["launches"][n3]),
+                ("pass1_field", np1, 1221,
+                 res["drives"]["capacity"]["launches"][np1])):
+            r = res[key_]
+            rows.append({
+                "name": name, "route": "cuda", "source": src,
+                "replaces": f"autorally_tpu/ops/rollout_kernel.py:{replaces}",
+                "launches": launches, "max_abs_err": r["err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None, "K": r["K"],
+                "fp32_bound_ms": r["fp32_bound_ms"], "layers": list(layers),
+                "field": label, "registers": r["info"]["registers"],
+                "blocks_per_sm": r["info"]["blocks_per_sm"]})
+    return {"rows": rows, "results": results}
+
+
+def fit_field_drives(drive_oval, rk, card, dev, tag, n3, np1, chain, hold3,
+                     drives) -> dict:
+    """Phase 30's drives of ``FIT_FIELD``: the field fitted on the card
+    through ``drive_oval.build(neural_costmap=True, fit_kwargs=FIT_KWARGS)``,
+    kernel 3 held on it (K=KF, nominal), ``FIELD_TICKS`` host-noise ticks
+    at K=KF and ``FIELD_CAP_TICKS`` capacity ticks at K=KC; then the same
+    field in bf16, kernel 3 held on it and ``BF16_TICKS`` host-noise
+    ticks.  Returns {drive: {"latency", "launches"}}."""
+    import dataclasses
+
+    import torch
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host, params, cp, field, note = drive_oval.build(
+        rollouts=KF, device=dev, neural_costmap=True, fit_kwargs=FIT_KWARGS)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    print(f"[{tag}] drive_oval.build(neural_costmap=True, fit_kwargs="
+          f"{FIT_KWARGS}): {fit_s:.3f} s ({card}); {note.splitlines()[-1]}; "
+          f"layers {field.layers}")
+    check(rk.field_spec(field) == FIELD_LABELS[FIT_FIELD],
+          f"{tag}: the fit gave layers {field.layers}")
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(32)
+    eps = torch.randn((T, KF, 2), generator=gen, device=dev)
+    hold3(f"{tag} fitted", "nominal", host.model, params, host.cfg, start,
+          field, eps)
+    cap = MPPISolver(host.model, host.cost, host.cfg.replace(
+        num_rollouts=KC, kernel_rng=True), device=dev)
+    out = drives(f"{tag} fitted", {
+        "host-noise": (host, {n3: 1, **chain}, FIELD_TICKS),
+        "capacity": (cap, {np1: 1, "fused_rng_numer": 1, **chain},
+                     FIELD_CAP_TICKS)}, field, params, None)
+    bf16 = dataclasses.replace(field, weights=tuple(
+        w.to(torch.bfloat16) for w in field.weights))
+    hold3(f"{tag} fitted bf16", "nominal", host.model, params, host.cfg,
+          start, bf16, eps)
+    out.update({f"bf16 {k}": v for k, v in drives(
+        f"{tag} fitted bf16", {"host-noise": (host, {n3: 1, **chain}, None)},
+        bf16, params, BF16_TICKS).items()})
+    out["fit_s"] = fit_s
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5532,6 +5922,19 @@ def main() -> int:
                                 spec["specs"][SPEC_LAYERS[0]],
                                 spec_field["specs"][SPEC_LAYERS[0]], field)
 
+    # -- phase 30: kernels 3 and 4 on fields of other specs ---------------
+    # phase 1 for the field libraries, built meanwhile
+    t_wait = time.perf_counter()
+    for layers, fspec in FIELD_PAIRS:
+        field_lib, field_s = builds.get(layers, fspec)
+        print(f"[build {_build.field_label(fspec)}] "
+              f"{_build.library_path(layers, fspec).name}: "
+              + (f"nvcc {field_lib.build[0]:.1f}s" if field_lib.build
+                 else "already built") + f", {field_s:.1f}s, waited "
+              f"{time.perf_counter() - t_wait:.1f}s at phase 30 ({card})")
+        field_library_instances(rk, layers, fspec, field_lib, card)
+    field_specs = field_spec_phase(drive_oval, rk, card)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -5550,7 +5953,7 @@ def main() -> int:
         ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + [
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
-        baseline3["rows"])
+        baseline3["rows"]) + field_specs["rows"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5616,6 +6019,7 @@ def main() -> int:
                       "ensemble": ensemble["results"],
                       "sharded": sharded["results"],
                       "baseline3": baseline3["results"],
+                      "field_specs": field_specs["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -5641,7 +6045,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-29 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-30 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -65,19 +65,20 @@ def _label(spec):
 
 
 @functools.cache
-def field_arrays(spec, seed=FIELD_SEED):
-    """A 34-64-64-1 field (F=8) over a 10 m x 10 m map around the start:
-    He-normal weights and small biases from ``seed``, the output layer
-    rescaled to a standard deviation of 0.25 over the map and shifted so
-    that the 0.65 crash boundary lies at the median of the highest value
-    that each rollout of ``spec``'s wide-noise case meets (its plain
-    chain): about half of those rollouts crash, at different steps."""
+def field_arrays(spec, seed=FIELD_SEED, fspec=(F,) + HIDDEN):
+    """A field of the spec ``fspec`` (F and the hidden widths; 34-64-64-1,
+    F=8, by default) over a 10 m x 10 m map around the start: He-normal
+    weights and small biases from ``seed``, the output layer rescaled to a
+    standard deviation of 0.25 over the map and shifted so that the 0.65
+    crash boundary lies at the median of the highest value that each
+    rollout of ``spec``'s wide-noise case meets (its plain chain): about
+    half of those rollouts crash, at different steps."""
     rs = np.random.default_rng(seed)
-    layers = (2 + 4 * F,) + HIDDEN + (1,)
+    layers = rk.field_layers(fspec)
     W = [(np.sqrt(2.0 / a) * rs.standard_normal((a, b))).astype(np.float32)
          for a, b in zip(layers[:-1], layers[1:])]
     B = [(0.1 * rs.standard_normal(b)).astype(np.float32) for b in layers[1:]]
-    freqs = ((2.0 ** np.arange(F)) * np.pi).astype(np.float32)
+    freqs = ((2.0 ** np.arange(fspec[0])) * np.pi).astype(np.float32)
     r_c1 = np.array([1 / (XB[1] - XB[0]), 0, 0], np.float32)
     r_c2 = np.array([0, 1 / (YB[1] - YB[0]), 0], np.float32)
     trs = np.array([-XB[0] / (XB[1] - XB[0]), -YB[0] / (YB[1] - YB[0]), 1],
@@ -105,12 +106,13 @@ def field_arrays(spec, seed=FIELD_SEED):
                 r_c2=r_c2, trs=trs)
 
 
-def fields(spec, seed=FIELD_SEED):
-    """(port field on the CPU, JAX field) with the same arrays, the
-    boundary placed for ``spec`` (``field_arrays``)."""
+def fields(spec, seed=FIELD_SEED, fspec=(F,) + HIDDEN):
+    """(port field on the CPU, JAX field) with the same arrays, of the
+    field spec ``fspec``, the boundary placed for ``spec``
+    (``field_arrays``)."""
     jf = JaxField(**{k: (tuple(jnp.asarray(a) for a in v)
                          if isinstance(v, tuple) else jnp.asarray(v))
-                     for k, v in field_arrays(spec, seed).items()})
+                     for k, v in field_arrays(spec, seed, fspec).items()})
     return (NeuralCostmap.from_jax(jax.tree_util.tree_map(np.asarray, jf),
                                    device="cpu"), jf)
 
@@ -266,7 +268,10 @@ def test_field_layout_matches_the_source():
     src = _build.SOURCE.read_text()
     assert re.search(r"constexpr int kSpecFieldBlock = (\d+);",
                      src).group(1) == str(rk.SPEC_FIELD_BLOCK)
-    assert "constexpr int kTileStride = 44;" in src
+    # the tile's row stride: the first layer's K1 columns and 4 (44 for
+    # the default field)
+    assert "static constexpr int kTileStride = kK1 + 4;" in src
+    assert rk.field_tile_floats(rk.FIELD_KERNEL_SPEC) == 64 * 44 + 64
     assert "return (Deriv::kNumWeights + 3) / 4 * 4;" in src
     assert "(232448 / 4 - field_weight_floats<MlpDeriv>() - kFieldPack" in src
     assert rk.SMEM_FLOATS == 232448 // 4
@@ -283,14 +288,16 @@ def test_field_layout_matches_the_source():
 
 
 @pytest.mark.parametrize("name", list(field_variants.VARIANTS)
-                         + list(field_variants.SPEC_BLOCK_VARIANTS))
+                         + list(field_variants.SPEC_BLOCK_VARIANTS)
+                         + list(field_variants.FIELD_BLOCK_VARIANTS))
 def test_field_variants_edit_the_source_as_it_is(name):
     """``tools/field_variants.py`` builds each variant by replacing text of
     the source: every text it replaces is there, once (the tool raises on
     a missing one, on the card, after its builds started)."""
     src = _build.SOURCE.read_text()
     edits = {**field_variants.VARIANTS,
-             **field_variants.SPEC_BLOCK_VARIANTS}[name]
+             **field_variants.SPEC_BLOCK_VARIANTS,
+             **field_variants.FIELD_BLOCK_VARIANTS}[name]
     for old, new in edits:
         assert src.count(old) == 1, old
         assert old != new

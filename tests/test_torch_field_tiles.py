@@ -21,7 +21,9 @@ kernels run only on a GPU; here:
     10x: the reason for the split.
 
 The emulation is for these tests only; the port's plain versions evaluate
-the field in float32 through ``lookup_ch0``."""
+the field in float32 through ``lookup_ch0``.  Its helpers take the field's
+spec (F and the hidden widths; ``tests/test_torch_field_tile_specs.py``
+runs them at other specs)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,7 @@ from autorally_tpu_torch.ops import rollout_kernel as rk
 F = 8
 LAYERS = (2 + 4 * F, 64, 64, 1)
 K1 = 40                                   # features padded to 5 k-steps
+FSPEC = (F, 64, 64)
 XB, YB = (20.0, 30.0), (-5.0, 5.0)
 # 3xTF32 against float32 on field values of order 1 (largest |value| over
 # these points 4.6): calibrated on the CPU, max 3-pass error 1.5e-6
@@ -43,14 +46,15 @@ XB, YB = (20.0, 30.0), (-5.0, 5.0)
 TILE_ATOL = 1e-5
 
 
-def _arrays(seed=11):
-    """He-normal weights and small biases of the kernels' spec from a numpy
-    seed, over a 10 m x 10 m map."""
+def _arrays(seed=11, fspec=FSPEC):
+    """He-normal weights and small biases of the field spec ``fspec`` (F
+    and the hidden widths) from a numpy seed, over a 10 m x 10 m map."""
     rs = np.random.default_rng(seed)
+    layers = rk.field_layers(fspec)
     W = [(np.sqrt(2.0 / a) * rs.standard_normal((a, b))).astype(np.float32)
-         for a, b in zip(LAYERS[:-1], LAYERS[1:])]
-    B = [(0.1 * rs.standard_normal(b)).astype(np.float32) for b in LAYERS[1:]]
-    freqs = ((2.0 ** np.arange(F)) * np.pi).astype(np.float32)
+         for a, b in zip(layers[:-1], layers[1:])]
+    B = [(0.1 * rs.standard_normal(b)).astype(np.float32) for b in layers[1:]]
+    freqs = ((2.0 ** np.arange(fspec[0])) * np.pi).astype(np.float32)
     r_c1 = np.array([1 / (XB[1] - XB[0]), 0, 0], np.float32)
     r_c2 = np.array([0, 1 / (YB[1] - YB[0]), 0], np.float32)
     trs = np.array([-XB[0] / (XB[1] - XB[0]), -YB[0] / (YB[1] - YB[0]), 1],
@@ -78,43 +82,56 @@ def fields():
     return field, jfield, rk._pack_field(field)
 
 
-def _tile_order():
+def _tile_order(fspec=FSPEC):
     """The tile's feature columns: [u, v, 0, 0, then per frequency sin uF,
-    sin vF, cos uF, cos vF, then 0 x 4] as indices of the features
-    [u, v, sin uF, sin vF, cos uF, cos vF] (-1: a zero column)."""
+    sin vF, cos uF, cos vF, then zeros up to K1 (the columns rounded up to
+    a multiple of 8)] as indices of the features [u, v, sin uF, sin vF,
+    cos uF, cos vF] (-1: a zero column)."""
+    f = fspec[0]
     order = [0, 1, -1, -1]
-    for n in range(F):
-        order += [2 + n, 2 + F + n, 2 + 2 * F + n, 2 + 3 * F + n]
-    return order + [-1] * (K1 - len(order))
+    for n in range(f):
+        order += [2 + n, 2 + f + n, 2 + 2 * f + n, 2 + 3 * f + n]
+    return order + [-1] * (-len(order) % 8)
 
 
-def _read_packed(packed: torch.Tensor) -> dict:
-    """Read the packed buffer as the kernel does: lane (g, t)'s float4 of
-    k-step ks and n-tile nt is {b0 hi, b1 hi, b0 lo, b1 lo}; layer 1's b0
-    and b1 are rows 8 ks + t and 8 ks + t + 4 of W0 (tile order), column
-    8 nt + g; layer 2's rows 8 ks + 2t and 8 ks + 2t + 1 of W1."""
+def _read_packed(packed: torch.Tensor, fspec=FSPEC) -> dict:
+    """Read the packed buffer as the kernel does, for the field spec
+    ``fspec``: lane (g, t)'s float4 of k-step ks and n-tile nt is {b0 hi,
+    b1 hi, b0 lo, b1 lo}; the first layer's b0 and b1 are rows 8 ks + t
+    and 8 ks + t + 4 of W0 (tile order), column 8 nt + g; each next
+    layer's rows 8 ks + 2t and 8 ks + 2t + 1 of its W.  Every hidden width
+    is read padded to a multiple of 8 (n-tiles), as the fragments hold it.
+    Returns "W0", "W1", ... as (hi, lo), "b0", "b1", ... (padded), "Wout"
+    (padded; the tile's order without a hidden layer), "bout", "freqs" and
+    the zero "pad"."""
     p = packed.numpy()
-    n1, n2 = K1 // 8 * 8 * 32 * 4, 8 * 8 * 32 * 4
-    out = {}
-    for name, frags, kin, permuted in (
-            ("W0", p[:n1].reshape(K1 // 8, 8, 32, 4), K1, False),
-            ("W1", p[n1:n1 + n2].reshape(8, 8, 32, 4), 64, True)):
-        hi = np.full((kin, 64), np.nan, np.float32)
-        lo = np.full((kin, 64), np.nan, np.float32)
+    hidden = list(fspec[1:])
+    widths = [-(-h // 8) * 8 for h in hidden]
+    kins = [len(_tile_order(fspec))] + widths[:-1]
+    out, at = {}, 0
+    for i, (kin, w) in enumerate(zip(kins, widths)):
+        n = kin * w * 2          # (kin / 8) (w / 8) fragments of 32 x 4
+        frags = p[at:at + n].reshape(kin // 8, w // 8, 32, 4)
+        at += n
+        hi = np.full((kin, w), np.nan, np.float32)
+        lo = np.full((kin, w), np.nan, np.float32)
         for ks in range(kin // 8):
-            for nt in range(8):
+            for nt in range(w // 8):
                 for lane in range(32):
                     g, t = lane // 4, lane % 4
-                    r0 = 8 * ks + (2 * t if permuted else t)
-                    r1 = r0 + (1 if permuted else 4)
+                    r0 = 8 * ks + (2 * t if i > 0 else t)
+                    r1 = r0 + (1 if i > 0 else 4)
                     c = 8 * nt + g
                     f = frags[ks, nt, lane]
                     hi[r0, c], hi[r1, c], lo[r0, c], lo[r1, c] = f
-        out[name] = (hi, lo)
-    tail = p[n1 + n2:]
-    out.update(b0=tail[:64], b1=tail[64:128], W2=tail[128:192],
-               b2=tail[192:193], freqs=tail[193:193 + F],
-               pad=tail[193 + F:])
+        out[f"W{i}"] = (hi, lo)
+    for i, w in enumerate(widths):
+        out[f"b{i}"] = p[at:at + w]
+        at += w
+    n_out = widths[-1] if widths else len(_tile_order(fspec))
+    out.update(Wout=p[at:at + n_out], bout=p[at + n_out:at + n_out + 1],
+               freqs=p[at + n_out + 1:at + n_out + 1 + fspec[0]],
+               pad=p[at + n_out + 1 + fspec[0]:])
     return out
 
 
@@ -155,8 +172,9 @@ def test_packed_tail_is_float32_biases_output_layer_and_freqs(fields):
     field, _, packed = fields
     r = _read_packed(packed)
     (_, _, W2), (b0, b1, b2) = field.weights, field.biases
-    for got, want in ((r["b0"], b0), (r["b1"], b1), (r["W2"], W2.reshape(-1)),
-                      (r["b2"], b2), (r["freqs"], field.freqs)):
+    for got, want in ((r["b0"], b0), (r["b1"], b1),
+                      (r["Wout"], W2.reshape(-1)), (r["bout"], b2),
+                      (r["freqs"], field.freqs)):
         np.testing.assert_array_equal(got, want.numpy())
     np.testing.assert_array_equal(r["pad"], 0.0)
     assert (r["pad"].size + 201) % 4 == 0
@@ -183,17 +201,18 @@ def _points(n=100_000, seed=12):
 
 
 def _tile_eval(field: NeuralCostmap, packed: torch.Tensor, x, y,
-               passes: int) -> np.ndarray:
+               passes: int, fspec=FSPEC) -> np.ndarray:
     """The warp's tile evaluation: the lanes' features in the tile's order,
     each hidden layer from the bias plus lo_a hi_b + hi_a lo_b + hi_a hi_b
     (``passes`` 3) or hi_a hi_b alone (1), TF32 products exact in float32,
-    sums in float32, ReLU; the output layer in float32."""
-    r = _read_packed(packed)
+    sums in float32, ReLU; the output layer in float32 (without a hidden
+    layer, the output alone, in float32)."""
+    r = _read_packed(packed, fspec)
     u, v = field.world_to_norm(torch.tensor(x), torch.tensor(y))
     u = torch.where(torch.isnan(u), 0.0, torch.clamp(u, 0.0, 1.0))
     v = torch.where(torch.isnan(v), 0.0, torch.clamp(v, 0.0, 1.0))
     feats = field._features(u, v).numpy()
-    order = np.array(_tile_order())
+    order = np.array(_tile_order(fspec))
     tile = np.where(order >= 0, feats[:, np.maximum(order, 0)],
                     np.float32(0)).astype(np.float32)
 
@@ -207,10 +226,11 @@ def _tile_eval(field: NeuralCostmap, packed: torch.Tensor, x, y,
                 ah, bh)
         return torch.relu(acc).numpy()
 
-    h1 = layer(tile, r["W0"], r["b0"])
-    h2 = layer(h1, r["W1"], r["b1"])
-    return (torch.from_numpy(h2) @ torch.from_numpy(r["W2"][:, None])
-            ).numpy()[:, 0] + r["b2"][0]
+    h = tile
+    for i in range(len(fspec) - 1):
+        h = layer(h, r[f"W{i}"], r[f"b{i}"])
+    return (torch.from_numpy(h) @ torch.from_numpy(r["Wout"][:, None])
+            ).numpy()[:, 0] + r["bout"][0]
 
 
 @pytest.mark.parametrize("passes", [3, 1])

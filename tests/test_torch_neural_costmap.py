@@ -151,19 +151,35 @@ def test_lookup_ch0_matches_jax_on_random_off_map_and_nan_points():
 
 
 def test_from_jax_carries_float32_fields_only():
+    """float32 and bfloat16 fields cross bit for bit (a bf16 field keeps
+    its dtype); weights of another dtype raise."""
     field, jfield = _fields()
     assert field.layers == (2 + 4 * F,) + HIDDEN + (1,)
     assert field.device == torch.device("cpu")
+    assert field.dtype == torch.float32
     for w, jw in zip(field.weights, jfield.weights):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
     assert field.transform == tuple(float(v) for c in (
         jfield.r_c1, jfield.r_c2, jfield.trs) for v in np.asarray(c))
-    bf16 = jax.tree_util.tree_map(np.asarray, jfield)
-    bf16 = JaxField(tuple(w.astype(ml_dtypes.bfloat16) for w in bf16.weights),
-                    *(getattr(bf16, n) for n in ("biases", "freqs", "r_c1",
-                                                 "r_c2", "trs")))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        NeuralCostmap.from_jax(bf16, device="cpu")
+    host = jax.tree_util.tree_map(np.asarray, jfield)
+    rest = [getattr(host, n) for n in ("biases", "freqs", "r_c1", "r_c2",
+                                       "trs")]
+    bf16 = JaxField(tuple(w.astype(ml_dtypes.bfloat16)
+                          for w in host.weights), *rest)
+    got = NeuralCostmap.from_jax(bf16, device="cpu")
+    assert got.dtype == torch.bfloat16 and got.layers == field.layers
+    for w, jw in zip(got.weights, bf16.weights):
+        assert w.dtype == torch.bfloat16
+        np.testing.assert_array_equal(w.view(torch.int16).numpy(),
+                                      np.asarray(jw).view(np.int16))
+    for b, jb in zip(got.biases, host.biases):
+        assert b.dtype == torch.float32
+        np.testing.assert_array_equal(b.numpy(), jb)
+    assert got.to_float32().dtype == torch.float32
+    assert field.to_float32() is field
+    f16 = JaxField(tuple(w.astype(np.float16) for w in host.weights), *rest)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        NeuralCostmap.from_jax(f16, device="cpu")
 
 
 @pytest.fixture(scope="module")
@@ -374,13 +390,14 @@ def test_pack_field_follows_the_kernel_layout_and_is_reused():
     assert rk._pack_field(field) is not packed
     src = (Path(rk.__file__).parent.parent / "csrc"
            / "rollout_kernels.cu").read_text()
-    consts = dict(re.findall(
-        r"\b(kFreqs|kFieldH1|kFieldH2|kFieldK1|kFieldBlock|kMaxFieldT) = "
-        r"(\d+)", src))
-    assert consts == {"kFreqs": "8", "kFieldH1": "64", "kFieldH2": "64",
-                      "kFieldK1": str(rk.FIELD_TILE_K),
-                      "kFieldBlock": str(rk.FIELD_BLOCK),
+    consts = dict(re.findall(r"\b(kFieldBlock|kMaxFieldT) = (\d+)", src))
+    assert consts == {"kFieldBlock": str(rk.FIELD_BLOCK),
                       "kMaxFieldT": str(rk.MAX_FIELD_KERNEL_T)}
+    # the default field spec (F, hidden widths) and its first layer's tile
+    assert re.search(r"#define ARTT_FIELD_SPEC ([\d, ]+)\n", src).group(1) \
+        == ", ".join(map(str, rk.FIELD_KERNEL_SPEC))
+    assert "kK1 = (4 + 4 * F + 7) / 8 * 8;" in src
+    assert rk.field_tile_k(rk.FIELD_KERNEL_SPEC) == rk.FIELD_TILE_K == 40
 
 
 def test_launch_scalars_take_the_fields_transform_and_no_map_size():
@@ -395,7 +412,15 @@ def test_launch_scalars_take_the_fields_transform_and_no_map_size():
     assert (i["H"], i["W"]) == (0, 0)
 
 
-def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs():
+def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
+        monkeypatch):
+    """CPU tensors run the plain versions; a tensor on no CUDA device, the
+    wrong surface, circles without obstacle terms, a horizon over 2048 and
+    a field whose pack leaves no room beside an MLP spec's tiles are
+    refused.  A field of another spec than the default library's asks for
+    its own library (``_build.load(layers, field)``, which records the
+    request and raises here: nothing is built, nothing runs the plain
+    version instead); the no-room pair raises before any build."""
     solver, params, *_ = _pair(kernel_rng=True)
     field, _ = _fields()
     state, U, eps = (torch.tensor(a) for a in _inputs())
@@ -413,13 +438,45 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs():
         run(rk.fused_rollout_cost, cm)
     with pytest.raises(TypeError, match="takes a Costmap"):
         run(rk.fused_exact_rollout_cost, field)
-    # the small test field is not the compiled spec: refused before any
-    # build or launch, never run by the plain version instead
-    with pytest.raises(NotImplementedError, match="other field specs"):
+    # the small test field (F=4, hidden (16, 16)) asks for the library of
+    # its spec beside the MLP's, both kernels
+    asked = []
+
+    def load(layers=None, field=None):
+        asked.append((layers, field))
+        raise LookupError("no build here")
+
+    monkeypatch.setattr(rk._build, "load", load)
+    rk._kernel_lib.cache_clear()
+    with pytest.raises(LookupError):
         run(rk.prepare_fused_rollout_cost, field)
-    with pytest.raises(NotImplementedError, match="other field specs"):
+    with pytest.raises(LookupError):
         rk.prepare_fused_rng_costs(solver.model, params, solver.cfg,
                                    CostParams(), field, state, U, KEY)
+    assert asked == [(rk.KERNEL_LAYERS, (F,) + HIDDEN)] * 2
+    # 34-128-128-1 beside an 8-warp spec library: no room for U, refused
+    # before any build, naming its bytes and the ROADMAP item
+    wide = NeuralCostmap.build(
+        [np.zeros((34, 128), np.float32), np.zeros((128, 128), np.float32),
+         np.zeros((128, 1), np.float32)],
+        [np.zeros(128, np.float32), np.zeros(128, np.float32),
+         np.zeros(1, np.float32)], (2.0 ** np.arange(8)) * np.pi,
+        *(np.asarray(c) for c in (field.r_c1, field.r_c2, field.trs)),
+        device="cpu")
+    narrow = NeuralNetDynamics(solver.cfg.dt, layers=(6, 24, 4),
+                               control_ranges=solver.cfg.control_ranges,
+                               device="cpu")
+    nparams = narrow.init_params(0)
+    for prepare in (lambda: rk.prepare_fused_rollout_cost(
+            narrow, nparams, solver.cfg, CostParams(), wide, state, U, eps),
+                    lambda: rk.prepare_fused_rng_costs(
+            narrow, nparams, solver.cfg, CostParams(), wide, state, U,
+            KEY)):
+        with pytest.raises(NotImplementedError,
+                           match=r"need \d+ bytes .*Queue 2 A6"):
+            prepare()
+    assert len(asked) == 2
+    rk._kernel_lib.cache_clear()
     with pytest.raises(NotImplementedError, match="obstacle"):
         rk.fused_rng_costs(solver.model, params, solver.cfg,
                            CostParams(obstacles=np.zeros((1, 3))), field,
