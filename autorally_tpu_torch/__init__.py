@@ -7,8 +7,12 @@ versions of them for the CPU.  It imports neither ``jax`` nor
 ``autorally_tpu``.  Entry points run on ``cuda`` unless given
 ``device="cpu"``.
 
-Math is fp32 throughout: TF32 is switched off for matmuls and cuDNN, as the
-JAX package's default ``matmul_precision="highest"`` requires.
+Math is fp32 throughout, with TF32 switched off for matmuls and cuDNN, as
+the JAX package's default ``matmul_precision="highest"`` requires (and
+``"high"``, which its kernels round up to it), but where
+``matmul_precision="default"`` asks for the MXU's one bf16 pass in the
+rollouts' dynamics: those products take bf16 operands and float32 sums
+(``ops/rollout_kernel.py``).
 """
 
 import torch

@@ -72,6 +72,25 @@ class CostParams:
         return dataclasses.replace(self, **kw)
 
 
+# ``MPPIConfig.matmul_precision``'s names, as the JAX package's kernels
+# take them (``PRECISIONS`` and ``_prec``), and whether each gives the
+# dynamics' products bf16 operands: "highest" and "high" multiply in
+# float32 (the JAX kernels round "high" up to HIGHEST, the only other
+# precision a TPU kernel lowers), "default" is one bf16 pass of the MXU:
+# both operands rounded to bf16, the products summed in float32.
+MATMUL_PRECISIONS = {"highest": False, "high": False, "default": True}
+
+
+def bf16_operands(precision: str) -> bool:
+    """Whether ``matmul_precision`` ``precision`` gives the dynamics'
+    products bf16 operands (``MATMUL_PRECISIONS``); raises ``ValueError``
+    for a name the JAX package does not take."""
+    if precision not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision must be one of "
+                         f"{tuple(MATMUL_PRECISIONS)}, got {precision!r}")
+    return MATMUL_PRECISIONS[precision]
+
+
 def effective_gamma(cfg: "MPPIConfig", cost_params: CostParams):
     """The softmax temperature a solve should use: ``CostParams.gamma``
     when set, else the static config's."""
@@ -112,7 +131,7 @@ class MPPIConfig:
     noise_param: float = 1.0
     kernel_rng: bool = False
     exact_fused: bool = True
-    matmul_precision: str = "highest"
+    matmul_precision: str = "highest"  # MATMUL_PRECISIONS
 
     @property
     def dt(self) -> float:

@@ -12,7 +12,8 @@ per-output loss weights [1, 1, 1, 0.5].  The optimizers are
 ``optax.adam`` / ``optax.adamw`` (eps outside the square root, bias
 correction, decoupled decay).  The batches are the JAX package's
 (``DynamicsDataset.batches`` draws them with numpy), the products float32
-without TF32 (``matmul_precision="highest"``).
+without TF32 at every ``MPPIConfig.matmul_precision``: that knob reaches
+only the solver's rollout kernels, and the JAX trainer takes none.
 """
 
 from __future__ import annotations

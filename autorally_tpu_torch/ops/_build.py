@@ -19,7 +19,11 @@ gets a library of its own for each MLP spec it runs beside
 (``load(layers, field)``), built with the field's spec as a define too,
 which holds only the field kernels (kernel 3 and pass 1's field mode, the
 BF model's instances beside the default MLP spec), as the JAX kernels
-compile per field spec.  The check and the build run under an
+compile per field spec.  ``matmul_precision="default"`` (bf16 operands in
+the dynamics' products) takes a library of its own for each of these
+(``load(layers, field, bf16=True)``), built with ``ARTT_BF16_OPERANDS``
+defined too, which holds the same instances but pass 2 and the quotient
+check, which evaluate no model.  The check and the build run under an
 exclusive lock on a file beside the library, so that processes that start
 together (the ranks of a sharded solve) run ``nvcc`` once and the others
 load its library.  Nothing is built when the module is imported, so the
@@ -90,7 +94,12 @@ SIGNATURES = {
     "artt_lane_groups": [],
     # bf, lane group, block, T, device, out (4 ints)
     "artt_chain_kernel_info": [_I] * 5 + [_P],
+    "artt_bf16_operands": [],
 }
+# What only the float32 library of the default specs holds: pass 2 and the
+# quotient check, which evaluate no model.
+FP32_ONLY_FUNCTIONS = ("artt_weighted_update", "artt_update_block",
+                       "artt_const_divisors", "artt_div_const_check")
 # What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
 # kernels 1-4 and the queries of their layouts and instances.
 SPEC_FUNCTIONS = (
@@ -102,7 +111,7 @@ SPEC_FUNCTIONS = (
     "artt_dynamics_chain", "artt_fused_field_rollout_cost",
     "artt_fused_rng_costs", "artt_fused_rng_field_costs",
     "artt_exact_kernel_info", "artt_chain_kernel_info",
-    "artt_field_kernel_info", "artt_field_spec")
+    "artt_field_kernel_info", "artt_field_spec", "artt_bf16_operands")
 # What a library of another field holds (-DARTT_FIELD_LIBRARY): the field
 # kernels and the queries of their layouts and instances.
 FIELD_FUNCTIONS = (
@@ -110,10 +119,10 @@ FIELD_FUNCTIONS = (
     "artt_num_int_scalars", "artt_mlp_layers", "artt_field_spec",
     "artt_field_pack_floats", "artt_field_block", "artt_max_field_t",
     "artt_fused_field_rollout_cost", "artt_fused_rng_field_costs",
-    "artt_field_kernel_info")
+    "artt_field_kernel_info", "artt_bf16_operands")
 
 _lib = None                   # the default library
-_spec_libs = {}               # (layers, field) -> the library of that pair
+_spec_libs = {}               # (layers, field, bf16) -> that library
 _load_lock = threading.Lock()
 
 
@@ -155,12 +164,13 @@ def field_label(field: Sequence[int]) -> str:
 
 
 def spec_defines(layers: Optional[Sequence[int]] = None,
-                 field: Optional[Sequence[int]] = None) -> str:
-    """The defines of the library of ``layers`` and ``field``: none for the
-    default library (None or ``DEFAULT_LAYERS``, None or
-    ``DEFAULT_FIELD``)."""
+                 field: Optional[Sequence[int]] = None,
+                 bf16: bool = False) -> str:
+    """The defines of the library of ``layers`` and ``field``, of bf16
+    operands when ``bf16``: none for the default library (None or
+    ``DEFAULT_LAYERS``, None or ``DEFAULT_FIELD``, float32)."""
     spec, fspec = _spec(layers), _field(field)
-    out = ""
+    out = "#define ARTT_BF16_OPERANDS\n" if bf16 else ""
     if spec is not None:
         hidden = ", ".join(str(n) for n in spec[1:-1])
         out += f"#define ARTT_MLP_HIDDEN {hidden}\n#define ARTT_SPEC_LIBRARY\n"
@@ -171,18 +181,22 @@ def spec_defines(layers: Optional[Sequence[int]] = None,
 
 
 def library_path(layers: Optional[Sequence[int]] = None,
-                 field: Optional[Sequence[int]] = None) -> Path:
-    """Where the library of ``layers`` and ``field`` is built, named by a
-    hash of the source, the flags and the specs' defines."""
+                 field: Optional[Sequence[int]] = None,
+                 bf16: bool = False) -> Path:
+    """Where the library of ``layers`` and ``field`` (of bf16 operands when
+    ``bf16``) is built, named by a hash of the source, the flags and the
+    defines."""
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()
-                            + spec_defines(layers, field).encode()
+                            + spec_defines(layers, field, bf16).encode()
                             ).hexdigest()
     spec, fspec = _spec(layers), _field(field)
     name = SOURCE.stem + ("" if spec is None else
                           "_mlp" + "-".join(str(n) for n in spec))
     if fspec is not None:
         name += "_field" + field_label(fspec)
+    if bf16:
+        name += "_bf16"
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
@@ -234,25 +248,33 @@ def _compile(out: Path, defines: str) -> tuple:
 
 
 def functions(layers: Optional[Sequence[int]] = None,
-              field: Optional[Sequence[int]] = None) -> Sequence[str]:
-    """The C functions the library of ``layers`` and ``field`` holds."""
+              field: Optional[Sequence[int]] = None,
+              bf16: bool = False) -> Sequence[str]:
+    """The C functions the library of ``layers`` and ``field`` (of bf16
+    operands when ``bf16``) holds."""
     if _field(field) is not None:
         return FIELD_FUNCTIONS
-    return SIGNATURES if _spec(layers) is None else SPEC_FUNCTIONS
+    if _spec(layers) is not None:
+        return SPEC_FUNCTIONS
+    return tuple(fn for fn in SIGNATURES
+                 if not (bf16 and fn in FP32_ONLY_FUNCTIONS))
 
 
 def load(layers: Optional[Sequence[int]] = None,
-         field: Optional[Sequence[int]] = None) -> ctypes.CDLL:
+         field: Optional[Sequence[int]] = None,
+         bf16: bool = False) -> ctypes.CDLL:
     """The kernel library of the MLP spec ``layers`` and the field spec
     ``field`` (the default library for None or ``DEFAULT_LAYERS`` and None
-    or ``DEFAULT_FIELD``), compiled first when its ``.so`` is missing
+    or ``DEFAULT_FIELD``), of bf16 operands in the dynamics' products when
+    ``bf16`` (``matmul_precision="default"``; else float32), compiled
+    first when its ``.so`` is missing
     (raises with the compiler's output if that fails).  The library's
     ``build`` attribute is ``(seconds, compiler output)`` of a compile made
     by this process, else None.  Threads may load different specs at once
     (each ``nvcc`` runs in its own process)."""
     global _lib
-    key = (_spec(layers), _field(field))
-    lib = _lib if key == (None, None) else _spec_libs.get(key)
+    key = (_spec(layers), _field(field), bool(bf16))
+    lib = _lib if key == (None, None, False) else _spec_libs.get(key)
     if lib is not None:
         return lib
     out = library_path(*key)
@@ -266,7 +288,7 @@ def load(layers: Optional[Sequence[int]] = None,
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = build
     with _load_lock:
-        if key == (None, None):
+        if key == (None, None, False):
             _lib = lib
         else:
             _spec_libs[key] = lib

@@ -51,6 +51,19 @@ constants without the division's slow path (:func:`const_quotient_check`
 holds them against IEEE division on the card) and draws the stream a step
 ahead, with the bits of the MLP's design.
 
+``matmul_precision`` reaches every kernel that evaluates the dynamics, as
+the JAX kernels take ``precision``: each wrapper of kernels 1-4, its
+``prepare_*`` and its plain version take it, ``cfg.matmul_precision``
+when it is None (the default).  ``"highest"`` and ``"high"`` (which the JAX
+kernels round up to HIGHEST) run the float32 instances; ``"default"``, the
+MXU's one bf16 pass, runs instances of their own from libraries built with
+bf16 operands (``_build.load(..., bf16=True)``): each product's operands
+rounded to bf16, the products summed in float32 (:func:`kernel_dynamics`
+is their plain form).  Kernel 3's MLP rounds only layer 0's state inputs
+and their weights, as the JAX ``_fused_kernel`` splits layer 0; the biases
+stay float32, and the nominal trajectory (kernel 2 at K = 1), pass 2 and
+the neural field's own products are float32 at every precision.
+
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
@@ -59,7 +72,8 @@ without obstacles, with ``_bf``, ``_obstacles`` or ``_bf_obstacles`` for
 the others (``fused_rng_costs_field*`` for pass 1's field mode) and the
 MLP's spec for another spec than ``KERNEL_LAYERS`` (e.g.
 ``fused_exact_rollout_cost_6-64-64-64-64-4``), then the field's label for
-another field spec (``fused_rollout_cost_F6-48-48``).  Layouts
+another field spec (``fused_rollout_cost_F6-48-48``), then ``_default``
+for the bf16-operand instances.  Layouts
 are those of the JAX package's public functions: eps (T, K, C) in, u_seq
 (C, T, K), states (S, T, K), costs and crash (K,) out, the capacity mode's
 numerator (C, T).
@@ -75,12 +89,13 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from autorally_tpu_torch.config import effective_gamma
+from autorally_tpu_torch.config import bf16_operands, effective_gamma
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
 from autorally_tpu_torch.costs.obstacles import obstacle_terms
-from autorally_tpu_torch.models.basis_function import NUM_BFS
+from autorally_tpu_torch.models.basis_function import (NUM_BFS,
+                                                       car_basis_functions)
 from autorally_tpu_torch.ops import _build
 from autorally_tpu_torch.ops.kernel_rng import kernel_noise
 from autorally_tpu_torch.ops.sampling import ou_coefficients
@@ -358,23 +373,26 @@ def _read_ints(fn) -> tuple:
 
 @functools.cache
 def _kernel_lib(layers: tuple = KERNEL_LAYERS,
-                field: Optional[tuple] = None) -> ctypes.CDLL:
+                field: Optional[tuple] = None,
+                bf16: bool = False) -> ctypes.CDLL:
     """The kernel library of the MLP spec ``layers`` (the default one for
     ``KERNEL_LAYERS``), or with a field spec ``field`` (not
     ``FIELD_KERNEL_SPEC``) the library of that pair, which holds only the
-    field kernels; checked once against the layouts this module packs."""
+    field kernels; of bf16 operands when ``bf16``; checked once against
+    the layouts this module packs."""
     fspec = FIELD_KERNEL_SPEC if field is None else field
-    lib = _build.load(layers) if field is None else _build.load(layers,
-                                                               field)
+    kw = {"bf16": True} if bf16 else {}
+    lib = (_build.load(layers, **kw) if field is None
+           else _build.load(layers, field, **kw))
     built = (_read_ints(lib.artt_mlp_layers), _read_ints(lib.artt_field_spec),
              lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
              lib.artt_num_weights(), lib.artt_max_obstacles(),
              lib.artt_field_pack_floats(), lib.artt_field_block(),
-             lib.artt_max_field_t())
+             lib.artt_max_field_t(), lib.artt_bf16_operands())
     want = (tuple(layers), tuple(fspec), len(_FLOAT_SCALARS),
             len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
             field_pack_floats(fspec), field_block(layers),
-            max_field_kernel_t(layers, fspec))
+            max_field_kernel_t(layers, fspec), int(bf16))
     if field is None:
         groups = lib.artt_lane_groups()
         built += (tuple(G for i, G in enumerate(LANE_GROUPS)
@@ -383,9 +401,11 @@ def _kernel_lib(layers: tuple = KERNEL_LAYERS,
         want += (lane_groups(layers), EXACT_BLOCK, GROUP_BLOCK,
                  CHAIN_WARP_BLOCK)
     if layers == KERNEL_LAYERS and field is None:
-        built += (lib.artt_num_bf_weights(), lib.artt_update_block(),
-                  lib.artt_max_t())
-        want += (KERNEL_BF_WEIGHTS, UPDATE_BLOCK, MAX_KERNEL_T)
+        built += (lib.artt_num_bf_weights(), lib.artt_max_t())
+        want += (KERNEL_BF_WEIGHTS, MAX_KERNEL_T)
+        if not bf16:                       # pass 2: the float32 library's
+            built += (lib.artt_update_block(),)
+            want += (UPDATE_BLOCK,)
     if built != want:
         raise RuntimeError(f"kernel library layout {built} does not match "
                            f"the wrapper's {want}")
@@ -396,29 +416,33 @@ def _kernel_lib(layers: tuple = KERNEL_LAYERS,
     return lib
 
 
-def _spec_lib(layers) -> ctypes.CDLL:
+def _spec_lib(layers, bf16: bool = False) -> ctypes.CDLL:
     """The library of the MLP spec ``layers`` (``_kernel_lib()`` for the
-    default spec)."""
+    default spec), of bf16 operands when ``bf16``."""
     layers = tuple(layers)
-    return _kernel_lib() if layers == KERNEL_LAYERS else _kernel_lib(layers)
+    if layers == KERNEL_LAYERS and not bf16:
+        return _kernel_lib()
+    return _kernel_lib(layers, None, bf16)
 
 
-def _field_lib(layers, fspec) -> ctypes.CDLL:
+def _field_lib(layers, fspec, bf16: bool = False) -> ctypes.CDLL:
     """The library that runs the field kernels of the MLP spec ``layers``
     on a field of spec ``fspec``: the MLP spec's own for the default field
-    (``_spec_lib``), else the pair's field library."""
+    (``_spec_lib``), else the pair's field library; of bf16 operands when
+    ``bf16``."""
     fspec = tuple(fspec)
     if fspec == FIELD_KERNEL_SPEC:
-        return _spec_lib(layers)
-    return _kernel_lib(tuple(layers), fspec)
+        return _spec_lib(layers, bf16)
+    return _kernel_lib(tuple(layers), fspec, bf16)
 
 
-def max_kernel_t(layers=KERNEL_LAYERS) -> int:
+def max_kernel_t(layers=KERNEL_LAYERS, bf16: bool = False) -> int:
     """The longest horizon kernels 1 and 2 take for the MLP spec
-    ``layers`` (csrc kMaxT: ``MAX_KERNEL_T`` for the default spec)."""
+    ``layers`` (csrc kMaxT: ``MAX_KERNEL_T`` for the default spec), asked
+    of the library of bf16 operands when ``bf16`` (the same horizon)."""
     if tuple(layers) == KERNEL_LAYERS:
         return MAX_KERNEL_T
-    return _spec_lib(layers).artt_max_t()
+    return _spec_lib(layers, bf16).artt_max_t()
 
 
 def field_block(layers=KERNEL_LAYERS) -> int:
@@ -474,15 +498,17 @@ def _check_field_room(layers, fspec, T: int) -> None:
 
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
                       device: int = 0, layers=KERNEL_LAYERS,
-                      field=FIELD_KERNEL_SPEC) -> dict:
+                      field=FIELD_KERNEL_SPEC,
+                      precision: str = "highest") -> dict:
     """What the CUDA runtime reports of a field kernel instance (pass 1's
     field mode when ``rng``, else kernel 3; the BF model when ``bf``) of
-    the library of the MLP spec ``layers`` and the field spec ``field``,
-    for a launch at ``T`` with ``n_obs`` circle slots: registers and
-    local-memory bytes a thread, dynamic shared memory bytes, resident
-    blocks an SM."""
+    the library of the MLP spec ``layers``, the field spec ``field`` and
+    ``precision``, for a launch at ``T`` with ``n_obs`` circle slots:
+    registers and local-memory bytes a thread, dynamic shared memory
+    bytes, resident blocks an SM."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_field_lib(layers, field).artt_field_kernel_info(
+    _check_launch(_field_lib(layers, field, bf16_operands(precision)
+                             ).artt_field_kernel_info(
         int(rng), int(bf), T, n_obs, device, out), "field_kernel_info")
     return dict(zip(("registers", "local_bytes", "smem_bytes",
                      "blocks_per_sm"), out))
@@ -605,25 +631,29 @@ def num_sms(index: int) -> int:
 
 def exact_kernel_info(rng: bool, bf: bool, geom: ExactGeometry, T: int,
                       n_obs: int = 0, device: int = 0,
-                      layers=KERNEL_LAYERS) -> dict:
+                      layers=KERNEL_LAYERS, precision: str = "highest") -> dict:
     """What the CUDA runtime reports of the instance of kernel 1 (pass 1
-    when ``rng``) that ``geom`` launches for the MLP spec ``layers``, for a
-    launch at ``T`` with ``n_obs`` circle slots: registers and local-memory
-    bytes a thread, dynamic shared memory bytes, resident blocks an SM, and
-    the launch's waves (its blocks over one wave's)."""
+    when ``rng``) that ``geom`` launches for the MLP spec ``layers`` at
+    ``precision``, for a launch at ``T`` with ``n_obs`` circle slots:
+    registers and local-memory bytes a thread, dynamic shared memory bytes,
+    resident blocks an SM, and the launch's waves (its blocks over one
+    wave's)."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_spec_lib(layers).artt_exact_kernel_info(
+    _check_launch(_spec_lib(layers, bf16_operands(precision)
+                            ).artt_exact_kernel_info(
         int(rng), int(bf), geom.group, geom.block, T, n_obs, device, out),
         "exact_kernel_info")
     return _info(out, geom, device)
 
 
 def chain_kernel_info(bf: bool, geom: ExactGeometry, T: int,
-                      device: int = 0, layers=KERNEL_LAYERS) -> dict:
+                      device: int = 0, layers=KERNEL_LAYERS,
+                      precision: str = "highest") -> dict:
     """:func:`exact_kernel_info` of the instance of kernel 2 that ``geom``
     launches."""
     out = (ctypes.c_int * 4)()
-    _check_launch(_spec_lib(layers).artt_chain_kernel_info(
+    _check_launch(_spec_lib(layers, bf16_operands(precision)
+                            ).artt_chain_kernel_info(
         int(bf), geom.group, geom.block, T, device, out),
         "chain_kernel_info")
     return _info(out, geom, device)
@@ -856,19 +886,20 @@ def _launch_counted(launch, K: int) -> None:
     LAUNCHES_BY_K[launch.name, K] += 1
 
 
-def _form(model, n_obs: int, fspec=None) -> str:
+def _form(model, n_obs: int, fspec=None, bf16: bool = False) -> str:
     """The suffix of a kernel instance's name: ``_bf`` for the BF model,
     the spec (``_6-64-64-64-64-4``) for an MLP of another spec than
     ``KERNEL_LAYERS``, the field's label (``_F6-48-48``) for a field of
     another spec than ``FIELD_KERNEL_SPEC``, ``_obstacles`` with circle
-    slots."""
+    slots, ``_default`` for the bf16-operand instances
+    (``matmul_precision="default"``)."""
     layers = kernel_layers(model)
     spec = ("" if layers == KERNEL_LAYERS
             else "_" + "-".join(str(n) for n in layers))
     field = ("" if fspec is None or tuple(fspec) == FIELD_KERNEL_SPEC
              else "_" + _build.field_label(fspec))
     return (("_bf" if _is_bf(model) else "") + spec + field
-            + ("_obstacles" if n_obs else ""))
+            + ("_obstacles" if n_obs else "") + ("_default" if bf16 else ""))
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -991,6 +1022,67 @@ def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
 
 
 # ---------------------------------------------------------------------------
+# the dynamics the kernels evaluate, at each matmul_precision
+# ---------------------------------------------------------------------------
+
+def _precision(cfg, precision: Optional[str]) -> str:
+    """The precision a kernel runs at: ``precision``, or
+    ``cfg.matmul_precision`` when it is None."""
+    return cfg.matmul_precision if precision is None else precision
+
+
+def bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` rounded to bf16 (to nearest, ties to even, as the MXU
+    rounds its operands and as ``__float2bfloat16_rn``; NaN stays NaN),
+    back in float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def kernel_dynamics(model, model_params, states, controls,
+                    precision: str = "highest", split: bool = False):
+    """The learned derivative (..., 4) as kernels 1-4 evaluate it at
+    ``precision``: ``model.dynamics`` for ``"highest"`` and ``"high"``;
+    for ``"default"`` each product of the MXU's one bf16 pass (the JAX
+    ``Precision.DEFAULT`` dots), its operands rounded to bf16 and summed
+    in float32, each bias added in float32 after it.  The MLP's layer 0
+    takes the concatenated [roll, u_x, u_y, yaw_der, steer, throttle]
+    (``_mlp_deriv_concat``: kernels 1, 2 and 4), or with ``split`` (kernel
+    3, ``_fused_kernel``) the four state inputs in the rounded product and
+    the controls' columns as float32 products beside it; the BF model
+    rounds theta and the 25 basis functions (``_bf_deriv``)."""
+    if not bf16_operands(precision):
+        return model.dynamics(model_params, states, controls)
+    if _is_bf(model):
+        return (bf16_round(car_basis_functions(states, controls))
+                @ bf16_round(model_params["theta"]))
+    weights, biases = model_params["weights"], model_params["biases"]
+    d4 = states[..., model.KINEMATICS_DIM:]
+    W0 = weights[0]
+    if split:
+        acts = (bf16_round(d4) @ bf16_round(W0[:4])
+                + controls[..., :1] * W0[4] + controls[..., 1:] * W0[5])
+    else:
+        acts = (bf16_round(torch.cat([d4, controls], dim=-1))
+                @ bf16_round(W0))
+    acts = acts + biases[0]
+    for W, b in zip(weights[1:], biases[1:]):
+        acts = bf16_round(torch.tanh(acts)) @ bf16_round(W) + b
+    return acts
+
+
+def kernel_state_deriv(model, model_params, states, controls,
+                       precision: str = "highest", split: bool = False):
+    """The full (..., S) state derivative as the kernels evaluate it
+    (:func:`kernel_dynamics` beside the kinematics): ``model.state_deriv``
+    for ``"highest"`` and ``"high"``, bit for bit."""
+    if not bf16_operands(precision):
+        return model.state_deriv(model_params, states, controls)
+    return torch.cat([model.kinematics(states),
+                      kernel_dynamics(model, model_params, states, controls,
+                                      precision, split)], dim=-1)
+
+
+# ---------------------------------------------------------------------------
 # kernel A and kernel 3: fused rollout + cost on the exact map or the field
 # ---------------------------------------------------------------------------
 
@@ -998,15 +1090,22 @@ def fused_rollout_cost_plain(model, model_params, cfg, cost_params, surface,
                              state, U, eps, l1_cost: bool = False,
                              k_offset=0, obstacles=None,
                              obstacle_coeff: float = 0.0,
-                             inflation: float = 1.0):
+                             inflation: float = 1.0,
+                             precision: Optional[str] = None,
+                             split: Optional[bool] = None):
     """Plain PyTorch version of the fused kernels, on either surface (a
     ``Costmap`` for kernel A, a ``NeuralCostmap`` for kernel 3), either
-    model, with or without obstacle terms: the dynamics chain
-    (:func:`dynamics_chain_plain`), then the kernels' per-step cost rules
-    along it (:func:`trajectory_cost_plain`).
+    model, with or without obstacle terms, at ``precision``: the dynamics
+    chain (:func:`dynamics_chain_plain`; ``split``: kernel 3's layer 0,
+    by default on a ``NeuralCostmap``), then the kernels' per-step cost
+    rules along it (:func:`trajectory_cost_plain`).
     Returns (costs (K,), u_seq (C, T, K) pre-clamp, crash (K,) int32)."""
+    if split is None:
+        split = type(surface) is NeuralCostmap
+    precision = _precision(cfg, precision)
     states, u_seq = dynamics_chain_plain(model, model_params, cfg, state, U,
-                                         eps, k_offset=k_offset)
+                                         eps, k_offset=k_offset,
+                                         precision=precision, split=split)
     costs, crash = trajectory_cost_plain(
         model, model_params, cfg, cost_params, surface, U, eps, states,
         l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
@@ -1065,13 +1164,14 @@ def trajectory_cost_plain(model, model_params, cfg, cost_params, surface,
 
 def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
                    surface, state, U, eps, l1_cost, k_offset, obstacles,
-                   obstacle_coeff, inflation, packed_weights):
+                   obstacle_coeff, inflation, packed_weights, precision):
     """Validate a fused kernel's inputs (``surface`` must be a ``cls``) and
     allocate its outputs.  Returns ``(launch, (costs, u_seq, crash))``:
     each ``launch()`` runs the kernel once into those outputs on the
     current stream (uncounted; the wrapper counts ``launch.name``)."""
     _expect(surface, cls, fn)
     _check_kernel_model(model, cfg, 3 if cls is NeuralCostmap else 1)
+    bf16 = bf16_operands(_precision(cfg, precision))
     circles = _obstacle_circles(cost_params, obstacles)
     T, K, C = eps.shape
     dev = eps.device
@@ -1081,7 +1181,7 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
         _check_field_room(layers, fspec, T)
     args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
         max_field_kernel_t(layers, fspec) if kind == "field"
-        else max_kernel_t(layers)), packed_weights=packed_weights)
+        else max_kernel_t(layers, bf16)), packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -1096,11 +1196,11 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
     if kind == "exact":
         geom = _launch_geometry(K, dev, model)
-        entry = _spec_lib(layers).artt_fused_exact_rollout_cost
+        entry = _spec_lib(layers, bf16).artt_fused_exact_rollout_cost
         geo_args = geom[:2]
     else:
         geom, geo_args = None, ()
-        entry = _field_lib(layers, fspec).artt_fused_field_rollout_cost
+        entry = _field_lib(layers, fspec, bf16).artt_fused_field_rollout_cost
 
     def launch():
         err = entry(
@@ -1114,7 +1214,7 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
         _check_launch(err, fn)
 
     launch.inputs = (args, packed)           # keeps the buffers alive
-    launch.name = fn + _form(model, n_obs, fspec)
+    launch.name = fn + _form(model, n_obs, fspec, bf16)
     launch.geometry = geom
     return launch, (costs, u_seq, crash)
 
@@ -1125,31 +1225,34 @@ def prepare_fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                                      obstacles=None,
                                      obstacle_coeff: float = 0.0,
                                      inflation: float = 1.0,
-                                     packed_weights=None):
+                                     packed_weights=None,
+                                     precision: Optional[str] = None):
     """Kernel A's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(Costmap, "fused_exact_rollout_cost", model,
                           model_params, cfg, cost_params, costmap, state, U,
                           eps, l1_cost, k_offset, obstacles, obstacle_coeff,
-                          inflation, packed_weights)
+                          inflation, packed_weights, precision)
 
 
 def prepare_fused_rollout_cost(model, model_params, cfg, cost_params,
                                field: NeuralCostmap, state, U, eps,
                                l1_cost: bool = False, k_offset=0,
                                obstacles=None, obstacle_coeff: float = 0.0,
-                               inflation: float = 1.0, packed_weights=None):
+                               inflation: float = 1.0, packed_weights=None,
+                               precision: Optional[str] = None):
     """Kernel 3's launch and outputs (see :func:`_prepare_fused`)."""
     return _prepare_fused(NeuralCostmap, "fused_rollout_cost", model,
                           model_params, cfg, cost_params, field, state, U,
                           eps, l1_cost, k_offset, obstacles, obstacle_coeff,
-                          inflation, packed_weights)
+                          inflation, packed_weights, precision)
 
 
 def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
                              costmap: Costmap, state, U, eps,
                              l1_cost: bool = False, k_offset=0,
                              obstacles=None, obstacle_coeff: float = 0.0,
-                             inflation: float = 1.0, packed_weights=None):
+                             inflation: float = 1.0, packed_weights=None,
+                             precision: Optional[str] = None):
     """Fused rollout + exact-costmap cost (``fused_exact_rollout_cost_pallas``).
 
     ``state`` (S,), ``U`` (T, C), ``eps`` (T, K, C) standard normal;
@@ -1158,11 +1261,13 @@ def fused_exact_rollout_cost(model, model_params, cfg, cost_params,
     ``inflation`` (``ObstacleCost.kernel_kwargs``), or None;
     ``packed_weights``: the kernel's weight buffer when the caller packed
     it (a row of :func:`pack_members`; the plain version reads
-    ``model_params``).
+    ``model_params``); ``precision``: one of ``cfg.matmul_precision``'s
+    names, ``cfg.matmul_precision`` when None (the module's docstring).
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
     _expect(costmap, Costmap, "fused_exact_rollout_cost")
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
-              obstacle_coeff=obstacle_coeff, inflation=inflation)
+              obstacle_coeff=obstacle_coeff, inflation=inflation,
+              precision=precision)
     if _dispatch(eps) == "plain":
         return fused_rollout_cost_plain(model, model_params, cfg,
                                         cost_params, costmap, state, U, eps,
@@ -1178,13 +1283,14 @@ def fused_rollout_cost(model, model_params, cfg, cost_params,
                        field: NeuralCostmap, state, U, eps,
                        l1_cost: bool = False, k_offset=0, obstacles=None,
                        obstacle_coeff: float = 0.0, inflation: float = 1.0,
-                       packed_weights=None):
+                       packed_weights=None, precision: Optional[str] = None):
     """Fused rollout + neural-field cost (``fused_rollout_cost_pallas``):
     :func:`fused_exact_rollout_cost`'s contract with a ``NeuralCostmap``.
     Returns (costs (K,), u_seq (C, T, K), crash (K,) int32)."""
     _expect(field, NeuralCostmap, "fused_rollout_cost")
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
-              obstacle_coeff=obstacle_coeff, inflation=inflation)
+              obstacle_coeff=obstacle_coeff, inflation=inflation,
+              precision=precision)
     if _dispatch(eps) == "plain":
         return fused_rollout_cost_plain(model, model_params, cfg,
                                         cost_params, field, state, U, eps,
@@ -1200,9 +1306,13 @@ def fused_rollout_cost(model, model_params, cfg, cost_params,
 # kernel B: the dynamics chain
 # ---------------------------------------------------------------------------
 
-def dynamics_chain_plain(model, model_params, cfg, state, U, eps, k_offset=0):
-    """Plain PyTorch version of the chain kernel: returns (states (S, T, K)
-    with ``states[i, t]`` = component i after t+1 steps, u_seq (C, T, K))."""
+def dynamics_chain_plain(model, model_params, cfg, state, U, eps, k_offset=0,
+                         precision: Optional[str] = None, split: bool = False):
+    """Plain PyTorch version of the chain kernel at ``precision`` (the
+    derivative :func:`kernel_state_deriv`, kernel 3's with ``split``):
+    returns (states (S, T, K) with ``states[i, t]`` = component i after
+    t+1 steps, u_seq (C, T, K))."""
+    precision = _precision(cfg, precision)
     T, K, C = eps.shape
     dev = eps.device
     S = model.STATE_DIM
@@ -1215,21 +1325,24 @@ def dynamics_chain_plain(model, model_params, cfg, state, U, eps, k_offset=0):
         u, _ = _perturb(cfg, t, U, eps, nu, zero_rollout, pure_noise)
         u_seq[:, t] = u.T
         u_cl = model.enforce_constraints(model_params, u)
-        s = s + model.state_deriv(model_params, s, u_cl) * model.dt
+        s = s + kernel_state_deriv(model, model_params, s, u_cl, precision,
+                                   split) * model.dt
         states[:, t] = s.T
     return states, u_seq
 
 
 def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
-                           k_offset=0, packed_weights=None):
+                           k_offset=0, packed_weights=None,
+                           precision: Optional[str] = None):
     """Validate the chain kernel's inputs and allocate its outputs; returns
     ``(launch, (states, u_seq))`` as :func:`prepare_fused_exact_rollout_cost`."""
     _check_kernel_model(model, cfg, 2)
+    bf16 = bf16_operands(_precision(cfg, precision))
     T, K, C = eps.shape
     dev = eps.device
     layers = kernel_layers(model)
     args = _kernel_inputs(model, model_params, state, U, K, eps,
-                          max_T=max_kernel_t(layers),
+                          max_T=max_kernel_t(layers, bf16),
                           packed_weights=packed_weights)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
@@ -1239,7 +1352,7 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
     states = torch.empty((model.STATE_DIM, T, K), dtype=torch.float32,
                          device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
-    lib = _spec_lib(layers)
+    lib = _spec_lib(layers, bf16)
     geom = _chain_launch_geometry(K, dev, model)
 
     def launch():
@@ -1252,23 +1365,25 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
         _check_launch(err, "dynamics_chain")
 
     launch.inputs = args
-    launch.name = "dynamics_chain" + _form(model, 0)
+    launch.name = "dynamics_chain" + _form(model, 0, bf16=bf16)
     launch.geometry = geom
     return launch, (states, u_seq)
 
 
 def dynamics_chain(model, model_params, cfg, state, U, eps, k_offset=0,
-                   packed_weights=None):
+                   packed_weights=None, precision: Optional[str] = None):
     """The dynamics chain (``dynamics_chain_pallas``): same perturb/clamp/
     derivative/Euler as the fused kernel, emitting every state
-    (``packed_weights`` as :func:`fused_exact_rollout_cost` takes it).
+    (``packed_weights`` and ``precision`` as
+    :func:`fused_exact_rollout_cost` takes them).
     Returns (states (S, T, K), u_seq (C, T, K))."""
     if _dispatch(eps) == "plain":
         return dynamics_chain_plain(model, model_params, cfg, state, U, eps,
-                                    k_offset=k_offset)
+                                    k_offset=k_offset, precision=precision)
     launch, out = prepare_dynamics_chain(model, model_params, cfg, state, U,
                                          eps, k_offset=k_offset,
-                                         packed_weights=packed_weights)
+                                         packed_weights=packed_weights,
+                                         precision=precision)
     _launch_counted(launch, eps.shape[1])
     return out
 
@@ -1277,14 +1392,17 @@ def nominal_trajectory(model, model_params, cfg, state, U,
                        packed_weights=None):
     """Re-rollout of the solution (``computeNominalTraj``,
     ``mppi_controller.cu:501-519``; ``nominal_trajectory_pallas``): one
-    noise-free rollout through :func:`dynamics_chain` (K = 1).  Returns
+    noise-free rollout through :func:`dynamics_chain` (K = 1), in float32
+    at every ``matmul_precision``, as the JAX solver calls
+    ``nominal_trajectory_pallas`` without one.  Returns
     (state_solution (T, S), control_solution (T, C)), recording each state
     before its update and the clamped controls."""
     T, C = U.shape
     state = state.to(U.device, torch.float32)
     eps = torch.zeros((T, 1, C), dtype=torch.float32, device=U.device)
     states, _ = dynamics_chain(model, model_params, cfg, state, U, eps,
-                               packed_weights=packed_weights)
+                               packed_weights=packed_weights,
+                               precision="highest")
     traj = states[:, :, 0].T                                 # s_1 .. s_T
     states_sol = torch.cat([state[None, :], traj[:-1]], dim=0)
     rngs = _control_rngs(model_params, C)
@@ -1363,9 +1481,11 @@ def fused_rng_costs_plain(model, model_params, cfg, cost_params, field,
                           state, U, key, l1_cost: bool = False, k_offset=0,
                           K_local=None, obstacles=None,
                           obstacle_coeff: float = 0.0,
-                          inflation: float = 1.0):
+                          inflation: float = 1.0,
+                          precision: Optional[str] = None):
     """Plain version of pass 1, both modes: the fused kernels' plain version
-    (:func:`fused_rollout_cost_plain`) on the stream.  Returns (total (K,),
+    (:func:`fused_rollout_cost_plain`, layer 0 concatenated in both, as
+    ``_fused_rng_kernel`` takes it) on the stream.  Returns (total (K,),
     crash (K,) int32, ctx)."""
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
@@ -1373,7 +1493,7 @@ def fused_rng_costs_plain(model, model_params, cfg, cost_params, field,
         model, model_params, cfg, cost_params, field, state, ctx.U,
         rng_noise(ctx), l1_cost=l1_cost, k_offset=ctx.k_offset,
         obstacles=obstacles, obstacle_coeff=obstacle_coeff,
-        inflation=inflation)
+        inflation=inflation, precision=precision, split=False)
     return costs, crash, ctx
 
 
@@ -1381,7 +1501,8 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
                             state, U, key, l1_cost: bool = False, k_offset=0,
                             K_local=None, obstacles=None,
                             obstacle_coeff: float = 0.0,
-                            inflation: float = 1.0):
+                            inflation: float = 1.0,
+                            precision: Optional[str] = None):
     """Validate pass 1's inputs and allocate its outputs.  Returns
     ``(launch, (costs, crash), ctx)``; each ``launch()`` runs the kernel of
     the surface's mode (``fused_rng_kernel`` for a ``Costmap``,
@@ -1389,6 +1510,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     stream (uncounted; the wrapper counts); ``launch.mode`` names the
     mode, ``launch.name`` the kernel instance."""
     _check_kernel_model(model, cfg, 4)
+    bf16 = bf16_operands(_precision(cfg, precision))
     circles = _obstacle_circles(cost_params, obstacles)
     ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
                        K_local)
@@ -1400,7 +1522,7 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
         _check_field_room(layers, fspec, T)
     args = _kernel_inputs(model, model_params, state, ctx.U, K, max_T=(
         max_field_kernel_t(layers, fspec) if kind == "field"
-        else max_kernel_t(layers)))
+        else max_kernel_t(layers, bf16)))
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -1413,8 +1535,8 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
 
     costs = torch.empty(K, dtype=torch.float32, device=dev)
     crash = torch.empty(K, dtype=torch.int32, device=dev)
-    entry = (_spec_lib(layers).artt_fused_rng_costs if kind == "exact"
-             else _field_lib(layers, fspec).artt_fused_rng_field_costs)
+    entry = (_spec_lib(layers, bf16).artt_fused_rng_costs if kind == "exact"
+             else _field_lib(layers, fspec, bf16).artt_fused_rng_field_costs)
 
     def launch():
         err = entry(
@@ -1431,21 +1553,21 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
                        else None)
     launch.mode = kind
     launch.name = ("fused_rng_costs" + ("_field" if kind == "field" else "")
-                   + _form(model, n_obs, fspec))
+                   + _form(model, n_obs, fspec, bf16))
     return launch, (costs, crash), ctx
 
 
 def fused_rng_costs(model, model_params, cfg, cost_params, field, state, U,
                     key, l1_cost: bool = False, k_offset=0, K_local=None,
                     obstacles=None, obstacle_coeff: float = 0.0,
-                    inflation: float = 1.0):
+                    inflation: float = 1.0, precision: Optional[str] = None):
     """Pass 1 of the capacity mode (``fused_rng_costs`` of the JAX
     package): rollout costs with the noise drawn in the kernel; nothing per
     (t, k) reaches device memory.  ``field`` is the exact ``Costmap`` or a
     ``NeuralCostmap`` (the JAX kernel's ``cost_mode`` "exact" / "field");
     the two modes are two CUDA kernels, counted as ``fused_rng_costs`` and
     ``fused_rng_costs_field`` (and their ``_bf`` / ``_obstacles`` forms);
-    ``obstacles`` as in :func:`fused_exact_rollout_cost`.
+    ``obstacles`` and ``precision`` as in :func:`fused_exact_rollout_cost`.
 
     ``key``: int64 (2,) on ``U``'s device, the stream's key; ``k_offset`` /
     ``K_local`` let a sharded caller run its own slice of the global batch.
@@ -1453,7 +1575,7 @@ def fused_rng_costs(model, model_params, cfg, cost_params, field, state, U,
     same stream in :func:`fused_rng_numer`."""
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, K_local=K_local,
               obstacles=obstacles, obstacle_coeff=obstacle_coeff,
-              inflation=inflation)
+              inflation=inflation, precision=precision)
     if _dispatch(U) == "plain":
         return fused_rng_costs_plain(model, model_params, cfg, cost_params,
                                      field, state, U, key, **kw)
@@ -1524,10 +1646,12 @@ def fused_rng_numer(ctx: RngContext, w):
 
 
 def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
-                   field, state, U, key, l1_cost, k_offset, obstacle_kw):
+                   field, state, U, key, l1_cost, k_offset, precision,
+                   obstacle_kw):
     total, crash, ctx = costs_fn(model, model_params, cfg, cost_params, field,
                                  state, U, key, l1_cost=l1_cost,
-                                 k_offset=k_offset, **obstacle_kw)
+                                 k_offset=k_offset, precision=precision,
+                                 **obstacle_kw)
     baseline = torch.min(total)
     w = torch.exp(-effective_gamma(cfg, cost_params) * (total - baseline))
     U_new = (numer_fn(ctx, w) / torch.sum(w)).T
@@ -1537,25 +1661,27 @@ def _rng_iteration(costs_fn, numer_fn, model, model_params, cfg, cost_params,
 def fused_rng_solve_iteration_plain(model, model_params, cfg, cost_params,
                                     field, state, U, key,
                                     l1_cost: bool = False, k_offset=0,
+                                    precision: Optional[str] = None,
                                     **obstacle_kw):
     """:func:`fused_rng_solve_iteration` through the plain versions of both
     passes."""
     return _rng_iteration(fused_rng_costs_plain, fused_rng_numer_plain,
                           model, model_params, cfg, cost_params, field,
-                          state, U, key, l1_cost, k_offset, obstacle_kw)
+                          state, U, key, l1_cost, k_offset, precision,
+                          obstacle_kw)
 
 
 def fused_rng_solve_iteration(model, model_params, cfg, cost_params,
                               field, state, U, key,
                               l1_cost: bool = False, k_offset=0,
-                              **obstacle_kw):
+                              precision: Optional[str] = None, **obstacle_kw):
     """One MPPI iteration in the capacity mode: pass 1's costs, the softmax
     weights in PyTorch, pass 2's numerator; device-memory traffic is
     O(K + T C), independent of K T.  Runs the kernels for tensors on a
     GPU, the plain versions for tensors on the CPU (each pass counts its
-    own launches); ``obstacle_kw`` (``obstacles``, ``obstacle_coeff``,
-    ``inflation``) go to pass 1.  Returns (U_new (T, C), total (K,), crash
-    (K,))."""
+    own launches); ``precision`` and ``obstacle_kw`` (``obstacles``,
+    ``obstacle_coeff``, ``inflation``) go to pass 1 (pass 2 evaluates no
+    model).  Returns (U_new (T, C), total (K,), crash (K,))."""
     return _rng_iteration(fused_rng_costs, fused_rng_numer, model,
                           model_params, cfg, cost_params, field, state, U,
-                          key, l1_cost, k_offset, obstacle_kw)
+                          key, l1_cost, k_offset, precision, obstacle_kw)

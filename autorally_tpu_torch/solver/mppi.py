@@ -26,6 +26,15 @@ model whose ``KERNEL_KIND`` is set (the kernels then evaluate the declaring
 class's math); ``None`` and ``False`` leave the choice to the model and
 the cost.
 
+``cfg.matmul_precision`` reaches the kernels that evaluate the dynamics of
+the rollouts, as the JAX solver passes it to its Pallas kernels: kernel 1
+or 3, kernel 2 at K on the general path and pass 1 (``"highest"`` and
+``"high"`` in float32, ``"default"`` with bf16 operands in the products,
+the instances of their own, ``ops/rollout_kernel.py``); the nominal
+trajectory and the plain chain of a model without a kernel form stay
+float32, as the JAX package's ``nominal_trajectory_pallas`` call and its
+``lax.scan`` do.
+
 With ``kernel_rng=True`` (the capacity mode) an iteration draws only a key
 and runs the two kernel-RNG passes (``rk.fused_rng_solve_iteration``): the
 noise is drawn inside the kernels, so neither eps nor u_seq (T x K x C
@@ -70,7 +79,8 @@ import numpy as np
 import torch
 
 from autorally_tpu_torch.config import (CostParams, MPPIConfig,
-                                        effective_gamma, resolve_device)
+                                        bf16_operands, effective_gamma,
+                                        resolve_device)
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
@@ -152,15 +162,13 @@ def validate_tube_pair(solver, solver_predicted) -> None:
 
 class MPPISolver:
     """MPPI replans for a (model, cost, config) on one device (``cuda``
-    unless ``device`` says otherwise)."""
+    unless ``device`` says otherwise), the rollouts' dynamics at
+    ``cfg.matmul_precision`` (``"highest"``, ``"high"`` or ``"default"``;
+    another name raises ``ValueError``)."""
 
     def __init__(self, model, cost: MPPICost, cfg: MPPIConfig, device=None):
         self.device = resolve_device(device)
-        if cfg.matmul_precision != "highest":
-            raise NotImplementedError(
-                "the port computes the dynamics in full fp32 only "
-                "(matmul_precision='highest'); reduced precision is not "
-                "ported (ROADMAP.md, Queue 2 A2)")
+        bf16_operands(cfg.matmul_precision)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, solver on "
                              f"{self.device}")
@@ -503,7 +511,8 @@ class MPPISolver:
         ``mppi_controller.cu:501-519``): (state_solution (T, S),
         control_solution (T, C)), each state before its update and the
         clamped controls; through the chain kernel at K = 1 for a model with
-        a kernel form, else step by step through the model's methods."""
+        a kernel form, else step by step through the model's methods; in
+        float32 at every ``matmul_precision``, as the JAX solver's."""
         if self.kernel_form:
             return rk.nominal_trajectory(self.model, model_params, self.cfg,
                                          state, U,

@@ -171,14 +171,17 @@ _CONST_OPERAND = [
 VARIANTS = {
     "base": [],
     "no_tanh": [
-        ("y[j] = tanhf(acc + b[j]);", "y[j] = (acc + b[j]);"),
-        ("h[u] = tanhf(acc + b.z);", "h[u] = (acc + b.z);"),
-        ("y[u] = tanhf(acc[u] + W[(lane + G * u) * stride + n]);",
-         "y[u] = (acc[u] + W[(lane + G * u) * stride + n]);")],
+        ("y[j] = mm_operand(tanhf(acc + b[j]));",
+         "y[j] = mm_operand(acc + b[j]);"),
+        ("h[u] = mm_operand(tanhf(acc + b.z));",
+         "h[u] = mm_operand(acc + b.z);"),
+        ("y[u] = mm_operand(tanhf(acc[u] + W[(lane + G * u) * stride + n]));",
+         "y[u] = mm_operand(acc[u] + W[(lane + G * u) * stride + n]);")],
     "no_cost": [("if (t > 0) {", "if (false) {")],
     "const_weights": [
-        ("template <class S>\nstruct MlpDerivOf {",
-         _STAND_IN + "template <class S>\nstruct MlpDerivOf {"),
+        ("template <class S, bool kSplit = false>\nstruct MlpDerivOf {",
+         _STAND_IN + "template <class S, bool kSplit = false>\n"
+         "struct MlpDerivOf {"),
         ("acc = fmaf(W[j * n + i], x[i], acc);",
          "acc = fmaf(stand_in(off + j * n + i), x[i], acc);"),
         ("const float4 a = r[0], b = r[1];",

@@ -100,20 +100,22 @@ def parse_field(label: str) -> tuple:
     return tuple(int(n) for n in label[1:].split("-"))
 
 
-def build_variants(out_dir, variants=None, layers=None, field=None) -> dict:
+def build_variants(out_dir, variants=None, layers=None, field=None,
+                   bf16: bool = False) -> dict:
     """Build every variant's library (``variants``: name -> [(text, its
     replacement), ...], ``VARIANTS`` by default; of the library of the MLP
-    spec ``layers`` and the field spec ``field`` when given) at once;
-    returns name -> path.  Each one's compiler output (ptxas -v) is kept
-    beside it, in ``<name>.log``."""
+    spec ``layers`` and the field spec ``field`` when given, of bf16
+    operands when ``bf16``) at once; returns name -> path.  Each one's
+    compiler output (ptxas -v) is kept beside it, in ``<name>.log``."""
     from autorally_tpu_torch.ops import _build
 
     src = _build.SOURCE.read_text()
     out_dir.mkdir(parents=True, exist_ok=True)
     flags = _build.NVCC_FLAGS
-    if _build.spec_defines(layers, field):
+    defines = _build.spec_defines(layers, field, bf16=bf16)
+    if defines:
         header = out_dir / "spec.h"
-        header.write_text(_build.spec_defines(layers, field))
+        header.write_text(defines)
         flags += ("-include", str(header))
     procs = {}
     for name, edits in (VARIANTS if variants is None else variants).items():
@@ -136,20 +138,20 @@ def build_variants(out_dir, variants=None, layers=None, field=None) -> dict:
     return {name: so for name, (so, _) in procs.items()}
 
 
-def use_library(path, layers=None, field=None) -> None:
+def use_library(path, layers=None, field=None, bf16: bool = False) -> None:
     """Make the wrappers launch the kernels of the library at ``path`` (the
     library of the MLP spec ``layers`` and the field spec ``field`` when
-    given)."""
+    given, of bf16 operands when ``bf16``)."""
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.ops import rollout_kernel as rk
 
     lib = ctypes.CDLL(str(path))
-    for fn in _build.functions(layers, field):
+    for fn in _build.functions(layers, field, bf16=bf16):
         getattr(lib, fn).argtypes = _build.SIGNATURES[fn]
         getattr(lib, fn).restype = ctypes.c_int
     lib.build = None
-    key = (_build._spec(layers), _build._field(field))
-    if key == (None, None):
+    key = (_build._spec(layers), _build._field(field), bf16)
+    if key == (None, None, False):
         _build._lib = lib
     else:
         _build._spec_libs[key] = lib

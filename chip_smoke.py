@@ -511,6 +511,15 @@ class PhaseFailed(Exception):
     pass
 
 
+def agreeing(kc, kx, pc, px):
+    """The rollouts in which a kernel's costs ``kc`` and crash flags ``kx``
+    agree with its plain version's ``pc`` and ``px``: costs within
+    COST_RTOL / COST_ATOL, equal flags."""
+    import torch
+
+    return torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL) & (kx == px)
+
+
 def agreement(tag, name, kc, kx, pc, px, n, limit=None):
     """Costs within COST_RTOL/COST_ATOL and equal crash flags: in every
     rollout in the nominal case, in all but 1 % elsewhere (a value within
@@ -521,8 +530,7 @@ def agreement(tag, name, kc, kx, pc, px, n, limit=None):
     import torch
 
     same = kx == px
-    near = torch.isclose(kc, pc, rtol=COST_RTOL, atol=COST_ATOL)
-    n_differ = int((~near | ~same).sum().item())
+    n_differ = int((~agreeing(kc, kx, pc, px)).sum().item())
     n_crash = int((~same).sum().item())
     err = (kc - pc)[same].abs().max().item()
     if limit is None:
@@ -806,7 +814,7 @@ def check_field_sass(sass: str) -> dict:
     found = {}
     for fn in re.split(r"\n\s*Function : ", sass)[1:]:
         short = re.search(r"\d+((?:fused_rng_field|fused_field)_kernel)I.*?"
-                          r"(Mlp|Bf)Deriv", fn.split("\n", 1)[0])
+                          r"(MlpSplit|Mlp|Bf)Deriv", fn.split("\n", 1)[0])
         if short:
             found[f"{short.group(1)}<{short.group(2)}>"] = sum(
                 1 for line in fn.splitlines()
@@ -867,7 +875,7 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
-                              r"(Mlp|Bf)Deriv|IJ)", m.group(1))
+                              r"(MlpSplit|Mlp|Bf)Deriv|IJ)", m.group(1))
             arg = short and (short.group(2) or short.group(3))
             name = (short.group(1) + (f"<{arg}>" if arg else "") if short
                     else m.group(1))
@@ -4332,36 +4340,42 @@ LIBRARIES = (((None, None),) + tuple((layers, None)
 
 
 class Builds:
-    """Every library of ``LIBRARIES``, one ``nvcc`` each, all started at
-    once (threads; each ``nvcc`` its own process, on a core of its own).
-    ``get(layers, field)`` waits for that library's build and returns
-    (library, seconds), or fails the phase if it did not build: the main
-    path takes the default library while the others' builds (minutes for
-    6-64-64-64-64-4) run on, until phases 28 and 30 need them."""
+    """Every library of ``LIBRARIES`` and, of bf16 operands, of
+    ``BF16_LIBRARIES``, one ``nvcc`` each, all started at once (threads;
+    each ``nvcc`` its own process, on a core of its own).  ``get(layers,
+    field, bf16)`` waits for that library's build and returns (library,
+    seconds), or fails the phase if it did not build: the main path takes
+    the default library while the others' builds (minutes for
+    6-64-64-64-64-4) run on, until phases 28, 30 and 31 need them."""
 
     def __init__(self):
         import threading
 
         self.libs, self.errors = {}, {}
+        keys = ([(layers, field, False) for layers, field in LIBRARIES]
+                + [(layers, field, True)
+                   for layers, field in BF16_LIBRARIES])
         self.threads = {key: threading.Thread(target=self._build, args=key)
-                        for key in LIBRARIES}
+                        for key in keys}
         for th in self.threads.values():
             th.start()
 
-    def _build(self, layers, field):
+    def _build(self, layers, field, bf16):
         from autorally_tpu_torch.ops import _build
 
         t0 = time.perf_counter()
         try:
-            self.libs[layers, field] = (_build.load(layers, field),
-                                        time.perf_counter() - t0)
+            self.libs[layers, field, bf16] = (
+                _build.load(layers, field, bf16=bf16),
+                time.perf_counter() - t0)
         except Exception as e:               # reported by get, then fail
-            self.errors[layers, field] = e
+            self.errors[layers, field, bf16] = e
 
-    def get(self, layers, field=None):
-        key = (layers, field)
+    def get(self, layers, field=None, bf16=False):
+        key = (layers, field, bf16)
         self.threads[key].join()
-        what = f"{layers or 'default'}" + (f" field {field}" if field else "")
+        what = (f"{layers or 'default'}" + (f" field {field}" if field else "")
+                + (" (bf16 operands)" if bf16 else ""))
         if key in self.errors:
             print(f"[build] {what}: {self.errors[key]}", file=sys.stderr)
         check(key not in self.errors, f"the kernel library of {what} did "
@@ -4371,9 +4385,9 @@ class Builds:
 
 def build_libraries(rk) -> dict:
     """Every library of ``Builds``, built: {(None or layers, None or field
-    spec): (library, seconds)}."""
+    spec, bf16): (library, seconds)}."""
     builds = Builds()
-    return {key: builds.get(*key) for key in LIBRARIES}
+    return {key: builds.get(*key) for key in builds.threads}
 
 
 def spec_instances(rk, layers, lib, card) -> None:
@@ -5549,6 +5563,772 @@ def fit_field_drives(drive_oval, rk, card, dev, tag, n3, np1, chain, hold3,
     return out
 
 
+# Phase 31: matmul_precision "default" (the MXU's one bf16 pass: bf16
+# operands in the dynamics' products, float32 sums) in kernels 1-4, each
+# instance from a library of bf16 operands: the default specs' (the MLP and
+# the BF model), BASELINE #3's 6-64-64-64-64-4 and 6-32-32-4 beside
+# F6-48-48, built with the others at phase 1.
+BF16_LIBRARIES = ((None, None), (SPEC_LAYERS[0], None),
+                  (None, FIELD_LABELS["F6-48-48"]))
+PRECISION = "default"
+PEAK_BF16_FLOP_PER_S = 989e12         # tensor cores, dense (data sheet)
+PREC_CAP_TICKS = 50                   # the capacity mode, K=KC
+PREC_FIELD_TICKS = 50                 # the field host-noise path, K=KF
+PREC_SPEC_TICKS = 100                 # BASELINE #3's spec, K=KS
+PREC_FORM_TICKS = 20                  # the cost subclass and the other forms
+PREC_ENS_SOLVES = 20
+PREC_CHAINED_SOLVES = 20              # "default" against "highest"
+PREC_BUDGET_MS = 20.0
+PREC_TIME_REPS = {"small": 50, "large": 5}
+# tests/test_torch_matmul_precision.py's CLOSER: a "default" instance at
+# least this many times closer to its "default" plain version than to the
+# "highest" one, by the mean difference over its outputs
+PREC_CLOSER = 10.0
+# the std of the seeded biases phase 31 gives the MLPs in place of
+# init_params' zeros (a trained model's are not zero; a rounded bias must
+# show)
+PREC_BIAS_STD = 0.3
+
+
+def bf16_library_instances(rk, layers, field, lib, card) -> None:
+    """Phase 1 for a library of bf16 operands: its ptxas report (the
+    instances of the float32 library of the same specs but pass 2 and the
+    quotient check: 15 for the default specs, a spec library's count, 4
+    for a field library beside the default MLP), zero spill bytes in
+    every one, and the field instances' registers and blocks an SM."""
+    from autorally_tpu_torch.ops import _build
+
+    tag = "build bf16 " + (spec_label(layers) if layers else "default") + (
+        f" {_build.field_label(field)}" if field else "")
+    if field is not None:
+        n_want = 4
+    elif layers is None:
+        n_want = 11 + len(rk.LANE_GROUPS) + 2 + 1 - 2
+    else:
+        n_want = 2 + len(rk.lane_groups(layers)) + (
+            len(rk.chain_geometries(layers)) - 1) + 3
+    if lib.build is not None:
+        report = ptxas_report(lib.build[1])
+        for name, regs, spill in report:
+            print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
+                  f"stores and loads")
+        check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
+              f"kernels, expected {n_want}")
+        check(all(spill == 0 for _, _, spill in report),
+              f"{tag}: a kernel spills")
+        PTXAS.update((f"{name} [{tag[6:]}]", regs)
+                     for name, regs, _ in report)
+    block = rk.field_block(layers or rk.KERNEL_LAYERS)
+    kw = dict(layers=layers or rk.KERNEL_LAYERS, precision=PRECISION)
+    if field is not None:
+        kw["field"] = field
+    for rng in (False, True):
+        info = rk.field_kernel_info(rng, False, T, **kw)
+        print(f"[{tag}] {'pass 1 field' if rng else 'kernel 3'}: "
+              f"{info['registers']} registers, {info['local_bytes']} bytes "
+              f"of local memory, {info['blocks_per_sm']} blocks of {block} "
+              f"an SM at T={T} ({card})")
+
+
+def bf16_bound(nbytes: float, other_flops: float, bf16_flops: float,
+               tf32_flops: float = 0.0):
+    """A bf16-operand kernel's tensor-core bound, (ms, what bounds it): the
+    dynamics' products (``bf16_flops``) at the dense bf16 rate and the
+    field's 3xTF32 products (``tf32_flops``) at the TF32 rate, on the
+    tensor cores one after the other, beside the rest at the fp32 rate,
+    and ``nbytes`` at the memory rate."""
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_f = max(other_flops / PEAK_FP32_FLOP_PER_S,
+              tf32_flops / PEAK_TF32_FLOP_PER_S
+              + bf16_flops / PEAK_BF16_FLOP_PER_S) * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def mlp_products(layers) -> int:
+    """The multiply-adds' operations of one rollout-step's MLP (2 a b a
+    layer), the part of ``mlp_flops`` that one bf16 pass takes."""
+    return sum(2 * a * b for a, b in zip(layers[:-1], layers[1:]))
+
+
+BF_PRODUCTS = 2 * 25 * 4              # theta^T phi's multiply-adds
+
+
+def with_biases(params, seed: int) -> dict:
+    """An MLP's ``params`` with seeded normal biases (std PREC_BIAS_STD) in
+    place of ``init_params``' zeros."""
+    import torch
+
+    rs = np.random.default_rng(seed)
+    return dict(params, biases=[
+        torch.tensor(rs.normal(0.0, PREC_BIAS_STD, tuple(b.shape)),
+                     dtype=torch.float32, device=b.device)
+        for b in params["biases"]])
+
+
+def mean_diff(a, b, keep) -> float:
+    """The mean absolute difference of ``a`` and ``b`` (rollouts on the last
+    axis) over the rollouts ``keep`` and the entries finite in both."""
+    import torch
+
+    a, b = a[..., keep], b[..., keep]
+    fin = torch.isfinite(a) & torch.isfinite(b)
+    return (a[fin].double() - b[fin].double()).abs().mean().item()
+
+
+def closer_reading(k, p, k32, p32, keep) -> dict:
+    """The CPU tests' rule for a "default" instance (PREC_CLOSER): its
+    outputs ``k`` against its "default" plain version's ``p`` (``near``)
+    and the "highest" plain version's ``p32`` (``far``), by the mean
+    difference over the rollouts ``keep`` in which phase 11's rule finds
+    ``k`` and ``p`` in agreement (it lets 1 % of them flip a latch, a
+    crash penalty each, which would swamp a mean); ``held`` when
+    PREC_CLOSER near <= far.  A case whose plain versions differ (``p``
+    against ``p32``, ``plain_moved``) by less than 2 PREC_CLOSER times the
+    float32 instance's own difference from its plain version (``k32``
+    against ``p32``, ``fp32_noise``: float32's summation order, a texel or
+    a crash latch) cannot tell a rounding from float32's noise: not
+    ``resolved``."""
+    near, far = mean_diff(k, p, keep), mean_diff(k, p32, keep)
+    noise, moved = mean_diff(k32, p32, keep), mean_diff(p, p32, keep)
+    return {"near": near, "far": far, "fp32_noise": noise,
+            "plain_moved": moved,
+            "resolved": moved >= 2 * PREC_CLOSER * noise,
+            "held": PREC_CLOSER * near <= far}
+
+
+def precision_phase(drive_oval, rk, card, field, dev=None) -> dict:
+    """Phase 31: ``matmul_precision="default"``.  (b) Each bf16-operand
+    instance against its plain version at ``"default"`` on phases 2-3's,
+    7-9's and 11's inputs (phase 11's rule: costs within COST_RTOL /
+    COST_ATOL in all but 1 % of the rollouts, crash flags equal in every
+    nominal rollout, u_seq bit for bit; kernel 2's states within
+    STATE_RTOL / STATE_ATOL in all but 1 % of the rollouts): where a
+    rounded operand lies within a float32 ulp of a bf16 rounding boundary,
+    the kernel and the plain version (another tanh, another summation
+    order) round it one bf16 ulp apart, and the rollout's chain carries
+    that on.  Beside it the CPU tests' rule (``hold_closer``): PREC_CLOSER
+    times closer to the "default" plain version than to the "highest" one,
+    by the mean difference.  Kernel 1 in lane groups at K=K and one
+    rollout a thread at K=KC, the BF model at K=KB (strong theta);
+    kernel 2 in each geometry, bit for bit each other; kernel 3 on the
+    fitted field and F6-48-48, MLP and BF, with and without N_SLOTS circle
+    slots; pass 1 exact (MLP, BF; bit for bit kernel 1 on the plain
+    stream) and field, gaussian and OU; and at K=KS BASELINE #3's spec's
+    kernels 1, 2 (each geometry), 3 and pass 1 (exact and field), and
+    F6-48-48's field pass 1.  (c) Every one differs from its float32
+    instance on the same inputs, and ``"high"`` is ``"highest"`` bit for
+    bit.  (b), (c) and (e) take the MLPs with seeded biases
+    (``with_biases``), so that a rounded bias shows.  (d)
+    Drives through the entry points with exact launch counts and no
+    plain-version call: BASELINE #1, the capacity mode, the field path,
+    BASELINE #3's spec, a cost subclass, the BF model,
+    ``EnsembleMPPISolver`` (identical members bit for bit
+    ``MPPISolver``), p50 / p99 against 20 ms; the first control of 20
+    chained solves against ``"highest"``'s.  (e) Each timed instance
+    beside its float32 instance, alternating.  Returns the ``kernels``
+    rows and the results."""
+    import torch
+
+    from autorally_tpu_torch.config import CostParams, MPPIConfig
+    from autorally_tpu_torch.costs import MPPICost, make_costmap, \
+        make_obstacles
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.models.ensemble import stack_params
+    from autorally_tpu_torch.parallel import ShardedMPPISolver
+    from autorally_tpu_torch.solver import EnsembleMPPISolver, MPPISolver
+    from autorally_tpu_torch.tools import track_generator as tg
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+    from autorally_tpu_torch.tools.exact_variants import forced_geometry
+
+    P = PRECISION
+    dev = torch.device("cuda", 0) if dev is None else dev
+    solver, params, cp, costmap, _ = drive_oval.build(rollouts=K, device=dev)
+    cfg, model = solver.cfg, solver.model
+    # the holds and the times on seeded biases (PREC_BIAS_STD), the drives
+    # on the entry points' seeded model (its biases zero: with seeded ones
+    # the main path's car backs into a crash)
+    drive_params, params = params, with_biases(params, 31)
+    bsolver, bparams, *_ = drive_oval.build(model="bf", device=dev)
+    bcfg, bmodel = bsolver.cfg, bsolver.model
+    strong = dict(bparams, theta=bparams["theta"] * torch.tensor(
+        BF_ROW_SCALE, device=dev)[:, None])
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(310)
+    eps = torch.randn((T, K, 2), generator=gen, device=dev)
+    eps_b = torch.randn((T, KB, 2), generator=gen, device=dev)
+    eps_s = torch.randn((T, KS, 2), generator=gen, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    nan_start = start.clone()
+    nan_start[0] = float("nan")
+    edge_start = torch.tensor([37.0, 0.0, 0.3, 0.0, 6.0, 0.0, 0.0],
+                              device=dev)
+    slow_start = start.clone()
+    slow_start[4] = 1.0
+    wide = cfg.replace(steering_std=4 * cfg.steering_std,
+                       throttle_std=4 * cfg.throttle_std)
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
+    # the largest cost (kernel 2: state) error of each held case, and of
+    # each ``kernels`` row's instance
+    held, errs, results = {}, {}, {}
+
+    # each held case's mean differences, and the cases in which each
+    # instance met PREC_CLOSER
+    closer, met = {}, {}
+
+    def same_all(a, b) -> bool:
+        return all(bit_equal(x, y) for x, y in zip(a, b)
+                   if torch.is_tensor(x))
+
+    def launched(fn):
+        """``fn()`` and the name of the one kernel instance it launched."""
+        before = rk.LAUNCHES.copy()
+        out = fn()
+        names = list(rk.LAUNCHES - before)
+        check(len(names) == 1, f"precision: launched {names}, expected one "
+              "kernel instance")
+        return out, names[0]
+
+    def hold_closer(case, instance, k, p, k32, p32, keep):
+        """``closer_reading`` on the card: held in each case that can tell
+        the precision from float32's noise (``resolved``), reported in the
+        others; every instance must be held in at least one."""
+        r = closer[case] = closer_reading(k, p, k32, p32, keep)
+        met.setdefault(instance, [])
+        print(f"[precision {case}] {instance}: mean|'default' - plain "
+              f"'default'| {r['near']:.3e}, mean|'default' - plain "
+              f"'highest'| {r['far']:.3e} (ratio "
+              f"{r['far'] / max(r['near'], 1e-300):.1f}, limit "
+              f"{PREC_CLOSER:.0f}); plain 'default' - plain 'highest' "
+              f"{r['plain_moved']:.3e}, float32 instance - plain 'highest' "
+              f"{r['fp32_noise']:.3e}: " + (
+                  "held" if r["resolved"] else
+                  "float32's noise hides the precision, reported only"))
+        if r["resolved"]:
+            check(r["held"], f"{case} {instance}: {r['near']:.3e} from its "
+                  f"'default' plain version, {r['far']:.3e} from 'highest'")
+            met[instance].append(case)
+
+    def against_fp32(tag, d, hi, high):
+        """(c): the outputs ``d`` at "default" differ from the float32
+        instance's ``hi``, and "high"'s ``high`` equal ``hi`` bit for
+        bit."""
+        moved = (d[0] - hi[0]).abs()
+        moved = moved[torch.isfinite(moved)].max().item()
+        print(f"[precision] {tag}: 'default' against the float32 instance "
+              f"max|diff| {moved:.3e}; 'high' bit for bit 'highest': "
+              f"{same_all(high, hi)}")
+        check(not bit_equal(d[0], hi[0]),
+              f"{tag}: the 'default' instance gives the float32 bits")
+        check(same_all(high, hi), f"{tag}: 'high' differs from 'highest'")
+        return moved
+
+    def hold_fused(tag, name, run, plain, n, row=None):
+        """A fused kernel (1 or 3, or pass 1 without u_seq) against its
+        plain version at "default", phase 11's rule and PREC_CLOSER; (c)
+        against its float32 instance; its error counts for the
+        ``kernels`` row ``row``."""
+        out, instance = launched(lambda: run(P))
+        ref = plain(P)
+        hi, high, ref32 = run("highest"), run("high"), plain("highest")
+        torch.cuda.synchronize()
+        kc, kx = out[0], out[-1]
+        pc, px = ref[0], ref[-1]
+        if len(out) == 3:
+            check(bit_equal(out[1], ref[1]), f"{tag} {name}: u_seq differs")
+        if name == "nominal":
+            check(torch.equal(kx, px), f"{tag} {name}: crash flags differ")
+        err = agreement(f"precision {tag}", name, kc, kx, pc, px, n,
+                        limit=n // 100)
+        hold_closer(f"{tag} {name}", f"{tag}: {instance}", kc, pc, hi[0],
+                    ref32[0], agreeing(kc, kx, pc, px))
+        against_fp32(f"{tag} {name}", out, hi, high)
+        held[f"{tag} {name}"] = err
+        if row is not None:
+            errs[row] = max(errs.get(row, 0.0), err)
+        return out
+
+    def hold_chain(tag, mdl, prm, c, e, geoms, row=None):
+        """Kernel 2 at K in each geometry of ``geoms`` (bit for bit each
+        other) against its plain version at "default": states within
+        STATE_RTOL / STATE_ATOL in all but 1 % of the rollouts, u_seq bit
+        for bit, and PREC_CLOSER; (c) against its float32 instance."""
+        def run(p):
+            return tuple(rk.dynamics_chain(mdl, prm, c, slow_start, U, e,
+                                           precision=p))
+        n = e.shape[1]
+        (ks, ku), instance = launched(lambda: hold_geometries(
+            f"precision {tag}", geoms, lambda: run(P),
+            lambda label, out: None, chain=True))
+        ps, pu = rk.dynamics_chain_plain(mdl, prm, c, slow_start, U, e,
+                                         precision=P)
+        ps32, _ = rk.dynamics_chain_plain(mdl, prm, c, slow_start, U, e,
+                                          precision="highest")
+        hi, high = run("highest"), run("high")
+        torch.cuda.synchronize()
+        near = torch.isclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL,
+                             equal_nan=True).all(dim=0).all(dim=0)
+        n_differ = int((~near).sum().item())
+        fin = torch.isfinite(ps)
+        e_s = (ks[fin] - ps[fin]).abs().max().item()
+        print(f"[precision {tag}] K={n} against its plain version: "
+              f"max|state err| {e_s:.3e}, {n_differ} rollouts beyond "
+              f"rtol {STATE_RTOL} / atol {STATE_ATOL} (limit {n // 100}), "
+              f"u_seq bit for bit {bit_equal(ku, pu)}")
+        check(n_differ <= n // 100, f"{tag}: {n_differ} rollouts' states "
+              "differ from the plain version")
+        check(bit_equal(ku, pu), f"{tag}: u_seq differs")
+        hold_closer(tag, f"{tag}: {instance}", ks, ps, hi[0], ps32, near)
+        against_fp32(f"{tag} K={n}", (ks, ku), hi, high)
+        held[tag] = e_s
+        if row is not None:
+            errs[row] = e_s
+
+    # -- (b), (c): kernel 1 in lane groups at K=K (phase 2's cases) and one
+    # rollout a thread at K=KC; the BF model at K=KB
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geom = rk.exact_geometry(K, sms)
+    check(geom.group > 1, f"kernel 1 at K={K} takes {geometry_label(geom)}")
+    a_cases = {"nominal": (cfg, start, costmap),
+               "wide_swarm": (wide, edge_start, costmap),
+               "nan_x": (cfg, nan_start, costmap),
+               "random_map": (wide, slow_start, random_costmap(dev))}
+    for name, (c, s0, cm) in a_cases.items():
+        def run(p, c=c, s0=s0, cm=cm):
+            return rk.fused_exact_rollout_cost(model, params, c, cp, cm, s0,
+                                               U, eps, precision=p)
+
+        def plain(p, c=c, s0=s0, cm=cm):
+            return rk.fused_rollout_cost_plain(model, params, c, cp, cm, s0,
+                                               U, eps, precision=p)
+
+        hold_fused(f"kernel 1 {geometry_label(geom)}", name, run, plain, K,
+                   "fused_exact_rollout_cost_default")
+        if name == "nominal":
+            check(same_all(plain("high"), plain("highest")),
+                  "kernel 1's plain version: 'high' differs from 'highest'")
+    eps_c = torch.randn((T, KC, 2), generator=gen, device=dev)
+    with forced_geometry(1, rk.EXACT_BLOCK):
+        def run_c(p):
+            return rk.fused_exact_rollout_cost(model, params, cfg, cp,
+                                               costmap, start, U, eps_c,
+                                               precision=p)
+        hold_fused("kernel 1 G1 block 64", "nominal", run_c,
+                   lambda p: rk.fused_rollout_cost_plain(
+                       model, params, cfg, cp, costmap, start, U, eps_c,
+                       precision=p), KC, "fused_exact_rollout_cost_default")
+    del eps_c
+    # BASELINE #3's spec (its library of bf16 operands), nominal
+    spec_model, spec_params, spec_cfg = spec_setup(SPEC_LAYERS[0], dev)
+    drive_spec_params, spec_params = spec_params, with_biases(spec_params, 32)
+    label = "_" + spec_label(SPEC_LAYERS[0])
+
+    def run_spec(p):
+        return rk.fused_exact_rollout_cost(spec_model, spec_params, spec_cfg,
+                                           cp, costmap, start, U, eps_s,
+                                           precision=p)
+    hold_fused(f"kernel 1 {spec_label(SPEC_LAYERS[0])}", "nominal",
+               run_spec, lambda p: rk.fused_rollout_cost_plain(
+                   spec_model, spec_params, spec_cfg, cp, costmap, start, U,
+                   eps_s, precision=p), KS,
+               f"fused_exact_rollout_cost{label}_default")
+    for name, (prm, s0) in {"nominal": (bparams, start),
+                            "strong": (strong, slow_start)}.items():
+        def run_b(p, prm=prm, s0=s0):
+            return rk.fused_exact_rollout_cost(bmodel, prm, bcfg, cp,
+                                               costmap, s0, U, eps_b,
+                                               precision=p)
+        hold_fused("kernel 1 bf", name, run_b, lambda p, prm=prm, s0=s0:
+                   rk.fused_rollout_cost_plain(bmodel, prm, bcfg, cp,
+                                               costmap, s0, U, eps_b,
+                                               precision=p), KB,
+                   "fused_exact_rollout_cost_bf_default")
+
+    # -- kernel 2 at K in each geometry, bit for bit each other; the wide
+    # spec's (its warp form's staging is phase 31's spill) at K=KS
+    hold_chain("kernel 2", model, params, cfg, eps, rk.CHAIN_GEOMETRIES,
+               "dynamics_chain_default")
+    hold_chain("kernel 2 bf", bmodel, strong, bcfg, eps_b,
+               rk.CHAIN_GEOMETRIES, "dynamics_chain_bf_default")
+    hold_chain(f"kernel 2 {spec_label(SPEC_LAYERS[0])}", spec_model,
+               spec_params, spec_cfg, eps_s,
+               rk.chain_geometries(SPEC_LAYERS[0]))
+
+    # -- kernel 3 on the fitted field and F6-48-48, MLP and BF, with and
+    # without the circle slots (slow start: the circles on its lane); the
+    # wide spec on the fitted field
+    f648 = seeded_field(costmap, dev, fspec=FIELD_LABELS["F6-48-48"])
+    circles = obstacle_circles(model, params, cfg, slow_start, U)
+    okw = dict(obstacles=make_obstacles(circles, N_SLOTS, device=dev),
+               obstacle_coeff=drive_oval.OBSTACLE_COEFF,
+               inflation=drive_oval.OBSTACLE_INFLATION)
+    # the same slots 1 km off the map: the circles' edges, which float32
+    # noise latches on either side, hide the BF model's small rounding
+    # (phase 11's rule holds them above); the instance's dynamics alone
+    off = [[x + 1000.0, y, r] for x, y, r in circles]
+    okw_off = dict(okw, obstacles=make_obstacles(off, N_SLOTS, device=dev))
+    bcfg_s = bcfg.replace(num_rollouts=KS)
+    row3 = "fused_rollout_cost_default"
+    for name, (mdl, prm, c, s0, f, kw, row) in {
+            "nominal": (model, params, cfg, start, field, {}, row3),
+            "wide_swarm": (model, params, wide, edge_start, field, {}, row3),
+            "slots16": (model, params, cfg, slow_start, field, okw, None),
+            "bf strong": (bmodel, strong, bcfg_s, slow_start, field, {},
+                          None),
+            "bf slots16": (bmodel, strong, bcfg_s, slow_start, field, okw,
+                           None),
+            "bf slots16 off the map": (bmodel, strong, bcfg_s, slow_start,
+                                       field, okw_off, None),
+            "F6-48-48": (model, params, cfg, start, f648, {}, None),
+            spec_label(SPEC_LAYERS[0]): (spec_model, spec_params, spec_cfg,
+                                         start, field, {}, None)}.items():
+        def run3(p, mdl=mdl, prm=prm, c=c, s0=s0, f=f, kw=kw):
+            return rk.fused_rollout_cost(mdl, prm, c, cp, f, s0, U, eps_s,
+                                         precision=p, **kw)
+        hold_fused("kernel 3", name, run3,
+                   lambda p, mdl=mdl, prm=prm, c=c, s0=s0, f=f, kw=kw:
+                   rk.fused_rollout_cost_plain(mdl, prm, c, cp, f, s0, U,
+                                               eps_s, precision=p, **kw),
+                   KS, row)
+
+    # -- pass 1: exact MLP and BF (bit for bit kernel 1 on the plain
+    # stream), field, gaussian and OU; the wide spec's exact and field
+    # and F6-48-48's field at K=KS
+    gauss = {"gaussian": {}}
+    wide_label = spec_label(SPEC_LAYERS[0])
+    for tag, (mdl, prm, base_cfg, surf, k_n, samplers, row) in {
+            "pass 1": (model, params, cfg, costmap, KC, SAMPLERS,
+                       "fused_rng_costs_default"),
+            "pass 1 bf": (bmodel, strong, bcfg, costmap, KC, gauss,
+                          "fused_rng_costs_bf_default"),
+            "pass 1 field": (model, params, cfg, field, KF, SAMPLERS,
+                             "fused_rng_costs_field_default"),
+            "pass 1 field bf": (bmodel, strong, bcfg, field, KF, gauss,
+                                None),
+            f"pass 1 {wide_label}": (spec_model, spec_params, spec_cfg,
+                                     costmap, KS, gauss, None),
+            f"pass 1 field {wide_label}": (spec_model, spec_params,
+                                           spec_cfg, field, KS, gauss,
+                                           None),
+            "pass 1 field F6-48-48": (model, params, cfg, f648, KS, gauss,
+                                      None)}.items():
+        for sname, skw in samplers.items():
+            c = base_cfg.replace(num_rollouts=k_n, kernel_rng=True, **skw)
+            s0 = slow_start if mdl is bmodel else start
+
+            def run1(p, mdl=mdl, prm=prm, c=c, s0=s0, surf=surf):
+                return rk.fused_rng_costs(mdl, prm, c, cp, surf, s0, U, key,
+                                          precision=p)[:2]
+            out = hold_fused(f"{tag} {sname}", "nominal", run1,
+                             lambda p, mdl=mdl, prm=prm, c=c, s0=s0,
+                             surf=surf: rk.fused_rng_costs_plain(
+                                 mdl, prm, c, cp, surf, s0, U, key,
+                                 precision=p)[:2], k_n, row)
+            if surf is costmap:
+                ctx = rk.fused_rng_costs(mdl, prm, c, cp, surf, s0, U, key,
+                                         precision=P)[2]
+                with forced_geometry(1, rk.EXACT_BLOCK):
+                    ac, _, ax = rk.fused_exact_rollout_cost(
+                        mdl, prm, c, cp, surf, s0, U, rk.rng_noise(ctx),
+                        precision=P)
+                torch.cuda.synchronize()
+                same = bit_equal(out[0], ac) and torch.equal(out[1], ax)
+                print(f"[precision {tag} {sname}] K={k_n}: bit for bit "
+                      f"kernel 1 on the plain stream: {same}")
+                check(same, f"{tag} {sname}: differs from kernel 1 on the "
+                      "plain stream")
+                del ac, ax, ctx
+
+    # -- (d): drives through the entry points
+    def drive(tag, s, prm, surface, ticks, per_solve):
+        latency, got, out = drive_counted(drive_oval, rk, f"precision {tag}",
+                                          s, prm, cp, surface, ticks,
+                                          per_solve, card)
+        print(f"[precision {tag}] solve p99 {latency[1]:.3f} ms against the "
+              f"{PREC_BUDGET_MS:.0f} ms budget: "
+              f"{'inside' if latency[1] <= PREC_BUDGET_MS else 'MISSED'} "
+              f"({card})")
+        results[tag] = {"latency": latency, "launches": got}
+        return got
+
+    def at(s, prm=None):
+        return s.cfg.replace(matmul_precision=P, **(prm or {}))
+
+    drives = {
+        "main path": (MPPISolver(model, solver.cost, at(solver), device=dev),
+                      drive_params, costmap, TICKS,
+                      {"fused_exact_rollout_cost_default": 1,
+                       "dynamics_chain": 1}),
+        "capacity": (MPPISolver(model, solver.cost, at(solver, dict(
+            num_rollouts=KC, kernel_rng=True)), device=dev), drive_params,
+            costmap, PREC_CAP_TICKS, {"fused_rng_costs_default": 1,
+                             "fused_rng_numer": 1, "dynamics_chain": 1}),
+        "field": (MPPISolver(model, solver.cost, at(solver, dict(
+            num_rollouts=KF)), device=dev), drive_params, field,
+            PREC_FIELD_TICKS, {"fused_rollout_cost_default": 1,
+                               "dynamics_chain": 1}),
+        "field capacity": (MPPISolver(model, solver.cost, at(solver, dict(
+            num_rollouts=KC, kernel_rng=True)), device=dev), drive_params,
+            field, PREC_FORM_TICKS, {"fused_rng_costs_field_default": 1,
+                                     "fused_rng_numer": 1,
+                                     "dynamics_chain": 1}),
+        "BASELINE #3 spec": (MPPISolver(
+            spec_model, MPPICost(), spec_cfg.replace(matmul_precision=P),
+            device=dev), drive_spec_params, costmap, PREC_SPEC_TICKS,
+            {f"fused_exact_rollout_cost{label}_default": 1,
+             f"dynamics_chain{label}": 1}),
+        "cost subclass": (MPPISolver(model, doubled_speed_cost(), at(solver),
+                                     device=dev), drive_params, costmap,
+                          PREC_FORM_TICKS, {"dynamics_chain_default": 1,
+                                            "dynamics_chain": 1}),
+        "bf": (MPPISolver(bmodel, bsolver.cost, at(bsolver), device=dev),
+               bparams, costmap, PREC_FORM_TICKS,
+               {"fused_exact_rollout_cost_bf_default": 1,
+                "dynamics_chain_bf": 1}),
+        "bf capacity": (MPPISolver(bmodel, bsolver.cost, at(bsolver, dict(
+            num_rollouts=KC, kernel_rng=True)), device=dev), bparams,
+            costmap, PREC_FORM_TICKS, {"fused_rng_costs_bf_default": 1,
+                                       "fused_rng_numer": 1,
+                                       "dynamics_chain_bf": 1}),
+        # one rank without a process group: the sharded solver's inline
+        # body
+        "sharded capacity": (ShardedMPPISolver(model, solver.cost, at(
+            solver, dict(num_rollouts=KC, kernel_rng=True)), device=dev),
+            drive_params, costmap, PREC_FORM_TICKS,
+            {"fused_rng_costs_default": 1, "fused_rng_numer": 1,
+             "dynamics_chain": 1})}
+    # the one-rank sharded iterate (pass 1 on fold_in(sub, 0)'s stream, the
+    # collectives' identities) against MPPISolver's on that stream
+    sharded = drives["sharded capacity"][0]
+    check(sharded._inline_body, "precision: the one-rank sharded solver "
+          "takes collectives")
+    sub = np.array(KEY, np.uint32)
+    U_a, st_a = sharded._sharded_rng_iterate(drive_params, cp, costmap,
+                                             start, U, sub)
+    U_b, st_b = drives["capacity"][0]._iterate_drawn(
+        drive_params, cp, costmap, start, U, sharded._draw(costmap, sub))
+    torch.cuda.synchronize()
+    same = bit_equal(U_a, U_b) and same_all(st_a, st_b)
+    print(f"[precision sharded capacity] one rank at K={KC}, 'default': "
+          f"its iterate bit for bit MPPISolver's on the same stream: {same}")
+    check(same, "precision: the one-rank sharded iterate differs from "
+          "MPPISolver's")
+    launches = {}
+    for tag, (s, prm, surface, ticks, per_solve) in drives.items():
+        launches.update(drive(tag, s, prm, surface, ticks, per_solve))
+
+    # the ensemble at K=ENS_KS[0]: identical members bit for bit
+    # MPPISolver at "default", then chained solves with launches counted
+    data, xb, yb = tg.oval_track(ppm=4.0)
+    cm_e = make_costmap(data, xb, yb, device=dev)
+    ecfg = MPPIConfig(num_rollouts=ENS_KS[0], num_timesteps=T,
+                      matmul_precision=P)
+    base = NeuralNetDynamics(ecfg.dt, control_ranges=ecfg.control_ranges,
+                             device=dev)
+    p0 = base.init_params(0)
+    ens = EnsembleMPPISolver(base, MPPICost(ecfg.l1_cost), ecfg,
+                             num_members=ENS_M, device=dev)
+    single = MPPISolver(base, MPPICost(ecfg.l1_cost), ecfg, device=dev)
+    e_state = np.array(ENS_START, np.float32)
+    cs_e, st_e = ens.solve(stack_params([p0] * ENS_M), cp, cm_e, e_state,
+                           ens.init_state())
+    cs_s, st_s = single.solve(p0, cp, cm_e, e_state, single.init_state())
+    torch.cuda.synchronize()
+    same = {f: bit_equal(getattr(cs_e, f), getattr(cs_s, f))
+            for f in ("U", "state_solution", "control_solution")}
+    same.update({f: bit_equal(getattr(st_e, f), getattr(st_s, f))
+                 for f in st_e._fields})
+    print(f"[precision ensemble] {ENS_M} identical members against "
+          f"MPPISolver at K={ENS_KS[0]}, 'default', bit for bit: {same}")
+    check(all(same.values()), "precision ensemble: identical members "
+          "differ from MPPISolver")
+    stacked = ensemble_members(p0, ENS_M)
+    cs = ens.init_state()
+    rk.LAUNCHES.clear()
+    with PlainCalls(rk) as calls:
+        ms = []
+        for _ in range(PREC_ENS_SOLVES):
+            t0 = time.perf_counter()
+            cs, st = ens.solve(stacked, cp, cm_e, e_state, cs)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    got = dict(rk.LAUNCHES)
+    want = {"fused_exact_rollout_cost_default": ENS_M * PREC_ENS_SOLVES,
+            "dynamics_chain": PREC_ENS_SOLVES}
+    lat = (float(np.percentile(ms, 50)), float(np.percentile(ms, 99)))
+    print(f"[precision ensemble] M={ENS_M} K={ENS_KS[0]} {PREC_ENS_SOLVES} "
+          f"chained solves: p50 {lat[0]:.3f} ms p99 {lat[1]:.3f} ms (solve "
+          f"+ sync, host clock; {card}); launches {got}; plain-version "
+          f"calls {calls.calls}")
+    check(got == want, f"precision ensemble: launches {got}, expected "
+          f"{want}")
+    check(not any(calls.calls.values()), "precision ensemble: a plain "
+          "version ran on the card")
+    check(torch.isfinite(cs.U).all().item(), "precision ensemble: "
+          "non-finite controls")
+    results["ensemble"] = {"latency": lat, "launches": got}
+
+    # the first control of chained solves from the same state and key,
+    # "default" against "highest"
+    firsts = {}
+    for p in ("highest", P):
+        s = MPPISolver(model, solver.cost, solver.cfg.replace(
+            matmul_precision=p), device=dev)
+        cs = s.init_state()
+        u0 = []
+        for _ in range(PREC_CHAINED_SOLVES):
+            cs, _ = s.solve(drive_params, cp, costmap, start, cs)
+            u0.append(cs.U[0].clone())
+        firsts[p] = torch.stack(u0)
+    drift = (firsts[P] - firsts["highest"]).abs().max().item()
+    print(f"[precision] the first control over {PREC_CHAINED_SOLVES} "
+          f"chained solves from the same state, 'default' against "
+          f"'highest': max|diff| {drift:.3e} (K={K}, T={T}; {card})")
+    check(np.isfinite(drift) and drift > 0.0, "precision: the chained "
+          "solves' first controls do not differ, or are not finite")
+    results["first_control_drift"] = drift
+
+    # -- (e): each timed instance beside its float32 instance, alternating
+    # (float32, default, default, float32), and its plain version
+    f_ops = field_eval_ops(field.layers, field.freqs.numel())
+    f_prod = 2 * sum(a * b for a, b in zip(field.layers[:-2],
+                                           field.layers[1:-1]))
+    n_f = rk.FIELD_NUM_WEIGHTS
+    eps_f = torch.randn((T, KF, 2), generator=gen, device=dev)
+    layers = tuple(model.layers)
+    n_mlp, n_bf = rk.num_weights(layers), rk.KERNEL_BF_WEIGHTS
+    step, prods = mlp_flops(layers), mlp_products(layers)
+    texels = 2 * (T - 1)
+
+    def fused_bytes(k, n_w, surface):
+        return 4 * (T * k * 2 + 2 * T * k + 2 * k + T * 2 + n_w + 7 + 4
+                    + (n_f if surface == "field" else texels * k))
+
+    def pass1_bytes(k, n_w, surface):
+        return 4 * (T * 2 + n_w + 7 + 4 + 2 * k + (
+            n_f if surface == "field" else min(
+                costmap.height * costmap.width, texels * k))) + 16
+
+    def bounds(nbytes, k, step_ops, step_prods, surface):
+        """(fp32 bound, bf16 tensor-core bound) of k rollouts."""
+        n_evals = k * (T - 1) * 2 if surface == "field" else 0
+        fp32 = bound(nbytes, k * T * step_ops + n_evals * f_ops)
+        tc = bf16_bound(nbytes, k * T * (step_ops - step_prods)
+                        + n_evals * (f_ops - f_prod), k * T * step_prods,
+                        3 * n_evals * f_prod)
+        return fp32, tc
+
+    spec_steps = (mlp_flops(SPEC_LAYERS[0]), mlp_products(SPEC_LAYERS[0]))
+    timed = {
+        # name: (prepare(precision), K, bytes, ops a step, products a step,
+        #        surface, plain(precision), replaces, reps)
+        "fused_exact_rollout_cost": (
+            lambda p: rk.prepare_fused_exact_rollout_cost(
+                model, params, cfg, cp, costmap, start, U, eps,
+                precision=p)[0], K, fused_bytes(K, n_mlp, "exact"), step,
+            prods, "exact", lambda p: rk.fused_rollout_cost_plain(
+                model, params, cfg, cp, costmap, start, U, eps,
+                precision=p), 1013, "small"),
+        "fused_exact_rollout_cost_bf": (
+            lambda p: rk.prepare_fused_exact_rollout_cost(
+                bmodel, bparams, bcfg, cp, costmap, start, U, eps_b,
+                precision=p)[0], KB, fused_bytes(KB, n_bf, "exact"),
+            BF_STEP_OPS, BF_PRODUCTS, "exact",
+            lambda p: rk.fused_rollout_cost_plain(
+                bmodel, bparams, bcfg, cp, costmap, start, U, eps_b,
+                precision=p), 1013, "small"),
+        "dynamics_chain": (
+            lambda p: rk.prepare_dynamics_chain(
+                model, params, cfg, start, U, eps, precision=p)[0], K,
+            4 * (11 * T * K + 2 * T + n_mlp + 7 + 4), step, prods, "chain",
+            lambda p: rk.dynamics_chain_plain(model, params, cfg, start, U,
+                                              eps, precision=p), 389,
+            "small"),
+        "fused_rollout_cost": (
+            lambda p: rk.prepare_fused_rollout_cost(
+                model, params, cfg, cp, field, start, U, eps_f,
+                precision=p)[0], KF, fused_bytes(KF, n_mlp, "field"), step,
+            prods, "field", lambda p: rk.fused_rollout_cost_plain(
+                model, params, cfg, cp, field, start, U, eps_f,
+                precision=p), 606, "large"),
+        "fused_rng_costs": (
+            lambda p: rk.prepare_fused_rng_costs(
+                model, params, cfg.replace(num_rollouts=KC, kernel_rng=True),
+                cp, costmap, start, U, key, precision=p)[0], KC,
+            pass1_bytes(KC, n_mlp, "exact"), step + STREAM_OPS, prods,
+            "exact", lambda p: rk.fused_rng_costs_plain(
+                model, params, cfg.replace(num_rollouts=KC, kernel_rng=True),
+                cp, costmap, start, U, key, precision=p), 1221, "large"),
+        "fused_rng_costs_bf": (
+            lambda p: rk.prepare_fused_rng_costs(
+                bmodel, bparams, bcfg.replace(num_rollouts=KC,
+                                              kernel_rng=True),
+                cp, costmap, start, U, key, precision=p)[0], KC,
+            pass1_bytes(KC, n_bf, "exact"), BF_STEP_OPS + STREAM_OPS,
+            BF_PRODUCTS, "exact", lambda p: rk.fused_rng_costs_plain(
+                bmodel, bparams, bcfg.replace(num_rollouts=KC,
+                                              kernel_rng=True),
+                cp, costmap, start, U, key, precision=p), 1221, "large"),
+        "fused_rng_costs_field": (
+            lambda p: rk.prepare_fused_rng_costs(
+                model, params, cfg.replace(num_rollouts=KC, kernel_rng=True),
+                cp, field, start, U, key, precision=p)[0], KC,
+            pass1_bytes(KC, n_mlp, "field"), step + STREAM_OPS, prods,
+            "field", lambda p: rk.fused_rng_costs_plain(
+                model, params, cfg.replace(num_rollouts=KC, kernel_rng=True),
+                cp, field, start, U, key, precision=p), 1221, "large"),
+        f"fused_exact_rollout_cost{label}": (
+            lambda p: rk.prepare_fused_exact_rollout_cost(
+                spec_model, spec_params, spec_cfg, cp, costmap, start, U,
+                eps_s, precision=p)[0], KS,
+            fused_bytes(KS, rk.num_weights(SPEC_LAYERS[0]), "exact"),
+            *spec_steps, "exact", lambda p: rk.fused_rollout_cost_plain(
+                spec_model, spec_params, spec_cfg, cp, costmap, start, U,
+                eps_s, precision=p), 1013, "small")}
+    rows = []
+    for name, (prep, k_n, nbytes, ops, prod, surface, plain, replaces,
+               size) in timed.items():
+        launch = {p: prep(p) for p in ("highest", P)}
+        reps = PREC_TIME_REPS[size]
+        runs = {"highest": [], P: []}
+        for p in ("highest", P, P, "highest"):
+            runs[p].append(cuda_ms(launch[p], reps))
+        ms, ms32 = statistics.mean(runs[P]), statistics.mean(runs["highest"])
+        plain_ms = cuda_ms(lambda: plain(P), 3 if size == "small" else 2, 1)
+        fp32, tc = bounds(nbytes, k_n, ops, prod, surface)
+        dname = launch[P].name
+        geom = launch[P].geometry
+        print(f"[timing] precision {dname} K={k_n} T={T}"
+              + (f" {geometry_label(geom)}" if geom is not None else "")
+              + f": 'default' {ms:.4f} ms, its float32 instance "
+              f"{ms32:.4f} ms ({ms / ms32:.3f}x; runs "
+              f"{[round(v, 4) for v in runs[P]]} against "
+              f"{[round(v, 4) for v in runs['highest']]}), plain "
+              f"{plain_ms:.3f} ms, bf16 tensor-core bound {tc[0]:.5f} ms "
+              f"({tc[1]}), fp32 bound {fp32[0]:.5f} ms ({fp32[1]}) ({card})")
+        check(dname in errs and launches.get(dname, 0) > 0,
+              f"precision: {dname} was not held against its plain version "
+              "or not launched by a drive")
+        rows.append({
+            "name": dname, "route": "cuda", "source": src,
+            "replaces": f"autorally_tpu/ops/rollout_kernel.py:{replaces}",
+            "launches": launches[dname], "max_abs_err": errs[dname],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": tc[0],
+            "bound_by": tc[1], "library_ms": None, "fp32_bound_ms": fp32[0],
+            "fp32_instance_ms": ms32, "K": k_n, "precision": P,
+            "geometry": geometry_label(geom) if geom is not None else None})
+        del launch
+    results["held_errors"] = held
+    results["closer"] = closer
+    print(f"[precision] instances held by PREC_CLOSER in a case that can "
+          f"tell: {met}")
+    missing = [inst for inst, cases in met.items() if not cases]
+    check(not missing, f"precision: no held case could tell 'default' from "
+          f"float32's noise for {missing}")
+    return {"rows": rows, "results": results}
+
+
 def main() -> int:
     import torch
 
@@ -5935,6 +6715,18 @@ def main() -> int:
         field_library_instances(rk, layers, fspec, field_lib, card)
     field_specs = field_spec_phase(drive_oval, rk, card)
 
+    # -- phase 31: matmul_precision "default" -----------------------------
+    # phase 1 for the libraries of bf16 operands, built meanwhile
+    t_wait = time.perf_counter()
+    for layers, fspec in BF16_LIBRARIES:
+        bf16_lib, bf16_s = builds.get(layers, fspec, bf16=True)
+        print(f"[build bf16] {_build.library_path(layers, fspec, True).name}"
+              ": " + (f"nvcc {bf16_lib.build[0]:.1f}s" if bf16_lib.build
+                      else "already built") + f", {bf16_s:.1f}s, waited "
+              f"{time.perf_counter() - t_wait:.1f}s at phase 31 ({card})")
+        bf16_library_instances(rk, layers, fspec, bf16_lib, card)
+    precision = precision_phase(drive_oval, rk, card, field)
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -5953,7 +6745,7 @@ def main() -> int:
         ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + [
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
-        baseline3["rows"]) + field_specs["rows"]
+        baseline3["rows"]) + field_specs["rows"] + precision["rows"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -5962,6 +6754,8 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
+        if k.get("precision") == PRECISION:
+            continue                     # phase 31's rows carry their own
         layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
@@ -6020,6 +6814,7 @@ def main() -> int:
                       "sharded": sharded["results"],
                       "baseline3": baseline3["results"],
                       "field_specs": field_specs["results"],
+                      "precision_default": precision["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -6045,7 +6840,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-30 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-31 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -229,11 +229,12 @@ def test_controller_state_helpers():
     dict(kernel_rng=True), dict(noise_sampler="colored"),
     dict(noise_sampler="ou", noise_param=0.15), dict(matmul_precision="default")])
 def test_unported_options_raise_and_name_the_roadmap(option):
-    """Options still unported raise and name the roadmap; the ones ported
-    since (the capacity mode, colored and OU noise) construct and solve,
-    and so does a cost subclass, once refused: it takes the general path
-    (the chain and the batched cost epilogue) and matches the JAX solver's
-    iteration."""
+    """Options once unported construct and solve: the capacity mode,
+    colored and OU noise, and ``matmul_precision="default"`` (bf16
+    operands in the dynamics' products; a name the JAX package does not
+    take raises ``ValueError``); so does a cost subclass, once refused: it
+    takes the general path (the chain and the batched cost epilogue) and
+    matches the JAX solver's iteration."""
     solver, params, cm, jsolver, jparams, jcm = _pair(K=128, T=16)
     model, cfg = solver.model, solver.cfg
     if "matmul_precision" not in option:
@@ -251,9 +252,15 @@ def test_unported_options_raise_and_name_the_roadmap(option):
     class JaxSubCost(JaxCost):
         pass
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
-                        device="cpu")
+    default = mppi.MPPISolver(model, MPPICost(), cfg.replace(**option),
+                              device="cpu")
+    cs, stats = default.solve(params, CostParams(), cm, SCENARIO_START,
+                              default.init_state())
+    assert np.isfinite(cs.U.numpy()).all() and cs.U.shape == (16, 2)
+    assert 1.0 <= float(stats.ess) <= 128
+    with pytest.raises(ValueError, match="matmul_precision"):
+        mppi.MPPISolver(model, MPPICost(),
+                        cfg.replace(matmul_precision="fastest"), device="cpu")
     sub = mppi.MPPISolver(model, SubCost(), cfg, device="cpu")
     jsub = jmppi.MPPISolver(jsolver.model, JaxSubCost(), jsolver.cfg)
     rs = np.random.default_rng(8)
