@@ -322,7 +322,30 @@ exits non-zero):
     fit_kwargs=FIT_KWARGS)``), 100 host-noise ticks at K=65536 and 50
     capacity ticks at K=262144 (exactly 1 + 1 and 1 + 1 + 1 launches a
     solve, no plain version, p50 / p99 against 20 ms, printed), and the
-    same field in bf16 held and driven 20 ticks.
+    same field in bf16 held and driven 20 ticks;
+31. ``matmul_precision="default"``: the bf16-operand libraries' instances
+    against their ``"default"`` plain versions, and drives on each path;
+32. the physics simulator (``sim/``) and the ML loop on the card: (a)
+    ``vehicle_step`` for 500 periods under a gentle and a hard command
+    script on the card (the period one replayed CUDA graph) against the
+    CPU within the CPU tests' rtol 1e-5 / atol 1e-4 at every period, the
+    captured period bit for bit the eager one on the card, a period's ms
+    eager and captured (CUDA events and host clock) and the graph's nodes
+    (profiler); (b) ``tools/sim_node.py --physics --urdf --world`` as its
+    own process for 3 s at 50 Hz with ``--log`` (exit 0, done at the
+    world's spawn, 150 ground-truth rows, the pacer's missed periods);
+    (c) ``ml_loop_demo``'s loop at its own width (seeded 6-32-32-4, K=768,
+    T=60): 500 lockstep ticks against the physics plant with the log
+    recorded, the fine-tune (the fit must improve), the hot swap through
+    the plant's queue (both controllers hold the new weights bit for bit)
+    and 500 more ticks, each drive with exactly 2 + 2 kernel launches a
+    tick, no plain version and solve p50 / p99 at most 20 ms, its mean
+    speed, speed error and ticks a second; (d) BASELINE #3 on the physics
+    log: ``ml.trainer.run`` (6-64-64-64-64-4, 30 epochs) on (c)'s
+    after-swap log, reverse and forward (RMSE under half a fresh init's),
+    then 200 ticks of the physics plant at K=8192 with the trained model
+    (the car covers 5 m at a mean speed of 2 m/s or more, exactly 1 + 1
+    launches a solve, p99 at most 20 ms).
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -6329,6 +6352,328 @@ def precision_phase(drive_oval, rk, card, field, dev=None) -> dict:
     return {"rows": rows, "results": results}
 
 
+# -- phase 32: the physics simulator and the ML loop --------------------------
+
+PHYS_PERIODS = 500                     # (a): 10 s at 50 Hz a script
+PHYS_DT = 0.02
+PHYS_RTOL, PHYS_ATOL = 1e-5, 1e-4      # tests/test_torch_sim_vehicle.py
+PHYS_BIT_PERIODS = 100                 # (a): captured against eager
+PHYS_TIME_REPS = {"eager": 20, "captured": 200}
+SIM_NODE_SECONDS, SIM_NODE_HZ = 3, 50  # (b)
+SIM_NODE_WORLD = dict(name="smoke", spawn_x=12.5, spawn_y=-3.0,
+                      spawn_yaw=0.4, mu=0.55)
+ML_K, ML_T = 768, 60                   # (c): ml_loop_demo's own width
+ML_TICKS = 500                         # each drive, cut in ticks
+ML_EPOCHS = 60                         # the demo's default
+ML_BUDGET_MS = 20.0
+PHYS_B3_TICKS = 200                    # (d): at K=KS
+PHYS_B3_MIN_SPEED = 2.0                # (d): the JAX closed-loop tests' bound
+PHYS_B3_MIN_PATH = 5.0                 # (d): metres in the 4 s drive
+
+
+def phys_gentle(t):
+    """steering 0.2 sin(0.7 t), throttle 0.3 + 0.1 sin(0.3 t)."""
+    return [0.2 * np.sin(0.7 * t), 0.3 + 0.1 * np.sin(0.3 * t), 0.0]
+
+
+def phys_hard(t):
+    """Full-lock steering flipping every 2 pi s, throttle 0.9, the front
+    brake from t = 8 s."""
+    return [1.0 if int(t // (2 * np.pi)) % 2 == 0 else -1.0, 0.9,
+            1.0 if t >= 8.0 else 0.0]
+
+
+PHYS_SCRIPTS = {"gentle": phys_gentle, "hard": phys_hard}
+
+
+def timed_solves(ctrls, samples: list):
+    """Wrap each controller's ``compute_control`` (the predicted one's
+    solve too) to append its host-clock ms to ``samples``; the solve ends
+    with its trajectory cost read back.  Returns an undo."""
+    for ctrl in ctrls:
+        inner = ctrl.compute_control
+
+        def timed(state, _inner=inner):
+            t0 = time.perf_counter()
+            _inner(state)
+            samples.append((time.perf_counter() - t0) * 1e3)
+
+        ctrl.compute_control = timed
+    return lambda: [vars(c).pop("compute_control", None) for c in ctrls]
+
+
+def physics_drive(rk, tag, loop, ticks, names, card, logf=None) -> dict:
+    """``ticks`` ticks of ``loop.drive`` (``ml_loop_demo.MLLoop``) with
+    every launch counter set to 0 just before and read just after: exactly
+    two launches of each of ``names`` a tick (the two solves), none of any
+    other and no plain-version call; the solves' p50 / p99 against 20 ms."""
+    solves = []
+    undo = timed_solves((loop.actual, loop.predicted), solves)
+    rk.LAUNCHES.clear()
+    try:
+        with PlainCalls(rk) as plain:
+            m = loop.drive(ticks, logf=logf)
+    finally:
+        undo()
+    got = dict(rk.LAUNCHES)
+    want = dict.fromkeys(names, 2 * ticks)
+    m.update(launches=got, solve_ms=(float(np.percentile(solves, 50)),
+                                     float(np.percentile(solves, 99))),
+             ticks_per_s=m["ticks"] / m["wall_s"], solves=len(solves))
+    del m["timing"]
+    print(f"[physics {tag}] K={loop.cfg.num_rollouts} "
+          f"T={loop.cfg.num_timesteps} {ticks} ticks: mean speed "
+          f"{m['mean_speed']:.3f} m/s, |speed err| {m['mean_speed_err']:.3f}"
+          f", path {m['path_m']:.2f} m"
+          f"; solve p50 {m['solve_ms'][0]:.3f} ms p99 {m['solve_ms'][1]:.3f}"
+          f" ms ({len(solves)} solves, host clock); {m['ticks_per_s']:.1f} "
+          f"ticks/s ({m['wall_s']:.2f} s); launches {got}; plain-version "
+          f"calls {plain.calls} ({card})")
+    check(got == want, f"physics {tag}: launches {got}, expected {want}")
+    check(not any(plain.calls.values()), f"physics {tag}: a plain version "
+          f"ran on the card: {plain.calls}")
+    check(len(solves) == 2 * ticks, f"physics {tag}: {len(solves)} solves "
+          f"in {ticks} ticks")
+    check(m["solve_ms"][1] <= ML_BUDGET_MS, f"physics {tag}: solve p99 "
+          f"{m['solve_ms'][1]:.3f} ms over {ML_BUDGET_MS} ms")
+    return m
+
+
+def physics_phase(rk, card, dev=None) -> dict:
+    """Phase 32: the physics simulator (``sim/``) and the drive -> log ->
+    train -> hot-swap loop on the card (see the module's docstring)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from autorally_tpu_torch import ml_loop_demo
+    from autorally_tpu_torch.ml import instantaneous_errors
+    from autorally_tpu_torch.ml import trainer
+    from autorally_tpu_torch.models import NeuralNetDynamics
+    from autorally_tpu_torch.runtime.realtime_gate import free_udp_ports
+    from autorally_tpu_torch.sim import VehicleParams
+    from autorally_tpu_torch.sim.description import (DEFAULT_URDF,
+                                                     WorldDescription,
+                                                     save_world)
+    from autorally_tpu_torch.sim.plant import VehiclePeriod
+    from autorally_tpu_torch.sim.vehicle import init_sim_state
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = dev or torch.device("cuda", 0)
+    vp = VehicleParams()
+    results = {}
+
+    # (a) vehicle_step on the card against the CPU; captured against eager
+    for name, script in PHYS_SCRIPTS.items():
+        cmds = [np.float32(script(i * PHYS_DT)) for i in range(PHYS_PERIODS)]
+        runs = {}
+        for where, device, eager in (("cpu", "cpu", True),
+                                     ("captured", dev, False),
+                                     ("eager", dev, True)):
+            period = VehiclePeriod(vp, init_sim_state(device=device),
+                                   PHYS_DT, 20, device, eager=eager)
+            n = PHYS_BIT_PERIODS if where == "eager" else PHYS_PERIODS
+            t0 = time.perf_counter()
+            runs[where] = np.stack([period.step(c) for c in cmds[:n]])
+            runs[where + "_s"] = time.perf_counter() - t0
+            if where == "captured":
+                check(period.capture_count == 1, f"physics {name}: "
+                      f"{period.capture_count} captures")
+        cpu, card_s = runs["cpu"], runs["captured"]
+        err = np.abs(card_s - cpu)
+        ratio = float((err / (PHYS_ATOL + PHYS_RTOL * np.abs(cpu))).max())
+        bits = bool(np.array_equal(runs["eager"],
+                                   card_s[:PHYS_BIT_PERIODS]))
+        results[f"{name}_max_abs_err"] = float(err.max())
+        results[f"{name}_tolerance_ratio"] = ratio
+        print(f"[physics (a)] {name}: {PHYS_PERIODS} periods on the card "
+              f"(captured, {runs['captured_s']:.2f} s) against the CPU "
+              f"({runs['cpu_s']:.2f} s): max abs err {err.max():.3e}, "
+              f"largest err / (atol {PHYS_ATOL} + rtol {PHYS_RTOL} |x|) "
+              f"{ratio:.3f}; the captured period bit for bit the eager one "
+              f"over {PHYS_BIT_PERIODS} periods: {bits}; final speed "
+              f"{cpu[-1, 5]:.3f} m/s ({card})")
+        check(np.isfinite(card_s).all(), f"physics {name}: non-finite")
+        check(ratio <= 1.0, f"physics {name}: the card's states differ from "
+              f"the CPU's beyond rtol {PHYS_RTOL} / atol {PHYS_ATOL}")
+        check(bits, f"physics {name}: the captured period differs from "
+              f"the eager one")
+    # a period's ms, eager and captured, and the graph's nodes
+    timing = {}
+    cmd = np.float32(phys_gentle(1.0))
+    for mode in ("eager", "captured"):
+        period = VehiclePeriod(vp, init_sim_state(vx=3.0, device=dev),
+                               PHYS_DT, 20, dev, eager=mode == "eager")
+        period.step(cmd)
+        reps = PHYS_TIME_REPS[mode]
+        device_run = period._run if mode == "eager" else period.graph.replay
+        host = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            period.step(cmd)
+            host.append((time.perf_counter() - t0) * 1e3)
+        timing[mode] = {"cuda_ms": cuda_ms(device_run, reps),
+                        "host_ms": statistics.median(host)}
+        if mode == "captured":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                period.graph.replay()
+                torch.cuda.synchronize()
+            timing["nodes"] = sum(
+                1 for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    results["period"] = timing
+    eager = timing["eager"]
+    print(f"[physics (a)] a period (20 substeps): eager "
+          f"{eager['cuda_ms']:.3f} ms device (CUDA events), "
+          f"{eager['host_ms']:.3f} ms host; captured "
+          f"{timing['captured']['cuda_ms']:.3f} ms device, "
+          f"{timing['captured']['host_ms']:.3f} ms host (command in, "
+          f"replay, state out); the graph's nodes {timing['nodes']} "
+          f"(profiler) ({card})")
+    check(timing["nodes"] > 0, "physics: no device work in a replay")
+
+    work = tempfile.mkdtemp(prefix="physics_")
+    try:
+        # (b) sim_node --physics as its own process
+        world = os.path.join(work, "world.json")
+        save_world(WorldDescription(**SIM_NODE_WORLD), world)
+        log = os.path.join(work, "sim_node.jsonl")
+        pose, ctrl = free_udp_ports(2)
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [HERE] + [p for p in [env.get("PYTHONPATH")] if p])
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "autorally_tpu_torch.tools.sim_node",
+             "--physics", "--urdf", DEFAULT_URDF, "--world", world,
+             "--duration", str(SIM_NODE_SECONDS), "--hz", str(SIM_NODE_HZ),
+             "--log", log, "--pose-port", str(pose), "--control-port",
+             str(ctrl)], cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=300)
+        node_s = time.perf_counter() - t0
+        print(f"[physics (b)] sim_node: rc {out.returncode} in {node_s:.2f}"
+              f" s: {out.stdout.strip()}")
+        check(out.returncode == 0, f"sim_node --physics failed: "
+              f"{out.stderr[-2000:]}")
+        with open(log) as f:
+            rows = [json.loads(line) for line in f]
+        truth = [r for r in rows if r["topic"] == "ground_truth/state"]
+        done = (f"done at t={SIM_NODE_SECONDS:.2f}s pos=("
+                f"{SIM_NODE_WORLD['spawn_x']:.2f},"
+                f"{SIM_NODE_WORLD['spawn_y']:.2f})")
+        missed = re.search(r"missed=(\d+)", out.stdout)
+        results["sim_node"] = {"rows": len(truth), "seconds": node_s,
+                               "missed": int(missed.group(1))
+                               if missed else None}
+        print(f"[physics (b)] {len(truth)} ground_truth/state rows, the "
+              f"pacer's missed periods {results['sim_node']['missed']} "
+              f"({card})")
+        check(done in out.stdout and "on cuda" in out.stdout,
+              f"sim_node did not end at the world's spawn on the card: "
+              f"{out.stdout}")
+        check(len(truth) == SIM_NODE_SECONDS * SIM_NODE_HZ,
+              f"sim_node logged {len(truth)} ground_truth/state rows")
+        check(missed is not None, "sim_node printed no missed periods")
+
+        # (c) the drive -> log -> train -> hot-swap loop
+        loop = ml_loop_demo.MLLoop(ML_K, ML_T, 6.0, device=dev,
+                                   model_path=None)
+        print(f"[physics (c)] ml_loop_demo.MLLoop K={ML_K} T={ML_T} on "
+              f"{loop.device}; {loop.note}")
+        names = ("fused_exact_rollout_cost", "dynamics_chain")
+        drive_log = os.path.join(work, "drive.jsonl")
+        with open(drive_log, "w") as f:
+            before = physics_drive(rk, "(c) before", loop, ML_TICKS, names,
+                                   card, logf=f)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit = loop.fine_tune(drive_log, ML_EPOCHS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        rmse0, rmse1 = float(fit["rmse0"].mean()), float(fit["rmse1"].mean())
+        print(f"[physics (c)] fine-tune: {fit['rows']} rows, {ML_EPOCHS} "
+              f"epochs in {fit_s:.2f} s; one-step RMSE {rmse0:.4f} -> "
+              f"{rmse1:.4f} ({card})")
+        check(rmse1 < rmse0, "physics (c): the fine-tune did not improve "
+              "the fit")
+        params1 = fit["params1"]
+        loop.plant.push_model_params(params1)
+        after_log = os.path.join(work, "after.jsonl")
+        with open(after_log, "w") as f:
+            after = physics_drive(rk, "(c) after", loop, ML_TICKS, names,
+                                  card, logf=f)
+        swapped = all(
+            torch.equal(got, want) for c in (loop.actual, loop.predicted)
+            for key in ("weights", "biases")
+            for got, want in zip(c.model_params[key], params1[key]))
+        print(f"[physics (c)] after the swap both controllers hold the "
+              f"fine-tuned weights bit for bit: {swapped}")
+        check(swapped, "physics (c): the swap did not reach both "
+              "controllers")
+        results["ml_loop"] = {"before": before, "after": after,
+                              "rmse_before": rmse0, "rmse_after": rmse1,
+                              "fine_tune_s": fit_s, "rows": fit["rows"]}
+
+        # (d) BASELINE #3 trained on the after-swap physics log (the first
+        # drive's only reverses), driving the plant
+        layers = tuple(B3_LAYERS)
+        cfg = dict(trainer.DEFAULTS)
+        cfg.update(log_jsonl=after_log,
+                   results_dir=os.path.join(work, "b3"),
+                   nn_layers=list(B3_LAYERS), standardize_data=True,
+                   epochs=B3_EPOCHS, horizons=list(B3_HORIZONS))
+        t0 = time.perf_counter()
+        res = trainer.run(cfg, device=dev)
+        run_s = time.perf_counter() - t0
+        model, params = NeuralNetDynamics.from_npz(
+            os.path.join(cfg["results_dir"], "model.npz"), 1.0 / B3_HZ,
+            device=dev)
+        check(model.layers == layers, f"from_npz read {model.layers}")
+        d = np.load(os.path.join(cfg["results_dir"], "dataset.npz"))
+        fresh_model = NeuralNetDynamics(1.0 / B3_HZ, layers=layers,
+                                        device=dev)
+        trained = instantaneous_errors(model, params, d["inputs"],
+                                       d["labels"])["rmse"].mean()
+        fresh = instantaneous_errors(fresh_model, fresh_model.init_params(9),
+                                     d["inputs"], d["labels"])["rmse"].mean()
+        ratio = float(trained / fresh)
+        x = d["inputs"]
+        span = {"rows": int(len(x)),
+                "speed": (float(x[:, 1].min()), float(x[:, 1].max())),
+                "yaw_rate": (float(-x[:, 3].max()), float(-x[:, 3].min()))}
+        print(f"[physics (d)] the after-swap physics log: {span['rows']} "
+              f"rows, speed "
+              f"{span['speed'][0]:.3f}..{span['speed'][1]:.3f} m/s, yaw "
+              f"rate {span['yaw_rate'][0]:.3f}..{span['yaw_rate'][1]:.3f} "
+              f"rad/s; trainer.run {run_s:.2f} s ({B3_EPOCHS} epochs), best "
+              f"val loss {res['best_val_loss']:.5f}; RMSE trained "
+              f"{trained:.4f} against a fresh init's {fresh:.4f} (ratio "
+              f"{ratio:.3f}) ({card})")
+        check(ratio < B3_MAX_RMSE_RATIO, f"physics (d): RMSE ratio "
+              f"{ratio:.3f}, not under {B3_MAX_RMSE_RATIO}")
+        _, _, scfg = spec_setup(layers, dev)
+        b3 = ml_loop_demo.MLLoop(cfg=scfg, model=model, params0=params,
+                                 device=dev)
+        label = spec_label(layers)
+        drive_b3 = physics_drive(
+            rk, "(d) BASELINE #3", b3, PHYS_B3_TICKS,
+            (f"fused_exact_rollout_cost_{label}", f"dynamics_chain_{label}"),
+            card)
+        check(drive_b3["mean_speed"] >= PHYS_B3_MIN_SPEED
+              and drive_b3["path_m"] >= PHYS_B3_MIN_PATH,
+              f"physics (d): the trained model's car drove "
+              f"{drive_b3['path_m']:.2f} m at a mean speed of "
+              f"{drive_b3['mean_speed']:.3f} m/s, not {PHYS_B3_MIN_PATH} m "
+              f"forward at {PHYS_B3_MIN_SPEED} m/s or more")
+        results["baseline3"] = {"log": span, "trainer_s": run_s,
+                                "rmse_ratio": ratio, "drive": drive_b3}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -6727,6 +7072,11 @@ def main() -> int:
         bf16_library_instances(rk, layers, fspec, bf16_lib, card)
     precision = precision_phase(drive_oval, rk, card, field)
 
+    # -- phase 32: the physics simulator and the ML loop ------------------
+    t_phys = time.perf_counter()
+    physics = physics_phase(rk, card)
+    print(f"[time] phase 32 in {time.perf_counter() - t_phys:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -6815,6 +7165,7 @@ def main() -> int:
                       "baseline3": baseline3["results"],
                       "field_specs": field_specs["results"],
                       "precision_default": precision["results"],
+                      "physics": physics,
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -6840,7 +7191,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-31 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-32 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -106,12 +106,39 @@ def test_measured_passes_count_full_collections_in_ticks(monkeypatch):
         getattr(cb, "__name__", "") for cb in gc.callbacks]
 
 
-def test_sim_node_refuses_physics_and_a_missing_model(tmp_path, capsys):
-    for opt in ("--physics", "--urdf", "--world"):
-        with pytest.raises(SystemExit) as exc:
-            sim_node.main([opt, "x"] if opt != "--physics" else [opt])
-        assert exc.value.code == 2
-        assert "Queue 1 item 11" in capsys.readouterr().err
+def test_sim_node_refuses_physics_and_a_missing_model(tmp_path):
+    """The node runs the physics model from a scene description (the
+    roslaunch spawn path, as ``tests/test_description.py`` checks for the
+    JAX node): ``--physics --urdf --world`` on the CPU, in its own process,
+    ends at the world's spawn with no command; the learned-model path
+    still refuses a missing model."""
+    import os
+    import subprocess
+    import sys
+
+    from autorally_tpu_torch.sim.description import (DEFAULT_URDF,
+                                                     WorldDescription,
+                                                     save_world)
+
+    world = str(tmp_path / "w.json")
+    save_world(WorldDescription(spawn_x=3.0, spawn_y=4.0, spawn_yaw=0.0,
+                                mu=0.5), world)
+    log = str(tmp_path / "drive.jsonl")
+    pose, ctrl = free_ports(2)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run(
+        [sys.executable, "-m", "autorally_tpu_torch.tools.sim_node", "--cpu",
+         "--physics", "--urdf", DEFAULT_URDF, "--world", world,
+         "--duration", "0.3", "--hz", "20", "--pose-port", str(pose),
+         "--control-port", str(ctrl), "--log", log],
+        cwd=root, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "on cpu, physics" in out.stdout and "Queue 1" not in out.stdout
+    assert "done at t=0.30s pos=(3.00,4.00) speed=0.00 missed=" in out.stdout
+    with open(log) as f:
+        rows = [json.loads(line) for line in f]
+    truth = [r for r in rows if r["topic"] == "ground_truth/state"]
+    assert len(truth) == 6 and truth[-1]["x"] == 3.0
     missing = str(tmp_path / "none.npz")
     with pytest.raises(FileNotFoundError, match="none.npz"):
         sim_node.main(["--cpu", "--model", missing])
