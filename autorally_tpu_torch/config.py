@@ -97,6 +97,33 @@ def effective_gamma(cfg: "MPPIConfig", cost_params: CostParams):
     return cfg.gamma if cost_params.gamma is None else cost_params.gamma
 
 
+def cost_params_lanes(cost_params: CostParams) -> Optional[int]:
+    """The lane count of a stacked ``CostParams`` (every field a tensor
+    with a leading lane axis, ``tools/param_sweep.stack_cost_params``: the
+    JAX package's vmapped pytree), None for one set of scalars."""
+    v = cost_params.desired_speed
+    return int(v.shape[0]) if torch.is_tensor(v) and v.dim() == 1 else None
+
+
+def lane_cost_params(cost_params: CostParams) -> list:
+    """A stacked ``CostParams``'s lanes, one ``CostParams`` each: lane l's
+    float32 coefficients as Python floats, its gamma a 0-d view of the
+    stacked gamma (which may live on the device), its ``obstacles`` lane
+    l's rows; a field without a lane axis (None, or gamma as one float)
+    as it is."""
+    out = []
+    for lane in range(cost_params_lanes(cost_params)):
+        kw = {}
+        for f in dataclasses.fields(cost_params):
+            v = getattr(cost_params, f.name)
+            if not (torch.is_tensor(v) and v.dim() >= 1):
+                continue
+            kw[f.name] = (v[lane] if f.name in ("gamma", "obstacles")
+                          else float(v[lane]))
+        out.append(cost_params.replace(**kw))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class MPPIConfig:
     """Static solver configuration; same fields and defaults as the JAX

@@ -23,7 +23,8 @@ compile per field spec.  ``matmul_precision="default"`` (bf16 operands in
 the dynamics' products) takes a library of its own for each of these
 (``load(layers, field, bf16=True)``), built with ``ARTT_BF16_OPERANDS``
 defined too, which holds the same instances but pass 2 and the quotient
-check, which evaluate no model.  The check and the build run under an
+check, which evaluate no model, and the lane forms of kernels 1 and 2,
+which only the default float32 library holds.  The check and the build run under an
 exclusive lock on a file beside the library, so that processes that start
 together (the ranks of a sharded solve) run ``nvcc`` once and the others
 load its library.  Nothing is built when the module is imported, so the
@@ -95,11 +96,22 @@ SIGNATURES = {
     # bf, lane group, block, T, device, out (4 ints)
     "artt_chain_kernel_info": [_I] * 5 + [_P],
     "artt_bf16_operands": [],
+    # fsc, isc, lane scalars (device), lanes, lane group, block, device,
+    # then device pointers + stream
+    "artt_fused_exact_lanes": [_P, _P, _P, _I, _I, _I, _I] + [_P] * 10,
+    # fsc, isc, lanes, lane group, block, device, then device pointers +
+    # stream
+    "artt_dynamics_chain_lanes": [_P, _P, _I, _I, _I, _I] + [_P] * 8,
+    # chain, bf, lane group, block, T, device, out (4 ints)
+    "artt_lanes_kernel_info": [_I] * 6 + [_P],
 }
 # What only the float32 library of the default specs holds: pass 2 and the
-# quotient check, which evaluate no model.
+# quotient check, which evaluate no model, and the lane forms of kernels 1
+# and 2.
 FP32_ONLY_FUNCTIONS = ("artt_weighted_update", "artt_update_block",
-                       "artt_const_divisors", "artt_div_const_check")
+                       "artt_const_divisors", "artt_div_const_check",
+                       "artt_fused_exact_lanes", "artt_dynamics_chain_lanes",
+                       "artt_lanes_kernel_info")
 # What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
 # kernels 1-4 and the queries of their layouts and instances.
 SPEC_FUNCTIONS = (

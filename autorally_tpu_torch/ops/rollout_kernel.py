@@ -64,6 +64,16 @@ and their weights, as the JAX ``_fused_kernel`` splits layer 0; the biases
 stay float32, and the nominal trajectory (kernel 2 at K = 1), pass 2 and
 the neural field's own products are float32 at every precision.
 
+Kernels 1 and 2 also have lane forms (:func:`fused_exact_rollout_cost_lanes`,
+:func:`dynamics_chain_lanes`, :func:`nominal_trajectory_lanes`): L sets of
+cost parameters (a stacked ``CostParams``, ``config.cost_params_lanes``),
+start states and plans in one launch, the eps, weights and map shared, as
+the JAX package's sweep vmaps ``pallas_call`` over its scalars; lane l
+gives the bits of the solo kernel with lane l's scalars.  The default
+float32 library holds them; circle slots, the field, the capacity passes,
+other MLP specs and bf16 operands have none (:func:`no_lane_form` raises,
+``LANES_ROADMAP``).
+
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
 else; there is no fallback from one to the other.  Each counts its kernel
@@ -73,7 +83,7 @@ the others (``fused_rng_costs_field*`` for pass 1's field mode) and the
 MLP's spec for another spec than ``KERNEL_LAYERS`` (e.g.
 ``fused_exact_rollout_cost_6-64-64-64-64-4``), then the field's label for
 another field spec (``fused_rollout_cost_F6-48-48``), then ``_default``
-for the bf16-operand instances.  Layouts
+for the bf16-operand instances, then ``_lanes`` for the lane forms.  Layouts
 are those of the JAX package's public functions: eps (T, K, C) in, u_seq
 (C, T, K), states (S, T, K), costs and crash (K,) out, the capacity mode's
 numerator (C, T).
@@ -89,7 +99,8 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from autorally_tpu_torch.config import bf16_operands, effective_gamma
+from autorally_tpu_torch.config import (bf16_operands, effective_gamma,
+                                        lane_cost_params)
 from autorally_tpu_torch.costs.costmap import Costmap
 from autorally_tpu_torch.costs.mppi_cost import MPPICost
 from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
@@ -1407,6 +1418,273 @@ def nominal_trajectory(model, model_params, cfg, state, U,
     states_sol = torch.cat([state[None, :], traj[:-1]], dim=0)
     rngs = _control_rngs(model_params, C)
     return states_sol, torch.clamp(U, rngs[:, 0], rngs[:, 1])
+
+
+# ---------------------------------------------------------------------------
+# the lane forms of kernels 1 and 2: L cost-parameter sets in one launch
+# ---------------------------------------------------------------------------
+
+# What a stacked CostParams cannot take (ROADMAP.md, Queue 2 A7).
+LANES_ROADMAP = ("ROADMAP.md, Queue 2 A7: a lane axis on kernels 3-5, on "
+                 "circle slots, and in the libraries of other MLP specs "
+                 "and of bf16 operands")
+
+
+def no_lane_form(what: str):
+    """Raise for ``what`` asked of with a stacked ``CostParams``, before
+    any build or launch: only kernels 1 and 2 have lane forms."""
+    raise NotImplementedError(
+        f"{what} has no lane form: a stacked CostParams runs kernels 1 and "
+        f"2 only ({LANES_ROADMAP})")
+
+
+def lane_scalar_rows(model, cfg, cost_params, costmap,
+                     k_offset=0) -> tuple:
+    """A stacked ``CostParams``'s (``config.cost_params_lanes``) rows of
+    kernel 1's lane scalars, on the host: row l lane l's float scalars as
+    :func:`launch_scalars` gives them for one launch (the chain entries,
+    the costmap's transform, lane l's coefficients)."""
+    return tuple(tuple(launch_scalars(model, cfg, k_offset, 0, 0, cp,
+                                      costmap)[0])
+                 for cp in lane_cost_params(cost_params))
+
+
+def lane_scalars(model, cfg, cost_params, costmap, device,
+                 k_offset=0) -> torch.Tensor:
+    """:func:`lane_scalar_rows` packed for kernel 1's lane form: (L,
+    ``len(_FLOAT_SCALARS)``) float32 on ``device``, a copy from the host.
+    A captured tick takes them packed before its capture
+    (``MPPISolver.rollout_costs_lanes``)."""
+    return torch.tensor(lane_scalar_rows(model, cfg, cost_params, costmap,
+                                         k_offset),
+                        dtype=torch.float32, device=device)
+
+
+def _lane_inputs(model, model_params, state, U, eps, packed_weights):
+    """Shape checks of a lane launch, state (L, S), U (L, T, C) and eps
+    (T, K, C) shared; the device tensors it reads."""
+    T, K, C = eps.shape
+    L = state.shape[0] if state.dim() == 2 else 0
+    if (L < 1 or state.shape != (L, model.STATE_DIM) or U.shape != (L, T, C)
+            or C != 2):
+        raise ValueError(f"lane shapes: state {tuple(state.shape)}, U "
+                         f"{tuple(U.shape)}, eps {tuple(eps.shape)}")
+    if not 1 <= T <= MAX_KERNEL_T:
+        raise ValueError(f"kernel needs 1 <= T <= {MAX_KERNEL_T}")
+    return L, dict(
+        s0=state.to(eps.device, torch.float32).contiguous(),
+        rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
+        U=U.to(torch.float32).contiguous(), eps=eps,
+        weights=(_pack_weights(model, model_params) if packed_weights is None
+                 else packed_weights))
+
+
+def _check_lane_library(model, cfg, precision) -> None:
+    """Raise unless the default library holds the model's lane forms: the
+    MLP of ``KERNEL_LAYERS`` or the BF model, at a float32 precision."""
+    _check_kernel_model(model, cfg)
+    layers = kernel_layers(model)
+    if layers != KERNEL_LAYERS or bf16_operands(_precision(cfg, precision)):
+        no_lane_form(f"kernels 1-2 of {'-'.join(map(str, layers))} at "
+                     f"matmul_precision {_precision(cfg, precision)!r}")
+
+
+def _lanes_geometry(chain: bool, L: int, K: int, dev, model):
+    """A lane launch's geometry, chosen from L x K rollouts, with the
+    blocks of one lane (the launcher's grid is (blocks, L))."""
+    pick = _chain_launch_geometry if chain else _launch_geometry
+    geom = pick(L * K, dev, model)
+    return _geometry(K, geom.group, geom.block)
+
+
+def fused_exact_rollout_cost_lanes_plain(model, model_params, cfg,
+                                         cost_params, costmap, state, U, eps,
+                                         l1_cost: bool = False, k_offset=0,
+                                         precision: Optional[str] = None):
+    """Plain version of kernel 1's lane form: the solo plain version
+    (:func:`fused_rollout_cost_plain`) applied lane by lane, lane l with
+    ``lane_cost_params``'s lane l, ``state[l]`` and ``U[l]``.  Returns
+    (costs (L, K), u_seq (L, C, T, K), crash (L, K))."""
+    outs = [fused_rollout_cost_plain(model, model_params, cfg, cp, costmap,
+                                     state[i], U[i], eps, l1_cost=l1_cost,
+                                     k_offset=k_offset, precision=precision)
+            for i, cp in enumerate(lane_cost_params(cost_params))]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def prepare_fused_exact_rollout_cost_lanes(model, model_params, cfg,
+                                           cost_params, costmap: Costmap,
+                                           state, U, eps,
+                                           l1_cost: bool = False, k_offset=0,
+                                           packed_weights=None,
+                                           precision: Optional[str] = None,
+                                           lane_fsc=None):
+    """Validate kernel 1's lane-form inputs and allocate its outputs;
+    returns ``(launch, (costs, u_seq, crash))`` as
+    :func:`prepare_fused_exact_rollout_cost`, ``launch.lanes`` its L.
+    ``lane_fsc``: the lane scalars (:func:`lane_scalars`) on the device,
+    packed here when None."""
+    _expect(costmap, Costmap, "fused_exact_rollout_cost_lanes")
+    if cost_params.obstacles is not None:
+        no_lane_form("the circle slots of kernel 1")
+    _check_lane_library(model, cfg, precision)
+    T, K, C = eps.shape
+    dev = eps.device
+    L, args = _lane_inputs(model, model_params, state, U, eps,
+                           packed_weights)
+    args["surface"] = costmap.ch0
+    args["lane_fsc"] = (lane_scalars(model, cfg, cost_params, costmap, dev,
+                                     k_offset)
+                        if lane_fsc is None else lane_fsc)
+    if args["lane_fsc"].shape[0] != L:
+        raise ValueError(f"{args['lane_fsc'].shape[0]} lanes of cost "
+                         f"params, state of {L}")
+    ptrs = _device_args(dev, **args)
+    floats, ints = launch_scalars(model, cfg, k_offset, T, K,
+                                  lane_cost_params(cost_params)[0], costmap,
+                                  l1_cost)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    costs = torch.empty((L, K), dtype=torch.float32, device=dev)
+    crash = torch.empty((L, K), dtype=torch.int32, device=dev)
+    u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
+    geom = _lanes_geometry(False, L, K, dev, model)
+    lib = _kernel_lib()
+
+    def launch():
+        err = lib.artt_fused_exact_lanes(
+            ctypes.addressof(fsc), ctypes.addressof(isc), ptrs["lane_fsc"],
+            L, geom.group, geom.block, dev.index or 0, ptrs["s0"],
+            ptrs["rngs"], ptrs["U"], ptrs["eps"], ptrs["surface"],
+            ptrs["weights"], costs.data_ptr(), crash.data_ptr(),
+            u_seq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, "fused_exact_rollout_cost_lanes")
+
+    launch.inputs = args                     # keeps the buffers alive
+    launch.name = "fused_exact_rollout_cost" + _form(model, 0) + "_lanes"
+    launch.geometry = geom
+    launch.lanes = L
+    return launch, (costs, u_seq, crash)
+
+
+def fused_exact_rollout_cost_lanes(model, model_params, cfg, cost_params,
+                                   costmap: Costmap, state, U, eps,
+                                   l1_cost: bool = False, k_offset=0,
+                                   obstacles=None, packed_weights=None,
+                                   precision: Optional[str] = None,
+                                   lane_fsc=None):
+    """Kernel 1 over the L lanes of a stacked ``cost_params`` in one launch
+    (the JAX package's vmap of ``fused_exact_rollout_cost_pallas``): lane l
+    prices ``state[l]`` (L, S) and ``U[l]`` (L, T, C) with lane l's
+    coefficients; ``eps`` (T, K, C), the weights and the map are shared.
+    Circle slots have none (``obstacles`` raises).  ``lane_fsc``: as
+    :func:`prepare_fused_exact_rollout_cost_lanes` takes it.  Counted as
+    ``fused_exact_rollout_cost[_bf]_lanes``.  Returns (costs (L, K), u_seq
+    (L, C, T, K), crash (L, K) int32)."""
+    if obstacles is not None or cost_params.obstacles is not None:
+        no_lane_form("the circle slots of kernel 1")
+    if _dispatch(eps) == "plain":
+        return fused_exact_rollout_cost_lanes_plain(
+            model, model_params, cfg, cost_params, costmap, state, U, eps,
+            l1_cost=l1_cost, k_offset=k_offset, precision=precision)
+    launch, out = prepare_fused_exact_rollout_cost_lanes(
+        model, model_params, cfg, cost_params, costmap, state, U, eps,
+        l1_cost=l1_cost, k_offset=k_offset, packed_weights=packed_weights,
+        precision=precision, lane_fsc=lane_fsc)
+    _launch_counted(launch, eps.shape[1])
+    return out
+
+
+def dynamics_chain_lanes_plain(model, model_params, cfg, state, U, eps,
+                               k_offset=0, precision: Optional[str] = None):
+    """Plain version of kernel 2's lane form: :func:`dynamics_chain_plain`
+    lane by lane.  Returns (states (L, S, T, K), u_seq (L, C, T, K))."""
+    outs = [dynamics_chain_plain(model, model_params, cfg, s, u, eps,
+                                 k_offset=k_offset, precision=precision)
+            for s, u in zip(state, U)]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
+                                 k_offset=0, packed_weights=None,
+                                 precision: Optional[str] = None):
+    """Validate kernel 2's lane-form inputs and allocate its outputs;
+    returns ``(launch, (states, u_seq))`` as :func:`prepare_dynamics_chain`."""
+    _check_lane_library(model, cfg, precision)
+    T, K, C = eps.shape
+    dev = eps.device
+    L, args = _lane_inputs(model, model_params, state, U, eps,
+                           packed_weights)
+    ptrs = _device_args(dev, **args)
+    floats, ints = launch_scalars(model, cfg, k_offset, T, K)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    states = torch.empty((L, model.STATE_DIM, T, K), dtype=torch.float32,
+                         device=dev)
+    u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
+    geom = _lanes_geometry(True, L, K, dev, model)
+    lib = _kernel_lib()
+
+    def launch():
+        err = lib.artt_dynamics_chain_lanes(
+            ctypes.addressof(fsc), ctypes.addressof(isc), L, geom.group,
+            geom.block, dev.index or 0, ptrs["s0"], ptrs["rngs"], ptrs["U"],
+            ptrs["eps"], ptrs["weights"], states.data_ptr(),
+            u_seq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, "dynamics_chain_lanes")
+
+    launch.inputs = args
+    launch.name = "dynamics_chain" + _form(model, 0) + "_lanes"
+    launch.geometry = geom
+    launch.lanes = L
+    return launch, (states, u_seq)
+
+
+def dynamics_chain_lanes(model, model_params, cfg, state, U, eps, k_offset=0,
+                         packed_weights=None, precision: Optional[str] = None):
+    """Kernel 2 over L lanes in one launch (the JAX package's vmap of
+    ``dynamics_chain_pallas`` over its start states and U): lane l runs
+    ``state[l]`` (L, S) and ``U[l]`` (L, T, C); ``eps`` (T, K, C) shared.
+    Counted as ``dynamics_chain[_bf]_lanes``.  Returns (states (L, S, T,
+    K), u_seq (L, C, T, K))."""
+    if _dispatch(eps) == "plain":
+        return dynamics_chain_lanes_plain(model, model_params, cfg, state, U,
+                                          eps, k_offset=k_offset,
+                                          precision=precision)
+    launch, out = prepare_dynamics_chain_lanes(
+        model, model_params, cfg, state, U, eps, k_offset=k_offset,
+        packed_weights=packed_weights, precision=precision)
+    _launch_counted(launch, eps.shape[1])
+    return out
+
+
+def nominal_trajectory_lanes(model, model_params, cfg, state, U,
+                             packed_weights=None):
+    """:func:`nominal_trajectory` of L lanes, state (L, S) and U (L, T, C),
+    in one launch of kernel 2's lane form (K = 1 a lane).  Returns
+    (state_solution (L, T, S), control_solution (L, T, C))."""
+    L, T, C = U.shape
+    state = state.to(U.device, torch.float32)
+    eps = torch.zeros((T, 1, C), dtype=torch.float32, device=U.device)
+    states, _ = dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
+                                     packed_weights=packed_weights,
+                                     precision="highest")
+    traj = states[..., 0].transpose(1, 2)                 # (L, T, S)
+    states_sol = torch.cat([state[:, None, :], traj[:, :-1]], dim=1)
+    rngs = _control_rngs(model_params, C)
+    return states_sol, torch.clamp(U, rngs[:, 0], rngs[:, 1])
+
+
+def lanes_kernel_info(chain: bool, bf: bool, geom: ExactGeometry, T: int,
+                      device: int = 0) -> dict:
+    """:func:`exact_kernel_info` of the lane form's instance of kernel 1
+    (kernel 2 when ``chain``) that ``geom`` launches, the waves of one
+    lane."""
+    out = (ctypes.c_int * 4)()
+    _check_launch(_kernel_lib().artt_lanes_kernel_info(
+        int(chain), int(bf), geom.group, geom.block, T, device, out),
+        "lanes_kernel_info")
+    return _info(out, geom, device)
 
 
 # ---------------------------------------------------------------------------

@@ -56,9 +56,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from autorally_tpu_torch.config import CostParams, effective_gamma
+from autorally_tpu_torch.config import (CostParams, cost_params_lanes,
+                                        effective_gamma)
 from autorally_tpu_torch.costs.obstacles import ObstacleCost
 from autorally_tpu_torch.ops import kernel_rng
+from autorally_tpu_torch.ops.rollout_kernel import no_lane_form
 from autorally_tpu_torch.runtime.ess_tuner import gamma_step_traced
 from autorally_tpu_torch.solver.ddp import DDPSolver
 from autorally_tpu_torch.solver.mppi import MPPISolver, validate_tube_pair
@@ -70,6 +72,9 @@ _CARRIED = ("U", "control_hist", "state_solution", "control_solution")
 
 
 class EpisodeResult(NamedTuple):
+    """Per-tick telemetry; a run of L lanes (a stacked ``CostParams``)
+    gives each field a leading L."""
+
     states: torch.Tensor           # (n_ticks, S) true plant states
     controls: torch.Tensor         # (n_ticks, C) executed controls (substep 0)
     used_actual: torch.Tensor      # (n_ticks,) bool: actual-state ctrl won
@@ -86,7 +91,7 @@ class TubeSolve(NamedTuple):
     cs_p: object                   # the predicted one's, resynced
     st_a: object                   # their SolveStats
     st_p: object
-    use_actual: torch.Tensor       # () bool: the actual-state plan won
+    use_actual: torch.Tensor       # () bool (L,): the actual-state plan won
     control: torch.Tensor          # (T, C) the chosen clamped plan
     states: torch.Tensor           # (T, S) the chosen nominal trajectory
     gains: Optional[torch.Tensor]  # (T, C, S) DDP gains, or None
@@ -108,14 +113,21 @@ def tube_solve(solvers, ddp: Optional[DDPSolver], params, cost_params,
     (``:263-266``); and with a ``ddp``, its gains around the chosen plan
     (``computeFeedbackGains``, ``mppi_controller.cu:427-439``), run
     uncaptured (the caller's graph holds it).  Reads nothing from the
-    host."""
+    host.  With a stacked ``cost_params`` every lane (state (L, S), the
+    carries with a leading L) is solved, arbitrated and resynced on its
+    own, the DDP run lane by lane."""
     solver, solver_p = solvers
     cs_a, st_a = solver._solve_drawn(params, cost_params, costmap, state,
                                      cs_a, draws_a)
     cs_p, st_p = solver_p._solve_drawn(params, cost_params, costmap,
-                                       cs_p.state_solution[0], cs_p, draws_p)
+                                       cs_p.state_solution[..., 0, :], cs_p,
+                                       draws_p)
     use_actual = st_a.trajectory_cost < st_p.trajectory_cost
-    pick = lambda a, p: torch.where(use_actual, a, p)
+
+    def pick(a, p):
+        lanes = use_actual.shape + (1,) * (a.dim() - use_actual.dim())
+        return torch.where(use_actual.reshape(lanes), a, p)
+
     chosen_ctrl = pick(cs_a.control_solution, cs_p.control_solution)
     chosen_states = pick(cs_a.state_solution, cs_p.state_solution)
     chosen_U = pick(cs_a.U, cs_p.U)
@@ -124,8 +136,12 @@ def tube_solve(solvers, ddp: Optional[DDPSolver], params, cost_params,
     gains = None
     if ddp is not None:
         rngs = params["control_rngs"].reshape(-1, 2)[-2:]
-        gains = ddp._run(params, state, chosen_U, chosen_states, chosen_ctrl,
-                         rngs[:, 0], rngs[:, 1]).feedback_gain
+        run = lambda *a: ddp._run(params, *a, rngs[:, 0],
+                                  rngs[:, 1]).feedback_gain
+        gains = (run(state, chosen_U, chosen_states, chosen_ctrl)
+                 if use_actual.dim() == 0 else torch.stack(
+                     [run(*a) for a in zip(state, chosen_U, chosen_states,
+                                           chosen_ctrl)]))
     return TubeSolve(cs_a, cs_p, st_a, st_p, use_actual, chosen_ctrl,
                      chosen_states, gains)
 
@@ -153,18 +169,27 @@ def _signature(obj, keep: list):
 class _Plan:
     """One episode's device buffers, and on the card its captured tick: the
     two controllers' carries, the plant state, gamma, the draws, the staged
-    keys and circles, the tick counter and the per-tick result rows."""
+    keys and circles, the tick counter and the per-tick result rows; with
+    ``lanes``, the carries, the state, gamma and each row with a leading
+    lane axis (the draws are shared)."""
 
     def __init__(self, runner: "EpisodeRunner", capacity: bool,
-                 n_circles: Optional[int]):
+                 n_circles: Optional[int], lanes: Optional[int] = None):
         dev, n = runner.device, runner.n_ticks
         f32 = dict(dtype=torch.float32, device=dev)
         solvers = (runner.solver, runner.solver_predicted)
+        lead = () if lanes is None else (lanes,)
+        self.lanes = lanes
         self.carries = [s.init_state(0) for s in solvers]
+        if lanes is not None:
+            self.carries = [cs._replace(**{
+                name: getattr(cs, name).expand(*lead, *getattr(
+                    cs, name).shape).clone() for name in _CARRIED})
+                for cs in self.carries]
         S = runner.solver.model.STATE_DIM
         C = runner.solver.model.CONTROL_DIM
-        self.state = torch.zeros(S, **f32)
-        self.gamma = torch.zeros((), **f32)
+        self.state = torch.zeros(*lead, S, **f32)
+        self.gamma = torch.zeros(lead, **f32)
         self.g_lo = torch.zeros((), **f32)
         self.g_hi = torch.zeros((), **f32)
         self.tick = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -180,9 +205,9 @@ class _Plan:
                      for s in solvers])
         self.circles = (None if n_circles is None
                         else torch.zeros((n, n_circles, 3), **f32))
-        # a row a tick: state (S), control (C), used_actual,
+        # a row a tick (a lane): state (S), control (C), used_actual,
         # trajectory_cost, ess, crash_frac, gamma
-        self.out = torch.zeros((n, S + C + 5), **f32)
+        self.out = torch.zeros((n, *lead, S + C + 5), **f32)
         self.graph = None
         self.signature = None
         self.keep = []
@@ -196,11 +221,12 @@ class _Plan:
         return [keys[2 * j:2 * j + 2] for j in range(keys.numel() // 2)]
 
     def result(self, S: int, C: int) -> EpisodeResult:
-        o = self.out
-        col = lambda j: o[:, j].clone()
-        return EpisodeResult(states=o[:, :S].clone(),
-                             controls=o[:, S:S + C].clone(),
-                             used_actual=o[:, S + C] > 0.5,
+        o = self.out if self.lanes is None else self.out.transpose(0, 1)
+        copy = lambda t: t.clone(memory_format=torch.contiguous_format)
+        col = lambda j: copy(o[..., j])
+        return EpisodeResult(states=copy(o[..., :S]),
+                             controls=copy(o[..., S:S + C]),
+                             used_actual=o[..., S + C] > 0.5,
                              trajectory_cost=col(S + C + 1),
                              ess=col(S + C + 2), crash_frac=col(S + C + 3),
                              gamma=col(S + C + 4))
@@ -288,7 +314,13 @@ class EpisodeRunner:
         215-250``): the alpha-interpolated feedforward, with gains plus the
         interpolated feedback, clamped; a NaN feedback falls back to the
         feedforward.  tau, the interpolation index and alpha are the JAX
-        package's float32 values, computed on the host."""
+        package's float32 values, computed on the host.  Lanes (state (L,
+        S), the plans with a leading L) take the feedforward together and
+        their gains lane by lane."""
+        if state.dim() == 2 and gains is not None:
+            return torch.stack([self._executed_control(j, *lane)
+                                for lane in zip(state, chosen_ctrl,
+                                                chosen_states, gains)])
         cfg = self.solver.cfg
         T = cfg.num_timesteps
         tau = np.float32(j) * np.float32(cfg.dt / self.pose_substeps)
@@ -297,7 +329,7 @@ class EpisodeRunner:
         hi = min(lo + 1, T - 1)
         alpha = np.float32(r - np.float32(lo))
         a0, a1 = float(np.float32(1) - alpha), float(alpha)
-        u_ff = a0 * chosen_ctrl[lo] + a1 * chosen_ctrl[hi]
+        u_ff = a0 * chosen_ctrl[..., lo, :] + a1 * chosen_ctrl[..., hi, :]
         if gains is None:
             return u_ff
         x_des = a0 * chosen_states[lo] + a1 * chosen_states[hi]
@@ -331,9 +363,11 @@ class EpisodeRunner:
             state, _ = self.true_model.update_state(params_true, state, u)
             u0 = u if u0 is None else u0
         ess = ts.stat("ess")
-        row = torch.cat([state, u0, ts.use_actual.to(torch.float32)[None],
-                         ts.stat("trajectory_cost")[None], ess[None],
-                         ts.stat("crash_frac")[None], plan.gamma[None]])
+        row = torch.cat([state, u0,
+                         ts.use_actual.to(torch.float32)[..., None],
+                         ts.stat("trajectory_cost")[..., None],
+                         ess[..., None], ts.stat("crash_frac")[..., None],
+                         plan.gamma[..., None]], dim=-1)
         plan.out.index_copy_(0, plan.tick, row[None])
         # the carries, after everything that reads them
         if self._ess_target is not None:
@@ -359,10 +393,14 @@ class EpisodeRunner:
             init = s.init_state(0)
             for name in _CARRIED:
                 getattr(carry, name).copy_(getattr(init, name))
-            carry.state_solution[0] = state0
+            carry.state_solution[..., 0, :] = state0
         plan.state.copy_(state0)
-        gamma0 = np.float32(effective_gamma(cfg, cost_params))
-        plan.gamma.fill_(float(gamma0))
+        gamma0 = effective_gamma(cfg, cost_params)
+        if plan.lanes is not None and torch.is_tensor(gamma0):
+            plan.gamma.copy_(gamma0.to(torch.float32))    # a gamma a lane
+        else:
+            gamma0 = np.float32(gamma0)
+            plan.gamma.fill_(float(gamma0))
         if self._ess_target is not None:
             # the band is centered on the EFFECTIVE starting gamma, so that
             # an override outside the cfg-based band is not clipped back
@@ -428,8 +466,21 @@ class EpisodeRunner:
         (the solver's cost must be an ``ObstacleCost``): moving obstacles,
         evaluated on the device.  On the card the tick is captured (again
         when the weights, cost params, costmap or circles' capacity differ
-        from the last capture's) and replayed, unless ``eager``."""
+        from the last capture's) and replayed, unless ``eager``.
+
+        A stacked ``cost_params`` (``tools/param_sweep.stack_cost_params``:
+        L lanes) runs L episodes from ``state0`` in one tick (the JAX
+        package's vmap of its episode over the cost params): every solve
+        draws its noise once for all lanes, each lane keeps its own
+        carries, gamma and plant state, and the result's fields gain a
+        leading L.  The ESS law and moving obstacles have no lane form
+        (``rk.LANES_ROADMAP``)."""
         dev = self.device
+        lanes = cost_params_lanes(cost_params)
+        if lanes is not None and self._ess_target is not None:
+            no_lane_form("the episode's ESS law (ess_target_frac)")
+        if lanes is not None and obstacle_traj is not None:
+            no_lane_form("the episode's moving obstacles (obstacle_traj)")
         if obstacle_traj is not None:
             if not isinstance(self.solver.cost, ObstacleCost):
                 raise TypeError(
@@ -467,16 +518,19 @@ class EpisodeRunner:
         if plan is None or plan.signature != signature:
             if graph:
                 self._captured = None         # the stale graph goes first
-            plan = _Plan(self, capacity, n_circles)
+            plan = _Plan(self, capacity, n_circles, lanes)
             if graph:
                 self._stage(plan, cost_params, state0, subkeys,
                             obstacle_traj)
                 self._capture(plan, args)
                 # the kernels read the packed weights (ops/rollout_kernel's
-                # cache, on the model and a field) by address: a later
-                # solve on other weights must not free the captured ones
+                # cache, on the model and a field) and the lane scalars (the
+                # solvers') by address: a later solve on other values must
+                # not free the captured ones
                 keep += [getattr(o, "_kernel_pack", None)
                          for o in (self.solver.model, costmap)]
+                keep += [s._lane_pack for s in (self.solver,
+                                                self.solver_predicted)]
                 plan.signature, plan.keep = signature, keep
                 self._captured = plan
         self._stage(plan, cost_params, state0, subkeys, obstacle_traj)

@@ -21,9 +21,9 @@ this, other, so that a drift of the card over the call falls on both
 alike.  Each prints the CUDA-event medians and a digest of each form's
 outputs; equal digests show bit-equal results.  The SASS of the kernels
 named in ``UNTOUCHED_KERNELS`` (every kernel of the library but BF exact
-pass 1, which ``fused_rng_bf_kernel`` now runs, and the quotient check) is
-compared between the two builds' libraries (``cuobjdump -sass``), function
-by function.  The summary gives each checkout's mean of its two runs and the
+pass 1, which ``fused_rng_bf_kernel`` now runs, the quotient check and
+the lane forms, the instances with ``kLanes`` set) is compared between
+the two builds' libraries (``cuobjdump -sass``), function by function.  The summary gives each checkout's mean of its two runs and the
 ratio of this checkout to the other.  Run against an identical copy of
 this checkout (A/A), it measures the order's own bias.
 
@@ -343,11 +343,12 @@ def untouched_sass(library: str, dump: str) -> dict:
     sass = {}
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
-        m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?", head)
+        m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?"
+                      r"E?(Lb1E)?", head)
         if m:
             arg = m.group(2) or m.group(3)
             name = m.group(1) + (f"<{arg}>" if arg else "")
-            if name in REDESIGNED:
+            if name in REDESIGNED or m.group(4):     # a lane form
                 continue
             body = re.sub(r"_GLOBAL__N__\w+", "", body)
             # cuobjdump pads each line to the module's widest instruction,

@@ -12,19 +12,25 @@ from its Gazebo ground textures (:func:`ccrf_track`,
 ``autorally_description`` directory (found through the
 ``AUTORALLY_DESCRIPTION`` environment variable, else relative to the
 working directory); a missing texture raises ``FileNotFoundError``.  The
-image converters and the command line (``gen_costmap_from_image``,
-``convert_legacy_txt``, ``main``) are not ported yet (ROADMAP.md, Queue 1
-item 10).
+reference's offline map tooling: :func:`gen_costmap_from_image`
+(``scripts/track_generator.py``: image -> ``.npz``; PIL is imported when
+it is called) and :func:`convert_legacy_txt`
+(``scripts/track_converter.py``: legacy ``.txt`` -> ``.npz``), and the
+command line :func:`main` (``oval``, ``spline``, ``image``, ``convert``),
+which writes the same ``.npz`` files as the JAX package's.
 """
 
 from __future__ import annotations
 
+import argparse
+import ast
 import os
 from typing import Tuple
 
 import numpy as np
 
-from autorally_tpu_torch.costs.costmap import Costmap, make_costmap
+from autorally_tpu_torch.costs.costmap import (Costmap, make_costmap,
+                                               save_costmap)
 
 
 def oval_track(half_length: float = 25.0, half_width: float = 15.0,
@@ -287,3 +293,110 @@ def make_spline_costmap(device=None, **kw) -> Costmap:
 
 def make_straight_costmap(device=None, **kw) -> Costmap:
     return make_costmap(*straight_track(**kw), device=device)
+
+
+def gen_costmap_from_image(input_img: str, config_file: str,
+                           output_name: str) -> None:
+    """Image -> ``.npz`` costmap (parity with ``scripts/track_generator.py``):
+    per-channel offset/normalize, channel remap, optional vertical flip.
+    The config file is the reference's Python dict literal."""
+    from PIL import Image
+
+    with open(config_file, "r") as f:
+        cfg = ast.literal_eval(f.read())
+
+    img = Image.open(input_img).rotate(cfg["imageRotation"])
+    data = np.array(img, dtype=np.float32)
+    for i, ch in enumerate("rgba"):
+        data[:, :, i] = ((data[:, :, i] + cfg[f"{ch}Offset"])
+                         / cfg[f"{ch}Normalizer"])
+    costmap = np.copy(data)
+    for i in range(4):
+        costmap[:, :, cfg["channelMap"][i]] = data[:, :, i]
+    if cfg["flip"]:
+        for i in range(4):
+            costmap[:, :, i] = np.flipud(costmap[:, :, i])
+    save_costmap(costmap, cfg["xBounds"], cfg["yBounds"],
+                 cfg["pixelsPerMeter"], output_name)
+
+
+def convert_legacy_txt(input_txt: str, output_name: str) -> None:
+    """Legacy ``.txt`` costmap -> ``.npz`` (parity with
+    ``scripts/track_converter.py``): whitespace-separated
+    [x_min x_max y_min y_max ppm v0 v1 ...] with channel 0 data only."""
+    with open(input_txt) as f:
+        cmap = f.read().split(" ")
+    x_bounds = np.array(cmap[0:2], dtype=np.float32)
+    y_bounds = np.array(cmap[2:4], dtype=np.float32)
+    ppm = float(cmap[4])
+    channel0 = np.array([c for c in cmap[5:] if c.strip()], dtype=np.float32)
+    H = int((y_bounds[1] - y_bounds[0]) * ppm)
+    W = int((x_bounds[1] - x_bounds[0]) * ppm)
+    data = np.zeros((H, W, 4), dtype=np.float32)
+    data[..., 0] = channel0.reshape(H, W)
+    save_costmap(data, x_bounds, y_bounds, ppm, output_name)
+
+
+def main(argv=None) -> None:
+    p = argparse.ArgumentParser(description="Generate a costmap .npz")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    po = sub.add_parser("oval", help="synthetic oval track")
+    po.add_argument("-o", "--output", default="oval_costmap.npz")
+    po.add_argument("--half-length", type=float, default=25.0)
+    po.add_argument("--half-width", type=float, default=15.0)
+    po.add_argument("--track-width", type=float, default=5.0)
+    po.add_argument("--ppm", type=float, default=10.0)
+
+    pi = sub.add_parser("image", help="image -> costmap (reference parity)")
+    pi.add_argument("-i", "--input", required=True)
+    pi.add_argument("-c", "--config", required=True)
+    pi.add_argument("-o", "--output", default="map.npz")
+
+    pc = sub.add_parser("convert", help="legacy .txt -> .npz")
+    pc.add_argument("-i", "--input", required=True)
+    pc.add_argument("-o", "--output", default="map.npz")
+
+    ps = sub.add_parser("spline", help="closed spline circuit through "
+                                       "waypoints (default: the winding "
+                                       "CCRF-role circuit)")
+    ps.add_argument("-o", "--output", default="spline_costmap.npz")
+    ps.add_argument("--waypoints", default=None,
+                    help="semicolon-separated 'x,y' pairs; default = the "
+                         "built-in winding circuit")
+    ps.add_argument("--track-width", type=float, default=6.0)
+    ps.add_argument("--ppm", type=float, default=10.0)
+
+    args = p.parse_args(argv)
+    if args.cmd == "convert":
+        convert_legacy_txt(args.input, args.output)
+        print(f"wrote {args.output}")
+        return
+    if args.cmd == "oval":
+        data, xb, yb = oval_track(half_length=args.half_length,
+                                  half_width=args.half_width,
+                                  track_width=args.track_width, ppm=args.ppm)
+        save_costmap(data, xb, yb, args.ppm, args.output)
+        print(f"wrote {args.output}: {data.shape[1]}x{data.shape[0]} px")
+    elif args.cmd == "spline":
+        wps = WINDING_WAYPOINTS
+        if args.waypoints:
+            try:
+                wps = [tuple(float(v) for v in c.split(","))
+                       for c in args.waypoints.split(";") if c.strip()]
+                if len(wps) < 3 or any(len(w) != 2 for w in wps):
+                    raise ValueError("need >= 3 'x,y' pairs")
+            except ValueError as e:
+                p.error(f"--waypoints expects 'x,y;x,y;...' "
+                        f"(>= 3 pairs): {e}")
+        data, xb, yb = spline_track(waypoints=wps,
+                                    track_width=args.track_width,
+                                    ppm=args.ppm)
+        save_costmap(data, xb, yb, args.ppm, args.output)
+        print(f"wrote {args.output}: {data.shape[1]}x{data.shape[0]} px")
+    else:
+        gen_costmap_from_image(args.input, args.config, args.output)
+
+
+if __name__ == "__main__":
+    main()

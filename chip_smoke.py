@@ -345,7 +345,30 @@ exits non-zero):
     after-swap log, reverse and forward (RMSE under half a fresh init's),
     then 200 ticks of the physics plant at K=8192 with the trained model
     (the car covers 5 m at a mean speed of 2 m/s or more, exactly 1 + 1
-    launches a solve, p99 at most 20 ms).
+    launches a solve, p99 at most 20 ms);
+33. the cost-parameter sweep (``tools/param_sweep.py``) on the lane forms
+    of kernels 1 and 2 (a stacked ``CostParams``, L settings in one
+    launch): (a) the nine lane instances' registers (ptxas, no spill) and
+    blocks an SM; (b) at L=3, K=512 and L=12, K=1920, MLP and BF, seeded
+    weights, every lane's coefficients its own: kernel 1's lane form
+    against its plain version by phase 11's rule (u_seq bit for bit),
+    kernel 2's at K and at K=1 against theirs, and each lane bit for bit
+    the solo instance run with that lane's scalars in the lane launch's
+    geometry; kernel 1's lane form in every geometry and kernel 2's in
+    both, bit for bit one another; (c) the tool's sweep at its defaults
+    (seeded 6-32-32-4 from a temporary ``.npz``, K=512, 800 ticks,
+    desired_speed 5, 6, 7) and a 12-lane grid at K=1920 (desired_speed
+    4..7 x gamma 0.05, 0.15, 0.6), 200 ticks: one capture, exactly 2 + 2
+    lane launches in the captured tick (counted by the wrappers; the
+    profiler over 5 replayed ticks finds the lane forms and no solo
+    instance), no plain version, the replayed tick's ms,
+    graph nodes a tick, ticks/s and the wall time of the L solo captured
+    episodes beside it (reported, not gated), the first and the last lane
+    bit for bit their solo captured episodes over the whole run (every
+    field), a 3-lane BF sweep's
+    launches, and the lane forms timed beside their plain versions and
+    bounds; (d) ``param_sweep.main``, ``ess_demo`` in both modes on the
+    oval and ``two_car_demo.run_two_cars`` on the seeded ``.npz``.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -354,7 +377,8 @@ the BF tube's tick p50 / p99, the BF DDP run's nodes, the episode's
 launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
-3 and 4's other timings and drives at the other specs), and as
+3 and 4's other timings and drives at the other specs, the cost-parameter
+sweeps'), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -898,8 +922,10 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
-                              r"(MlpSplit|Mlp|Bf)Deriv|IJ)", m.group(1))
+                              r"(MlpSplit|Mlp|Bf)Deriv|IJ)E?(Lb1E)?",
+                              m.group(1))
             arg = short and (short.group(2) or short.group(3))
+            arg = arg and arg + (", lanes" if short.group(4) else "")
             name = (short.group(1) + (f"<{arg}>" if arg else "") if short
                     else m.group(1))
             spill = None
@@ -1456,7 +1482,8 @@ class PlainCalls:
 
     NAMES = ("fused_rollout_cost_plain", "trajectory_cost_plain",
              "dynamics_chain_plain", "fused_rng_costs_plain",
-             "fused_rng_numer_plain")
+             "fused_rng_numer_plain", "fused_exact_rollout_cost_lanes_plain",
+             "dynamics_chain_lanes_plain")
 
     def __init__(self, rk):
         self.rk, self.calls = rk, dict.fromkeys(self.NAMES, 0)
@@ -6674,6 +6701,532 @@ def physics_phase(rk, card, dev=None) -> dict:
     return results
 
 
+# -- phase 33: the cost-parameter sweep on the lane forms of kernels 1-2 ----
+
+# The sweep's two widths (tools/param_sweep.py): its defaults (the seeded
+# 6-32-32-4, K=512, 800 ticks, desired_speed 5, 6, 7 on the oval) and a
+# 12-lane grid at BASELINE #1's K=1920, 200 ticks.
+LANE_SWEEPS = {
+    "L3": (["desired_speed=5,6,7"], 512, 800),
+    "L12": (["desired_speed=4,5,6,7", "gamma=0.05,0.15,0.6"], K, 200),
+}
+LANE_SHAPES = ((3, 512), (12, K))           # (b): (L, K)
+LANE_PROFILE_TICKS = 5                     # (c): replayed under the profiler
+LANE_BF_TICKS = 20                         # (c): a 3-lane BF sweep
+LANE_TIME_REPS = 50
+# the lane instances of the default library (ptxas' names, phase 1): the
+# kernels' instances with kLanes set
+LANE_INSTANCES = (
+    ("fused_exact_kernel<Mlp, lanes>", "fused_exact_kernel<Bf, lanes>")
+    + tuple(f"fused_exact_group_kernel<{g}, lanes>" for g in (8, 16, 32))
+    + ("dynamics_chain_kernel<Mlp, lanes>", "dynamics_chain_kernel<Bf, lanes>",
+       "dynamics_chain_warp_kernel<Mlp, lanes>",
+       "dynamics_chain_warp_kernel<Bf, lanes>"))
+
+
+def lane_cost_grid(L: int):
+    """A stacked CostParams of L lanes whose every coefficient that the
+    kernels read differs from lane to lane (phase 33 (b))."""
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.tools.param_sweep import stack_cost_params
+
+    return stack_cost_params(CostParams(), [dict(
+        desired_speed=4.0 + 0.5 * i, speed_coeff=4.25 * (1 + 0.1 * i),
+        track_coeff=200.0 - 10.0 * i, max_slip_ang=1.25 - 0.05 * i,
+        slip_penalty=10.0 + i, crash_coeff=10000.0 - 500.0 * i,
+        boundary_threshold=0.65 - 0.02 * i, discount=0.1 + 0.01 * i)
+        for i in range(L)])
+
+
+def lane_inputs(L: int, K_: int, dev, seed: int):
+    """L start states about the oval's start (0.3 m apart, 0 to 3 m/s), L
+    plans U (T, 2) and one eps (T, K, 2), from ``seed``."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    state = torch.tensor(drive_oval.START, dtype=torch.float32,
+                         device=dev).repeat(L, 1)
+    state[:, :2] += 0.3 * torch.randn((L, 2), generator=gen, device=dev)
+    state[:, 4] = torch.linspace(0.0, 3.0, L, device=dev)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(L, T, 1)
+    U[..., 0] = 0.2 * torch.randn((L, T), generator=gen, device=dev)
+    eps = torch.randn((T, K_, 2), generator=gen, device=dev)
+    return state, U, eps
+
+
+def lanes_held(rk, tag, model, params, cfg, cp, cm, state, U, eps, bf,
+               card) -> dict:
+    """Phase 33 (b) at one (L, K): kernel 1's lane form against its plain
+    version by phase 11's rule (u_seq bit for bit), kernel 2's at K and at
+    K = 1 against theirs (states within STATE_RTOL / STATE_ATOL, u_seq bit
+    for bit), and each lane bit for bit the solo instance run with lane l's
+    scalars in the lane launch's geometry.  Launches made here are not
+    counted (``prepare_*``).  Returns kernel 1's max cost error, kernel
+    2's max state error at K and at K = 1 (``chain_err``) and the
+    geometries."""
+    import torch
+    from autorally_tpu_torch.config import lane_cost_params
+    from autorally_tpu_torch.tools.exact_variants import (
+        forced_chain_geometry, forced_geometry)
+
+    L, K_ = state.shape[0], eps.shape[1]
+    lanes = lane_cost_params(cp)
+    launch, (kc, ku, kx) = rk.prepare_fused_exact_rollout_cost_lanes(
+        model, params, cfg, cp, cm, state, U, eps)
+    launch()
+    pc, pu, px = rk.fused_exact_rollout_cost_lanes_plain(
+        model, params, cfg, cp, cm, state, U, eps)
+    torch.cuda.synchronize()
+    g = launch.geometry
+    err = max(agreement(f"lanes {tag}", f"lane {i}", kc[i], kx[i], pc[i],
+                        px[i], K_, limit=K_ // 100) for i in range(L))
+    check(bit_equal(ku, pu), f"lanes {tag}: kernel 1's u_seq differs from "
+          "its plain version's")
+    solo_same = []
+    with forced_geometry(g.group, g.block):
+        for i, cp_i in enumerate(lanes):
+            one, out = rk.prepare_fused_exact_rollout_cost(
+                model, params, cfg, cp_i, cm, state[i], U[i], eps)
+            one()
+            torch.cuda.synchronize()
+            solo_same.append(all(bit_equal(a[i], b)
+                                 for a, b in zip((kc, ku, kx), out)))
+    print(f"[lanes {tag}] kernel 1's lane form in {geometry_label(g)} "
+          f"({g.grid} blocks a lane, {L} lanes): each lane bit for bit the "
+          f"solo instance in that geometry: {solo_same} ({card})")
+    check(all(solo_same), f"lanes {tag}: a lane of kernel 1 differs from "
+          "the solo instance")
+    chains, chain_err = {}, {}
+    for name, e in (("K", eps), ("K=1", torch.zeros_like(eps[:, :1]))):
+        launch2, (ks, ku2) = rk.prepare_dynamics_chain_lanes(
+            model, params, cfg, state, U, e)
+        launch2()
+        ps, pu2 = rk.dynamics_chain_lanes_plain(model, params, cfg, state,
+                                                U, e)
+        torch.cuda.synchronize()
+        g2 = launch2.geometry
+        close = torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL)
+        serr = (ks - ps).abs().max().item()
+        same = []
+        with forced_chain_geometry(g2.group, g2.block):
+            for i in range(L):
+                one, out = rk.prepare_dynamics_chain(model, params, cfg,
+                                                     state[i], U[i], e)
+                one()
+                torch.cuda.synchronize()
+                same.append(bit_equal(ks[i], out[0])
+                            and bit_equal(ku2[i], out[1]))
+        print(f"[lanes {tag}] kernel 2's lane form at {name} in "
+              f"{geometry_label(g2)}: max|state err| {serr:.3e} against "
+              f"the plain version (rtol {STATE_RTOL}, atol {STATE_ATOL}: "
+              f"{close}), u_seq bit for bit {bit_equal(ku2, pu2)}; each "
+              f"lane bit for bit the solo instance: {same} ({card})")
+        check(close and bit_equal(ku2, pu2), f"lanes {tag}: kernel 2 at "
+              f"{name} differs from its plain version")
+        check(all(same), f"lanes {tag}: a lane of kernel 2 at {name} "
+              "differs from the solo instance")
+        chains[name] = g2
+        chain_err[name] = serr
+    return {"err": err, "geometry": g, "chain": chains,
+            "chain_err": chain_err}
+
+
+def lanes_geometries(rk, model, params, cfg, cp, cm, state, U, eps, card):
+    """Phase 33 (b): kernel 1's lane form in every geometry of
+    ``rk.GEOMETRIES`` and kernel 2's in both of ``rk.CHAIN_GEOMETRIES``,
+    each bit for bit the first (so that every lane instance of the library
+    runs and agrees)."""
+    def kernel1():
+        launch, out = rk.prepare_fused_exact_rollout_cost_lanes(
+            model, params, cfg, cp, cm, state, U, eps)
+        launch()
+        return out
+
+    def kernel2():
+        launch, out = rk.prepare_dynamics_chain_lanes(model, params, cfg,
+                                                      state, U, eps)
+        launch()
+        return out
+
+    hold_geometries("lanes geometries", list(rk.GEOMETRIES), kernel1,
+                    lambda label, out: None)
+    hold_geometries("lanes chain geometries", list(rk.CHAIN_GEOMETRIES),
+                    kernel2, lambda label, out: None, chain=True)
+
+
+def lanes_row(rk, name, launch, plain_fn, L: int, K_: int, n_w: int,
+              step_ops: int, chain: bool, err, launches: dict, card) -> dict:
+    """The ``kernels`` row of a lane form: its time (CUDA events), its
+    plain version's, its bound (every input read once, eps shared, every
+    output written once: L x the solo row's work) and the counted
+    launches."""
+    ms = cuda_ms(launch, LANE_TIME_REPS)
+    plain = cuda_ms(plain_fn, 1, 1)
+    if chain:
+        nbytes = 4 * (2 * T * K_ + L * (2 * T + 7 + 9 * T * K_) + n_w + 4)
+    else:
+        nbytes = 4 * (2 * T * K_ + L * (2 * T + 7 + len(rk._FLOAT_SCALARS)
+                                        + 2 * K_ + 2 * T * K_
+                                        + 2 * K_ * (T - 1)) + n_w + 4)
+    bnd, by = bound(nbytes, step_ops * L * K_ * T)
+    g = launch.geometry
+    model = "Bf" if "_bf" in name else "Mlp"
+    instance = (("dynamics_chain_warp_kernel" if g.group > 1
+                 else "dynamics_chain_kernel") + f"<{model}, lanes>" if chain
+                else f"fused_exact_group_kernel<{g.group}, lanes>"
+                if g.group > 1 else f"fused_exact_kernel<{model}, lanes>")
+    print(f"[timing] {name} L={L} K={K_}: {ms:.4f} ms in "
+          f"{geometry_label(g)} ({g.grid} x {L} blocks), plain {plain:.3f} "
+          f"ms, bound {bnd:.5f} ms ({by}) ({card})")
+    return {"name": name, "route": "cuda",
+            "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+            "replaces": "autorally_tpu/ops/rollout_kernel.py:" + (
+                "389" if chain else "1013"),
+            "launches": launches.get(name, 0), "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None, "K": K_, "lanes": L,
+            "geometry": geometry_label(g), "instance": instance}
+
+
+def sweep_launches(rk, runner, args, card) -> dict:
+    """Phase 33 (c): ``LANE_PROFILE_TICKS`` replayed ticks of ``runner``'s
+    sweep under the profiler (after a warm-up run of the profiler, which
+    it discards): the lane forms of kernels 1 and 2 and no solo instance,
+    at most the two launches of each that the captured tick holds (the
+    wrappers count exactly 2 + 2 in the capture), and the device events
+    (graph nodes) a tick.  A record the profiler drops is reported."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    runner.run(*args)                          # captures
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            runner.run(*args)                  # replays only
+            torch.cuda.synchronize()
+            prof.step()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = runner.n_ticks
+    # a lane instance's name ends its template arguments with kLanes
+    count = {"kernel 1": sum("fused_exact" in x and ", true>" in x
+                             for x in names),
+             "kernel 2": sum("dynamics_chain" in x and ", true>" in x
+                             for x in names),
+             "solo": sum(("fused_" in x or "dynamics_chain" in x)
+                         and ", true>" not in x for x in names)}
+    dropped = 4 * n - count["kernel 1"] - count["kernel 2"]
+    print(f"[sweep launches] {n} replayed ticks (profiler): kernel 1 lanes "
+          f"{count['kernel 1']}, kernel 2 lanes {count['kernel 2']}, solo "
+          f"instances {count['solo']}, lane launches the profiler did not "
+          f"record {dropped}; {len(names)} device events "
+          f"({len(names) / n:.0f} a tick) ({card})")
+    check(count["solo"] == 0 and 0 < count["kernel 1"] <= 2 * n
+          and 0 < count["kernel 2"] <= 2 * n,
+          f"sweep: launches {count}, expected the lane forms alone, 2 + 2 "
+          "a replayed tick")
+    return {"launches_per_tick": {"kernel 1": count["kernel 1"] / n,
+                                  "kernel 2": count["kernel 2"] / n},
+            "graph_nodes_per_tick": len(names) / n,
+            "profiler_dropped": dropped}
+
+
+def sweep_phase(rk, card, dev=None) -> dict:
+    """Phase 33: the cost-parameter sweep (``tools/param_sweep.py``) on the
+    lane forms of kernels 1 and 2, with the rest of the port's tools."""
+    import argparse
+    import shutil
+    import tempfile
+
+    import torch
+    from autorally_tpu_torch import two_car_demo
+    from autorally_tpu_torch.config import MPPIConfig, lane_cost_params
+    from autorally_tpu_torch.models import (BasisFunctionDynamics,
+                                            NeuralNetDynamics)
+    from autorally_tpu_torch.runtime.episode import EpisodeRunner
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.tools import ess_demo, param_sweep
+    from autorally_tpu_torch.tools.lap_eval import load_track
+
+    dev = dev or torch.device("cuda", 0)
+    results, rows = {}, []
+
+    # (a) the lane instances' registers and spills (ptxas, phase 1) and
+    # their blocks an SM at T
+    for bf in (False, True):
+        geoms = rk.GEOMETRIES if not bf else rk.GEOMETRIES[:1]
+        for chain, gs in ((False, geoms), (True, rk.CHAIN_GEOMETRIES)):
+            for G, block in gs:
+                info = rk.lanes_kernel_info(chain, bf, rk._geometry(1, G,
+                                                                    block), T)
+                print(f"[lanes (a)] {'kernel 2' if chain else 'kernel 1'} "
+                      f"{'BF' if bf else 'MLP'} G{G} block {block}: "
+                      f"{info['registers']} registers, "
+                      f"{info['local_bytes']} bytes of local memory, "
+                      f"{info['smem_bytes']} bytes of dynamic shared memory "
+                      f"at T={T}, {info['blocks_per_sm']} blocks an SM "
+                      f"({card})")
+    lane_regs = {n: PTXAS.get(n) for n in LANE_INSTANCES}
+    print(f"[lanes (a)] ptxas: {lane_regs} registers, no spill (phase 1)")
+    check(all(v is not None for v in lane_regs.values()),
+          f"lanes (a): ptxas reported no {lane_regs}")
+    results["registers"] = lane_regs
+
+    # (b) every lane against its plain version and the solo instance
+    cm, start_pose, _, _ = load_track("oval", device=dev)
+    cfg = MPPIConfig(num_rollouts=K, num_timesteps=T)
+    models = {}
+    for kind, cls in (("nn", NeuralNetDynamics),
+                      ("bf", BasisFunctionDynamics)):
+        m = cls(cfg.dt, control_ranges=cfg.control_ranges, device=dev)
+        models[kind] = (m, m.init_params(0))
+    held = {}
+    for L, K_ in LANE_SHAPES:
+        cp = lane_cost_grid(L)
+        state, U, eps = lane_inputs(L, K_, dev, seed=L)
+        for kind, (m, p) in models.items():
+            c = cfg.replace(num_rollouts=K_)
+            held[L, K_, kind] = lanes_held(rk, f"(b) L={L} K={K_} {kind}", m,
+                                           p, c, cp, cm, state, U, eps,
+                                           kind == "bf", card)
+        if (L, K_) == LANE_SHAPES[0]:
+            m, p = models["nn"]
+            lanes_geometries(rk, m, p, cfg.replace(num_rollouts=K_), cp, cm,
+                             state, U, eps, card)
+
+    # (c) the sweep at both widths: one capture, 2 + 2 lane launches a
+    # tick, no plain version; two lanes against their solo episodes; the
+    # replayed tick, graph nodes, ticks/s, and L solo episodes' wall time
+    work = tempfile.mkdtemp(prefix="artt_sweep_")
+    saved_npz = param_sweep.MODEL_NPZ
+    try:
+        npz = os.path.join(work, "seeded.npz")
+        models["nn"][0].save_params(models["nn"][1], npz)
+        param_sweep.MODEL_NPZ = npz
+        for tag, (sweeps, K_, ticks) in LANE_SWEEPS.items():
+            args = argparse.Namespace(sweep=sweeps, rollouts=K_,
+                                      timesteps=T, ticks=ticks, track="oval",
+                                      pallas=False)
+            grid, runner, params, stacked, cmap, start = param_sweep.build(
+                args, dev)
+            L = len(grid)
+            caps = Captures(runner)
+            rk.LAUNCHES.clear()
+            with PlainCalls(rk) as plain:
+                t0 = time.perf_counter()
+                res = param_sweep.run_sweep(runner, params, stacked, cmap,
+                                            start)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            launches = dict(rk.LAUNCHES)
+            print(f"[sweep {tag}] {L} lanes x {ticks} ticks at K={K_}: "
+                  f"first run {first_s:.2f} s ({len(caps.seconds)} "
+                  f"capture(s), {sum(caps.seconds):.2f} s), launches "
+                  f"counted {launches}, plain-version calls {plain.calls} "
+                  f"({card})")
+            check(len(caps.seconds) == 1, f"sweep {tag}: "
+                  f"{len(caps.seconds)} captures")
+            check(launches == {"fused_exact_rollout_cost_lanes": 4,
+                               "dynamics_chain_lanes": 4},
+                  f"sweep {tag}: launches {launches}, expected 2 + 2 lane "
+                  "launches in the warm-up tick and 2 + 2 in the captured "
+                  "tick")
+            check(not any(plain.calls.values()), f"sweep {tag}: a plain "
+                  f"version ran on the card: {plain.calls}")
+            check(torch.isfinite(res.states).all().item(),
+                  f"sweep {tag}: a state is not finite")
+            # the replayed run, timed
+            plan, graph, events = runner._captured, runner._captured.graph, []
+
+            class Timed:
+                def replay(self):
+                    e0 = torch.cuda.Event(enable_timing=True)
+                    e1 = torch.cuda.Event(enable_timing=True)
+                    e0.record()
+                    graph.replay()
+                    e1.record()
+                    events.append((e0, e1))
+
+            plan.graph = Timed()
+            try:
+                t0 = time.perf_counter()
+                again = param_sweep.run_sweep(runner, params, stacked, cmap,
+                                              start)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                plan.graph = graph
+            check(episode_equal(again, res), f"sweep {tag}: the replayed "
+                  "run differs from the first")
+            tick_ms = [a.elapsed_time(b) for a, b in events]
+            rows_m = param_sweep.lane_metrics(res, grid,
+                                              settle=min(200, ticks // 4))
+            # launches by the profiler, on a runner of a few ticks
+            short = EpisodeRunner(runner.solver, n_ticks=LANE_PROFILE_TICKS)
+            prof = sweep_launches(rk, short, (params, stacked, cmap, start),
+                                  card)
+            # L solo episodes, two held against their lanes
+            solo_runner = EpisodeRunner(runner.solver, n_ticks=ticks)
+            lanes = lane_cost_params(stacked)
+            gaps = {}
+            t0 = time.perf_counter()
+            for i, cp_i in enumerate(lanes):
+                solo = solo_runner.run(params, cp_i, cmap, start)
+                if i in (0, L - 1):
+                    gaps[i] = {
+                        "bit_equal": all(bit_equal(getattr(res, f)[i],
+                                                   getattr(solo, f))
+                                         for f in solo._fields),
+                        "max_state_gap": (res.states[i] - solo.states)
+                        .abs().max().item(),
+                        "first_tick_apart": next(
+                            (t for t in range(ticks) if not all(
+                                bit_equal(getattr(res, f)[i, t],
+                                          getattr(solo, f)[t])
+                                for f in solo._fields)), None)}
+            torch.cuda.synchronize()
+            solo_s = time.perf_counter() - t0
+            print(f"[sweep {tag}] replayed tick {np.percentile(tick_ms, 50):.4f}"
+                  f" / {np.percentile(tick_ms, 99):.4f} ms p50 / p99 (CUDA "
+                  f"events, {ticks} ticks), {prof['graph_nodes_per_tick']:.0f}"
+                  f" graph nodes a tick, {ticks / wall:.1f} ticks/s "
+                  f"({L * ticks / wall:.1f} lane-ticks/s, {wall:.2f} s "
+                  f"host clock); {L} solo captured episodes {solo_s:.2f} s "
+                  f"({solo_s / first_s:.2f}x the sweep's first run, "
+                  f"{solo_s / wall:.2f}x its replayed run) ({card})")
+            for i, g in gaps.items():
+                print(f"[sweep {tag}] lane {i} against its solo captured "
+                      f"episode ({ticks} ticks, every field): bit for bit "
+                      f"{g['bit_equal']}; max |state gap| "
+                      f"{g['max_state_gap']:.3e}, first tick apart "
+                      f"{g['first_tick_apart']} ({card})")
+                check(g["bit_equal"], f"sweep {tag}: lane {i} differs from "
+                      "its solo episode")
+            for r in rows_m:
+                print(f"[sweep {tag}] {json.dumps(r)}")
+            results[tag] = {"lanes": L, "K": K_, "ticks": ticks,
+                            "first_run_s": first_s,
+                            "capture_s": sum(caps.seconds),
+                            "tick_ms_p50_p99": (
+                                float(np.percentile(tick_ms, 50)),
+                                float(np.percentile(tick_ms, 99))),
+                            "ticks_per_s": ticks / wall,
+                            "solo_episodes_s": solo_s, **prof,
+                            "lane_gaps": gaps, "metrics": rows_m,
+                            "launches": launches}
+            # the kernels line: this width's lane launches, timed
+            m, p = models["nn"]
+            state = runner._captured.state[:, :].clone()
+            c = runner.solver.cfg
+            eps = torch.randn((T, K_, 2), device=dev)
+            U = runner._captured.carries[0].U.clone()
+            L1, o1 = rk.prepare_fused_exact_rollout_cost_lanes(
+                m, p, c, stacked, cmap, state, U, eps)
+            L2, o2 = rk.prepare_dynamics_chain_lanes(
+                m, p, c, state, U, torch.zeros_like(eps[:, :1]))
+            rows.append(lanes_row(
+                rk, "fused_exact_rollout_cost_lanes", L1,
+                lambda: rk.fused_exact_rollout_cost_lanes_plain(
+                    m, p, c, stacked, cmap, state, U, eps), L, K_,
+                rk.KERNEL_NUM_WEIGHTS, mlp_flops(m.layers), False,
+                max(v["err"] for (l, _, kind), v in held.items()
+                    if l == L and kind == "nn"),
+                launches, card))
+            rows.append(lanes_row(
+                rk, "dynamics_chain_lanes", L2,
+                lambda: rk.dynamics_chain_lanes_plain(
+                    m, p, c, state, U, torch.zeros_like(eps[:, :1])), L, 1,
+                rk.KERNEL_NUM_WEIGHTS, mlp_flops(m.layers), True,
+                max(v["chain_err"]["K=1"] for (l, _, kind), v in held.items()
+                    if l == L and kind == "nn"),
+                launches, card))
+            del runner, solo_runner, short
+        # the BF lanes: a 3-lane BF sweep's launches
+        m, p = models["bf"]
+        L3, K3 = LANE_SHAPES[0]
+        bcfg = cfg.replace(num_rollouts=K3)
+        bsolver = MPPISolver(m, MPPICost(), bcfg, device=dev)
+        brunner = EpisodeRunner(bsolver, n_ticks=LANE_BF_TICKS)
+        cp3 = lane_cost_grid(L3)
+        rk.LAUNCHES.clear()
+        with PlainCalls(rk) as plain:
+            bres = brunner.run(p, cp3, cm, [*start_pose, 0, 0, 0, 0])
+            torch.cuda.synchronize()
+        blaunch = dict(rk.LAUNCHES)
+        print(f"[sweep BF] {L3} lanes x {LANE_BF_TICKS} ticks at K={K3}: "
+              f"launches counted {blaunch}, plain-version calls "
+              f"{plain.calls}, final u_x {bres.states[:, -1, 4].tolist()} "
+              f"({card})")
+        check(blaunch == {"fused_exact_rollout_cost_bf_lanes": 4,
+                          "dynamics_chain_bf_lanes": 4},
+              f"sweep BF: launches {blaunch}")
+        check(not any(plain.calls.values()), "sweep BF: a plain version ran")
+        state, U, eps = lane_inputs(L3, K3, dev, seed=5)
+        L1, _ = rk.prepare_fused_exact_rollout_cost_lanes(m, p, bcfg, cp3, cm,
+                                                          state, U, eps)
+        L2, _ = rk.prepare_dynamics_chain_lanes(
+            m, p, bcfg, state, U, torch.zeros_like(eps[:, :1]))
+        rows.append(lanes_row(
+            rk, "fused_exact_rollout_cost_bf_lanes", L1,
+            lambda: rk.fused_exact_rollout_cost_lanes_plain(
+                m, p, bcfg, cp3, cm, state, U, eps), L3, K3,
+            rk.KERNEL_BF_WEIGHTS, BF_STEP_OPS, False,
+            held[L3, K3, "bf"]["err"], blaunch, card))
+        rows.append(lanes_row(
+            rk, "dynamics_chain_bf_lanes", L2,
+            lambda: rk.dynamics_chain_lanes_plain(
+                m, p, bcfg, state, U, torch.zeros_like(eps[:, :1])), L3, 1,
+            rk.KERNEL_BF_WEIGHTS, BF_STEP_OPS, True,
+            held[L3, K3, "bf"]["chain_err"]["K=1"], blaunch, card))
+
+        # (d) the tools: param_sweep.main, ess_demo's two modes on the
+        # oval, two_car_demo on the seeded .npz
+        import contextlib
+        import io
+
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            param_sweep.main(["--ticks", "50"])
+        lines = out.getvalue().strip().splitlines()
+        print(f"[tools (d)] param_sweep.main --ticks 50: {lines} ({card})")
+        check(len(lines) == 4 and lines[-1].startswith("BEST "),
+              "tools (d): param_sweep.main printed other lines")
+        ess = {}
+        for mode in ("host", "episode"):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                ess[mode] = ess_demo.main(["--mode", mode, "--track", "oval",
+                                           "--model", npz, "--ticks", "100"])
+            print(f"[tools (d)] ess_demo --mode {mode} --track oval: "
+                  f"{out.getvalue().strip()} ({card})")
+        check(ess["host"]["traces_tuned"] == 0, "tools (d): ess_demo's "
+              "host loop captured")
+        saved_cars = two_car_demo.MODEL_NPZ
+        two_car_demo.MODEL_NPZ = npz
+        try:
+            t0 = time.perf_counter()
+            sa, sb = two_car_demo.run_two_cars(ticks=100, parked=True)
+            cars_s = time.perf_counter() - t0
+        finally:
+            two_car_demo.MODEL_NPZ = saved_cars
+        d = np.hypot(sa[:, 0] - sb[:, 0], sa[:, 1] - sb[:, 1])
+        print(f"[tools (d)] two_car_demo.run_two_cars(ticks=100, "
+              f"parked=True): {cars_s:.2f} s, min gap {d.min():.2f} m, A's "
+              f"final u_x {sa[-1, 4]:.3f} m/s ({card})")
+        check(np.isfinite(sa).all() and np.isfinite(sb).all(),
+              "tools (d): two_car_demo's states are not finite")
+        results["tools"] = {"ess_demo": ess, "two_cars_s": cars_s}
+    finally:
+        param_sweep.MODEL_NPZ = saved_npz
+        shutil.rmtree(work, ignore_errors=True)
+    return {"results": results, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -6727,8 +7280,9 @@ def main() -> int:
         # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain;
         # BF exact pass 1 is fused_rng_bf_kernel), pass 2, kernel 1 in its
         # lane groups (the MLP), kernel 2 one rollout a warp (MLP and BF),
-        # and the constant quotients' check (phase 19)
-        n_kernels = 11 + len(rk.LANE_GROUPS) + 2 + 1
+        # the constant quotients' check (phase 19), and the lane forms of
+        # kernels 1 and 2 in each of their geometries (phase 33)
+        n_kernels = 11 + len(rk.LANE_GROUPS) + 2 + 1 + len(LANE_INSTANCES)
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -7077,6 +7631,11 @@ def main() -> int:
     physics = physics_phase(rk, card)
     print(f"[time] phase 32 in {time.perf_counter() - t_phys:.1f}s ({card})")
 
+    # -- phase 33: the cost-parameter sweep on the lane forms -------------
+    t_sweep = time.perf_counter()
+    sweep = sweep_phase(rk, card)
+    print(f"[time] phase 33 in {time.perf_counter() - t_sweep:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -7095,7 +7654,8 @@ def main() -> int:
         ensemble["kernels"]) + sharded["kernels"] + spec["rows"] + [
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
-        baseline3["rows"]) + field_specs["rows"] + precision["rows"]
+        baseline3["rows"]) + field_specs["rows"] + precision["rows"] + (
+        sweep["rows"])
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -7104,8 +7664,8 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
-        if k.get("precision") == PRECISION:
-            continue                     # phase 31's rows carry their own
+        if k.get("precision") == PRECISION or "lanes" in k:
+            continue                     # phases 31 and 33 carry their own
         layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
@@ -7166,6 +7726,7 @@ def main() -> int:
                       "field_specs": field_specs["results"],
                       "precision_default": precision["results"],
                       "physics": physics,
+                      "sweep": sweep["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -7191,7 +7752,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-32 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-33 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

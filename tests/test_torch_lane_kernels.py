@@ -1,0 +1,328 @@
+"""The lane forms of kernels 1 and 2 (``ops/rollout_kernel.py``: a
+stacked ``CostParams`` in one launch) on the CPU, where their wrappers run
+the plain versions: each lane against the JAX kernels vmapped over their
+scalars in interpret mode (the batching rule that gives the JAX sweep's
+``pallas_call`` its lane axis), at the tolerances of the kernel-1 and
+kernel-2 parity tests (``tests/test_torch_rollout_kernel.py``); each lane
+equal to the port's solo plain call exactly; the lane scalars' layout; the
+lane launch's geometry, picked from L x K; and the refusals that name
+ROADMAP Queue 2 A7 (circle slots, the field, the capacity mode, the
+episode's ESS law and moving obstacles, the libraries of other specs and
+precisions), raised before any build.  The CUDA lane kernels run only on
+a GPU: ``chip_smoke.py`` phase 33 holds them against these plain versions
+and each lane bit for bit against the solo instance."""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from autorally_tpu.config import CostParams as JaxCostParams
+from autorally_tpu.config import MPPIConfig as JaxConfig
+from autorally_tpu.costs.costmap import make_costmap as jax_make_costmap
+from autorally_tpu.models import NeuralNetDynamics as JaxNN
+from autorally_tpu.ops import rollout_kernel as jrk
+from autorally_tpu.tools.track_generator import oval_track
+from autorally_tpu_torch.config import (CostParams, MPPIConfig,
+                                        lane_cost_params)
+from autorally_tpu_torch.costs import (MPPICost, ObstacleCost, make_costmap,
+                                       make_obstacles)
+from autorally_tpu_torch.costs.neural_costmap import NeuralCostmap
+from autorally_tpu_torch.models import BasisFunctionDynamics, NeuralNetDynamics
+from autorally_tpu_torch.ops import rollout_kernel as rk
+from autorally_tpu_torch.runtime.episode import EpisodeRunner
+from autorally_tpu_torch.solver.mppi import MPPISolver
+from autorally_tpu_torch.tools.param_sweep import stack_cost_params
+
+K, T, L = 256, 24, 3
+# tests/test_torch_rollout_kernel.py's tolerances: costs over 23 running-
+# average steps of fp32 with another summation order in the MLP, u_seq
+# one multiply and one add, states 24 Euler steps of the same MLP.
+COST_RTOL, COST_ATOL = 2e-5, 1e-4
+USEQ_ATOL = 1e-6
+STATE_RTOL, STATE_ATOL = 1e-5, 1e-5
+GRID = [dict(desired_speed=4.0, speed_coeff=2.5),
+        dict(desired_speed=6.0, track_coeff=150.0, discount=0.2),
+        dict(desired_speed=8.0, crash_coeff=5000.0, boundary_threshold=0.05)]
+
+
+class Lanes:
+    """L lanes of start states, U and cost params on the ppm=2 oval (the
+    third lane's boundary threshold so low that some of its rollouts
+    crash), one eps of a wide swarm at 6 m/s, seeded weights carried with
+    ``params_from_jax``."""
+
+    def __init__(self, seed=0):
+        rs = np.random.default_rng(seed)
+        # a wide swarm, so that some of its rollouts leave the track
+        wide = dict(steering_std=4 * 0.275, throttle_std=4 * 0.3)
+        self.cfg = MPPIConfig(num_rollouts=K, num_timesteps=T, **wide)
+        self.jcfg = JaxConfig(num_rollouts=K, num_timesteps=T, **wide)
+        data, xb, yb = oval_track(ppm=2.0)
+        self.cm = make_costmap(data, xb, yb, device="cpu")
+        self.jcm = jax_make_costmap(data, xb, yb)
+        self.jmodel = JaxNN(self.jcfg.dt,
+                            control_ranges=self.jcfg.control_ranges)
+        self.jparams = self.jmodel.init_params(jax.random.PRNGKey(seed))
+        self.model = NeuralNetDynamics(self.cfg.dt,
+                                       control_ranges=self.cfg.control_ranges,
+                                       device="cpu")
+        self.params = self.model.params_from_jax(
+            jax.tree_util.tree_map(np.asarray, self.jparams))
+        base = np.array([25.0, 0.0, np.pi / 2, 0.0, 6.0, 0.0, 0.0],
+                        np.float32)
+        self.state = (base + rs.normal(0, 0.3, (L, 7)).astype(np.float32)
+                      * np.float32([1, 1, 0.1, 0, 1, 0, 0]))
+        self.U = np.tile(np.float32([0.0, 0.3]), (L, T, 1))
+        self.U[..., 0] = rs.uniform(-0.3, 0.3, (L, T))
+        self.eps = rs.standard_normal((T, K, 2)).astype(np.float32)
+        self.cp = stack_cost_params(CostParams(), GRID)
+        self.jcp = JaxCostParams(**{
+            f: jnp.asarray(getattr(self.cp, f).numpy())
+            for f in ("desired_speed", "speed_coeff", "track_coeff",
+                      "max_slip_ang", "slip_penalty", "track_slop",
+                      "crash_coeff", "steering_coeff", "throttle_coeff",
+                      "boundary_threshold", "discount")})
+
+    def torch_args(self):
+        return (torch.tensor(self.state), torch.tensor(self.U),
+                torch.tensor(self.eps))
+
+
+@pytest.fixture(scope="module")
+def lanes():
+    return Lanes()
+
+
+def test_fused_exact_lanes_match_the_vmapped_jax_kernel(lanes):
+    s = lanes
+    costs, u_seq, crash = rk.fused_exact_rollout_cost_lanes(
+        s.model, s.params, s.cfg, s.cp, s.cm, *s.torch_args())
+    assert costs.shape == crash.shape == (L, K)
+    assert u_seq.shape == (L, 2, T, K)
+    eps = jnp.asarray(s.eps)
+    jc, ju, jx = jax.vmap(
+        lambda cp, st, U: jrk.fused_exact_rollout_cost_pallas(
+            s.jmodel, s.jparams, s.jcfg, cp, s.jcm, st, U, eps,
+            interpret=True))(s.jcp, jnp.asarray(s.state), jnp.asarray(s.U))
+    for lane in range(L):
+        np.testing.assert_allclose(costs[lane].numpy(), np.asarray(jc[lane]),
+                                   rtol=COST_RTOL, atol=COST_ATOL)
+        np.testing.assert_array_equal(crash[lane].numpy(),
+                                      np.asarray(jx[lane]))
+        np.testing.assert_allclose(u_seq[lane].numpy(), np.asarray(ju[lane]),
+                                   rtol=0, atol=USEQ_ATOL)
+    # the lanes' coefficients and starts reach their costs
+    assert len({float(c.mean()) for c in costs}) == L
+    assert 0 < int(crash.sum()) < crash.numel()
+
+
+def test_dynamics_chain_lanes_match_the_vmapped_jax_kernel(lanes):
+    s = lanes
+    states, u_seq = rk.dynamics_chain_lanes(s.model, s.params, s.cfg,
+                                            *s.torch_args())
+    eps = jnp.asarray(s.eps)
+    js, ju = jax.vmap(lambda st, U: jrk.dynamics_chain_pallas(
+        s.jmodel, s.jparams, s.jcfg, st, U, eps, interpret=True))(
+        jnp.asarray(s.state), jnp.asarray(s.U))
+    js = np.asarray(js)[:, :s.model.STATE_DIM]       # drop the SPAD rows
+    assert states.shape == js.shape == (L, 7, T, K)
+    for lane in range(L):
+        np.testing.assert_allclose(states[lane].numpy(), js[lane],
+                                   rtol=STATE_RTOL, atol=STATE_ATOL)
+        np.testing.assert_allclose(u_seq[lane].numpy(), np.asarray(ju[lane]),
+                                   rtol=0, atol=USEQ_ATOL)
+
+
+def test_nominal_trajectory_lanes_match_the_vmapped_jax_kernel(lanes):
+    s = lanes
+    state, U, _ = s.torch_args()
+    ss, cs = rk.nominal_trajectory_lanes(s.model, s.params, s.cfg, state, U)
+    jss, jcs = jax.vmap(lambda st, u: jrk.nominal_trajectory_pallas(
+        s.jmodel, s.jparams, s.jcfg, st, u, interpret=True))(
+        jnp.asarray(s.state), jnp.asarray(s.U))
+    assert ss.shape == (L, T, 7) and cs.shape == (L, T, 2)
+    np.testing.assert_allclose(ss.numpy(), np.asarray(jss), rtol=STATE_RTOL,
+                               atol=STATE_ATOL)
+    np.testing.assert_array_equal(cs.numpy(), np.asarray(jcs))
+
+
+@pytest.mark.parametrize("kind", ["nn", "bf"])
+def test_each_lane_is_the_solo_plain_call_exactly(lanes, kind):
+    s = lanes
+    model, params = s.model, s.params
+    if kind == "bf":
+        model = BasisFunctionDynamics(s.cfg.dt, device="cpu")
+        params = model.init_params(0)
+    state, U, eps = s.torch_args()
+    out = rk.fused_exact_rollout_cost_lanes(model, params, s.cfg, s.cp,
+                                            s.cm, state, U, eps, l1_cost=True,
+                                            k_offset=64)
+    chain = rk.dynamics_chain_lanes(model, params, s.cfg, state, U, eps)
+    nominal = rk.nominal_trajectory_lanes(model, params, s.cfg, state, U)
+    for lane, cp in enumerate(lane_cost_params(s.cp)):
+        solo = rk.fused_exact_rollout_cost(model, params, s.cfg, cp, s.cm,
+                                           state[lane], U[lane], eps,
+                                           l1_cost=True, k_offset=64)
+        for a, b in zip(out, solo):
+            assert torch.equal(a[lane], b)
+        for a, b in zip(chain, rk.dynamics_chain(model, params, s.cfg,
+                                                 state[lane], U[lane], eps)):
+            assert torch.equal(a[lane], b)
+        for a, b in zip(nominal, rk.nominal_trajectory(
+                model, params, s.cfg, state[lane], U[lane])):
+            assert torch.equal(a[lane], b)
+
+
+def test_lane_scalars_follow_the_kernel_layout(lanes):
+    """Row l is lane l's host scalars of a solo launch, in
+    ``_FLOAT_SCALARS`` order; the solver packs them once per set of
+    values."""
+    s = lanes
+    packed = rk.lane_scalars(s.model, s.cfg, s.cp, s.cm, "cpu")
+    assert packed.shape == (L, len(rk._FLOAT_SCALARS))
+    assert packed.dtype == torch.float32
+    for lane, cp in enumerate(lane_cost_params(s.cp)):
+        floats, _ = rk.launch_scalars(s.model, s.cfg, 0, T, K, cp, s.cm)
+        np.testing.assert_array_equal(packed[lane].numpy(),
+                                      np.float32(floats))
+        f = dict(zip(rk._FLOAT_SCALARS, packed[lane].tolist()))
+        assert f["desired_speed"] == GRID[lane]["desired_speed"]
+    solver = MPPISolver(s.model, MPPICost(), s.cfg, device="cpu")
+    held = solver._lane_scalars(s.cp, s.cm)
+    assert torch.equal(held, packed)
+    assert solver._lane_scalars(s.cp, s.cm) is held
+    other = stack_cost_params(CostParams(), GRID[:2])
+    assert solver._lane_scalars(other, s.cm).shape == (2, packed.shape[1])
+    assert solver._lane_scalars(s.cp, s.cm) is not held
+
+
+def test_lane_launch_geometry_is_picked_from_all_lanes(monkeypatch):
+    """One launch runs L x K rollouts: 3 lanes of K=512 take the lane
+    groups one wave of L x K asks for (G=16), where one lane of K=512
+    alone takes G=32; the grid is a lane's blocks."""
+    model = NeuralNetDynamics(0.02, device="cpu")
+    bf = BasisFunctionDynamics(0.02, device="cpu")
+    monkeypatch.setattr(rk, "num_sms", lambda index: 132)
+    dev = torch.device("cuda", 0)
+    geom = rk._lanes_geometry(False, 3, 512, dev, model)
+    assert geom == rk.ExactGeometry(16, rk.GROUP_BLOCK, 512 // (128 // 16))
+    assert rk.exact_geometry(512, 132).group == 32
+    assert rk._lanes_geometry(False, 12, 1920, dev, model) == (
+        rk.ExactGeometry(1, rk.EXACT_BLOCK, 1920 // 64))
+    assert rk._lanes_geometry(False, 3, 2560, dev, bf).group == 1
+    # the nominal trajectories: a warp a lane
+    assert rk._lanes_geometry(True, 12, 1, dev, model) == (
+        rk.ExactGeometry(32, rk.CHAIN_WARP_BLOCK, 1))
+
+
+def test_lane_refusals_name_a7(lanes, monkeypatch):
+    """Circle slots, the field, the capacity mode, other specs and
+    precisions have no lane form: each raises naming A7 before any build
+    (``_build.load`` would raise otherwise)."""
+    s = lanes
+
+    def load(*a, **k):
+        raise LookupError("no build here")
+
+    monkeypatch.setattr(rk._build, "load", load)
+    rk._kernel_lib.cache_clear()
+    state, U, eps = s.torch_args()
+    circles = np.zeros((2, 3), np.float32)
+    with pytest.raises(NotImplementedError, match="A7"):
+        rk.fused_exact_rollout_cost_lanes(s.model, s.params, s.cfg, s.cp,
+                                          s.cm, state, U, eps,
+                                          obstacles=circles)
+    with pytest.raises(NotImplementedError, match="A7"):
+        rk.fused_exact_rollout_cost_lanes(
+            s.model, s.params, s.cfg,
+            s.cp.replace(obstacles=torch.zeros((L, 2, 3))), s.cm, state, U,
+            eps)
+    field = NeuralCostmap.build(
+        [np.zeros((34, 8), np.float32), np.zeros((8, 1), np.float32)],
+        [np.zeros(8, np.float32), np.zeros(1, np.float32)],
+        np.arange(1, 9, dtype=np.float32), s.cm.r_c1, s.cm.r_c2, s.cm.trs,
+        device="cpu")
+    wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
+    for model, cfg in ((wide, s.cfg),
+                       (s.model, s.cfg.replace(matmul_precision="default"))):
+        params = model.init_params(0)
+        with pytest.raises(NotImplementedError, match="A7"):
+            rk.prepare_fused_exact_rollout_cost_lanes(
+                model, params, cfg, s.cp, s.cm, state, U, eps)
+        with pytest.raises(NotImplementedError, match="A7"):
+            rk.prepare_dynamics_chain_lanes(model, params, cfg, state, U,
+                                            eps)
+
+    # the solver and the episode
+    cfg = MPPIConfig(num_rollouts=64, num_timesteps=8)
+    small = (state, U[:, :8], torch.tensor(s.eps[:8, :64]))
+    obst = MPPISolver(s.model, ObstacleCost(make_obstacles(
+        [[30.0, 4.0, 0.5]], 4, device="cpu")), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        obst.iterate(s.params, s.cp, s.cm, *small)
+    with pytest.raises(NotImplementedError, match="A7"):
+        MPPISolver(s.model, MPPICost(), cfg, device="cpu").iterate(
+            s.params, s.cp, field, *small)
+    capacity = MPPISolver(s.model, MPPICost(),
+                          cfg.replace(kernel_rng=True), device="cpu")
+    cs = capacity.init_state(0)
+    lanes_cs = cs._replace(**{n: getattr(cs, n).expand(L, *getattr(
+        cs, n).shape).clone() for n in ("U", "control_hist",
+                                        "state_solution",
+                                        "control_solution")})
+    with pytest.raises(NotImplementedError, match="A7"):
+        capacity.solve(s.params, s.cp, s.cm, state, lanes_cs)
+    solver = MPPISolver(s.model, MPPICost(), cfg, device="cpu")
+    start = np.array([25.0, 0.0, math.pi / 2, 0, 0, 0, 0], np.float32)
+    with pytest.raises(NotImplementedError, match="A7"):
+        EpisodeRunner(solver, n_ticks=2, ess_target_frac=0.25).run(
+            s.params, s.cp, s.cm, start)
+    traj = np.full((2, 2, 3), -1.0, np.float32)
+    with pytest.raises(NotImplementedError, match="A7"):
+        EpisodeRunner(obst, n_ticks=2).run(s.params, s.cp, s.cm, start,
+                                           obstacle_traj=traj)
+    rk._kernel_lib.cache_clear()
+
+
+def test_general_path_and_gains_lanes_are_the_solo_ones():
+    """A cost subclass (the general path: kernel 2's lane form, then the
+    epilogue a lane) prices each lane exactly as its solo call; an episode
+    with DDP gains (the DDP run a lane) gives each lane its solo episode,
+    within 1e-5 (the CPU plant's batched MLP sums in another order)."""
+    class Subclass(MPPICost):
+        pass
+
+    cfg = MPPIConfig(num_rollouts=64, num_timesteps=8)
+    model = NeuralNetDynamics(cfg.dt, device="cpu")
+    params = model.init_params(0)
+    data, xb, yb = oval_track(ppm=2.0)
+    cm = make_costmap(data, xb, yb, device="cpu")
+    rs = np.random.default_rng(3)
+    state = torch.tensor(np.float32([25.0, 0.0, np.pi / 2, 0, 3, 0, 0])
+                         + rs.normal(0, 0.2, (L, 7)).astype(np.float32))
+    U = torch.tensor(rs.uniform(-0.3, 0.3, (L, 8, 2)).astype(np.float32))
+    eps = torch.tensor(rs.standard_normal((8, 64, 2)).astype(np.float32))
+    cp = stack_cost_params(CostParams(), GRID)
+    solver = MPPISolver(model, Subclass(), cfg, device="cpu")
+    assert not solver._fusable_cost()
+    out = solver.rollout_costs_lanes(params, cp, cm, state, U, eps)
+    for lane, cp_l in enumerate(lane_cost_params(cp)):
+        solo = solver.rollout_costs(params, cp_l, cm, state[lane], U[lane],
+                                    eps)
+        for a, b in zip(out, solo):
+            assert torch.equal(a[lane], b)
+    runner = EpisodeRunner(MPPISolver(model, MPPICost(), cfg, device="cpu"),
+                           n_ticks=3, use_feedback_gains=True)
+    start = np.array([25.0, 0.0, math.pi / 2, 0, 2, 0, 0], np.float32)
+    res = runner.run(params, cp, cm, start)
+    assert res.states.shape == (L, 3, 7)
+    for lane, cp_l in enumerate(lane_cost_params(cp)):
+        solo = runner.run(params, cp_l, cm, start)
+        for f in res._fields:
+            torch.testing.assert_close(getattr(res, f)[lane],
+                                       getattr(solo, f), rtol=1e-5,
+                                       atol=1e-5, msg=f)
