@@ -109,14 +109,16 @@ def lane_cost_params(cost_params: CostParams) -> list:
     """A stacked ``CostParams``'s lanes, one ``CostParams`` each: lane l's
     float32 coefficients as Python floats, its gamma a 0-d view of the
     stacked gamma (which may live on the device), its ``obstacles`` lane
-    l's rows; a field without a lane axis (None, or gamma as one float)
-    as it is."""
+    l's rows of stacked (L, N, 3) circles; a field without a lane axis
+    (None, gamma as one float, or circles (N, 3) that every lane prices,
+    as the episode's moving obstacles are) as it is."""
     out = []
     for lane in range(cost_params_lanes(cost_params)):
         kw = {}
         for f in dataclasses.fields(cost_params):
             v = getattr(cost_params, f.name)
-            if not (torch.is_tensor(v) and v.dim() >= 1):
+            lane_dims = 3 if f.name == "obstacles" else 1
+            if not (torch.is_tensor(v) and v.dim() == lane_dims):
                 continue
             kw[f.name] = (v[lane] if f.name in ("gamma", "obstacles")
                           else float(v[lane]))

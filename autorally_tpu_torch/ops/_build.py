@@ -98,20 +98,24 @@ SIGNATURES = {
     "artt_bf16_operands": [],
     # fsc, isc, lane scalars (device), lanes, lane group, block, device,
     # then device pointers + stream
-    "artt_fused_exact_lanes": [_P, _P, _P, _I, _I, _I, _I] + [_P] * 10,
+    "artt_fused_exact_lanes": [_P, _P, _P, _I, _I, _I, _I] + [_P] * 11,
+    # fsc, isc, lane scalars (device), lanes, device, then device pointers
+    # + stream
+    "artt_fused_field_lanes": [_P, _P, _P, _I, _I] + [_P] * 11,
     # fsc, isc, lanes, lane group, block, device, then device pointers +
     # stream
     "artt_dynamics_chain_lanes": [_P, _P, _I, _I, _I, _I] + [_P] * 8,
-    # chain, bf, lane group, block, T, device, out (4 ints)
-    "artt_lanes_kernel_info": [_I] * 6 + [_P],
+    # kernel (1, 2 or 3), bf, lane group, block, T, n_obs, device, out (4
+    # ints)
+    "artt_lanes_kernel_info": [_I] * 7 + [_P],
 }
 # What only the float32 library of the default specs holds: pass 2 and the
-# quotient check, which evaluate no model, and the lane forms of kernels 1
-# and 2.
+# quotient check, which evaluate no model, and the lane forms of kernels
+# 1-3.
 FP32_ONLY_FUNCTIONS = ("artt_weighted_update", "artt_update_block",
                        "artt_const_divisors", "artt_div_const_check",
                        "artt_fused_exact_lanes", "artt_dynamics_chain_lanes",
-                       "artt_lanes_kernel_info")
+                       "artt_fused_field_lanes", "artt_lanes_kernel_info")
 # What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
 # kernels 1-4 and the queries of their layouts and instances.
 SPEC_FUNCTIONS = (

@@ -64,15 +64,17 @@ and their weights, as the JAX ``_fused_kernel`` splits layer 0; the biases
 stay float32, and the nominal trajectory (kernel 2 at K = 1), pass 2 and
 the neural field's own products are float32 at every precision.
 
-Kernels 1 and 2 also have lane forms (:func:`fused_exact_rollout_cost_lanes`,
-:func:`dynamics_chain_lanes`, :func:`nominal_trajectory_lanes`): L sets of
-cost parameters (a stacked ``CostParams``, ``config.cost_params_lanes``),
-start states and plans in one launch, the eps, weights and map shared, as
-the JAX package's sweep vmaps ``pallas_call`` over its scalars; lane l
-gives the bits of the solo kernel with lane l's scalars.  The default
-float32 library holds them; circle slots, the field, the capacity passes,
-other MLP specs and bf16 operands have none (:func:`no_lane_form` raises,
-``LANES_ROADMAP``).
+Kernels 1-3 also have lane forms (:func:`fused_exact_rollout_cost_lanes`,
+:func:`fused_rollout_cost_lanes`, :func:`dynamics_chain_lanes`,
+:func:`nominal_trajectory_lanes`): L sets of cost parameters (a stacked
+``CostParams``, ``config.cost_params_lanes``), start states, plans and
+circles (a lane's own, or one set for every lane) in one launch, the eps,
+weights and map or field shared, as the JAX package's sweep vmaps
+``pallas_call`` over its scalars; lane l gives the bits of the solo kernel
+with lane l's scalars and circles.  The default float32 library holds
+them (kernel 3's on the default field); the capacity passes, other MLP
+specs, other field specs and bf16 operands have none
+(:func:`no_lane_form` raises, ``LANES_ROADMAP``).
 
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
@@ -867,18 +869,19 @@ def _obstacle_circles(cost_params, obstacles) -> Optional[torch.Tensor]:
 
 
 def _obstacle_launch(circles: Optional[torch.Tensor], dev):
-    """(n_obs, packed) for a fused kernel: the circles as [x..., y...,
-    radius...] (3 N,) float32 on ``dev``, copied anew for every launch so
-    that a live update is never served from a stale copy; (0, None)
-    without obstacle terms."""
+    """(n_obs, packed) for a fused kernel: the circles (N, 3), or a lane
+    launch's (L, N, 3), as [x..., y..., radius...] (3 N,) float32 a lane
+    on ``dev``, copied anew for every launch so that a live update is never
+    served from a stale copy; (0, None) without obstacle terms."""
     if circles is None:
         return 0, None
-    n = circles.shape[0]
+    n = circles.shape[-2]
     if n > MAX_OBSTACLES:
         raise ValueError(f"the CUDA kernels stage at most {MAX_OBSTACLES} "
                          f"obstacle slots, got {n} (ROADMAP.md, Queue 2 A5)")
-    packed = torch.empty((3, n), dtype=torch.float32, device=dev)
-    packed.copy_(circles.t())
+    packed = torch.empty((*circles.shape[:-2], 3, n), dtype=torch.float32,
+                         device=dev)
+    packed.copy_(circles.transpose(-1, -2))
     return n, packed.reshape(-1)
 
 
@@ -1421,46 +1424,73 @@ def nominal_trajectory(model, model_params, cfg, state, U,
 
 
 # ---------------------------------------------------------------------------
-# the lane forms of kernels 1 and 2: L cost-parameter sets in one launch
+# the lane forms of kernels 1-3: L cost-parameter sets in one launch
 # ---------------------------------------------------------------------------
 
 # What a stacked CostParams cannot take (ROADMAP.md, Queue 2 A7).
-LANES_ROADMAP = ("ROADMAP.md, Queue 2 A7: a lane axis on kernels 3-5, on "
-                 "circle slots, and in the libraries of other MLP specs "
-                 "and of bf16 operands")
+LANES_ROADMAP = ("ROADMAP.md, Queue 2 A7: a lane axis on the capacity "
+                 "passes (kernels 4-5), and in the libraries of other MLP "
+                 "specs, of other field specs and of bf16 operands")
 
 
 def no_lane_form(what: str):
     """Raise for ``what`` asked of with a stacked ``CostParams``, before
-    any build or launch: only kernels 1 and 2 have lane forms."""
+    any build or launch: only kernels 1-3 of the default library have lane
+    forms."""
     raise NotImplementedError(
-        f"{what} has no lane form: a stacked CostParams runs kernels 1 and "
-        f"2 only ({LANES_ROADMAP})")
+        f"{what} has no lane form: a stacked CostParams runs kernels 1-3 of "
+        f"the default library only ({LANES_ROADMAP})")
 
 
-def lane_scalar_rows(model, cfg, cost_params, costmap,
-                     k_offset=0) -> tuple:
+def lane_scalar_rows(model, cfg, cost_params, costmap, k_offset=0,
+                     obstacle_coeff: float = 0.0,
+                     inflation: float = 1.0) -> tuple:
     """A stacked ``CostParams``'s (``config.cost_params_lanes``) rows of
-    kernel 1's lane scalars, on the host: row l lane l's float scalars as
+    the lane forms' scalars, on the host: row l lane l's float scalars as
     :func:`launch_scalars` gives them for one launch (the chain entries,
-    the costmap's transform, lane l's coefficients)."""
-    return tuple(tuple(launch_scalars(model, cfg, k_offset, 0, 0, cp,
-                                      costmap)[0])
-                 for cp in lane_cost_params(cost_params))
+    the surface's transform, lane l's coefficients, and the circles'
+    ``obstacle_coeff`` and ``inflation``, the cost object's for every
+    lane)."""
+    return tuple(tuple(launch_scalars(
+        model, cfg, k_offset, 0, 0, cp, costmap,
+        obstacle_coeff=obstacle_coeff, inflation=inflation)[0])
+        for cp in lane_cost_params(cost_params))
 
 
-def lane_scalars(model, cfg, cost_params, costmap, device,
-                 k_offset=0) -> torch.Tensor:
-    """:func:`lane_scalar_rows` packed for kernel 1's lane form: (L,
-    ``len(_FLOAT_SCALARS)``) float32 on ``device``, a copy from the host.
-    A captured tick takes them packed before its capture
+def lane_scalars(model, cfg, cost_params, costmap, device, k_offset=0,
+                 obstacle_coeff: float = 0.0,
+                 inflation: float = 1.0) -> torch.Tensor:
+    """:func:`lane_scalar_rows` packed for the lane forms of kernels 1 and
+    3: (L, ``len(_FLOAT_SCALARS)``) float32 on ``device``, a copy from the
+    host.  A captured tick takes them packed before its capture
     (``MPPISolver.rollout_costs_lanes``)."""
     return torch.tensor(lane_scalar_rows(model, cfg, cost_params, costmap,
-                                         k_offset),
+                                         k_offset, obstacle_coeff,
+                                         inflation),
                         dtype=torch.float32, device=device)
 
 
-def _lane_inputs(model, model_params, state, U, eps, packed_weights):
+def _lane_circles(cost_params, obstacles, L: int) -> Optional[torch.Tensor]:
+    """The circles of a lane launch, (L, N, 3) float32 as given (any
+    device): a stacked (L, N, 3), a lane's own rows each, or one (N, 3)
+    set that every lane prices (an ``ObstacleCost``'s own, or a moving
+    obstacle's tick), expanded; None without obstacle terms, whose
+    ``CostParams.obstacles`` is refused as :func:`_obstacle_circles`
+    refuses it."""
+    if obstacles is None:
+        return _obstacle_circles(cost_params, None)
+    circles = torch.as_tensor(obstacles, dtype=torch.float32)
+    if circles.dim() == 2:
+        circles = _obstacle_circles(cost_params, circles)
+        return circles.expand(L, *circles.shape)
+    if circles.dim() != 3 or circles.shape[0] != L or circles.shape[2] != 3:
+        raise ValueError(f"lane circles must be (N, 3) or ({L}, N, 3) [x, "
+                         f"y, radius], got {tuple(circles.shape)}")
+    return circles
+
+
+def _lane_inputs(model, model_params, state, U, eps, packed_weights,
+                 max_T: int = MAX_KERNEL_T):
     """Shape checks of a lane launch, state (L, S), U (L, T, C) and eps
     (T, K, C) shared; the device tensors it reads."""
     T, K, C = eps.shape
@@ -1469,8 +1499,8 @@ def _lane_inputs(model, model_params, state, U, eps, packed_weights):
             or C != 2):
         raise ValueError(f"lane shapes: state {tuple(state.shape)}, U "
                          f"{tuple(U.shape)}, eps {tuple(eps.shape)}")
-    if not 1 <= T <= MAX_KERNEL_T:
-        raise ValueError(f"kernel needs 1 <= T <= {MAX_KERNEL_T}")
+    if not 1 <= T <= max_T:
+        raise ValueError(f"kernel needs 1 <= T <= {max_T}")
     return L, dict(
         s0=state.to(eps.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
@@ -1479,118 +1509,203 @@ def _lane_inputs(model, model_params, state, U, eps, packed_weights):
                  else packed_weights))
 
 
-def _check_lane_library(model, cfg, precision) -> None:
+def _check_lane_library(model, cfg, precision, kernel: int = 1) -> None:
     """Raise unless the default library holds the model's lane forms: the
     MLP of ``KERNEL_LAYERS`` or the BF model, at a float32 precision."""
-    _check_kernel_model(model, cfg)
+    _check_kernel_model(model, cfg, kernel)
     layers = kernel_layers(model)
     if layers != KERNEL_LAYERS or bf16_operands(_precision(cfg, precision)):
-        no_lane_form(f"kernels 1-2 of {'-'.join(map(str, layers))} at "
+        no_lane_form(f"kernels 1-3 of {'-'.join(map(str, layers))} at "
                      f"matmul_precision {_precision(cfg, precision)!r}")
 
 
-def _lanes_geometry(chain: bool, L: int, K: int, dev, model):
-    """A lane launch's geometry, chosen from L x K rollouts, with the
-    blocks of one lane (the launcher's grid is (blocks, L))."""
-    pick = _chain_launch_geometry if chain else _launch_geometry
+def _lanes_geometry(kernel: int, L: int, K: int, dev, model):
+    """A lane launch's geometry of kernel 1, 2 or 3, with the blocks of one
+    lane (the launcher's grid is (blocks, L)).  Kernels 1 and 2 choose it
+    from L x K rollouts.  Kernel 3 has one: its blocks of ``FIELD_BLOCK``
+    (4 warps, two blocks an SM: a warp's tile and the staged field fix
+    both), K / ``FIELD_BLOCK`` of them a lane, whatever L x K is, so that
+    its L x K rollouts fill the card in L x K / (2 x 128 x SMs) waves."""
+    if kernel == 3:
+        return _geometry(K, 1, FIELD_BLOCK)
+    pick = _chain_launch_geometry if kernel == 2 else _launch_geometry
     geom = pick(L * K, dev, model)
     return _geometry(K, geom.group, geom.block)
 
 
-def fused_exact_rollout_cost_lanes_plain(model, model_params, cfg,
-                                         cost_params, costmap, state, U, eps,
-                                         l1_cost: bool = False, k_offset=0,
-                                         precision: Optional[str] = None):
-    """Plain version of kernel 1's lane form: the solo plain version
-    (:func:`fused_rollout_cost_plain`) applied lane by lane, lane l with
-    ``lane_cost_params``'s lane l, ``state[l]`` and ``U[l]``.  Returns
-    (costs (L, K), u_seq (L, C, T, K), crash (L, K))."""
-    outs = [fused_rollout_cost_plain(model, model_params, cfg, cp, costmap,
-                                     state[i], U[i], eps, l1_cost=l1_cost,
-                                     k_offset=k_offset, precision=precision)
-            for i, cp in enumerate(lane_cost_params(cost_params))]
+def fused_rollout_cost_lanes_plain(model, model_params, cfg, cost_params,
+                                   surface, state, U, eps,
+                                   l1_cost: bool = False, k_offset=0,
+                                   obstacles=None,
+                                   obstacle_coeff: float = 0.0,
+                                   inflation: float = 1.0,
+                                   precision: Optional[str] = None):
+    """Plain version of the lane forms of kernels 1 and 3 on either
+    surface: the solo plain version (:func:`fused_rollout_cost_plain`)
+    applied lane by lane, lane l with ``lane_cost_params``'s lane l,
+    ``state[l]``, ``U[l]`` and lane l's circles
+    (:func:`fused_exact_rollout_cost_lanes`).  Returns (costs (L, K), u_seq
+    (L, C, T, K), crash (L, K))."""
+    circles = _lane_circles(cost_params, obstacles, state.shape[0])
+    outs = [fused_rollout_cost_plain(
+        model, model_params, cfg, cp, surface, state[i], U[i], eps,
+        l1_cost=l1_cost, k_offset=k_offset,
+        obstacles=None if circles is None else circles[i],
+        obstacle_coeff=obstacle_coeff, inflation=inflation,
+        precision=precision)
+        for i, cp in enumerate(lane_cost_params(cost_params))]
     return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
+                   state, U, eps, l1_cost, k_offset, obstacles,
+                   obstacle_coeff, inflation, packed_weights, precision,
+                   lane_fsc):
+    """Validate a lane form's inputs (kernel 1 on a ``Costmap``, kernel 3
+    on a ``NeuralCostmap`` of ``FIELD_KERNEL_SPEC``) and allocate its
+    outputs; returns ``(launch, (costs, u_seq, crash))`` as
+    :func:`_prepare_fused`, ``launch.lanes`` its L.  ``lane_fsc``: the lane
+    scalars (:func:`lane_scalars`, with the circles' coefficients) on the
+    device, packed here when None."""
+    field = type(surface) is NeuralCostmap
+    _expect(surface, NeuralCostmap if field else Costmap, fn)
+    _check_lane_library(model, cfg, precision, 3 if field else 1)
+    kind, buf, fspec = _surface(surface)
+    if field and tuple(fspec) != FIELD_KERNEL_SPEC:
+        no_lane_form(f"kernel 3 on a field {_build.field_label(fspec)}")
+    T, K, C = eps.shape
+    dev = eps.device
+    L, args = _lane_inputs(model, model_params, state, U, eps,
+                           packed_weights, max_field_kernel_t()
+                           if field else MAX_KERNEL_T)
+    circles = _lane_circles(cost_params, obstacles, L)
+    args["surface"] = buf
+    args["lane_fsc"] = (lane_scalars(model, cfg, cost_params, surface, dev,
+                                     k_offset, obstacle_coeff, inflation)
+                        if lane_fsc is None else lane_fsc)
+    if args["lane_fsc"].shape[0] != L:
+        raise ValueError(f"{args['lane_fsc'].shape[0]} lanes of cost "
+                         f"params, state of {L}")
+    ptrs = _device_args(dev, **args)
+    n_obs, packed = _obstacle_launch(circles, dev)
+    floats, ints = launch_scalars(model, cfg, k_offset, T, K,
+                                  lane_cost_params(cost_params)[0], surface,
+                                  l1_cost, n_obs, obstacle_coeff, inflation)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    costs = torch.empty((L, K), dtype=torch.float32, device=dev)
+    crash = torch.empty((L, K), dtype=torch.int32, device=dev)
+    u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
+    lib = _kernel_lib()
+    geom = _lanes_geometry(3 if field else 1, L, K, dev, model)
+    entry, geo_args = ((lib.artt_fused_field_lanes, ()) if field else
+                       (lib.artt_fused_exact_lanes, geom[:2]))
+
+    def launch():
+        err = entry(
+            ctypes.addressof(fsc), ctypes.addressof(isc), ptrs["lane_fsc"],
+            L, *geo_args, dev.index or 0, ptrs["s0"], ptrs["rngs"],
+            ptrs["U"], ptrs["eps"], ptrs["surface"], ptrs["weights"],
+            None if packed is None else packed.data_ptr(), costs.data_ptr(),
+            crash.data_ptr(), u_seq.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, fn)
+
+    launch.inputs = (args, packed)           # keeps the buffers alive
+    launch.name = fn.removesuffix("_lanes") + _form(model, n_obs) + "_lanes"
+    launch.geometry = geom
+    launch.lanes = L
+    return launch, (costs, u_seq, crash)
 
 
 def prepare_fused_exact_rollout_cost_lanes(model, model_params, cfg,
                                            cost_params, costmap: Costmap,
                                            state, U, eps,
                                            l1_cost: bool = False, k_offset=0,
+                                           obstacles=None,
+                                           obstacle_coeff: float = 0.0,
+                                           inflation: float = 1.0,
                                            packed_weights=None,
                                            precision: Optional[str] = None,
                                            lane_fsc=None):
-    """Validate kernel 1's lane-form inputs and allocate its outputs;
-    returns ``(launch, (costs, u_seq, crash))`` as
-    :func:`prepare_fused_exact_rollout_cost`, ``launch.lanes`` its L.
-    ``lane_fsc``: the lane scalars (:func:`lane_scalars`) on the device,
-    packed here when None."""
-    _expect(costmap, Costmap, "fused_exact_rollout_cost_lanes")
-    if cost_params.obstacles is not None:
-        no_lane_form("the circle slots of kernel 1")
-    _check_lane_library(model, cfg, precision)
-    T, K, C = eps.shape
-    dev = eps.device
-    L, args = _lane_inputs(model, model_params, state, U, eps,
-                           packed_weights)
-    args["surface"] = costmap.ch0
-    args["lane_fsc"] = (lane_scalars(model, cfg, cost_params, costmap, dev,
-                                     k_offset)
-                        if lane_fsc is None else lane_fsc)
-    if args["lane_fsc"].shape[0] != L:
-        raise ValueError(f"{args['lane_fsc'].shape[0]} lanes of cost "
-                         f"params, state of {L}")
-    ptrs = _device_args(dev, **args)
-    floats, ints = launch_scalars(model, cfg, k_offset, T, K,
-                                  lane_cost_params(cost_params)[0], costmap,
-                                  l1_cost)
-    fsc = _host_array(ctypes.c_float, floats)
-    isc = _host_array(ctypes.c_int, ints)
-    costs = torch.empty((L, K), dtype=torch.float32, device=dev)
-    crash = torch.empty((L, K), dtype=torch.int32, device=dev)
-    u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
-    geom = _lanes_geometry(False, L, K, dev, model)
-    lib = _kernel_lib()
+    """Kernel 1's lane launch and outputs (see :func:`_prepare_lanes`)."""
+    return _prepare_lanes("fused_exact_rollout_cost_lanes", model,
+                          model_params, cfg, cost_params, costmap, state, U,
+                          eps, l1_cost, k_offset, obstacles, obstacle_coeff,
+                          inflation, packed_weights, precision, lane_fsc)
 
-    def launch():
-        err = lib.artt_fused_exact_lanes(
-            ctypes.addressof(fsc), ctypes.addressof(isc), ptrs["lane_fsc"],
-            L, geom.group, geom.block, dev.index or 0, ptrs["s0"],
-            ptrs["rngs"], ptrs["U"], ptrs["eps"], ptrs["surface"],
-            ptrs["weights"], costs.data_ptr(), crash.data_ptr(),
-            u_seq.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _check_launch(err, "fused_exact_rollout_cost_lanes")
 
-    launch.inputs = args                     # keeps the buffers alive
-    launch.name = "fused_exact_rollout_cost" + _form(model, 0) + "_lanes"
-    launch.geometry = geom
-    launch.lanes = L
-    return launch, (costs, u_seq, crash)
+def prepare_fused_rollout_cost_lanes(model, model_params, cfg, cost_params,
+                                     field: NeuralCostmap, state, U, eps,
+                                     l1_cost: bool = False, k_offset=0,
+                                     obstacles=None,
+                                     obstacle_coeff: float = 0.0,
+                                     inflation: float = 1.0,
+                                     packed_weights=None,
+                                     precision: Optional[str] = None,
+                                     lane_fsc=None):
+    """Kernel 3's lane launch and outputs (see :func:`_prepare_lanes`)."""
+    return _prepare_lanes("fused_rollout_cost_lanes", model, model_params,
+                          cfg, cost_params, field, state, U, eps, l1_cost,
+                          k_offset, obstacles, obstacle_coeff, inflation,
+                          packed_weights, precision, lane_fsc)
 
 
 def fused_exact_rollout_cost_lanes(model, model_params, cfg, cost_params,
                                    costmap: Costmap, state, U, eps,
                                    l1_cost: bool = False, k_offset=0,
-                                   obstacles=None, packed_weights=None,
+                                   obstacles=None,
+                                   obstacle_coeff: float = 0.0,
+                                   inflation: float = 1.0,
+                                   packed_weights=None,
                                    precision: Optional[str] = None,
                                    lane_fsc=None):
     """Kernel 1 over the L lanes of a stacked ``cost_params`` in one launch
     (the JAX package's vmap of ``fused_exact_rollout_cost_pallas``): lane l
     prices ``state[l]`` (L, S) and ``U[l]`` (L, T, C) with lane l's
     coefficients; ``eps`` (T, K, C), the weights and the map are shared.
-    Circle slots have none (``obstacles`` raises).  ``lane_fsc``: as
+    ``obstacles``: (L, N, 3) circles, lane l's its row, or (N, 3) that
+    every lane prices, with ``obstacle_coeff`` and ``inflation``
+    (``ObstacleCost.kernel_kwargs``), or None.  ``lane_fsc``: as
     :func:`prepare_fused_exact_rollout_cost_lanes` takes it.  Counted as
-    ``fused_exact_rollout_cost[_bf]_lanes``.  Returns (costs (L, K), u_seq
-    (L, C, T, K), crash (L, K) int32)."""
-    if obstacles is not None or cost_params.obstacles is not None:
-        no_lane_form("the circle slots of kernel 1")
+    ``fused_exact_rollout_cost[_bf][_obstacles]_lanes``.  Returns (costs
+    (L, K), u_seq (L, C, T, K), crash (L, K) int32)."""
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
+              obstacle_coeff=obstacle_coeff, inflation=inflation,
+              precision=precision)
     if _dispatch(eps) == "plain":
-        return fused_exact_rollout_cost_lanes_plain(
+        return fused_rollout_cost_lanes_plain(
             model, model_params, cfg, cost_params, costmap, state, U, eps,
-            l1_cost=l1_cost, k_offset=k_offset, precision=precision)
+            **kw)
     launch, out = prepare_fused_exact_rollout_cost_lanes(
         model, model_params, cfg, cost_params, costmap, state, U, eps,
-        l1_cost=l1_cost, k_offset=k_offset, packed_weights=packed_weights,
-        precision=precision, lane_fsc=lane_fsc)
+        packed_weights=packed_weights, lane_fsc=lane_fsc, **kw)
+    _launch_counted(launch, eps.shape[1])
+    return out
+
+
+def fused_rollout_cost_lanes(model, model_params, cfg, cost_params,
+                             field: NeuralCostmap, state, U, eps,
+                             l1_cost: bool = False, k_offset=0,
+                             obstacles=None, obstacle_coeff: float = 0.0,
+                             inflation: float = 1.0, packed_weights=None,
+                             precision: Optional[str] = None, lane_fsc=None):
+    """Kernel 3 over the L lanes of a stacked ``cost_params`` in one launch
+    (the JAX package's vmap of ``fused_rollout_cost_pallas``):
+    :func:`fused_exact_rollout_cost_lanes`'s contract with a
+    ``NeuralCostmap`` of ``FIELD_KERNEL_SPEC`` (the packed field shared).
+    Counted as ``fused_rollout_cost[_bf][_obstacles]_lanes``.  Returns
+    (costs (L, K), u_seq (L, C, T, K), crash (L, K) int32)."""
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
+              obstacle_coeff=obstacle_coeff, inflation=inflation,
+              precision=precision)
+    if _dispatch(eps) == "plain":
+        return fused_rollout_cost_lanes_plain(
+            model, model_params, cfg, cost_params, field, state, U, eps,
+            **kw)
+    launch, out = prepare_fused_rollout_cost_lanes(
+        model, model_params, cfg, cost_params, field, state, U, eps,
+        packed_weights=packed_weights, lane_fsc=lane_fsc, **kw)
     _launch_counted(launch, eps.shape[1])
     return out
 
@@ -1622,7 +1737,7 @@ def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
     states = torch.empty((L, model.STATE_DIM, T, K), dtype=torch.float32,
                          device=dev)
     u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
-    geom = _lanes_geometry(True, L, K, dev, model)
+    geom = _lanes_geometry(2, L, K, dev, model)
     lib = _kernel_lib()
 
     def launch():
@@ -1675,14 +1790,15 @@ def nominal_trajectory_lanes(model, model_params, cfg, state, U,
     return states_sol, torch.clamp(U, rngs[:, 0], rngs[:, 1])
 
 
-def lanes_kernel_info(chain: bool, bf: bool, geom: ExactGeometry, T: int,
-                      device: int = 0) -> dict:
-    """:func:`exact_kernel_info` of the lane form's instance of kernel 1
-    (kernel 2 when ``chain``) that ``geom`` launches, the waves of one
-    lane."""
+def lanes_kernel_info(kernel: int, bf: bool, geom: ExactGeometry, T: int,
+                      n_obs: int = 0, device: int = 0) -> dict:
+    """:func:`exact_kernel_info` of the lane form's instance of kernel
+    ``kernel`` (1, 2 or 3; kernel 3's ``geom`` is ``_geometry(K, 1,
+    FIELD_BLOCK)``) that ``geom`` launches at ``T`` with ``n_obs`` circle
+    slots, the waves of one lane."""
     out = (ctypes.c_int * 4)()
     _check_launch(_kernel_lib().artt_lanes_kernel_info(
-        int(chain), int(bf), geom.group, geom.block, T, device, out),
+        int(kernel), int(bf), geom.group, geom.block, T, n_obs, device, out),
         "lanes_kernel_info")
     return _info(out, geom, device)
 

@@ -25,7 +25,7 @@ replay.  What the graph freezes is kept out of the tick or checked:
   keys, indexed by a tick counter on the device;
 - the moving obstacles are a device buffer of the episode's circles,
   indexed the same way;
-- gamma is a 0-d device tensor, the ESS law's carry;
+- gamma is a device tensor, the ESS law's carry (0-d, or a lane's own);
 - the kernels' host scalars (cost coefficients, the costmap's transform)
   and the packed weights are frozen: a run whose weights, cost params
   (gamma aside), costmap or circles differ from the captured run's, or
@@ -60,7 +60,6 @@ from autorally_tpu_torch.config import (CostParams, cost_params_lanes,
                                         effective_gamma)
 from autorally_tpu_torch.costs.obstacles import ObstacleCost
 from autorally_tpu_torch.ops import kernel_rng
-from autorally_tpu_torch.ops.rollout_kernel import no_lane_form
 from autorally_tpu_torch.runtime.ess_tuner import gamma_step_traced
 from autorally_tpu_torch.solver.ddp import DDPSolver
 from autorally_tpu_torch.solver.mppi import MPPISolver, validate_tube_pair
@@ -189,9 +188,10 @@ class _Plan:
         S = runner.solver.model.STATE_DIM
         C = runner.solver.model.CONTROL_DIM
         self.state = torch.zeros(*lead, S, **f32)
+        # gamma and the ESS law's band, a lane's own each
         self.gamma = torch.zeros(lead, **f32)
-        self.g_lo = torch.zeros((), **f32)
-        self.g_hi = torch.zeros((), **f32)
+        self.g_lo = torch.zeros(lead, **f32)
+        self.g_hi = torch.zeros(lead, **f32)
         self.tick = torch.zeros(1, dtype=torch.int64, device=dev)
         iters = runner.solver.cfg.num_iters
         # the capacity mode's keys, (n_ticks, iters * 2) a controller, or
@@ -396,16 +396,22 @@ class EpisodeRunner:
             carry.state_solution[..., 0, :] = state0
         plan.state.copy_(state0)
         gamma0 = effective_gamma(cfg, cost_params)
-        if plan.lanes is not None and torch.is_tensor(gamma0):
-            plan.gamma.copy_(gamma0.to(torch.float32))    # a gamma a lane
-        else:
-            gamma0 = np.float32(gamma0)
-            plan.gamma.fill_(float(gamma0))
+        # a gamma a lane where the stacked CostParams carries one
+        gamma0 = np.asarray(gamma0.detach().cpu() if torch.is_tensor(gamma0)
+                            else gamma0, np.float32)
+
+        def fill(buf, value):
+            buf.copy_(torch.from_numpy(np.broadcast_to(
+                np.asarray(value, np.float32), buf.shape).copy()))
+
+        fill(plan.gamma, gamma0)
         if self._ess_target is not None:
-            # the band is centered on the EFFECTIVE starting gamma, so that
-            # an override outside the cfg-based band is not clipped back
-            plan.g_lo.fill_(float(gamma0 / np.float32(self._ess_headroom)))
-            plan.g_hi.fill_(float(gamma0 * np.float32(self._ess_headroom)))
+            # the band is centered on the EFFECTIVE starting gamma (a
+            # lane's own), so that an override outside the cfg-based band
+            # is not clipped back
+            headroom = np.float32(self._ess_headroom)
+            fill(plan.g_lo, gamma0 / headroom)
+            fill(plan.g_hi, gamma0 * headroom)
         if plan.keys is not None:
             for buf, subs in zip(plan.keys, subkeys):
                 buf.copy_(torch.from_numpy(
@@ -473,14 +479,14 @@ class EpisodeRunner:
         package's vmap of its episode over the cost params): every solve
         draws its noise once for all lanes, each lane keeps its own
         carries, gamma and plant state, and the result's fields gain a
-        leading L.  The ESS law and moving obstacles have no lane form
-        (``rk.LANES_ROADMAP``)."""
+        leading L.  With ``ess_target_frac`` each lane carries its own
+        gamma through the ESS law, stepped by its own winning solve's ESS in
+        the band about its own starting gamma; ``obstacle_traj``'s circles
+        of a tick are staged once and priced by every lane (the JAX vmap
+        takes them unbatched), and a stacked ``cost_params.obstacles`` (L,
+        N, 3) gives each lane its own circles."""
         dev = self.device
         lanes = cost_params_lanes(cost_params)
-        if lanes is not None and self._ess_target is not None:
-            no_lane_form("the episode's ESS law (ess_target_frac)")
-        if lanes is not None and obstacle_traj is not None:
-            no_lane_form("the episode's moving obstacles (obstacle_traj)")
         if obstacle_traj is not None:
             if not isinstance(self.solver.cost, ObstacleCost):
                 raise TypeError(
@@ -508,11 +514,18 @@ class EpisodeRunner:
         frozen = cost_params.replace(gamma=None)
         if obstacle_traj is not None:
             frozen = frozen.replace(obstacles=None)
-        args = (params_ctrl, params_true, cost_params, costmap)
         keep = []
         signature = _signature((params_ctrl, params_true, frozen, costmap,
                                 self.solver.cost.__dict__, capacity,
                                 n_circles), keep)
+        circles = cost_params.obstacles
+        if torch.is_tensor(circles) and circles.device != dev:
+            # the tick reads the circles on the device (a stacked
+            # CostParams holds them on the host); a captured tick reads
+            # this copy, which ``keep`` holds
+            cost_params = cost_params.replace(obstacles=circles.to(dev))
+            keep.append(cost_params.obstacles)
+        args = (params_ctrl, params_true, cost_params, costmap)
         graph = self.captures and not eager
         plan = self._captured if graph else None
         if plan is None or plan.signature != signature:

@@ -183,7 +183,7 @@ class MPPISolver:
         self.init_u = torch.tensor(cfg.init_u, dtype=torch.float32,
                                    device=self.device)
         self._sample_noise = make_sampler(cfg.noise_sampler, cfg.noise_param)
-        # kernel 1's lane scalars of the last stacked CostParams solved:
+        # the lane scalars of the last stacked CostParams solved:
         # (host rows, device tensor); a captured episode holds the tensor
         self._lane_pack = None
 
@@ -287,25 +287,28 @@ class MPPISolver:
         """:meth:`rollout_costs` for the L lanes of a stacked
         ``cost_params`` (``config.cost_params_lanes``): lane l from
         ``state[l]`` (L, S) and ``U[l]`` (L, T, C), all lanes on the same
-        ``eps`` (T, K, C).  The fused path is one launch of kernel 1's lane
-        form; the general path kernel 2's lane form (or the plain chain
-        lane by lane), then :meth:`_cost_epilogue` with each lane's cost
-        params.  The field's kernel 3 and an ``ObstacleCost``'s circles
-        have no lane form and raise.  Returns (costs (L, K), u_seq (L, C,
-        T, K), crash (L, K))."""
-        if type(costmap) not in (Costmap, NeuralCostmap):
+        ``eps`` (T, K, C).  The fused path is one launch of the lane form of
+        the surface's kernel (kernel 1 on the exact ``Costmap``, kernel 3
+        on a ``NeuralCostmap``), which with an ``ObstacleCost`` prices each
+        lane's circles (the stacked ``cost_params.obstacles`` (L, N, 3),
+        lane l's its row) or the circles every lane shares (its own, or an
+        unstacked (N, 3)); the general path kernel 2's lane form (or the
+        plain chain lane by lane), then :meth:`_cost_epilogue` with each
+        lane's cost params.  Returns (costs (L, K), u_seq (L, C, T, K),
+        crash (L, K))."""
+        fused = {Costmap: rk.fused_exact_rollout_cost_lanes,
+                 NeuralCostmap: rk.fused_rollout_cost_lanes}.get(
+                     type(costmap))
+        if fused is None:
             raise NotImplementedError(
                 f"{type(costmap).__name__} is not ported: the port samples "
                 "a Costmap or a NeuralCostmap (ROADMAP.md, Queue 1)")
-        if type(self.cost) is ObstacleCost:
-            rk.no_lane_form("the circle slots of an ObstacleCost")
         if self.kernel_form and self._fusable_cost():
-            if type(costmap) is NeuralCostmap:
-                rk.no_lane_form("kernel 3 (the neural field)")
-            return rk.fused_exact_rollout_cost_lanes(
+            return fused(
                 self.model, model_params, self.cfg, cost_params, costmap,
                 state, U, eps, l1_cost=self.cost.l1_cost, k_offset=k_offset,
-                lane_fsc=self._lane_scalars(cost_params, costmap, k_offset))
+                lane_fsc=self._lane_scalars(cost_params, costmap, k_offset),
+                **self._obstacle_kwargs(cost_params))
         if self.kernel_form:
             states, u_seq = rk.dynamics_chain_lanes(
                 self.model, model_params, self.cfg, state, U, eps,
@@ -322,12 +325,15 @@ class MPPISolver:
 
     def _lane_scalars(self, cost_params: CostParams, costmap,
                       k_offset=0) -> torch.Tensor:
-        """Kernel 1's lane scalars of a stacked ``cost_params`` on the
-        solver's device (``rk.lane_scalars``), packed again only when their
-        values change, so that a captured tick, whose eager warm-up tick
-        packed them, copies nothing from the host."""
+        """The lane scalars of a stacked ``cost_params`` on the solver's
+        device (``rk.lane_scalars``, with an ``ObstacleCost``'s
+        coefficients), packed again only when their values change, so that
+        a captured tick, whose eager warm-up tick packed them, copies
+        nothing from the host."""
+        coeffs = {k: v for k, v in self._obstacle_kwargs(cost_params).items()
+                  if k != "obstacles"}
         rows = rk.lane_scalar_rows(self.model, self.cfg, cost_params,
-                                   costmap, k_offset)
+                                   costmap, k_offset, **coeffs)
         if self._lane_pack is None or self._lane_pack[0] != rows:
             self._lane_pack = (rows, torch.tensor(
                 rows, dtype=torch.float32, device=self.device))

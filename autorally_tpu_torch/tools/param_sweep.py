@@ -6,9 +6,10 @@ time (``costs.cu:75-87``), re-driving the car (or Gazebo) per setting.  The
 JAX tool vmaps its jitted episode over a stacked ``CostParams``; here the
 stacked ``CostParams`` is a lane axis of the episode
 (``runtime/episode.py``): every tick is one captured CUDA graph that runs
-all L settings' tube solves through the lane forms of kernels 1 and 2 (two
-launches of each a tick, whatever L is; ``ops/rollout_kernel.py``), the
-lanes sharing each solve's noise as the JAX vmap does.  A 12-point grid
+all L settings' tube solves through the lane forms of kernel 1 (the exact
+map) or kernel 3 (a ``NeuralCostmap``) and kernel 2 (two launches of each
+a tick, whatever L is; ``ops/rollout_kernel.py``), the lanes sharing each
+solve's noise as the JAX vmap does.  A 12-point grid
 costs a fraction of twelve episodes' wall time.
 
 Usage::
@@ -28,8 +29,12 @@ also writes the full result list as JSON.  The weights are the reference
 lane forms (``--pallas``, which picks the JAX tool's vmapped Pallas
 kernels over its scan path, is accepted and changes nothing: the JAX
 tool's two paths agree within 4e-10); ``--cpu`` runs their plain
-versions.  Circle slots, the neural field and the capacity mode have no
-lane form (ROADMAP.md, Queue 2 A7).
+versions.  Through :func:`run_sweep` (or ``EpisodeRunner.run``, which
+takes ``obstacle_traj``) the sweep runs whatever episode its runner runs,
+as the JAX tool's vmap does: an ``ObstacleCost`` (a stacked
+``CostParams.obstacles`` (L, N, 3) gives each lane its own circles), the
+runner's ESS law (a gamma a lane), moving obstacles, a ``NeuralCostmap``.
+The capacity mode has no lane form (ROADMAP.md, Queue 2 A7).
 """
 
 from __future__ import annotations

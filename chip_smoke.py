@@ -369,6 +369,24 @@ exits non-zero):
     launches, and the lane forms timed beside their plain versions and
     bounds; (d) ``param_sweep.main``, ``ess_demo`` in both modes on the
     oval and ``two_car_demo.run_two_cars`` on the seeded ``.npz``.
+34. circles, the neural field, the ESS law and moving obstacles in the
+    sweep's lanes: (a) the registers, shared memory and blocks an SM of
+    kernel 1's lane instances (which now stage a lane's circles) and of
+    kernel 3's two new lane instances; (b) kernel 1's lane form with
+    circles (16 a lane's own, 16 shared, 64 a lane's own) at L=3, K=512
+    and L=12, K=1920, MLP in every geometry and BF, against its plain
+    version, each lane bit for bit its solo instance with that lane's
+    scalars and circles, the circles changing every lane's costs; (c)
+    kernel 3's lane form at L=3, K=512, L=12, K=1920 and L=4, K=16384
+    (the field path's 65,536 rollouts), MLP and BF, without and with 16
+    circles a lane, on phase 11's fitted field, the same holds; (d) 200
+    ticks of a 12-lane sweep at K=1920 with an ``ObstacleCost`` (each
+    lane's circles) and the ESS law, the same with moving obstacles, and
+    on the fitted field, each with its launches counted (2 + 2 a captured
+    tick), no plain version, the replayed tick's p50 / p99, a short
+    profile and lanes 0 and 11 bit for bit their solo captured episodes;
+    20 ticks of 3-lane BF sweeps on the field and with circles; and the
+    new instances timed beside their plain versions and bounds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -378,7 +396,7 @@ launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
 3 and 4's other timings and drives at the other specs, the cost-parameter
-sweeps'), and as
+sweeps' and phase 34's drives), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -1482,7 +1500,7 @@ class PlainCalls:
 
     NAMES = ("fused_rollout_cost_plain", "trajectory_cost_plain",
              "dynamics_chain_plain", "fused_rng_costs_plain",
-             "fused_rng_numer_plain", "fused_exact_rollout_cost_lanes_plain",
+             "fused_rng_numer_plain", "fused_rollout_cost_lanes_plain",
              "dynamics_chain_lanes_plain")
 
     def __init__(self, rk):
@@ -6756,13 +6774,62 @@ def lane_inputs(L: int, K_: int, dev, seed: int):
     return state, U, eps
 
 
+def lane_hold(tag, lanes, plain, solo, L: int, K_: int, card, geoms=(None,),
+              forced=None) -> dict:
+    """The hold of a fused lane form (kernel 1 or 3), phases 33 (b) and 34
+    (b)-(c): ``plain()``, its plain version, once, timed; then in each
+    geometry of ``geoms`` (forced by ``forced``; None: the wrapper's own)
+    the launch of ``lanes()`` (a ``prepare_*``: ``(launch, (costs, u_seq,
+    crash))``, not counted) against it by phase 11's rule (costs and crash
+    flags in all but 1 % of a lane's rollouts, u_seq bit for bit), and each
+    lane i bit for bit the launch of ``solo(i)`` in the lane launch's
+    geometry.  Returns the max cost error, the plain version's ms and each
+    geometry's (launch, outputs)."""
+    import contextlib
+
+    import torch
+
+    def in_geometry(g):
+        return (forced(*g[:2]) if forced is not None and g is not None
+                else contextlib.nullcontext())
+
+    (pc, pu, px), plain_ms = plain_timed(plain)
+    err, runs = 0.0, []
+    for geom in geoms:
+        with in_geometry(geom):
+            launch, out = lanes()
+            launch()
+            torch.cuda.synchronize()
+        kc, ku, kx = out
+        g = launch.geometry
+        label = f"{tag} in {geometry_label(g)}"
+        err = max(err, max(agreement(label, f"lane {i}", kc[i], kx[i], pc[i],
+                                     px[i], K_, limit=K_ // 100)
+                            for i in range(L)))
+        check(bit_equal(ku, pu), f"{label}: u_seq differs from its plain "
+              "version's")
+        same = []
+        with in_geometry(g):
+            for i in range(L):
+                one, o = solo(i)
+                one()
+                torch.cuda.synchronize()
+                same.append(all(bit_equal(a[i], b) for a, b in zip(out, o)))
+        print(f"[{label}] {launch.name} ({g.grid} x {L} blocks of "
+              f"{g.block}): each lane bit for bit the solo instance in that "
+              f"geometry: {same} ({card})")
+        check(all(same), f"{label}: a lane differs from the solo instance")
+        runs.append((launch, out))
+    return {"err": err, "plain_ms": plain_ms, "runs": runs}
+
+
 def lanes_held(rk, tag, model, params, cfg, cp, cm, state, U, eps, bf,
                card) -> dict:
     """Phase 33 (b) at one (L, K): kernel 1's lane form against its plain
-    version by phase 11's rule (u_seq bit for bit), kernel 2's at K and at
-    K = 1 against theirs (states within STATE_RTOL / STATE_ATOL, u_seq bit
-    for bit), and each lane bit for bit the solo instance run with lane l's
-    scalars in the lane launch's geometry.  Launches made here are not
+    version and each lane against the solo instance (``lane_hold``),
+    kernel 2's at K and at K = 1 against theirs (states within STATE_RTOL
+    / STATE_ATOL, u_seq bit for bit) and each lane bit for bit its solo
+    instance in the lane launch's geometry.  Launches made here are not
     counted (``prepare_*``).  Returns kernel 1's max cost error, kernel
     2's max state error at K and at K = 1 (``chain_err``) and the
     geometries."""
@@ -6773,31 +6840,16 @@ def lanes_held(rk, tag, model, params, cfg, cp, cm, state, U, eps, bf,
 
     L, K_ = state.shape[0], eps.shape[1]
     lanes = lane_cost_params(cp)
-    launch, (kc, ku, kx) = rk.prepare_fused_exact_rollout_cost_lanes(
-        model, params, cfg, cp, cm, state, U, eps)
-    launch()
-    pc, pu, px = rk.fused_exact_rollout_cost_lanes_plain(
-        model, params, cfg, cp, cm, state, U, eps)
-    torch.cuda.synchronize()
-    g = launch.geometry
-    err = max(agreement(f"lanes {tag}", f"lane {i}", kc[i], kx[i], pc[i],
-                        px[i], K_, limit=K_ // 100) for i in range(L))
-    check(bit_equal(ku, pu), f"lanes {tag}: kernel 1's u_seq differs from "
-          "its plain version's")
-    solo_same = []
-    with forced_geometry(g.group, g.block):
-        for i, cp_i in enumerate(lanes):
-            one, out = rk.prepare_fused_exact_rollout_cost(
-                model, params, cfg, cp_i, cm, state[i], U[i], eps)
-            one()
-            torch.cuda.synchronize()
-            solo_same.append(all(bit_equal(a[i], b)
-                                 for a, b in zip((kc, ku, kx), out)))
-    print(f"[lanes {tag}] kernel 1's lane form in {geometry_label(g)} "
-          f"({g.grid} blocks a lane, {L} lanes): each lane bit for bit the "
-          f"solo instance in that geometry: {solo_same} ({card})")
-    check(all(solo_same), f"lanes {tag}: a lane of kernel 1 differs from "
-          "the solo instance")
+    held = lane_hold(
+        f"lanes {tag} kernel 1",
+        lambda: rk.prepare_fused_exact_rollout_cost_lanes(
+            model, params, cfg, cp, cm, state, U, eps),
+        lambda: rk.fused_rollout_cost_lanes_plain(
+            model, params, cfg, cp, cm, state, U, eps),
+        lambda i: rk.prepare_fused_exact_rollout_cost(
+            model, params, cfg, lanes[i], cm, state[i], U[i], eps),
+        L, K_, card, forced=forced_geometry)
+    err, g = held["err"], held["runs"][0][0].geometry
     chains, chain_err = {}, {}
     for name, e in (("K", eps), ("K=1", torch.zeros_like(eps[:, :1]))):
         launch2, (ks, ku2) = rk.prepare_dynamics_chain_lanes(
@@ -6890,37 +6942,39 @@ def lanes_row(rk, name, launch, plain_fn, L: int, K_: int, n_w: int,
             "geometry": geometry_label(g), "instance": instance}
 
 
-def sweep_launches(rk, runner, args, card) -> dict:
+def sweep_launches(rk, runner, args, card, kw=None,
+                   fused: str = "fused_exact") -> dict:
     """Phase 33 (c): ``LANE_PROFILE_TICKS`` replayed ticks of ``runner``'s
     sweep under the profiler (after a warm-up run of the profiler, which
-    it discards): the lane forms of kernels 1 and 2 and no solo instance,
+    it discards): the lane forms of the fused kernel (kernel 1, or kernel 3
+    with ``fused="fused_field"``) and of kernel 2 and no solo instance,
     at most the two launches of each that the captured tick holds (the
     wrappers count exactly 2 + 2 in the capture), and the device events
     (graph nodes) a tick.  A record the profiler drops is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    runner.run(*args)                          # captures
+    kw = kw or {}
+    runner.run(*args, **kw)                    # captures
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
-            runner.run(*args)                  # replays only
+            runner.run(*args, **kw)            # replays only
             torch.cuda.synchronize()
             prof.step()
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     n = runner.n_ticks
     # a lane instance's name ends its template arguments with kLanes
-    count = {"kernel 1": sum("fused_exact" in x and ", true>" in x
-                             for x in names),
+    count = {"kernel 1": sum(fused in x and ", true>" in x for x in names),
              "kernel 2": sum("dynamics_chain" in x and ", true>" in x
                              for x in names),
              "solo": sum(("fused_" in x or "dynamics_chain" in x)
                          and ", true>" not in x for x in names)}
     dropped = 4 * n - count["kernel 1"] - count["kernel 2"]
-    print(f"[sweep launches] {n} replayed ticks (profiler): kernel 1 lanes "
+    print(f"[sweep launches] {n} replayed ticks (profiler): {fused} lanes "
           f"{count['kernel 1']}, kernel 2 lanes {count['kernel 2']}, solo "
           f"instances {count['solo']}, lane launches the profiler did not "
           f"record {dropped}; {len(names)} device events "
@@ -6933,6 +6987,35 @@ def sweep_launches(rk, runner, args, card) -> dict:
                                   "kernel 2": count["kernel 2"] / n},
             "graph_nodes_per_tick": len(names) / n,
             "profiler_dropped": dropped}
+
+
+def timed_replays(runner, run):
+    """``run()``, a run of ``runner`` that replays its captured tick, with
+    each replay timed by CUDA events: (its result, the ticks' ms, its
+    seconds on the host clock)."""
+    import torch
+
+    plan = runner._captured
+    graph, events = plan.graph, []
+
+    class Timed:
+        def replay(self):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            graph.replay()
+            e1.record()
+            events.append((e0, e1))
+
+    plan.graph = Timed()
+    try:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        plan.graph = graph
+    return out, [a.elapsed_time(b) for a, b in events], wall
 
 
 def sweep_phase(rk, card, dev=None) -> dict:
@@ -6962,8 +7045,8 @@ def sweep_phase(rk, card, dev=None) -> dict:
         geoms = rk.GEOMETRIES if not bf else rk.GEOMETRIES[:1]
         for chain, gs in ((False, geoms), (True, rk.CHAIN_GEOMETRIES)):
             for G, block in gs:
-                info = rk.lanes_kernel_info(chain, bf, rk._geometry(1, G,
-                                                                    block), T)
+                info = rk.lanes_kernel_info(2 if chain else 1, bf,
+                                            rk._geometry(1, G, block), T)
                 print(f"[lanes (a)] {'kernel 2' if chain else 'kernel 1'} "
                       f"{'BF' if bf else 'MLP'} G{G} block {block}: "
                       f"{info['registers']} registers, "
@@ -7041,29 +7124,11 @@ def sweep_phase(rk, card, dev=None) -> dict:
             check(torch.isfinite(res.states).all().item(),
                   f"sweep {tag}: a state is not finite")
             # the replayed run, timed
-            plan, graph, events = runner._captured, runner._captured.graph, []
-
-            class Timed:
-                def replay(self):
-                    e0 = torch.cuda.Event(enable_timing=True)
-                    e1 = torch.cuda.Event(enable_timing=True)
-                    e0.record()
-                    graph.replay()
-                    e1.record()
-                    events.append((e0, e1))
-
-            plan.graph = Timed()
-            try:
-                t0 = time.perf_counter()
-                again = param_sweep.run_sweep(runner, params, stacked, cmap,
-                                              start)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            finally:
-                plan.graph = graph
+            again, tick_ms, wall = timed_replays(
+                runner, lambda: param_sweep.run_sweep(runner, params,
+                                                      stacked, cmap, start))
             check(episode_equal(again, res), f"sweep {tag}: the replayed "
                   "run differs from the first")
-            tick_ms = [a.elapsed_time(b) for a, b in events]
             rows_m = param_sweep.lane_metrics(res, grid,
                                               settle=min(200, ticks // 4))
             # launches by the profiler, on a runner of a few ticks
@@ -7131,7 +7196,7 @@ def sweep_phase(rk, card, dev=None) -> dict:
                 m, p, c, state, U, torch.zeros_like(eps[:, :1]))
             rows.append(lanes_row(
                 rk, "fused_exact_rollout_cost_lanes", L1,
-                lambda: rk.fused_exact_rollout_cost_lanes_plain(
+                lambda: rk.fused_rollout_cost_lanes_plain(
                     m, p, c, stacked, cmap, state, U, eps), L, K_,
                 rk.KERNEL_NUM_WEIGHTS, mlp_flops(m.layers), False,
                 max(v["err"] for (l, _, kind), v in held.items()
@@ -7173,7 +7238,7 @@ def sweep_phase(rk, card, dev=None) -> dict:
             m, p, bcfg, state, U, torch.zeros_like(eps[:, :1]))
         rows.append(lanes_row(
             rk, "fused_exact_rollout_cost_bf_lanes", L1,
-            lambda: rk.fused_exact_rollout_cost_lanes_plain(
+            lambda: rk.fused_rollout_cost_lanes_plain(
                 m, p, bcfg, cp3, cm, state, U, eps), L3, K3,
             rk.KERNEL_BF_WEIGHTS, BF_STEP_OPS, False,
             held[L3, K3, "bf"]["err"], blaunch, card))
@@ -7224,6 +7289,460 @@ def sweep_phase(rk, card, dev=None) -> dict:
     finally:
         param_sweep.MODEL_NPZ = saved_npz
         shutil.rmtree(work, ignore_errors=True)
+    return {"results": results, "rows": rows}
+
+
+# -- phase 34: circles, the field, the ESS law and moving obstacles in lanes -
+
+# (b) kernel 1's lane form with circle slots: {label: (slots, a lane's own)}
+LANE_CIRCLE_SETS = {"16 per lane": (N_SLOTS, True),
+                    "16 shared": (N_SLOTS, False),
+                    "64 per lane": (64, True)}
+FIELD_LANE_SHAPES = ((3, 512), (12, K), (4, 16384))   # (c): (L, K)
+LANE_DRIVE_TICKS = 200                 # (d): each full-width drive, L=12
+LANE_BF_DRIVE_TICKS = 20               # (d): the 3-lane BF sweeps
+LANE_COEFF, LANE_INFLATION = 150.0, 0.75
+# kernel 3's lane instances (ptxas' names, phase 1)
+FIELD_LANE_INSTANCES = ("fused_field_kernel<Mlp, lanes>",
+                        "fused_field_kernel<Bf, lanes>")
+
+
+def lane_circles(rk, model, params, cfg, state, U, slots: int,
+                 per_lane: bool, seed: int):
+    """Phase 34's circles on the card: (L, slots, 3), each lane's along its
+    own nominal path, or with ``per_lane`` clear (slots, 3) along lane 0's,
+    which every lane prices.  Three of every four slots hold a circle
+    whose centre lies up to 1 m to either side of the path at a step in
+    the horizon's last nine tenths, of radius 0.3-0.8 m, so that the
+    circles change the costs and some rollouts run into them; every fourth
+    slot is free (radius -1)."""
+    import torch
+
+    L, T_ = state.shape[0], U.shape[1]
+    dev = state.device
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    zeros = torch.zeros((T_, 1, 2), device=dev)
+    out = torch.full((L, slots, 3), -1.0, device=dev)
+    for i in range(L if per_lane else 1):
+        states, _ = rk.dynamics_chain_plain(model, params, cfg, state[i],
+                                            U[i], zeros)
+        path = states[:2, :, 0]                               # (2, T)
+        steps = torch.randint(T_ // 10, T_, (slots,), generator=gen,
+                              device=dev)
+        side = 2.0 * torch.rand((2, slots), generator=gen, device=dev) - 1.0
+        out[i, :, :2] = (path[:, steps] + side).T
+        out[i, :, 2] = 0.3 + 0.5 * torch.rand(slots, generator=gen,
+                                              device=dev)
+        out[i, 3::4, 2] = -1.0
+    return out if per_lane else out[0]
+
+
+def lane_solo_circles(circles, i: int):
+    """Lane i's circles of ``lane_circles``' output."""
+    return circles[i] if circles.dim() == 3 else circles
+
+
+def plain_timed(fn):
+    """``fn()`` once, timed by CUDA events: (its result, ms)."""
+    import torch
+
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def circles_held(rk, tag, model, params, cfg, cp, cm, state, U, eps,
+                 circles, geoms, card) -> dict:
+    """Phase 34 (b) at one (L, K) and set of circles: ``lane_hold`` of
+    kernel 1's lane form in each geometry of ``geoms``, each lane against
+    the solo instance run with lane l's scalars and circles; every
+    geometry bit for bit the first, and the circles change every lane's
+    costs and crash some rollouts that the free lanes do not.  Returns the
+    max cost error, the name and the plain version's ms."""
+    import torch
+    from autorally_tpu_torch.config import lane_cost_params
+    from autorally_tpu_torch.tools.exact_variants import forced_geometry
+
+    L, K_ = state.shape[0], eps.shape[1]
+    kw = dict(obstacle_coeff=LANE_COEFF, inflation=LANE_INFLATION)
+    lanes = lane_cost_params(cp)
+    free, (fc, _, fx) = rk.prepare_fused_exact_rollout_cost_lanes(
+        model, params, cfg, cp, cm, state, U, eps)
+    free()
+    torch.cuda.synchronize()
+    held = lane_hold(
+        f"lanes circles {tag}",
+        lambda: rk.prepare_fused_exact_rollout_cost_lanes(
+            model, params, cfg, cp, cm, state, U, eps, obstacles=circles,
+            **kw),
+        lambda: rk.fused_rollout_cost_lanes_plain(
+            model, params, cfg, cp, cm, state, U, eps, obstacles=circles,
+            **kw),
+        lambda i: rk.prepare_fused_exact_rollout_cost(
+            model, params, cfg, lanes[i], cm, state[i], U[i], eps,
+            obstacles=lane_solo_circles(circles, i), **kw),
+        L, K_, card, geoms=geoms, forced=forced_geometry)
+    first = held["runs"][0][1]
+    for launch, out in held["runs"]:
+        kc, _, kx = out
+        label = geometry_label(launch.geometry)
+        same_first = all(bit_equal(a, b) for a, b in zip(out, first))
+        changed = [bool((kc[i] != fc[i]).any().item()) for i in range(L)]
+        print(f"[lanes circles {tag}] {launch.name} in {label}: bit for bit "
+              f"{geometry_label(geoms[0])}: {same_first}; the circles "
+              f"change each lane's costs: {changed}, crash "
+              f"{int(kx.sum().item())} against {int(fx.sum().item())} free "
+              f"({card})")
+        check(same_first, f"lanes circles {tag} {label}: differs from "
+              f"{geometry_label(geoms[0])}")
+        check(all(changed) and bool((kx > fx).any().item()),
+              f"lanes circles {tag}: the circles change no cost or crash "
+              "no rollout")
+    return {"err": held["err"], "name": launch.name,
+            "plain_ms": held["plain_ms"]}
+
+
+def lanes_drive(rk, tag, make_runner, args, traj, expect: dict, fused: str,
+                card) -> dict:
+    """Phase 34 (d): one sweep of ``make_runner(n)``'s runner (``args``:
+    its weights, stacked CostParams, surface and start; ``traj``: moving
+    obstacles, or None) with every launch counter set to 0 just before and
+    read just after: one capture, ``expect``'s launches (2 + 2 in the
+    warm-up tick and 2 + 2 in the captured tick), no plain version, finite
+    states; the replayed run, its ticks timed (p50 / p99), bit for bit the
+    first; the profiler's launches on a short runner; and the first and
+    last lanes bit for bit their solo captured episodes."""
+    import torch
+    from autorally_tpu_torch.config import cost_params_lanes, lane_cost_params
+
+    runner = make_runner(None)
+    n = runner.n_ticks
+    kw = {} if traj is None else {"obstacle_traj": traj}
+    L = cost_params_lanes(args[1])
+    caps = Captures(runner)
+    rk.LAUNCHES.clear()
+    with PlainCalls(rk) as plain:
+        t0 = time.perf_counter()
+        res = runner.run(*args, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = dict(rk.LAUNCHES)
+    print(f"[lanes drive {tag}] {L} lanes x {n} ticks at K="
+          f"{runner.solver.cfg.num_rollouts}: first run {first_s:.2f} s "
+          f"({len(caps.seconds)} capture(s), {sum(caps.seconds):.2f} s), "
+          f"launches counted {launches}, plain-version calls {plain.calls} "
+          f"({card})")
+    check(len(caps.seconds) == 1, f"lanes drive {tag}: {len(caps.seconds)} "
+          "captures")
+    check(launches == expect, f"lanes drive {tag}: launches {launches}, "
+          f"expected {expect}")
+    check(not any(plain.calls.values()), f"lanes drive {tag}: a plain "
+          f"version ran on the card: {plain.calls}")
+    check(torch.isfinite(res.states).all().item(), f"lanes drive {tag}: a "
+          "state is not finite")
+    again, tick_ms, wall = timed_replays(runner,
+                                         lambda: runner.run(*args, **kw))
+    check(episode_equal(again, res), f"lanes drive {tag}: the replayed run "
+          "differs from the first")
+    p50, p99 = (float(np.percentile(tick_ms, q)) for q in (50, 99))
+    short = make_runner(LANE_PROFILE_TICKS)
+    prof = sweep_launches(rk, short, args, card, kw=(
+        {} if traj is None else {"obstacle_traj": traj[:short.n_ticks]}),
+        fused=fused)
+    del short
+    solo_runner = make_runner(None)
+    lanes = lane_cost_params(args[1])
+    gaps = {}
+    for i in (0, L - 1):
+        solo = solo_runner.run(args[0], lanes[i], *args[2:], **kw)
+        gaps[i] = all(bit_equal(getattr(res, f)[i], getattr(solo, f))
+                      for f in solo._fields)
+    g = res.gamma
+    print(f"[lanes drive {tag}] replayed tick {p50:.4f} / {p99:.4f} ms p50 / "
+          f"p99 (CUDA events, {n} ticks), {n / wall:.1f} ticks/s "
+          f"({L * n / wall:.1f} lane-ticks/s); lanes 0 and {L - 1} bit for "
+          f"bit their solo captured episodes: {gaps}; gamma of lane 0 "
+          f"{g[0, 0].item():.4g} -> {g[0, -1].item():.4g}, final u_x "
+          f"{[round(v, 3) for v in res.states[:, -1, 4].tolist()]} ({card})")
+    check(all(gaps.values()), f"lanes drive {tag}: a lane differs from its "
+          "solo episode")
+    del runner, solo_runner
+    return {"lanes": L, "ticks": n, "first_run_s": first_s,
+            "capture_s": sum(caps.seconds), "tick_ms_p50_p99": (p50, p99),
+            "ticks_per_s": n / wall, "launches": launches, **prof}
+
+
+def circles_row(rk, name, launch, held: dict, L: int, K_: int, n_w: int,
+                step_ops: int, circles, field, launches: int, card,
+                registers) -> dict:
+    """The ``kernels`` row of a lane form with circles (kernel 1) or of
+    kernel 3's (``field``): its time (CUDA events), its plain version's
+    on the same inputs and its max cost error (``held``: the hold's), the
+    ``launches`` of the drive at its shape, and its bound, L x the solo
+    form's work: every input read once (eps and shared circles once for
+    all lanes, the map one texel per lookup, or the field), every output
+    written once; the field's products on the tensor cores (phase 11's
+    rule, ``field_bounds``)."""
+    ms = cuda_ms(launch, LANE_TIME_REPS)
+    plain, err = held["plain_ms"], held["err"]
+    n_obs = 0 if circles is None else circles.shape[-2]
+    n_active = (0 if circles is None else
+                int((circles[..., 2] > 0).sum().item()) // (
+                    L if circles.dim() == 3 else 1))
+    circle_ops = (n_active * CIRCLE_OPS + (n_obs - n_active) * SLOT_OPS + 1
+                  if n_obs else 0)
+    own = circles is not None and circles.dim() == 3
+    per_lane = (2 * T + 7 + len(rk._FLOAT_SCALARS) + 2 * K_ + 2 * T * K_
+                + (3 * n_obs if own else 0)
+                + (0 if field is not None else 2 * K_ * (T - 1)))
+    nbytes = 4 * (2 * T * K_ + L * per_lane + n_w + 4
+                  + (0 if own else 3 * n_obs)
+                  + (rk.FIELD_NUM_WEIGHTS if field is not None else 0))
+    other = L * K_ * (T * step_ops + (T - 1) * circle_ops)
+    fp32 = None
+    if field is None:
+        bnd, by = bound(nbytes, other)
+    else:
+        fp32, (bnd, by) = field_bounds(nbytes, other, L * K_ * (T - 1) * 2,
+                                       field)
+    g = launch.geometry
+    print(f"[timing] {name} L={L} K={K_} slots {n_obs}"
+          f"{' shared' if n_obs and not own else ''}, {launches} launches: "
+          f"{ms:.4f} ms "
+          f"({g.grid} x {L} blocks of {g.block}), plain {plain:.3f} ms, "
+          f"bound {bnd:.5f} ms ({by}), {registers} registers ({card})")
+    row = {"name": name, "route": "cuda",
+           "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+           "replaces": "autorally_tpu/ops/rollout_kernel.py:" + (
+               "1013" if field is None else "606"),
+           "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+           "library_ms": None, "K": K_, "lanes": L, "slots": n_obs,
+           "circles": "per lane" if own else "shared" if n_obs else None,
+           "geometry": geometry_label(g), "registers": registers}
+    if fp32 is not None:
+        row["fp32_bound_ms"] = fp32[0]
+    return row
+
+
+def lanes_field_phase(rk, card, field, dev=None) -> dict:
+    """Phase 34: circle slots in kernel 1's lane form, kernel 3's lane
+    form, and the sweep with an ObstacleCost, the ESS law, moving
+    obstacles and the neural field (``field``: phase 11's fit)."""
+    import torch
+    from autorally_tpu_torch.config import (CostParams, MPPIConfig,
+                                            lane_cost_params)
+    from autorally_tpu_torch.costs import MPPICost, ObstacleCost
+    from autorally_tpu_torch.models import (BasisFunctionDynamics,
+                                            NeuralNetDynamics)
+    from autorally_tpu_torch.runtime.episode import EpisodeRunner
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.lap_eval import load_track
+    from autorally_tpu_torch.tools.param_sweep import (build_grid,
+                                                       stack_cost_params)
+
+    dev = dev or torch.device("cuda", 0)
+    results, rows = {}, []
+    cm, start_pose, _, _ = load_track("oval", device=dev)
+    cfg = MPPIConfig(num_rollouts=K, num_timesteps=T)
+    models = {}
+    for kind, cls in (("nn", NeuralNetDynamics),
+                      ("bf", BasisFunctionDynamics)):
+        m = cls(cfg.dt, control_ranges=cfg.control_ranges, device=dev)
+        models[kind] = (m, m.init_params(0))
+
+    # (a) the new and changed lane instances: registers and spills
+    # (ptxas, phase 1), their shared memory and blocks an SM at T
+    regs = {n: PTXAS.get(n) for n in LANE_INSTANCES[:5]
+            + FIELD_LANE_INSTANCES}
+    print(f"[lanes field (a)] ptxas: {regs} registers, no spill (phase 1)")
+    check(all(v is not None for v in regs.values()),
+          f"lanes field (a): ptxas reported no {regs}")
+    for bf in (False, True):
+        geoms = [rk._geometry(1, G, b) for G, b in (
+            rk.GEOMETRIES if not bf else rk.GEOMETRIES[:1])]
+        for kernel, gs in ((1, geoms), (3, [rk._geometry(
+                1, 1, rk.FIELD_BLOCK)])):
+            for g in gs:
+                info = rk.lanes_kernel_info(kernel, bf, g, T, N_SLOTS)
+                print(f"[lanes field (a)] kernel {kernel} "
+                      f"{'BF' if bf else 'MLP'} G{g.group} block {g.block}: "
+                      f"{info['registers']} registers, "
+                      f"{info['local_bytes']} bytes of local memory, "
+                      f"{info['smem_bytes']} bytes of dynamic shared memory "
+                      f"at T={T} with {N_SLOTS} slots, "
+                      f"{info['blocks_per_sm']} blocks an SM ({card})")
+    results["registers"] = regs
+
+    # (b) kernel 1's lane form with circles, every geometry
+    held = {}
+    for L, K_ in LANE_SHAPES:
+        cp = lane_cost_grid(L)
+        state, U, eps = lane_inputs(L, K_, dev, seed=L)
+        for kind, (m, p) in models.items():
+            c = cfg.replace(num_rollouts=K_)
+            geoms = rk.GEOMETRIES if kind == "nn" else rk.GEOMETRIES[:1]
+            for label, (slots, own) in LANE_CIRCLE_SETS.items():
+                circles = lane_circles(rk, m, p, c, state, U, slots, own,
+                                       seed=slots + L)
+                held[L, K_, kind, label] = circles_held(
+                    rk, f"(b) L={L} K={K_} {kind} {label}", m, p, c, cp, cm,
+                    state, U, eps, circles, geoms, card)
+
+    # (c) kernel 3's lane form, with and without circles, each lane
+    # against the solo fused_field_kernel run with lane l's inputs
+    fheld = {}
+    for L, K_ in FIELD_LANE_SHAPES:
+        cp = lane_cost_grid(L)
+        lanes = lane_cost_params(cp)
+        state, U, eps = lane_inputs(L, K_, dev, seed=L + 1)
+        for kind, (m, p) in models.items():
+            c = cfg.replace(num_rollouts=K_)
+            circles = lane_circles(rk, m, p, c, state, U, N_SLOTS, True,
+                                   seed=L + 7)
+            for with_circles in (False, True):
+                ob = circles if with_circles else None
+                kw = ({} if ob is None else dict(
+                    obstacle_coeff=LANE_COEFF, inflation=LANE_INFLATION))
+                fheld[L, K_, kind, with_circles] = lane_hold(
+                    f"lanes field (c) L={L} K={K_} {kind} "
+                    f"{'16 per lane' if with_circles else 'no circles'}",
+                    lambda: rk.prepare_fused_rollout_cost_lanes(
+                        m, p, c, cp, field, state, U, eps, obstacles=ob,
+                        **kw),
+                    lambda: rk.fused_rollout_cost_lanes_plain(
+                        m, p, c, cp, field, state, U, eps, obstacles=ob,
+                        **kw),
+                    lambda i: rk.prepare_fused_rollout_cost(
+                        m, p, c, lanes[i], field, state[i], U[i], eps,
+                        obstacles=None if ob is None else lane_solo_circles(
+                            ob, i), **kw),
+                    L, K_, card)
+        del eps
+
+    # (d) the sweeps at full width, and the BF forms' 3-lane sweeps
+    start = [*start_pose, 0, 0, 0, 0]
+    grid = build_grid({"desired_speed": [4.0, 5.0, 6.0, 7.0],
+                       "gamma": [0.05, 0.15, 0.6]})
+    L12 = len(grid)
+    own = torch.full((N_SLOTS, 3), -1.0, device=dev)
+    drives, launches = {}, {}
+    U0 = torch.tensor([0.0, 0.3], device=dev).repeat(L12, T, 1)
+    st0 = torch.tensor(start, dtype=torch.float32, device=dev).repeat(L12, 1)
+    per_lane = lane_circles(rk, models["nn"][0], models["nn"][1], cfg, st0,
+                            U0, N_SLOTS, True, seed=34)
+    obstacle_grid = [dict(pt, obstacles=per_lane[i].cpu().numpy())
+                     for i, pt in enumerate(grid)]
+    traj = torch.full((LANE_DRIVE_TICKS, N_SLOTS, 3), -1.0, device=dev)
+    ahead = lane_circles(rk, models["nn"][0], models["nn"][1], cfg, st0[:1],
+                         U0[:1], N_SLOTS, True, seed=35)[0]
+    for t in range(LANE_DRIVE_TICKS):       # drifting 1 cm a tick
+        traj[t] = ahead
+        traj[t, :, 0] += 0.01 * t * (ahead[:, 2] > 0)
+
+    def runner_of(model, cost, K_, **kw):
+        solver = MPPISolver(model, cost, cfg.replace(num_rollouts=K_),
+                            device=dev)
+        return lambda n: EpisodeRunner(solver, n_ticks=n or kw.get(
+            "ticks", LANE_DRIVE_TICKS), **{k: v for k, v in kw.items()
+                                           if k != "ticks"})
+
+    obstacle_cost = lambda: ObstacleCost(own, LANE_COEFF, LANE_INFLATION)
+    m, p = models["nn"]
+    bm, bp = models["bf"]
+    L3, K3 = LANE_SHAPES[0]
+    # each drive with the key of the kernels row whose shape it launches:
+    # (kernel, model, L, K, slots, a lane's own circles) of kernel 1's
+    # rows, (kernel, model, L, K) of kernel 3's
+    cases = (
+        ("obstacles + ESS", runner_of(m, obstacle_cost(), K,
+                                      ess_target_frac=0.25),
+         (p, stack_cost_params(CostParams(), obstacle_grid), cm, start),
+         None, "fused_exact_rollout_cost_obstacles_lanes",
+         "dynamics_chain_lanes", "fused_exact", (1, "nn", L12, K, N_SLOTS,
+                                                 True)),
+        ("moving obstacles + ESS", runner_of(m, obstacle_cost(), K,
+                                             ess_target_frac=0.25),
+         (p, stack_cost_params(CostParams(), grid), cm, start), traj,
+         "fused_exact_rollout_cost_obstacles_lanes", "dynamics_chain_lanes",
+         "fused_exact", (1, "nn", L12, K, N_SLOTS, False)),
+        ("field", runner_of(m, MPPICost(), K),
+         (p, stack_cost_params(CostParams(), grid), field, start), None,
+         "fused_rollout_cost_lanes", "dynamics_chain_lanes", "fused_field",
+         (3, "nn", L12, K)),
+        ("field BF", runner_of(bm, MPPICost(), K3,
+                               ticks=LANE_BF_DRIVE_TICKS),
+         (bp, lane_cost_grid(L3), field, start), None,
+         "fused_rollout_cost_bf_lanes", "dynamics_chain_bf_lanes",
+         "fused_field", (3, "bf", L3, K3)),
+        ("obstacles BF", runner_of(bm, obstacle_cost(), K3,
+                                   ticks=LANE_BF_DRIVE_TICKS),
+         (bp, stack_cost_params(CostParams(), obstacle_grid[:L3]), cm,
+          start), None, "fused_exact_rollout_cost_bf_obstacles_lanes",
+         "dynamics_chain_bf_lanes", "fused_exact", (1, "bf", L3, K3,
+                                                    N_SLOTS, True)),
+    )
+    for tag, make, args, trj, fused_name, chain_name, fused, key in cases:
+        drives[tag] = lanes_drive(rk, tag, make, args, trj,
+                                  {fused_name: 4, chain_name: 4}, fused,
+                                  card)
+        check(key not in launches, f"lanes drive {tag}: two drives at {key}")
+        launches[key] = drives[tag]["launches"]
+    results["drives"] = drives
+
+    # the kernels line: the new instances, timed at their shapes; a row
+    # carries the launches of the drive at its shape, slots and circles
+    # (0 where it was only held and timed)
+    used = set()
+
+    def row_launches(key, name):
+        used.add(key)
+        return launches.get(key, {}).get(name, 0)
+
+    for kind, (m, p) in models.items():
+        bf = kind == "bf"
+        n_w = rk.KERNEL_BF_WEIGHTS if bf else rk.KERNEL_NUM_WEIGHTS
+        step = BF_STEP_OPS if bf else mlp_flops(m.layers)
+        model_name = "Bf" if bf else "Mlp"
+        for L, K_ in LANE_SHAPES:
+            cp = lane_cost_grid(L)
+            state, U, eps = lane_inputs(L, K_, dev, seed=L)
+            c = cfg.replace(num_rollouts=K_)
+            for label, (slots, own_lane) in LANE_CIRCLE_SETS.items():
+                circles = lane_circles(rk, m, p, c, state, U, slots,
+                                       own_lane, seed=slots + L)
+                kw = dict(obstacles=circles, obstacle_coeff=LANE_COEFF,
+                          inflation=LANE_INFLATION)
+                launch, _ = rk.prepare_fused_exact_rollout_cost_lanes(
+                    m, p, c, cp, cm, state, U, eps, **kw)
+                g = launch.geometry
+                inst = (f"fused_exact_group_kernel<{g.group}, lanes>"
+                        if g.group > 1 else
+                        f"fused_exact_kernel<{model_name}, lanes>")
+                rows.append(circles_row(
+                    rk, launch.name, launch, held[L, K_, kind, label], L,
+                    K_, n_w, step, circles, None, row_launches(
+                        (1, kind, L, K_, slots, own_lane), launch.name),
+                    card, PTXAS.get(inst)))
+        for L, K_ in FIELD_LANE_SHAPES:
+            cp = lane_cost_grid(L)
+            state, U, eps = lane_inputs(L, K_, dev, seed=L + 1)
+            c = cfg.replace(num_rollouts=K_)
+            launch, _ = rk.prepare_fused_rollout_cost_lanes(
+                m, p, c, cp, field, state, U, eps)
+            rows.append(circles_row(
+                rk, launch.name, launch, fheld[L, K_, kind, False], L, K_,
+                n_w, step, None, field, row_launches(
+                    (3, kind, L, K_), launch.name),
+                card, PTXAS.get(f"fused_field_kernel<{model_name}, lanes>")))
+            del eps
+    check(set(launches) <= used, "lanes field: a drive's shape has no row "
+          f"in the kernels line: {set(launches) - used}")
     return {"results": results, "rows": rows}
 
 
@@ -7280,9 +7799,11 @@ def main() -> int:
         # kernels 1-4 in an MLP and a BF instance each (4 fused, 1 chain;
         # BF exact pass 1 is fused_rng_bf_kernel), pass 2, kernel 1 in its
         # lane groups (the MLP), kernel 2 one rollout a warp (MLP and BF),
-        # the constant quotients' check (phase 19), and the lane forms of
-        # kernels 1 and 2 in each of their geometries (phase 33)
-        n_kernels = 11 + len(rk.LANE_GROUPS) + 2 + 1 + len(LANE_INSTANCES)
+        # the constant quotients' check (phase 19), the lane forms of
+        # kernels 1 and 2 in each of their geometries (phase 33) and kernel
+        # 3's (phase 34)
+        n_kernels = (11 + len(rk.LANE_GROUPS) + 2 + 1 + len(LANE_INSTANCES)
+                     + len(FIELD_LANE_INSTANCES))
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -7636,6 +8157,12 @@ def main() -> int:
     sweep = sweep_phase(rk, card)
     print(f"[time] phase 33 in {time.perf_counter() - t_sweep:.1f}s ({card})")
 
+    # -- phase 34: circles, the field, the ESS law and moving obstacles in
+    # the sweep's lanes ------------------------------------------------------
+    t_lanes = time.perf_counter()
+    lanes_field = lanes_field_phase(rk, card, field)
+    print(f"[time] phase 34 in {time.perf_counter() - t_lanes:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -7655,7 +8182,7 @@ def main() -> int:
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
         baseline3["rows"]) + field_specs["rows"] + precision["rows"] + (
-        sweep["rows"])
+        sweep["rows"]) + lanes_field["rows"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -7665,7 +8192,7 @@ def main() -> int:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
         if k.get("precision") == PRECISION or "lanes" in k:
-            continue                     # phases 31 and 33 carry their own
+            continue                     # phases 31, 33, 34 carry their own
         layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
@@ -7727,6 +8254,7 @@ def main() -> int:
                       "precision_default": precision["results"],
                       "physics": physics,
                       "sweep": sweep["results"],
+                      "lanes_field": lanes_field["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -7752,7 +8280,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-33 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-34 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

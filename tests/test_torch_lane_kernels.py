@@ -6,11 +6,12 @@ scalars in interpret mode (the batching rule that gives the JAX sweep's
 kernel-2 parity tests (``tests/test_torch_rollout_kernel.py``); each lane
 equal to the port's solo plain call exactly; the lane scalars' layout; the
 lane launch's geometry, picked from L x K; and the refusals that name
-ROADMAP Queue 2 A7 (circle slots, the field, the capacity mode, the
-episode's ESS law and moving obstacles, the libraries of other specs and
-precisions), raised before any build.  The CUDA lane kernels run only on
-a GPU: ``chip_smoke.py`` phase 33 holds them against these plain versions
-and each lane bit for bit against the solo instance."""
+ROADMAP Queue 2 A7 (the capacity mode, the libraries of other specs,
+fields and precisions), raised before any build.  The CUDA lane kernels
+run only on a GPU: ``chip_smoke.py`` phases 33 and 34 hold them against
+these plain versions and each lane bit for bit against the solo
+instance.  Circles and the field in lanes:
+``tests/test_torch_lane_circles.py``."""
 
 import math
 
@@ -203,25 +204,30 @@ def test_lane_scalars_follow_the_kernel_layout(lanes):
 def test_lane_launch_geometry_is_picked_from_all_lanes(monkeypatch):
     """One launch runs L x K rollouts: 3 lanes of K=512 take the lane
     groups one wave of L x K asks for (G=16), where one lane of K=512
-    alone takes G=32; the grid is a lane's blocks."""
+    alone takes G=32; the grid is a lane's blocks.  Kernel 3 takes its
+    blocks of FIELD_BLOCK whatever L x K is."""
     model = NeuralNetDynamics(0.02, device="cpu")
     bf = BasisFunctionDynamics(0.02, device="cpu")
     monkeypatch.setattr(rk, "num_sms", lambda index: 132)
     dev = torch.device("cuda", 0)
-    geom = rk._lanes_geometry(False, 3, 512, dev, model)
+    geom = rk._lanes_geometry(1, 3, 512, dev, model)
     assert geom == rk.ExactGeometry(16, rk.GROUP_BLOCK, 512 // (128 // 16))
     assert rk.exact_geometry(512, 132).group == 32
-    assert rk._lanes_geometry(False, 12, 1920, dev, model) == (
+    assert rk._lanes_geometry(1, 12, 1920, dev, model) == (
         rk.ExactGeometry(1, rk.EXACT_BLOCK, 1920 // 64))
-    assert rk._lanes_geometry(False, 3, 2560, dev, bf).group == 1
+    assert rk._lanes_geometry(1, 3, 2560, dev, bf).group == 1
     # the nominal trajectories: a warp a lane
-    assert rk._lanes_geometry(True, 12, 1, dev, model) == (
+    assert rk._lanes_geometry(2, 12, 1, dev, model) == (
         rk.ExactGeometry(32, rk.CHAIN_WARP_BLOCK, 1))
+    # kernel 3: blocks of FIELD_BLOCK, K / FIELD_BLOCK of them a lane
+    for L, K in ((3, 512), (4, 16384)):
+        assert rk._lanes_geometry(3, L, K, dev, model) == (
+            rk.ExactGeometry(1, rk.FIELD_BLOCK, K // rk.FIELD_BLOCK))
 
 
 def test_lane_refusals_name_a7(lanes, monkeypatch):
-    """Circle slots, the field, the capacity mode, other specs and
-    precisions have no lane form: each raises naming A7 before any build
+    """The capacity mode, other MLP specs, bf16 operands and a field of
+    another spec have no lane form: each raises naming A7 before any build
     (``_build.load`` would raise otherwise)."""
     s = lanes
 
@@ -231,21 +237,6 @@ def test_lane_refusals_name_a7(lanes, monkeypatch):
     monkeypatch.setattr(rk._build, "load", load)
     rk._kernel_lib.cache_clear()
     state, U, eps = s.torch_args()
-    circles = np.zeros((2, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        rk.fused_exact_rollout_cost_lanes(s.model, s.params, s.cfg, s.cp,
-                                          s.cm, state, U, eps,
-                                          obstacles=circles)
-    with pytest.raises(NotImplementedError, match="A7"):
-        rk.fused_exact_rollout_cost_lanes(
-            s.model, s.params, s.cfg,
-            s.cp.replace(obstacles=torch.zeros((L, 2, 3))), s.cm, state, U,
-            eps)
-    field = NeuralCostmap.build(
-        [np.zeros((34, 8), np.float32), np.zeros((8, 1), np.float32)],
-        [np.zeros(8, np.float32), np.zeros(1, np.float32)],
-        np.arange(1, 9, dtype=np.float32), s.cm.r_c1, s.cm.r_c2, s.cm.trs,
-        device="cpu")
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
     for model, cfg in ((wide, s.cfg),
                        (s.model, s.cfg.replace(matmul_precision="default"))):
@@ -256,17 +247,18 @@ def test_lane_refusals_name_a7(lanes, monkeypatch):
         with pytest.raises(NotImplementedError, match="A7"):
             rk.prepare_dynamics_chain_lanes(model, params, cfg, state, U,
                                             eps)
+    # kernel 3 on a field of another spec than 34-64-64-1
+    field = NeuralCostmap.build(
+        [np.zeros((34, 8), np.float32), np.zeros((8, 1), np.float32)],
+        [np.zeros(8, np.float32), np.zeros(1, np.float32)],
+        np.arange(1, 9, dtype=np.float32), s.cm.r_c1, s.cm.r_c2, s.cm.trs,
+        device="cpu")
+    with pytest.raises(NotImplementedError, match="A7"):
+        rk.prepare_fused_rollout_cost_lanes(s.model, s.params, s.cfg, s.cp,
+                                            field, state, U, eps)
 
-    # the solver and the episode
+    # the solver: the capacity mode's passes, and the field of another spec
     cfg = MPPIConfig(num_rollouts=64, num_timesteps=8)
-    small = (state, U[:, :8], torch.tensor(s.eps[:8, :64]))
-    obst = MPPISolver(s.model, ObstacleCost(make_obstacles(
-        [[30.0, 4.0, 0.5]], 4, device="cpu")), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        obst.iterate(s.params, s.cp, s.cm, *small)
-    with pytest.raises(NotImplementedError, match="A7"):
-        MPPISolver(s.model, MPPICost(), cfg, device="cpu").iterate(
-            s.params, s.cp, field, *small)
     capacity = MPPISolver(s.model, MPPICost(),
                           cfg.replace(kernel_rng=True), device="cpu")
     cs = capacity.init_state(0)
@@ -276,15 +268,8 @@ def test_lane_refusals_name_a7(lanes, monkeypatch):
                                         "control_solution")})
     with pytest.raises(NotImplementedError, match="A7"):
         capacity.solve(s.params, s.cp, s.cm, state, lanes_cs)
-    solver = MPPISolver(s.model, MPPICost(), cfg, device="cpu")
-    start = np.array([25.0, 0.0, math.pi / 2, 0, 0, 0, 0], np.float32)
     with pytest.raises(NotImplementedError, match="A7"):
-        EpisodeRunner(solver, n_ticks=2, ess_target_frac=0.25).run(
-            s.params, s.cp, s.cm, start)
-    traj = np.full((2, 2, 3), -1.0, np.float32)
-    with pytest.raises(NotImplementedError, match="A7"):
-        EpisodeRunner(obst, n_ticks=2).run(s.params, s.cp, s.cm, start,
-                                           obstacle_traj=traj)
+        capacity.solve(s.params, s.cp, field, state, lanes_cs)
     rk._kernel_lib.cache_clear()
 
 
