@@ -23,8 +23,14 @@ compile per field spec.  ``matmul_precision="default"`` (bf16 operands in
 the dynamics' products) takes a library of its own for each of these
 (``load(layers, field, bf16=True)``), built with ``ARTT_BF16_OPERANDS``
 defined too, which holds the same instances but pass 2 and the quotient
-check, which evaluate no model, and the lane forms of kernels 1 and 2,
-which only the default float32 library holds.  The check and the build run under an
+check, which evaluate no model.  Every library holds the lane form (a
+stacked ``CostParams`` in one launch) of each kernel instance it holds.
+The library of an MLP with more weights than the default spec's, whose
+unrolled MLP takes ``ptxas`` minutes a kernel, is compiled in ``PARTS``
+objects at once (``-DARTT_PART``: each holds one family of kernels in its
+solo or its lane form), linked into one library (``parts``).  A process
+runs at most ``NVCC_JOBS`` ``nvcc`` at once.
+The check and the build run under an
 exclusive lock on a file beside the library, so that processes that start
 together (the ranks of a sharded solve) run ``nvcc`` once and the others
 load its library.  Nothing is built when the module is imported, so the
@@ -43,6 +49,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Optional, Sequence
 
@@ -56,6 +63,12 @@ DEFAULT_LAYERS = (6, 32, 32, 4)
 # The field spec of the default and the MLP spec libraries, F and the hidden
 # widths (csrc ARTT_FIELD_SPEC's default): 34-64-64-1.
 DEFAULT_FIELD = (8, 64, 64)
+# The objects a library compiled in parts is compiled in (csrc ARTT_PART).
+PARTS = 8
+# How many nvcc processes this process runs at once (libraries and parts
+# alike): all but two of the cores it may run on, so that builds that run
+# beside other work leave it cores.
+NVCC_JOBS = max(1, len(os.sched_getaffinity(0)) - 2)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the library: every pointer and the stream as c_void_p,
@@ -66,6 +79,7 @@ SIGNATURES = {
     "artt_field_pack_floats": [],
     "artt_field_block": [],
     "artt_max_field_t": [],
+    "artt_max_field_lanes_t": [],
     "artt_max_obstacles": [],
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
@@ -105,41 +119,49 @@ SIGNATURES = {
     # fsc, isc, lanes, lane group, block, device, then device pointers +
     # stream
     "artt_dynamics_chain_lanes": [_P, _P, _I, _I, _I, _I] + [_P] * 8,
-    # kernel (1, 2 or 3), bf, lane group, block, T, n_obs, device, out (4
-    # ints)
-    "artt_lanes_kernel_info": [_I] * 7 + [_P],
+    # fsc, isc, lane scalars (device), lanes, k_offset, ou_a, ou_b, device,
+    # then device pointers + stream
+    "artt_fused_rng_costs_lanes": [_P, _P, _P, _I, _I, _F, _F, _I] + [_P] * 10,
+    "artt_fused_rng_field_costs_lanes": ([_P, _P, _P, _I, _I, _F, _F, _I]
+                                         + [_P] * 10),
+    # fsc, isc, lanes, k_offset, ou_a, ou_b, device, then device pointers +
+    # stream
+    "artt_weighted_update_lanes": [_P, _P, _I, _I, _F, _F, _I] + [_P] * 5,
+    # kernel (1-5), field mode (kernel 4), bf, lane group, block, T, n_obs,
+    # device, out (4 ints)
+    "artt_lanes_kernel_info": [_I] * 8 + [_P],
 }
 # What only the float32 library of the default specs holds: pass 2 and the
-# quotient check, which evaluate no model, and the lane forms of kernels
-# 1-3.
-FP32_ONLY_FUNCTIONS = ("artt_weighted_update", "artt_update_block",
-                       "artt_const_divisors", "artt_div_const_check",
-                       "artt_fused_exact_lanes", "artt_dynamics_chain_lanes",
-                       "artt_fused_field_lanes", "artt_lanes_kernel_info")
-# What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
-# kernels 1-4 and the queries of their layouts and instances.
-SPEC_FUNCTIONS = (
-    "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
-    "artt_num_int_scalars", "artt_exact_block", "artt_group_block",
-    "artt_chain_warp_block", "artt_max_t", "artt_mlp_layers",
-    "artt_lane_groups", "artt_field_pack_floats", "artt_field_block",
-    "artt_max_field_t", "artt_fused_exact_rollout_cost",
-    "artt_dynamics_chain", "artt_fused_field_rollout_cost",
-    "artt_fused_rng_costs", "artt_fused_rng_field_costs",
-    "artt_exact_kernel_info", "artt_chain_kernel_info",
-    "artt_field_kernel_info", "artt_field_spec", "artt_bf16_operands")
+# quotient check, which evaluate no model.
+FP32_ONLY_FUNCTIONS = ("artt_weighted_update", "artt_weighted_update_lanes",
+                       "artt_update_block", "artt_const_divisors",
+                       "artt_div_const_check")
 # What a library of another field holds (-DARTT_FIELD_LIBRARY): the field
-# kernels and the queries of their layouts and instances.
+# kernels, their lane forms and the queries of their layouts and instances.
 FIELD_FUNCTIONS = (
     "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
     "artt_num_int_scalars", "artt_mlp_layers", "artt_field_spec",
     "artt_field_pack_floats", "artt_field_block", "artt_max_field_t",
-    "artt_fused_field_rollout_cost", "artt_fused_rng_field_costs",
-    "artt_field_kernel_info", "artt_bf16_operands")
+    "artt_max_field_lanes_t", "artt_fused_field_rollout_cost",
+    "artt_fused_rng_field_costs", "artt_fused_field_lanes",
+    "artt_fused_rng_field_costs_lanes", "artt_field_kernel_info",
+    "artt_lanes_kernel_info", "artt_bf16_operands")
+# What a library of another MLP spec holds (-DARTT_SPEC_LIBRARY): the MLP's
+# kernels 1-4, their lane forms and the queries of their layouts and
+# instances.
+SPEC_FUNCTIONS = FIELD_FUNCTIONS + (
+    "artt_exact_block", "artt_group_block", "artt_chain_warp_block",
+    "artt_max_t", "artt_lane_groups", "artt_fused_exact_rollout_cost",
+    "artt_dynamics_chain", "artt_fused_rng_costs", "artt_exact_kernel_info",
+    "artt_chain_kernel_info", "artt_fused_exact_lanes",
+    "artt_dynamics_chain_lanes", "artt_fused_rng_costs_lanes")
 
 _lib = None                   # the default library
 _spec_libs = {}               # (layers, field, bf16) -> that library
 _load_lock = threading.Lock()
+# NVCC_JOBS slots, taken in the order asked for (a Condition wakes the
+# longest waiter first)
+_nvcc_slots = threading.BoundedSemaphore(NVCC_JOBS)
 
 
 def nvcc_path() -> str:
@@ -174,6 +196,23 @@ def _field(field: Optional[Sequence[int]]) -> Optional[tuple]:
     return field
 
 
+def num_weights(layers: Sequence[int]) -> int:
+    """The weights and biases of an MLP of the spec ``layers``."""
+    return sum(a * b + b for a, b in zip(layers[:-1], layers[1:]))
+
+
+def parts(layers: Optional[Sequence[int]] = None,
+          field: Optional[Sequence[int]] = None,
+          bf16: bool = False) -> int:
+    """How many objects the library of ``layers`` and ``field`` is
+    compiled in: ``PARTS`` for the library of an MLP spec with more weights
+    than ``DEFAULT_LAYERS`` (of either precision), else one."""
+    spec = _spec(layers)
+    if spec is None or _field(field) is not None:
+        return 1
+    return PARTS if num_weights(spec) > num_weights(DEFAULT_LAYERS) else 1
+
+
 def field_label(field: Sequence[int]) -> str:
     """A field spec's label, F and the hidden widths: ``F6-48-48``."""
     return "F" + "-".join(str(n) for n in field)
@@ -200,11 +239,13 @@ def library_path(layers: Optional[Sequence[int]] = None,
                  field: Optional[Sequence[int]] = None,
                  bf16: bool = False) -> Path:
     """Where the library of ``layers`` and ``field`` (of bf16 operands when
-    ``bf16``) is built, named by a hash of the source, the flags and the
-    defines."""
+    ``bf16``) is built, named by a hash of the source, the flags, the
+    defines and the number of parts."""
+    n = parts(layers, field, bf16)
     digest = hashlib.sha256(SOURCE.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()
                             + spec_defines(layers, field, bf16).encode()
+                            + (f"parts {n}".encode() if n > 1 else b"")
                             ).hexdigest()
     spec, fspec = _spec(layers), _field(field)
     name = SOURCE.stem + ("" if spec is None else
@@ -241,10 +282,22 @@ def set_build_dir(path) -> None:
     BUILD_DIR = path
 
 
-def _compile(out: Path, defines: str) -> tuple:
+def _run(cmd: list, log: Path) -> tuple:
+    """Runs ``cmd`` in one of the ``NVCC_JOBS`` slots, its output to the
+    file ``log``; returns (exit code, seconds it ran)."""
+    with _nvcc_slots, open(log, "w") as f:
+        t0 = time.perf_counter()
+        code = subprocess.run(cmd, stdout=f, stderr=subprocess.STDOUT
+                              ).returncode
+        return code, time.perf_counter() - t0
+
+
+def _compile(out: Path, defines: str, n_parts: int = 1) -> tuple:
     """Compile the source with ``defines`` (a header included first) into
-    ``out`` (atomically: a reader sees no library or the whole one);
-    returns (seconds, compiler output)."""
+    ``out`` (atomically: a reader sees no library or the whole one), in
+    ``n_parts`` objects compiled at once (as ``NVCC_JOBS`` allows) and
+    then linked when it is over one; returns (seconds, compiler output:
+    the parts' in order, each after a line of its seconds)."""
     nvcc = nvcc_path()
     flags = NVCC_FLAGS
     with tempfile.TemporaryDirectory(dir=out.parent) as work:
@@ -254,11 +307,26 @@ def _compile(out: Path, defines: str) -> tuple:
             flags += ("-include", str(header))
         tmp = str(Path(work) / out.name)
         t0 = time.perf_counter()
-        proc = subprocess.run([nvcc, *flags, "-o", tmp, str(SOURCE)],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
+        if n_parts == 1:
+            steps = [[[nvcc, *flags, "-o", tmp, str(SOURCE)]]]
+        else:
+            objs = [str(Path(work) / f"part{p}.o") for p in range(n_parts)]
+            part_flags = tuple(f for f in flags if f != "-shared")
+            steps = [[[nvcc, *part_flags, f"-DARTT_PART={p}", "-c", "-o", obj,
+                       str(SOURCE)] for p, obj in enumerate(objs)],
+                     [[nvcc, "-shared", "-o", tmp, *objs]]]
+        log = ""
+        for i, step in enumerate(steps):
+            logs = [Path(work) / f"step{i}_{j}.log" for j in range(len(step))]
+            with ThreadPoolExecutor(len(step)) as pool:
+                runs = list(pool.map(_run, step, logs))
+            for j, (path, (_, seconds)) in enumerate(zip(logs, runs)):
+                if n_parts > 1:
+                    log += (f"part {j}: nvcc {seconds:.1f}s\n" if i == 0
+                            else f"link: nvcc {seconds:.1f}s\n")
+                log += path.read_text()
+            if any(code for code, _ in runs):
+                raise RuntimeError(f"nvcc failed for {SOURCE.name}:\n{log}")
         os.replace(tmp, out)
     return time.perf_counter() - t0, log
 
@@ -297,7 +365,7 @@ def load(layers: Optional[Sequence[int]] = None,
     build = None
     with file_lock(out.with_suffix(".lock")):
         if not out.exists():
-            build = _compile(out, spec_defines(*key))
+            build = _compile(out, spec_defines(*key), parts(*key))
     lib = ctypes.CDLL(str(out))
     for fn in functions(*key):
         getattr(lib, fn).argtypes = SIGNATURES[fn]

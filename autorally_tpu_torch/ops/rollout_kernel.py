@@ -64,17 +64,18 @@ and their weights, as the JAX ``_fused_kernel`` splits layer 0; the biases
 stay float32, and the nominal trajectory (kernel 2 at K = 1), pass 2 and
 the neural field's own products are float32 at every precision.
 
-Kernels 1-3 also have lane forms (:func:`fused_exact_rollout_cost_lanes`,
+Every kernel also has a lane form (:func:`fused_exact_rollout_cost_lanes`,
 :func:`fused_rollout_cost_lanes`, :func:`dynamics_chain_lanes`,
-:func:`nominal_trajectory_lanes`): L sets of cost parameters (a stacked
-``CostParams``, ``config.cost_params_lanes``), start states, plans and
-circles (a lane's own, or one set for every lane) in one launch, the eps,
-weights and map or field shared, as the JAX package's sweep vmaps
-``pallas_call`` over its scalars; lane l gives the bits of the solo kernel
-with lane l's scalars and circles.  The default float32 library holds
-them (kernel 3's on the default field); the capacity passes, other MLP
-specs, other field specs and bf16 operands have none
-(:func:`no_lane_form` raises, ``LANES_ROADMAP``).
+:func:`nominal_trajectory_lanes`, :func:`fused_rng_costs_lanes`,
+:func:`fused_rng_numer_lanes`, composed by
+:func:`fused_rng_solve_iteration_lanes`): L sets of cost parameters (a
+stacked ``CostParams``, ``config.cost_params_lanes``), start states, plans,
+circles (a lane's own, or one set for every lane) and pass 2's weights in
+one launch, the eps or the stream's key, the weights and the map or field
+shared, as the JAX package's sweep vmaps ``pallas_call`` over its scalars;
+lane l gives the bits of the solo kernel with lane l's inputs.  Each runs
+from the library of its solo twin (any MLP spec, field spec and
+precision; pass 2 from the default float32 library).
 
 Each wrapper runs the plain version (``*_plain``) for tensors on the CPU,
 launches the CUDA kernel for tensors on a GPU, and raises for anything
@@ -229,6 +230,9 @@ MAX_FIELD_KERNEL_T = 2048
 # warp's tile (csrc kTileFloats: 64 rows of 44 floats and the 64 values).
 SMEM_FLOATS = 232448 // 4
 FIELD_TILE_FLOATS = field_tile_floats(FIELD_KERNEL_SPEC)
+# The floats a lane form's staged CostScalars (static shared memory) take
+# from a field block's room (csrc kLaneScalarFloats).
+LANE_SCALAR_FLOATS = 64
 
 # Host launch scalars, in the order csrc/rollout_kernels.cu unpacks them.
 _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
@@ -401,11 +405,13 @@ def _kernel_lib(layers: tuple = KERNEL_LAYERS,
              lib.artt_num_float_scalars(), lib.artt_num_int_scalars(),
              lib.artt_num_weights(), lib.artt_max_obstacles(),
              lib.artt_field_pack_floats(), lib.artt_field_block(),
-             lib.artt_max_field_t(), lib.artt_bf16_operands())
+             lib.artt_max_field_t(), lib.artt_max_field_lanes_t(),
+             lib.artt_bf16_operands())
     want = (tuple(layers), tuple(fspec), len(_FLOAT_SCALARS),
             len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
             field_pack_floats(fspec), field_block(layers),
-            max_field_kernel_t(layers, fspec), int(bf16))
+            max_field_kernel_t(layers, fspec),
+            max_field_kernel_t(layers, fspec, lanes=True), int(bf16))
     if field is None:
         groups = lib.artt_lane_groups()
         built += (tuple(G for i, G in enumerate(LANE_GROUPS)
@@ -482,23 +488,27 @@ def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0, n_obs: int = 0,
     return dict(f=f, tiles=tiles, U=U, obs=obs, bytes=4 * (obs + 3 * n_obs))
 
 
-def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC) -> int:
+def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC,
+                       lanes: bool = False) -> int:
     """The longest horizon the field kernels take for the MLP spec
-    ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT):
-    ``MAX_FIELD_KERNEL_T``, or what the weights and the field leave room
-    for beside the tiles and ``MAX_OBSTACLES`` circles in a block's shared
-    memory (0: no room)."""
+    ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT; their
+    lane forms' with ``lanes``, kLibMaxFieldLanesT): ``MAX_FIELD_KERNEL_T``,
+    or what the weights and the field leave room for beside the tiles and
+    ``MAX_OBSTACLES`` circles in a block's shared memory, less the lane
+    forms' staged scalars (``LANE_SCALAR_FLOATS``) for ``lanes`` (0: no
+    room)."""
     room = (SMEM_FLOATS - field_smem_layout(layers, field=field)["U"]
-            - 3 * MAX_OBSTACLES) // 2
+            - 3 * MAX_OBSTACLES - (LANE_SCALAR_FLOATS if lanes else 0)) // 2
     return max(0, min(MAX_FIELD_KERNEL_T, room))
 
 
-def _check_field_room(layers, fspec, T: int) -> None:
+def _check_field_room(layers, fspec, T: int, lanes: bool = False) -> None:
     """Raise, before any build, where the MLP spec ``layers``'s weights,
-    the packed field of spec ``fspec`` and the tiles leave no room for U
-    at a launch of ``T`` steps (``T`` up to ``MAX_FIELD_KERNEL_T``; a
-    longer horizon is refused as for every field)."""
-    if max_field_kernel_t(layers, fspec) < min(T, MAX_FIELD_KERNEL_T):
+    the packed field of spec ``fspec`` and the tiles (and a lane form's
+    staged scalars, with ``lanes``) leave no room for U at a launch of
+    ``T`` steps (``T`` up to ``MAX_FIELD_KERNEL_T``; a longer horizon is
+    refused as for every field)."""
+    if max_field_kernel_t(layers, fspec, lanes) < min(T, MAX_FIELD_KERNEL_T):
         need = field_smem_layout(layers, T, MAX_OBSTACLES, fspec)["bytes"]
         raise NotImplementedError(
             f"the field kernels of layers {tuple(layers)} on a field "
@@ -1427,21 +1437,6 @@ def nominal_trajectory(model, model_params, cfg, state, U,
 # the lane forms of kernels 1-3: L cost-parameter sets in one launch
 # ---------------------------------------------------------------------------
 
-# What a stacked CostParams cannot take (ROADMAP.md, Queue 2 A7).
-LANES_ROADMAP = ("ROADMAP.md, Queue 2 A7: a lane axis on the capacity "
-                 "passes (kernels 4-5), and in the libraries of other MLP "
-                 "specs, of other field specs and of bf16 operands")
-
-
-def no_lane_form(what: str):
-    """Raise for ``what`` asked of with a stacked ``CostParams``, before
-    any build or launch: only kernels 1-3 of the default library have lane
-    forms."""
-    raise NotImplementedError(
-        f"{what} has no lane form: a stacked CostParams runs kernels 1-3 of "
-        f"the default library only ({LANES_ROADMAP})")
-
-
 def lane_scalar_rows(model, cfg, cost_params, costmap, k_offset=0,
                      obstacle_coeff: float = 0.0,
                      inflation: float = 1.0) -> tuple:
@@ -1489,45 +1484,41 @@ def _lane_circles(cost_params, obstacles, L: int) -> Optional[torch.Tensor]:
     return circles
 
 
-def _lane_inputs(model, model_params, state, U, eps, packed_weights,
-                 max_T: int = MAX_KERNEL_T):
-    """Shape checks of a lane launch, state (L, S), U (L, T, C) and eps
-    (T, K, C) shared; the device tensors it reads."""
-    T, K, C = eps.shape
+def _lane_inputs(model, model_params, state, U, eps=None,
+                 packed_weights=None, max_T: int = MAX_KERNEL_T):
+    """Shape checks of a lane launch, state (L, S), U (L, T, C) and, for
+    the kernels that read it, eps (T, K, C) shared; the device tensors it
+    reads."""
     L = state.shape[0] if state.dim() == 2 else 0
+    T, C = U.shape[-2:] if U.dim() == 3 else (0, 0)
     if (L < 1 or state.shape != (L, model.STATE_DIM) or U.shape != (L, T, C)
-            or C != 2):
+            or C != 2 or (eps is not None and (eps.dim() != 3 or eps.shape[0]
+                                               != T or eps.shape[2] != C))):
         raise ValueError(f"lane shapes: state {tuple(state.shape)}, U "
-                         f"{tuple(U.shape)}, eps {tuple(eps.shape)}")
+                         f"{tuple(U.shape)}, eps "
+                         f"{None if eps is None else tuple(eps.shape)}")
     if not 1 <= T <= max_T:
         raise ValueError(f"kernel needs 1 <= T <= {max_T}")
-    return L, dict(
-        s0=state.to(eps.device, torch.float32).contiguous(),
+    args = dict(
+        s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
-        U=U.to(torch.float32).contiguous(), eps=eps,
+        U=U.to(torch.float32).contiguous(),
         weights=(_pack_weights(model, model_params) if packed_weights is None
                  else packed_weights))
-
-
-def _check_lane_library(model, cfg, precision, kernel: int = 1) -> None:
-    """Raise unless the default library holds the model's lane forms: the
-    MLP of ``KERNEL_LAYERS`` or the BF model, at a float32 precision."""
-    _check_kernel_model(model, cfg, kernel)
-    layers = kernel_layers(model)
-    if layers != KERNEL_LAYERS or bf16_operands(_precision(cfg, precision)):
-        no_lane_form(f"kernels 1-3 of {'-'.join(map(str, layers))} at "
-                     f"matmul_precision {_precision(cfg, precision)!r}")
+    if eps is not None:
+        args["eps"] = eps
+    return L, args
 
 
 def _lanes_geometry(kernel: int, L: int, K: int, dev, model):
     """A lane launch's geometry of kernel 1, 2 or 3, with the blocks of one
     lane (the launcher's grid is (blocks, L)).  Kernels 1 and 2 choose it
-    from L x K rollouts.  Kernel 3 has one: its blocks of ``FIELD_BLOCK``
-    (4 warps, two blocks an SM: a warp's tile and the staged field fix
-    both), K / ``FIELD_BLOCK`` of them a lane, whatever L x K is, so that
-    its L x K rollouts fill the card in L x K / (2 x 128 x SMs) waves."""
+    from L x K rollouts, in the geometries of the model's spec.  Kernel 3
+    has one: its blocks of ``field_block`` (a warp's tile and the staged
+    field fix it: 4 warps, two blocks an SM, in the default library),
+    K / block of them a lane, whatever L x K is."""
     if kernel == 3:
-        return _geometry(K, 1, FIELD_BLOCK)
+        return _geometry(K, 1, field_block(kernel_layers(model)))
     pick = _chain_launch_geometry if kernel == 2 else _launch_geometry
     geom = pick(L * K, dev, model)
     return _geometry(K, geom.group, geom.block)
@@ -1557,29 +1548,13 @@ def fused_rollout_cost_lanes_plain(model, model_params, cfg, cost_params,
     return tuple(torch.stack(o) for o in zip(*outs))
 
 
-def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
-                   state, U, eps, l1_cost, k_offset, obstacles,
-                   obstacle_coeff, inflation, packed_weights, precision,
-                   lane_fsc):
-    """Validate a lane form's inputs (kernel 1 on a ``Costmap``, kernel 3
-    on a ``NeuralCostmap`` of ``FIELD_KERNEL_SPEC``) and allocate its
-    outputs; returns ``(launch, (costs, u_seq, crash))`` as
-    :func:`_prepare_fused`, ``launch.lanes`` its L.  ``lane_fsc``: the lane
-    scalars (:func:`lane_scalars`, with the circles' coefficients) on the
-    device, packed here when None."""
-    field = type(surface) is NeuralCostmap
-    _expect(surface, NeuralCostmap if field else Costmap, fn)
-    _check_lane_library(model, cfg, precision, 3 if field else 1)
-    kind, buf, fspec = _surface(surface)
-    if field and tuple(fspec) != FIELD_KERNEL_SPEC:
-        no_lane_form(f"kernel 3 on a field {_build.field_label(fspec)}")
-    T, K, C = eps.shape
-    dev = eps.device
-    L, args = _lane_inputs(model, model_params, state, U, eps,
-                           packed_weights, max_field_kernel_t()
-                           if field else MAX_KERNEL_T)
-    circles = _lane_circles(cost_params, obstacles, L)
-    args["surface"] = buf
+def _lane_launch(model, cfg, cost_params, surface, L: int, T: int, K: int,
+                 dev, args, k_offset, l1_cost, circles, obstacle_coeff,
+                 inflation, lane_fsc):
+    """The launch scalars of a lane form that prices (kernels 1, 3 and pass
+    1): ``args`` gains ``lane_fsc`` (:func:`lane_scalars`, with the
+    circles' coefficients, packed here when None); returns (fsc, isc, the
+    device pointers of ``args``, n_obs, the circles' (L, 3 n_obs) copy)."""
     args["lane_fsc"] = (lane_scalars(model, cfg, cost_params, surface, dev,
                                      k_offset, obstacle_coeff, inflation)
                         if lane_fsc is None else lane_fsc)
@@ -1591,15 +1566,48 @@ def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
     floats, ints = launch_scalars(model, cfg, k_offset, T, K,
                                   lane_cost_params(cost_params)[0], surface,
                                   l1_cost, n_obs, obstacle_coeff, inflation)
-    fsc = _host_array(ctypes.c_float, floats)
-    isc = _host_array(ctypes.c_int, ints)
+    return (_host_array(ctypes.c_float, floats),
+            _host_array(ctypes.c_int, ints), ptrs, n_obs, packed)
+
+
+def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
+                   state, U, eps, l1_cost, k_offset, obstacles,
+                   obstacle_coeff, inflation, packed_weights, precision,
+                   lane_fsc):
+    """Validate a lane form's inputs (kernel 1 on a ``Costmap``, kernel 3
+    on a ``NeuralCostmap``) and allocate its outputs; returns ``(launch,
+    (costs, u_seq, crash))`` as :func:`_prepare_fused`, ``launch.lanes``
+    its L.  The lane form runs from the library of its solo twin: the
+    model's spec, the field's spec and ``precision``'s operands.
+    ``lane_fsc``: the lane scalars (:func:`lane_scalars`, with the circles'
+    coefficients) on the device, packed here when None."""
+    field = type(surface) is NeuralCostmap
+    _expect(surface, NeuralCostmap if field else Costmap, fn)
+    _check_kernel_model(model, cfg, 3 if field else 1)
+    bf16 = bf16_operands(_precision(cfg, precision))
+    kind, buf, fspec = _surface(surface)
+    T, K, C = eps.shape
+    dev = eps.device
+    layers = kernel_layers(model)
+    if field:
+        _check_field_room(layers, fspec, T, lanes=True)
+    L, args = _lane_inputs(model, model_params, state, U, eps,
+                           packed_weights, max_field_kernel_t(
+                               layers, fspec, lanes=True)
+                           if field else max_kernel_t(layers, bf16))
+    circles = _lane_circles(cost_params, obstacles, L)
+    args["surface"] = buf
+    fsc, isc, ptrs, n_obs, packed = _lane_launch(
+        model, cfg, cost_params, surface, L, T, K, dev, args, k_offset,
+        l1_cost, circles, obstacle_coeff, inflation, lane_fsc)
     costs = torch.empty((L, K), dtype=torch.float32, device=dev)
     crash = torch.empty((L, K), dtype=torch.int32, device=dev)
     u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
-    lib = _kernel_lib()
     geom = _lanes_geometry(3 if field else 1, L, K, dev, model)
-    entry, geo_args = ((lib.artt_fused_field_lanes, ()) if field else
-                       (lib.artt_fused_exact_lanes, geom[:2]))
+    entry, geo_args = (
+        (_field_lib(layers, fspec, bf16).artt_fused_field_lanes, ())
+        if field else (_spec_lib(layers, bf16).artt_fused_exact_lanes,
+                       geom[:2]))
 
     def launch():
         err = entry(
@@ -1612,7 +1620,8 @@ def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
         _check_launch(err, fn)
 
     launch.inputs = (args, packed)           # keeps the buffers alive
-    launch.name = fn.removesuffix("_lanes") + _form(model, n_obs) + "_lanes"
+    launch.name = (fn.removesuffix("_lanes") + _form(model, n_obs, fspec, bf16)
+                   + "_lanes")
     launch.geometry = geom
     launch.lanes = L
     return launch, (costs, u_seq, crash)
@@ -1667,9 +1676,11 @@ def fused_exact_rollout_cost_lanes(model, model_params, cfg, cost_params,
     ``obstacles``: (L, N, 3) circles, lane l's its row, or (N, 3) that
     every lane prices, with ``obstacle_coeff`` and ``inflation``
     (``ObstacleCost.kernel_kwargs``), or None.  ``lane_fsc``: as
-    :func:`prepare_fused_exact_rollout_cost_lanes` takes it.  Counted as
-    ``fused_exact_rollout_cost[_bf][_obstacles]_lanes``.  Returns (costs
-    (L, K), u_seq (L, C, T, K), crash (L, K) int32)."""
+    :func:`prepare_fused_exact_rollout_cost_lanes` takes it; the other
+    arguments as :func:`fused_exact_rollout_cost` takes them.  Counted as
+    the solo instance's name with ``_lanes``
+    (``fused_exact_rollout_cost[_bf][_<spec>][_obstacles][_default]_lanes``).
+    Returns (costs (L, K), u_seq (L, C, T, K), crash (L, K) int32)."""
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
               obstacle_coeff=obstacle_coeff, inflation=inflation,
               precision=precision)
@@ -1693,9 +1704,9 @@ def fused_rollout_cost_lanes(model, model_params, cfg, cost_params,
     """Kernel 3 over the L lanes of a stacked ``cost_params`` in one launch
     (the JAX package's vmap of ``fused_rollout_cost_pallas``):
     :func:`fused_exact_rollout_cost_lanes`'s contract with a
-    ``NeuralCostmap`` of ``FIELD_KERNEL_SPEC`` (the packed field shared).
-    Counted as ``fused_rollout_cost[_bf][_obstacles]_lanes``.  Returns
-    (costs (L, K), u_seq (L, C, T, K), crash (L, K) int32)."""
+    ``NeuralCostmap`` of any spec (the packed field shared).  Counted as
+    ``fused_rollout_cost[...]_lanes``.  Returns (costs (L, K), u_seq (L,
+    C, T, K), crash (L, K) int32)."""
     kw = dict(l1_cost=l1_cost, k_offset=k_offset, obstacles=obstacles,
               obstacle_coeff=obstacle_coeff, inflation=inflation,
               precision=precision)
@@ -1724,12 +1735,15 @@ def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
                                  k_offset=0, packed_weights=None,
                                  precision: Optional[str] = None):
     """Validate kernel 2's lane-form inputs and allocate its outputs;
-    returns ``(launch, (states, u_seq))`` as :func:`prepare_dynamics_chain`."""
-    _check_lane_library(model, cfg, precision)
+    returns ``(launch, (states, u_seq))`` as :func:`prepare_dynamics_chain`,
+    from the library of the solo twin."""
+    _check_kernel_model(model, cfg, 2)
+    bf16 = bf16_operands(_precision(cfg, precision))
     T, K, C = eps.shape
     dev = eps.device
+    layers = kernel_layers(model)
     L, args = _lane_inputs(model, model_params, state, U, eps,
-                           packed_weights)
+                           packed_weights, max_kernel_t(layers, bf16))
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
     fsc = _host_array(ctypes.c_float, floats)
@@ -1738,7 +1752,7 @@ def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
                          device=dev)
     u_seq = torch.empty((L, C, T, K), dtype=torch.float32, device=dev)
     geom = _lanes_geometry(2, L, K, dev, model)
-    lib = _kernel_lib()
+    lib = _spec_lib(layers, bf16)
 
     def launch():
         err = lib.artt_dynamics_chain_lanes(
@@ -1749,7 +1763,7 @@ def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
         _check_launch(err, "dynamics_chain_lanes")
 
     launch.inputs = args
-    launch.name = "dynamics_chain" + _form(model, 0) + "_lanes"
+    launch.name = "dynamics_chain" + _form(model, 0, bf16=bf16) + "_lanes"
     launch.geometry = geom
     launch.lanes = L
     return launch, (states, u_seq)
@@ -1760,8 +1774,8 @@ def dynamics_chain_lanes(model, model_params, cfg, state, U, eps, k_offset=0,
     """Kernel 2 over L lanes in one launch (the JAX package's vmap of
     ``dynamics_chain_pallas`` over its start states and U): lane l runs
     ``state[l]`` (L, S) and ``U[l]`` (L, T, C); ``eps`` (T, K, C) shared.
-    Counted as ``dynamics_chain[_bf]_lanes``.  Returns (states (L, S, T,
-    K), u_seq (L, C, T, K))."""
+    Counted as ``dynamics_chain[_bf][_<spec>][_default]_lanes``.  Returns
+    (states (L, S, T, K), u_seq (L, C, T, K))."""
     if _dispatch(eps) == "plain":
         return dynamics_chain_lanes_plain(model, model_params, cfg, state, U,
                                           eps, k_offset=k_offset,
@@ -1791,15 +1805,25 @@ def nominal_trajectory_lanes(model, model_params, cfg, state, U,
 
 
 def lanes_kernel_info(kernel: int, bf: bool, geom: ExactGeometry, T: int,
-                      n_obs: int = 0, device: int = 0) -> dict:
+                      n_obs: int = 0, device: int = 0, layers=KERNEL_LAYERS,
+                      field=FIELD_KERNEL_SPEC, precision: str = "highest",
+                      field_mode: bool = False) -> dict:
     """:func:`exact_kernel_info` of the lane form's instance of kernel
-    ``kernel`` (1, 2 or 3; kernel 3's ``geom`` is ``_geometry(K, 1,
-    FIELD_BLOCK)``) that ``geom`` launches at ``T`` with ``n_obs`` circle
-    slots, the waves of one lane."""
+    ``kernel`` that ``geom`` launches at ``T`` with ``n_obs`` circle slots,
+    the waves of one lane, from the library of the MLP spec ``layers``, the
+    field spec ``field`` and ``precision``: 1 and 2 kernels 1 and 2; 3
+    kernel 3 (``geom`` ``_geometry(K, 1, field_block(layers))``); 4 pass 1,
+    its field mode when ``field_mode`` (the same geometry) or on the exact
+    map (``_geometry(K, 1, EXACT_BLOCK)``); 5 pass 2 (``_geometry(K, 1,
+    UPDATE_BLOCK)``, the default float32 library)."""
+    bf16 = bf16_operands(precision)
+    lib = (_kernel_lib() if kernel == 5 else
+           _field_lib(layers, field, bf16) if kernel == 3 or field_mode
+           else _spec_lib(layers, bf16))
     out = (ctypes.c_int * 4)()
-    _check_launch(_kernel_lib().artt_lanes_kernel_info(
-        int(kernel), int(bf), geom.group, geom.block, T, n_obs, device, out),
-        "lanes_kernel_info")
+    _check_launch(lib.artt_lanes_kernel_info(
+        int(kernel), int(field_mode), int(bf), geom.group, geom.block, T,
+        n_obs, device, out), "lanes_kernel_info")
     return _info(out, geom, device)
 
 
@@ -1813,7 +1837,7 @@ class RngContext(NamedTuple):
 
     model: object                   # NeuralNetDynamics or BF
     cfg: object
-    U: torch.Tensor                 # (T, C) float32
+    U: torch.Tensor                 # (T, C) float32; a lane form's (L, T, C)
     key: torch.Tensor               # int64 (2,): the stream's key
     k_offset: int                   # global index of rollout 0
     K: int
@@ -1860,7 +1884,7 @@ def _rng_context(model, cfg, cost_params, field, U, key, k_offset,
 
 def rng_noise(ctx: RngContext) -> torch.Tensor:
     """The (T, K, C) noise the passes draw for ``ctx``, in PyTorch."""
-    return kernel_noise(ctx.key, ctx.k_offset, ctx.K, ctx.U.shape[0],
+    return kernel_noise(ctx.key, ctx.k_offset, ctx.K, ctx.U.shape[-2],
                         ctx.theta)
 
 
@@ -1980,10 +2004,11 @@ def fused_rng_costs(model, model_params, cfg, cost_params, field, state, U,
     return costs, crash, ctx
 
 
-def fused_rng_numer_plain(ctx: RngContext, w):
+def fused_rng_numer_plain(ctx: RngContext, w, eps=None):
     """Plain version of pass 2: sum_k w_k u_{k,t,c} over the replayed
-    stream's pre-clamp controls, (C, T)."""
-    eps = rng_noise(ctx)
+    stream's pre-clamp controls, (C, T); ``eps``: the stream
+    (:func:`rng_noise`), drawn here when None."""
+    eps = rng_noise(ctx) if eps is None else eps
     T, K, _ = eps.shape
     nu = torch.tensor(ctx.cfg.exploration_std, dtype=torch.float32,
                       device=eps.device)
@@ -2079,3 +2104,241 @@ def fused_rng_solve_iteration(model, model_params, cfg, cost_params,
     return _rng_iteration(fused_rng_costs, fused_rng_numer, model,
                           model_params, cfg, cost_params, field, state, U,
                           key, l1_cost, k_offset, precision, obstacle_kw)
+
+
+# ---------------------------------------------------------------------------
+# the capacity passes' lane forms: L cost-parameter sets on one stream
+# ---------------------------------------------------------------------------
+
+def fused_rng_costs_lanes_plain(model, model_params, cfg, cost_params, field,
+                                state, U, key, l1_cost: bool = False,
+                                k_offset=0, K_local=None, obstacles=None,
+                                obstacle_coeff: float = 0.0,
+                                inflation: float = 1.0,
+                                precision: Optional[str] = None):
+    """Plain version of pass 1's lane form: :func:`fused_rng_costs_plain`
+    lane by lane, lane l with ``lane_cost_params``'s lane l, ``state[l]``,
+    ``U[l]`` and lane l's circles, every lane on the stream of ``key``
+    (drawn once).  Returns (total (L, K), crash (L, K) int32, ctx with U
+    (L, T, C))."""
+    ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
+                       K_local)
+    eps = rng_noise(ctx)
+    circles = _lane_circles(cost_params, obstacles, state.shape[0])
+    outs = [fused_rollout_cost_plain(
+        model, model_params, cfg, cp, field, state[i], ctx.U[i], eps,
+        l1_cost=l1_cost, k_offset=ctx.k_offset,
+        obstacles=None if circles is None else circles[i],
+        obstacle_coeff=obstacle_coeff, inflation=inflation,
+        precision=precision, split=False)
+        for i, cp in enumerate(lane_cost_params(cost_params))]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[2] for o in outs]), ctx)
+
+
+def prepare_fused_rng_costs_lanes(model, model_params, cfg, cost_params,
+                                  field, state, U, key,
+                                  l1_cost: bool = False, k_offset=0,
+                                  K_local=None, obstacles=None,
+                                  obstacle_coeff: float = 0.0,
+                                  inflation: float = 1.0,
+                                  precision: Optional[str] = None,
+                                  lane_fsc=None):
+    """Validate pass 1's lane-form inputs and allocate its outputs, from
+    the library of its solo twin.  Returns ``(launch, (costs, crash),
+    ctx)`` as :func:`prepare_fused_rng_costs`, ``launch.lanes`` its L;
+    ``lane_fsc`` as :func:`prepare_fused_exact_rollout_cost_lanes` takes
+    it."""
+    _check_kernel_model(model, cfg, 4)
+    bf16 = bf16_operands(_precision(cfg, precision))
+    ctx = _rng_context(model, cfg, cost_params, field, U, key, k_offset,
+                       K_local)
+    K, dev = ctx.K, ctx.U.device
+    layers = kernel_layers(model)
+    kind, buf, fspec = _surface(field)
+    if kind == "field":
+        _check_field_room(layers, fspec, U.shape[-2], lanes=True)
+    L, args = _lane_inputs(model, model_params, state, ctx.U, max_T=(
+        max_field_kernel_t(layers, fspec, lanes=True) if kind == "field"
+        else max_kernel_t(layers, bf16)))
+    T = ctx.U.shape[1]
+    args["surface"] = buf
+    fsc, isc, ptrs, n_obs, packed = _lane_launch(
+        model, cfg, cost_params, field, L, T, K, dev, args, ctx.k_offset,
+        l1_cost, _lane_circles(cost_params, obstacles, L), obstacle_coeff,
+        inflation, lane_fsc)
+    stream_args = _stream_launch_args(ctx)
+    costs = torch.empty((L, K), dtype=torch.float32, device=dev)
+    crash = torch.empty((L, K), dtype=torch.int32, device=dev)
+    entry = (_spec_lib(layers, bf16).artt_fused_rng_costs_lanes
+             if kind == "exact" else _field_lib(
+                 layers, fspec, bf16).artt_fused_rng_field_costs_lanes)
+
+    def launch():
+        err = entry(
+            ctypes.addressof(fsc), ctypes.addressof(isc), ptrs["lane_fsc"],
+            L, *stream_args, dev.index or 0, ptrs["s0"], ptrs["rngs"],
+            ptrs["U"], ctx.key.data_ptr(), ptrs["surface"], ptrs["weights"],
+            None if packed is None else packed.data_ptr(), costs.data_ptr(),
+            crash.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, f"fused_rng_costs_lanes ({kind})")
+
+    launch.inputs = (args, packed)           # keeps the buffers alive
+    launch.geometry = _geometry(K, 1, EXACT_BLOCK if kind == "exact"
+                                else field_block(layers))
+    launch.mode = kind
+    launch.name = ("fused_rng_costs" + ("_field" if kind == "field" else "")
+                   + _form(model, n_obs, fspec, bf16) + "_lanes")
+    launch.lanes = L
+    return launch, (costs, crash), ctx
+
+
+def fused_rng_costs_lanes(model, model_params, cfg, cost_params, field,
+                          state, U, key, l1_cost: bool = False, k_offset=0,
+                          K_local=None, obstacles=None,
+                          obstacle_coeff: float = 0.0, inflation: float = 1.0,
+                          precision: Optional[str] = None, lane_fsc=None):
+    """Pass 1 over the L lanes of a stacked ``cost_params`` in one launch
+    (the JAX package's vmap of ``fused_rng_costs``): lane l prices
+    ``state[l]`` (L, S) and ``U[l]`` (L, T, C) with lane l's coefficients
+    and circles (``obstacles`` as :func:`fused_exact_rollout_cost_lanes`
+    takes them), every lane on the one stream of ``key`` (the vmap passes
+    the controller's key unbatched), so that lane l gives the bits of the
+    solo pass run with lane l's inputs.  Counted as the solo instance's
+    name with ``_lanes``.  Returns (total (L, K), crash (L, K) int32, ctx),
+    ``ctx.U`` (L, T, C) for :func:`fused_rng_numer_lanes`."""
+    kw = dict(l1_cost=l1_cost, k_offset=k_offset, K_local=K_local,
+              obstacles=obstacles, obstacle_coeff=obstacle_coeff,
+              inflation=inflation, precision=precision)
+    if _dispatch(U) == "plain":
+        return fused_rng_costs_lanes_plain(model, model_params, cfg,
+                                           cost_params, field, state, U,
+                                           key, **kw)
+    launch, (costs, crash), ctx = prepare_fused_rng_costs_lanes(
+        model, model_params, cfg, cost_params, field, state, U, key,
+        lane_fsc=lane_fsc, **kw)
+    launch()
+    LAUNCHES[launch.name] += 1
+    return costs, crash, ctx
+
+
+def fused_rng_numer_lanes_plain(ctx: RngContext, w):
+    """Plain version of pass 2's lane form: :func:`fused_rng_numer_plain`
+    lane by lane, ``ctx.U`` (L, T, C) and ``w`` (L, K), on the stream
+    drawn once.  Returns (L, C, T)."""
+    eps = rng_noise(ctx)
+    return torch.stack([fused_rng_numer_plain(ctx._replace(U=u), w_l, eps)
+                        for u, w_l in zip(ctx.U, w)])
+
+
+def prepare_fused_rng_numer_lanes(ctx: RngContext, w):
+    """Validate pass 2's lane-form inputs and allocate its partial sums
+    (L, G, C, T).  Returns ``(launch, partials)``; the default float32
+    library's kernel runs it for every spec and precision, as the solo
+    pass."""
+    L, T, C = ctx.U.shape
+    dev = w.device
+    if w.shape != (L, ctx.K):
+        raise ValueError(f"w must be ({L}, {ctx.K}), got {tuple(w.shape)}")
+    ptrs = _device_args(dev, U=ctx.U, w=w)
+    if ctx.key.device != dev:
+        raise ValueError(f"key is on {ctx.key.device}, expected {dev}")
+    floats, ints = launch_scalars(ctx.model, ctx.cfg, ctx.k_offset, T, ctx.K)
+    fsc = _host_array(ctypes.c_float, floats)
+    isc = _host_array(ctypes.c_int, ints)
+    stream_args = _stream_launch_args(ctx)
+    G = -(-ctx.K // UPDATE_BLOCK)
+    partials = torch.empty((L, G, C, T), dtype=torch.float32, device=dev)
+    lib = _kernel_lib()
+
+    def launch():
+        err = lib.artt_weighted_update_lanes(
+            ctypes.addressof(fsc), ctypes.addressof(isc), L, *stream_args,
+            dev.index or 0, ptrs["U"], ctx.key.data_ptr(), ptrs["w"],
+            partials.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _check_launch(err, "fused_rng_numer_lanes")
+
+    launch.inputs = (ctx, w)
+    launch.lanes = L
+    launch.geometry = _geometry(ctx.K, 1, UPDATE_BLOCK)
+    return launch, partials
+
+
+def fused_rng_numer_lanes(ctx: RngContext, w):
+    """Pass 2 over L lanes in one launch: replay pass 1's stream and
+    contract it with each lane's softmax weights ``w`` (L, K) and its U
+    (``ctx.U`` (L, T, C), :func:`fused_rng_costs_lanes`'s ctx).  Counted
+    as ``fused_rng_numer_lanes``.  Each lane's block partials are summed by
+    a ``torch.sum`` of their own, as the solo pass sums its (a batched
+    reduction may add in another order).  Returns the un-normalised (L, C,
+    T) numerators."""
+    if _dispatch(w) == "plain":
+        return fused_rng_numer_lanes_plain(ctx, w)
+    launch, partials = prepare_fused_rng_numer_lanes(ctx, w)
+    launch()
+    LAUNCHES["fused_rng_numer_lanes"] += 1
+    return torch.stack([torch.sum(p, dim=0) for p in partials])
+
+
+def lane_sums(x: torch.Tensor) -> torch.Tensor:
+    """The sum of each lane's row of ``x`` (L, ...), one ``torch.sum`` a
+    lane, as a solo solve sums it: a reduction over the last axis of (L,
+    K) may add in another order (on the card at L=12, K=1920), and a
+    closed loop carries the difference on."""
+    return torch.stack([torch.sum(row) for row in x])
+
+
+def lane_weights(cfg, cost_params, total: torch.Tensor) -> torch.Tensor:
+    """The softmax weights ``exp(-gamma (c - min c))`` (L, K) of the lanes'
+    costs ``total`` (L, K), each lane at its own gamma (a stacked gamma
+    (L,), or the config's), elementwise as a solo solve forms them."""
+    baseline = torch.amin(total, dim=-1, keepdim=True)
+    gamma = effective_gamma(cfg, cost_params)
+    if torch.is_tensor(gamma):
+        gamma = gamma.to(total.device)[:, None]
+    return torch.exp(-gamma * (total - baseline))
+
+
+def _rng_iteration_lanes(costs_fn, numer_fn, model, model_params, cfg,
+                         cost_params, field, state, U, key, l1_cost,
+                         k_offset, precision, kw):
+    total, crash, ctx = costs_fn(model, model_params, cfg, cost_params, field,
+                                 state, U, key, l1_cost=l1_cost,
+                                 k_offset=k_offset, precision=precision, **kw)
+    w = lane_weights(cfg, cost_params, total)
+    U_new = (numer_fn(ctx, w) / lane_sums(w)[:, None, None]).transpose(1, 2)
+    return U_new, total, crash
+
+
+def fused_rng_solve_iteration_lanes_plain(model, model_params, cfg,
+                                          cost_params, field, state, U, key,
+                                          l1_cost: bool = False, k_offset=0,
+                                          precision: Optional[str] = None,
+                                          **obstacle_kw):
+    """:func:`fused_rng_solve_iteration_lanes` through the plain versions
+    of both lane forms."""
+    return _rng_iteration_lanes(fused_rng_costs_lanes_plain,
+                                fused_rng_numer_lanes_plain, model,
+                                model_params, cfg, cost_params, field, state,
+                                U, key, l1_cost, k_offset, precision,
+                                obstacle_kw)
+
+
+def fused_rng_solve_iteration_lanes(model, model_params, cfg, cost_params,
+                                    field, state, U, key,
+                                    l1_cost: bool = False, k_offset=0,
+                                    precision: Optional[str] = None,
+                                    lane_fsc=None, **obstacle_kw):
+    """One capacity-mode iteration of the L lanes of a stacked
+    ``cost_params`` (the JAX package's vmap of
+    ``fused_rng_solve_iteration``): pass 1's lane form, each lane's
+    softmax weights at its own gamma (:func:`lane_weights`), pass 2's lane
+    form; lane l gives the bits of :func:`fused_rng_solve_iteration` run
+    with lane l's inputs.  ``lane_fsc`` and ``obstacle_kw`` go to pass 1.
+    Returns (U_new (L, T, C), total (L, K), crash (L, K))."""
+    if lane_fsc is not None:
+        obstacle_kw = dict(obstacle_kw, lane_fsc=lane_fsc)
+    return _rng_iteration_lanes(fused_rng_costs_lanes, fused_rng_numer_lanes,
+                                model, model_params, cfg, cost_params, field,
+                                state, U, key, l1_cost, k_offset, precision,
+                                obstacle_kw)

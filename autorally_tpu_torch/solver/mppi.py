@@ -468,27 +468,21 @@ class MPPISolver:
     def _stats_lanes(self, cost_params: CostParams, total: torch.Tensor,
                      crash: torch.Tensor) -> Tuple[SolveStats, torch.Tensor]:
         """:meth:`_stats` of L lanes, total and crash (L, K), each lane at
-        its own gamma (the stacked gamma (L,), or the config's): the weights
-        (L, K) and stats of shape (L,).  Each sum is one reduction a lane,
-        as the solo solve takes it: a reduction over the last axis of (L,
-        K) may add in another order (on the card at L=12, K=1920), and the
-        closed loop would carry the difference on."""
-        baseline = torch.amin(total, dim=-1)
-        gamma = effective_gamma(self.cfg, cost_params)
-        if torch.is_tensor(gamma):
-            gamma = gamma.to(total.device)[:, None]
-        w = torch.exp(-gamma * (total - baseline[:, None]))      # (L, K)
-        lane_sum = lambda x: torch.stack([torch.sum(row) for row in x])
-        eta = lane_sum(w)
-        sum_w2 = lane_sum(w * w)
+        its own gamma (the stacked gamma (L,), or the config's;
+        ``rk.lane_weights``): the weights (L, K) and stats of shape (L,).
+        Each sum is one reduction a lane (``rk.lane_sums``), as the solo
+        solve takes it."""
+        w = rk.lane_weights(self.cfg, cost_params, total)        # (L, K)
+        eta = rk.lane_sums(w)
+        sum_w2 = rk.lane_sums(w * w)
         K = total.shape[-1]
         return SolveStats(
-            baseline=baseline,
+            baseline=torch.amin(total, dim=-1),
             normalizer=eta,
             trajectory_cost=sum_w2 / eta,
             ess=(eta * eta) / sum_w2,
-            mean_cost=lane_sum(total) / K,
-            crash_frac=lane_sum(crash.to(torch.float32)) / K,
+            mean_cost=rk.lane_sums(total) / K,
+            crash_frac=rk.lane_sums(crash.to(torch.float32)) / K,
         ), w
 
     def _iterate_kernel_rng(self, model_params, cost_params: CostParams,
@@ -497,9 +491,18 @@ class MPPISolver:
                             ) -> Tuple[torch.Tensor, SolveStats]:
         """One capacity-mode iteration on the stream of ``key`` (int64
         (2,)): (U_new (T, C), stats), the stats from the costs as the JAX
-        package's ``_solve`` takes them."""
+        package's ``_solve`` takes them.  With a stacked ``cost_params`` (L
+        lanes), state (L, S) and U (L, T, C) -> U_new (L, T, C) and stats
+        of shape (L,), every lane on the stream of ``key``: the passes'
+        lane forms (the lane scalars packed as :meth:`rollout_costs_lanes`
+        packs them), the weights and stats a lane (:meth:`_stats_lanes`)."""
         if cost_params_lanes(cost_params) is not None:
-            rk.no_lane_form("the capacity mode's passes (kernels 4 and 5)")
+            U_new, total, crash = rk.fused_rng_solve_iteration_lanes(
+                self.model, model_params, self.cfg, cost_params, costmap,
+                state, U, key, l1_cost=self.cost.l1_cost,
+                lane_fsc=self._lane_scalars(cost_params, costmap),
+                **self._obstacle_kwargs(cost_params))
+            return U_new, self._stats_lanes(cost_params, total, crash)[0]
         U_new, total, crash = rk.fused_rng_solve_iteration(
             self.model, model_params, self.cfg, cost_params, costmap, state,
             U, key, l1_cost=self.cost.l1_cost,

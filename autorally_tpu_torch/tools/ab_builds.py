@@ -344,7 +344,7 @@ def untouched_sass(library: str, dump: str) -> dict:
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
         m = re.search(rf"\d({names})(?:ILi(\d+)E|I.*?(Mlp|Bf)Deriv)?"
-                      r"E?(Lb1E)?", head)
+                      r"E?(I?Lb1E)?", head)
         if m:
             arg = m.group(2) or m.group(3)
             name = m.group(1) + (f"<{arg}>" if arg else "")

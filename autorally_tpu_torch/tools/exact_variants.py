@@ -88,15 +88,14 @@ _STAND_IN = ("__device__ __forceinline__ float stand_in(int i) {\n"
              "  return 0.01f * (float)((i * 7) & 31) - 0.15f;\n}\n\n")
 _SI4 = "make_float4(stand_in({0}), stand_in({0} + 1), stand_in({0} + 2), " \
        "stand_in({0} + 3))"
-_RNG_LAUNCH = ("  err = rng_opt_in<MlpDeriv>(device);\n"
-               "  if (err != cudaSuccess) return (int)err;\n"
-               "  fused_rng_kernel<MlpDeriv><<<")
+_RNG_LAUNCH = ("  const cudaError_t err = rng_opt_in<MlpDeriv, kLanes>(device);\n"
+               "  if (err != cudaSuccess) return err;\n"
+               "  fused_rng_kernel<MlpDeriv, kLanes><<<")
 _COPY = ("  if (!s.bf)\n"
          "    cudaMemcpyToSymbolAsync(c_w, weights, kNumMlpWeights * 4, 0,\n"
-         "                            cudaMemcpyDeviceToDevice, "
-         "(cudaStream_t)stream);\n")
+         "                            cudaMemcpyDeviceToDevice, st);\n")
 _MLP_BF_ANCHOR = "// BfDeriv: theta^T phi, the 25 car basis functions"
-_PASS1_CALL = "rollout_cost<false, Deriv>(s, c, s0, rngs, U_s, w_s, obs_s,"
+_PASS1_CALL = "rollout_cost<false, Deriv>(s, cs, s0, rngs, U_s, w_s, obs_s,"
 _STEP_TOP = ("    weights_barrier();\n    float u0, u1, du0, du1;\n"
              "    perturb(s, U_s, noise(t), t, zero_rollout, pure_noise, u0, "
              "u1, du0, du1);\n    if (kStoreU && active) {")
@@ -162,7 +161,7 @@ _CONST_OPERAND = [
     (_MLP_BF_ANCHOR,
      _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]") + _MLP_BF_ANCHOR),
     (_PASS1_CALL, "rollout_cost<false, typename PassDerivOf<Deriv>::type>("
-     "s, c, s0, rngs, U_s, w_s, obs_s,"),
+     "s, cs, s0, rngs, U_s, w_s, obs_s,"),
     (_STEP_TOP, _STEP_TOP.replace(
         "    weights_barrier();",
         "    if constexpr (!std::is_same_v<Deriv, typename PassDerivOf<"
@@ -200,7 +199,8 @@ VARIANTS = {
          f"__launch_bounds__(kBlock, {n})\n{kernel}(")
         for kernel in ("fused_exact_kernel", "fused_rng_kernel")]
        for n in (8, 10)},
-    "bf_parent": [("fused_rng_bf_kernel<<<", "fused_rng_kernel<BfDeriv><<<")],
+    "bf_parent": [("fused_rng_bf_kernel<kLanes><<<",
+                   "fused_rng_kernel<BfDeriv, kLanes><<<")],
     "bf_quotients": [("auto noise = stream_noise_ahead(r, key, k, s.T);",
                       "auto noise = stream_noise(r, key, k);")],
     "bf_ahead": [("rollout_cost<false, BfConstDivDeriv>(",
@@ -224,7 +224,7 @@ def pass1_sass(library) -> dict:
                          timeout=300).stdout
     for fn in re.split(r"\n\s*Function : ", out)[1:]:
         head, body = fn.split("\n", 1)
-        if not re.search(r"\dfused_rng_kernelI\w*?MlpDeriv", head):
+        if not re.search(r"\dfused_rng_kernelI\w*?MlpDerivELb0E", head):
             continue
         ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9_]*)[\w.]*\s*([^;]*);", body)
@@ -243,8 +243,8 @@ def bf_pass1_sass(name, library) -> dict:
     from autorally_tpu_torch.ops import _build
     from autorally_tpu_torch.tools import sass_chain
 
-    kernel = (r"\dfused_rng_kernelI\w*?BfDeriv" if name == "bf_parent"
-              else r"\dfused_rng_bf_kernel")
+    kernel = (r"\dfused_rng_kernelI\w*?BfDerivELb0E" if name == "bf_parent"
+              else r"\dfused_rng_bf_kernelILb0E")
     log = library.with_suffix(".log").read_text()
     regs = spill = None
     for entry in re.split(r"Compiling entry function", log)[1:]:

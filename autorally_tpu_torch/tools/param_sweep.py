@@ -33,8 +33,10 @@ versions.  Through :func:`run_sweep` (or ``EpisodeRunner.run``, which
 takes ``obstacle_traj``) the sweep runs whatever episode its runner runs,
 as the JAX tool's vmap does: an ``ObstacleCost`` (a stacked
 ``CostParams.obstacles`` (L, N, 3) gives each lane its own circles), the
-runner's ESS law (a gamma a lane), moving obstacles, a ``NeuralCostmap``.
-The capacity mode has no lane form (ROADMAP.md, Queue 2 A7).
+runner's ESS law (a gamma a lane), moving obstacles, a ``NeuralCostmap``,
+an MLP of any spec, ``matmul_precision="default"``, and the capacity mode
+(a runner whose solver has ``kernel_rng=True``: the lane forms of both
+capacity passes, every lane on the solve's one stream).
 """
 
 from __future__ import annotations

@@ -34,7 +34,10 @@ exits non-zero):
 
 1. build the kernels from ``autorally_tpu_torch/csrc/rollout_kernels.cu``
    (the default library, the libraries of phase 28's three other MLP
-   specs and phase 30's field libraries, one nvcc each, started together;
+   specs, phase 30's field libraries and phase 31's bf16 ones, one nvcc
+   each, the wide spec's in parts, ``_build.NVCC_JOBS`` at once in that
+   order; while the default library builds, phase 32 (a)-(b) runs and
+   phases 11 and 30's fields are fitted, none of which runs its kernels;
    the others build on while phases 2-27 run, and when phase 28 or 30
    takes them each
    one's instances, kernels 3 and 4 among them, are printed with their
@@ -67,7 +70,7 @@ exits non-zero):
 4. the main path: one MPPI iteration on the GPU against the same iteration
    on the CPU, then ``MPPISolver`` on ``cuda`` for one untimed solve and
    200 ticks of slide + solve + plant step, with both kernels' launch
-   counters reset just before and read just after; the same drive in ten
+   counters reset just before and read just after; the same drive in four
    pairs whose order alternates, kernel A in one rollout a thread and in
    the launcher's geometry (the same controls), each pair's medians, and
    again for kernel B (one rollout a thread, one a warp); the host time
@@ -184,7 +187,7 @@ exits non-zero):
 21. the closed-loop episode (``runtime/episode.py``'s ``EpisodeRunner``,
     the tick captured once as one CUDA graph and replayed) at the main
     path's width on the oval of ``tools/lap_eval.load_track("oval")``:
-    (a) 50 ticks with DDP gains, two plant substeps a tick and an ESS
+    (a) 25 ticks with DDP gains, two plant substeps a tick and an ESS
     target, captured against the same ticks run eagerly on the card, every
     ``EpisodeResult`` field bit for bit; again with another desired speed
     (captured anew, other states: no stale graph) and with other seeds (the
@@ -201,7 +204,7 @@ exits non-zero):
 22. the async loop (``runtime/async_loop.py`` through ``run_tube_mppi``'s
     ``--async-loop`` path: both controllers one dispatched tick, captured
     once as one CUDA graph, DDP gains on, a lockstep ``SyntheticPlant``):
-    (a) 50 dispatches of a captured tube bit for bit an eager one's, the
+    (a) 30 dispatches of a captured tube bit for bit an eager one's, the
     strides 0, 1, 2 and T-1 mixed and a cost push at tick 25 (one more
     capture); (b) 10 replayed dispatches under the profiler: exactly 2 + 2
     kernel launches a tick, the graph's nodes; (c)-(e) 200 ticks at depth
@@ -227,8 +230,8 @@ exits non-zero):
     (20 with the BF model at K=2560) with exactly 2 kernel-2 launches a
     solve (one at K, one at K=1, by ``rk.LAUNCHES_BY_K``), no kernel 1 and
     no plain version; (c) ``EnsembleDynamics`` (M=8) through
-    ``MPPISolver`` at K=1920, the solver's plain chain: 50 ticks eager
-    with no rollout-kernel launch, and 50 captured episode ticks bit for
+    ``MPPISolver`` at K=1920, the solver's plain chain: 20 ticks eager
+    with no rollout-kernel launch, and 20 captured episode ticks bit for
     bit the eager ones, each replay timed (CUDA events);
 25. the ensemble solver (``solver/ensemble.py``) at bench.py's rows, M=8,
     K=16384 and K=65536, T=100, ``__graft_entry__.py``'s members and
@@ -249,14 +252,14 @@ exits non-zero):
     ``parallel/launch.py`` after the kernel library is built here, each
     reporting 0 builds of its own: (a) one rank over NCCL,
     ``ShardedMPPISolver`` at K=1920 with ``force_collectives`` bit for bit
-    its inline body (an iteration and 50 chained solves), the inline body
+    its inline body (an iteration and 20 chained solves), the inline body
     bit for bit ``MPPISolver.iterate`` on ``fold_in(sub, 0)``'s noise, 1
     kernel-1 and 1 kernel-2 launch a solve; (b) 2 and 4 ranks sharing the
     card over gloo (NCCL refuses two ranks on one card), K=1920 host noise:
     U within rtol 1e-4 / atol 1e-5 of ``MPPISolver.iterate`` on the
     shards' noise concatenated, the baseline within rtol 1e-5, each rank's
     kernel 1 at its ``k_offset`` against its plain version, every rank's U
-    and controller state bit for bit equal, 50 chained solves (p50 / p99);
+    and controller state bit for bit equal, 20 chained solves (p50 / p99);
     (c) the capacity mode over 2 ranks at K=262144, gaussian and OU: passes
     1 and 2 of each shard (``k_offset`` 0 and 131072) against their plain
     versions, the reduced U against the plain passes' combination; (d)
@@ -373,13 +376,14 @@ exits non-zero):
     sweep's lanes: (a) the registers, shared memory and blocks an SM of
     kernel 1's lane instances (which now stage a lane's circles) and of
     kernel 3's two new lane instances; (b) kernel 1's lane form with
-    circles (16 a lane's own, 16 shared, 64 a lane's own) at L=3, K=512
-    and L=12, K=1920, MLP in every geometry and BF, against its plain
-    version, each lane bit for bit its solo instance with that lane's
-    scalars and circles, the circles changing every lane's costs; (c)
-    kernel 3's lane form at L=3, K=512, L=12, K=1920 and L=4, K=16384
-    (the field path's 65,536 rollouts), MLP and BF, without and with 16
-    circles a lane, on phase 11's fitted field, the same holds; (d) 200
+    circles (16 a lane's own, 16 shared, 64 a lane's own) at L=3, K=512,
+    and at L=12, K=1920 with the drives' 16 (own and shared), MLP in every
+    geometry and BF, against its plain version, each lane bit for bit its
+    solo instance with that lane's scalars and circles, the circles
+    changing every lane's costs; (c) kernel 3's lane form at L=3, K=512
+    and L=4, K=16384 (the field path's 65,536 rollouts), without and with
+    16 circles a lane, and at L=12, K=1920 without (the drives' form),
+    MLP and BF, on phase 11's fitted field, the same holds; (d) 200
     ticks of a 12-lane sweep at K=1920 with an ``ObstacleCost`` (each
     lane's circles) and the ESS law, the same with moving obstacles, and
     on the fitted field, each with its launches counted (2 + 2 a captured
@@ -387,6 +391,26 @@ exits non-zero):
     profile and lanes 0 and 11 bit for bit their solo captured episodes;
     20 ticks of 3-lane BF sweeps on the field and with circles; and the
     new instances timed beside their plain versions and bounds.
+35. the capacity mode in the sweep's lanes and every library's lane
+    forms: (a) pass 1's lane instances (exact and field, MLP and BF),
+    gaussian and OU, with no circles, 16 a lane and 16 shared, at L=3,
+    K=512 and L=12, K=1920, against their plain versions by phase 9's rule
+    and each lane bit for bit its solo instance on the same stream, and
+    one launch on a shard's slice (k_offset != 0); (b) pass 2's lane form
+    on nominal, sparse, dense and a closed loop's weights, each lane's
+    partials bit for bit the solo kernel's and the numerator within 1e-5
+    of sum |w u| of its plain version; (c) kernels 1, 2, 3 and pass 1's
+    lane forms bit for bit their solo instances in the 6-64-64-64-64-4
+    library and the F6-48-48 field library at K=8192 and the bf16 library
+    at K=1920, L=3; (d) capacity drives through ``EpisodeRunner.run`` with
+    a stacked ``CostParams``, captured and replayed: 12 lanes at K=1920
+    (200 gaussian ticks, 20 OU), 4 lanes at K=262144 (50 ticks on the map,
+    20 on the field), 3 lanes of 6-64-64-64-64-4 at K=8192 (capacity and
+    host noise, 20 each) and 3 at ``"default"`` (20), each with exactly
+    2 + 2 + 2 lane launches a tick counted, no plain version, the
+    replayed tick's p50 / p99, graph nodes, ticks/s, and lanes 0 and L-1
+    bit for bit their solo captured episodes; the new instances timed
+    beside their plain versions and bounds, and the phase's seconds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -396,7 +420,7 @@ launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
 3 and 4's other timings and drives at the other specs, the cost-parameter
-sweeps' and phase 34's drives), and as
+sweeps' and phases 34-35's drives), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -407,6 +431,7 @@ Usage::
     python3 chip_smoke.py
 """
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -430,7 +455,10 @@ K, T = 1920, 100
 TICKS = 200
 # phase 4's drives of kernel A in the old and the new geometry, in pairs
 # whose order alternates (ten, so that a gain can be told from the spread)
-TURN_PAIRS = 10
+TURN_PAIRS = 4
+# timed runs of a plain version after one warm-up: it takes 0.1-1.5 s of
+# launches, and one run gives its time
+PLAIN_REPS = 1
 PROFILE_TICKS = 50
 COST_RTOL, COST_ATOL = 1e-4, 1e-3     # 100 fp32 steps, other summation order
 STATE_RTOL, STATE_ATOL = 1e-4, 1e-3
@@ -527,7 +555,7 @@ TUBE_MIN_SPEED = 0.5
 # The closed-loop episode (phase 21): BASELINE #1 (the MLP, seeded Glorot
 # weights, K=1920, T=100) as runtime/episode.py's EpisodeRunner on the 60 m
 # x 36 m oval of tools/lap_eval.load_track("oval"), the tick one CUDA graph.
-EP_BIT_TICKS = 50                     # (a) captured against eager
+EP_BIT_TICKS = 25                     # (a) captured against eager
 EP_PROFILE_TICKS = 10                 # (b) launches counted by the profiler
 EP_SHORT_TICKS = 20                   # (c) obstacles, capacity, asymmetric
 EP_K_PRED = 480
@@ -541,7 +569,7 @@ EP_LAP_ROWS = (
 
 # The async loop (phase 22): BASELINE #1 in run_tube_mppi's async loop, the
 # tick one CUDA graph, gains on, a lockstep SyntheticPlant at 50 Hz.
-ASYNC_BIT_TICKS = 50                  # (a) captured against eager
+ASYNC_BIT_TICKS = 30                  # (a) captured against eager
 ASYNC_PUSH_AT = 25                    # (a) a cost push: one more capture
 ASYNC_PROFILE_TICKS = 10              # (b) launches counted by the profiler
 ASYNC_TICKS = 200                     # (c)-(e) at depth 1 and 2
@@ -555,7 +583,7 @@ GATE_WARMUP = 8                       # the sequential gate's warm-up ticks
 # EnsembleDynamics (M=8) through MPPISolver, the solver's plain chain.
 GEN_TICKS = 200
 GEN_BF_TICKS = 20
-GEN_ENS_TICKS = 50
+GEN_ENS_TICKS = 20
 ENS_M = 8
 # The ensemble solver (phase 25): bench.py's ensemble8_K16384 and
 # ensemble8_K65536 rows from __graft_entry__.py's state, chained solves;
@@ -858,18 +886,45 @@ def field_bounds(nbytes: float, other_ops: float, n_evals: float, field):
                   n_evals * 3 * products))
 
 
+_SASS_OF = {}                # (layers, field) -> library_sass' text
+_FITS = {}                   # fit_kwargs' items -> (build's result, seconds)
+
+
+def fitted_field(drive_oval, dev, fit_kwargs=None):
+    """``drive_oval.build(rollouts=KF, device=dev, neural_costmap=True,
+    fit_kwargs=fit_kwargs)``, the field fitted on the card through the
+    entry point, and its seconds (CUDA-synchronized host clock), once a
+    run: ``main`` fits phases 11 and 30's fields while the default library
+    builds (the fit runs no kernel of it)."""
+    import torch
+
+    key = tuple(sorted((fit_kwargs or {}).items()))
+    if key not in _FITS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = drive_oval.build(rollouts=KF, device=dev, neural_costmap=True,
+                               fit_kwargs=fit_kwargs)
+        torch.cuda.synchronize()
+        _FITS[key] = (out, time.perf_counter() - t0)
+    return _FITS[key]
+
+
 def library_sass(layers=None, field=None) -> str:
     """``cuobjdump -sass`` of the built kernel library (of the MLP spec
-    ``layers`` and the field spec ``field``; the default one when
-    None)."""
+    ``layers`` and the field spec ``field``; the default one when None),
+    dumped once a run (``Builds`` dumps each library of another spec
+    beside its build)."""
     from autorally_tpu_torch.ops import _build
 
+    if (layers, field) in _SASS_OF:
+        return _SASS_OF[layers, field]
     objdump = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
     out = subprocess.run([objdump, "-sass",
                           str(_build.library_path(layers, field))],
                          capture_output=True, text=True, timeout=300)
     if out.returncode != 0:
         raise PhaseFailed(f"cuobjdump failed: {out.stderr.strip()}")
+    _SASS_OF[layers, field] = out.stdout
     return out.stdout
 
 
@@ -911,7 +966,7 @@ def chain_floor(sass: str, bf: bool, geom, clock_mhz: float) -> dict:
     warp = geom.group > 1
     name = "dynamics_chain_warp_kernel" if warp else "dynamics_chain_kernel"
     chain = sass_chain.loop_chain(sass_chain.instructions(
-        sass, rf"\d{name}I\w*?{'Bf' if bf else 'Mlp'}Deriv"),
+        sass, rf"\d{name}I\w*?{'Bf' if bf else 'Mlp'}DerivELb0E"),
         stores=1 if warp else CHAIN_OUTPUTS)
     chain["ms"] = T * chain["cycles"] / (clock_mhz * 1e3)
     chain["clock_mhz"] = clock_mhz
@@ -926,9 +981,9 @@ def stream_mix(sass: str) -> dict:
 
     return {name: sass_chain.loop_mix(sass_chain.instructions(sass, regex))
             for name, regex in (
-                ("pass1_mlp", r"\dfused_rng_kernelI\w*?MlpDeriv"),
-                ("pass1_bf", r"\dfused_rng_bf_kernel"),
-                ("pass2", r"\dweighted_update_kernel"))}
+                ("pass1_mlp", r"\dfused_rng_kernelI\w*?MlpDerivELb0E"),
+                ("pass1_bf", r"\dfused_rng_bf_kernelILb0E"),
+                ("pass2", r"\dweighted_update_kernelILb0E"))}
 
 
 
@@ -940,10 +995,11 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             short = re.search(r"\d+([a-z_]+_kernel)(?:E|ILi(\d+)E|I.*?"
-                              r"(MlpSplit|Mlp|Bf)Deriv|IJ)E?(Lb1E)?",
+                              r"(MlpSplit|Mlp|Bf)Deriv|IJ|I(?=Lb))E?(Lb1E)?",
                               m.group(1))
-            arg = short and (short.group(2) or short.group(3))
-            arg = arg and arg + (", lanes" if short.group(4) else "")
+            arg = short and ", ".join(
+                a for a in (short.group(2) or short.group(3),
+                            short.group(4) and "lanes") if a)
             name = (short.group(1) + (f"<{arg}>" if arg else "") if short
                     else m.group(1))
             spill = None
@@ -1330,7 +1386,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         geometry_line(rk, f"timing pass 1 {sname}", launch1, True, False,
                       card)
         plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cost_params, costmap, start, U, key), 3, 1)
+            model, params, c, cost_params, costmap, start, U, key), PLAIN_REPS, 1)
         # inputs read once (U, weights, state, control ranges, key, at most
         # the whole map or one texel per lookup), costs and crash written
         bytes1 = (4 * (T_ * 2 + n_w + 7 + 4 + 2 * KC)
@@ -1340,7 +1396,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         floors1 = sass_chain.pipe_bounds(mix["pass1_mlp"], KC, T_, sms,
                                          clock)
         w = torch.exp(-effective_gamma(c, cost_params) * (kc - kc.min()))
-        plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), 3, 1)
+        plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), PLAIN_REPS, 1)
         # pass 2 on the nominal weights (phase 8's), the closed loop's tick
         # (phase 9's) and dense ones; its bound counts the rollouts whose
         # weight is not 0, the work that these weights need; the design's
@@ -1501,7 +1557,8 @@ class PlainCalls:
     NAMES = ("fused_rollout_cost_plain", "trajectory_cost_plain",
              "dynamics_chain_plain", "fused_rng_costs_plain",
              "fused_rng_numer_plain", "fused_rollout_cost_lanes_plain",
-             "dynamics_chain_lanes_plain")
+             "dynamics_chain_lanes_plain", "fused_rng_costs_lanes_plain",
+             "fused_rng_numer_lanes_plain")
 
     def __init__(self, rk):
         self.rk, self.calls = rk, dict.fromkeys(self.NAMES, 0)
@@ -1534,16 +1591,11 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
     key = torch.tensor(KEY, dtype=torch.int64, device=dev)
 
     # -- the field, fitted on the card through the entry point ---------------
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host, _, _, field, note = drive_oval.build(
-        rollouts=KF, device=dev, neural_costmap=True)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    (host, _, _, field, note), fit_s = fitted_field(drive_oval, dev)
     print(f"[field] drive_oval.build(neural_costmap=True) with "
           f"fit_neural_costmap's defaults (4000 Adam steps, batch 16384): "
-          f"{fit_s:.3f} s ({card}); {note.splitlines()[-1]}; layers "
-          f"{field.layers}")
+          f"{fit_s:.3f} s ({card}; fitted while the default library "
+          f"built); {note.splitlines()[-1]}; layers {field.layers}")
     check(field.layers == rk.FIELD_KERNEL_LAYERS, f"field layers "
           f"{field.layers}, kernels compiled for {rk.FIELD_KERNEL_LAYERS}")
     # the same seeded weights as the main path (both built from seed 0)
@@ -1668,7 +1720,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
     ms_3 = cuda_ms(launch_3, 10)
     ms_a = cuda_ms(launch_a, 10)
     plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-        model, params, cfg, cost_params, field, start, U, eps), 3, 1)
+        model, params, cfg, cost_params, field, start, U, eps), PLAIN_REPS, 1)
     # eps read, u_seq, costs and crash written, the weights, the field,
     # U, the state and the control ranges read once
     bytes_3 = 4 * (3 * T_ * KF * 2 + 2 * KF + T_ * 2 + n_w + n_f + 7 + 4)
@@ -1696,7 +1748,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
         ms_f = cuda_ms(launch_f, 5)
         ms_e = cuda_ms(launch_e, 5)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cost_params, field, start, U, key), 2, 1)
+            model, params, c, cost_params, field, start, U, key), PLAIN_REPS, 1)
         bytes_f = 4 * (2 * KC + T_ * 2 + n_w + n_f + 7 + 4) + 16
         ops_f = KC * (T_ * (flops_step + STREAM_OPS + ou)
                       + (T_ - 1) * 2 * field_ops)
@@ -2324,7 +2376,7 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
             lambda mdl=mdl, prm=prm, c=c, surf=surf, kw=kw:
                 rk.fused_rng_costs_plain(mdl, prm, c, cost_params, surf,
                                          start, U, key, **kw),
-            5 if surf is field else 20, 2,
+            5 if surf is field else 20, PLAIN_REPS,
             pass1_bound(n_w, step, bool(kw), "field" if surf is field
                         else "exact"), 1221)
     timed["fused_exact_rollout_cost"] = (
@@ -3363,6 +3415,55 @@ def gate_passes(tag, res) -> None:
           f"in the measured passes")
 
 
+def descendants() -> list:
+    """The pids of this process's descendants (``/proc``)."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:                      # gone meanwhile
+            continue
+        ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        children.setdefault(ppid, []).append(int(entry))
+    out, todo = [], [os.getpid()]
+    while todo:
+        kids = children.get(todo.pop(), [])
+        out += kids
+        todo += kids
+    return out
+
+
+@contextlib.contextmanager
+def builds_paused(card):
+    """The ``with`` block on a machine without this process's running
+    builds: every descendant process then alive (the background ``nvcc``
+    and its compilers; the block starts its own processes after) stopped
+    (SIGSTOP) and continued (SIGCONT) after the block, so that a timing
+    gate does not measure the compilers beside it."""
+    import signal
+
+    stopped = []
+    for pid in descendants():
+        try:
+            os.kill(pid, signal.SIGSTOP)
+            stopped.append(pid)
+        except ProcessLookupError:
+            pass
+    print(f"[gate] {len(stopped)} build process(es) stopped for the gates "
+          f"({card})")
+    try:
+        yield
+    finally:
+        for pid in stopped:
+            try:
+                os.kill(pid, signal.SIGCONT)
+            except ProcessLookupError:
+                pass
+
+
 def gate_phase(rk, card) -> dict:
     """Phase 23: both realtime gates on the card, the simulator a second
     process (``sim_node --cpu``, seeded weights) over loopback UDP."""
@@ -3477,7 +3578,7 @@ def chain_row(rk, name, model, params, cfg, start, U, eps, bf, err, card,
     chain = chain_timing(rk, name, model, params, cfg, start, U, eps, bf, 100,
                          card)
     plain = cuda_ms(lambda: rk.dynamics_chain_plain(model, params, cfg,
-                                                    start, U, eps), 3, 1)
+                                                    start, U, eps), PLAIN_REPS, 1)
     n_w = rk.KERNEL_BF_WEIGHTS if bf else rk.KERNEL_NUM_WEIGHTS
     step = BF_STEP_OPS if bf else mlp_flops(model.layers)
     bnd, by = bound(4 * (11 * T * K_n + 2 * T + n_w + 7 + 4), step * T * K_n)
@@ -3651,7 +3752,7 @@ def member_row(rk, ens, stacked, cfg, cm, cp, state, U, eps, err, card,
         packed_weights=ens._member_packs(stacked)[M - 1])
     ms = cuda_ms(launch, 100)
     plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-        base, pm, cfg, cp, cm, state, U, e_m, **kw), 3, 1)
+        base, pm, cfg, cp, cm, state, U, e_m, **kw), PLAIN_REPS, 1)
     n_w = rk.KERNEL_NUM_WEIGHTS
     bnd, by = bound(4 * (T * k_m * 2 + 2 * T * k_m + 2 * k_m + T * 2 + n_w
                          + 7 + 4 + 2 * k_m * (T - 1)),
@@ -3871,8 +3972,8 @@ def ensemble_phase(rk, card, dev=None) -> dict:
 # (tests/test_sharding.py's tolerances: fp32 sums over shards in another
 # order)
 SHARD_RTOL, SHARD_ATOL, SHARD_BASELINE_RTOL = 1e-4, 1e-5, 1e-5
-SHARD_SOLVES = 50                     # (a), (b): chained solves a rank
-SHARD_CAP_SOLVES = 20                 # (c), (d)
+SHARD_SOLVES = 20                     # (a), (b): chained solves a rank
+SHARD_CAP_SOLVES = 10                 # (c), (d)
 SHARD_ENS_K, SHARD_ENS_M, SHARD_ENS_R = 16384, 2, 2
 SHARD_SUB = (0x0BADF00D, 0x5EED1234)  # the iteration's subkey
 RANK_TIMEOUT = 300
@@ -4117,7 +4218,7 @@ def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
                 model, params, cfg, cp, cm, start, U, eps[1], **kw)
             ms = cuda_ms(launch1, 100)
             plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-                model, params, cfg, cp, cm, start, U, eps[1], **kw), 3, 1)
+                model, params, cfg, cp, cm, start, U, eps[1], **kw), PLAIN_REPS, 1)
             n_w = rk.KERNEL_NUM_WEIGHTS
             bnd, by = bound(4 * (T * Kl * 2 + 2 * T * Kl + 2 * Kl + T * 2
                                  + n_w + 7 + 4 + 2 * Kl * (T - 1)),
@@ -4215,13 +4316,13 @@ def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
                                                start, U, key1, **kw)
     ms1 = cuda_ms(launch1, 20)
     plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
-        model, params, c, cp, cm, start, U, key1, **kw), 3, 1)
+        model, params, c, cp, cm, start, U, key1, **kw), PLAIN_REPS, 1)
     bytes1 = (4 * (T * 2 + n_w + 7 + 4 + 2 * Kl)
               + 4 * min(cm.height * cm.width, 2 * Kl * (T - 1)) + 16)
     bound1 = bound(bytes1, (flops_step + STREAM_OPS) * Kl * T)
     launch2, partials = rk.prepare_fused_rng_numer(ctx1, w1)
     ms2 = cuda_ms(launch2, 50)
-    plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx1, w1), 3, 1)
+    plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx1, w1), PLAIN_REPS, 1)
     k_need = int((w1 != 0).sum().item())
     bound2 = bound(4 * (Kl + T * 2 + partials.numel()) + 16,
                    (STREAM_OPS + UPDATE_OPS) * k_need * T)
@@ -4409,17 +4510,22 @@ LIBRARIES = (((None, None),) + tuple((layers, None)
 
 class Builds:
     """Every library of ``LIBRARIES`` and, of bf16 operands, of
-    ``BF16_LIBRARIES``, one ``nvcc`` each, all started at once (threads;
-    each ``nvcc`` its own process, on a core of its own).  ``get(layers,
-    field, bf16)`` waits for that library's build and returns (library,
-    seconds), or fails the phase if it did not build: the main path takes
-    the default library while the others' builds (minutes for
-    6-64-64-64-64-4) run on, until phases 28, 30 and 31 need them."""
+    ``BF16_LIBRARIES``, one ``nvcc`` each (a wide spec's in
+    ``_build.parts``), all asked for at once (threads) in the order the
+    phases take them, the default library first: ``_build`` runs
+    ``_build.NVCC_JOBS`` at once in that order, so that the phases
+    meanwhile keep cores of their own.  Each float32 library of another
+    spec is dumped (``library_sass``) beside its build.  ``get(layers, field, bf16)`` waits
+    for that library's build and returns (library, seconds), or fails the
+    phase if it did not build: the main path takes the default library
+    while the others' builds run on, until phases 28, 30 and 31 need them;
+    ``done[key]`` is when a build ended, in seconds from the start."""
 
     def __init__(self):
         import threading
 
-        self.libs, self.errors = {}, {}
+        self.libs, self.errors, self.done = {}, {}, {}
+        self.t0 = time.perf_counter()
         keys = ([(layers, field, False) for layers, field in LIBRARIES]
                 + [(layers, field, True)
                    for layers, field in BF16_LIBRARIES])
@@ -4427,6 +4533,7 @@ class Builds:
                         for key in keys}
         for th in self.threads.values():
             th.start()
+            time.sleep(0.05)         # each asks for its slots in this order
 
     def _build(self, layers, field, bf16):
         from autorally_tpu_torch.ops import _build
@@ -4436,8 +4543,11 @@ class Builds:
             self.libs[layers, field, bf16] = (
                 _build.load(layers, field, bf16=bf16),
                 time.perf_counter() - t0)
+            if not bf16 and (layers, field) != (None, None):
+                library_sass(layers, field)      # phases 28 and 30 read it
         except Exception as e:               # reported by get, then fail
             self.errors[layers, field, bf16] = e
+        self.done[layers, field, bf16] = time.perf_counter() - self.t0
 
     def get(self, layers, field=None, bf16=False):
         key = (layers, field, bf16)
@@ -4458,22 +4568,37 @@ def build_libraries(rk) -> dict:
     return {key: builds.get(*key) for key in builds.threads}
 
 
+def parts_line(tag, log, card) -> None:
+    """The seconds of each part of a library built in parts (its nvcc
+    output's ``part <p>: nvcc <s>s`` lines), on one line."""
+    from autorally_tpu_torch.ops import _build
+
+    parts = re.findall(r"^(part \d+|link): nvcc ([\d.]+)s$", log, re.M)
+    if parts:
+        print(f"[{tag}] nvcc in {len(parts) - 1} parts and a link, "
+              f"{_build.NVCC_JOBS} at once: "
+              + ", ".join(f"{name} {sec}s" for name, sec in parts)
+              + f" ({card})")
+
+
 def spec_instances(rk, layers, lib, card) -> None:
     """Phase 1 for a library of another spec: its ptxas report (kernel 1
     in one rollout a thread and in each lane group the spec takes, kernel
     2 in one rollout a thread and, where 32 divides the widths, a warp,
-    kernel 3, exact pass 1 and pass 1's field mode; zero spill bytes in
-    every one: the launchers pick each for some K) and each instance's
+    kernel 3, exact pass 1 and pass 1's field mode, each beside its lane
+    form; zero spill bytes in every one: the launchers pick each for some
+    K) and each instance's
     registers, dynamic shared memory and blocks an SM at T=100; the field
     instances at least 8 warps an SM and TF32 HMMA in their SASS."""
     tag = f"build {spec_label(layers)}"
     if lib.build is not None:
+        parts_line(tag, lib.build[1], card)
         report = ptxas_report(lib.build[1])
         for name, regs, spill in report:
             print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
                   f"stores and loads")
-        n_want = 2 + len(rk.lane_groups(layers)) + (
-            len(rk.chain_geometries(layers)) - 1) + 3
+        n_want = 2 * (2 + len(rk.lane_groups(layers)) + (
+            len(rk.chain_geometries(layers)) - 1) + 3)
         check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
               f"kernels, expected {n_want}")
         check(all(spill == 0 for _, _, spill in report),
@@ -4680,7 +4805,7 @@ def spec_phase(drive_oval, rk, card, dev=None) -> dict:
             model, params, cfg, cp, costmap, start, U, eps)
         ms_1 = cuda_ms(launch_1, 50)
         plain_1 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, cfg, cp, costmap, start, U, eps), 3, 1)
+            model, params, cfg, cp, costmap, start, U, eps), PLAIN_REPS, 1)
         bound_1, by_1 = bound(4 * (T * KS * 2 + 2 * T * KS + 2 * KS + T * 2
                                    + n_w + 7 + 4 + 2 * KS * (T - 1)),
                               step * KS * T)
@@ -4695,7 +4820,7 @@ def spec_phase(drive_oval, rk, card, dev=None) -> dict:
                              cfg, start, U, e, False, 100 if k_n == 1 else 20,
                              card, sass=sass)
             plain = cuda_ms(lambda: rk.dynamics_chain_plain(
-                model, params, cfg, start, U, e), 3, 1)
+                model, params, cfg, start, U, e), PLAIN_REPS, 1)
             bnd, by = bound(4 * (11 * T * k_n + 2 * T + n_w + 7 + 4),
                             step * T * k_n)
             print(f"[timing] spec {label} kernel 2 K={k_n}: {c['ms']:.4f} ms"
@@ -4968,7 +5093,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
                                                     field, start, U, eps)
         ms_3 = cuda_ms(launch_3, 10)
         plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, cfg, cp, field, start, U, eps), 3, 1)
+            model, params, cfg, cp, field, start, U, eps), PLAIN_REPS, 1)
         bytes_3 = 4 * (3 * T * KS * 2 + 2 * KS + T * 2 + n_w + n_f + 7 + 4)
         fp32_3, tc_3 = field_bounds(bytes_3, KS * T * step, KS * (T - 1) * 2,
                                     field)
@@ -4991,7 +5116,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
             plain_e = None
             if k_n == KS:
                 plain_e = cuda_ms(lambda: rk.fused_rng_costs_plain(
-                    model, params, ck, cp, costmap, start, U, key), 3, 1)
+                    model, params, ck, cp, costmap, start, U, key), PLAIN_REPS, 1)
             geometry_line(rk, f"timing {tag} pass 1 K={k_n}", launch_e, True,
                           False, card, layers=layers)
             print(f"[timing] {tag} pass 1 fused_rng_costs gaussian K={k_n} "
@@ -5005,7 +5130,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
                                                     field, start, U, key)
         ms_f = cuda_ms(launch_f, 10)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cp, field, start, U, key), 3, 1)
+            model, params, c, cp, field, start, U, key), PLAIN_REPS, 1)
         bytes_f = 4 * (2 * KS + T * 2 + n_w + n_f + 7 + 4) + 16
         fp32_f, tc_f = field_bounds(bytes_f, KS * T * (step + STREAM_OPS),
                                     KS * (T - 1) * 2, field)
@@ -5295,7 +5420,8 @@ def baseline3_phase(drive_oval, rk, card, spec, field_spec, field,
 def field_library_instances(rk, layers, fspec, lib, card) -> None:
     """Phase 1 for a library of another field spec (``FIELD_PAIRS``): its
     ptxas report (kernel 3 and pass 1's field mode, the MLP's and beside
-    the default MLP spec the BF model's; zero spill bytes in every one),
+    the default MLP spec the BF model's, each beside its lane form; zero
+    spill bytes in every one),
     each instance's registers, dynamic shared memory and blocks an SM at
     T=100 (``field_instances``), and TF32 HMMA in each one's SASS (none
     for a field without a hidden layer, which takes no product)."""
@@ -5309,8 +5435,8 @@ def field_library_instances(rk, layers, fspec, lib, card) -> None:
         for name, regs, spill in report:
             print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
                   f"stores and loads")
-        check(len(report) == n_want, f"{tag}: ptxas reported {len(report)} "
-              f"kernels, expected {n_want}")
+        check(len(report) == 2 * n_want, f"{tag}: ptxas reported "
+              f"{len(report)} kernels, expected {2 * n_want}")
         check(all(spill == 0 for _, _, spill in report),
               f"{tag}: a kernel spills")
         PTXAS.update((f"{name} [{tag[6:]}]", regs) for name, regs, _ in report)
@@ -5513,7 +5639,7 @@ def field_spec_phase(drive_oval, rk, card, dev=None) -> dict:
                                                     field, start, U, eps_t)
         ms_3 = cuda_ms(launch_3, 10)
         plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, ck, cp, field, start, U, eps_t), 2, 1)
+            model, params, ck, cp, field, start, U, eps_t), PLAIN_REPS, 1)
         bytes_3 = 4 * (3 * T * KF * 2 + 2 * KF + T * 2 + n_w + n_f + 7 + 4)
         fp32_3, tc_3 = field_bounds(bytes_3, KF * T * step, KF * (T - 1) * 2,
                                     field)
@@ -5523,7 +5649,7 @@ def field_spec_phase(drive_oval, rk, card, dev=None) -> dict:
                                                     field, start, U, key)
         ms_f = cuda_ms(launch_f, 5)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, cc, cp, field, start, U, key), 2, 1)
+            model, params, cc, cp, field, start, U, key), PLAIN_REPS, 1)
         bytes_f = 4 * (2 * KC + T * 2 + n_w + n_f + 7 + 4) + 16
         fp32_f, tc_f = field_bounds(bytes_f, KC * T * (step + STREAM_OPS),
                                     KC * (T - 1) * 2, field)
@@ -5596,15 +5722,11 @@ def fit_field_drives(drive_oval, rk, card, dev, tag, n3, np1, chain, hold3,
     import torch
     from autorally_tpu_torch.solver.mppi import MPPISolver
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    host, params, cp, field, note = drive_oval.build(
-        rollouts=KF, device=dev, neural_costmap=True, fit_kwargs=FIT_KWARGS)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
+    (host, params, cp, field, note), fit_s = fitted_field(
+        drive_oval, dev, FIT_KWARGS)
     print(f"[{tag}] drive_oval.build(neural_costmap=True, fit_kwargs="
-          f"{FIT_KWARGS}): {fit_s:.3f} s ({card}); {note.splitlines()[-1]}; "
-          f"layers {field.layers}")
+          f"{FIT_KWARGS}): {fit_s:.3f} s ({card}; fitted while the default "
+          f"library built); {note.splitlines()[-1]}; layers {field.layers}")
     check(rk.field_spec(field) == FIELD_LABELS[FIT_FIELD],
           f"{tag}: the fit gave layers {field.layers}")
     start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
@@ -5661,21 +5783,23 @@ PREC_BIAS_STD = 0.3
 def bf16_library_instances(rk, layers, field, lib, card) -> None:
     """Phase 1 for a library of bf16 operands: its ptxas report (the
     instances of the float32 library of the same specs but pass 2 and the
-    quotient check: 15 for the default specs, a spec library's count, 4
-    for a field library beside the default MLP), zero spill bytes in
-    every one, and the field instances' registers and blocks an SM."""
+    quotient check, each beside its lane form: 30 for the default specs, a
+    spec library's count, 8 for a field library beside the default MLP),
+    zero spill bytes in every one, and the field instances' registers and
+    blocks an SM."""
     from autorally_tpu_torch.ops import _build
 
     tag = "build bf16 " + (spec_label(layers) if layers else "default") + (
         f" {_build.field_label(field)}" if field else "")
     if field is not None:
-        n_want = 4
+        n_want = 2 * 4
     elif layers is None:
-        n_want = 11 + len(rk.LANE_GROUPS) + 2 + 1 - 2
+        n_want = 2 * (11 + len(rk.LANE_GROUPS) + 2 + 1 - 2)
     else:
-        n_want = 2 + len(rk.lane_groups(layers)) + (
-            len(rk.chain_geometries(layers)) - 1) + 3
+        n_want = 2 * (2 + len(rk.lane_groups(layers)) + (
+            len(rk.chain_geometries(layers)) - 1) + 3)
     if lib.build is not None:
+        parts_line(tag, lib.build[1], card)
         report = ptxas_report(lib.build[1])
         for name, regs, spill in report:
             print(f"[{tag}] {name}: {regs} registers, {spill} bytes of spill "
@@ -6363,7 +6487,7 @@ def precision_phase(drive_oval, rk, card, field, dev=None) -> dict:
         for p in ("highest", P, P, "highest"):
             runs[p].append(cuda_ms(launch[p], reps))
         ms, ms32 = statistics.mean(runs[P]), statistics.mean(runs["highest"])
-        plain_ms = cuda_ms(lambda: plain(P), 3 if size == "small" else 2, 1)
+        plain_ms = cuda_ms(lambda: plain(P), PLAIN_REPS, 1)
         fp32, tc = bounds(nbytes, k_n, ops, prod, surface)
         dname = launch[P].name
         geom = launch[P].geometry
@@ -6484,18 +6608,16 @@ def physics_drive(rk, tag, loop, ticks, names, card, logf=None) -> dict:
     return m
 
 
-def physics_phase(rk, card, dev=None) -> dict:
-    """Phase 32: the physics simulator (``sim/``) and the drive -> log ->
-    train -> hot-swap loop on the card (see the module's docstring)."""
+def physics_sim_phase(card, dev=None) -> dict:
+    """Phase 32 (a)-(b): the physics simulator (``sim/``) on the card
+    against the CPU, and ``sim_node --physics`` as its own process.  They
+    run no kernel of the port's library, so ``main`` runs them while the
+    default library builds (see the module's docstring)."""
     import shutil
     import tempfile
 
     import torch
 
-    from autorally_tpu_torch import ml_loop_demo
-    from autorally_tpu_torch.ml import instantaneous_errors
-    from autorally_tpu_torch.ml import trainer
-    from autorally_tpu_torch.models import NeuralNetDynamics
     from autorally_tpu_torch.runtime.realtime_gate import free_udp_ports
     from autorally_tpu_torch.sim import VehicleParams
     from autorally_tpu_torch.sim.description import (DEFAULT_URDF,
@@ -6621,7 +6743,30 @@ def physics_phase(rk, card, dev=None) -> dict:
         check(len(truth) == SIM_NODE_SECONDS * SIM_NODE_HZ,
               f"sim_node logged {len(truth)} ground_truth/state rows")
         check(missed is not None, "sim_node printed no missed periods")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return results
 
+
+def physics_phase(rk, card, dev=None, sim=None) -> dict:
+    """Phase 32 (c)-(d): the drive -> log -> train -> hot-swap loop on the
+    card, and BASELINE #3 trained on its log (see the module's
+    docstring); with ``sim``, (a)-(b)'s results, returned beside
+    them."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from autorally_tpu_torch import ml_loop_demo
+    from autorally_tpu_torch.ml import instantaneous_errors
+    from autorally_tpu_torch.ml import trainer
+    from autorally_tpu_torch.models import NeuralNetDynamics
+
+    dev = dev or torch.device("cuda", 0)
+    results = dict(sim or {})
+    work = tempfile.mkdtemp(prefix="physics_")
+    try:
         # (c) the drive -> log -> train -> hot-swap loop
         loop = ml_loop_demo.MLLoop(ML_K, ML_T, 6.0, device=dev,
                                    model_path=None)
@@ -6915,7 +7060,7 @@ def lanes_row(rk, name, launch, plain_fn, L: int, K_: int, n_w: int,
     output written once: L x the solo row's work) and the counted
     launches."""
     ms = cuda_ms(launch, LANE_TIME_REPS)
-    plain = cuda_ms(plain_fn, 1, 1)
+    plain = plain_timed(plain_fn)[1]        # warmed by the holds
     if chain:
         nbytes = 4 * (2 * T * K_ + L * (2 * T + 7 + 9 * T * K_) + n_w + 4)
     else:
@@ -6947,10 +7092,11 @@ def sweep_launches(rk, runner, args, card, kw=None,
     """Phase 33 (c): ``LANE_PROFILE_TICKS`` replayed ticks of ``runner``'s
     sweep under the profiler (after a warm-up run of the profiler, which
     it discards): the lane forms of the fused kernel (kernel 1, or kernel 3
-    with ``fused="fused_field"``) and of kernel 2 and no solo instance,
-    at most the two launches of each that the captured tick holds (the
-    wrappers count exactly 2 + 2 in the capture), and the device events
-    (graph nodes) a tick.  A record the profiler drops is reported."""
+    with ``fused="fused_field"``, or pass 1 with ``fused="fused_rng"``,
+    then pass 2's too) and of kernel 2 and no solo instance, at most the
+    two launches of each that the captured tick holds (the wrappers count
+    exactly 2 + 2 (+ 2) in the capture), and the device events (graph
+    nodes) a tick.  A record the profiler drops is reported."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -6968,23 +7114,25 @@ def sweep_launches(rk, runner, args, card, kw=None,
              if e.device_type == torch.autograd.DeviceType.CUDA]
     n = runner.n_ticks
     # a lane instance's name ends its template arguments with kLanes
-    count = {"kernel 1": sum(fused in x and ", true>" in x for x in names),
-             "kernel 2": sum("dynamics_chain" in x and ", true>" in x
-                             for x in names),
-             "solo": sum(("fused_" in x or "dynamics_chain" in x)
-                         and ", true>" not in x for x in names)}
-    dropped = 4 * n - count["kernel 1"] - count["kernel 2"]
-    print(f"[sweep launches] {n} replayed ticks (profiler): {fused} lanes "
-          f"{count['kernel 1']}, kernel 2 lanes {count['kernel 2']}, solo "
-          f"instances {count['solo']}, lane launches the profiler did not "
-          f"record {dropped}; {len(names)} device events "
-          f"({len(names) / n:.0f} a tick) ({card})")
-    check(count["solo"] == 0 and 0 < count["kernel 1"] <= 2 * n
-          and 0 < count["kernel 2"] <= 2 * n,
-          f"sweep: launches {count}, expected the lane forms alone, 2 + 2 "
-          "a replayed tick")
-    return {"launches_per_tick": {"kernel 1": count["kernel 1"] / n,
-                                  "kernel 2": count["kernel 2"] / n},
+    lane = lambda x: re.search(r"(<|, )true>", x) is not None
+    kernels = {"kernel 1": fused, "kernel 2": "dynamics_chain"}
+    if fused == "fused_rng":
+        kernels["pass 2"] = "weighted_update"
+    count = {k: sum(frag in x and lane(x) for x in names)
+             for k, frag in kernels.items()}
+    count["solo"] = sum(("fused_" in x or "dynamics_chain" in x
+                         or "weighted_update" in x) and not lane(x)
+                        for x in names)
+    dropped = 2 * len(kernels) * n - sum(count[k] for k in kernels)
+    print(f"[sweep launches] {n} replayed ticks (profiler): " + ", ".join(
+        f"{kernels[k]} lanes {count[k]}" for k in kernels)
+        + f", solo instances {count['solo']}, lane launches the profiler did "
+        f"not record {dropped}; {len(names)} device events "
+        f"({len(names) / n:.0f} a tick) ({card})")
+    check(count["solo"] == 0 and all(0 < count[k] <= 2 * n for k in kernels),
+          f"sweep: launches {count}, expected the lane forms alone, 2 of "
+          "each a replayed tick")
+    return {"launches_per_tick": {k: count[k] / n for k in kernels},
             "graph_nodes_per_tick": len(names) / n,
             "profiler_dropped": dropped}
 
@@ -7300,11 +7448,22 @@ LANE_CIRCLE_SETS = {"16 per lane": (N_SLOTS, True),
                     "64 per lane": (64, True)}
 FIELD_LANE_SHAPES = ((3, 512), (12, K), (4, 16384))   # (c): (L, K)
 LANE_DRIVE_TICKS = 200                 # (d): each full-width drive, L=12
+# (b)-(c) at L=12 the forms the drives run (each held at L=3 too): kernel
+# 1 with 16 circles a lane's own and 16 shared, kernel 3 without circles
+LANE_WIDE_L, LANE_WIDE_SETS = 12, ("16 per lane", "16 shared")
 LANE_BF_DRIVE_TICKS = 20               # (d): the 3-lane BF sweeps
 LANE_COEFF, LANE_INFLATION = 150.0, 0.75
 # kernel 3's lane instances (ptxas' names, phase 1)
 FIELD_LANE_INSTANCES = ("fused_field_kernel<Mlp, lanes>",
                         "fused_field_kernel<Bf, lanes>")
+
+
+def lane_circle_sets(L: int) -> list:
+    """Phase 34 (b)'s circle sets at L lanes: every one of
+    ``LANE_CIRCLE_SETS``, or at ``LANE_WIDE_L`` those of
+    ``LANE_WIDE_SETS``."""
+    return [(label, v) for label, v in LANE_CIRCLE_SETS.items()
+            if L != LANE_WIDE_L or label in LANE_WIDE_SETS]
 
 
 def lane_circles(rk, model, params, cfg, state, U, slots: int,
@@ -7587,7 +7746,7 @@ def lanes_field_phase(rk, card, field, dev=None) -> dict:
         for kind, (m, p) in models.items():
             c = cfg.replace(num_rollouts=K_)
             geoms = rk.GEOMETRIES if kind == "nn" else rk.GEOMETRIES[:1]
-            for label, (slots, own) in LANE_CIRCLE_SETS.items():
+            for label, (slots, own) in lane_circle_sets(L):
                 circles = lane_circles(rk, m, p, c, state, U, slots, own,
                                        seed=slots + L)
                 held[L, K_, kind, label] = circles_held(
@@ -7605,7 +7764,8 @@ def lanes_field_phase(rk, card, field, dev=None) -> dict:
             c = cfg.replace(num_rollouts=K_)
             circles = lane_circles(rk, m, p, c, state, U, N_SLOTS, True,
                                    seed=L + 7)
-            for with_circles in (False, True):
+            for with_circles in ((False,) if L == LANE_WIDE_L
+                                 else (False, True)):
                 ob = circles if with_circles else None
                 kw = ({} if ob is None else dict(
                     obstacle_coeff=LANE_COEFF, inflation=LANE_INFLATION))
@@ -7713,7 +7873,7 @@ def lanes_field_phase(rk, card, field, dev=None) -> dict:
             cp = lane_cost_grid(L)
             state, U, eps = lane_inputs(L, K_, dev, seed=L)
             c = cfg.replace(num_rollouts=K_)
-            for label, (slots, own_lane) in LANE_CIRCLE_SETS.items():
+            for label, (slots, own_lane) in lane_circle_sets(L):
                 circles = lane_circles(rk, m, p, c, state, U, slots,
                                        own_lane, seed=slots + L)
                 kw = dict(obstacles=circles, obstacle_coeff=LANE_COEFF,
@@ -7743,6 +7903,646 @@ def lanes_field_phase(rk, card, field, dev=None) -> dict:
             del eps
     check(set(launches) <= used, "lanes field: a drive's shape has no row "
           f"in the kernels line: {set(launches) - used}")
+    return {"results": results, "rows": rows}
+
+
+# -- phase 35: the capacity mode in the sweep's lanes; every library's lanes -
+
+# (a) pass 1's lane forms, {label: (slots, a lane's own)} at phase 33's
+# shapes, and one launch on a shard's slice (k_offset, K_local): the second
+# half of a 2 x 512 batch
+CAP_CIRCLE_SETS = {"no circles": (0, True), "16 per lane": (N_SLOTS, True),
+                   "16 shared": (N_SLOTS, False)}
+CAP_SHARD = (512, 512)
+# (c) every library's lane forms at L=3: the wide spec's and F6-48-48's at
+# BASELINE #3's K, the bf16 library's at BASELINE #1's
+LIB_LANES = 3
+# (d) the capacity drives: 12 lanes at K (gaussian, OU), 4 lanes at
+# BASELINE #5's KC (exact map, field), 3 lanes of BASELINE #3's spec at KS
+# (capacity, host noise), 3 at "default" at K
+CAP_L12_TICKS = {"gaussian": 200, "ou": 20}
+CAP_WIDE_LANES = 4
+CAP_WIDE_TICKS = {"exact": 50, "field": 20}
+CAP_FORM_TICKS = 20
+CAP_TIME_REPS = 20                    # the kernels line's CUDA-event runs
+# the capacity passes' lane instances in the default library (ptxas' names,
+# phase 1)
+CAP_LANE_INSTANCES = ("fused_rng_kernel<Mlp, lanes>",
+                      "fused_rng_bf_kernel<lanes>",
+                      "fused_rng_field_kernel<Mlp, lanes>",
+                      "fused_rng_field_kernel<Bf, lanes>",
+                      "weighted_update_kernel<lanes>")
+
+
+def lanes_subset(cp, idx):
+    """The stacked CostParams of the lanes ``idx`` of ``cp``."""
+    import torch
+    from autorally_tpu_torch.config import cost_params_lanes
+
+    L, kw = cost_params_lanes(cp), {}
+    for f in dataclasses.fields(cp):
+        v = getattr(cp, f.name)
+        if (torch.is_tensor(v) and v.dim() == (3 if f.name == "obstacles"
+                                               else 1) and v.shape[0] == L):
+            kw[f.name] = v[list(idx)]
+    return cp.replace(**kw)
+
+
+def cap_lanes_held(rk, tag, model, params, cfg, cp, surface, state, U, key,
+                   circles, card, k_offset=0, K_local=None) -> dict:
+    """Phase 35 (a) at one (L, K), model, sampler, surface and set of
+    circles: pass 1's lane form (not counted) against its plain version by
+    phase 9's rule (costs within COST_RTOL / COST_ATOL and equal crash
+    flags, in all but 1 % of a lane's rollouts: the lanes' starts are not
+    the nominal case), and each lane bit for bit the solo instance run with
+    that lane's scalars, start, plan and circles on the same stream.  The
+    plain version takes every lane at L=3, and lanes 0 and L-1 beyond (a
+    lane of it costs 0.25-0.45 s of launches on the card at K=1920; every
+    lane is held bit for bit against its solo instance, whose plain version
+    is that lane's).  Returns the max cost error, the plain version's ms
+    (None where it ran only some lanes) and the whole plain version, the
+    launch, its ctx and costs."""
+    import torch
+    from autorally_tpu_torch.config import lane_cost_params
+
+    L = state.shape[0]
+    kw = dict(k_offset=k_offset, K_local=K_local)
+    if circles is not None:
+        kw.update(obstacle_coeff=LANE_COEFF, inflation=LANE_INFLATION)
+    launch, (kc, kx), ctx = rk.prepare_fused_rng_costs_lanes(
+        model, params, cfg, cp, surface, state, U, key, obstacles=circles,
+        **kw)
+    launch()
+    idx = list(range(L)) if L <= 3 else [0, L - 1]
+    sub = (None if circles is None or circles.dim() == 2
+           else circles[idx])
+    (pc, px, _), plain_ms = plain_timed(lambda: rk.fused_rng_costs_lanes_plain(
+        model, params, cfg, lanes_subset(cp, idx), surface, state[idx],
+        U[idx], key, obstacles=circles if sub is None else sub, **kw))
+    K_ = ctx.K
+    err = max(agreement(f"cap lanes {tag}", f"lane {i}", kc[i], kx[i], pc[j],
+                        px[j], K_, limit=K_ // 100)
+              for j, i in enumerate(idx))
+    same = []
+    for i, cp_i in enumerate(lane_cost_params(cp)):
+        one, (oc, ox), _ = rk.prepare_fused_rng_costs(
+            model, params, cfg, cp_i, surface, state[i], U[i], key,
+            obstacles=(None if circles is None
+                       else lane_solo_circles(circles, i)), **kw)
+        one()
+        torch.cuda.synchronize()
+        same.append(bit_equal(kc[i], oc) and bit_equal(kx[i], ox))
+    g = launch.geometry
+    print(f"[cap lanes {tag}] {launch.name} ({g.grid} x {L} blocks of "
+          f"{g.block}, k_offset {k_offset}): each lane bit for bit the solo "
+          f"instance: {same}; crash {[int(v) for v in kx.sum(1).tolist()]} "
+          f"of {K_} ({card})")
+    check(all(same), f"cap lanes {tag}: a lane differs from the solo "
+          "instance")
+    return {"err": err, "plain_ms": plain_ms if len(idx) == L else None,
+            "plain": lambda: rk.fused_rng_costs_lanes_plain(
+                model, params, cfg, cp, surface, state, U, key,
+                obstacles=circles, **kw),
+            "launch": launch, "ctx": ctx, "costs": kc}
+
+
+def lane_abs_controls(rk, model, params, cfg, cp, cm, ctx, eps):
+    """|u| (L, C, T, K) of the lanes' rollouts on the plain stream ``eps``:
+    kernel 1's lane form's u_seq (the controls do not depend on the
+    state)."""
+    import torch
+
+    state = torch.zeros((ctx.U.shape[0], model.STATE_DIM),
+                        device=ctx.U.device)
+    launch, (_, u_seq, _) = rk.prepare_fused_exact_rollout_cost_lanes(
+        model, params, cfg, cp, cm, state, ctx.U, eps, k_offset=ctx.k_offset)
+    launch()
+    return u_seq.abs_()
+
+
+def cap_numer_held(rk, tag, model, params, cfg, cp, cm, ctx, weights,
+                   card) -> float:
+    """Phase 35 (b): pass 2's lane form on each of ``weights`` ({name: (L,
+    K)}), each lane's partials bit for bit the solo kernel's on that lane's
+    U and weights, and the numerator against its plain version within
+    NUMER_RTOL of sum_k |w_k u_k|, as phase 8.  Returns the max abs
+    error."""
+    import torch
+    from autorally_tpu_torch.tools.ab_builds import zero_warp_share
+
+    L = ctx.U.shape[0]
+    u_abs = lane_abs_controls(rk, model, params, cfg, cp, cm, ctx,
+                              rk.rng_noise(ctx))
+    err = 0.0
+    for wname, w in weights.items():
+        launch, partials = rk.prepare_fused_rng_numer_lanes(ctx, w)
+        launch()
+        kn = torch.stack([torch.sum(p, dim=0) for p in partials])
+        pn = rk.fused_rng_numer_lanes_plain(ctx, w)
+        same = []
+        for i in range(L):
+            one, part = rk.prepare_fused_rng_numer(ctx._replace(U=ctx.U[i]),
+                                                   w[i].contiguous())
+            one()
+            torch.cuda.synchronize()
+            same.append(bit_equal(partials[i], part))
+        scale = torch.einsum("lk,lctk->lct", w.abs(), u_abs)
+        e = (kn - pn).abs()
+        rel = (e / scale.clamp(min=1e-30)).max().item()
+        ess = [round((r.sum() ** 2 / (r * r).sum()).item(), 1) for r in w]
+        print(f"[cap lanes (b) {tag}] fused_rng_numer_lanes, {wname} "
+              f"weights (L={L}, K={ctx.K}): each lane's partials bit for bit "
+              f"the solo kernel's: {same}; max|numer err| "
+              f"{e.max().item():.3e}, max err / sum|w u| {rel:.3e} (limit "
+              f"{NUMER_RTOL}); ess {ess}, "
+              f"{100 * zero_warp_share(w.reshape(-1)):.2f} % all-zero warps "
+              f"({card})")
+        check(all(same), f"cap lanes (b) {tag} {wname}: a lane differs from "
+              "the solo kernel")
+        check(bool((e <= NUMER_RTOL * scale).all()), f"cap lanes (b) {tag} "
+              f"{wname}: numerator differs beyond {NUMER_RTOL} of sum|w u|")
+        err = max(err, e.max().item())
+    return err
+
+
+def lib_lanes_held(tag, pairs, card) -> None:
+    """Phase 35 (c): each (name, lane launch's prepare, solo prepare of
+    lane i) of ``pairs``: every lane of the lane launch bit for bit its
+    solo instance of the same library."""
+    import torch
+
+    for name, lanes, solo in pairs:
+        launch, out = lanes()[:2]
+        launch()
+        same = []
+        for i in range(launch.lanes):
+            one, o = solo(i)[:2]
+            one()
+            torch.cuda.synchronize()
+            same.append(all(bit_equal(a[i], b) for a, b in zip(out, o)))
+        g = launch.geometry
+        print(f"[cap lanes (c) {tag}] {launch.name} ({geometry_label(g)}, "
+              f"{g.grid} x {launch.lanes} blocks): each lane bit for bit the "
+              f"solo instance of the library: {same} ({card})")
+        check(all(same), f"cap lanes (c) {tag} {name}: a lane differs from "
+              "its solo instance")
+
+
+def cap_row(name, launch, plain_fn, L: int, K_: int, nbytes: float,
+            bnd, err, launches: int, card, instance, plain_ms=None,
+            extra=None) -> dict:
+    """A ``kernels`` row of phase 35: the lane form's time (CUDA events),
+    its plain version's (``plain_ms``, or ``plain_fn`` timed once), its
+    bound (``bnd``: (ms, what bounds it), L x the solo form's work) and the
+    drive's launches at its shape."""
+    ms = cuda_ms(launch, CAP_TIME_REPS)
+    plain = plain_ms if plain_ms is not None else plain_timed(plain_fn)[1]
+    g = launch.geometry
+    print(f"[timing] {name} L={L} K={K_}: {ms:.4f} ms ({g.grid} x {L} blocks "
+          f"of {g.block}), plain {plain:.3f} ms, bound {bnd[0]:.5f} ms "
+          f"({bnd[1]}), {launches} launches in its drive, {nbytes:.0f} "
+          f"bytes, {PTXAS.get(instance)} registers ({card})")
+    return {"name": name, "route": "cuda",
+            "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+            "replaces": "autorally_tpu/ops/rollout_kernel.py:" + (
+                "1346" if name.startswith("fused_rng_numer") else "1221"
+                if name.startswith("fused_rng_costs") else "389"
+                if name.startswith("dynamics_chain") else "606"
+                if name.startswith("fused_rollout_cost") else "1013"),
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": None, "K": K_, "lanes": L,
+            "geometry": geometry_label(g), "instance": instance,
+            "registers": PTXAS.get(instance), **(extra or {})}
+
+
+def cap_drive_runner(model, cost, cfg, ticks):
+    """A drive's ``make_runner``: an ``EpisodeRunner`` of ``ticks`` ticks
+    (or ``n``) on one solver of ``cfg``."""
+    from autorally_tpu_torch.runtime.episode import EpisodeRunner
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+
+    solver = MPPISolver(model, cost, cfg, device=model.device)
+    return lambda n: EpisodeRunner(solver, n_ticks=n or ticks)
+
+
+def capacity_lanes_phase(rk, card, field, dev=None) -> dict:
+    """Phase 35: the capacity mode in the sweep's lanes (both passes' lane
+    forms) and the lane forms in the libraries of other MLP specs, other
+    fields and bf16 operands (``field``: phase 11's fit)."""
+    import torch
+    from autorally_tpu_torch.config import (CostParams, MPPIConfig,
+                                            lane_cost_params)
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.models import (BasisFunctionDynamics,
+                                            NeuralNetDynamics)
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+    from autorally_tpu_torch.tools.lap_eval import load_track
+    from autorally_tpu_torch.tools.param_sweep import (build_grid,
+                                                       stack_cost_params)
+
+    dev = dev or torch.device("cuda", 0)
+    results, rows = {}, []
+    cm, start_pose, _, _ = load_track("oval", device=dev)
+    start = [*start_pose, 0, 0, 0, 0]
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    models = {}
+    for kind, cls in (("nn", NeuralNetDynamics),
+                      ("bf", BasisFunctionDynamics)):
+        base = MPPIConfig(num_rollouts=K, num_timesteps=T)
+        m = cls(base.dt, control_ranges=base.control_ranges, device=dev)
+        models[kind] = (m, m.init_params(0))
+
+    def cap_cfg(K_, sampler="gaussian", **kw):
+        return MPPIConfig(num_rollouts=K_, num_timesteps=T, kernel_rng=True,
+                          **SAMPLERS[sampler], **kw)
+
+    # (a) pass 1's lane instances: registers (ptxas, phase 1) and blocks an
+    # SM at T; every instance, gaussian and OU, each circle set, both
+    # shapes, against its plain version and each lane its solo instance
+    t0 = time.perf_counter()
+    regs = {n: PTXAS.get(n) for n in CAP_LANE_INSTANCES}
+    print(f"[cap lanes (a)] ptxas: {regs} registers, no spill (phase 1)")
+    check(all(v is not None for v in regs.values()),
+          f"cap lanes (a): ptxas reported no {regs}")
+    results["registers"] = regs
+    for bf in (False, True):
+        for fmode in (False, True):
+            g = rk._geometry(1, 1, rk.FIELD_BLOCK if fmode else
+                             rk.EXACT_BLOCK)
+            info = rk.lanes_kernel_info(4, bf, g, T, N_SLOTS,
+                                        field_mode=fmode)
+            print(f"[cap lanes (a)] pass 1 {'field' if fmode else 'exact'} "
+                  f"{'BF' if bf else 'MLP'}: {info['registers']} registers, "
+                  f"{info['local_bytes']} bytes of local memory, "
+                  f"{info['smem_bytes']} bytes of dynamic shared memory at "
+                  f"T={T} with {N_SLOTS} slots, {info['blocks_per_sm']} "
+                  f"blocks an SM ({card})")
+    info = rk.lanes_kernel_info(5, False, rk._geometry(1, 1, rk.UPDATE_BLOCK),
+                                T)
+    print(f"[cap lanes (a)] pass 2: {info['registers']} registers, "
+          f"{info['blocks_per_sm']} blocks an SM at T={T} ({card})")
+    held = {}
+    for L, K_ in LANE_SHAPES:
+        cp = lane_cost_grid(L)
+        state, U, _ = lane_inputs(L, K_, dev, seed=L + 35)
+        for kind, (m, p) in models.items():
+            own = lane_circles(rk, m, p, cap_cfg(K_), state, U, N_SLOTS, True,
+                               seed=L + 35)
+            shared = lane_circles(rk, m, p, cap_cfg(K_), state, U, N_SLOTS,
+                                  False, seed=L + 36)
+            for sampler in SAMPLERS:
+                c = cap_cfg(K_, sampler)
+                for surface, surf in (("exact", cm), ("field", field)):
+                    for label, (slots, own_lane) in CAP_CIRCLE_SETS.items():
+                        circles = (None if not slots else own if own_lane
+                                   else shared)
+                        held[L, K_, kind, sampler, surface, label] = (
+                            cap_lanes_held(
+                                rk, f"(a) L={L} K={K_} {kind} {sampler} "
+                                f"{surface} {label}", m, p, c, cp, surf,
+                                state, U, key, circles, card))
+    # one lane launch on a shard's slice (k_offset != 0)
+    k0, kl = CAP_SHARD
+    L3 = LANE_SHAPES[0][0]
+    state, U, _ = lane_inputs(L3, kl, dev, seed=53)
+    m, p = models["nn"]
+    cap_lanes_held(rk, f"(a) shard k_offset={k0} K_local={kl}", m, p,
+                   cap_cfg(k0 + kl), lane_cost_grid(L3), cm, state, U, key,
+                   None, card, k_offset=k0, K_local=kl)
+
+    print(f"[time] phase 35 (a) in {time.perf_counter() - t0:.1f}s ({card})")
+    t0 = time.perf_counter()
+
+    # (b) pass 2's lane form at L=12, K: the nominal weights (each lane's
+    # costs at its own gamma), three warps of every four zeroed (sparse),
+    # all 1 (dense); a closed loop's below, after (d)'s drive
+    L12, K12 = LANE_SHAPES[1]
+    m, p = models["nn"]
+    cp12 = lane_cost_grid(L12)
+    a12 = held[L12, K12, "nn", "gaussian", "exact", "no circles"]
+    w = rk.lane_weights(cap_cfg(K12), cp12, a12["costs"])
+    sparse = torch.where(torch.arange(K12, device=dev) // 32 % 4 == 0, w,
+                         torch.zeros_like(w))
+    err_p2 = cap_numer_held(rk, f"L={L12} K={K12}", m, p, cap_cfg(K12), cp12,
+                            cm, a12["ctx"], {"nominal": w, "sparse": sparse,
+                                             "dense": torch.ones_like(w)},
+                            card)
+
+    print(f"[time] phase 35 (b) in {time.perf_counter() - t0:.1f}s ({card})")
+    t0 = time.perf_counter()
+
+    # (c) every library's lane forms at L=3, each lane bit for bit its solo
+    # instance of that library
+    wide = SPEC_LAYERS[0]
+    wm, wp, wcfg = spec_setup(wide, dev)
+    f648 = seeded_field(cm, dev, fspec=FIELD_LABELS["F6-48-48"])
+    bcfg = MPPIConfig(num_rollouts=K, num_timesteps=T,
+                      matmul_precision=PRECISION)
+    lib_inputs = {}
+    for tag, (mm, pp, c, fld, K_) in (
+            (spec_label(wide), (wm, wp, wcfg, field, KS)),
+            ("F6-48-48", (models["nn"][0], models["nn"][1],
+                          MPPIConfig(num_rollouts=KS, num_timesteps=T),
+                          f648, KS)),
+            ("bf16", (models["nn"][0], models["nn"][1], bcfg, field, K))):
+        cp = lane_cost_grid(LIB_LANES)
+        lanes_cp = lane_cost_params(cp)
+        state, U, eps = lane_inputs(LIB_LANES, K_, dev, seed=K_ % 97)
+        e1 = torch.zeros_like(eps[:, :1])
+        cc = c.replace(kernel_rng=True)
+        kinds = [("nn", mm, pp)]
+        if tag != spec_label(wide):
+            kinds.append(("bf", *models["bf"]))
+        pairs = []
+        for kind, mk, pk in kinds:
+            if tag != "F6-48-48":
+                pairs += [
+                    (f"kernel 1 {kind}",
+                     lambda mk=mk, pk=pk: rk.prepare_fused_exact_rollout_cost_lanes(
+                         mk, pk, c, cp, cm, state, U, eps),
+                     lambda i, mk=mk, pk=pk: rk.prepare_fused_exact_rollout_cost(
+                         mk, pk, c, lanes_cp[i], cm, state[i], U[i], eps)),
+                    (f"kernel 2 {kind}",
+                     lambda mk=mk, pk=pk: rk.prepare_dynamics_chain_lanes(
+                         mk, pk, c, state, U, eps),
+                     lambda i, mk=mk, pk=pk: rk.prepare_dynamics_chain(
+                         mk, pk, c, state[i], U[i], eps)),
+                    (f"kernel 2 K=1 {kind}",
+                     lambda mk=mk, pk=pk: rk.prepare_dynamics_chain_lanes(
+                         mk, pk, c, state, U, e1),
+                     lambda i, mk=mk, pk=pk: rk.prepare_dynamics_chain(
+                         mk, pk, c, state[i], U[i], e1)),
+                    (f"pass 1 exact {kind}",
+                     lambda mk=mk, pk=pk: rk.prepare_fused_rng_costs_lanes(
+                         mk, pk, cc, cp, cm, state, U, key),
+                     lambda i, mk=mk, pk=pk: rk.prepare_fused_rng_costs(
+                         mk, pk, cc, lanes_cp[i], cm, state[i], U[i], key))]
+            pairs += [
+                (f"kernel 3 {kind}",
+                 lambda mk=mk, pk=pk: rk.prepare_fused_rollout_cost_lanes(
+                     mk, pk, c, cp, fld, state, U, eps),
+                 lambda i, mk=mk, pk=pk: rk.prepare_fused_rollout_cost(
+                     mk, pk, c, lanes_cp[i], fld, state[i], U[i], eps)),
+                (f"pass 1 field {kind}",
+                 lambda mk=mk, pk=pk: rk.prepare_fused_rng_costs_lanes(
+                     mk, pk, cc, cp, fld, state, U, key),
+                 lambda i, mk=mk, pk=pk: rk.prepare_fused_rng_costs(
+                     mk, pk, cc, lanes_cp[i], fld, state[i], U[i], key))]
+        lib_lanes_held(f"{tag} K={K_}", pairs, card)
+        lib_inputs[tag] = (mm, pp, c, cc, fld, K_, cp, state, U, eps)
+
+    print(f"[time] phase 35 (c) in {time.perf_counter() - t0:.1f}s ({card})")
+    t0 = time.perf_counter()
+
+    # (d) the capacity drives through EpisodeRunner.run / run_sweep with a
+    # stacked CostParams: one capture, 2 + 2 + 2 lane launches a tick (the
+    # wrappers' counts of the warm-up tick and the capture), no plain
+    # version; the replayed run timed, bit for bit the first; the profiler's
+    # launches and graph nodes; lanes 0 and L-1 bit for bit their solo
+    # captured episodes
+    grid12 = stack_cost_params(CostParams(), build_grid(
+        {"desired_speed": [4.0, 5.0, 6.0, 7.0],
+         "gamma": [0.05, 0.15, 0.6]}))
+    grid4 = stack_cost_params(CostParams(), build_grid(
+        {"desired_speed": [4.0, 5.0, 6.0, 7.0]}))
+    nn_m, nn_p = models["nn"]
+    drives, launches = {}, {}
+    cases = [
+        (f"L=12 K={K} {s}", nn_m, cap_cfg(K, s), CAP_L12_TICKS[s],
+         (nn_p, grid12, cm, start), "fused_rng_costs_lanes",
+         "dynamics_chain_lanes", ("exact", L12, K) if s == "gaussian"
+         else None)
+        for s in SAMPLERS] + [
+        (f"L={CAP_WIDE_LANES} K={KC} {surface}", nn_m, cap_cfg(KC),
+         CAP_WIDE_TICKS[surface], (nn_p, grid4, surf, start),
+         "fused_rng_costs" + ("_field" if surface == "field" else "")
+         + "_lanes", "dynamics_chain_lanes", (surface, CAP_WIDE_LANES, KC))
+        for surface, surf in (("exact", cm), ("field", field))] + [
+        (f"L=3 {spec_label(wide)} K={KS} capacity", wm, wcfg.replace(
+            kernel_rng=True), CAP_FORM_TICKS,
+         (wp, lane_cost_grid(LIB_LANES), cm, start),
+         f"fused_rng_costs_{spec_label(wide)}_lanes",
+         f"dynamics_chain_{spec_label(wide)}_lanes", ("spec", 3, KS)),
+        (f"L=3 {spec_label(wide)} K={KS} host noise", wm, wcfg,
+         CAP_FORM_TICKS, (wp, lane_cost_grid(LIB_LANES), cm, start),
+         f"fused_exact_rollout_cost_{spec_label(wide)}_lanes",
+         f"dynamics_chain_{spec_label(wide)}_lanes", ("spec host", 3, KS)),
+        (f"L=3 default K={K}", nn_m, cap_cfg(K, matmul_precision=PRECISION),
+         CAP_FORM_TICKS, (nn_p, lane_cost_grid(LIB_LANES), cm, start),
+         "fused_rng_costs_default_lanes", "dynamics_chain_lanes",
+         ("default", 3, K))]
+    closed = None
+    for tag, mm, c, ticks, args, p1, chain, keyname in cases:
+        expect = {p1: 4, chain: 4}
+        capacity = c.kernel_rng
+        if capacity:
+            expect["fused_rng_numer_lanes"] = 4
+        make = cap_drive_runner(mm, MPPICost(), c, ticks)
+        drives[tag] = lanes_drive(rk, tag, make, args, None, expect,
+                                  "fused_rng" if capacity else "fused_exact",
+                                  card)
+        if keyname is not None:
+            launches[keyname] = drives[tag]["launches"]
+        if tag.startswith("L=12") and closed is None:
+            # a closed loop's weights: one more, eager, iteration from the
+            # drive's last state and plans
+            runner = make(None)
+            runner.run(*args)
+            plan = runner._captured
+            cs = runner.solver._slide(plan.carries[0], c.optimization_stride)
+            sub = torch.tensor([7, 11], dtype=torch.int64, device=dev)
+            tot, _, ctx = rk.fused_rng_costs_lanes(
+                mm, args[0], c, args[1].replace(gamma=plan.gamma), cm,
+                plan.state, cs.U, sub)
+            closed = (ctx, rk.lane_weights(c, args[1].replace(
+                gamma=plan.gamma), tot))
+            del runner
+    results["drives"] = drives
+    err_p2 = max(err_p2, cap_numer_held(
+        rk, f"L={L12} K={K12} closed loop", nn_m, nn_p, cap_cfg(K12), grid12,
+        cm, closed[0], {"closed loop": closed[1]}, card))
+
+    print(f"[time] phase 35 (d) in {time.perf_counter() - t0:.1f}s ({card})")
+    t0 = time.perf_counter()
+
+    # the kernels line: pass 1's lane instances at each shape without
+    # circles (its MLP exact one also at the 4 x KC drive's, and the field
+    # one there), pass 2's at 12 x K and 4 x KC, and item 5's lane forms at
+    # (c)'s shapes; launches from the drive at a row's shape
+    T_ = T
+    for kind, (m, p) in models.items():
+        bf = kind == "bf"
+        n_w = rk.KERNEL_BF_WEIGHTS if bf else rk.KERNEL_NUM_WEIGHTS
+        step = BF_STEP_OPS if bf else mlp_flops(m.layers)
+        for L, K_ in LANE_SHAPES:
+            for surface in ("exact", "field"):
+                h = held[L, K_, kind, "gaussian", surface, "no circles"]
+                launch = h["launch"]
+                nbytes = 4 * (L * (2 * T_ + 7 + len(rk._FLOAT_SCALARS)
+                                   + 2 * K_) + n_w + 4 + 2)
+                other = L * K_ * T_ * (step + STREAM_OPS)
+                if surface == "exact":
+                    nbytes += 4 * min(cm.height * cm.width,
+                                      2 * L * K_ * (T_ - 1))
+                    bnd, extra = bound(nbytes, other), None
+                else:
+                    nbytes += 4 * rk.FIELD_NUM_WEIGHTS
+                    fp32, bnd = field_bounds(nbytes, other,
+                                             L * K_ * (T_ - 1) * 2, field)
+                    extra = {"fp32_bound_ms": fp32[0]}
+                inst = (("fused_rng_field_kernel<%s, lanes>" % (
+                    "Bf" if bf else "Mlp")) if surface == "field" else
+                    "fused_rng_bf_kernel<lanes>" if bf
+                    else "fused_rng_kernel<Mlp, lanes>")
+                rows.append(cap_row(
+                    launch.name, launch, h["plain"], L, K_, nbytes, bnd,
+                    h["err"], launches.get((surface, L, K_), {}).get(
+                        launch.name, 0) if not bf else 0, card, inst,
+                    plain_ms=h["plain_ms"], extra=extra))
+    # the 4 x KC drive's shape: pass 1 exact and field, pass 2
+    L4 = CAP_WIDE_LANES
+    cp4 = grid4
+    state, U, _ = lane_inputs(L4, KC, dev, seed=44)
+    m, p = models["nn"]
+    for surface, surf in (("exact", cm), ("field", field)):
+        launch, (kc4, _), ctx4 = rk.prepare_fused_rng_costs_lanes(
+            m, p, cap_cfg(KC), cp4, surf, state, U, key)
+        launch()
+        nbytes = 4 * (L4 * (2 * T_ + 7 + len(rk._FLOAT_SCALARS) + 2 * KC)
+                      + rk.KERNEL_NUM_WEIGHTS + 4 + 2)
+        other = L4 * KC * T_ * (mlp_flops(m.layers) + STREAM_OPS)
+        if surface == "exact":
+            nbytes += 4 * min(cm.height * cm.width, 2 * L4 * KC * (T_ - 1))
+            bnd, extra = bound(nbytes, other), None
+        else:
+            nbytes += 4 * rk.FIELD_NUM_WEIGHTS
+            fp32, bnd = field_bounds(nbytes, other, L4 * KC * (T_ - 1) * 2,
+                                     field)
+            extra = {"fp32_bound_ms": fp32[0]}
+        rows.append(cap_row(
+            launch.name, launch, lambda surf=surf: (
+                rk.fused_rng_costs_lanes_plain(m, p, cap_cfg(KC), cp4, surf,
+                                               state, U, key)),
+            L4, KC, nbytes, bnd, None, launches.get((surface, L4, KC), {})
+            .get(launch.name, 0), card,
+            "fused_rng_field_kernel<Mlp, lanes>" if surface == "field"
+            else "fused_rng_kernel<Mlp, lanes>", extra=extra))
+        if surface == "exact":
+            w4 = rk.lane_weights(cap_cfg(KC), cp4, kc4)
+            launch2, partials = rk.prepare_fused_rng_numer_lanes(ctx4, w4)
+            k_need = int((w4 != 0).sum().item())
+            nbytes2 = 4 * (L4 * (KC + 2 * T_) + partials.numel()) + 16
+            rows.append(cap_row(
+                "fused_rng_numer_lanes", launch2,
+                lambda: rk.fused_rng_numer_lanes_plain(ctx4, w4), L4, KC,
+                nbytes2, bound(nbytes2, (STREAM_OPS + UPDATE_OPS) * k_need
+                               * T_), None,
+                launches.get(("exact", L4, KC), {}).get(
+                    "fused_rng_numer_lanes", 0), card,
+                "weighted_update_kernel<lanes>"))
+    # pass 2 at 12 x K on the nominal weights
+    launch2, partials = rk.prepare_fused_rng_numer_lanes(a12["ctx"], w)
+    k_need = int((w != 0).sum().item())
+    nbytes2 = 4 * (L12 * (K12 + 2 * T_) + partials.numel()) + 16
+    rows.append(cap_row(
+        "fused_rng_numer_lanes", launch2,
+        lambda: rk.fused_rng_numer_lanes_plain(a12["ctx"], w), L12, K12,
+        nbytes2, bound(nbytes2, (STREAM_OPS + UPDATE_OPS) * k_need * T_),
+        err_p2, launches.get(("exact", L12, K12), {}).get(
+            "fused_rng_numer_lanes", 0), card, "weighted_update_kernel<lanes>"))
+    # item 5's lane forms at (c)'s shapes
+    for tag, (mm, pp, c, cc, fld, K_, cp, state, U, eps) in lib_inputs.items():
+        L = LIB_LANES
+        bf16 = tag == "bf16"
+        drive = launches.get(({spec_label(wide): "spec", "bf16": "default"}
+                              .get(tag), L, K_), {})
+        drive_host = (launches.get(("spec host", L, K_), {})
+                      if tag == spec_label(wide) else {})
+        n_w = rk.num_weights(mm.layers)
+        step = mlp_flops(mm.layers)
+        prods = mlp_products(mm.layers)
+        # the ptxas names of phase 1's libraries
+        suffix = {spec_label(wide): f" [{tag}]", "bf16": " [bf16 default]",
+                  "F6-48-48": f" [{spec_label(rk.KERNEL_LAYERS)} F6-48-48]"}[
+                      tag]
+
+        def mlp_bound(nbytes, n_steps, field_evals=0, stream=False):
+            """(ms, what bounds it) of ``n_steps`` rollout-steps of the
+            MLP (its products at the bf16 rate at "default"), the
+            stream's draws when ``stream`` and ``field_evals`` field
+            evaluations (their products in 3xTF32)."""
+            other = n_steps * (step - (prods if bf16 else 0)
+                               + (STREAM_OPS if stream else 0))
+            if field_evals:
+                fops = field_eval_ops(fld.layers, fld.freqs.numel())
+                fprod = 2 * sum(a * b for a, b in zip(fld.layers[:-2],
+                                                      fld.layers[1:-1]))
+                other += field_evals * (fops - fprod)
+                tf32 = field_evals * 3 * fprod
+            else:
+                tf32 = 0.0
+            if bf16:
+                return bf16_bound(nbytes, other, n_steps * prods, tf32)
+            return bound(nbytes, other, tf32)
+
+        e1 = torch.zeros_like(eps[:, :1])
+        per_lane = 2 * T + 7 + len(rk._FLOAT_SCALARS) + 2 * K_
+        if tag != "F6-48-48":
+            l1, _ = rk.prepare_fused_exact_rollout_cost_lanes(
+                mm, pp, c, cp, cm, state, U, eps)
+            nb = 4 * (2 * T * K_ + L * (per_lane + 2 * T * K_
+                                        + 2 * K_ * (T - 1)) + n_w + 4)
+            g = l1.geometry
+            inst = ((f"fused_exact_group_kernel<{g.group}, lanes>"
+                     if g.group > 1 else "fused_exact_kernel<Mlp, lanes>")
+                    + suffix)
+            rows.append(cap_row(
+                l1.name, l1, lambda: rk.fused_rollout_cost_lanes_plain(
+                    mm, pp, c, cp, cm, state, U, eps), L, K_, nb,
+                mlp_bound(nb, L * K_ * T), None, drive_host.get(l1.name, 0),
+                card, inst))
+            l2, _ = rk.prepare_dynamics_chain_lanes(mm, pp, c, state, U, e1)
+            nb = 4 * (2 * T + L * (2 * T + 7 + 9 * T) + n_w + 4)
+            g = l2.geometry
+            inst = (("dynamics_chain_warp_kernel" if g.group > 1 else
+                     "dynamics_chain_kernel") + "<Mlp, lanes>" + suffix)
+            rows.append(cap_row(
+                l2.name, l2, lambda: rk.dynamics_chain_lanes_plain(
+                    mm, pp, c, state, U, e1), L, 1, nb, mlp_bound(nb, L * T),
+                None, max(drive.get(l2.name, 0), drive_host.get(l2.name, 0)),
+                card, inst))
+            lp, _, _ = rk.prepare_fused_rng_costs_lanes(mm, pp, cc, cp, cm,
+                                                        state, U, key)
+            nb = 4 * (L * per_lane + n_w + 4 + 2 + min(
+                cm.height * cm.width, 2 * L * K_ * (T - 1)))
+            rows.append(cap_row(
+                lp.name, lp, lambda: rk.fused_rng_costs_lanes_plain(
+                    mm, pp, cc, cp, cm, state, U, key), L, K_, nb,
+                mlp_bound(nb, L * K_ * T, stream=True), None,
+                drive.get(lp.name, 0), card,
+                "fused_rng_kernel<Mlp, lanes>" + suffix))
+        l3, _ = rk.prepare_fused_rollout_cost_lanes(mm, pp, c, cp, fld,
+                                                    state, U, eps)
+        nb = 4 * (2 * T * K_ + L * (per_lane + 2 * T * K_) + n_w + 4
+                  + rk.field_num_weights(rk.field_spec(fld)))
+        rows.append(cap_row(
+            l3.name, l3, lambda: rk.fused_rollout_cost_lanes_plain(
+                mm, pp, c, cp, fld, state, U, eps), L, K_, nb,
+            mlp_bound(nb, L * K_ * T, L * K_ * (T - 1) * 2), None, 0, card,
+            ("fused_field_kernel<MlpSplit, lanes>" if bf16 else
+             "fused_field_kernel<Mlp, lanes>") + suffix))
+        lf, _, _ = rk.prepare_fused_rng_costs_lanes(mm, pp, cc, cp, fld,
+                                                    state, U, key)
+        nb = 4 * (L * per_lane + n_w + 4 + 2
+                  + rk.field_num_weights(rk.field_spec(fld)))
+        rows.append(cap_row(
+            lf.name, lf, lambda: rk.fused_rng_costs_lanes_plain(
+                mm, pp, cc, cp, fld, state, U, key), L, K_, nb,
+            mlp_bound(nb, L * K_ * T, L * K_ * (T - 1) * 2, stream=True),
+            None, 0, card, "fused_rng_field_kernel<Mlp, lanes>" + suffix))
+    print(f"[time] phase 35's rows in {time.perf_counter() - t0:.1f}s "
+          f"({card})")
     return {"results": results, "rows": rows}
 
 
@@ -7783,7 +8583,23 @@ def main() -> int:
     # all started together; the other specs' are checked when phase 28
     # takes them
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(what):
+        """Prints the time since the last lap and since the start."""
+        now = time.perf_counter()
+        print(f"[time] {what} in {now - laps[-1]:.1f}s, "
+              f"{now - t_start:.1f}s into the run ({card})")
+        laps.append(now)
+
     builds = Builds()
+    # while the default library builds, the work of later phases that runs
+    # none of its kernels: phases 11 and 30's fields, phase 32 (a)-(b)
+    for fit_kwargs in (None, FIT_KWARGS):
+        fitted_field(drive_oval, dev, fit_kwargs)
+    physics_sim = physics_sim_phase(card, dev)
+    lap("phase 32 (a)-(b) and the fields' fits, while the default library "
+        "built")
     lib, build_s = builds.get(None)
     if lib.build is None:
         print(f"[build] {_build.library_path().name} was already built")
@@ -7800,10 +8616,10 @@ def main() -> int:
         # BF exact pass 1 is fused_rng_bf_kernel), pass 2, kernel 1 in its
         # lane groups (the MLP), kernel 2 one rollout a warp (MLP and BF),
         # the constant quotients' check (phase 19), the lane forms of
-        # kernels 1 and 2 in each of their geometries (phase 33) and kernel
-        # 3's (phase 34)
+        # kernels 1 and 2 in each of their geometries (phase 33), kernel
+        # 3's (phase 34) and both capacity passes' (phase 35)
         n_kernels = (11 + len(rk.LANE_GROUPS) + 2 + 1 + len(LANE_INSTANCES)
-                     + len(FIELD_LANE_INSTANCES))
+                     + len(FIELD_LANE_INSTANCES) + len(CAP_LANE_INSTANCES))
         check(len(report) == n_kernels, f"ptxas reported {len(report)} "
               f"kernels, expected {n_kernels}")
         check(all(spill == 0 for _, _, spill in report), "a kernel spills")
@@ -7817,6 +8633,8 @@ def main() -> int:
           f"{hmma}")
     check(len(hmma) == 4 and all(n > 0 for n in hmma.values()),
           "the four field kernel instances do not all hold TF32 HMMA")
+
+    lap("phase 1")
 
     # -- shared inputs: the drive_oval configuration -------------------------
     solver, params, cost_params, costmap, note = drive_oval.build(
@@ -7921,6 +8739,8 @@ def main() -> int:
                                         cmap, s0, U, e, **kw)), check_a)
     del eps_r
 
+    lap("phase 2")
+
     # -- phase 3: kernel B against its plain version -------------------------
     # in each of its geometries (one rollout a thread, one a warp), each bit
     # for bit equal to one rollout a thread: at the cases' K=1920 (the fine
@@ -7961,6 +8781,8 @@ def main() -> int:
     check(torch.allclose(ks, ps, rtol=STATE_RTOL, atol=STATE_ATOL),
           "B nominal trajectory differs")
     err_b = max(err_b, e_nom)
+
+    lap("phase 3")
 
     # -- phase 4: the main path ----------------------------------------------
     # the same seeded configuration on the CPU (plain PyTorch path)
@@ -8016,6 +8838,8 @@ def main() -> int:
     print(f"[main path] the key's host time a solve: {key_us:.1f} us "
           f"(split + generator, host clock, mean of 1000; {card})")
 
+    lap("phase 4")
+
     # -- phase 5: timing -----------------------------------------------------
     flops_step = mlp_flops(model.layers)
     n_w = sum(a * b + b for a, b in zip(model.layers[:-1], model.layers[1:]))
@@ -8023,7 +8847,8 @@ def main() -> int:
         model, params, cfg, cost_params, costmap, start, U, eps)
     ms_a = cuda_ms(launch_a, 100)
     plain_a = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-        model, params, cfg, cost_params, costmap, start, U, eps), 10)
+        model, params, cfg, cost_params, costmap, start, U, eps), PLAIN_REPS,
+        1)
     bytes_a = 4 * (T * K * 2 + 2 * T * K + 2 * K + T * 2 + n_w + 7 + 4
                    + 2 * K * (T - 1))        # + one texel per front/back lookup
     bound_a, by_a = bound(bytes_a, flops_step * K * T)
@@ -8032,7 +8857,7 @@ def main() -> int:
                            U, eps1, False, 100, card)
     ms_b = chain_b["ms"]
     plain_b = cuda_ms(lambda: rk.dynamics_chain_plain(
-        model, params, cfg, start, U, eps1), 10)
+        model, params, cfg, start, U, eps1), PLAIN_REPS, 1)
     bytes_b = 4 * (T * 2 + 7 * T + 2 * T + T * 2 + n_w + 7 + 4)
     bound_b, by_b = bound(bytes_b, flops_step * T)
     print(f"[timing] A fused_exact_rollout_cost K={K} T={T}: {ms_a:.4f} ms, "
@@ -8042,23 +8867,33 @@ def main() -> int:
           f"{plain_b:.3f} ms, bound {bound_b:.7f} ms ({by_b}), latency floor "
           f"{chain_b['floor_ms']:.4f} ms ({card})")
 
+    lap("phase 5")
+
     # -- phase 6: where a tick's time goes ---------------------------------
     profile_ticks(drive_oval, solver, params, cost_params, costmap, card)
+
+    lap("phase 6")
 
     # -- phases 7-10: the kernel-RNG capacity mode ---------------------------
     cap_kernels, cap_latency = capacity_phases(
         drive_oval, solver, params, cost_params, costmap, cases, U, start,
         (cpu_solver, cpu_params, None, cpu_map), card)
 
+    lap("phases 7-10")
+
     # -- phases 11-14: the neural-field costmap path -------------------------
     field_kernels, field_latency, field = field_phases(
         drive_oval, model, params, cost_params, costmap, U, start,
         edge_start, nan_start, slow_start, card)
 
+    lap("phases 11-14")
+
     # -- phases 15-18: the BF model and the obstacle terms -------------------
     bf_obs_kernels, bf_obs_latency = bf_obstacle_phases(
         drive_oval, model, params, cost_params, costmap, field, cases, eps,
         U, start, slow_start, card)
+
+    lap("phases 15-18")
 
     # -- phase 19: BF exact pass 1's constant quotients, every input ------
     torch.cuda.synchronize()
@@ -8075,24 +8910,39 @@ def main() -> int:
           f"BF pass 1's branch-free arithmetic differs from IEEE "
           f"division or root: {mismatches}")
 
+    lap("phase 19")
+
     # -- phase 20: the tube loop ----------------------------------------
     from autorally_tpu_torch import run_tube_mppi
     tube = tube_phase(run_tube_mppi, rk, card)
 
+    lap("phase 20")
+
     # -- phase 21: the closed-loop episode, the tick one CUDA graph -------
     episode = episode_phase(rk, card)
+
+    lap("phase 21")
 
     # -- phase 22: the async loop, the tick one CUDA graph ----------------
     async_loop = async_phase(run_tube_mppi, rk, card)
 
+    lap("phase 22")
+
     # -- phase 23: the realtime gates, the simulator a second process -----
-    gates = gate_phase(rk, card)
+    with builds_paused(card):
+        gates = gate_phase(rk, card)
+
+    lap("phase 23")
 
     # -- phase 24: the general rollout path -------------------------------
     general = general_phase(drive_oval, rk, card)
 
+    lap("phase 24")
+
     # -- phase 25: the ensemble solver, a kernel launch a member ----------
     ensemble = ensemble_phase(rk, card)
+
+    lap("phase 25")
 
     # -- phases 26-27: the sharded solvers, the tools, the build cache ----
     cold = start_cold_loaders()
@@ -8102,6 +8952,8 @@ def main() -> int:
     finally:
         stop_cold_loaders(cold)
 
+    lap("phases 26-27")
+
     # -- phase 28: kernels 1-4 at other MLP specs -------------------------
     # phase 1 for the other specs' libraries, built meanwhile
     t_wait = time.perf_counter()
@@ -8110,17 +8962,22 @@ def main() -> int:
         print(f"[build {spec_label(layers)}] "
               f"{_build.library_path(layers).name}: "
               + (f"nvcc {spec_lib.build[0]:.1f}s" if spec_lib.build
-                 else "already built") + f", {spec_s:.1f}s, waited "
+                 else "already built") + f", {spec_s:.1f}s, done "
+              f"{builds.done[layers, None, False]:.1f}s into the run, waited "
               f"{time.perf_counter() - t_wait:.1f}s at phase 28 "
               f"({t_wait - t_start:.1f}s into the run) ({card})")
         spec_instances(rk, layers, spec_lib, card)
     spec = spec_phase(drive_oval, rk, card)
     spec_field = spec_field_phase(drive_oval, rk, card, field)
 
+    lap("phase 28")
+
     # -- phase 29: BASELINE #3, a model trained on the card drives --------
     baseline3 = baseline3_phase(drive_oval, rk, card,
                                 spec["specs"][SPEC_LAYERS[0]],
                                 spec_field["specs"][SPEC_LAYERS[0]], field)
+
+    lap("phase 29")
 
     # -- phase 30: kernels 3 and 4 on fields of other specs ---------------
     # phase 1 for the field libraries, built meanwhile
@@ -8130,10 +8987,13 @@ def main() -> int:
         print(f"[build {_build.field_label(fspec)}] "
               f"{_build.library_path(layers, fspec).name}: "
               + (f"nvcc {field_lib.build[0]:.1f}s" if field_lib.build
-                 else "already built") + f", {field_s:.1f}s, waited "
+                 else "already built") + f", {field_s:.1f}s, done "
+              f"{builds.done[layers, fspec, False]:.1f}s into the run, waited "
               f"{time.perf_counter() - t_wait:.1f}s at phase 30 ({card})")
         field_library_instances(rk, layers, fspec, field_lib, card)
     field_specs = field_spec_phase(drive_oval, rk, card)
+
+    lap("phase 30")
 
     # -- phase 31: matmul_precision "default" -----------------------------
     # phase 1 for the libraries of bf16 operands, built meanwhile
@@ -8142,15 +9002,19 @@ def main() -> int:
         bf16_lib, bf16_s = builds.get(layers, fspec, bf16=True)
         print(f"[build bf16] {_build.library_path(layers, fspec, True).name}"
               ": " + (f"nvcc {bf16_lib.build[0]:.1f}s" if bf16_lib.build
-                      else "already built") + f", {bf16_s:.1f}s, waited "
+                      else "already built") + f", {bf16_s:.1f}s, done "
+              f"{builds.done[layers, fspec, True]:.1f}s into the run, waited "
               f"{time.perf_counter() - t_wait:.1f}s at phase 31 ({card})")
         bf16_library_instances(rk, layers, fspec, bf16_lib, card)
     precision = precision_phase(drive_oval, rk, card, field)
 
+    lap("phase 31")
+
     # -- phase 32: the physics simulator and the ML loop ------------------
     t_phys = time.perf_counter()
-    physics = physics_phase(rk, card)
-    print(f"[time] phase 32 in {time.perf_counter() - t_phys:.1f}s ({card})")
+    physics = physics_phase(rk, card, sim=physics_sim)
+    print(f"[time] phase 32 (c)-(d) in {time.perf_counter() - t_phys:.1f}s "
+          f"({card})")
 
     # -- phase 33: the cost-parameter sweep on the lane forms -------------
     t_sweep = time.perf_counter()
@@ -8162,6 +9026,12 @@ def main() -> int:
     t_lanes = time.perf_counter()
     lanes_field = lanes_field_phase(rk, card, field)
     print(f"[time] phase 34 in {time.perf_counter() - t_lanes:.1f}s ({card})")
+
+    # -- phase 35: the capacity mode in the sweep's lanes; every library's
+    # lane forms ------------------------------------------------------------
+    t_cap = time.perf_counter()
+    cap_lanes = capacity_lanes_phase(rk, card, field)
+    print(f"[time] phase 35 in {time.perf_counter() - t_cap:.1f}s ({card})")
 
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
@@ -8182,7 +9052,7 @@ def main() -> int:
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
         baseline3["rows"]) + field_specs["rows"] + precision["rows"] + (
-        sweep["rows"]) + lanes_field["rows"]
+        sweep["rows"]) + lanes_field["rows"] + cap_lanes["rows"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -8255,6 +9125,7 @@ def main() -> int:
                       "physics": physics,
                       "sweep": sweep["results"],
                       "lanes_field": lanes_field["results"],
+                      "capacity_lanes": cap_lanes["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -8280,7 +9151,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-34 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-35 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,14 @@ scalars in interpret mode (the batching rule that gives the JAX sweep's
 ``pallas_call`` its lane axis), at the tolerances of the kernel-1 and
 kernel-2 parity tests (``tests/test_torch_rollout_kernel.py``); each lane
 equal to the port's solo plain call exactly; the lane scalars' layout; the
-lane launch's geometry, picked from L x K; and the refusals that name
-ROADMAP Queue 2 A7 (the capacity mode, the libraries of other specs,
-fields and precisions), raised before any build.  The CUDA lane kernels
-run only on a GPU: ``chip_smoke.py`` phases 33 and 34 hold them against
-these plain versions and each lane bit for bit against the solo
-instance.  Circles and the field in lanes:
-``tests/test_torch_lane_circles.py``."""
+lane launch's geometry, picked from L x K; and that what ROADMAP Queue 2
+A7 once refused (other specs, fields and precisions, the capacity mode)
+asks for the library of its solo twin.  The CUDA lane kernels run only on
+a GPU: ``chip_smoke.py`` phases 33-35 hold them against these plain
+versions and each lane bit for bit against the solo instance.  Circles
+and the field in lanes: ``tests/test_torch_lane_circles.py``; the
+capacity mode and the other libraries' lanes:
+``tests/test_torch_lane_capacity.py``."""
 
 import math
 
@@ -226,38 +227,71 @@ def test_lane_launch_geometry_is_picked_from_all_lanes(monkeypatch):
 
 
 def test_lane_refusals_name_a7(lanes, monkeypatch):
-    """The capacity mode, other MLP specs, bf16 operands and a field of
-    another spec have no lane form: each raises naming A7 before any build
-    (``_build.load`` would raise otherwise)."""
+    """What a stacked ``CostParams`` was refused until the lane forms came
+    to every library (ROADMAP Queue 2 A7) now runs: kernels 1 and 2 of
+    another MLP spec and at ``"default"``, kernel 3 on a field of another
+    spec, and pass 1, each lane launch asking ``_build.load`` (which
+    records what it is asked for and raises: nothing is built) for the
+    library its solo twin asks for; and the solver's capacity mode with
+    lanes solves on the exact map and on that field."""
     s = lanes
+    asked = []
 
     def load(*a, **k):
+        asked.append((a, k))
         raise LookupError("no build here")
 
     monkeypatch.setattr(rk._build, "load", load)
+    monkeypatch.setattr(rk, "num_sms", lambda index: 132)
     rk._kernel_lib.cache_clear()
     state, U, eps = s.torch_args()
+    key = torch.tensor([3, 5])
+
+    def libraries(launch):
+        asked.clear()
+        with pytest.raises(LookupError):
+            launch()
+        return list(asked)
+
     wide = NeuralNetDynamics(0.02, layers=(6, 64, 4), device="cpu")
+    cp0 = lane_cost_params(s.cp)[0]
     for model, cfg in ((wide, s.cfg),
                        (s.model, s.cfg.replace(matmul_precision="default"))):
         params = model.init_params(0)
-        with pytest.raises(NotImplementedError, match="A7"):
-            rk.prepare_fused_exact_rollout_cost_lanes(
-                model, params, cfg, s.cp, s.cm, state, U, eps)
-        with pytest.raises(NotImplementedError, match="A7"):
-            rk.prepare_dynamics_chain_lanes(model, params, cfg, state, U,
-                                            eps)
-    # kernel 3 on a field of another spec than 34-64-64-1
+        pairs = (
+            (lambda: rk.prepare_fused_exact_rollout_cost_lanes(
+                model, params, cfg, s.cp, s.cm, state, U, eps),
+             lambda: rk.prepare_fused_exact_rollout_cost(
+                 model, params, cfg, cp0, s.cm, state[0], U[0], eps)),
+            (lambda: rk.prepare_dynamics_chain_lanes(model, params, cfg,
+                                                     state, U, eps),
+             lambda: rk.prepare_dynamics_chain(model, params, cfg, state[0],
+                                               U[0], eps)),
+            (lambda: rk.prepare_fused_rng_costs_lanes(
+                model, params, cfg, s.cp, s.cm, state, U, key),
+             lambda: rk.prepare_fused_rng_costs(
+                 model, params, cfg, cp0, s.cm, state[0], U[0], key)))
+        for lane_launch, solo_launch in pairs:
+            want = libraries(solo_launch)
+            assert want and libraries(lane_launch) == want
+            # not the default float32 library's
+            assert want[0] != ((rk.KERNEL_LAYERS,), {})
+    # kernel 3 and pass 1 on a field of another spec than 34-64-64-1
     field = NeuralCostmap.build(
         [np.zeros((34, 8), np.float32), np.zeros((8, 1), np.float32)],
         [np.zeros(8, np.float32), np.zeros(1, np.float32)],
         np.arange(1, 9, dtype=np.float32), s.cm.r_c1, s.cm.r_c2, s.cm.trs,
         device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        rk.prepare_fused_rollout_cost_lanes(s.model, s.params, s.cfg, s.cp,
-                                            field, state, U, eps)
+    want = libraries(lambda: rk.prepare_fused_rollout_cost(
+        s.model, s.params, s.cfg, cp0, field, state[0], U[0], eps))
+    assert want == [((rk.KERNEL_LAYERS, (8, 8)), {})]
+    assert libraries(lambda: rk.prepare_fused_rollout_cost_lanes(
+        s.model, s.params, s.cfg, s.cp, field, state, U, eps)) == want
+    assert libraries(lambda: rk.prepare_fused_rng_costs_lanes(
+        s.model, s.params, s.cfg, s.cp, field, state, U, key)) == want
 
-    # the solver: the capacity mode's passes, and the field of another spec
+    # the solver's capacity mode with lanes, on the CPU's plain versions
+    asked.clear()
     cfg = MPPIConfig(num_rollouts=64, num_timesteps=8)
     capacity = MPPISolver(s.model, MPPICost(),
                           cfg.replace(kernel_rng=True), device="cpu")
@@ -266,10 +300,11 @@ def test_lane_refusals_name_a7(lanes, monkeypatch):
         cs, n).shape).clone() for n in ("U", "control_hist",
                                         "state_solution",
                                         "control_solution")})
-    with pytest.raises(NotImplementedError, match="A7"):
-        capacity.solve(s.params, s.cp, s.cm, state, lanes_cs)
-    with pytest.raises(NotImplementedError, match="A7"):
-        capacity.solve(s.params, s.cp, field, state, lanes_cs)
+    for surface in (s.cm, field):
+        out, stats = capacity.solve(s.params, s.cp, surface, state, lanes_cs)
+        assert out.U.shape == (L, 8, 2) and stats.ess.shape == (L,)
+        assert torch.isfinite(out.U).all()
+    assert not asked
     rk._kernel_lib.cache_clear()
 
 
