@@ -80,6 +80,7 @@ SIGNATURES = {
     "artt_field_block": [],
     "artt_max_field_t": [],
     "artt_max_field_lanes_t": [],
+    "artt_field_global": [],
     "artt_max_obstacles": [],
     "artt_num_float_scalars": [],
     "artt_num_int_scalars": [],
@@ -142,7 +143,8 @@ FIELD_FUNCTIONS = (
     "artt_num_weights", "artt_max_obstacles", "artt_num_float_scalars",
     "artt_num_int_scalars", "artt_mlp_layers", "artt_field_spec",
     "artt_field_pack_floats", "artt_field_block", "artt_max_field_t",
-    "artt_max_field_lanes_t", "artt_fused_field_rollout_cost",
+    "artt_max_field_lanes_t", "artt_field_global",
+    "artt_fused_field_rollout_cost",
     "artt_fused_rng_field_costs", "artt_fused_field_lanes",
     "artt_fused_rng_field_costs_lanes", "artt_field_kernel_info",
     "artt_lanes_kernel_info", "artt_bf16_operands")

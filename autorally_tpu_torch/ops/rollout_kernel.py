@@ -33,12 +33,15 @@ every spec.  Kernel 3 and pass 1's field mode take a ``NeuralCostmap`` of
 any spec that the JAX field kernels take (any F and hidden widths,
 ``field_spec``; float32 or bf16 weights, packed in float32): a field of
 another spec than 34-64-64-1 (``FIELD_KERNEL_SPEC``) runs from a library
-built for it beside the MLP's spec; the one field refused is one whose pack
-leaves no room in a block's shared memory (``_check_field_room``).  The
-fused kernels (A, 3, pass 1) price the circles of an
-``ObstacleCost`` (``_make_obstacle_terms``) when the caller passes
-``obstacles`` (with ``obstacle_coeff`` and ``inflation``), as the JAX
-package's wrappers take them.
+built for it beside the MLP's spec.  A field whose staged pack would leave
+no room in a block's shared memory keeps the pack in device memory in its
+library (``field_global``); a launch is refused only where neither layout
+leaves room (``_check_field_room``).  The fused kernels (A, 3, pass 1)
+price the circles of an ``ObstacleCost`` (``_make_obstacle_terms``), any
+number of slots, when the caller passes ``obstacles`` (with
+``obstacle_coeff`` and ``inflation``), as the JAX package's wrappers take
+them: up to ``MAX_OBSTACLES`` staged in shared memory, more read in device
+memory.
 
 Kernel 1 launches in the geometry that :func:`exact_geometry` picks from
 K and the card's SM count: lane groups of G lanes a rollout (the MLP at
@@ -211,7 +214,9 @@ FIELD_PACK_FLOATS = field_pack_floats(FIELD_KERNEL_SPEC)
 # ``field_block``).
 FIELD_BLOCK = 128
 SPEC_FIELD_BLOCK = 256
-# Circles the fused kernels stage in shared memory (csrc kMaxObstacles).
+# Circles the fused kernels stage in shared memory (csrc kMaxObstacles); a
+# launch with more stages none and reads them all in device memory
+# (``staged_obstacles``).
 MAX_OBSTACLES = 64
 # Dynamic shared memory holds the weights, U (T x 2) and up to
 # MAX_OBSTACLES circles; the other kernels stay under the 48 KB a launch
@@ -233,6 +238,10 @@ FIELD_TILE_FLOATS = field_tile_floats(FIELD_KERNEL_SPEC)
 # The floats a lane form's staged CostScalars (static shared memory) take
 # from a field block's room (csrc kLaneScalarFloats).
 LANE_SCALAR_FLOATS = 64
+# The horizon (the reference's T) at which a lane form of the field kernels
+# must find room for U beside the staged field, or the library keeps the
+# packed field in device memory (csrc kFieldGlobalT; ``field_global``).
+FIELD_GLOBAL_T = 100
 
 # Host launch scalars, in the order csrc/rollout_kernels.cu unpacks them.
 _FLOAT_SCALARS = ("nu0", "nu1", "opt_delay", "pure_thresh", "dt",
@@ -406,12 +415,13 @@ def _kernel_lib(layers: tuple = KERNEL_LAYERS,
              lib.artt_num_weights(), lib.artt_max_obstacles(),
              lib.artt_field_pack_floats(), lib.artt_field_block(),
              lib.artt_max_field_t(), lib.artt_max_field_lanes_t(),
-             lib.artt_bf16_operands())
+             lib.artt_field_global(), lib.artt_bf16_operands())
     want = (tuple(layers), tuple(fspec), len(_FLOAT_SCALARS),
             len(_INT_SCALARS), num_weights(layers), MAX_OBSTACLES,
             field_pack_floats(fspec), field_block(layers),
             max_field_kernel_t(layers, fspec),
-            max_field_kernel_t(layers, fspec, lanes=True), int(bf16))
+            max_field_kernel_t(layers, fspec, lanes=True),
+            int(field_global(layers, fspec)), int(bf16))
     if field is None:
         groups = lib.artt_lane_groups()
         built += (tuple(G for i, G in enumerate(LANE_GROUPS)
@@ -472,20 +482,52 @@ def field_block(layers=KERNEL_LAYERS) -> int:
     return FIELD_BLOCK if tuple(layers) == KERNEL_LAYERS else SPEC_FIELD_BLOCK
 
 
+def staged_obstacles(n_obs: int) -> int:
+    """The circles a launch with ``n_obs`` slots stages in shared memory
+    (csrc staged_obstacles): all of them up to ``MAX_OBSTACLES``, else none
+    (every circle read in device memory)."""
+    return n_obs if n_obs <= MAX_OBSTACLES else 0
+
+
+def _field_room_t(layers, field, pack: int, lanes: bool) -> int:
+    """The field kernels' room for U in steps (csrc field_room_t): what
+    the weights, ``pack`` floats of the packed field, the tiles,
+    ``MAX_OBSTACLES`` circles and a lane form's staged scalars (with
+    ``lanes``) leave of a block's shared memory."""
+    f = -(-num_weights(layers) // 4) * 4
+    tiles = field_block(layers) // 32 * field_tile_floats(field)
+    return (SMEM_FLOATS - f - pack - tiles - 3 * MAX_OBSTACLES
+            - (LANE_SCALAR_FLOATS if lanes else 0)) // 2
+
+
+def field_global(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC) -> bool:
+    """Whether the library of the MLP spec ``layers`` and the field spec
+    ``field`` keeps the packed field in device memory (csrc kFieldGlobal):
+    where staging it leaves a lane form no room for U at
+    ``FIELD_GLOBAL_T`` steps (34-128-128-1 beside 6-64-64-64-64-4 or
+    6-24-4).  Otherwise the field is staged in each block's shared
+    memory."""
+    return _field_room_t(layers, field, field_pack_floats(field),
+                         True) < FIELD_GLOBAL_T
+
+
 def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0, n_obs: int = 0,
                       field=FIELD_KERNEL_SPEC) -> dict:
     """The MLP field kernels' dynamic shared memory (csrc FieldSmem) on a
     field of spec ``field``, in floats from its start: the packed weights
     first (``num_weights`` floats), the packed field at ``f`` (the weights
-    rounded up to a float4, so that the field is read as float4), the
-    warps' tiles at ``tiles``, U (2 T) at ``U``, the circles (3 n_obs) at
-    ``obs``; ``bytes`` in all for a launch at ``T`` with ``n_obs``
-    slots."""
+    rounded up to a float4, so that the field is read as float4; no floats
+    where ``layout`` is "global": the field stays in device memory,
+    ``field_global``), the warps' tiles at ``tiles``, U (2 T) at ``U``, the
+    staged circles (3 ``staged_obstacles(n_obs)``) at ``obs``; ``bytes`` in
+    all for a launch at ``T`` with ``n_obs`` slots."""
+    glob = field_global(layers, field)
     f = -(-num_weights(layers) // 4) * 4
-    tiles = f + field_pack_floats(field)
+    tiles = f + (0 if glob else field_pack_floats(field))
     U = tiles + field_block(layers) // 32 * field_tile_floats(field)
     obs = U + 2 * T
-    return dict(f=f, tiles=tiles, U=U, obs=obs, bytes=4 * (obs + 3 * n_obs))
+    return dict(layout="global" if glob else "staged", f=f, tiles=tiles, U=U,
+                obs=obs, bytes=4 * (obs + 3 * staged_obstacles(n_obs)))
 
 
 def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC,
@@ -493,30 +535,33 @@ def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC,
     """The longest horizon the field kernels take for the MLP spec
     ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT; their
     lane forms' with ``lanes``, kLibMaxFieldLanesT): ``MAX_FIELD_KERNEL_T``,
-    or what the weights and the field leave room for beside the tiles and
+    or what the weights and the field as the library's layout stages it
+    (``field_smem_layout``) leave room for beside the tiles and
     ``MAX_OBSTACLES`` circles in a block's shared memory, less the lane
     forms' staged scalars (``LANE_SCALAR_FLOATS``) for ``lanes`` (0: no
     room)."""
-    room = (SMEM_FLOATS - field_smem_layout(layers, field=field)["U"]
-            - 3 * MAX_OBSTACLES - (LANE_SCALAR_FLOATS if lanes else 0)) // 2
+    pack = (0 if field_global(layers, field) else field_pack_floats(field))
+    room = _field_room_t(layers, field, pack, lanes)
     return max(0, min(MAX_FIELD_KERNEL_T, room))
 
 
 def _check_field_room(layers, fspec, T: int, lanes: bool = False) -> None:
-    """Raise, before any build, where the MLP spec ``layers``'s weights,
-    the packed field of spec ``fspec`` and the tiles (and a lane form's
-    staged scalars, with ``lanes``) leave no room for U at a launch of
-    ``T`` steps (``T`` up to ``MAX_FIELD_KERNEL_T``; a longer horizon is
-    refused as for every field)."""
+    """Raise, before any build, where the library of the MLP spec
+    ``layers`` and the field spec ``fspec`` has no room for U at a launch
+    of ``T`` steps in its layout (``field_smem_layout``: the field staged,
+    or in device memory where staging leaves no room at
+    ``FIELD_GLOBAL_T``), with a lane form's staged scalars when ``lanes``
+    (``T`` up to ``MAX_FIELD_KERNEL_T``; a longer horizon is refused as for
+    every field)."""
     if max_field_kernel_t(layers, fspec, lanes) < min(T, MAX_FIELD_KERNEL_T):
-        need = field_smem_layout(layers, T, MAX_OBSTACLES, fspec)["bytes"]
+        lay = field_smem_layout(layers, T, MAX_OBSTACLES, fspec)
         raise NotImplementedError(
             f"the field kernels of layers {tuple(layers)} on a field "
             f"{_build.field_label(fspec)} ({field_pack_floats(fspec) * 4} "
-            f"bytes packed) need {need} bytes of shared memory a block at "
-            f"T={T} with {MAX_OBSTACLES} circle slots, over the "
-            f"{SMEM_FLOATS * 4} a block can take (ROADMAP.md, Queue 2 A6: "
-            "the field's fragments read from global memory)")
+            f"bytes packed, the {lay['layout']} layout) need "
+            f"{lay['bytes']} bytes of shared memory a block at T={T} with "
+            f"{MAX_OBSTACLES} circle slots, over the {SMEM_FLOATS * 4} a "
+            "block can take (ROADMAP.md, Queue 2 A8: the horizon caps)")
 
 
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
@@ -882,13 +927,12 @@ def _obstacle_launch(circles: Optional[torch.Tensor], dev):
     """(n_obs, packed) for a fused kernel: the circles (N, 3), or a lane
     launch's (L, N, 3), as [x..., y..., radius...] (3 N,) float32 a lane
     on ``dev``, copied anew for every launch so that a live update is never
-    served from a stale copy; (0, None) without obstacle terms."""
+    served from a stale copy (the kernels stage up to ``MAX_OBSTACLES`` of
+    a lane's in shared memory and read more from this copy); (0, None)
+    without obstacle terms."""
     if circles is None:
         return 0, None
     n = circles.shape[-2]
-    if n > MAX_OBSTACLES:
-        raise ValueError(f"the CUDA kernels stage at most {MAX_OBSTACLES} "
-                         f"obstacle slots, got {n} (ROADMAP.md, Queue 2 A5)")
     packed = torch.empty((*circles.shape[:-2], 3, n), dtype=torch.float32,
                          device=dev)
     packed.copy_(circles.transpose(-1, -2))

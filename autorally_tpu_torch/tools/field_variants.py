@@ -56,23 +56,24 @@ KEY = (0x2545F491, 0x9E3779B9)
 HELD = ("base", "1xtf32")          # held against the plain versions
 
 # (variant, [(text in the source, its replacement), ...])
-_LOAD1 = "const float4 b = l1[(ks * NT + nt) * 32 + lane];"
-_LOAD2 = "const float4 b = l[(ks * NT + nt) * 32 + lane];"
+_LOAD1 = "const float4 b = at<float4>(4 * ((ks * NT + nt) * 32 + lane));"
+_LOAD2 = ("const float4 b =\n            at<float4>(FS::frag_offset(L) + "
+          "4 * ((ks * NT + nt) * 32 + lane));")
 _FAKE_B = ("const float4 b = make_float4(__int_as_float(lane + nt), "
            "__int_as_float(ks), __int_as_float(lane), __int_as_float(nt));")
 _MMA3 = """  mma_tf32(d, al, h0, h1);
   mma_tf32(d, ah, __float_as_uint(b.z), __float_as_uint(b.w));
   mma_tf32(d, ah, h0, h1);"""
-_SMEM = ("  return (size_t)(field_weight_floats<Deriv>() + kFieldPack\n"
+_SMEM = ("  return (size_t)(field_weight_floats<Deriv>() + kFieldStagedPack\n"
          "                  + kFieldWarps * kTileFloats")
 VARIANTS = {
     "base": [],
     "1xtf32": [(_MMA3, "  mma_tf32(d, ah, h0, h1);")],
     "no_mma": [(_MMA3, "  d[0] += __uint_as_float(ah[0]) * b.x;")],
-    "fast_sincos": [("sincosf(__fmul_rn(u, freqs[n]), &su, &cu);",
-                     "__sincosf(__fmul_rn(u, freqs[n]), &su, &cu);"),
-                    ("sincosf(__fmul_rn(v, freqs[n]), &sv, &cv);",
-                     "__sincosf(__fmul_rn(v, freqs[n]), &sv, &cv);")],
+    "fast_sincos": [("sincosf(__fmul_rn(u, freq), &su, &cu);",
+                     "__sincosf(__fmul_rn(u, freq), &su, &cu);"),
+                    ("sincosf(__fmul_rn(v, freq), &sv, &cv);",
+                     "__sincosf(__fmul_rn(v, freq), &sv, &cv);")],
     "no_b_loads": [(_LOAD1, _FAKE_B), (_LOAD2, _FAKE_B)],
     "one_block_per_sm": [(_SMEM, _SMEM + " + 16384")],
 }

@@ -70,7 +70,7 @@ exits non-zero):
 4. the main path: one MPPI iteration on the GPU against the same iteration
    on the CPU, then ``MPPISolver`` on ``cuda`` for one untimed solve and
    200 ticks of slide + solve + plant step, with both kernels' launch
-   counters reset just before and read just after; the same drive in four
+   counters reset just before and read just after; the same drive in two
    pairs whose order alternates, kernel A in one rollout a thread and in
    the launcher's geometry (the same controls), each pair's medians, and
    again for kernel B (one rollout a thread, one a warp); the host time
@@ -182,7 +182,7 @@ exits non-zero):
     reaching both controllers and a throttle cut zeroing the DDP's
     throttle limit, mid-run; (d) 20 ticks with the BF model (K=2560), its
     DDP captured bit for bit its eager run, a captured run's graph nodes
-    (device events) and time with the fused BF Euler step, then 200 BF
+    (device events) and time with the fused BF Euler step, then 100 BF
     ticks; each drive also prints Python's collections inside it;
 21. the closed-loop episode (``runtime/episode.py``'s ``EpisodeRunner``,
     the tick captured once as one CUDA graph and replayed) at the main
@@ -197,7 +197,7 @@ exits non-zero):
     obstacles (16 slots), the capacity mode (K=262144), the asymmetric
     tube (K_pred=480); (d) the capture's seconds, ms a replayed tick (CUDA
     events), ticks/s and sim-seconds a wall-second and ``episode_metrics``
-    for 1,000 ticks without gains, 200 with, and the BF model at K=2560
+    for 500 ticks without gains, 200 with, and the BF model at K=2560
     with gains (200 ticks); (e) ``tools/lap_suite.run_config`` on an oval
     and a winding row, 500 ticks, the artifact checked by
     ``validate_laps``'s rules (the winding track allowed);
@@ -329,7 +329,7 @@ exits non-zero):
 31. ``matmul_precision="default"``: the bf16-operand libraries' instances
     against their ``"default"`` plain versions, and drives on each path;
 32. the physics simulator (``sim/``) and the ML loop on the card: (a)
-    ``vehicle_step`` for 500 periods under a gentle and a hard command
+    ``vehicle_step`` for 250 periods under a gentle and a hard command
     script on the card (the period one replayed CUDA graph) against the
     CPU within the CPU tests' rtol 1e-5 / atol 1e-4 at every period, the
     captured period bit for bit the eager one on the card, a period's ms
@@ -359,9 +359,9 @@ exits non-zero):
     the solo instance run with that lane's scalars in the lane launch's
     geometry; kernel 1's lane form in every geometry and kernel 2's in
     both, bit for bit one another; (c) the tool's sweep at its defaults
-    (seeded 6-32-32-4 from a temporary ``.npz``, K=512, 800 ticks,
+    (seeded 6-32-32-4 from a temporary ``.npz``, K=512, 400 ticks,
     desired_speed 5, 6, 7) and a 12-lane grid at K=1920 (desired_speed
-    4..7 x gamma 0.05, 0.15, 0.6), 200 ticks: one capture, exactly 2 + 2
+    4..7 x gamma 0.05, 0.15, 0.6), 100 ticks: one capture, exactly 2 + 2
     lane launches in the captured tick (counted by the wrappers; the
     profiler over 5 replayed ticks finds the lane forms and no solo
     instance), no plain version, the replayed tick's ms,
@@ -383,7 +383,7 @@ exits non-zero):
     changing every lane's costs; (c) kernel 3's lane form at L=3, K=512
     and L=4, K=16384 (the field path's 65,536 rollouts), without and with
     16 circles a lane, and at L=12, K=1920 without (the drives' form),
-    MLP and BF, on phase 11's fitted field, the same holds; (d) 200
+    MLP and BF, on phase 11's fitted field, the same holds; (d) 100
     ticks of a 12-lane sweep at K=1920 with an ``ObstacleCost`` (each
     lane's circles) and the ESS law, the same with moving obstacles, and
     on the fitted field, each with its launches counted (2 + 2 a captured
@@ -404,13 +404,34 @@ exits non-zero):
     library and the F6-48-48 field library at K=8192 and the bf16 library
     at K=1920, L=3; (d) capacity drives through ``EpisodeRunner.run`` with
     a stacked ``CostParams``, captured and replayed: 12 lanes at K=1920
-    (200 gaussian ticks, 20 OU), 4 lanes at K=262144 (50 ticks on the map,
-    20 on the field), 3 lanes of 6-64-64-64-64-4 at K=8192 (capacity and
+    (200 gaussian ticks, 20 OU), 4 lanes at K=262144 (25 ticks on the map,
+    10 on the field), 3 lanes of 6-64-64-64-64-4 at K=8192 (capacity and
     host noise, 20 each) and 3 at ``"default"`` (20), each with exactly
     2 + 2 + 2 lane launches a tick counted, no plain version, the
     replayed tick's p50 / p99, graph nodes, ticks/s, and lanes 0 and L-1
     bit for bit their solo captured episodes; the new instances timed
     beside their plain versions and bounds, and the phase's seconds.
+36. circles past the 64 slots a launch stages, and a field left in device
+    memory: (a) kernel 1 (MLP in the launcher's geometry at K=1920, BF at
+    K=2560) at 65, 128 and 1024 slots, kernel 3 (MLP, BF) at K=65536 and
+    pass 1 (exact MLP and BF, field) at K=262144 with 128, the two circles
+    that some rollouts hit in slots past the 64 and every fourth slot
+    free, against their plain versions (kernel 1 also along kernel 2's
+    trajectories in every rollout; pass 1 also bit for bit kernel 1 or 3
+    fed its stream), u_seq bit for bit; the lane forms of kernels 1 and 3
+    and of pass 1 (exact and field) at L=3, K=512 with 128 a lane, each
+    lane bit for bit its solo instance; (b) the library of BASELINE #3's
+    6-64-64-64-64-4 beside a seeded 34-128-128-1 field (built last at
+    phase 1; the packed field in device memory): its ptxas report, layout
+    and shared memory, kernel 3 and field pass 1 at K=8192 against their
+    plain versions (pass 1 bit for bit kernel 3 on its stream) and their
+    lane forms at L=3, each lane bit for bit its solo instance; (c) drives
+    with exact launches a solve and no plain version: BASELINE #1 among
+    118 cones on the oval's edges in 128 slots (100 ticks; the capacity
+    mode at K=262144, 20 ticks) and the pair with host noise and in the
+    capacity mode (20 ticks each), each solve's p50 / p99 printed beside
+    20 ms and not gated; the new forms timed beside their plain versions
+    and bounds.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -420,7 +441,7 @@ launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
 3 and 4's other timings and drives at the other specs, the cost-parameter
-sweeps' and phases 34-35's drives), and as
+sweeps' and phases 34-36's drives), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -454,8 +475,9 @@ PEAK_TF32_FLOP_PER_S = 495e12         # tensor cores, dense
 K, T = 1920, 100
 TICKS = 200
 # phase 4's drives of kernel A in the old and the new geometry, in pairs
-# whose order alternates (ten, so that a gain can be told from the spread)
-TURN_PAIRS = 4
+# whose order alternates (ten once, so that a gain could be told from the
+# spread; two since phase 36 came)
+TURN_PAIRS = 2
 # timed runs of a plain version after one warm-up: it takes 0.1-1.5 s of
 # launches, and one run gives its time
 PLAIN_REPS = 1
@@ -539,7 +561,7 @@ WARM_TICKS = 10                       # (a)'s inputs: a warmed-up tick's
 HOT_TICKS = 12                        # (c): pushes at tick 10, cut at 11
 TUBE_BF_TICKS = 20
 # (d) again for a p99 that is not the slowest of 20 ticks
-TUBE_BF_LONG_TICKS = 200
+TUBE_BF_LONG_TICKS = 100
 DDP_REPS, DDP_EAGER_REPS = 50, 5
 # the DDP on the card against the port's CPU run on the same inputs, each
 # field's max |error| over its max |value|: fp32 rollouts of 100 steps and
@@ -559,7 +581,7 @@ EP_BIT_TICKS = 25                     # (a) captured against eager
 EP_PROFILE_TICKS = 10                 # (b) launches counted by the profiler
 EP_SHORT_TICKS = 20                   # (c) obstacles, capacity, asymmetric
 EP_K_PRED = 480
-EP_TICKS, EP_GAIN_TICKS, EP_BF_TICKS = 1000, 200, 200     # (d) timing
+EP_TICKS, EP_GAIN_TICKS, EP_BF_TICKS = 500, 200, 200      # (d) timing
 EP_LAP_TICKS = 500                    # (e) the lap suite's run_config
 EP_LAP_ROWS = (
     {"name": "oval_nn_gaussian", "track": "oval", "K": K, "T": T,
@@ -4509,10 +4531,11 @@ LIBRARIES = (((None, None),) + tuple((layers, None)
 
 
 class Builds:
-    """Every library of ``LIBRARIES`` and, of bf16 operands, of
-    ``BF16_LIBRARIES``, one ``nvcc`` each (a wide spec's in
-    ``_build.parts``), all asked for at once (threads) in the order the
-    phases take them, the default library first: ``_build`` runs
+    """Every library of ``LIBRARIES``, of bf16 operands of
+    ``BF16_LIBRARIES``, and of ``PAIR_LIBRARIES`` (phase 36's, last), one
+    ``nvcc`` each (a wide spec's in ``_build.parts``), all asked for at
+    once (threads) in the order the phases take them, the default library
+    first: ``_build`` runs
     ``_build.NVCC_JOBS`` at once in that order, so that the phases
     meanwhile keep cores of their own.  Each float32 library of another
     spec is dumped (``library_sass``) beside its build.  ``get(layers, field, bf16)`` waits
@@ -4528,7 +4551,9 @@ class Builds:
         self.t0 = time.perf_counter()
         keys = ([(layers, field, False) for layers, field in LIBRARIES]
                 + [(layers, field, True)
-                   for layers, field in BF16_LIBRARIES])
+                   for layers, field in BF16_LIBRARIES]
+                + [(layers, field, False)
+                   for layers, field in PAIR_LIBRARIES])
         self.threads = {key: threading.Thread(target=self._build, args=key)
                         for key in keys}
         for th in self.threads.values():
@@ -4660,7 +4685,8 @@ def field_instances(rk, tag, layers=None, field=None) -> None:
             print(f"[{tag}] {name}<{'Bf' if bf else 'Mlp'}>: "
                   f"{info['registers']} registers, {info['local_bytes']} "
                   f"bytes of local memory a thread, {info['smem_bytes']} "
-                  f"bytes of dynamic shared memory at T={T}, "
+                  f"bytes of dynamic shared memory at T={T} (the field "
+                  f"{rk.field_smem_layout(**kw)['layout']}), "
                   f"{info['blocks_per_sm']} blocks of {block} ({warps} "
                   f"warps) an SM")
             check(warps >= need, f"{tag} {name}: {warps} resident warps an "
@@ -6523,7 +6549,7 @@ def precision_phase(drive_oval, rk, card, field, dev=None) -> dict:
 
 # -- phase 32: the physics simulator and the ML loop --------------------------
 
-PHYS_PERIODS = 500                     # (a): 10 s at 50 Hz a script
+PHYS_PERIODS = 250                     # (a): 5 s at 50 Hz a script
 PHYS_DT = 0.02
 PHYS_RTOL, PHYS_ATOL = 1e-5, 1e-4      # tests/test_torch_sim_vehicle.py
 PHYS_BIT_PERIODS = 100                 # (a): captured against eager
@@ -6867,11 +6893,12 @@ def physics_phase(rk, card, dev=None, sim=None) -> dict:
 # -- phase 33: the cost-parameter sweep on the lane forms of kernels 1-2 ----
 
 # The sweep's two widths (tools/param_sweep.py): its defaults (the seeded
-# 6-32-32-4, K=512, 800 ticks, desired_speed 5, 6, 7 on the oval) and a
-# 12-lane grid at BASELINE #1's K=1920, 200 ticks.
+# 6-32-32-4, K=512, desired_speed 5, 6, 7 on the oval) and a 12-lane grid
+# at BASELINE #1's K=1920, cut in ticks (400 and 100 since phase 36 came;
+# the tool's default is 800).
 LANE_SWEEPS = {
-    "L3": (["desired_speed=5,6,7"], 512, 800),
-    "L12": (["desired_speed=4,5,6,7", "gamma=0.05,0.15,0.6"], K, 200),
+    "L3": (["desired_speed=5,6,7"], 512, 400),
+    "L12": (["desired_speed=4,5,6,7", "gamma=0.05,0.15,0.6"], K, 100),
 }
 LANE_SHAPES = ((3, 512), (12, K))           # (b): (L, K)
 LANE_PROFILE_TICKS = 5                     # (c): replayed under the profiler
@@ -7447,7 +7474,7 @@ LANE_CIRCLE_SETS = {"16 per lane": (N_SLOTS, True),
                     "16 shared": (N_SLOTS, False),
                     "64 per lane": (64, True)}
 FIELD_LANE_SHAPES = ((3, 512), (12, K), (4, 16384))   # (c): (L, K)
-LANE_DRIVE_TICKS = 200                 # (d): each full-width drive, L=12
+LANE_DRIVE_TICKS = 100                 # (d): each full-width drive, L=12
 # (b)-(c) at L=12 the forms the drives run (each held at L=3 too): kernel
 # 1 with 16 circles a lane's own and 16 shared, kernel 3 without circles
 LANE_WIDE_L, LANE_WIDE_SETS = 12, ("16 per lane", "16 shared")
@@ -7922,7 +7949,7 @@ LIB_LANES = 3
 # (capacity, host noise), 3 at "default" at K
 CAP_L12_TICKS = {"gaussian": 200, "ou": 20}
 CAP_WIDE_LANES = 4
-CAP_WIDE_TICKS = {"exact": 50, "field": 20}
+CAP_WIDE_TICKS = {"exact": 25, "field": 10}
 CAP_FORM_TICKS = 20
 CAP_TIME_REPS = 20                    # the kernels line's CUDA-event runs
 # the capacity passes' lane instances in the default library (ptxas' names,
@@ -8546,6 +8573,506 @@ def capacity_lanes_phase(rk, card, field, dev=None) -> dict:
     return {"results": results, "rows": rows}
 
 
+# -- phase 36: circles past the 64 staged slots (A5); a field left in device
+# memory (A6) --------------------------------------------------------------
+
+# (a) kernel 1's slots (a launch stages up to rk.MAX_OBSTACLES, and reads
+# more in device memory); every other form's
+MANY_SLOTS = (65, 128, 1024)
+WIDE_SLOTS = 128
+MANY_LANES = (3, 512)                  # (a): the lane forms' (L, K)
+# (b) the pair whose staged field leaves no room: BASELINE #3's spec beside
+# a seeded 34-128-128-1 field, at its K; its library builds last at phase 1
+PAIR_LAYERS, PAIR_FIELD = (6, 64, 64, 64, 64, 4), (8, 128, 128)
+PAIR_LIBRARIES = ((PAIR_LAYERS, PAIR_FIELD),)
+# (c) the drives: BASELINE #1 with about 100 cones on the oval's edges in
+# 128 slots, its capacity mode, and the pair's host-noise and capacity
+# modes
+CONE_SLOTS, CONE_EVERY, CONE_OFFSET, CONE_RADIUS = 128, 0.7, 2.6, 0.2
+CONE_TICKS, CONE_CAP_TICKS, PAIR_TICKS = 100, 20, 20
+MANY_REPS = {"small": 50, "large": 10}    # the kernels line's CUDA-event runs
+
+
+def many_circles(model, params, cfg, start, U, slots: int, seed: int):
+    """(slots, 3) circles on the card: phase 17's two, placed so that about
+    half of the rollouts from ``start`` pass inside one, in the slot after
+    the middle and in the last (both past the 64 staged where ``slots`` >
+    64), the others scattered 4-12 m from ``start`` with radii 0.1-0.5 m,
+    every fourth slot free (radius -1): the kernels read live and free
+    slots on both sides of the staged count."""
+    import torch
+
+    tuned = obstacle_circles(model, params, cfg, start, U, seed=seed)
+    rs = np.random.default_rng(seed)
+    ang = rs.uniform(0.0, 2.0 * np.pi, slots)
+    dist = rs.uniform(4.0, 12.0, slots)
+    x0, y0 = float(start[0]), float(start[1])
+    out = np.stack([x0 + dist * np.cos(ang), y0 + dist * np.sin(ang),
+                    rs.uniform(0.1, 0.5, slots)], axis=1)
+    out[3::4, 2] = -1.0
+    out[slots // 2 + 1] = tuned[0]
+    out[slots - 1] = tuned[1]
+    return torch.tensor(out, dtype=torch.float32, device=U.device)
+
+
+def oval_cones(spacing: float = CONE_EVERY) -> list:
+    """Cones (radius ``CONE_RADIUS``) every ``spacing`` of arc along both
+    edges of the oval's lane, ``CONE_OFFSET`` m either side of its
+    centreline (``drive_oval.oval_costmap``'s ellipse, 30 x 18 m, a lane 6
+    m wide whose crash boundary lies 1.95 m off the centreline), over the
+    quarter ahead of the start (30, 0) heading +y: an autocross course's
+    cones."""
+    a, b = 30.0, 18.0
+    cones, s = [], 0.0
+    th = np.linspace(-0.15, np.pi / 2, 4001)
+    x, y = a * np.cos(th), b * np.sin(th)
+    arc = np.concatenate([[0.0], np.cumsum(np.hypot(np.diff(x),
+                                                    np.diff(y)))])
+    for i in range(len(th)):
+        if arc[i] < s:
+            continue
+        s += spacing
+        nx, ny = b * np.cos(th[i]), a * np.sin(th[i])
+        n = np.hypot(nx, ny)
+        for side in (-1.0, 1.0):
+            cones.append([x[i] + side * CONE_OFFSET * nx / n,
+                          y[i] + side * CONE_OFFSET * ny / n, CONE_RADIUS])
+    return cones
+
+
+def fused_circle_bound(k, n_w, step, circles, field=None, map_floats=0,
+                       stream=False, lanes=1):
+    """Kernel 1, 3 or pass 1 (``stream``: the noise drawn in the kernel, no
+    eps read and no u_seq written) over ``lanes`` lanes of K=k with
+    ``circles`` (n, 3), or (lanes, n, 3) a lane's own: every input read
+    once (eps, the weights, shared circles and the field or the map once
+    for all lanes; the map at most its ``map_floats``, one texel a lookup),
+    every output written once (phase 18's rule), a circle 13 operations a
+    step (a free slot 1), the field's products on the tensor cores
+    (``field_bounds``).  Returns ((ms, by), fp32 (ms, by) or None)."""
+    n = circles.shape[-2]
+    own = circles.dim() == 3
+    active = int((circles[..., 2] > 0).sum().item()) // (lanes if own
+                                                         else 1)
+    circle_ops = (active * CIRCLE_OPS + (n - active) * SLOT_OPS + 1
+                  if n else 0)
+    per_lane = ((2 * k if stream else 2 * T * k + 2 * k) + 2 * T + 7
+                + (3 * n if own else 0))
+    if field is None:
+        surface = min(map_floats, 2 * (T - 1) * k * lanes)
+    else:
+        surface = sum(a * b + b for a, b in zip(field.layers[:-1],
+                                                field.layers[1:])) + int(
+            field.freqs.numel())
+    shared = ((0 if stream else 2 * T * k) + n_w + 4
+              + (0 if own else 3 * n) + surface)
+    nbytes = 4 * (lanes * per_lane + shared) + (16 if stream else 0)
+    other = lanes * k * (T * (step + (STREAM_OPS if stream else 0))
+                         + (T - 1) * circle_ops)
+    if field is None:
+        return bound(nbytes, other), None
+    fp32, tc = field_bounds(nbytes, other, lanes * k * (T - 1) * 2, field)
+    return tc, fp32
+
+
+def many_row(name, launch, reps, plain_ms, err, bnd, launches, card,
+             replaces, **extra) -> dict:
+    """A phase-36 row of the ``kernels`` line: the launch's time (CUDA
+    events over ``reps``), its plain version's ``plain_ms``, the bound
+    ``bnd`` ((ms, by), fp32 (ms, by) or None) and the drive's launches."""
+    ms = cuda_ms(launch, reps)
+    (b_ms, b_by), fp32 = bnd
+    print(f"[timing] {name} " + " ".join(f"{k}={v}" for k, v in extra.items())
+          + f": {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+          f"({b_by})" + (f", fp32 {fp32[0]:.5f} ms" if fp32 else "")
+          + f", {launches} launches in its drive ({card})")
+    row = {"name": name, "route": "cuda",
+           "source": "autorally_tpu_torch/csrc/rollout_kernels.cu",
+           "replaces": f"autorally_tpu/ops/rollout_kernel.py:{replaces}",
+           "launches": launches, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": None, **extra}
+    if fp32:
+        row["fp32_bound_ms"] = fp32[0]
+    if getattr(launch, "geometry", None) is not None:
+        row["geometry"] = geometry_label(launch.geometry)
+    return row
+
+
+def many_circles_phase(drive_oval, rk, card, field, builds,
+                       dev=None) -> dict:
+    """Phase 36: circles past the 64 slots a launch stages (Queue 2 A5) in
+    kernel 1, kernel 3 and pass 1 and their lane forms, held against their
+    plain versions; the field kernels of a pair whose staged field leaves
+    no room (A6: BASELINE #3's 6-64-64-64-64-4 beside 34-128-128-1, the
+    field in device memory), solo and in lanes; and drives through each
+    (``field``: phase 11's fit; ``builds``: phase 1's)."""
+    import torch
+    from autorally_tpu_torch.config import lane_cost_params
+    from autorally_tpu_torch.costs import MPPICost, ObstacleCost
+    from autorally_tpu_torch.costs import make_obstacles
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+
+    dev = dev or torch.device("cuda", 0)
+    results, rows, rowargs = {}, [], []
+    solver, params, cp, costmap, _ = drive_oval.build(rollouts=K, device=dev)
+    model, cfg = solver.model, solver.cfg
+    bsolver, bparams, *_ = drive_oval.build(model="bf", rollouts=KB,
+                                            device=dev)
+    bmodel, bcfg = bsolver.model, bsolver.cfg
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    ocoeff = dict(obstacle_coeff=drive_oval.OBSTACLE_COEFF,
+                  inflation=drive_oval.OBSTACLE_INFLATION)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+    start = torch.tensor(drive_oval.START, dtype=torch.float32, device=dev)
+    ahead = start.clone()
+    ahead[4] = 1.0                 # phase 17's start: moving up the lane
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(36)
+    n_mlp, n_bf = rk.KERNEL_NUM_WEIGHTS, rk.KERNEL_BF_WEIGHTS
+    map_floats = costmap.height * costmap.width
+    steps = {"MLP": mlp_flops(model.layers), "BF": BF_STEP_OPS}
+    models = {"MLP": (model, params, cfg, n_mlp),
+              "BF": (bmodel, bparams, bcfg, n_bf)}
+    print(f"[many circles] a launch stages up to {rk.MAX_OBSTACLES} circles "
+          f"in shared memory and reads more in device memory; staged at "
+          f"{MANY_SLOTS}: {[rk.staged_obstacles(n) for n in MANY_SLOTS]}")
+
+    def hold(tag, launch_fn, plain_fn, along_fn, k, bits_fn=None,
+             mixed=True):
+        """A fused form against its plain version (``plain_fn``: (costs,
+        u_seq or None, crash)): costs and crash flags (phase 17-18's rule:
+        every rollout along kernel 2's trajectories where ``along_fn`` is
+        given, all but 1 % against the whole plain version, whose
+        trajectories differ by rounding), u_seq bit for bit, and with
+        ``mixed`` some rollouts crashed and some not; ``bits_fn``: pass 1
+        bit for bit kernel 1 or 3 fed its stream.  Returns (launch,
+        outputs, error, plain ms)."""
+        launch, out = launch_fn()
+        launch()
+        torch.cuda.synchronize()
+        plain, plain_ms = plain_timed(plain_fn)
+        kc, kx = out[0], out[-1]
+        pc, px = plain[0], plain[2]
+        err = agreement(tag, "against the plain version", kc, kx, pc, px, k,
+                        limit=k // 100)
+        if along_fn is not None:
+            bc, bx = along_fn()
+            err = agreement(tag, "along kernel 2's trajectories", kc, kx, bc,
+                            bx, k, limit=0)
+        if len(out) == 3:
+            check(bit_equal(out[1], plain[1]), f"{tag}: u_seq differs from "
+                  "its plain version's")
+        if bits_fn is not None:
+            oc, _, ox = bits_fn()
+            torch.cuda.synchronize()
+            same = bit_equal(kc, oc) and bit_equal(kx, ox)
+            print(f"[{tag}] bit for bit the eps-reading kernel fed its "
+                  f"stream: {same} ({card})")
+            check(same, f"{tag}: pass 1 differs from the eps-reading kernel "
+                  "fed its stream")
+        n_hit = int(kx.sum().item())
+        print(f"[{tag}] {launch.name}: crash {n_hit}/{k} ({card})")
+        check(not mixed or 0 < n_hit < k, f"{tag}: no rollout or every "
+              "rollout crashed")
+        return launch, out, err, plain_ms
+
+    def p1_plain(*args, **kw):
+        """Pass 1's plain version as (costs, None, crash)."""
+        costs, crash, _ = rk.fused_rng_costs_plain(*args, **kw)
+        return costs, None, crash
+
+    # (a) kernel 1 (MLP in the launcher's geometry, G=8 at K=1920; BF one
+    # rollout a thread at K=2560) at 65, 128 and 1024 slots
+    for kind, (m, p, c, n_w) in models.items():
+        eps = torch.randn((T, c.num_rollouts, 2), generator=gen, device=dev)
+        k = c.num_rollouts
+        for slots in MANY_SLOTS:
+            circles = many_circles(m, p, c, ahead, U, slots, seed=slots)
+            okw = dict(obstacles=circles, **ocoeff)
+            tag = f"many circles (a) kernel 1 {kind} K={k} slots {slots}"
+            launch, _, err, plain_ms = hold(
+                tag,
+                lambda: rk.prepare_fused_exact_rollout_cost(
+                    m, p, c, cp, costmap, ahead, U, eps, **okw),
+                lambda: rk.fused_rollout_cost_plain(
+                    m, p, c, cp, costmap, ahead, U, eps, **okw),
+                lambda: rk.trajectory_cost_plain(
+                    m, p, c, cp, costmap, U, eps, rk.dynamics_chain(
+                        m, p, c, ahead, U, eps)[0], **okw), k)
+            rowargs.append(((1, kind, k, slots), launch, MANY_REPS["small"],
+                            plain_ms, err, fused_circle_bound(
+                                k, n_w, steps[kind], circles,
+                                map_floats=map_floats), 1013,
+                            dict(K=k, slots=slots)))
+        del eps
+
+    # kernel 3 (MLP, BF) at K=65536 on phase 11's field, 128 slots
+    for kind, (m, p, c, n_w) in models.items():
+        c3 = c.replace(num_rollouts=KF)
+        eps = torch.randn((T, KF, 2), generator=gen, device=dev)
+        circles = many_circles(m, p, c3, ahead, U, WIDE_SLOTS, seed=3)
+        okw = dict(obstacles=circles, **ocoeff)
+        tag = f"many circles (a) kernel 3 {kind} K={KF} slots {WIDE_SLOTS}"
+        launch, _, err, plain_ms = hold(
+            tag,
+            lambda: rk.prepare_fused_rollout_cost(
+                m, p, c3, cp, field, ahead, U, eps, **okw),
+            lambda: rk.fused_rollout_cost_plain(
+                m, p, c3, cp, field, ahead, U, eps, **okw),
+            None, KF)
+        rowargs.append(((3, kind, KF, WIDE_SLOTS), launch, MANY_REPS["large"],
+                        plain_ms, err, fused_circle_bound(
+                            KF, n_w, steps[kind], circles, field), 606,
+                        dict(K=KF, slots=WIDE_SLOTS)))
+        del eps
+
+    # pass 1 at K=262144, 128 slots: exact MLP and BF, field MLP; each
+    # against its plain version and bit for bit kernel 1 / 3 fed its stream
+    p1_forms = (("exact MLP", "MLP", costmap), ("exact BF", "BF", costmap),
+                ("field MLP", "MLP", field))
+    for label, kind, surface in p1_forms:
+        m, p, c, n_w = models[kind]
+        cc = c.replace(num_rollouts=KC, kernel_rng=True)
+        circles = many_circles(m, p, cc, ahead, U, WIDE_SLOTS, seed=4)
+        okw = dict(obstacles=circles, **ocoeff)
+        is_field = surface is field
+        prep = (rk.prepare_fused_rollout_cost if is_field
+                else rk.prepare_fused_exact_rollout_cost)
+        box = {}
+
+        def launch_p1():
+            launch, (kc, kx), ctx = rk.prepare_fused_rng_costs(
+                m, p, cc, cp, surface, ahead, U, key, **okw)
+            box["ctx"] = ctx
+            return launch, (kc, kx)
+
+        def bits():
+            e = rk.rng_noise(box["ctx"])
+            one, out = prep(m, p, cc.replace(kernel_rng=False), cp, surface,
+                            ahead, U, e, **okw)
+            one()
+            return out
+
+        tag = f"many circles (a) pass 1 {label} K={KC} slots {WIDE_SLOTS}"
+        launch, _, err, plain_ms = hold(
+            tag, launch_p1,
+            lambda: p1_plain(m, p, cc, cp, surface, ahead, U, key, **okw),
+            None, KC, bits_fn=bits)
+        box.clear()
+        rowargs.append(((4, label, KC, WIDE_SLOTS), launch,
+                        MANY_REPS["large"], plain_ms, err, fused_circle_bound(
+                            KC, n_w, steps[kind], circles,
+                            field if is_field else None, map_floats,
+                            stream=True), 1221,
+                        dict(K=KC, slots=WIDE_SLOTS)))
+
+    # the lane forms at L=3, K=512, 128 slots a lane: kernel 1, kernel 3,
+    # pass 1 exact and field; each lane bit for bit its solo instance
+    L, K_ = MANY_LANES
+    cp3 = lane_cost_grid(L)
+    lanes = lane_cost_params(cp3)
+    state, Ul, eps = lane_inputs(L, K_, dev, seed=36)
+    c = cfg.replace(num_rollouts=K_)
+    circles = lane_circles(rk, model, params, c, state, Ul, WIDE_SLOTS,
+                           True, seed=36)
+    lkw = dict(obstacles=circles, obstacle_coeff=LANE_COEFF,
+               inflation=LANE_INFLATION)
+    for kernel, surface in ((1, costmap), (3, field)):
+        prep = (rk.prepare_fused_exact_rollout_cost_lanes if kernel == 1
+                else rk.prepare_fused_rollout_cost_lanes)
+        solo = (rk.prepare_fused_exact_rollout_cost if kernel == 1
+                else rk.prepare_fused_rollout_cost)
+        held = lane_hold(
+            f"many circles (a) lanes kernel {kernel} L={L} K={K_} slots "
+            f"{WIDE_SLOTS}",
+            lambda: prep(model, params, c, cp3, surface, state, Ul, eps,
+                         **lkw),
+            lambda: rk.fused_rollout_cost_lanes_plain(
+                model, params, c, cp3, surface, state, Ul, eps, **lkw),
+            lambda i: solo(model, params, c, lanes[i], surface, state[i],
+                           Ul[i], eps, obstacles=circles[i], **{
+                               k: v for k, v in lkw.items()
+                               if k != "obstacles"}),
+            L, K_, card)
+        launch = held["runs"][0][0]
+        kx = held["runs"][0][1][2]
+        check(bool(kx.any().item()), f"many circles lanes kernel {kernel}: "
+              "the circles crash no rollout")
+        bnd = fused_circle_bound(K_, n_mlp, steps["MLP"], circles,
+                                 None if kernel == 1 else field, map_floats,
+                                 lanes=L)
+        rowargs.append(((kernel, "lanes", L, K_), launch, MANY_REPS["small"],
+                        held["plain_ms"], held["err"], bnd,
+                        606 if kernel == 3 else 1013,
+                        dict(K=K_, lanes=L, slots=WIDE_SLOTS)))
+    cc = c.replace(kernel_rng=True)
+    for label, surface in (("exact", costmap), ("field", field)):
+        held = cap_lanes_held(rk, f"many circles (a) pass 1 {label} L={L} "
+                              f"K={K_} slots {WIDE_SLOTS}", model, params, cc,
+                              cp3, surface, state, Ul, key, circles, card)
+        bnd = fused_circle_bound(K_, n_mlp, steps["MLP"], circles,
+                                 None if surface is costmap else field,
+                                 map_floats, stream=True, lanes=L)
+        rowargs.append(((4, f"lanes {label}", L, K_), held["launch"],
+                        MANY_REPS["small"], held["plain_ms"], held["err"],
+                        bnd, 1221, dict(K=K_, lanes=L, slots=WIDE_SLOTS)))
+    del eps
+
+    # (b) the pair's library: its build (last at phase 1), layout, kernels
+    t_wait = time.perf_counter()
+    lib, lib_s = builds.get(PAIR_LAYERS, PAIR_FIELD)
+    tag = (f"many circles (b) {spec_label(PAIR_LAYERS)} "
+           f"{_build.field_label(PAIR_FIELD)}")
+    print(f"[{tag}] {_build.library_path(PAIR_LAYERS, PAIR_FIELD).name}: "
+          + (f"nvcc {lib.build[0]:.1f}s" if lib.build else "already built")
+          + f", {lib_s:.1f}s, done "
+          f"{builds.done[PAIR_LAYERS, PAIR_FIELD, False]:.1f}s into the run, "
+          f"waited {time.perf_counter() - t_wait:.1f}s at phase 36 ({card})")
+    field_library_instances(rk, PAIR_LAYERS, PAIR_FIELD, lib, card)
+    lay = rk.field_smem_layout(PAIR_LAYERS, T, 0, PAIR_FIELD)
+    staged = rk.field_pack_floats(PAIR_FIELD) + lay["U"] + 2 * T
+    print(f"[{tag}] layout {lay['layout']} (the library's "
+          f"artt_field_global {lib.artt_field_global()}): the packed field "
+          f"({4 * rk.field_pack_floats(PAIR_FIELD)} bytes) in device memory, "
+          f"{lay['bytes']} bytes of shared memory a block at T={T} (the "
+          f"staged layout would need {4 * staged}, over {4 * rk.SMEM_FLOATS}"
+          f"); T up to {rk.max_field_kernel_t(PAIR_LAYERS, PAIR_FIELD)}, "
+          f"lanes {rk.max_field_kernel_t(PAIR_LAYERS, PAIR_FIELD, True)}")
+    check(lay["layout"] == "global" and lib.artt_field_global() == 1,
+          f"{tag}: the pair's library does not keep the field in device "
+          "memory")
+    wmodel, wparams, wcfg = spec_setup(PAIR_LAYERS, dev)
+    pfield = seeded_field(costmap, dev, seed=36, fspec=PAIR_FIELD)
+    n_wide = rk.num_weights(PAIR_LAYERS)
+    wstep = mlp_flops(PAIR_LAYERS)
+    eps = torch.randn((T, KS, 2), generator=gen, device=dev)
+    wcap = wcfg.replace(kernel_rng=True)
+    launch3, out3, err3, plain3 = hold(
+        f"{tag} kernel 3 K={KS}",
+        lambda: rk.prepare_fused_rollout_cost(wmodel, wparams, wcfg, cp,
+                                              pfield, start, U, eps),
+        lambda: rk.fused_rollout_cost_plain(wmodel, wparams, wcfg, cp,
+                                            pfield, start, U, eps),
+        None, KS, mixed=False)
+    box = {}
+
+    def pair_p1():
+        launch, out, box["ctx"] = rk.prepare_fused_rng_costs(
+            wmodel, wparams, wcap, cp, pfield, start, U, key)
+        return launch, out
+
+    def pair_bits():
+        one, out = rk.prepare_fused_rollout_cost(
+            wmodel, wparams, wcfg, cp, pfield, start, U,
+            rk.rng_noise(box["ctx"]))
+        one()
+        return out
+
+    launch1, _, err1, plain1 = hold(
+        f"{tag} field pass 1 K={KS}", pair_p1,
+        lambda: p1_plain(wmodel, wparams, wcap, cp, pfield, start, U, key),
+        None, KS, bits_fn=pair_bits, mixed=False)
+    box.clear()
+    nobs = torch.zeros((0, 3), device=dev)
+    rowargs.append(((3, "pair", KS), launch3, MANY_REPS["large"], plain3,
+                    err3, fused_circle_bound(KS, n_wide, wstep, nobs, pfield),
+                    606,
+                    dict(K=KS, layers=list(PAIR_LAYERS),
+                         field=_build.field_label(PAIR_FIELD),
+                         layout=lay["layout"])))
+    rowargs.append(((4, "pair", KS), launch1, MANY_REPS["large"], plain1,
+                    err1, fused_circle_bound(KS, n_wide, wstep, nobs, pfield,
+                                             stream=True), 1221,
+                    dict(K=KS, layers=list(PAIR_LAYERS),
+                         field=_build.field_label(PAIR_FIELD),
+                         layout=lay["layout"])))
+    del eps
+    # the pair's lane forms at L=3, K=8192: kernel 3 and field pass 1
+    state, Ul, eps = lane_inputs(LIB_LANES, KS, dev, seed=37)
+    cpl = lane_cost_grid(LIB_LANES)
+    held3 = lane_hold(
+        f"{tag} lanes kernel 3 L={LIB_LANES} K={KS}",
+        lambda: rk.prepare_fused_rollout_cost_lanes(
+            wmodel, wparams, wcfg, cpl, pfield, state, Ul, eps),
+        lambda: rk.fused_rollout_cost_lanes_plain(
+            wmodel, wparams, wcfg, cpl, pfield, state, Ul, eps),
+        lambda i: rk.prepare_fused_rollout_cost(
+            wmodel, wparams, wcfg, lane_cost_params(cpl)[i], pfield,
+            state[i], Ul[i], eps), LIB_LANES, KS, card)
+    held1 = cap_lanes_held(rk, f"{tag} lanes field pass 1 L={LIB_LANES} "
+                           f"K={KS}", wmodel, wparams, wcap, cpl, pfield,
+                           state, Ul, key, None, card)
+    for kernel, held_l, launch in ((3, held3, held3["runs"][0][0]),
+                                   (4, held1, held1["launch"])):
+        rowargs.append((
+            (kernel, "pair lanes", LIB_LANES, KS), launch, MANY_REPS["large"],
+            held_l["plain_ms"], held_l["err"], fused_circle_bound(
+                KS, n_wide, wstep, nobs, pfield, stream=kernel == 4,
+                lanes=LIB_LANES),
+            606 if kernel == 3 else 1221,
+            dict(K=KS, lanes=LIB_LANES, layers=list(PAIR_LAYERS),
+                 field=_build.field_label(PAIR_FIELD), layout=lay["layout"])))
+    del eps
+
+    # (c) the drives, each with its exact launches a solve and no plain
+    # version: BASELINE #1 among the cones (host noise and capacity), and
+    # the pair (host noise and capacity)
+    cones = oval_cones()
+    cone_cost = ObstacleCost(make_obstacles(cones, CONE_SLOTS, device=dev),
+                             **ocoeff)
+    print(f"[many circles (c)] {len(cones)} cones in {CONE_SLOTS} slots on "
+          f"the oval's edges ({CONE_OFFSET} m off its centreline, radius "
+          f"{CONE_RADIUS} m, every {CONE_EVERY} m of arc over the quarter "
+          f"ahead of the start)")
+    check(90 <= len(cones) <= CONE_SLOTS, f"many circles (c): {len(cones)} "
+          "cones")
+    label = spec_label(PAIR_LAYERS)
+    flabel = _build.field_label(PAIR_FIELD)
+    drives = {
+        "cones": (MPPISolver(model, cone_cost, cfg, device=dev), params,
+                  costmap, CONE_TICKS, {"fused_exact_rollout_cost_obstacles":
+                                        1, "dynamics_chain": 1},
+                  (1, "MLP", K, WIDE_SLOTS)),
+        "cones capacity": (MPPISolver(model, cone_cost, cfg.replace(
+            num_rollouts=KC, kernel_rng=True), device=dev), params, costmap,
+            CONE_CAP_TICKS, {"fused_rng_costs_obstacles": 1,
+                             "fused_rng_numer": 1, "dynamics_chain": 1},
+            (4, "exact MLP", KC, WIDE_SLOTS)),
+        "pair": (MPPISolver(wmodel, MPPICost(), wcfg, device=dev), wparams,
+                 pfield, PAIR_TICKS,
+                 {f"fused_rollout_cost_{label}_{flabel}": 1,
+                  f"dynamics_chain_{label}": 1}, (3, "pair", KS)),
+        "pair capacity": (MPPISolver(wmodel, MPPICost(), wcap, device=dev),
+                          wparams, pfield, PAIR_TICKS,
+                          {f"fused_rng_costs_field_{label}_{flabel}": 1,
+                           "fused_rng_numer": 1,
+                           f"dynamics_chain_{label}": 1}, (4, "pair", KS)),
+    }
+    launches = {}
+    for name, (s, prm, surface, ticks, per_solve, row_key) in drives.items():
+        latency, got, _ = drive_counted(drive_oval, rk,
+                                        f"many circles (c) {name}", s, prm,
+                                        cp, surface, ticks, per_solve, card)
+        print(f"[many circles (c) {name}] solve p50 {latency[0]:.3f} ms, p99 "
+              f"{latency[1]:.3f} ms against the 20 ms budget (reported, not "
+              f"gated; host clock; {card})")
+        results[name] = {"latency": latency, "launches": got}
+        fused = next(n for n in per_solve if not n.startswith(
+            ("dynamics_chain", "fused_rng_numer")))
+        launches[row_key] = got.get(fused, 0)
+
+    # the kernels line: each form timed at its shape
+    for row_key, launch, reps, plain_ms, err, bnd, line, extra in rowargs:
+        rows.append(many_row(launch.name, launch, reps, plain_ms, err, bnd,
+                             launches.get(row_key, 0), card, line, **extra))
+    results["layout"] = lay
+    results["cones"] = len(cones)
+    return {"results": results, "rows": rows}
+
+
 def main() -> int:
     import torch
 
@@ -9033,6 +9560,12 @@ def main() -> int:
     cap_lanes = capacity_lanes_phase(rk, card, field)
     print(f"[time] phase 35 in {time.perf_counter() - t_cap:.1f}s ({card})")
 
+    # -- phase 36: circles past the 64 staged slots; a field left in device
+    # memory ----------------------------------------------------------------
+    t_many = time.perf_counter()
+    many = many_circles_phase(drive_oval, rk, card, field, builds)
+    print(f"[time] phase 36 in {time.perf_counter() - t_many:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -9052,7 +9585,8 @@ def main() -> int:
         row for layers, d in spec_field["drives"].items()
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
         baseline3["rows"]) + field_specs["rows"] + precision["rows"] + (
-        sweep["rows"]) + lanes_field["rows"] + cap_lanes["rows"]
+        sweep["rows"]) + lanes_field["rows"] + cap_lanes["rows"] + (
+        many["rows"])
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -9061,8 +9595,9 @@ def main() -> int:
     for k in kernels:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
-        if k.get("precision") == PRECISION or "lanes" in k:
-            continue                     # phases 31, 33, 34 carry their own
+        if (k.get("precision") == PRECISION or "lanes" in k
+                or "slots" in k or "layout" in k):
+            continue                 # phases 31, 33-36 carry their own
         layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
@@ -9126,6 +9661,7 @@ def main() -> int:
                       "sweep": sweep["results"],
                       "lanes_field": lanes_field["results"],
                       "capacity_lanes": cap_lanes["results"],
+                      "many_circles": many["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -9151,7 +9687,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-35 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-36 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -264,7 +264,9 @@ def test_field_layout_follows_the_kernels(spec):
 def test_field_layout_matches_the_source():
     """The wrapper's mirror of the layout reads the source's constants: the
     spec library's block, the tile, the weights rounded up to a float4, the
-    horizon's room; a spec whose weights leave no room takes no T."""
+    horizon's room; a spec whose weights leave no room for the staged field
+    takes the global layout (the field in device memory), and one whose
+    weights and tiles leave no room at all takes no T."""
     src = _build.SOURCE.read_text()
     assert re.search(r"constexpr int kSpecFieldBlock = (\d+);",
                      src).group(1) == str(rk.SPEC_FIELD_BLOCK)
@@ -273,9 +275,13 @@ def test_field_layout_matches_the_source():
     assert "static constexpr int kTileStride = kK1 + 4;" in src
     assert rk.field_tile_floats(rk.FIELD_KERNEL_SPEC) == 64 * 44 + 64
     assert "return (Deriv::kNumWeights + 3) / 4 * 4;" in src
-    assert "(232448 / 4 - field_weight_floats<MlpDeriv>() - kFieldPack" in src
+    assert "(232448 / 4 - field_weight_floats<MlpDeriv>() - pack" in src
+    assert "const int room = field_room_t(kFieldStagedPack, reserved);" in src
     assert rk.SMEM_FLOATS == 232448 // 4
-    assert rk.max_field_kernel_t((6, 128, 128, 128, 4)) == 0
+    assert rk.field_global((6, 128, 128, 128, 4))
+    assert rk.max_field_kernel_t((6, 128, 128, 128, 4)) == 222
+    assert rk.max_field_kernel_t((6, 128, 128, 128, 128, 4)) == 0
+    assert not rk.field_global((6, 128, 128, 4))
     assert 0 < rk.max_field_kernel_t((6, 128, 128, 4)) < rk.MAX_FIELD_KERNEL_T
     # the entry points a spec library now holds
     for fn in ("artt_fused_field_rollout_cost", "artt_fused_rng_costs",

@@ -323,14 +323,19 @@ def test_field_layout_follows_the_source_at_every_pair(layers, label):
     (csrc FieldSmem): the weights, the field at a float4, the tiles of the
     library's warps at the field's stride, U, the circles; every pair fits
     T=2048 with 64 slots but F8-128-128: 225,344 bytes before U beside the
-    default MLP's 4 warps (T <= 792), no room beside 8 warps."""
+    default MLP's 4 warps (T <= 792); beside 8 warps, where staging it
+    leaves no room, the field stays in device memory (the global layout:
+    the tiles right after the weights) and T=2048 fits."""
     fspec = LABELS[label]
     lay = rk.field_smem_layout(layers, T=100, n_obs=16, field=fspec)
     warps = rk.field_block(layers) // 32
     stride = rk.field_tile_k(fspec) + 4
     assert stride % 8 == 4                 # conflict-free column loads
     assert lay["f"] == -(-rk.num_weights(layers) // 4) * 4
-    assert lay["tiles"] == lay["f"] + rk.field_pack_floats(fspec)
+    glob = label == "F8-128-128" and layers != DEFAULT
+    assert lay["layout"] == ("global" if glob else "staged")
+    assert lay["tiles"] == lay["f"] + (0 if glob
+                                       else rk.field_pack_floats(fspec))
     assert lay["U"] == lay["tiles"] + warps * (64 * stride + 64)
     assert lay["tiles"] % 4 == lay["U"] % 4 == 0
     assert lay["bytes"] == 4 * (lay["U"] + 2 * 100 + 3 * 16)
@@ -340,7 +345,9 @@ def test_field_layout_follows_the_source_at_every_pair(layers, label):
         if layers == DEFAULT:
             assert 4 * lay["U"] == 225344 and room == 792
         else:
-            assert room == 0
+            assert room == rk.MAX_FIELD_KERNEL_T
+            assert lay["bytes"] == {(6, 24, 4): 94224,
+                                    (6, 64, 64, 64, 64, 4): 145904}[layers]
     else:
         assert room == rk.MAX_FIELD_KERNEL_T
         assert rk.field_smem_layout(layers, rk.MAX_FIELD_KERNEL_T,
@@ -427,29 +434,60 @@ def test_field_kernels_ask_for_the_pairs_library(pair, monkeypatch):
 
 
 def test_a_field_without_room_is_refused_before_any_build(monkeypatch):
-    """F8-128-128 beside an 8-warp spec library: no room for U at any T;
-    beside the default MLP: room up to T=792, refused beyond it.  Both
-    refused before any build, naming the bytes and the ROADMAP item."""
+    """F8-128-128 beside an 8-warp spec library, which once had no room
+    for U at any T, now takes the global layout (the field in device
+    memory): both kernels ask for the pair's library, which reports the
+    layout.  Beside the default MLP the field stays staged: room up to
+    T=792, refused beyond it before any build, naming the bytes, the
+    layout and the ROADMAP item; so is a spec whose weights and tiles leave
+    no room in either layout."""
     calls = []
-    monkeypatch.setattr(rk._build, "load", lambda *a: calls.append(a))
-    rk._kernel_lib.cache_clear()
-    for layers, T_ in (((6, 24, 4), T), ((6, 64, 64, 64, 64, 4), T),
-                       (DEFAULT, 793)):
+
+    class Lib:
+        def __init__(self, *key):
+            calls.append(key)
+
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    monkeypatch.setattr(rk._build, "load", Lib)
+    monkeypatch.setattr(rk, "_kernel_lib", lambda *a: rk._build.load(*a))
+    for layers, T_, fits in (((6, 24, 4), T, True),
+                             ((6, 64, 64, 64, 64, 4), T, True),
+                             (DEFAULT, 793, False)):
         s = setup(layers, kernel_rng=True)
         field, _ = _fields(layers, "F8-128-128")
         U = torch.zeros(T_, 2)
         eps = torch.zeros(T_, K, 2)
+        run3 = lambda: rk.prepare_fused_rollout_cost(
+            s["model"], s["params"], s["cfg"], CostParams(), field,
+            torch.tensor(s["state"]), U, eps)
+        run1 = lambda: rk.prepare_fused_rng_costs(
+            s["model"], s["params"], s["cfg"], CostParams(), field,
+            torch.tensor(s["state"]), U, KEY)
+        if fits:
+            calls.clear()
+            spec = "_" + _label(layers)
+            assert run3()[0].name == f"fused_rollout_cost{spec}_F8-128-128"
+            assert run1()[0].name == \
+                f"fused_rng_costs_field{spec}_F8-128-128"
+            assert calls == [(layers, LABELS["F8-128-128"], False)] * 2
+            assert rk.field_global(layers, LABELS["F8-128-128"])
+            assert rk.field_smem_layout(
+                layers, T_, 16, LABELS["F8-128-128"])["layout"] == "global"
+            continue
+        calls.clear()
         with pytest.raises(NotImplementedError,
-                           match=r"need \d+ bytes.*Queue 2 A6"):
-            rk.prepare_fused_rollout_cost(
-                s["model"], s["params"], s["cfg"], CostParams(), field,
-                torch.tensor(s["state"]), U, eps)
-        with pytest.raises(NotImplementedError, match="Queue 2 A6"):
-            rk.prepare_fused_rng_costs(
-                s["model"], s["params"], s["cfg"], CostParams(), field,
-                torch.tensor(s["state"]), U, KEY)
-    assert calls == []
-    rk._kernel_lib.cache_clear()
+                           match=r"staged layout\) need \d+ bytes.*Queue 2 A8"):
+            run3()
+        with pytest.raises(NotImplementedError, match="Queue 2 A8"):
+            run1()
+        assert calls == []
+    wide = (6, 128, 128, 128, 128, 4)
+    assert rk.max_field_kernel_t(wide, LABELS["F8-128-128"]) == 0
+    with pytest.raises(NotImplementedError,
+                       match=r"global layout\) need \d+ bytes"):
+        rk._check_field_room(wide, LABELS["F8-128-128"], T)
 
 
 # ---------------------------------------------------------------------------

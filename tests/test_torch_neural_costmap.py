@@ -420,7 +420,9 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
     refused.  A field of another spec than the default library's asks for
     its own library (``_build.load(layers, field)``, which records the
     request and raises here: nothing is built, nothing runs the plain
-    version instead); the no-room pair raises before any build."""
+    version instead); so does a pair whose staged field leaves no room (its
+    library keeps the field in device memory), and a launch that fits
+    neither layout raises before any build."""
     solver, params, *_ = _pair(kernel_rng=True)
     field, _ = _fields()
     state, U, eps = (torch.tensor(a) for a in _inputs())
@@ -454,8 +456,11 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
         rk.prepare_fused_rng_costs(solver.model, params, solver.cfg,
                                    CostParams(), field, state, U, KEY)
     assert asked == [(rk.KERNEL_LAYERS, (F,) + HIDDEN)] * 2
-    # 34-128-128-1 beside an 8-warp spec library: no room for U, refused
-    # before any build, naming its bytes and the ROADMAP item
+    # 34-128-128-1 beside an 8-warp spec library: no room for U beside the
+    # staged field, so the pair's library takes the global layout and both
+    # kernels ask for it; beside the default MLP (staged) at T=793, no room
+    # in that library's layout: refused before any build, naming its bytes
+    # and the ROADMAP item
     wide = NeuralCostmap.build(
         [np.zeros((34, 128), np.float32), np.zeros((128, 128), np.float32),
          np.zeros((128, 1), np.float32)],
@@ -472,10 +477,21 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
                     lambda: rk.prepare_fused_rng_costs(
             narrow, nparams, solver.cfg, CostParams(), wide, state, U,
             KEY)):
-        with pytest.raises(NotImplementedError,
-                           match=r"need \d+ bytes .*Queue 2 A6"):
+        with pytest.raises(LookupError):
             prepare()
-    assert len(asked) == 2
+    assert asked[2:] == [((6, 24, 4), (8, 128, 128))] * 2
+    assert rk.field_global((6, 24, 4), (8, 128, 128))
+    U_long, eps_long = torch.zeros(793, 2), torch.zeros(793, K, 2)
+    for prepare in (lambda: rk.prepare_fused_rollout_cost(
+            solver.model, params, solver.cfg, CostParams(), wide, state,
+            U_long, eps_long),
+                    lambda: rk.prepare_fused_rng_costs(
+            solver.model, params, solver.cfg, CostParams(), wide, state,
+            U_long, KEY)):
+        with pytest.raises(NotImplementedError,
+                           match=r"need \d+ bytes .*Queue 2 A8"):
+            prepare()
+    assert len(asked) == 4
     rk._kernel_lib.cache_clear()
     with pytest.raises(NotImplementedError, match="obstacle"):
         rk.fused_rng_costs(solver.model, params, solver.cfg,

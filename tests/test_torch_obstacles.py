@@ -391,10 +391,13 @@ def test_launch_names_follow_the_kernel_instance(monkeypatch):
         "fused_rng_costs_bf_obstacles", "dynamics_chain_bf"]
 
 
-def test_obstacle_refusals():
-    """Circles without an ObstacleCost's coefficients, more slots than the
-    kernels stage, and malformed arrays are refused before any build or
-    launch; a subclass of ObstacleCost, which the solver once refused,
+def test_obstacle_refusals(monkeypatch):
+    """Circles without an ObstacleCost's coefficients and malformed arrays
+    are refused before any build or launch; more slots than the kernels
+    stage (65), once refused, now prepare on the library (faked here: the
+    CUDA kernels run only on a GPU), with all 65 circles packed for the
+    kernel to read in device memory and none staged in shared memory; a
+    subclass of ObstacleCost, which the solver once refused,
     takes the general path (the chain and the batched cost epilogue) and
     matches the JAX solver's iteration."""
     solver, params, jsolver, jparams = _pair()
@@ -406,14 +409,31 @@ def test_obstacle_refusals():
         plain.rollout_costs(params, CostParams(obstacles=np.zeros((1, 3))),
                             cm, state, U, eps)
     many = make_obstacles(np.zeros((65, 3)), capacity=65, device="cpu")
-    for prepare in (rk.prepare_fused_exact_rollout_cost,):
-        with pytest.raises(ValueError, match="at most 64"):
-            prepare(solver.model, params, solver.cfg, CostParams(), cm,
-                    state, U, eps, obstacles=many, obstacle_coeff=1.0)
-    with pytest.raises(ValueError, match="at most 64"):
-        rk.prepare_fused_rng_costs(solver.model, params, solver.cfg,
-                                   CostParams(), cm, state, U, KEY,
-                                   obstacles=many)
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *a: 0
+
+    asked = []
+    monkeypatch.setattr(rk, "_kernel_lib",
+                        lambda *a: asked.append(a) or Lib())
+    monkeypatch.setattr(rk, "num_sms", lambda index: 132)
+    for prepare, name in (
+            (rk.prepare_fused_exact_rollout_cost,
+             "fused_exact_rollout_cost_obstacles"),):
+        launch, _ = prepare(solver.model, params, solver.cfg, CostParams(),
+                            cm, state, U, eps, obstacles=many,
+                            obstacle_coeff=1.0)
+        assert launch.name == name
+        assert launch.inputs[1].shape == (3 * 65,)
+    launch, _, _ = rk.prepare_fused_rng_costs(
+        solver.model, params, solver.cfg, CostParams(), cm, state, U, KEY,
+        obstacles=many)
+    assert launch.name == "fused_rng_costs_obstacles"
+    assert launch.inputs[1].shape == (3 * 65,)
+    assert asked == [()] * 2                    # the default library
+    assert rk.staged_obstacles(65) == 0 and rk.staged_obstacles(64) == 64
+    monkeypatch.undo()
     with pytest.raises(ValueError, match=r"\(N, 3\)"):
         rk.fused_exact_rollout_cost(solver.model, params, solver.cfg,
                                     CostParams(), cm, state, U, eps,
