@@ -11,9 +11,6 @@ Covers the reference's telemetry surface (SURVEY.md §5):
 - :class:`LapStats` — the benchmark evaluator (scripts/lap_stats.py):
   start-line-crossing lap detection, per-lap lap_time / max_speed /
   max_slip
-
-The wire messages (``TimingStats.as_msg``, ``LapStats.record_as_msg``) wait
-for the port of ``msgs.py`` (ROADMAP.md, Queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -91,6 +88,17 @@ class TimingStats:
             "tickP99Ms": _nearest_rank(s, 99.0) if s else 0.0,
             "missedTicks": self.missed_ticks,
         }
+
+    def as_msg(self, stamp: float = 0.0):
+        """The ``pathIntegralTiming`` wire message (seconds, like the
+        reference publishes — autorally_plant.cpp:128-141)."""
+        from autorally_tpu_torch.msgs import PathIntegralTiming
+
+        return PathIntegralTiming(
+            average_time_between_poses=self.avg_loop_ms / 1000.0,
+            average_optimization_cycle_time=self.avg_tick_ms / 1000.0,
+            average_sleep_time=self.avg_sleep_ms / 1000.0,
+            stamp=stamp)
 
 
 class StatusMonitor:
@@ -171,3 +179,31 @@ class LapStats:
                 self.max_slip = 0.0
         self.last_eval = line_eval
         return record
+
+    @staticmethod
+    def record_as_msg(record: LapRecord, cfg=None, tag: str = "",
+                      stamp: float = 0.0):
+        """A completed lap as the ``pathIntegralStats`` wire message —
+        lap summary plus the full controller-parameter echo the
+        reference attaches (lap_stats.py's published form)."""
+        from autorally_tpu_torch.msgs import (LapStats as LapStatsMsg,
+                                              PathIntegralParams,
+                                              PathIntegralStats)
+
+        lap = LapStatsMsg(lap_number=record.lap_number,
+                          lap_time=record.lap_time,
+                          max_speed=record.max_speed,
+                          max_slip=record.max_slip, stamp=stamp)
+        params = PathIntegralParams()
+        if cfg is not None:
+            params = PathIntegralParams(
+                hz=cfg.hz, num_timesteps=cfg.num_timesteps,
+                num_iters=cfg.num_iters, gamma=cfg.gamma,
+                init_steering=cfg.init_steering,
+                init_throttle=cfg.init_throttle,
+                steering_var=cfg.steering_std,
+                throttle_var=cfg.throttle_std,
+                max_throttle=cfg.max_throttle,
+                desired_speed=0.0)
+        return PathIntegralStats(tag=tag, params=params, stats=lap,
+                                 stamp=stamp)

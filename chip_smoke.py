@@ -432,6 +432,26 @@ exits non-zero):
     capacity mode (20 ticks each), each solve's p50 / p99 printed beside
     20 ms and not gated; the new forms timed beside their plain versions
     and bounds.
+37. the operator's run: phase 20's tube (K=1920, T=100, DDP gains), 200
+    lockstep ticks through ``run_tube_mppi.drive`` with every option of
+    ``run_tube_mppi`` on (``OperatorIO``: a UDP telemetry port, a runstop
+    port bound to 0, a JSONL log, the scene camera) and
+    ``tools/console.py --duration`` attached in a subprocess: a runstop
+    over UDP at tick 80, held each tick and released at 120, engages the
+    plant's runstop for exactly the controls published after ticks 80-119
+    (each the requested throttle cut to at most 0); the actual
+    controller's weights pushed at tick 100 through ``msgs.encode`` ->
+    ``decode`` -> ``params_from_model_msg`` -> ``update_model_params``,
+    the next solve's kernel-1 outputs bit for bit a solve on the weights
+    given directly with the same noise; the log holds every record kind
+    (``run``, 200 ``solve``, ``timing``, ``diag``, ``system`` naming the
+    card as ``nvidia-smi`` does, ``image`` at 5 Hz of the plant's clock,
+    and ``lap``: the seeded car makes no lap in 200 ticks, so lap
+    statistics on the start line take two turns of a circle and the
+    operator publishes that lap); the console rendered and logged the run;
+    exactly 2 + 2 launches a tick as in phase 20, no plain version; the
+    tick's p50 / p99 beside phase 20's plain tube, against 20 ms, not
+    gated.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -441,7 +461,7 @@ launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
 3 and 4's other timings and drives at the other specs, the cost-parameter
-sweeps' and phases 34-36's drives), and as
+sweeps' and phases 34-36's drives, phase 37's tick), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -455,9 +475,11 @@ Usage::
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -4088,7 +4110,7 @@ def stop_cold_loaders(cold) -> None:
         if p.poll() is None:
             p.kill()
         p.wait(timeout=60)
-    shutil.rmtree(tmp, ignore_errors=True)
+
 
 
 def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
@@ -9073,6 +9095,290 @@ def many_circles_phase(drive_oval, rk, card, field, builds,
     return {"results": results, "rows": rows}
 
 
+# -- phase 37: the operator's run ------------------------------------------
+OP_TICKS = 200
+OP_RUNSTOP = (80, 120)     # held by a datagram each tick from 80, released
+OP_PUSH = 100              # the model push over the wire
+OP_CONSOLE_S = 5           # the console's seconds from its first record
+OP_ASYNC_TICKS = 50        # (b): the entry point with the async loop
+OP_KINDS = {"run", "solve", "timing", "diag", "system", "lap", "image"}
+
+
+def free_udp_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def wait_bound(port: int, proc, timeout: float = 120.0) -> None:
+    """Wait until ``proc`` holds UDP ``port`` (a probe can no longer bind
+    it)."""
+    import socket
+
+    deadline = time.time() + timeout
+    while True:
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as probe:
+            try:
+                probe.bind(("127.0.0.1", port))
+            except OSError:
+                return
+        check(proc.poll() is None, f"the console exited ({proc.returncode})")
+        check(time.time() < deadline, "the console never bound its port")
+        time.sleep(0.05)
+
+
+def wait_until(pred, what: str, timeout: float = 5.0) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        check(time.time() < deadline, what)
+        time.sleep(0.001)
+
+
+def operator_phase(run_tube_mppi, rk, card, plain_tick, dev=None) -> dict:
+    """Phase 37: the operator's run.  BASELINE #1's tube as phase 20 builds
+    it (K=1920, T=100, the seeded 6-32-32-4 MLP, DDP gains), 200 lockstep
+    ticks with every option of ``run_tube_mppi`` on (``OperatorIO``: a UDP
+    telemetry port, a runstop port bound to 0, a JSONL log, the scene
+    camera) and ``tools/console.py --duration`` attached in a subprocess;
+    a runstop over UDP at tick 80, held each tick, released at 120; the
+    actual controller's weights pushed at tick 100 through the wire
+    (``msgs.encode`` -> ``decode`` -> ``params_from_model_msg`` ->
+    ``update_model_params``), the next solve's kernel-1 outputs bit for bit
+    a solve on the weights given directly with the same noise; the log's
+    records, the console's frames and log, exactly 2 + 2 launches a tick
+    as in phase 20, no plain version; the tick's p50 / p99 beside phase
+    20's (``plain_tick``), reported against 20 ms and not gated."""
+    import tempfile
+
+    import torch
+
+    from autorally_tpu_torch import msgs
+    from autorally_tpu_torch.runtime.telemetry import LapStats
+    from autorally_tpu_torch.runtime.telemetry_bus import send_runstop
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    port = free_udp_port()
+    tmp = tempfile.mkdtemp(prefix="operator_run_")
+    log, clog = os.path.join(tmp, "run.jsonl"), os.path.join(tmp, "con.jsonl")
+    cout_path = os.path.join(tmp, "console.out")
+    with open(cout_path, "w") as cout:
+        console = subprocess.Popen(
+            [sys.executable, "-m", "autorally_tpu_torch.tools.console",
+             "--port", str(port), "--duration", str(OP_CONSOLE_S),
+             "--wait-data", "120", "--log", clog, "--no-color"],
+            cwd=HERE, stdout=cout, stderr=subprocess.STDOUT)
+    op = None
+    try:
+        tube = run_tube_mppi.build(ticks=OP_TICKS, device=dev)
+        actual, plant = tube.actual, tube.plant
+        solver = actual.solver
+        wait_bound(port, console)
+        op = run_tube_mppi.OperatorIO(tube, telemetry_port=port,
+                                      runstop_port=0, log=log, camera=True)
+        # the operator's host time a tick, its camera's and the status
+        # probes' (once a wall second)
+        op_ms = {"operator": [], "camera": [], "status": []}
+        op.on_tick = _timed(op.on_tick, op_ms["operator"])
+        op._camera_tick = _timed(op._camera_tick, op_ms["camera"])
+        op.sysmon.sample = _timed(op.sysmon.sample, op_ms["status"])
+        direct = actual.model_params
+        pushed, seen, pubs = {}, {}, []
+        rollout_costs, publish = solver.rollout_costs, plant.publish_control
+
+        def recorded_costs(params, *a, **kw):
+            out = rollout_costs(params, *a, **kw)
+            if params is pushed.get("params") and "args" not in seen:
+                # the first solve on the pushed weights: its inputs and
+                # outputs, copied (the next solves reuse their buffers)
+                keep = lambda x: x.clone() if torch.is_tensor(x) else x
+                seen["args"] = [keep(x) for x in a]
+                seen["kw"] = {k: keep(v) for k, v in kw.items()}
+                seen["out"] = [keep(x) for x in out]
+            return out
+
+        def recorded_publish(t, steering, throttle):
+            out = publish(t, steering, throttle)
+            pubs.append((plant.runstop, throttle, out[1]))
+            return out
+
+        def on_tick(i, chosen, used, state):
+            if i == OP_PUSH:
+                wire = msgs.encode(msgs.model_msg_from_params(
+                    actual.model_params, stamp=plant.sim_time))
+                pushed["bytes"] = len(wire)
+                pushed["params"] = msgs.params_from_model_msg(
+                    msgs.decode(wire), control_ranges=tube.cfg.control_ranges,
+                    device=dev)
+                actual.update_model_params(pushed["params"])
+            if OP_RUNSTOP[0] <= i < OP_RUNSTOP[1]:
+                send_runstop(op.runstop.port, "ocs", False)
+                wait_until(lambda: plant.runstop, "runstop not applied")
+            elif i == OP_RUNSTOP[1]:
+                send_runstop(op.runstop.port, "ocs", True)
+                wait_until(lambda: not plant.runstop, "runstop not released")
+
+        solver.rollout_costs = recorded_costs
+        plant.publish_control = recorded_publish
+        rk.LAUNCHES.clear()
+        with PlainCalls(rk) as plain:
+            out = run_tube_mppi.drive(tube, log=lambda m: print(f"[op] {m}"),
+                                      on_tick=on_tick, operator=op)
+        got = dict(rk.LAUNCHES)
+        del solver.rollout_costs, plant.publish_control
+        # a lap: the seeded car covers a few metres in 200 ticks, so lap
+        # statistics on the run's start line (x in 25-35 at y = 0) take two
+        # turns of a circle of radius 30 m at 6 m/s, and the operator
+        # publishes the lap they complete
+        laps = LapStats(line=run_tube_mppi.LAP_LINE)
+        for k in range(1, 2 * 1571 + 10):
+            th = 2 * np.pi * k / 1571
+            rec = laps.process_pose(0.02 * k, 30 * np.cos(th),
+                                    30 * np.sin(th), 6.0, 0.0)
+            if rec:
+                op.publish_lap(rec)
+        op.close()
+        op_closed, op = op, None
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        stdout_tail = ""
+        try:
+            console.wait(timeout=120)
+        finally:
+            with open(cout_path) as f:
+                stdout_tail = f.read()
+        check(console.returncode == 0,
+              f"the console exited {console.returncode}")
+    finally:
+        if op is not None:
+            op.close()
+        if console.poll() is None:
+            console.kill()
+            console.wait()
+
+    # the wire-pushed weights' solve against the direct weights' solve
+    check("args" in seen, "no solve ran on the wire-pushed weights")
+    with open(log) as f:
+        recs = [json.loads(line) for line in f]
+    with open(clog) as f:
+        crecs = [json.loads(line) for line in f]
+
+    ref = rollout_costs(direct, *seen["args"], **seen["kw"])
+    same_push = all(bit_equal(a, b) for a, b in zip(seen["out"], ref))
+    same_params = all(torch.equal(a, b) for k in ("weights", "biases")
+                      for a, b in zip(direct[k], pushed["params"][k]))
+    # the run log, the console's log and frames
+    kinds = {}
+    for r in recs:
+        kinds[r["kind"]] = kinds.get(r["kind"], 0) + 1
+    solves = [r["tick"] for r in recs if r["kind"] == "solve"]
+    system = next(r for r in recs if r["kind"] == "system")
+    card_name = card.split(",")[0].strip()
+    sys_kind = system["accelerator"]["devices"][0]["kind"]
+    images = kinds.get("image", 0)
+    span = OP_TICKS * tube.cfg.dt
+    rate = images / span
+    ckinds = {r["kind"] for r in crecs}
+    rendered = all(s in stdout_tail for s in ("speed=", "diagnostics",
+                                              "camera  msv="))
+    # the runstop: engaged for the controls published after ticks 80-119
+    held = [k for k, (engaged, _, _) in enumerate(pubs) if engaged]
+    cut_right = all(p == (min(a, 0.0) if e else a) for e, a, p in pubs)
+    cut_positive = sum(1 for e, a, _ in pubs if e and a > 0.0)
+    timing = out["timing"]
+    tick_ms = np.array(timing.tick_samples_ms)
+    tick = (float(np.percentile(tick_ms, 50)),
+            float(np.percentile(tick_ms, 99)))
+    want = {"fused_exact_rollout_cost": 2 * OP_TICKS,
+            "dynamics_chain": 2 * OP_TICKS}
+    secs = time.perf_counter() - t0
+    print(f"[operator] K={tube.cfg.num_rollouts} {OP_TICKS} ticks with "
+          f"--telemetry-port --runstop-port 0 --log --camera: arbitration "
+          f"{out['used']}; launches {got}; plain-version calls {plain.calls};"
+          f" final u_x {plant.true_state[4]:.3f} m/s ({card})")
+    print(f"[operator] log records {kinds}; solve ticks 1-{OP_TICKS} "
+          f"{solves == list(range(1, OP_TICKS + 1))}; the system record's "
+          f"card {sys_kind!r} (nvidia-smi {card_name!r}); {images} images "
+          f"in {span:.2f} s of the plant's clock ({rate:.2f} Hz; the "
+          f"republisher forwarded {op_closed.republisher.forwarded}, dropped "
+          f"{op_closed.republisher.dropped}); the console rendered "
+          f"{rendered} and logged {len(crecs)} records of {sorted(ckinds)}")
+    print(f"[operator] runstop over UDP at tick {OP_RUNSTOP[0]}, released "
+          f"at {OP_RUNSTOP[1]}: engaged for publications {held[0]}-"
+          f"{held[-1]} ({len(held)}), each the requested throttle cut to "
+          f"at most 0 {cut_right} ({cut_positive} positive requests cut)")
+    print(f"[operator] model push at tick {OP_PUSH} over the wire "
+          f"({pushed['bytes']} bytes): the weights bit for bit "
+          f"{same_params}; the next solve's kernel-1 costs, u_seq and crash "
+          f"flags bit for bit a solve on the weights given directly with "
+          f"the same noise {same_push}")
+    pct = lambda a: (float(np.percentile(a, 50)), float(np.percentile(a, 99)))
+    host = {k: pct(v) for k, v in op_ms.items() if v}
+    less = pct(tick_ms - np.array(op_ms["operator"][:OP_TICKS]))
+    print(f"[operator] tick p50 / p99 {tick[0]:.3f} / {tick[1]:.3f} ms with "
+          f"every option on, phase 20's plain tube {plain_tick[0]:.3f} / "
+          f"{plain_tick[1]:.3f} ms (host clock; 20 ms reported, not gated; "
+          f"{card}); phase 37 in {secs:.1f}s")
+    print(f"[operator] host ms p50 / p99 in the tick: the operator's on_tick "
+          f"{host['operator'][0]:.3f} / {host['operator'][1]:.3f}, its camera "
+          f"{host['camera'][0]:.3f} / {host['camera'][1]:.3f}, the status "
+          f"probes {len(op_ms['status'])} x {max(op_ms['status']):.3f} max; "
+          f"the tick less the operator's on_tick {less[0]:.3f} / "
+          f"{less[1]:.3f}")
+    check(got == want, f"operator: launches {got}, expected {want}")
+    check(not any(plain.calls.values()), f"operator: a plain version ran "
+          f"on the card: {plain.calls}")
+    check(set(kinds) == OP_KINDS, f"operator: record kinds {sorted(kinds)}")
+    check(solves == list(range(1, OP_TICKS + 1)),
+          "operator: not one solve record a tick")
+    check(kinds["timing"] >= 2, "operator: no final timing record")
+    check(system["accelerator"]["platform"] == "gpu"
+          and sys_kind == card_name, f"operator: the system record names "
+          f"{sys_kind!r}, nvidia-smi {card_name!r}")
+    check(abs(rate - 5.0) <= 0.5, f"operator: images at {rate:.2f} Hz")
+    check(rendered and OP_KINDS - {"lap"} <= ckinds,
+          "operator: the console did not render or log the run")
+    check(held == list(range(OP_RUNSTOP[0] - 1, OP_RUNSTOP[1] - 1))
+          and cut_right, f"operator: runstop engaged for {held}")
+    check(same_params and same_push, "operator: the wire-pushed weights' "
+          "solve differs from the direct weights'")
+
+    # (b) the same options through the entry point, on the card by default,
+    # with the async loop (its launches a replayed tick are phase 22's)
+    t1 = time.perf_counter()
+    alog = os.path.join(tmp, "async.jsonl")
+    argv = ["--ticks", str(OP_ASYNC_TICKS), "--async-loop", "--depth", "2",
+            "--telemetry-port", str(free_udp_port()), "--runstop-port", "0",
+            "--log", alog, "--camera"]
+    printed = io.StringIO()
+    with PlainCalls(rk) as aplain, contextlib.redirect_stdout(printed):
+        run_tube_mppi.main(argv)
+    with open(alog) as f:
+        akinds = [json.loads(line)["kind"] for line in f]
+    shutil.rmtree(tmp, ignore_errors=True)
+    asolves = akinds.count("solve")
+    aimages = akinds.count("image") / (OP_ASYNC_TICKS * tube.cfg.dt)
+    print(f"[operator] (b) python -m autorally_tpu_torch.run_tube_mppi "
+          f"{' '.join(argv)}: {asolves} solve records, kinds "
+          f"{sorted(set(akinds))}, images {aimages:.2f} Hz of the plant's "
+          f"clock, plain-version calls {aplain.calls}; " + "; ".join(
+              ln for ln in printed.getvalue().splitlines()
+              if ln.startswith(("timing:", "laps:")))
+          + f" ({time.perf_counter() - t1:.1f}s; {card})")
+    check(set(akinds) == OP_KINDS - {"lap"} and asolves >= OP_ASYNC_TICKS - 2,
+          f"operator (b): records {sorted(set(akinds))}, {asolves} solves")
+    check(abs(aimages - 5.0) <= 0.5, f"operator (b): images {aimages:.2f} Hz")
+    check(not any(aplain.calls.values()), f"operator (b): a plain version "
+          f"ran on the card: {aplain.calls}")
+    return {"tick_ms_p50_p99": tick, "plain_tick_ms_p50_p99": plain_tick,
+            "operator_host_ms_p50_p99": host,
+            "tick_less_operator_ms_p50_p99": less, "kinds": kinds,
+            "images_hz": rate, "seconds": secs, "launches": got,
+            "async_solve_records": asolves}
+
+
 def main() -> int:
     import torch
 
@@ -9566,6 +9872,11 @@ def main() -> int:
     many = many_circles_phase(drive_oval, rk, card, field, builds)
     print(f"[time] phase 36 in {time.perf_counter() - t_many:.1f}s ({card})")
 
+    # -- phase 37: the operator's run ---------------------------------------
+    t_op = time.perf_counter()
+    operator = operator_phase(run_tube_mppi, rk, card, tube["split"]["tick"])
+    print(f"[time] phase 37 in {time.perf_counter() - t_op:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -9662,6 +9973,7 @@ def main() -> int:
                       "lanes_field": lanes_field["results"],
                       "capacity_lanes": cap_lanes["results"],
                       "many_circles": many["results"],
+                      "operator": operator,
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -9687,7 +9999,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-36 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-37 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,9 @@ noise injected on both sides, a different noise for each controller's
 solver (as ``tests/test_torch_solver.py`` injects it); and
 ``run_tube_mppi`` itself."""
 
+import json
 import math
+import socket
 import time
 
 import jax
@@ -14,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from autorally_tpu import msgs as jmsgs
 from autorally_tpu.config import CostParams as JaxCostParams
 from autorally_tpu.config import MPPIConfig as JaxConfig
 from autorally_tpu.costs import MPPICost as JaxCost
@@ -27,12 +30,13 @@ from autorally_tpu.runtime import telemetry as jtele
 from autorally_tpu.solver import mppi as jmppi
 from autorally_tpu.solver.ddp import DDPSolver as JaxDDP
 from autorally_tpu.tools.track_generator import oval_track
-from autorally_tpu_torch import run_tube_mppi
+from autorally_tpu_torch import msgs, run_tube_mppi
 from autorally_tpu_torch.config import CostParams, MPPIConfig
 from autorally_tpu_torch.costs import MPPICost, make_costmap
 from autorally_tpu_torch.models import NeuralNetDynamics
 from autorally_tpu_torch.runtime import control_loop, controller, plant, pose
 from autorally_tpu_torch.runtime import telemetry
+from autorally_tpu_torch.runtime.telemetry_bus import send_runstop
 from autorally_tpu_torch.solver import mppi
 from autorally_tpu_torch.solver.ddp import DDPSolver
 
@@ -221,7 +225,9 @@ def test_telemetry_equals_jax():
         ref.update(*v, missed=miss)
     assert ours.as_dict() == ref.as_dict()
     assert ours.tick_percentile_ms(90) == ref.tick_percentile_ms(90)
-    assert not hasattr(ours, "as_msg")          # Queue 1 item 11
+    # the pathIntegralTiming wire message, byte for byte the JAX package's
+    assert (msgs.encode(ours.as_msg(stamp=2.0))
+            == jmsgs.encode(ref.as_msg(stamp=2.0)))
     mons = telemetry.StatusMonitor(), jtele.StatusMonitor()
     for now, beat in [(0.0, None), (1.0, (1.0, 0, "ok")), (1.2, None),
                       (1.3, (1.3, 2, "bad")), (2.0, None)]:
@@ -550,14 +556,127 @@ def test_run_tube_mppi_ess_target_moves_gamma(capsys):
     assert start == 0.15 and end != start
 
 
-@pytest.mark.parametrize("option", sorted(run_tube_mppi.UNPORTED))
-def test_run_tube_mppi_unported_options_name_the_roadmap(option, capsys):
-    with pytest.raises(SystemExit) as exc:
-        run_tube_mppi.main(["--cpu", option, "1"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{option} is not ported yet" in err
-    assert run_tube_mppi.UNPORTED[option] in err and "ROADMAP.md" in err
+# -- the operator's options (telemetry, runstop, log, camera) -----------------
+
+SMALL = ["--cpu", "--rollouts", "64", "--timesteps", "16"]
+SOLVE_KEYS = {"t", "kind", "tick", "x", "y", "speed", "used", "ess", "gamma",
+              "crash_pct", "traj_cost"}
+
+
+def _wait_for(pred, what, timeout=5.0):
+    deadline = time.time() + timeout
+    while not pred():
+        assert time.time() < deadline, what
+        time.sleep(0.005)
+
+
+def _log_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def test_run_tube_mppi_telemetry_port_feeds_the_console(capsys):
+    """``--telemetry-port`` sends every record as a JSON datagram to
+    127.0.0.1: four ticks give the run header, four solves, the first 1 Hz
+    timing, diagnostics and host status (the CPU's here) and the final
+    timing."""
+    rx = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    rx.bind(("127.0.0.1", 0))
+    recs = []
+    try:
+        run_tube_mppi.main(SMALL + ["--ticks", "4", "--telemetry-port",
+                                    str(rx.getsockname()[1])])
+        rx.settimeout(0.5)
+        while True:
+            try:
+                recs.append(json.loads(rx.recv(1 << 20).decode()))
+            except socket.timeout:
+                break
+    finally:
+        rx.close()
+    kinds = [r["kind"] for r in recs]
+    assert kinds[0] == "run" and kinds[-1] == "timing"
+    assert kinds.count("solve") == 4
+    assert {"timing", "diag", "system"} <= set(kinds)
+    system = next(r for r in recs if r["kind"] == "system")
+    assert system["accelerator"]["platform"] == "cpu"
+    assert "controls published: 4" in capsys.readouterr().out
+
+
+def test_run_tube_mppi_runstop_port_stops_the_throttle(monkeypatch, capsys):
+    """``--runstop-port 0`` listens on a free port (printed): a runstop
+    datagram at tick 2, held at ticks 3 and 4, engages the plant's runstop
+    for the controls it publishes after each of those ticks, each the
+    requested throttle cut to at most 0, and its sender's release at tick 5
+    lets the requested throttle through again."""
+    tubes, pubs = [], []
+    build, on_tick = run_tube_mppi.build, run_tube_mppi.OperatorIO.on_tick
+    publish = plant.BasePlant.publish_control
+    monkeypatch.setattr(run_tube_mppi, "build",
+                        lambda **kw: tubes.append(build(**kw)) or tubes[0])
+
+    def recorded(self, t, steering, throttle):
+        out = publish(self, t, steering, throttle)
+        pubs.append((self.runstop, throttle, out[1]))
+        return out
+
+    def operator_tick(self, i, chosen, used, state, lap=None):
+        on_tick(self, i, chosen, used, state, lap)
+        syn = self.tube.plant
+        if 2 <= i < 5:
+            send_runstop(self.runstop.port, "ocs", False)
+            _wait_for(lambda: syn.runstop, "runstop not applied")
+        elif i == 5:
+            send_runstop(self.runstop.port, "ocs", True)
+            _wait_for(lambda: not syn.runstop, "runstop not released")
+
+    monkeypatch.setattr(plant.BasePlant, "publish_control", recorded)
+    monkeypatch.setattr(run_tube_mppi.OperatorIO, "on_tick", operator_tick)
+    run_tube_mppi.main(SMALL + ["--ticks", "10", "--runstop-port", "0"])
+    assert "runstop: listening on UDP port" in capsys.readouterr().out
+    assert len(pubs) == len(tubes[0].plant.published) == 10
+    for k, (engaged, asked, published) in enumerate(pubs):
+        assert engaged == (1 <= k < 4), k
+        assert published == (min(asked, 0.0) if engaged else asked), k
+
+
+def test_run_tube_mppi_log_appends_the_run_log(tmp_path, capsys):
+    """``--log`` appends every record to a JSONL run log: the run header,
+    one solve a tick with the JAX example's keys, the 1 Hz records and the
+    final timing; a second run appends to the same file."""
+    path = str(tmp_path / "run.jsonl")
+    run_tube_mppi.main(SMALL + ["--ticks", "5", "--log", path])
+    recs = _log_records(path)
+    assert recs[0]["kind"] == "run" and recs[0]["num_rollouts"] == 64
+    assert recs[0]["num_timesteps"] == 16 and recs[0]["hz"] == 50
+    solves = [r for r in recs if r["kind"] == "solve"]
+    assert [r["tick"] for r in solves] == [1, 2, 3, 4, 5]
+    assert all(set(r) == SOLVE_KEYS for r in solves)
+    assert all(r["gamma"] == 0.15 and r["ess"] > 0 for r in solves)
+    assert recs[-1]["kind"] == "timing" and recs[-1]["budget_ms"] == 20.0
+    assert {"diag", "system"} <= {r["kind"] for r in recs}
+    run_tube_mppi.main(SMALL + ["--ticks", "2", "--log", path])
+    assert [r["kind"] for r in _log_records(path)].count("run") == 2
+
+
+@pytest.mark.parametrize("loop", [[], ["--async-loop", "--depth", "2"]],
+                         ids=["sync", "async"])
+def test_run_tube_mppi_camera_republishes_frames(loop, tmp_path, capsys):
+    """``--camera`` renders the car's view every tick, runs the exposure
+    loop on it and republishes five frames a second of the plant's clock
+    (30 ticks, 0.6 s: three frames) with the console's ASCII view, from
+    the sync loop and, through ``_Shim``, the async one."""
+    path = str(tmp_path / "run.jsonl")
+    run_tube_mppi.main(SMALL + ["--ticks", "30", "--log", path, "--camera"]
+                       + loop)
+    images = [r for r in _log_records(path) if r["kind"] == "image"]
+    assert len(images) == 3
+    for r in images:
+        assert set(r) == {"t", "kind", "ascii", "msv", "shutter", "gain"}
+        assert len(r["ascii"]) == 14 and {len(row) for row in r["ascii"]} \
+            == {48}
+    # the exposure loop moved the shutter off its minimum
+    assert images[-1]["shutter"] > 100.0
 
 
 def test_run_tube_mppi_async_loop_on_the_cpu(capsys):
