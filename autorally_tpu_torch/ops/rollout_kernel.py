@@ -36,7 +36,10 @@ another spec than 34-64-64-1 (``FIELD_KERNEL_SPEC``) runs from a library
 built for it beside the MLP's spec.  A field whose staged pack would leave
 no room in a block's shared memory keeps the pack in device memory in its
 library (``field_global``); a launch is refused only where neither layout
-leaves room (``_check_field_room``).  The fused kernels (A, 3, pass 1)
+leaves room (``_check_field_room``).  Every kernel takes any horizon
+(``_check_horizon``): past what a block's shared memory holds, a launch
+stages no U and reads it in device memory (``staged_u``).  The fused
+kernels (A, 3, pass 1)
 price the circles of an ``ObstacleCost`` (``_make_obstacle_terms``), any
 number of slots, when the caller passes ``obstacles`` (with
 ``obstacle_coeff`` and ``inflation``), as the JAX package's wrappers take
@@ -225,12 +228,17 @@ MAX_OBSTACLES = 64
 # = 2048 needs (csrc kMaxFieldT; 122,944 bytes for the MLP with 64
 # circles), and kernel 2's warp form, which adds its rollouts' eps, to what
 # T = 4096 needs (csrc kMaxT; 170,048 bytes for the MLP).  A wide spec's
-# kernels 1, 2 and exact pass 1 opt in too, and their library's longest
-# horizon is 4096 or what its weights leave room for (``max_kernel_t``);
-# its field kernels' is 2048 or what its weights leave room for
-# (``max_field_kernel_t``).
+# kernels 1, 2 and exact pass 1 opt in too.  These are the horizons up to
+# which a launch stages U (and kernel 2's warp form its eps): 4096, or what
+# a wide spec's weights leave room for (``max_kernel_t``), and for the field
+# kernels 2048, or what the weights and the field leave room for
+# (``max_field_kernel_t``).  A launch past them stages none and reads them
+# in device memory, with the same bits (``staged_u``); the kernels take any
+# T with T x K x C below ``INDEX_LIMIT`` (``_check_horizon``).
 MAX_KERNEL_T = 4096
 MAX_FIELD_KERNEL_T = 2048
+# The kernels take T and K as int32: a launch's T x K x C stays below 2^31.
+INDEX_LIMIT = 2 ** 31
 # A block's shared memory (232,448 bytes) in floats, and the default field
 # warp's tile (csrc kTileFloats: 64 rows of 44 floats and the 64 values).
 SMEM_FLOATS = 232448 // 4
@@ -466,9 +474,11 @@ def _field_lib(layers, fspec, bf16: bool = False) -> ctypes.CDLL:
 
 
 def max_kernel_t(layers=KERNEL_LAYERS, bf16: bool = False) -> int:
-    """The longest horizon kernels 1 and 2 take for the MLP spec
-    ``layers`` (csrc kMaxT: ``MAX_KERNEL_T`` for the default spec), asked
-    of the library of bf16 operands when ``bf16`` (the same horizon)."""
+    """The longest horizon at which kernels 1, 2, exact pass 1 and pass 2
+    stage U in shared memory for the MLP spec ``layers`` (csrc kMaxT:
+    ``MAX_KERNEL_T`` for the default spec), asked of the library of bf16
+    operands when ``bf16`` (the same horizon).  A longer launch reads U
+    (and kernel 2's warp form its eps) in device memory."""
     if tuple(layers) == KERNEL_LAYERS:
         return MAX_KERNEL_T
     return _spec_lib(layers, bf16).artt_max_t()
@@ -480,6 +490,13 @@ def field_block(layers=KERNEL_LAYERS) -> int:
     library; 8 warps, one block an SM, in a library of another spec, whose
     wide weights leave room for one block beside the field and the tiles."""
     return FIELD_BLOCK if tuple(layers) == KERNEL_LAYERS else SPEC_FIELD_BLOCK
+
+
+def staged_u(T: int, cap: int) -> int:
+    """The steps of U a launch at ``T`` stages in shared memory when ``cap``
+    is its staged layout's longest horizon (csrc staged_u): all of them up
+    to ``cap``, else none (U read in device memory)."""
+    return T if T <= cap else 0
 
 
 def staged_obstacles(n_obs: int) -> int:
@@ -512,56 +529,77 @@ def field_global(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC) -> bool:
 
 
 def field_smem_layout(layers=KERNEL_LAYERS, T: int = 0, n_obs: int = 0,
-                      field=FIELD_KERNEL_SPEC) -> dict:
+                      field=FIELD_KERNEL_SPEC, lanes: bool = False) -> dict:
     """The MLP field kernels' dynamic shared memory (csrc FieldSmem) on a
     field of spec ``field``, in floats from its start: the packed weights
     first (``num_weights`` floats), the packed field at ``f`` (the weights
     rounded up to a float4, so that the field is read as float4; no floats
     where ``layout`` is "global": the field stays in device memory,
-    ``field_global``), the warps' tiles at ``tiles``, U (2 T) at ``U``, the
-    staged circles (3 ``staged_obstacles(n_obs)``) at ``obs``; ``bytes`` in
-    all for a launch at ``T`` with ``n_obs`` slots."""
+    ``field_global``), the warps' tiles at ``tiles``, U at ``U`` (2 T
+    floats where ``u_layout`` is "staged"; none where it is "global", past
+    ``max_field_kernel_t``, the lane forms' with ``lanes``: U stays in
+    device memory), the staged circles (3 ``staged_obstacles(n_obs)``) at
+    ``obs``; ``bytes`` in all for a launch at ``T`` with ``n_obs``
+    slots."""
     glob = field_global(layers, field)
     f = -(-num_weights(layers) // 4) * 4
     tiles = f + (0 if glob else field_pack_floats(field))
     U = tiles + field_block(layers) // 32 * field_tile_floats(field)
-    obs = U + 2 * T
-    return dict(layout="global" if glob else "staged", f=f, tiles=tiles, U=U,
-                obs=obs, bytes=4 * (obs + 3 * staged_obstacles(n_obs)))
+    Tu = staged_u(T, max_field_kernel_t(layers, field, lanes))
+    obs = U + 2 * Tu
+    return dict(layout="global" if glob else "staged",
+                u_layout="staged" if Tu == T else "global", f=f,
+                tiles=tiles, U=U, obs=obs,
+                bytes=4 * (obs + 3 * staged_obstacles(n_obs)))
 
 
 def max_field_kernel_t(layers=KERNEL_LAYERS, field=FIELD_KERNEL_SPEC,
                        lanes: bool = False) -> int:
-    """The longest horizon the field kernels take for the MLP spec
-    ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT; their
+    """The longest horizon at which the field kernels stage U for the MLP
+    spec ``layers`` on a field of spec ``field`` (csrc kLibMaxFieldT; their
     lane forms' with ``lanes``, kLibMaxFieldLanesT): ``MAX_FIELD_KERNEL_T``,
     or what the weights and the field as the library's layout stages it
     (``field_smem_layout``) leave room for beside the tiles and
     ``MAX_OBSTACLES`` circles in a block's shared memory, less the lane
     forms' staged scalars (``LANE_SCALAR_FLOATS``) for ``lanes`` (0: no
-    room)."""
+    room).  A longer launch reads U in device memory."""
     pack = (0 if field_global(layers, field) else field_pack_floats(field))
     room = _field_room_t(layers, field, pack, lanes)
     return max(0, min(MAX_FIELD_KERNEL_T, room))
 
 
-def _check_field_room(layers, fspec, T: int, lanes: bool = False) -> None:
+def _check_field_room(layers, fspec, lanes: bool = False) -> None:
     """Raise, before any build, where the library of the MLP spec
-    ``layers`` and the field spec ``fspec`` has no room for U at a launch
-    of ``T`` steps in its layout (``field_smem_layout``: the field staged,
-    or in device memory where staging leaves no room at
-    ``FIELD_GLOBAL_T``), with a lane form's staged scalars when ``lanes``
-    (``T`` up to ``MAX_FIELD_KERNEL_T``; a longer horizon is refused as for
-    every field)."""
-    if max_field_kernel_t(layers, fspec, lanes) < min(T, MAX_FIELD_KERNEL_T):
-        lay = field_smem_layout(layers, T, MAX_OBSTACLES, fspec)
+    ``layers`` and the field spec ``fspec`` has no room in a block's shared
+    memory even with U in device memory: the weights, the field as its
+    layout stages it (``field_smem_layout``), the tiles and
+    ``MAX_OBSTACLES`` circles (with a lane form's staged scalars when
+    ``lanes``) leave nothing (6-128-128-128-128-4 beside the default
+    field; ROADMAP.md, Queue 2 A9)."""
+    pack = (0 if field_global(layers, fspec) else field_pack_floats(fspec))
+    if _field_room_t(layers, fspec, pack, lanes) < 0:
+        lay = field_smem_layout(layers, 0, MAX_OBSTACLES, fspec, lanes)
         raise NotImplementedError(
             f"the field kernels of layers {tuple(layers)} on a field "
             f"{_build.field_label(fspec)} ({field_pack_floats(fspec) * 4} "
             f"bytes packed, the {lay['layout']} layout) need "
-            f"{lay['bytes']} bytes of shared memory a block at T={T} with "
-            f"{MAX_OBSTACLES} circle slots, over the {SMEM_FLOATS * 4} a "
-            "block can take (ROADMAP.md, Queue 2 A8: the horizon caps)")
+            f"{lay['bytes']} bytes of shared memory a block with U in "
+            f"device memory and {MAX_OBSTACLES} circle slots, over the "
+            f"{SMEM_FLOATS * 4} a block can take (ROADMAP.md, Queue 2 A9: "
+            "an MLP that leaves the field kernels no room)")
+
+
+def _check_horizon(T: int, K: int, C: int = 2) -> None:
+    """Raise unless a launch of ``T`` steps and ``K`` rollouts (a lane's)
+    has T, K >= 1 and T x K x C below ``INDEX_LIMIT``: the kernels take
+    every such horizon, U staged or in device memory."""
+    if K < 1 or T < 1:
+        raise ValueError(f"kernel needs K >= 1 and T >= 1, got K={K}, "
+                         f"T={T}")
+    if T * K * C >= INDEX_LIMIT:
+        raise ValueError(f"T={T} x K={K} x C={C} = {T * K * C} elements: "
+                         "the kernels take T and K as int32 and need T x K "
+                         f"x C < 2^31 ({INDEX_LIMIT})")
 
 
 def field_kernel_info(rng: bool, bf: bool, T: int, n_obs: int = 0,
@@ -1064,20 +1102,19 @@ def _dispatch(t: torch.Tensor) -> str:
 
 
 def _kernel_inputs(model, model_params, state, U, K: int, eps=None,
-                   max_T: int = MAX_KERNEL_T, packed_weights=None):
+                   packed_weights=None):
     """Shape checks and the device tensors every rollout kernel reads
     (with ``eps`` (T, K, C) for the kernels that read their noise; the
     weight buffer ``packed_weights`` when given, a row of
-    :func:`pack_members`, else :func:`_pack_weights`); ``max_T`` the
-    kernel's longest horizon."""
+    :func:`pack_members`, else :func:`_pack_weights`); any horizon that
+    ``_check_horizon`` takes."""
     T, C = U.shape
     if (C != 2 or state.shape != (model.STATE_DIM,)
             or (eps is not None and eps.shape != (T, K, C))):
         raise ValueError(f"shapes: state {tuple(state.shape)}, U "
                          f"{tuple(U.shape)}, K {K}, eps "
                          f"{None if eps is None else tuple(eps.shape)}")
-    if K < 1 or not 1 <= T <= max_T:
-        raise ValueError(f"kernel needs K >= 1 and 1 <= T <= {max_T}")
+    _check_horizon(T, K, C)
     args = dict(
         s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
@@ -1246,10 +1283,9 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     layers = kernel_layers(model)
     kind, buf, fspec = _surface(surface)
     if kind == "field":
-        _check_field_room(layers, fspec, T)
-    args = _kernel_inputs(model, model_params, state, U, K, eps, max_T=(
-        max_field_kernel_t(layers, fspec) if kind == "field"
-        else max_kernel_t(layers, bf16)), packed_weights=packed_weights)
+        _check_field_room(layers, fspec)
+    args = _kernel_inputs(model, model_params, state, U, K, eps,
+                          packed_weights=packed_weights)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -1263,8 +1299,8 @@ def _prepare_fused(cls, fn: str, model, model_params, cfg, cost_params,
     crash = torch.empty(K, dtype=torch.int32, device=dev)
     u_seq = torch.empty((C, T, K), dtype=torch.float32, device=dev)
     if kind == "exact":
-        geom = _launch_geometry(K, dev, model)
         entry = _spec_lib(layers, bf16).artt_fused_exact_rollout_cost
+        geom = _launch_geometry(K, dev, model)
         geo_args = geom[:2]
     else:
         geom, geo_args = None, ()
@@ -1410,7 +1446,6 @@ def prepare_dynamics_chain(model, model_params, cfg, state, U, eps,
     dev = eps.device
     layers = kernel_layers(model)
     args = _kernel_inputs(model, model_params, state, U, K, eps,
-                          max_T=max_kernel_t(layers, bf16),
                           packed_weights=packed_weights)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
@@ -1529,10 +1564,10 @@ def _lane_circles(cost_params, obstacles, L: int) -> Optional[torch.Tensor]:
 
 
 def _lane_inputs(model, model_params, state, U, eps=None,
-                 packed_weights=None, max_T: int = MAX_KERNEL_T):
+                 packed_weights=None, K: int = 1):
     """Shape checks of a lane launch, state (L, S), U (L, T, C) and, for
-    the kernels that read it, eps (T, K, C) shared; the device tensors it
-    reads."""
+    the kernels that read it, eps (T, K, C) shared (else ``K`` rollouts a
+    lane); the device tensors it reads."""
     L = state.shape[0] if state.dim() == 2 else 0
     T, C = U.shape[-2:] if U.dim() == 3 else (0, 0)
     if (L < 1 or state.shape != (L, model.STATE_DIM) or U.shape != (L, T, C)
@@ -1541,8 +1576,7 @@ def _lane_inputs(model, model_params, state, U, eps=None,
         raise ValueError(f"lane shapes: state {tuple(state.shape)}, U "
                          f"{tuple(U.shape)}, eps "
                          f"{None if eps is None else tuple(eps.shape)}")
-    if not 1 <= T <= max_T:
-        raise ValueError(f"kernel needs 1 <= T <= {max_T}")
+    _check_horizon(T, K if eps is None else eps.shape[1], C)
     args = dict(
         s0=state.to(U.device, torch.float32).contiguous(),
         rngs=_control_rngs(model_params, C).to(torch.float32).contiguous(),
@@ -1634,11 +1668,9 @@ def _prepare_lanes(fn: str, model, model_params, cfg, cost_params, surface,
     dev = eps.device
     layers = kernel_layers(model)
     if field:
-        _check_field_room(layers, fspec, T, lanes=True)
+        _check_field_room(layers, fspec, lanes=True)
     L, args = _lane_inputs(model, model_params, state, U, eps,
-                           packed_weights, max_field_kernel_t(
-                               layers, fspec, lanes=True)
-                           if field else max_kernel_t(layers, bf16))
+                           packed_weights)
     circles = _lane_circles(cost_params, obstacles, L)
     args["surface"] = buf
     fsc, isc, ptrs, n_obs, packed = _lane_launch(
@@ -1787,7 +1819,7 @@ def prepare_dynamics_chain_lanes(model, model_params, cfg, state, U, eps,
     dev = eps.device
     layers = kernel_layers(model)
     L, args = _lane_inputs(model, model_params, state, U, eps,
-                           packed_weights, max_kernel_t(layers, bf16))
+                           packed_weights)
     ptrs = _device_args(dev, **args)
     floats, ints = launch_scalars(model, cfg, k_offset, T, K)
     fsc = _host_array(ctypes.c_float, floats)
@@ -1981,10 +2013,8 @@ def prepare_fused_rng_costs(model, model_params, cfg, cost_params, field,
     layers = kernel_layers(model)
     kind, buf, fspec = _surface(field)
     if kind == "field":
-        _check_field_room(layers, fspec, T)
-    args = _kernel_inputs(model, model_params, state, ctx.U, K, max_T=(
-        max_field_kernel_t(layers, fspec) if kind == "field"
-        else max_kernel_t(layers, bf16)))
+        _check_field_room(layers, fspec)
+    args = _kernel_inputs(model, model_params, state, ctx.U, K)
     args["surface"] = buf
     ptrs = _device_args(dev, **args)
     n_obs, packed = _obstacle_launch(circles, dev)
@@ -2201,10 +2231,8 @@ def prepare_fused_rng_costs_lanes(model, model_params, cfg, cost_params,
     layers = kernel_layers(model)
     kind, buf, fspec = _surface(field)
     if kind == "field":
-        _check_field_room(layers, fspec, U.shape[-2], lanes=True)
-    L, args = _lane_inputs(model, model_params, state, ctx.U, max_T=(
-        max_field_kernel_t(layers, fspec, lanes=True) if kind == "field"
-        else max_kernel_t(layers, bf16)))
+        _check_field_room(layers, fspec, lanes=True)
+    L, args = _lane_inputs(model, model_params, state, ctx.U, K=K)
     T = ctx.U.shape[1]
     args["surface"] = buf
     fsc, isc, ptrs, n_obs, packed = _lane_launch(

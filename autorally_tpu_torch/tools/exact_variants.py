@@ -95,7 +95,8 @@ _COPY = ("  if (!s.bf)\n"
          "    cudaMemcpyToSymbolAsync(c_w, weights, kNumMlpWeights * 4, 0,\n"
          "                            cudaMemcpyDeviceToDevice, st);\n")
 _MLP_BF_ANCHOR = "// BfDeriv: theta^T phi, the 25 car basis functions"
-_PASS1_CALL = "rollout_cost<false, Deriv>(s, cs, s0, rngs, U_s, w_s, obs_s,"
+_PASS1_CALL = ("rollout_cost<false, Deriv>(s, cs, s0, rngs, USource{U_s, U, "
+               "Tu < s.T},")
 _STEP_TOP = ("    weights_barrier();\n    float u0, u1, du0, du1;\n"
              "    perturb(s, U_s, noise(t), t, zero_rollout, pure_noise, u0, "
              "u1, du0, du1);\n    if (kStoreU && active) {")
@@ -161,7 +162,7 @@ _CONST_OPERAND = [
     (_MLP_BF_ANCHOR,
      _CONST_W + _const_deriv("MlpConstDeriv", "c_w[{i}]") + _MLP_BF_ANCHOR),
     (_PASS1_CALL, "rollout_cost<false, typename PassDerivOf<Deriv>::type>("
-     "s, cs, s0, rngs, U_s, w_s, obs_s,"),
+     "s, cs, s0, rngs, USource{U_s, U, Tu < s.T},"),
     (_STEP_TOP, _STEP_TOP.replace(
         "    weights_barrier();",
         "    if constexpr (!std::is_same_v<Deriv, typename PassDerivOf<"

@@ -197,8 +197,8 @@ exits non-zero):
     obstacles (16 slots), the capacity mode (K=262144), the asymmetric
     tube (K_pred=480); (d) the capture's seconds, ms a replayed tick (CUDA
     events), ticks/s and sim-seconds a wall-second and ``episode_metrics``
-    for 500 ticks without gains, 200 with, and the BF model at K=2560
-    with gains (200 ticks); (e) ``tools/lap_suite.run_config`` on an oval
+    for 250 ticks without gains, 100 with, and the BF model at K=2560
+    with gains (100 ticks); (e) ``tools/lap_suite.run_config`` on an oval
     and a winding row, 500 ticks, the artifact checked by
     ``validate_laps``'s rules (the winding track allowed);
 22. the async loop (``runtime/async_loop.py`` through ``run_tube_mppi``'s
@@ -359,9 +359,9 @@ exits non-zero):
     the solo instance run with that lane's scalars in the lane launch's
     geometry; kernel 1's lane form in every geometry and kernel 2's in
     both, bit for bit one another; (c) the tool's sweep at its defaults
-    (seeded 6-32-32-4 from a temporary ``.npz``, K=512, 400 ticks,
+    (seeded 6-32-32-4 from a temporary ``.npz``, K=512, 200 ticks,
     desired_speed 5, 6, 7) and a 12-lane grid at K=1920 (desired_speed
-    4..7 x gamma 0.05, 0.15, 0.6), 100 ticks: one capture, exactly 2 + 2
+    4..7 x gamma 0.05, 0.15, 0.6), 50 ticks: one capture, exactly 2 + 2
     lane launches in the captured tick (counted by the wrappers; the
     profiler over 5 replayed ticks finds the lane forms and no solo
     instance), no plain version, the replayed tick's ms,
@@ -383,7 +383,7 @@ exits non-zero):
     changing every lane's costs; (c) kernel 3's lane form at L=3, K=512
     and L=4, K=16384 (the field path's 65,536 rollouts), without and with
     16 circles a lane, and at L=12, K=1920 without (the drives' form),
-    MLP and BF, on phase 11's fitted field, the same holds; (d) 100
+    MLP and BF, on phase 11's fitted field, the same holds; (d) 50
     ticks of a 12-lane sweep at K=1920 with an ``ObstacleCost`` (each
     lane's circles) and the ESS law, the same with moving obstacles, and
     on the fitted field, each with its launches counted (2 + 2 a captured
@@ -404,8 +404,8 @@ exits non-zero):
     library and the F6-48-48 field library at K=8192 and the bf16 library
     at K=1920, L=3; (d) capacity drives through ``EpisodeRunner.run`` with
     a stacked ``CostParams``, captured and replayed: 12 lanes at K=1920
-    (200 gaussian ticks, 20 OU), 4 lanes at K=262144 (25 ticks on the map,
-    10 on the field), 3 lanes of 6-64-64-64-64-4 at K=8192 (capacity and
+    (100 gaussian ticks, 20 OU), 4 lanes at K=262144 (12 ticks on the map,
+    5 on the field), 3 lanes of 6-64-64-64-64-4 at K=8192 (capacity and
     host noise, 20 each) and 3 at ``"default"`` (20), each with exactly
     2 + 2 + 2 lane launches a tick counted, no plain version, the
     replayed tick's p50 / p99, graph nodes, ticks/s, and lanes 0 and L-1
@@ -451,7 +451,44 @@ exits non-zero):
     operator publishes that lap); the console rendered and logged the run;
     exactly 2 + 2 launches a tick as in phase 20, no plain version; the
     tick's p50 / p99 beside phase 20's plain tube, against 20 ms, not
-    gated.
+    gated;
+38. the car's I/O around the solve on the card: a scripted circle (6 s at
+    200 Hz) feeds the EKF with noisy IMU, GPS as GPGGA + GPGST bytes from
+    ``GpsNmeaSimulator`` through ``GpsReceiver`` and
+    ``GpsEstimatorBridge`` (10 Hz) and wheel speeds as ``#w`` frames over
+    a pty through ``ChassisLink`` and ``WheelOdometry`` (50 Hz); at 50 Hz
+    the EKF's state vector goes to the plant and BASELINE #1 solves on the
+    card; the plant's control goes as ``ChassisCommand("mppi")`` into a
+    ``CommandArbiter`` beside ``ConstantSpeedController`` and
+    ``GpsWaypointController``, through ``SafeSpeedGovernor``, under the
+    runstop of a ``VehicleNetworkNode`` that a coordinator drives, and out
+    as ``#s`` frames read back from the pty; in the second half a peer
+    node's relayed pose is a circle of an ``ObstacleCost``.  Exactly 1 + 1
+    launches a solve (kernel 1's obstacle instance once the circle is
+    live), no plain version; every ``#s`` frame the arbitrated command's
+    pulse widths; MPPI silent for 20 ticks: the fallbacks own both
+    actuators within ``command_max_age`` and hand them back; the runstop
+    off for 20 ticks: every throttle pulse the runstop's; the peer's pose
+    in kernel 1's circle slots, pricing some rollouts.  Printed, not
+    gated: the solve's p50 / p99, the I/O's host ms a tick, the EKF's
+    position error.  Then ``tools/scaling_forecast.py`` on this run's
+    kernel-1 ladder (phase 5's K=1920, K=8192 and 262144 timed alike) with
+    a short probe on two gloo CPU ranks, its document held to the schema;
+39. every horizon the JAX kernels take: past the horizon at which a launch
+    stages U in shared memory (``rk.staged_u``) it reads U, and kernel 2's
+    warp form its eps, in device memory.  Kernel 1 (MLP lane groups and
+    BF), kernel 2 (warp form, MLP and BF, K=1 and 256), exact pass 1
+    (gaussian) and pass 2 at T=4100, K=256; kernel 3 and field pass 1 at
+    T=2100 (the default pair) and at T=800 beside F8-128-128 (its
+    library's staged cap is 792); the lane forms of kernels 1 and 3 at
+    L=2 past their caps.  Each fused form against its plain version by
+    phase 17-18's rule (costs and crash flags along kernel 2's
+    trajectories, u_seq bit for bit), pass 1 bit for bit kernel 1 / 3 fed
+    its stream, pass 2 within NUMER_RTOL of sum |w u|, kernel 2 in both
+    geometries bit for bit and its first 100 steps bit for bit the staged
+    launch's, each lane bit for bit its solo instance; 3-tick drives at
+    each horizon with exact launches and no plain version; each form timed
+    beside its bound.
 
 Prints the card's name and power limit, one ``{"kernels": [...]}`` line
 (each kernel with its CUDA instance and its geometry or design, every
@@ -461,7 +498,8 @@ launches and timings, the async tick's launches and timings, both gates'
 results, the general path's latencies, the ensemble's, the sharded
 solvers' and the tools', BASELINE #3's, the other specs' sweeps, kernels
 3 and 4's other timings and drives at the other specs, the cost-parameter
-sweeps' and phases 34-36's drives, phase 37's tick), and as
+sweeps' and phases 34-36's drives, phase 37's tick, phase 38's I/O and
+forecast, phase 39's drives), and as
 its last
 line
 ``{"ok": true, "device": {...}}``.  Needs one CUDA
@@ -500,8 +538,10 @@ TICKS = 200
 # whose order alternates (ten once, so that a gain could be told from the
 # spread; two since phase 36 came)
 TURN_PAIRS = 2
-# timed runs of a plain version after one warm-up: it takes 0.1-1.5 s of
-# launches, and one run gives its time
+# timed runs of a plain version: it takes 0.1-1.5 s of launches, and one
+# run gives its time; each plain version has run at its shape for its check
+# before it is timed, so it takes no warm-up of its own (one before phases
+# 38-39)
 PLAIN_REPS = 1
 PROFILE_TICKS = 50
 COST_RTOL, COST_ATOL = 1e-4, 1e-3     # 100 fp32 steps, other summation order
@@ -603,7 +643,9 @@ EP_BIT_TICKS = 25                     # (a) captured against eager
 EP_PROFILE_TICKS = 10                 # (b) launches counted by the profiler
 EP_SHORT_TICKS = 20                   # (c) obstacles, capacity, asymmetric
 EP_K_PRED = 480
-EP_TICKS, EP_GAIN_TICKS, EP_BF_TICKS = 500, 200, 200      # (d) timing
+# (d) timing (1,000 / 200 / 200 before PR 23's cut, 500 / 200 / 200 before
+# PR 25's)
+EP_TICKS, EP_GAIN_TICKS, EP_BF_TICKS = 250, 100, 100
 EP_LAP_TICKS = 500                    # (e) the lap suite's run_config
 EP_LAP_ROWS = (
     {"name": "oval_nn_gaussian", "track": "oval", "K": K, "T": T,
@@ -1430,7 +1472,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         geometry_line(rk, f"timing pass 1 {sname}", launch1, True, False,
                       card)
         plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cost_params, costmap, start, U, key), PLAIN_REPS, 1)
+            model, params, c, cost_params, costmap, start, U, key), PLAIN_REPS, 0)
         # inputs read once (U, weights, state, control ranges, key, at most
         # the whole map or one texel per lookup), costs and crash written
         bytes1 = (4 * (T_ * 2 + n_w + 7 + 4 + 2 * KC)
@@ -1440,7 +1482,7 @@ def capacity_phases(drive_oval, solver, params, cost_params, costmap, cases,
         floors1 = sass_chain.pipe_bounds(mix["pass1_mlp"], KC, T_, sms,
                                          clock)
         w = torch.exp(-effective_gamma(c, cost_params) * (kc - kc.min()))
-        plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), PLAIN_REPS, 1)
+        plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx, w), PLAIN_REPS, 0)
         # pass 2 on the nominal weights (phase 8's), the closed loop's tick
         # (phase 9's) and dense ones; its bound counts the rollouts whose
         # weight is not 0, the work that these weights need; the design's
@@ -1764,7 +1806,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
     ms_3 = cuda_ms(launch_3, 10)
     ms_a = cuda_ms(launch_a, 10)
     plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-        model, params, cfg, cost_params, field, start, U, eps), PLAIN_REPS, 1)
+        model, params, cfg, cost_params, field, start, U, eps), PLAIN_REPS, 0)
     # eps read, u_seq, costs and crash written, the weights, the field,
     # U, the state and the control ranges read once
     bytes_3 = 4 * (3 * T_ * KF * 2 + 2 * KF + T_ * 2 + n_w + n_f + 7 + 4)
@@ -1792,7 +1834,7 @@ def field_phases(drive_oval, model, params, cost_params, costmap, U, start,
         ms_f = cuda_ms(launch_f, 5)
         ms_e = cuda_ms(launch_e, 5)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cost_params, field, start, U, key), PLAIN_REPS, 1)
+            model, params, c, cost_params, field, start, U, key), PLAIN_REPS, 0)
         bytes_f = 4 * (2 * KC + T_ * 2 + n_w + n_f + 7 + 4) + 16
         ops_f = KC * (T_ * (flops_step + STREAM_OPS + ou)
                       + (T_ - 1) * 2 * field_ops)
@@ -2434,7 +2476,7 @@ def bf_obstacle_phases(drive_oval, model, params, cost_params, costmap,
                 and not form.startswith("dynamics_chain")):
             geometry_line(rk, f"timing {form}", launch, "rng" in form,
                           "_bf" in form, card)
-        plain_ms = cuda_ms(plain, plain_reps, 1) if plain else None
+        plain_ms = cuda_ms(plain, plain_reps, 0) if plain else None
         times[form] = (ms, plain_ms)
         fp32 = (f", fp32 bound {bnd[2]:.5f} ms ({bnd[3]})" if len(bnd) > 2
                 else "")
@@ -3622,7 +3664,7 @@ def chain_row(rk, name, model, params, cfg, start, U, eps, bf, err, card,
     chain = chain_timing(rk, name, model, params, cfg, start, U, eps, bf, 100,
                          card)
     plain = cuda_ms(lambda: rk.dynamics_chain_plain(model, params, cfg,
-                                                    start, U, eps), PLAIN_REPS, 1)
+                                                    start, U, eps), PLAIN_REPS, 0)
     n_w = rk.KERNEL_BF_WEIGHTS if bf else rk.KERNEL_NUM_WEIGHTS
     step = BF_STEP_OPS if bf else mlp_flops(model.layers)
     bnd, by = bound(4 * (11 * T * K_n + 2 * T + n_w + 7 + 4), step * T * K_n)
@@ -3796,7 +3838,7 @@ def member_row(rk, ens, stacked, cfg, cm, cp, state, U, eps, err, card,
         packed_weights=ens._member_packs(stacked)[M - 1])
     ms = cuda_ms(launch, 100)
     plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-        base, pm, cfg, cp, cm, state, U, e_m, **kw), PLAIN_REPS, 1)
+        base, pm, cfg, cp, cm, state, U, e_m, **kw), PLAIN_REPS, 0)
     n_w = rk.KERNEL_NUM_WEIGHTS
     bnd, by = bound(4 * (T * k_m * 2 + 2 * T * k_m + 2 * k_m + T * 2 + n_w
                          + 7 + 4 + 2 * k_m * (T - 1)),
@@ -4262,7 +4304,7 @@ def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
                 model, params, cfg, cp, cm, start, U, eps[1], **kw)
             ms = cuda_ms(launch1, 100)
             plain = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-                model, params, cfg, cp, cm, start, U, eps[1], **kw), PLAIN_REPS, 1)
+                model, params, cfg, cp, cm, start, U, eps[1], **kw), PLAIN_REPS, 0)
             n_w = rk.KERNEL_NUM_WEIGHTS
             bnd, by = bound(4 * (T * Kl * 2 + 2 * T * Kl + 2 * Kl + T * 2
                                  + n_w + 7 + 4 + 2 * Kl * (T - 1)),
@@ -4360,13 +4402,13 @@ def sharded_phase(drive_oval, rk, card, dev=None) -> dict:
                                                start, U, key1, **kw)
     ms1 = cuda_ms(launch1, 20)
     plain1 = cuda_ms(lambda: rk.fused_rng_costs_plain(
-        model, params, c, cp, cm, start, U, key1, **kw), PLAIN_REPS, 1)
+        model, params, c, cp, cm, start, U, key1, **kw), PLAIN_REPS, 0)
     bytes1 = (4 * (T * 2 + n_w + 7 + 4 + 2 * Kl)
               + 4 * min(cm.height * cm.width, 2 * Kl * (T - 1)) + 16)
     bound1 = bound(bytes1, (flops_step + STREAM_OPS) * Kl * T)
     launch2, partials = rk.prepare_fused_rng_numer(ctx1, w1)
     ms2 = cuda_ms(launch2, 50)
-    plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx1, w1), PLAIN_REPS, 1)
+    plain2 = cuda_ms(lambda: rk.fused_rng_numer_plain(ctx1, w1), PLAIN_REPS, 0)
     k_need = int((w1 != 0).sum().item())
     bound2 = bound(4 * (Kl + T * 2 + partials.numel()) + 16,
                    (STREAM_OPS + UPDATE_OPS) * k_need * T)
@@ -4853,7 +4895,7 @@ def spec_phase(drive_oval, rk, card, dev=None) -> dict:
             model, params, cfg, cp, costmap, start, U, eps)
         ms_1 = cuda_ms(launch_1, 50)
         plain_1 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, cfg, cp, costmap, start, U, eps), PLAIN_REPS, 1)
+            model, params, cfg, cp, costmap, start, U, eps), PLAIN_REPS, 0)
         bound_1, by_1 = bound(4 * (T * KS * 2 + 2 * T * KS + 2 * KS + T * 2
                                    + n_w + 7 + 4 + 2 * KS * (T - 1)),
                               step * KS * T)
@@ -4868,7 +4910,7 @@ def spec_phase(drive_oval, rk, card, dev=None) -> dict:
                              cfg, start, U, e, False, 100 if k_n == 1 else 20,
                              card, sass=sass)
             plain = cuda_ms(lambda: rk.dynamics_chain_plain(
-                model, params, cfg, start, U, e), PLAIN_REPS, 1)
+                model, params, cfg, start, U, e), PLAIN_REPS, 0)
             bnd, by = bound(4 * (11 * T * k_n + 2 * T + n_w + 7 + 4),
                             step * T * k_n)
             print(f"[timing] spec {label} kernel 2 K={k_n}: {c['ms']:.4f} ms"
@@ -5141,7 +5183,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
                                                     field, start, U, eps)
         ms_3 = cuda_ms(launch_3, 10)
         plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, cfg, cp, field, start, U, eps), PLAIN_REPS, 1)
+            model, params, cfg, cp, field, start, U, eps), PLAIN_REPS, 0)
         bytes_3 = 4 * (3 * T * KS * 2 + 2 * KS + T * 2 + n_w + n_f + 7 + 4)
         fp32_3, tc_3 = field_bounds(bytes_3, KS * T * step, KS * (T - 1) * 2,
                                     field)
@@ -5164,7 +5206,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
             plain_e = None
             if k_n == KS:
                 plain_e = cuda_ms(lambda: rk.fused_rng_costs_plain(
-                    model, params, ck, cp, costmap, start, U, key), PLAIN_REPS, 1)
+                    model, params, ck, cp, costmap, start, U, key), PLAIN_REPS, 0)
             geometry_line(rk, f"timing {tag} pass 1 K={k_n}", launch_e, True,
                           False, card, layers=layers)
             print(f"[timing] {tag} pass 1 fused_rng_costs gaussian K={k_n} "
@@ -5178,7 +5220,7 @@ def spec_field_phase(drive_oval, rk, card, field, dev=None) -> dict:
                                                     field, start, U, key)
         ms_f = cuda_ms(launch_f, 10)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, c, cp, field, start, U, key), PLAIN_REPS, 1)
+            model, params, c, cp, field, start, U, key), PLAIN_REPS, 0)
         bytes_f = 4 * (2 * KS + T * 2 + n_w + n_f + 7 + 4) + 16
         fp32_f, tc_f = field_bounds(bytes_f, KS * T * (step + STREAM_OPS),
                                     KS * (T - 1) * 2, field)
@@ -5687,7 +5729,7 @@ def field_spec_phase(drive_oval, rk, card, dev=None) -> dict:
                                                     field, start, U, eps_t)
         ms_3 = cuda_ms(launch_3, 10)
         plain_3 = cuda_ms(lambda: rk.fused_rollout_cost_plain(
-            model, params, ck, cp, field, start, U, eps_t), PLAIN_REPS, 1)
+            model, params, ck, cp, field, start, U, eps_t), PLAIN_REPS, 0)
         bytes_3 = 4 * (3 * T * KF * 2 + 2 * KF + T * 2 + n_w + n_f + 7 + 4)
         fp32_3, tc_3 = field_bounds(bytes_3, KF * T * step, KF * (T - 1) * 2,
                                     field)
@@ -5697,7 +5739,7 @@ def field_spec_phase(drive_oval, rk, card, dev=None) -> dict:
                                                     field, start, U, key)
         ms_f = cuda_ms(launch_f, 5)
         plain_f = cuda_ms(lambda: rk.fused_rng_costs_plain(
-            model, params, cc, cp, field, start, U, key), PLAIN_REPS, 1)
+            model, params, cc, cp, field, start, U, key), PLAIN_REPS, 0)
         bytes_f = 4 * (2 * KC + T * 2 + n_w + n_f + 7 + 4) + 16
         fp32_f, tc_f = field_bounds(bytes_f, KC * T * (step + STREAM_OPS),
                                     KC * (T - 1) * 2, field)
@@ -6535,7 +6577,7 @@ def precision_phase(drive_oval, rk, card, field, dev=None) -> dict:
         for p in ("highest", P, P, "highest"):
             runs[p].append(cuda_ms(launch[p], reps))
         ms, ms32 = statistics.mean(runs[P]), statistics.mean(runs["highest"])
-        plain_ms = cuda_ms(lambda: plain(P), PLAIN_REPS, 1)
+        plain_ms = cuda_ms(lambda: plain(P), PLAIN_REPS, 0)
         fp32, tc = bounds(nbytes, k_n, ops, prod, surface)
         dname = launch[P].name
         geom = launch[P].geometry
@@ -6916,11 +6958,11 @@ def physics_phase(rk, card, dev=None, sim=None) -> dict:
 
 # The sweep's two widths (tools/param_sweep.py): its defaults (the seeded
 # 6-32-32-4, K=512, desired_speed 5, 6, 7 on the oval) and a 12-lane grid
-# at BASELINE #1's K=1920, cut in ticks (400 and 100 since phase 36 came;
-# the tool's default is 800).
+# at BASELINE #1's K=1920, cut in ticks (400 and 100 since phase 36 came,
+# 200 and 50 since phases 38-39; the tool's default is 800).
 LANE_SWEEPS = {
-    "L3": (["desired_speed=5,6,7"], 512, 400),
-    "L12": (["desired_speed=4,5,6,7", "gamma=0.05,0.15,0.6"], K, 100),
+    "L3": (["desired_speed=5,6,7"], 512, 200),
+    "L12": (["desired_speed=4,5,6,7", "gamma=0.05,0.15,0.6"], K, 50),
 }
 LANE_SHAPES = ((3, 512), (12, K))           # (b): (L, K)
 LANE_PROFILE_TICKS = 5                     # (c): replayed under the profiler
@@ -7496,7 +7538,8 @@ LANE_CIRCLE_SETS = {"16 per lane": (N_SLOTS, True),
                     "16 shared": (N_SLOTS, False),
                     "64 per lane": (64, True)}
 FIELD_LANE_SHAPES = ((3, 512), (12, K), (4, 16384))   # (c): (L, K)
-LANE_DRIVE_TICKS = 100                 # (d): each full-width drive, L=12
+LANE_DRIVE_TICKS = 50                  # (d): each full-width drive, L=12
+#                                        (100 before phases 38-39)
 # (b)-(c) at L=12 the forms the drives run (each held at L=3 too): kernel
 # 1 with 16 circles a lane's own and 16 shared, kernel 3 without circles
 LANE_WIDE_L, LANE_WIDE_SETS = 12, ("16 per lane", "16 shared")
@@ -7968,10 +8011,11 @@ CAP_SHARD = (512, 512)
 LIB_LANES = 3
 # (d) the capacity drives: 12 lanes at K (gaussian, OU), 4 lanes at
 # BASELINE #5's KC (exact map, field), 3 lanes of BASELINE #3's spec at KS
-# (capacity, host noise), 3 at "default" at K
-CAP_L12_TICKS = {"gaussian": 200, "ou": 20}
+# (capacity, host noise), 3 at "default" at K; gaussian 200, exact 25 and
+# field 10 before phases 38-39
+CAP_L12_TICKS = {"gaussian": 100, "ou": 20}
 CAP_WIDE_LANES = 4
-CAP_WIDE_TICKS = {"exact": 25, "field": 10}
+CAP_WIDE_TICKS = {"exact": 12, "field": 5}
 CAP_FORM_TICKS = 20
 CAP_TIME_REPS = 20                    # the kernels line's CUDA-event runs
 # the capacity passes' lane instances in the default library (ptxas' names,
@@ -8663,7 +8707,7 @@ def oval_cones(spacing: float = CONE_EVERY) -> list:
 
 
 def fused_circle_bound(k, n_w, step, circles, field=None, map_floats=0,
-                       stream=False, lanes=1):
+                       stream=False, lanes=1, T_=T):
     """Kernel 1, 3 or pass 1 (``stream``: the noise drawn in the kernel, no
     eps read and no u_seq written) over ``lanes`` lanes of K=k with
     ``circles`` (n, 3), or (lanes, n, 3) a lane's own: every input read
@@ -8671,29 +8715,30 @@ def fused_circle_bound(k, n_w, step, circles, field=None, map_floats=0,
     for all lanes; the map at most its ``map_floats``, one texel a lookup),
     every output written once (phase 18's rule), a circle 13 operations a
     step (a free slot 1), the field's products on the tensor cores
-    (``field_bounds``).  Returns ((ms, by), fp32 (ms, by) or None)."""
+    (``field_bounds``), over ``T_`` steps.  Returns ((ms, by), fp32 (ms,
+    by) or None)."""
     n = circles.shape[-2]
     own = circles.dim() == 3
     active = int((circles[..., 2] > 0).sum().item()) // (lanes if own
                                                          else 1)
     circle_ops = (active * CIRCLE_OPS + (n - active) * SLOT_OPS + 1
                   if n else 0)
-    per_lane = ((2 * k if stream else 2 * T * k + 2 * k) + 2 * T + 7
+    per_lane = ((2 * k if stream else 2 * T_ * k + 2 * k) + 2 * T_ + 7
                 + (3 * n if own else 0))
     if field is None:
-        surface = min(map_floats, 2 * (T - 1) * k * lanes)
+        surface = min(map_floats, 2 * (T_ - 1) * k * lanes)
     else:
         surface = sum(a * b + b for a, b in zip(field.layers[:-1],
                                                 field.layers[1:])) + int(
             field.freqs.numel())
-    shared = ((0 if stream else 2 * T * k) + n_w + 4
+    shared = ((0 if stream else 2 * T_ * k) + n_w + 4
               + (0 if own else 3 * n) + surface)
     nbytes = 4 * (lanes * per_lane + shared) + (16 if stream else 0)
-    other = lanes * k * (T * (step + (STREAM_OPS if stream else 0))
-                         + (T - 1) * circle_ops)
+    other = lanes * k * (T_ * (step + (STREAM_OPS if stream else 0))
+                         + (T_ - 1) * circle_ops)
     if field is None:
         return bound(nbytes, other), None
-    fp32, tc = field_bounds(nbytes, other, lanes * k * (T - 1) * 2, field)
+    fp32, tc = field_bounds(nbytes, other, lanes * k * (T_ - 1) * 2, field)
     return tc, fp32
 
 
@@ -9094,6 +9139,896 @@ def many_circles_phase(drive_oval, rk, card, field, builds,
     results["cones"] = len(cones)
     return {"results": results, "rows": rows}
 
+
+# -- phase 38: the car's I/O around the solve on the card -------------------
+# A scripted circle (IO_SECONDS at IO_IMU_HZ) feeds the EKF: noisy IMU, GPS
+# as GPGGA + GPGST bytes through the receiver and the bridge (IO_GPS_HZ),
+# wheel speeds as #w frames over a pty through ChassisLink and
+# WheelOdometry (IO_CONTROL_HZ).  At IO_CONTROL_HZ the EKF's state vector
+# goes to the plant and BASELINE #1 solves on the card; the plant's control
+# goes as ChassisCommand("mppi") into a CommandArbiter beside the
+# ConstantSpeed and waypoint fallbacks, through SafeSpeedGovernor, under a
+# runstop from a VehicleNetworkNode that a coordinator drives, and out as
+# #s frames read back from the pty.  In the second half a peer's relayed
+# pose is a circle of an ObstacleCost.
+IO_SECONDS, IO_IMU_HZ, IO_GPS_HZ, IO_CONTROL_HZ = 6.0, 200, 10, 50
+IO_CENTRE, IO_RADIUS, IO_SPEED = (20.0, 0.0), 10.0, 5.0
+IO_DROPOUT = (60, 80)             # control ticks with MPPI silent
+IO_RUNSTOP = (100, 120)           # control ticks with the runstop off
+IO_PEER_RADIUS = 0.5
+IO_PRIORITIES = ("mppi", "constantSpeedController", "waypointFollower")
+IO_SAFE_SPEED = 8.0
+IO_PROBE_ITERS = 5                # the forecast's probe
+FORECAST_KEYS = ("nvlink", "infiniband")
+
+
+def io_truth(t: float):
+    """The scripted circle at ``t``: position (3,), yaw, body-frame specific
+    force and angular rate (a perfect IMU), from drive_oval's start
+    heading +y."""
+    import math
+
+    w = IO_SPEED / IO_RADIUS
+    th = w * t
+    pos = np.array([IO_CENTRE[0] + IO_RADIUS * math.cos(th),
+                    IO_CENTRE[1] + IO_RADIUS * math.sin(th), 0.0])
+    yaw = th + math.pi / 2
+    a_world = np.array([-IO_RADIUS * w * w * math.cos(th),
+                        -IO_RADIUS * w * w * math.sin(th), 0.0])
+    R = np.array([[math.cos(yaw), -math.sin(yaw), 0.0],
+                  [math.sin(yaw), math.cos(yaw), 0.0], [0.0, 0.0, 1.0]])
+    accel = R.T @ (a_world - np.array([0.0, 0.0, -9.80665]))
+    return pos, yaw, accel, np.array([0.0, 0.0, w])
+
+
+def forecast_schema_ok(d: dict) -> bool:
+    """``tests/test_artifacts.py``'s scaling schema with the GPU fabrics'
+    keys."""
+    import math
+
+    num = lambda x: (isinstance(x, (int, float)) and not isinstance(x, bool)
+                     and math.isfinite(x))
+    try:
+        ok = (d["artifact"] == "scaling_forecast" and num(d["payload_bytes"])
+              and num(d["fit"]["chain_floor_ms"])
+              and num(d["fit"]["ms_per_rollout"]) and d["forecast"]
+              and isinstance(d["validation"]["measured_per_iter_us"], dict)
+              and num(d["validation"]["max_shape_rel_err"]))
+        for per_k in d["forecast"].values():
+            for fab in FORECAST_KEYS:
+                ok = ok and bool(per_k[fab]) and all(
+                    num(r["efficiency"]) and num(r["t_n_ms"])
+                    for r in per_k[fab])
+        return bool(ok)
+    except (KeyError, TypeError):
+        return False
+
+
+def vehicle_io_phase(drive_oval, rk, card, ms_k1920: float,
+                     dev=None) -> dict:
+    """Phase 38 (see above).  Checks: exactly 1 + 1 launches a solve
+    (kernel 1's obstacle instance once the peer's circle is live) and no
+    plain version; every #s frame the arbitrated command's pulse widths;
+    the fallbacks owning both actuators from command_max_age into the MPPI
+    dropout until MPPI's next command; every throttle pulse of the runstop
+    span the runstop's; the peer's pose in kernel 1's circle slots.
+    Printed: the solve's p50 / p99, the I/O's host ms a tick, the EKF's
+    position error.  Then the scaling forecast with this run's kernel-1
+    ladder (``ms_k1920``: phase 5's; K=8192 and 262144 timed here alike)
+    and a short probe, its document held to the schema."""
+    import math
+    import os
+    import pty
+    import struct
+
+    import torch
+    from autorally_tpu_torch import msgs
+    from autorally_tpu_torch.config import CostParams
+    from autorally_tpu_torch.costs import ObstacleCost
+    from autorally_tpu_torch.costs import make_obstacles
+    from autorally_tpu_torch.runtime.chassis import (ActuatorCalibration,
+                                                     ChassisLink,
+                                                     CommandArbiter)
+    from autorally_tpu_torch.runtime.controllers import (
+        ConstantSpeedController, GpsWaypointController, SafeSpeedGovernor)
+    from autorally_tpu_torch.runtime.gps import (GpsEstimatorBridge,
+                                                 GpsNmeaSimulator,
+                                                 GpsReceiver)
+    from autorally_tpu_torch.runtime.plant import BasePlant
+    from autorally_tpu_torch.runtime.serial_device import (SerialSettings,
+                                                           configure_port)
+    from autorally_tpu_torch.runtime.state_estimator import ErrorStateEKF
+    from autorally_tpu_torch.runtime.vehicle_network import (
+        VehicleNetworkCoordinator, VehicleNetworkNode)
+    from autorally_tpu_torch.runtime.wheel_odometry import WheelOdometry
+    from autorally_tpu_torch.sim.sensors import SensorSimConfig
+    from autorally_tpu_torch.solver.mppi import MPPISolver
+    from autorally_tpu_torch.tools import scaling_forecast
+    from autorally_tpu_torch.tools.ab_builds import last_call
+
+    dev = dev or torch.device("cuda", 0)
+    solver, params, cp, costmap, _ = drive_oval.build(rollouts=K, device=dev)
+    model, cfg = solver.model, solver.cfg
+    ocoeff = dict(obstacle_coeff=drive_oval.OBSTACLE_COEFF,
+                  inflation=drive_oval.OBSTACLE_INFLATION)
+    osolver = MPPISolver(model, ObstacleCost(make_obstacles(
+        [], N_SLOTS, device=dev), **ocoeff), cfg, device=dev)
+    sens = SensorSimConfig()
+    rs = np.random.RandomState(38)
+    n_imu = int(IO_SECONDS * IO_IMU_HZ)
+    per_tick = IO_IMU_HZ // IO_CONTROL_HZ
+    n_ticks = n_imu // per_tick
+
+    # the sensors and the estimator
+    ekf = ErrorStateEKF()
+    pos0, yaw0, _, _ = io_truth(0.0)
+    ekf.initialize(0.0, pos0, yaw0)
+    ekf.v = np.array([0.0, IO_SPEED, 0.0])
+    nmea = GpsNmeaSimulator(sigma=sens.gps_noise)
+    bridge = GpsEstimatorBridge(ekf, reference=nmea.ref)
+    rx = GpsReceiver(position_source="GPGGA", on_fix=bridge)
+    cal = ActuatorCalibration()
+    odom = WheelOdometry()
+    odom.set_pose(pos0[0], pos0[1], yaw0)
+    wheel = []
+    master, slave = pty.openpty()
+    configure_port(slave, SerialSettings())
+    link = ChassisLink(slave, cal,
+                       on_wheel_speeds=lambda *s: wheel.append(s))
+    # the command chain and the network
+    arb = CommandArbiter(list(IO_PRIORITIES))
+    csc = ConstantSpeedController()
+    csc.set_speed(IO_SPEED)
+    wpf = GpsWaypointController([(IO_CENTRE[0], IO_CENTRE[1] + IO_RADIUS),
+                                 (IO_CENTRE[0] - IO_RADIUS, IO_CENTRE[1])],
+                                use_theta_gps=False)
+    gov = SafeSpeedGovernor()
+    plant = BasePlant(cfg.dt, cfg.num_timesteps, use_feedback_gains=False)
+    coord = VehicleNetworkCoordinator(runstop_hz=200.0)
+    coord.set_runstop(True)
+    hub = ("127.0.0.1", coord.port)
+    ego = VehicleNetworkNode("ego", hub)
+    peer = VehicleNetworkNode("peer", hub, transmit_hz=1e6)
+    results, records, sent = {}, [], set()
+    solve_ms, io_ms, est_err, halves = [], [], [], {}
+    half = n_ticks // 2
+    peer_circle, last_mppi = None, None
+    with contextlib.ExitStack() as stack:
+        for node in (coord, ego, peer):
+            node.start()
+            stack.callback(node.close)
+        stack.callback(os.close, master)
+        stack.callback(os.close, slave)
+        wait_until(lambda: len(coord.active_vehicles()) == 2
+                   and ego.motion_enabled, "the network's registrations "
+                   "and runstop", timeout=10.0)
+        cs = solver.init_state()
+        cs, _ = solver.solve(params, cp, costmap,
+                             np.array(drive_oval.START, np.float32), cs)
+        torch.cuda.synchronize()
+        plain = stack.enter_context(PlainCalls(rk))
+        rk.LAUNCHES.clear()
+        for i in range(1, n_imu + 1):
+            t0 = time.perf_counter()
+            t = i / IO_IMU_HZ
+            pos, _, accel, gyro = io_truth(t)
+            ekf.imu_update(t, accel + np.asarray(sens.accel_bias)
+                           + rs.randn(3) * sens.accel_noise,
+                           gyro + np.asarray(sens.gyro_bias)
+                           + rs.randn(3) * sens.gyro_noise)
+            if i % (IO_IMU_HZ // IO_GPS_HZ) == 0:
+                rx.feed(nmea.sentences(t, pos[0] + rs.randn() * sens.gps_noise,
+                                       pos[1] + rs.randn() * sens.gps_noise))
+            if i % per_tick:
+                io_ms.append((time.perf_counter() - t0) * 1e3)
+                continue
+            tick = i // per_tick - 1
+            # wheel speeds: a #w frame into the pty, read by the link
+            rps = (IO_SPEED + rs.randn(4) * sens.vel_noise) / (
+                link.wheel_diameter * math.pi)
+            os.write(master, ("#w" + ",".join(f"{v:.4f}" for v in rps)
+                              + "\n").encode())
+            n_wheel = len(wheel)
+            while len(wheel) == n_wheel:
+                link.process_bytes(os.read(slave, 256))
+            est = odom.update_wheel_speeds(t, *wheel[-1])
+            ekf.velocity_update(np.array([est.v_x, 0.0, 0.0]))
+            sv = ekf.state_vector(IO_SPEED / IO_RADIUS)
+            est_err.append(float(np.hypot(sv[0] - pos[0], sv[1] - pos[1])))
+            out = plant.receive_state_vector(t, sv)
+            # the runstop span: the coordinator decides, the node hears it
+            if tick in IO_RUNSTOP:
+                on = tick == IO_RUNSTOP[1]
+                coord.set_runstop(on)
+                wait_until(lambda: ego.motion_enabled == on,
+                           "the node hearing the coordinator's runstop")
+            arb.submit_runstop("network", ego.motion_enabled, t)
+            if out is not None and not (IO_DROPOUT[0] <= tick
+                                        < IO_DROPOUT[1]):
+                arb.submit(msgs.ChassisCommand(
+                    sender="mppi", stamp=t, steering=out[0],
+                    throttle=out[1], front_brake=0.0))
+                last_mppi = t
+            arb.submit(csc.wheel_speeds(*wheel[-1], t))
+            arb.submit(wpf.odometry(sv[0], sv[1], sv[2], t))
+            gov.submit_safe_speed("ocs", IO_SAFE_SPEED, t)
+            st = arb.arbitrate(t)
+            throttle = gov.safe_throttle(st.throttle, float(sv[4]), t)
+            link.send_command(st.steering, throttle, st.front_brake)
+            records.append((tick, t, last_mppi, st, throttle,
+                            os.read(master, 64)))
+            # the second half: the peer's pose, 1 s ahead on the circle,
+            # relayed by the coordinator, is the ObstacleCost's circle
+            if tick >= half:
+                ahead, _, _, _ = io_truth(t + 1.0)
+                pose = (float(ahead[0]), float(ahead[1]))
+                check(peer.transmit_pose(t, *pose, 0.0, 0.0, 0.0),
+                      "vehicle io: the peer's pose was not sent")
+                sent.add(pose)
+                if tick == half:
+                    halves["first"] = dict(rk.LAUNCHES)
+                    rk.LAUNCHES.clear()
+                    last = stack.enter_context(last_call(
+                        rk, "fused_exact_rollout_cost"))
+                    wait_until(lambda: "peer" in ego.peers(), "the peer's "
+                               "pose relayed to the ego node")
+                p = ego.peers()["peer"]
+                peer_circle = (p["x"], p["y"], IO_PEER_RADIUS)
+            io_ms.append((time.perf_counter() - t0) * 1e3)
+            # the solve on the card: slide + solve + the plan's readback
+            t1 = time.perf_counter()
+            state = plant.get_state().to_vector()
+            if tick >= half:
+                s_, cpt = osolver, CostParams(obstacles=make_obstacles(
+                    [peer_circle], N_SLOTS, device=dev))
+            else:
+                s_, cpt = solver, cp
+            cs = s_.slide(cs, cfg.optimization_stride)
+            cs, _ = s_.solve(params, cpt, costmap, state, cs)
+            plant.set_solution(cs.state_solution.cpu().numpy(),
+                               cs.control_solution.cpu().numpy(), None, ts=t)
+            solve_ms.append((time.perf_counter() - t1) * 1e3)
+        halves["second"] = dict(rk.LAUNCHES)
+
+    # launches: 1 + 1 a solve, kernel 1's obstacle instance in the second
+    # half; no plain version
+    n_first, n_second = half, n_ticks - half
+    want = {"first": {"fused_exact_rollout_cost": n_first,
+                      "dynamics_chain": n_first},
+            "second": {"fused_exact_rollout_cost_obstacles": n_second,
+                       "dynamics_chain": n_second}}
+    print(f"[vehicle io] launches {halves}, expected {want}; plain-version "
+          f"calls {plain.calls} ({card})")
+    check(halves == want, f"vehicle io: launches {halves}, expected {want}")
+    check(not any(plain.calls.values()), "vehicle io: a plain version ran")
+    # the #s frames: the arbitrated command's pulse widths
+    bad = 0
+    for tick, t, _, st, throttle, frame in records:
+        want_f = b"#s" + struct.pack(
+            ">hhh", cal.cmd_to_us(st.steering, "steering"),
+            cal.cmd_to_us(throttle, "throttle"),
+            cal.cmd_to_us(st.front_brake, "frontBrake")) + b"\n"
+        bad += frame != want_f
+    print(f"[vehicle io] {len(records)} #s frames, {bad} not the arbitrated "
+          f"command's pulse widths")
+    check(bad == 0 and len(records) == n_ticks, "vehicle io: a #s frame "
+          "differs from the arbitrated command")
+    # the dropout: MPPI within command_max_age, then the fallbacks, then
+    # MPPI again at its next command
+    wrong = []
+    for tick, t, lm, st, _, _ in records:
+        if tick < IO_DROPOUT[0] - 5 or tick > IO_DROPOUT[1] + 5:
+            continue
+        fresh = lm is not None and t - lm < arb.command_max_age
+        owners = (st.steering_commander, st.throttle_commander)
+        expect = (("mppi", "mppi") if fresh
+                  else ("waypointFollower", "constantSpeedController"))
+        if owners != expect:
+            wrong.append((tick, owners, expect))
+    took = [tick for tick, t, lm, st, _, _ in records
+            if IO_DROPOUT[0] <= tick < IO_DROPOUT[1]
+            and st.throttle_commander == "constantSpeedController"]
+    print(f"[vehicle io] MPPI silent at ticks {IO_DROPOUT}: the fallbacks "
+          f"own both actuators from tick {took[0] if took else None} "
+          f"(command_max_age {arb.command_max_age} s = "
+          f"{arb.command_max_age * IO_CONTROL_HZ:.0f} ticks), MPPI again "
+          f"from tick {IO_DROPOUT[1]}; wrong owners {wrong[:5]}")
+    check(not wrong and took and took[0] - IO_DROPOUT[0] <= round(
+        arb.command_max_age * IO_CONTROL_HZ), "vehicle io: the dropout's "
+          "owners are wrong")
+    # the runstop: every throttle pulse in the span the runstop's (0)
+    off = cal.cmd_to_us(0.0, "throttle")
+    span = [(tick, st.throttle_commander, struct.unpack(">h", frame[4:6])[0])
+            for tick, _, _, st, _, frame in records
+            if IO_RUNSTOP[0] <= tick < IO_RUNSTOP[1]]
+    runstopped = [s for s in span if s[1] == "runstop" and s[2] == off]
+    after = [st.throttle_commander for tick, _, _, st, _, _ in records
+             if tick == IO_RUNSTOP[1]]
+    print(f"[vehicle io] runstop off at ticks {IO_RUNSTOP}: {len(runstopped)}"
+          f"/{len(span)} throttle pulses {off} us by the runstop; tick "
+          f"{IO_RUNSTOP[1]}'s throttle commander {after}")
+    check(len(runstopped) == len(span) == IO_RUNSTOP[1] - IO_RUNSTOP[0]
+          and after == ["mppi"], "vehicle io: a throttle pulse in the "
+          "runstop span is not the runstop's")
+    # the peer's pose in kernel 1's circle slots
+    args, kw = last["args"]
+    slots = kw["obstacles"]
+    print(f"[vehicle io] the peer's relayed pose {peer_circle} (one of the "
+          f"{len(sent)} it sent: {peer_circle[:2] in sent}); kernel 1's "
+          f"slots {slots[:2].tolist()} of {slots.shape[0]}")
+    check(peer_circle[:2] in sent and torch.equal(
+        slots[0].cpu(), torch.tensor(peer_circle, dtype=torch.float32))
+          and bool((slots[1:, 2] < 0).all()), "vehicle io: the peer's pose "
+          "is not in the kernel's circle slots")
+    one, (c_on, _, _) = rk.prepare_fused_exact_rollout_cost(*args, **kw)
+    one()
+    args_off = args[:3] + (args[3].replace(obstacles=None),) + args[4:]
+    two, (c_off, _, _) = rk.prepare_fused_exact_rollout_cost(
+        *args_off, **dict(kw, obstacles=None))
+    two()
+    torch.cuda.synchronize()
+    priced = int((c_on != c_off).sum().item())
+    print(f"[vehicle io] the circle prices {priced} of {K} rollouts of the "
+          f"last solve")
+    check(priced > 0, "vehicle io: the peer's circle prices no rollout")
+    lat = (float(np.percentile(solve_ms, 50)),
+           float(np.percentile(solve_ms, 99)))
+    io_tick = float(np.sum(io_ms)) / n_ticks
+    err2 = float(np.mean(est_err[len(est_err) // 2:]))
+    print(f"[vehicle io] {n_ticks} ticks: solve p50 {lat[0]:.3f} ms, p99 "
+          f"{lat[1]:.3f} ms (slide + solve + the plan's readback, host "
+          f"clock); the I/O {io_tick:.3f} ms a tick (host); the EKF's "
+          f"position error {err2:.3f} m (mean, second half); GPS updates "
+          f"{bridge.updates}, bad checksums {rx.framer.bad_checksums} "
+          f"(reported, not gated; {card})")
+    results.update(solve_ms_p50_p99=lat, io_ms_per_tick=io_tick,
+                   ekf_err_m=err2, launches=halves, frames=len(records))
+
+    # the scaling forecast on this run's kernel-1 ladder and a short probe
+    ladder = {K: ms_k1920}
+    for k in (KS, KC):
+        ck = cfg.replace(num_rollouts=k)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(k)
+        e = torch.randn((T, k, 2), generator=gen, device=dev)
+        U = torch.tensor([0.0, 0.3], device=dev).repeat(T, 1)
+        launch, _ = rk.prepare_fused_exact_rollout_cost(
+            model, params, ck, cp, costmap, torch.tensor(
+                drive_oval.START, dtype=torch.float32, device=dev), U, e)
+        ladder[k] = cuda_ms(launch, 100)
+        del e
+    t_f = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):     # its JSON line
+        doc = scaling_forecast.main(
+            ["--ladder", ",".join(f"{k}={v}" for k, v in ladder.items()),
+             "--iters", str(IO_PROBE_ITERS)])
+    print(f"[forecast] ladder {ladder} ms (kernel 1, T={T}; {card}); fit "
+          f"{doc['fit']}; payload {doc['payload_bytes']} B; probe "
+          f"{doc['validation']['measured_per_iter_us']} us an iteration on "
+          f"2 gloo CPU ranks; {time.perf_counter() - t_f:.1f}s")
+    check(forecast_schema_ok(doc), "forecast: the document misses the "
+          "schema")
+    results["forecast"] = {"ladder_ms": ladder, "fit": doc["fit"],
+                           "validation": doc["validation"],
+                           "K262144": doc["forecast"]["K262144"]}
+    return results
+
+
+# -- phase 39: every horizon the JAX kernels take ---------------------------
+# Past the horizon at which a launch stages U in shared memory (rk.staged_u:
+# kernels 1, 2, exact pass 1 and pass 2 at rk.max_kernel_t(), 4096; the
+# field kernels at rk.max_field_kernel_t(), 2048 for the default pair and
+# 792 for F8-128-128 beside 6-32-32-4), a launch reads U (kernel 2's warp
+# form also its eps) in device memory.  Each form past its cap against its
+# plain version by phase 17-18's rule, the lane forms bit for bit their
+# solo instances, short drives with exact launches, and each form's time.
+# The plain versions run their thousands of steps on the host's CPU, in
+# HORIZON_WORKERS processes beside the card's work: each step is some tens
+# of tiny operations, which the card launches one by one (about 2.5 ms a
+# step at T=4100, against 0.8 ms on one CPU core).
+HORIZON_T = 4100                 # past kMaxT: kernels 1, 2, pass 1, pass 2
+HORIZON_FIELD_T = 2100           # past kMaxFieldT: kernel 3, field pass 1
+HORIZON_PAIR_T = 800             # past F8-128-128's staged 792
+HORIZON_PAIR = (8, 128, 128)
+HORIZON_K = 256
+HORIZON_LANES = 2
+HORIZON_PREFIX = 100             # kernel 2's steps held against the staged run
+HORIZON_TICKS = 3                # each drive
+HORIZON_REPS = 5                 # the kernels line's CUDA-event runs
+HORIZON_WORKERS = 6              # CPU processes for the plain versions
+_PLAIN = {}                      # a worker's objects (``_plain_init``)
+
+
+def _to_cpu(obj):
+    """``obj`` with every tensor on the CPU (dicts, lists, tuples,
+    dataclasses)."""
+    import torch
+
+    if torch.is_tensor(obj):
+        return obj.detach().cpu()
+    if isinstance(obj, dict):
+        return {k: _to_cpu(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)) and not hasattr(obj, "_fields"):
+        return type(obj)(_to_cpu(v) for v in obj)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_cpu(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _plain_init(payload: dict) -> None:
+    """A plain-version worker: one thread, the phase's CPU objects."""
+    import torch
+
+    torch.set_num_threads(1)
+    _PLAIN.update(payload)
+
+
+def _plain_job(fn: str, args: tuple, kw: dict):
+    """``rk.<fn>(*args, **kw)`` on the CPU, a string "@name" standing for
+    the worker's object ``name``: (its result, ms on the host clock)."""
+    from autorally_tpu_torch.ops import rollout_kernel as rk
+
+    get = lambda a: (_PLAIN[a[1:]] if isinstance(a, str) and a[:1] == "@"
+                     else a)
+    args = tuple(get(a) for a in args)
+    kw = {k: get(v) for k, v in kw.items()}
+    t0 = time.perf_counter()
+    out = getattr(rk, fn)(*args, **kw)
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def horizon_inputs(T_: int, K_: int, dev, seed: int, L: int = 0):
+    """A plan U (T_, 2) (or L of them, with L starts about the oval's
+    start) whose steering wanders, and eps (T_, K_, 2), from ``seed``."""
+    import torch
+    from autorally_tpu_torch import drive_oval
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = max(L, 1)
+    U = torch.tensor([0.0, 0.3], device=dev).repeat(n, T_, 1)
+    U[..., 0] = 0.2 * torch.randn((n, T_), generator=gen, device=dev)
+    eps = torch.randn((T_, K_, 2), generator=gen, device=dev)
+    state = torch.tensor(drive_oval.START, dtype=torch.float32,
+                         device=dev).repeat(n, 1)
+    state[:, :2] += 0.3 * torch.randn((n, 2), generator=gen, device=dev)
+    state[:, 4] = torch.linspace(0.0, 3.0, n, device=dev)
+    if not L:
+        return state[0], U[0], eps
+    return state, U, eps
+
+
+def horizons_phase(drive_oval, rk, card, builds, dev=None) -> dict:
+    """Phase 39: kernel 1 (MLP lane groups, BF), kernel 2 (warp form, MLP
+    and BF, K=1 and K=256), exact pass 1 and pass 2 at T=4100; kernel 3
+    and field pass 1 at T=2100 (default library) and at T=800 beside
+    F8-128-128 (its library's staged cap is 792), on seeded fields; the
+    lane forms of kernels 1 and 3 at L=2 past their caps.  Each fused form
+    against its plain version: costs (COST_RTOL / COST_ATOL) and crash
+    flags in every rollout along kernel 2's trajectories (field forms: all
+    but 1 %: a field value within rounding of the 0.65 boundary can latch
+    on one side only), u_seq bit for bit; against the whole plain version
+    in all but 1 %.  Kernel 2: both geometries bit for bit, the first
+    HORIZON_PREFIX steps bit for bit the staged launch's, u_seq bit for
+    bit the plain chain's, and each step from its own previous state
+    within STATE_RTOL / STATE_ATOL of the plain step (the whole plain
+    chain's rounding drifts over thousands of steps: its distance is
+    printed).  Pass 1 bit for bit kernel 1 / 3 fed its stream; pass 2
+    within NUMER_RTOL of sum |w u|; each lane of a lane form bit for bit
+    its solo instance and within the rule of its plain lane.  Then drives
+    of HORIZON_TICKS ticks at each horizon with exact launches and no
+    plain version, and each form timed (``builds``: phase 1's)."""
+    import multiprocessing
+
+    import torch
+    from autorally_tpu_torch.config import lane_cost_params
+    from autorally_tpu_torch.costs import MPPICost
+    from autorally_tpu_torch.ops import _build
+    from autorally_tpu_torch.solver.mppi import MPPISolver, effective_gamma
+    from autorally_tpu_torch.tools.ab_builds import seeded_field
+    from autorally_tpu_torch.tools.exact_variants import (
+        forced_chain_geometry)
+
+    dev = dev or torch.device("cuda", 0)
+    kh = HORIZON_K
+    solver, params, cp, costmap, _ = drive_oval.build(rollouts=kh,
+                                                      device=dev)
+    model, cfg = solver.model, solver.cfg
+    bsolver, bparams, *_ = drive_oval.build(model="bf", rollouts=kh,
+                                            device=dev)
+    bmodel, bcfg = bsolver.model, bsolver.cfg
+    key = torch.tensor(KEY, dtype=torch.int64, device=dev)
+    map_floats = costmap.height * costmap.width
+    steps = {"MLP": mlp_flops(model.layers), "BF": BF_STEP_OPS}
+    n_w = {"MLP": rk.KERNEL_NUM_WEIGHTS, "BF": rk.KERNEL_BF_WEIGHTS}
+    nobs = torch.zeros((0, 3), device=dev)
+    pair_lib, _ = builds.get(None, HORIZON_PAIR)
+    fields = {"F8-64-64": seeded_field(costmap, dev, seed=39),
+              _build.field_label(HORIZON_PAIR): seeded_field(
+                  costmap, dev, seed=39, fspec=HORIZON_PAIR)}
+    plabel = _build.field_label(HORIZON_PAIR)
+    # the CPU's twins of the card's objects, for the plain versions
+    csolver, _, _, ccostmap, _ = drive_oval.build(rollouts=kh, device="cpu")
+    cbsolver, *_ = drive_oval.build(model="bf", rollouts=kh, device="cpu")
+    payload = {"MLP": csolver.model, "MLP params": _to_cpu(params),
+               "BF": cbsolver.model, "BF params": _to_cpu(bparams),
+               "costmap": ccostmap, "cp": _to_cpu(cp),
+               **{name: seeded_field(ccostmap, "cpu", seed=39,
+                                     fspec=rk.field_spec(f))
+                  for name, f in fields.items()}}
+    pool = multiprocessing.get_context("spawn").Pool(
+        HORIZON_WORKERS, initializer=_plain_init, initargs=(payload,))
+    jobs = {}
+
+    def submit(name, fn, *args, **kw):
+        jobs[name] = pool.apply_async(_plain_job, (fn, _to_cpu(args),
+                                                   _to_cpu(kw)))
+
+    def result(name):
+        out, ms = jobs.pop(name).get(timeout=600)
+        return tuple(o.to(dev) if torch.is_tensor(o) else o
+                     for o in out), ms
+
+    caps = {"kernels 1, 2, pass 1, pass 2": rk.max_kernel_t(),
+            "field kernels": rk.max_field_kernel_t(),
+            "field lane forms": rk.max_field_kernel_t(lanes=True),
+            f"field kernels beside {plabel}":
+                rk.max_field_kernel_t(field=HORIZON_PAIR),
+            f"field lane forms beside {plabel}":
+                rk.max_field_kernel_t(field=HORIZON_PAIR, lanes=True)}
+    print(f"[horizons] staged U up to {caps}; the library beside {plabel} "
+          f"reports {pair_lib.artt_max_field_t()} / "
+          f"{pair_lib.artt_max_field_lanes_t()} ({card})")
+    check(caps["kernels 1, 2, pass 1, pass 2"] < HORIZON_T
+          and caps["field lane forms"] < HORIZON_FIELD_T
+          and pair_lib.artt_max_field_t() < HORIZON_PAIR_T,
+          "horizons: a form's staged cap is not below its test horizon")
+    for T_, fspec in ((HORIZON_FIELD_T, rk.FIELD_KERNEL_SPEC),
+                      (HORIZON_PAIR_T, HORIZON_PAIR)):
+        for lanes in (False, True):
+            lay = rk.field_smem_layout(rk.KERNEL_LAYERS, T_, 0, fspec, lanes)
+            print(f"[horizons] field {_build.field_label(fspec)} T={T_}"
+                  f"{' lanes' if lanes else ''}: U {lay['u_layout']}, "
+                  f"{lay['bytes']} bytes of shared memory a block")
+            check(lay["u_layout"] == "global", "horizons: the layout does "
+                  "not switch past the cap")
+
+    # every input, and the plain versions' jobs, first
+    Th, Tf = HORIZON_T, HORIZON_FIELD_T
+    s0, U, eps = horizon_inputs(Th, kh, dev, seed=39)
+    e1 = torch.zeros((Th, 1, 2), device=dev)
+    cfgs = {"MLP": cfg.replace(num_rollouts=kh, num_timesteps=Th),
+            "BF": bcfg.replace(num_rollouts=kh, num_timesteps=Th)}
+    mods = {"MLP": (model, params), "BF": (bmodel, bparams)}
+    for kind, c in cfgs.items():
+        m = ("@" + kind, "@" + kind + " params")
+        submit(f"chain {kind}", "dynamics_chain_plain", *m, c, s0, U, eps)
+        submit(f"chain {kind} K=1", "dynamics_chain_plain", *m, c, s0, U, e1)
+        submit(f"kernel 1 {kind}", "fused_rollout_cost_plain", *m, c, "@cp",
+               "@costmap", s0, U, eps)
+    cc = cfgs["MLP"].replace(kernel_rng=True)
+    mlp = ("@MLP", "@MLP params")
+    submit("pass 1", "fused_rng_costs_plain", *mlp, cc, "@cp", "@costmap",
+           s0, U, key)
+    fin = {}
+    for Tx, name in ((Tf, "F8-64-64"), (HORIZON_PAIR_T, plabel)):
+        fin[name] = horizon_inputs(Tx, kh, dev, seed=Tx)
+        cf = cfg.replace(num_rollouts=kh, num_timesteps=Tx)
+        s0f, Uf, ef = fin[name]
+        submit(f"kernel 3 {name}", "fused_rollout_cost_plain", *mlp, cf,
+               "@cp", "@" + name, s0f, Uf, ef)
+        submit(f"field pass 1 {name}", "fused_rng_costs_plain", *mlp,
+               cf.replace(kernel_rng=True), "@cp", "@" + name, s0f, Uf, key)
+    L = HORIZON_LANES
+    cpl = lane_cost_grid(L)
+    lin = {}
+    for kernel, Tl, surface in ((1, Th, "costmap"), (3, Tf, "F8-64-64")):
+        lin[kernel] = horizon_inputs(Tl, kh, dev, seed=Tl + L, L=L)
+        state, Ul, el = lin[kernel]
+        submit(f"lanes {kernel}", "fused_rollout_cost_lanes_plain", *mlp,
+               cfg.replace(num_rollouts=kh, num_timesteps=Tl), cpl,
+               "@" + surface, state, Ul, el)
+    rowargs, results = [], {}
+
+    def along(name, m, c, surface, U_, e_, states):
+        """The plain cost along kernel 2's trajectories ``states``."""
+        submit(name, "trajectory_cost_plain", "@" + m, "@" + m + " params",
+               c, "@cp", "@" + surface, U_, e_, states)
+
+    def held(tag, out, k, plain, along_out, along_limit=0, bits=None):
+        """A fused form's outputs against its plain version's (see the
+        docstring); returns the max cost error."""
+        kc, kx = out[0], out[-1]
+        err = agreement(tag, "against the plain version", kc, kx, plain[0],
+                        plain[2], k, limit=k // 100)
+        bc, bx = along_out
+        err = agreement(tag, "along kernel 2's trajectories", kc, kx, bc, bx,
+                        k, limit=along_limit)
+        if len(out) == 3:
+            check(bit_equal(out[1], plain[1]), f"{tag}: u_seq differs from "
+                  "its plain version's")
+        if bits is not None:
+            same = bit_equal(kc, bits[0]) and bit_equal(kx, bits[-1])
+            print(f"[{tag}] bit for bit the eps-reading kernel fed its "
+                  f"stream: {same} ({card})")
+            check(same, f"{tag}: pass 1 differs from the eps-reading kernel "
+                  "fed its stream")
+        print(f"[{tag}] crash {int(kx.sum().item())}/{k} ({card})")
+        return err
+
+    def chain_run(m, p, c, s0_, U_, e_):
+        """Kernel 2 (not counted): its launch and (states, u_seq)."""
+        launch, out = rk.prepare_dynamics_chain(m, p, c, s0_, U_, e_)
+        launch()
+        return launch, out
+
+    try:
+        # (a) T=4100: kernel 2 (MLP, BF; K=256 and 1), kernel 1, pass 1, 2
+        chains = {}
+        for kind, c in cfgs.items():
+            m, p = mods[kind]
+            for kk, e in ((kh, eps), (1, e1)):
+                tag = f"horizons (a) kernel 2 {kind} T={Th} K={kk}"
+                launch, (ks, ku) = chain_run(m, p, c, s0, U, e)
+                chains[kind, kk] = (launch, ks, ku)
+                same = []
+                for geom in rk.CHAIN_GEOMETRIES:
+                    with forced_chain_geometry(*geom[:2]):
+                        _, (os_, ou) = chain_run(m, p, c, s0, U, e)
+                    same.append(bit_equal(ks, os_) and bit_equal(ku, ou))
+                n = HORIZON_PREFIX
+                _, (ss, su) = chain_run(m, p, c, s0, U[:n].contiguous(),
+                                        e[:n].contiguous())
+                prefix = (bit_equal(ks[:, :n].contiguous(), ss)
+                          and bit_equal(ku[:, :n].contiguous(), su))
+                # each step from the kernel's own previous state, plainly
+                prev = torch.cat([s0[:, None].expand(-1, kk)[:, None],
+                                  ks[:, :-1]], 1).reshape(7, -1).T
+                u_cl = m.enforce_constraints(p, ku.reshape(2, -1).T)
+                step = prev + rk.kernel_state_deriv(
+                    m, p, prev, u_cl, "highest", False) * m.dt
+                step = step.T.reshape(ks.shape)
+                e_step = (ks - step).abs().max().item()
+                close = torch.allclose(ks, step, rtol=STATE_RTOL,
+                                       atol=STATE_ATOL, equal_nan=True)
+                print(f"[{tag}] {launch.name} in "
+                      f"{geometry_label(launch.geometry)}: every geometry bit"
+                      f" for bit: {same}; the first {n} steps bit for bit "
+                      f"the staged launch's: {prefix}; each step against "
+                      f"the plain step from its own state: max err "
+                      f"{e_step:.3e} ({card})")
+                check(all(same), f"{tag}: a geometry differs")
+                check(prefix, f"{tag}: the first {n} steps differ from the "
+                      "staged launch's")
+                check(close, f"{tag}: a step differs from the plain step")
+                if kk == kh:
+                    along(f"along kernel 1 {kind}", kind, c, "costmap", U,
+                          eps, ks)
+        # pass 1's stream and kernel 2's trajectories on it
+        launch_1, (kc1, kx1), ctx = rk.prepare_fused_rng_costs(
+            model, params, cc, cp, costmap, s0, U, key)
+        launch_1()
+        e_stream = rk.rng_noise(ctx)
+        one, bits1 = rk.prepare_fused_exact_rollout_cost(
+            model, params, cfgs["MLP"], cp, costmap, s0, U, e_stream)
+        one()
+        _, (ks1, _) = chain_run(model, params, cfgs["MLP"], s0, U, e_stream)
+        along("along pass 1", "MLP", cfgs["MLP"], "costmap", U, e_stream,
+              ks1)
+        del ks1
+        launch1 = {}
+        for kind, c in cfgs.items():
+            m, p = mods[kind]
+            launch1[kind] = rk.prepare_fused_exact_rollout_cost(
+                m, p, c, cp, costmap, s0, U, eps)
+            launch1[kind][0]()
+        # (b) the field forms: the default pair at T=2100, F8-128-128 at 800
+        launch3 = {}
+        for name, fld in fields.items():
+            s0f, Uf, ef = fin[name]
+            cf = cfg.replace(num_rollouts=kh, num_timesteps=Uf.shape[0])
+            launch3[name] = rk.prepare_fused_rollout_cost(
+                model, params, cf, cp, fld, s0f, Uf, ef)
+            launch3[name][0]()
+            _, (ksf, _) = chain_run(model, params, cf, s0f, Uf, ef)
+            along(f"along kernel 3 {name}", "MLP", cf, name, Uf, ef, ksf)
+            l4, out4, ctx4 = rk.prepare_fused_rng_costs(
+                model, params, cf.replace(kernel_rng=True), cp, fld, s0f, Uf,
+                key)
+            l4()
+            ef4 = rk.rng_noise(ctx4)
+            one, bits4 = rk.prepare_fused_rollout_cost(
+                model, params, cf, cp, fld, s0f, Uf, ef4)
+            one()
+            _, (ksf4, _) = chain_run(model, params, cf, s0f, Uf, ef4)
+            along(f"along field pass 1 {name}", "MLP", cf, name, Uf, ef4,
+                  ksf4)
+            launch3[name + " pass 1"] = (l4, out4, bits4)
+            del ksf, ksf4
+        # (c) the lane forms; each lane bit for bit its solo instance
+        lanes_cp = lane_cost_params(cpl)
+        lane_out = {}
+        for kernel, (state, Ul, el) in lin.items():
+            surface = costmap if kernel == 1 else fields["F8-64-64"]
+            cl = cfg.replace(num_rollouts=kh, num_timesteps=Ul.shape[1])
+            prep = (rk.prepare_fused_exact_rollout_cost_lanes if kernel == 1
+                    else rk.prepare_fused_rollout_cost_lanes)
+            solo = (rk.prepare_fused_exact_rollout_cost if kernel == 1
+                    else rk.prepare_fused_rollout_cost)
+            launch, out = prep(model, params, cl, cpl, surface, state, Ul, el)
+            launch()
+            same = []
+            for i in range(L):
+                one, o = solo(model, params, cl, lanes_cp[i], surface,
+                              state[i], Ul[i], el)
+                one()
+                same.append(all(bit_equal(a[i], b) for a, b in zip(out, o)))
+            tag = f"horizons (c) lanes kernel {kernel} L={L} T={Ul.shape[1]}"
+            print(f"[{tag}] {launch.name} in "
+                  f"{geometry_label(launch.geometry)}: each lane bit for bit"
+                  f" its solo instance: {same} ({card})")
+            check(all(same), f"{tag}: a lane differs from its solo instance")
+            lane_out[kernel] = (launch, out)
+        # pass 2 on pass 1's weights, on the card (a few hundred ms)
+        w = torch.exp(-effective_gamma(cc, cp) * (kc1 - kc1.min()))
+        launch_2, partials = rk.prepare_fused_rng_numer(ctx, w)
+        launch_2()
+        kn = partials.sum(0)
+        pn, plain_2 = plain_timed(lambda: rk.fused_rng_numer_plain(ctx, w))
+        scale = torch.einsum("k,ctk->ct", w.abs(), bits1[1].abs())
+        torch.cuda.synchronize()
+        err_2 = (kn - pn).abs()
+        rel = (err_2 / scale.clamp(min=1e-30)).max().item()
+        print(f"[horizons (a) pass 2 T={Th} K={kh}] fused_rng_numer: max|numer"
+              f" err| {err_2.max().item():.3e}, max err / sum|w u| {rel:.3e}"
+              f" (limit {NUMER_RTOL}) ({card})")
+        check(bool((err_2 <= NUMER_RTOL * scale).all()), "horizons pass 2: "
+              f"numerator differs beyond {NUMER_RTOL} of sum|w u|")
+        launch_2.name = "fused_rng_numer"
+        k_need = int((w != 0).sum().item())
+        nb2 = 4 * (kh + Th * 2 + partials.numel()) + 16
+        rowargs.append(((5, "exact", Th, kh), launch_2, plain_2,
+                        err_2.max().item(), (bound(nb2, (STREAM_OPS
+                                                         + UPDATE_OPS)
+                                                   * k_need * Th), None),
+                        1346, dict(T=Th, K=kh)))
+
+        # the plain versions' results
+        for kind, c in cfgs.items():
+            for kk in (kh, 1):
+                launch, ks, ku = chains[kind, kk]
+                (ps, pu), plain_ms = result(f"chain {kind}"
+                                            + ("" if kk == kh else " K=1"))
+                fin_ = torch.isfinite(ps)
+                e_s = (ks[fin_] - ps[fin_]).abs().max().item()
+                print(f"[horizons (a) kernel 2 {kind} T={Th} K={kk}] the "
+                      f"whole plain chain ({plain_ms:.0f} ms on one CPU "
+                      f"core): max|state err| {e_s:.3e} (rounding drift over "
+                      f"{Th} steps, not gated), u_seq bit for bit: "
+                      f"{bit_equal(ku, pu)}")
+                check(bit_equal(ku, pu), f"horizons kernel 2 {kind} K={kk}: "
+                      "u_seq differs from the plain chain's")
+                nb = 4 * (Th * 2 * kk + 7 * Th * kk + 2 * Th * kk + Th * 2
+                          + n_w[kind] + 7 + 4)
+                rowargs.append(((2, kind, Th, kk), launch, plain_ms, e_s,
+                                (bound(nb, steps[kind] * Th * kk), None), 389,
+                                dict(T=Th, K=kk, plain_device="cpu")))
+            plain, plain_ms = result(f"kernel 1 {kind}")
+            launch, out = launch1[kind]
+            err = held(f"horizons (a) kernel 1 {kind} T={Th} K={kh}", out, kh,
+                       plain, result(f"along kernel 1 {kind}")[0])
+            rowargs.append(((1, kind, Th, kh), launch, plain_ms, err,
+                            fused_circle_bound(kh, n_w[kind], steps[kind],
+                                               nobs, map_floats=map_floats,
+                                               T_=Th),
+                            1013, dict(T=Th, K=kh, plain_device="cpu")))
+        (pc1, px1, _), plain_1 = result("pass 1")
+        err_1 = held(f"horizons (a) pass 1 gaussian T={Th} K={kh}",
+                     (kc1, kx1), kh, (pc1, None, px1),
+                     result("along pass 1")[0], bits=bits1)
+        rowargs.append(((4, "exact", Th, kh), launch_1, plain_1, err_1,
+                        fused_circle_bound(kh, n_w["MLP"], steps["MLP"], nobs,
+                                           map_floats=map_floats, stream=True,
+                                           T_=Th), 1221,
+                        dict(T=Th, K=kh, plain_device="cpu")))
+        for name, fld in fields.items():
+            Tx = fin[name][1].shape[0]
+            launch, out = launch3[name]
+            plain, plain_ms = result(f"kernel 3 {name}")
+            err = held(f"horizons (b) kernel 3 {name} T={Tx} K={kh}", out, kh,
+                       plain, result(f"along kernel 3 {name}")[0],
+                       along_limit=kh // 100)
+            rowargs.append(((3, name, Tx, kh), launch, plain_ms, err,
+                            fused_circle_bound(kh, n_w["MLP"], steps["MLP"],
+                                               nobs, fld, T_=Tx), 606,
+                            dict(T=Tx, K=kh, field=name, plain_device="cpu")))
+            l4, out4, bits4 = launch3[name + " pass 1"]
+            (pc4, px4, _), plain_ms = result(f"field pass 1 {name}")
+            err = held(f"horizons (b) field pass 1 {name} T={Tx} K={kh}",
+                       out4, kh, (pc4, None, px4),
+                       result(f"along field pass 1 {name}")[0],
+                       along_limit=kh // 100, bits=bits4)
+            rowargs.append(((4, name, Tx, kh), l4, plain_ms, err,
+                            fused_circle_bound(kh, n_w["MLP"], steps["MLP"],
+                                               nobs, fld, stream=True, T_=Tx),
+                            1221,
+                            dict(T=Tx, K=kh, field=name, plain_device="cpu")))
+        for kernel, (launch, out) in lane_out.items():
+            Tl = lin[kernel][1].shape[1]
+            (pc, pu, px), plain_ms = result(f"lanes {kernel}")
+            tag = f"horizons (c) lanes kernel {kernel} L={L} T={Tl} K={kh}"
+            err = max(agreement(tag, f"lane {i}", out[0][i], out[2][i], pc[i],
+                                px[i], kh, limit=kh // 100) for i in range(L))
+            check(bit_equal(out[1], pu), f"{tag}: u_seq differs from its "
+                  "plain version's")
+            rowargs.append((
+                (kernel, "lanes", Tl, kh), launch, plain_ms, err,
+                fused_circle_bound(kh, n_w["MLP"], steps["MLP"], nobs,
+                                   None if kernel == 1
+                                   else fields["F8-64-64"], map_floats,
+                                   lanes=L, T_=Tl),
+                1013 if kernel == 1 else 606,
+                dict(T=Tl, K=kh, lanes=L, plain_device="cpu")))
+    finally:
+        pool.terminate()
+        pool.join()
+
+    # (d) drives at each horizon: exact launches a solve, no plain version
+    fl = "_" + plabel
+    drives = {
+        "MLP T=4100": (model, params, cfg, costmap, Th, False,
+                       {"fused_exact_rollout_cost": 1, "dynamics_chain": 1},
+                       [(1, "MLP", Th, kh), (2, "MLP", Th, 1)]),
+        "BF T=4100": (bmodel, bparams, bcfg, costmap, Th, False,
+                      {"fused_exact_rollout_cost_bf": 1,
+                       "dynamics_chain_bf": 1},
+                      [(1, "BF", Th, kh), (2, "BF", Th, 1)]),
+        "capacity T=4100": (model, params, cfg, costmap, Th, True,
+                            {"fused_rng_costs": 1, "fused_rng_numer": 1,
+                             "dynamics_chain": 1},
+                            [(4, "exact", Th, kh), (5, "exact", Th, kh)]),
+        "field T=2100": (model, params, cfg, fields["F8-64-64"], Tf, False,
+                         {"fused_rollout_cost": 1, "dynamics_chain": 1},
+                         [(3, "F8-64-64", Tf, kh)]),
+        "field capacity T=2100": (model, params, cfg, fields["F8-64-64"], Tf,
+                                  True, {"fused_rng_costs_field": 1,
+                                         "fused_rng_numer": 1,
+                                         "dynamics_chain": 1},
+                                  [(4, "F8-64-64", Tf, kh)]),
+        f"{plabel} T=800": (model, params, cfg, fields[plabel],
+                            HORIZON_PAIR_T, False,
+                            {f"fused_rollout_cost{fl}": 1,
+                             "dynamics_chain": 1},
+                            [(3, plabel, HORIZON_PAIR_T, kh)]),
+        f"{plabel} capacity T=800": (model, params, cfg, fields[plabel],
+                                     HORIZON_PAIR_T, True,
+                                     {f"fused_rng_costs_field{fl}": 1,
+                                      "fused_rng_numer": 1,
+                                      "dynamics_chain": 1},
+                                     [(4, plabel, HORIZON_PAIR_T, kh)]),
+    }
+    launches = {}
+    first = {1: "fused_exact", 2: "dynamics_chain", 3: "fused_rollout",
+             4: "fused_rng_costs", 5: "fused_rng_numer"}
+    for name, (m, p, c, surface, T_, rng, per_solve, keys) in drives.items():
+        s = MPPISolver(m, MPPICost(), c.replace(
+            num_rollouts=kh, num_timesteps=T_, kernel_rng=rng), device=dev)
+        latency, got, _ = drive_counted(drive_oval, rk, f"horizons (d) {name}",
+                                        s, p, cp, surface, HORIZON_TICKS,
+                                        per_solve, card)
+        results[name] = {"latency": latency, "launches": got}
+        for k in keys:
+            fused = next(n for n in per_solve if n.startswith(first[k[0]]))
+            launches[k] = got.get(fused, 0)
+
+    # the kernels line: each form timed at its shape
+    rows = [many_row(launch.name, launch, HORIZON_REPS, plain_ms, err, bnd,
+                     launches.get(row_key, 0), card, line, **extra)
+            for row_key, launch, plain_ms, err, bnd, line, extra in rowargs]
+    results["caps"] = caps
+    return {"results": results, "rows": rows}
 
 # -- phase 37: the operator's run ------------------------------------------
 OP_TICKS = 200
@@ -9681,7 +10616,7 @@ def main() -> int:
     ms_a = cuda_ms(launch_a, 100)
     plain_a = cuda_ms(lambda: rk.fused_rollout_cost_plain(
         model, params, cfg, cost_params, costmap, start, U, eps), PLAIN_REPS,
-        1)
+        0)
     bytes_a = 4 * (T * K * 2 + 2 * T * K + 2 * K + T * 2 + n_w + 7 + 4
                    + 2 * K * (T - 1))        # + one texel per front/back lookup
     bound_a, by_a = bound(bytes_a, flops_step * K * T)
@@ -9690,7 +10625,7 @@ def main() -> int:
                            U, eps1, False, 100, card)
     ms_b = chain_b["ms"]
     plain_b = cuda_ms(lambda: rk.dynamics_chain_plain(
-        model, params, cfg, start, U, eps1), PLAIN_REPS, 1)
+        model, params, cfg, start, U, eps1), PLAIN_REPS, 0)
     bytes_b = 4 * (T * 2 + 7 * T + 2 * T + T * 2 + n_w + 7 + 4)
     bound_b, by_b = bound(bytes_b, flops_step * T)
     print(f"[timing] A fused_exact_rollout_cost K={K} T={T}: {ms_a:.4f} ms, "
@@ -9877,6 +10812,16 @@ def main() -> int:
     operator = operator_phase(run_tube_mppi, rk, card, tube["split"]["tick"])
     print(f"[time] phase 37 in {time.perf_counter() - t_op:.1f}s ({card})")
 
+    # -- phase 38: the car's I/O around the solve on the card ---------------
+    t_io = time.perf_counter()
+    vehicle_io = vehicle_io_phase(drive_oval, rk, card, ms_a)
+    print(f"[time] phase 38 in {time.perf_counter() - t_io:.1f}s ({card})")
+
+    # -- phase 39: every horizon the JAX kernels take -----------------------
+    t_hor = time.perf_counter()
+    horizons = horizons_phase(drive_oval, rk, card, builds)
+    print(f"[time] phase 39 in {time.perf_counter() - t_hor:.1f}s ({card})")
+
     src = "autorally_tpu_torch/csrc/rollout_kernels.cu"
     kernels = [
         {"name": "fused_exact_rollout_cost", "route": "cuda", "source": src,
@@ -9897,7 +10842,7 @@ def main() -> int:
         for row in spec_field_rows(layers, spec_field["specs"][layers], d)] + (
         baseline3["rows"]) + field_specs["rows"] + precision["rows"] + (
         sweep["rows"]) + lanes_field["rows"] + cap_lanes["rows"] + (
-        many["rows"])
+        many["rows"]) + horizons["rows"]
     # each kernel's geometry (kernels 1 and 2, as the launcher picks it at
     # the form's K) or design
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -9907,8 +10852,8 @@ def main() -> int:
         name = k["name"]
         model = "Bf" if "_bf" in name else "Mlp"
         if (k.get("precision") == PRECISION or "lanes" in k
-                or "slots" in k or "layout" in k):
-            continue                 # phases 31, 33-36 carry their own
+                or "slots" in k or "layout" in k or "T" in k):
+            continue                 # phases 31, 33-36, 39 carry their own
         layers = tuple(k.get("layers", rk.KERNEL_LAYERS))
         if name.startswith("fused_exact_rollout_cost"):
             geom = rk.exact_geometry(k.get("K", KB if "_bf" in name else K),
@@ -9974,6 +10919,8 @@ def main() -> int:
                       "capacity_lanes": cap_lanes["results"],
                       "many_circles": many["results"],
                       "operator": operator,
+                      "vehicle_io": vehicle_io,
+                      "horizons": horizons["results"],
                       "spec_sweep_ms": spec["sweep"],
                       "spec_kernels34": {
                           spec_label(sp): {
@@ -9999,7 +10946,7 @@ def main() -> int:
                                     k: tools[f"breakdown_{k}"]["stages_ms"][
                                         "FULL_SOLVE"]
                                     for k in ("main", "kernel_rng")}}}))
-    print(f"[time] phases 1-37 in {time.perf_counter() - t_start:.1f}s "
+    print(f"[time] phases 1-39 in {time.perf_counter() - t_start:.1f}s "
           f"({card})")
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -115,8 +115,8 @@ def test_the_global_layout_follows_the_source():
     ``max_field_kernel_t``) reads the source's constexprs: the reference
     horizon, the room a lane form needs there with kMaxObstacles circles,
     the pack's floats in shared memory (none in the global layout), the
-    launch's bytes (only the staged circles count) and the room then left
-    for U."""
+    launch's bytes (only the staged circles and the staged U count) and the
+    room then left for U."""
     src = _build.SOURCE.read_text()
     assert re.search(r"constexpr int kFieldGlobalT = (\d+);",
                      src).group(1) == str(rk.FIELD_GLOBAL_T)
@@ -131,7 +131,9 @@ def test_the_global_layout_follows_the_source():
     assert "float* tiles = f + kFieldStagedPack;" in src
     assert "return FieldLookup{kFieldGlobal ? field : f, tile};" in src
     assert ("  return (size_t)(field_weight_floats<Deriv>() + kFieldStagedPack"
-            "\n                  + kFieldWarps * kTileFloats + 2 * T\n"
+            "\n                  + kFieldWarps * kTileFloats\n"
+            "                  + 2 * staged_u(T, lanes ? kLibMaxFieldLanesT\n"
+            "                                          : kLibMaxFieldT)\n"
             "                  + 3 * staged_obstacles(n_obs))" in src)
     assert "using FieldLookup = FieldLookupOf<Field, kFieldGlobal>;" in src
     assert "int artt_field_global() { return kFieldGlobal ? 1 : 0; }" in src
@@ -167,21 +169,28 @@ def test_every_library_built_today_keeps_the_staged_layout(pair):
 
 
 def test_only_a_launch_without_room_in_either_layout_is_refused():
-    """A pair once refused now asks for its library; a launch past its
-    library's room (a staged library beyond its horizon, or weights and
-    tiles that leave no room even with the field in device memory) is
-    refused before any build, naming the layout and the ROADMAP item."""
+    """A pair once refused now asks for its library, and so does a launch
+    past its library's staged horizon (U in device memory); only weights
+    and tiles that leave no room even with the field and U in device
+    memory are refused before any build, naming the layout and the ROADMAP
+    item."""
     assert rk.field_global(WIDE, FIELD) and rk.field_global((6, 24, 4),
                                                             FIELD)
-    rk._check_field_room(WIDE, FIELD, 2048)
-    rk._check_field_room(WIDE, FIELD, 2048, lanes=True)
-    with pytest.raises(NotImplementedError,
-                       match=r"staged layout\) need \d+ bytes.*Queue 2 A8"):
-        rk._check_field_room(DEFAULT, FIELD, 793)
+    rk._check_field_room(WIDE, FIELD)
+    rk._check_field_room(WIDE, FIELD, lanes=True)
+    # the staged library past its horizon: U in device memory, no refusal
+    rk._check_field_room(DEFAULT, FIELD)
+    rk._check_field_room(DEFAULT, FIELD, lanes=True)
+    for T, u in ((792, "staged"), (793, "global"), (4100, "global")):
+        lay = rk.field_smem_layout(DEFAULT, T, 64, FIELD)
+        assert (lay["layout"], lay["u_layout"]) == ("staged", u)
+        assert lay["bytes"] <= 4 * rk.SMEM_FLOATS
+    assert rk.field_smem_layout(WIDE, 2049, 16, FIELD)["u_layout"] == "global"
+    # weights and tiles that leave no room even with U in device memory
     huge = (6, 128, 128, 128, 128, 4)
     with pytest.raises(NotImplementedError,
-                       match=r"global layout\) need \d+ bytes.*Queue 2 A8"):
-        rk._check_field_room(huge, rk.FIELD_KERNEL_SPEC, 100)
+                       match=r"global layout\) need \d+ bytes.*Queue 2 A9"):
+        rk._check_field_room(huge, rk.FIELD_KERNEL_SPEC)
 
 
 @pytest.mark.parametrize("lanes", [False, True], ids=["solo", "lanes"])

@@ -259,14 +259,20 @@ def test_field_layout_follows_the_kernels(spec):
     assert rk.max_field_kernel_t(spec) == rk.MAX_FIELD_KERNEL_T
     assert rk.field_smem_layout(spec, T=rk.max_field_kernel_t(spec),
                                 n_obs=rk.MAX_OBSTACLES)["bytes"] <= 232448
+    # past the staged horizon U stays in device memory: any T fits
+    past = rk.field_smem_layout(spec, T=rk.max_field_kernel_t(spec) + 1,
+                                n_obs=rk.MAX_OBSTACLES)
+    assert past["u_layout"] == "global" and past["obs"] == past["U"]
+    assert past["bytes"] == 4 * (past["U"] + 3 * rk.MAX_OBSTACLES)
 
 
 def test_field_layout_matches_the_source():
     """The wrapper's mirror of the layout reads the source's constants: the
     spec library's block, the tile, the weights rounded up to a float4, the
     horizon's room; a spec whose weights leave no room for the staged field
-    takes the global layout (the field in device memory), and one whose
-    weights and tiles leave no room at all takes no T."""
+    takes the global layout (the field in device memory), past its staged
+    horizon U stays in device memory too, and one whose weights and tiles
+    leave no room at all stages U at no T and is refused (Queue 2 A9)."""
     src = _build.SOURCE.read_text()
     assert re.search(r"constexpr int kSpecFieldBlock = (\d+);",
                      src).group(1) == str(rk.SPEC_FIELD_BLOCK)
@@ -281,6 +287,14 @@ def test_field_layout_matches_the_source():
     assert rk.field_global((6, 128, 128, 128, 4))
     assert rk.max_field_kernel_t((6, 128, 128, 128, 4)) == 222
     assert rk.max_field_kernel_t((6, 128, 128, 128, 128, 4)) == 0
+    assert "return T <= cap ? T : 0;" in src          # staged_u
+    assert rk.staged_u(222, 222) == 222 and rk.staged_u(223, 222) == 0
+    assert rk.field_smem_layout((6, 128, 128, 128, 4), T=223)["u_layout"] \
+        == "global"
+    rk._check_field_room((6, 128, 128, 128, 4), rk.FIELD_KERNEL_SPEC)
+    with pytest.raises(NotImplementedError, match="Queue 2 A9"):
+        rk._check_field_room((6, 128, 128, 128, 128, 4),
+                             rk.FIELD_KERNEL_SPEC)
     assert not rk.field_global((6, 128, 128, 4))
     assert 0 < rk.max_field_kernel_t((6, 128, 128, 4)) < rk.MAX_FIELD_KERNEL_T
     # the entry points a spec library now holds

@@ -437,10 +437,11 @@ def test_a_field_without_room_is_refused_before_any_build(monkeypatch):
     """F8-128-128 beside an 8-warp spec library, which once had no room
     for U at any T, now takes the global layout (the field in device
     memory): both kernels ask for the pair's library, which reports the
-    layout.  Beside the default MLP the field stays staged: room up to
-    T=792, refused beyond it before any build, naming the bytes, the
-    layout and the ROADMAP item; so is a spec whose weights and tiles leave
-    no room in either layout."""
+    layout.  Beside the default MLP the field stays staged with U up to
+    T=792; beyond it U stays in device memory and both kernels ask for the
+    library all the same.  Only a spec whose weights and tiles leave no
+    room in either layout is refused before any build, naming the bytes,
+    the layout and the ROADMAP item."""
     calls = []
 
     class Lib:
@@ -477,17 +478,18 @@ def test_a_field_without_room_is_refused_before_any_build(monkeypatch):
                 layers, T_, 16, LABELS["F8-128-128"])["layout"] == "global"
             continue
         calls.clear()
-        with pytest.raises(NotImplementedError,
-                           match=r"staged layout\) need \d+ bytes.*Queue 2 A8"):
-            run3()
-        with pytest.raises(NotImplementedError, match="Queue 2 A8"):
-            run1()
-        assert calls == []
+        assert run3()[0].name == "fused_rollout_cost_F8-128-128"
+        assert run1()[0].name == "fused_rng_costs_field_F8-128-128"
+        assert calls == [(layers, LABELS["F8-128-128"], False)] * 2
+        assert not rk.field_global(layers, LABELS["F8-128-128"])
+        lay = rk.field_smem_layout(layers, T_, 16, LABELS["F8-128-128"])
+        assert (lay["layout"], lay["u_layout"]) == ("staged", "global")
+        assert lay["bytes"] == 4 * (lay["U"] + 3 * 16) <= 4 * rk.SMEM_FLOATS
     wide = (6, 128, 128, 128, 128, 4)
     assert rk.max_field_kernel_t(wide, LABELS["F8-128-128"]) == 0
     with pytest.raises(NotImplementedError,
-                       match=r"global layout\) need \d+ bytes"):
-        rk._check_field_room(wide, LABELS["F8-128-128"], T)
+                       match=r"global layout\) need \d+ bytes.*Queue 2 A9"):
+        rk._check_field_room(wide, LABELS["F8-128-128"])
 
 
 # ---------------------------------------------------------------------------

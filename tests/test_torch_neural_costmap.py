@@ -458,9 +458,9 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
     assert asked == [(rk.KERNEL_LAYERS, (F,) + HIDDEN)] * 2
     # 34-128-128-1 beside an 8-warp spec library: no room for U beside the
     # staged field, so the pair's library takes the global layout and both
-    # kernels ask for it; beside the default MLP (staged) at T=793, no room
-    # in that library's layout: refused before any build, naming its bytes
-    # and the ROADMAP item
+    # kernels ask for it; beside the default MLP (staged) at T=793, past
+    # that library's staged horizon, U goes to device memory and both
+    # kernels ask for the pair's library too
     wide = NeuralCostmap.build(
         [np.zeros((34, 128), np.float32), np.zeros((128, 128), np.float32),
          np.zeros((128, 1), np.float32)],
@@ -488,19 +488,28 @@ def test_wrappers_dispatch_by_device_and_refuse_other_surfaces_and_specs(
                     lambda: rk.prepare_fused_rng_costs(
             solver.model, params, solver.cfg, CostParams(), wide, state,
             U_long, KEY)):
-        with pytest.raises(NotImplementedError,
-                           match=r"need \d+ bytes .*Queue 2 A8"):
+        with pytest.raises(LookupError):
             prepare()
-    assert len(asked) == 4
+    assert asked[4:] == [(rk.KERNEL_LAYERS, (8, 128, 128))] * 2
+    lay = rk.field_smem_layout(rk.KERNEL_LAYERS, 793, 16, (8, 128, 128))
+    assert (lay["layout"], lay["u_layout"]) == ("staged", "global")
+    assert lay["obs"] == lay["U"]
     rk._kernel_lib.cache_clear()
     with pytest.raises(NotImplementedError, match="obstacle"):
         rk.fused_rng_costs(solver.model, params, solver.cfg,
                            CostParams(obstacles=np.zeros((1, 3))), field,
                            state, U, KEY)
-    with pytest.raises(ValueError, match="T <= 2048"):
+    # past MAX_FIELD_KERNEL_T the default pair's launch asks for its
+    # library too (U in device memory); only int32 indexing bounds T
+    asked.clear()
+    with pytest.raises(LookupError):
         rk.prepare_fused_rollout_cost(
             solver.model, params, solver.cfg, CostParams(), _default_field(),
             state, torch.zeros(2049, 2), torch.zeros(2049, K, 2))
+    assert asked == [(rk.KERNEL_LAYERS, None)]
+    assert rk.field_smem_layout(T=2049)["u_layout"] == "global"
+    with pytest.raises(ValueError, match=r"T x K x C < 2\^31"):
+        rk._check_horizon(2 ** 24, 64)
 
 
 # ---------------------------------------------------------------------------
